@@ -1,0 +1,34 @@
+"""Architecture registry: ``get(name)`` -> full ModelConfig,
+``get_smoke(name)`` -> reduced same-family config for CPU tests.
+
+Lists only the architectures the port can serve today (dense GQA); the
+reference's other nine wait for their slices (see ROADMAP.md)."""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = (
+    "qwen1_5_0_5b",
+)
+
+# CLI ids (--arch) map dashes to underscores
+ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+
+
+def _module(name: str):
+    name = ALIASES.get(name, name)
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get(name: str):
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str):
+    return _module(name).smoke()
+
+
+def all_archs():
+    return list(ARCHS)

@@ -1,0 +1,55 @@
+"""Bulk MARS reorder (port of ``repro/core/reorder.py``, numpy).
+
+Within a bounded window of requests (tokens / indices / KV-page reads),
+emit requests grouped by destination page, pages ordered by first
+arrival, FIFO within a page: a stable argsort by
+``first_arrival[page_of(i)]``.  Host-side consumers (lane ordering,
+sorted gathers) call it on small index arrays, so numpy suffices; the
+permutation is the reference's, element for element.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def mars_order(page_ids, *, num_pages: int | None = None,
+               window: int | None = None) -> np.ndarray:
+    """Return the MARS emission permutation (int32) for a stream of page
+    ids: ``page_ids[perm]`` is grouped by page, pages in first-arrival
+    order, FIFO within a page.  With ``window`` set the stream is
+    processed in independent windows of that size.  ``num_pages`` is
+    accepted for signature parity; the result does not depend on it."""
+    page_ids = np.asarray(page_ids)
+    n = page_ids.shape[0]
+    if n == 0:
+        return np.zeros(0, np.int32)
+    if window is not None and window < n:
+        pad = (-n) % window
+        padded = np.concatenate(
+            [page_ids, np.full(pad, np.iinfo(np.int32).max, page_ids.dtype)])
+        rows = padded.reshape(-1, window)
+        out = np.concatenate([_mars_order_full(r) + i * window
+                              for i, r in enumerate(rows)])
+        return out[:n].astype(np.int32)
+    return _mars_order_full(page_ids)
+
+
+def _mars_order_full(page_ids: np.ndarray) -> np.ndarray:
+    _, first, inv = np.unique(page_ids, return_index=True,
+                              return_inverse=True)
+    key = first[inv.reshape(-1)]
+    return np.argsort(key, kind="stable").astype(np.int32)
+
+
+def inverse_permutation(perm):
+    """Inverse of a permutation (numpy array or torch tensor, same type
+    out)."""
+    if isinstance(perm, np.ndarray):
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(perm.shape[0], dtype=perm.dtype)
+        return inv
+    import torch
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                             device=perm.device)
+    return inv

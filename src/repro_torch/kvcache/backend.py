@@ -1,0 +1,753 @@
+"""Unified KV-backend API: dense and paged serving caches, one interface
+(port of ``repro/kvcache/backend.py``, single device, dense family).
+
+The model (``models.lm``) speaks to its KV storage only through
+``KVBackend``: ``prefill`` runs a prompt batch and stores every layer's
+K/V, ``decode_step`` advances every lane one token.  Two implementations:
+
+  DenseBackend   the concrete per-layer ``lm.Cache`` on the device.
+  PagedBackend   per-sequence block tables over a layered ``BlockPool``
+                 (one block id addresses a token-chunk's KV for every
+                 layer), ragged continuous-batching decode, prefix
+                 sharing and copy-on-write forks — what ``serve.engine``
+                 drives.
+
+Decode through the paged backend has two modes (``decode_mode``):
+
+  "kernel"   the default: ``lm.paged_decode_step`` reads each layer's KV
+             straight from the staged pool through ``paged_attention`` —
+             the Hopper kernel on a CUDA device, its plain twin on the
+             CPU (the device decides; nothing falls back).
+  "gather"   the oracle: gather each lane's pages into a dense per-layer
+             view and run ``lm.dense_decode_step``.
+
+The new token's K/V is written back into the host pool after attention,
+so the kernel never reads a partially-written page.  The host pool is
+staged to the device through two mirror slots (double buffering) that
+re-upload only the blocks dirtied since that slot was last staged
+(``BlockPool.drain_dirty``), with ``index_copy_`` along the block axis.
+
+Decode is split-phase:
+
+    step = backend.dispatch_decode(params, tokens, sids=...)  # launch
+    logits = backend.sync(step)        # block on logits only
+    ...                                # sample / emit while KV is in flight
+    backend.flush()                    # commit the deferred KV write-back
+
+``dispatch_decode`` enqueues the step's device work and returns; ``sync``
+blocks on the logits and starts the non-blocking device->host copy of the
+new K/V into pinned buffers behind a CUDA event; ``commit`` (normally via
+``flush`` or the next ``dispatch_decode``) waits on that event and
+appends the K/V to the pool one step late.  Every path that could observe
+or allocate pool state — ``new_seq``/``prefill``, ``fork_seq``,
+``pause_seq``/``resume_seq``, ``free_seq``, ``release`` — flushes first.
+
+Construction goes through ``make_backend``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Protocol, Sequence, \
+    runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kvcache.pool import BlockPool, PoolConfig
+from repro_torch.kvcache.prefix import BlockTable, PrefixCache
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass
+class DecodeStep:
+    """Handle for one in-flight decode step.
+
+    ``dispatch_decode`` returns one; ``sync(step)`` fills ``logits`` and
+    flips ``synced``; ``commit(step)`` (or ``flush()``, or the next
+    ``dispatch_decode``) lands the deferred KV write-back and flips
+    ``committed``.  ``dev`` holds backend-internal in-flight tensors.
+    """
+    index: int                       # per-backend dispatch counter
+    sids: list                       # sequences this step advances
+    tokens: list                     # tokens[i] fed to sids[i]
+    staged: int = 0                  # mirror blocks staged at dispatch
+    synced: bool = False
+    committed: bool = False
+    batch_api: bool = False          # dispatched via the (B, 1) batch API
+    logits: Any = None               # host logits after sync
+    dev: dict = dataclasses.field(default_factory=dict)
+    seqs: Optional[list] = None      # resolved _PagedSeq refs
+    on_alloc: Optional[Callable[[int, int], None]] = None
+
+
+@runtime_checkable
+class KVBackend(Protocol):
+    """What the model needs from its KV storage — nothing more.  Decode
+    is split-phase (``dispatch_decode`` -> ``sync`` -> ``commit``,
+    ``flush()`` the barrier); ``decode_step`` is the synchronous
+    wrapper over the three phases."""
+
+    cfg: ModelConfig
+
+    def prefill(self, params, tokens):
+        """Run a (B, S) prompt batch, store every layer's K/V; returns
+        last-position logits (B, 1, V)."""
+        ...
+
+    def decode_step(self, params, tokens):
+        """Advance every prefill lane one token (tokens (B, 1)); returns
+        next-token logits (B, 1, V)."""
+        ...
+
+    def dispatch_decode(self, params, tokens, *, sids=None,
+                        on_alloc=None) -> DecodeStep:
+        """Launch one decode step without blocking on its results."""
+        ...
+
+    def sync(self, step: DecodeStep):
+        """Block on a dispatched step's logits (KV write-back deferred)."""
+        ...
+
+    def commit(self, step: Optional[DecodeStep] = None) -> None:
+        """Land the pending synced step's KV write-back."""
+        ...
+
+    def flush(self) -> None:
+        """Barrier: sync any in-flight step, commit any pending one."""
+        ...
+
+    @property
+    def lengths(self) -> np.ndarray:
+        """Per-lane cached token counts, int32 (B,)."""
+        ...
+
+    def release(self) -> None:
+        """Drain pending write-back, then drop all storage; later entry
+        points raise "backend released"."""
+        ...
+
+
+def _tokens_on(tokens, device) -> torch.Tensor:
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(tokens, np.int32)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Dense backend
+# ---------------------------------------------------------------------------
+
+class DenseBackend:
+    """The concrete ``lm.Cache`` behind the backend interface."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_seq: int,
+                 device="cuda"):
+        from repro_torch.models import lm
+        self.cfg = cfg
+        self.batch = batch
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        self._cache = lm.init_dense_cache(cfg, batch, max_seq, self.device)
+        self._steps = 0
+
+    def _check_released(self) -> None:
+        if self._cache is None:
+            raise RuntimeError(
+                "DenseBackend released: release() dropped the cache "
+                "storage; build a new backend to serve again")
+
+    def prefill(self, params, tokens):
+        """Dense prompt run into a fresh cache sized ``max_seq``.  tokens:
+        (B, S) int with B == ``self.batch``.  Returns (B, 1, V)."""
+        from repro_torch.models import lm
+        self._check_released()
+        logits, self._cache = lm.dense_prefill(
+            params, self.cfg, _tokens_on(tokens, self.device), self.max_seq)
+        return logits
+
+    def decode_step(self, params, tokens):
+        step = self.dispatch_decode(params, tokens)
+        logits = self.sync(step)
+        self.commit(step)
+        return logits
+
+    # The dense cache is written inside the step, so "dispatch" already
+    # carries the write-back: sync marks the step committed and
+    # commit/flush are no-ops.
+
+    def dispatch_decode(self, params, tokens, *, sids=None,
+                        on_alloc=None) -> DecodeStep:
+        from repro_torch.models import lm
+        self._check_released()
+        if sids is not None:
+            raise ValueError("DenseBackend has no sequence-level lanes; "
+                             "dispatch with sids=None (the (B, 1) batch)")
+        logits, self._cache = lm.dense_decode_step(
+            params, self.cfg, _tokens_on(tokens, self.device), self._cache)
+        step = DecodeStep(index=self._steps, sids=[], tokens=[],
+                          batch_api=True)
+        step.dev["logits"] = logits
+        self._steps += 1
+        return step
+
+    def sync(self, step: DecodeStep):
+        if not step.synced:
+            step.logits = step.dev.pop("logits")
+            step.synced = step.committed = True
+        return step.logits
+
+    def commit(self, step: Optional[DecodeStep] = None) -> None:
+        """No deferred write-back exists on the dense path."""
+
+    def flush(self) -> None:
+        self._check_released()
+
+    @property
+    def inflight_steps(self) -> int:
+        return 0
+
+    @property
+    def lengths(self) -> np.ndarray:
+        self._check_released()
+        ln = np.asarray(self._cache.length.cpu(), np.int32)
+        return np.broadcast_to(np.atleast_1d(ln), (self.batch,)).copy()
+
+    def release(self) -> None:
+        self._cache = None
+
+    @property
+    def cache(self):
+        return self._cache
+
+
+# ---------------------------------------------------------------------------
+# Paged backend
+# ---------------------------------------------------------------------------
+
+def _paged_decode_gather(params, cfg, tokens, k_pages, v_pages, page_tables,
+                         lengths):
+    """Gather each lane's pages into a dense per-layer view, run the ragged
+    dense decode step, and extract the new token's K/V for write-back.
+    Returns (logits, k_new (L, B, 1, K, dh), v_new)."""
+    from repro_torch.models import lm
+    L = k_pages.shape[0]
+    K, dh = k_pages.shape[-2:]
+    B = tokens.shape[0]
+    idx = page_tables.long()
+    k = k_pages[:, idx].reshape(L, B, -1, K, dh)
+    v = v_pages[:, idx].reshape(L, B, -1, K, dh)
+    logits, new = lm.dense_decode_step(params, cfg, tokens,
+                                       lm.Cache(k, v, lengths))
+    rows = torch.arange(B, device=k.device)
+    pos = lengths.long()
+    return logits, new.k[:, rows, pos][:, :, None], \
+        new.v[:, rows, pos][:, :, None]
+
+
+@dataclasses.dataclass
+class _PagedSeq:
+    sid: int
+    table: BlockTable
+    tokens: list            # tokens whose KV is cached
+
+
+class PagedBackend:
+    """Per-sequence block tables over a layered ``BlockPool``.
+
+    Sequence-level API (what the serve engine drives): ``new_seq`` /
+    ``fork_seq`` / ``decode`` / ``pause_seq`` / ``resume_seq`` /
+    ``free_seq``.  The batch-level ``KVBackend`` API (``prefill`` /
+    ``decode_step``) runs the same machinery over a fixed batch.
+
+    Prompt K/V is always recomputed; prefix sharing is at the storage
+    level — matched blocks are referenced instead of re-allocated.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, pool: Optional[BlockPool] = None,
+                 num_blocks: int = 256, block_size: int = 16,
+                 placement: str = "mars", eviction: str = "fifo",
+                 share_prefixes: bool = True, decode_mode: str = "kernel",
+                 device="cuda"):
+        """Build a paged backend over ``pool`` (or a fresh pool sized by
+        ``num_blocks``/``block_size`` matching the model config).
+
+        Args:
+          cfg: a dense-family model config.
+          pool: existing layered ``BlockPool`` to share; its KV buffer
+            shape must match ``cfg``.
+          placement/eviction: pool policies when building a fresh pool.
+          share_prefixes: storage-level prefix sharing via ``PrefixCache``.
+          decode_mode: "kernel" (``paged_attention`` per layer, the
+            default) or "gather" (dense-view oracle).
+          device: where the staged KV mirror and the decode run; a CUDA
+            device pins the pool's host buffers.
+        """
+        from repro_torch.models import lm
+        lm._check_family(cfg)
+        if decode_mode not in ("kernel", "gather"):
+            raise ValueError(f"unknown decode_mode {decode_mode!r}")
+        self.decode_mode = decode_mode
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        if pool is None:
+            pool = BlockPool(PoolConfig(
+                num_blocks=num_blocks, block_size=block_size,
+                placement=placement, eviction=eviction,
+                n_kv_heads=cfg.n_kv_heads, head_dim=cfg.d_head,
+                n_layers=cfg.n_layers, dtype=cfg.kv_dtype_name))
+        assert pool.k_pages is not None, "paged backend needs a KV pool"
+        assert pool.cfg.n_layers == cfg.n_layers \
+            and pool.cfg.n_kv_heads == cfg.n_kv_heads \
+            and pool.cfg.head_dim == cfg.d_head, \
+            "pool KV buffer does not match the model config"
+        if self.device.type == "cuda":
+            pool.pin_memory()
+        self.pool = pool
+        self.prefix = PrefixCache(pool.cfg.block_size)
+        if share_prefixes:
+            self.prefix.attach(pool)
+        self.share_prefixes = share_prefixes
+        self._seqs: dict[int, _PagedSeq] = {}
+        self._next_sid = 0
+        self._batch: list[int] = []      # batch-level API lane order
+        self._released = False
+        # double-buffered device mirrors of the pool's KV buffers: two
+        # (k, v) slots, swapped every stage, each with its own pending-
+        # dirty set (both fed from pool.drain_dirty — this backend is the
+        # pool's single drain_dirty consumer)
+        self._mirrors: list = [None, None]
+        self._slot_dirty: list = [set(), set()]
+        self._slot = 0                   # slot the next stage writes
+        self._staged_slot: Optional[int] = None  # slot staged last
+        self.staged_blocks_last_step = 0
+        # split-phase decode: at most one dispatched-un-synced step
+        # (_inflight) and one synced-un-committed step (_pending)
+        self._inflight: Optional[DecodeStep] = None
+        self._pending: Optional[DecodeStep] = None
+        self._steps = 0
+
+    def _check_released(self) -> None:
+        if self._released:
+            raise RuntimeError(
+                "PagedBackend released: release() returned every block "
+                "to the pool; build a new backend to serve again")
+
+    # -- device staging ------------------------------------------------------
+
+    def _upload_blocks(self, mirror: torch.Tensor, host: torch.Tensor,
+                       blocks: list) -> None:
+        """Copy host pool planes ``blocks`` into a device mirror along the
+        block axis.  On CUDA the gathered planes land in a fresh pinned
+        buffer and cross asynchronously (the caching host allocator keeps
+        it alive until the copy is done)."""
+        idx = torch.as_tensor(blocks, dtype=torch.long)
+        shape = (host.shape[0], len(blocks)) + tuple(host.shape[2:])
+        cuda = self.device.type == "cuda"
+        vals = torch.empty(shape, dtype=host.dtype, pin_memory=cuda)
+        torch.index_select(host, 1, idx, out=vals)
+        mirror.index_copy_(1, idx.to(self.device, non_blocking=cuda),
+                           vals.to(self.device, non_blocking=cuda))
+
+    def _staged_pages(self):
+        """Stage the pool's host-mutated KV buffers into the next mirror
+        slot, uploading only blocks written since *that slot* was last
+        staged (both slots are built with a full upload the first time).
+        ``staged_blocks_last_step`` records how many blocks moved.
+        Returns the freshly staged ``(k, v)`` device pair."""
+        pool = self.pool
+        if self._mirrors[0] is None:
+            pool.drain_dirty()           # full upload covers everything
+            for s in (0, 1):
+                self._mirrors[s] = (pool.k_pages.to(self.device, copy=True),
+                                    pool.v_pages.to(self.device, copy=True))
+                self._slot_dirty[s].clear()
+            self.staged_blocks_last_step = pool.cfg.num_blocks
+            self._staged_slot, self._slot = 0, 1
+        else:
+            fresh = pool.drain_dirty()
+            self._slot_dirty[0].update(fresh)
+            self._slot_dirty[1].update(fresh)
+            s = self._slot
+            pend = sorted(self._slot_dirty[s])
+            self.staged_blocks_last_step = len(pend)
+            if pend:
+                k, v = self._mirrors[s]
+                self._upload_blocks(k, pool.k_pages, pend)
+                self._upload_blocks(v, pool.v_pages, pend)
+            self._slot_dirty[s].clear()
+            self._staged_slot, self._slot = s, 1 - s
+        return self._mirrors[self._staged_slot]
+
+    # -- sequence-level API (continuous batching) ---------------------------
+
+    def new_seq(self, params, prompt: Sequence[int],
+                on_alloc: Optional[Callable[[int, int], None]] = None
+                ) -> tuple[int, Any, int]:
+        """Prefill one sequence into the pool.  Returns (sid,
+        last-position logits (V,) float32 numpy, shared-prefix tokens).
+        Atomic under pool exhaustion (see ``_add_seqs``)."""
+        logits, sids, shared = self._add_seqs(
+            params, np.asarray([list(prompt)], np.int32), on_alloc)
+        return sids[0], logits[0], shared[0]
+
+    def _add_seqs(self, params, tokens: np.ndarray,
+                  on_alloc=None) -> tuple[Any, list[int], list[int]]:
+        """Batched prompt prefill -> one new sequence per row.  Atomic
+        under pool exhaustion: on RuntimeError every partial table and
+        every row this call added is released, then the error
+        re-raises."""
+        from repro_torch.models import lm
+        self._check_released()
+        # flush barrier: prefill allocates, and the prefix match reads
+        # refcounts/tokens — both must see the deferred step committed
+        self.flush()
+        B, S = tokens.shape
+        logits, parts = lm.prefill_parts(params, self.cfg,
+                                         _tokens_on(tokens, self.device))
+        kvd = self.cfg.kvdtype
+        k_all = parts["k"].to(kvd).cpu()     # (L, B, S, K, dh)
+        v_all = parts["v"].to(kvd).cpu()
+        sids, shared = [], []
+        for b in range(B):
+            prompt = [int(t) for t in tokens[b]]
+            if not self.share_prefixes:
+                bids, n = [], 0
+            else:
+                bids, n = self.prefix.match(prompt, self.pool)
+            table = BlockTable(list(bids), n)
+            allocs0 = self.pool.stats.allocs
+            try:
+                table.extend(
+                    self.pool, prompt[n:], seq_tokens=prompt,
+                    cache=self.prefix if self.share_prefixes else None,
+                    kv=(k_all[:, b, n:], v_all[:, b, n:]))
+            except RuntimeError:
+                self.prefix.release(table, self.pool)
+                for sid in sids:
+                    self.free_seq(sid)
+                raise
+            sid = self._next_sid
+            self._next_sid += 1
+            self._seqs[sid] = _PagedSeq(sid, table, list(prompt))
+            if on_alloc is not None:
+                on_alloc(sid, self.pool.stats.allocs - allocs0)
+            sids.append(sid)
+            shared.append(n)
+        return logits[:, 0].float().cpu().numpy(), sids, shared
+
+    def fork_seq(self, sid: int) -> int:
+        """Fork a sequence, sharing every block (CoW on first append).
+        Flushes first: the fork's CoW bookkeeping must see committed KV."""
+        self._check_released()
+        self.flush()
+        src = self._seqs[sid]
+        nsid = self._next_sid
+        self._next_sid += 1
+        self._seqs[nsid] = _PagedSeq(nsid, src.table.fork(self.pool),
+                                     list(src.tokens))
+        return nsid
+
+    # -- decode preemption (pause -> resume) ---------------------------------
+
+    def pause_seq(self, sid: int) -> dict:
+        """Preempt a live decode: flush first, capture the sequence's
+        decode state host-side (cached tokens, every block's KV payload +
+        content tag), then release its blocks (registered prefix blocks
+        stay as evictable cache).  Returns the record ``resume_seq``
+        restores from, bitwise."""
+        self._check_released()
+        self.flush()
+        seq = self._seqs.pop(sid)
+        pool = self.pool
+        blocks = [{"content": pool.content[bid],
+                   "k": pool.k_pages[:, bid].clone(),
+                   "v": pool.v_pages[:, bid].clone()}
+                  for bid in seq.table.blocks]
+        rec = {"tokens": list(seq.tokens),
+               "num_tokens": seq.table.num_tokens,
+               "blocks": blocks}
+        self.prefix.release(seq.table, pool)
+        return rec
+
+    def resume_seq(self, rec: dict,
+                   on_alloc: Optional[Callable[[int, int], None]] = None
+                   ) -> int:
+        """Re-admit a paused sequence bitwise-identically under a new sid:
+        leading blocks re-enter through the prefix cache, the rest are
+        restored from the record's captured pages.  Atomic under pool
+        exhaustion."""
+        self._check_released()
+        self.flush()
+        pool = self.pool
+        bs = pool.cfg.block_size
+        tokens = list(rec["tokens"])
+        num = rec["num_tokens"]
+        if not self.share_prefixes:
+            bids, n = [], 0
+        else:
+            bids, n = self.prefix.match(tokens, pool)
+        allocs0 = pool.stats.allocs
+        start = n // bs
+        need = len(rec["blocks"]) - start
+        try:
+            if not pool.can_alloc(need):
+                raise RuntimeError(
+                    f"pool exhausted: resume needs {need} blocks, "
+                    f"free {pool.num_free}, cached {pool.num_cached}")
+            fresh = pool.alloc(need, hint_blocks=bids) if need else []
+        except RuntimeError:
+            self.prefix.release(BlockTable(list(bids), n), pool)
+            raise
+        for j, bid in enumerate(fresh):
+            src = rec["blocks"][start + j]
+            pool.content[bid] = src["content"]
+            pool.write_kv(bid, 0, src["k"], src["v"])
+            pool.touch(bid)
+            end = (start + j + 1) * bs
+            if self.share_prefixes and end <= num:
+                self.prefix.register(tuple(tokens[:end]), bid, pool)
+        sid = self._next_sid
+        self._next_sid += 1
+        self._seqs[sid] = _PagedSeq(
+            sid, BlockTable(list(bids) + list(fresh), num), tokens)
+        if on_alloc is not None:
+            on_alloc(sid, pool.stats.allocs - allocs0)
+        return sid
+
+    def decode(self, params, sids: Sequence[int], tokens: Sequence[int],
+               on_alloc: Optional[Callable[[int, int], None]] = None):
+        """One ragged decode step over live sequences, synchronously
+        (``dispatch_decode`` + ``sync`` + ``commit``).  Returns float32
+        (len(sids), V) numpy logits row-aligned to sids."""
+        step = self.dispatch_decode(params, tokens, sids=sids,
+                                    on_alloc=on_alloc)
+        out = self.sync(step)
+        self.commit(step)
+        return out
+
+    # -- split-phase decode lifecycle ----------------------------------------
+
+    def dispatch_decode(self, params, tokens, *, sids=None,
+                        on_alloc: Optional[Callable[[int, int], None]]
+                        = None) -> DecodeStep:
+        """Launch one ragged decode step without blocking.
+
+        Commits the pending prior step first, prechecks capacity for this
+        step (each lane needs at most one fresh block: a new tail or a
+        CoW copy), stages the next mirror slot, and enqueues the step's
+        device work.  ``sids=None`` dispatches the batch-API lanes
+        (``tokens`` is the (B, 1) batch).  Raising leaves every sequence
+        exactly as it was.
+        """
+        from repro_torch.kernels.paged_attention import ops
+        from repro_torch.models import lm
+        self._check_released()
+        batch_api = sids is None
+        if batch_api:
+            sids = list(self._batch)
+            tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        assert sids, "no active sequences to decode (prefill first)"
+        if self._inflight is not None:
+            raise RuntimeError(
+                "a decode step is already in flight; sync() it before "
+                "dispatching the next")
+        self._commit_pending()
+        seqs = [self._seqs[s] for s in sids]
+        page = self.pool.cfg.block_size
+        need = 0
+        for s in seqs:
+            fill = s.table.num_tokens % page
+            if fill == 0 or \
+                    self.pool.refcount[s.table.blocks[-1]] > 1:
+                need += 1
+        if not self.pool.can_alloc(need):
+            raise RuntimeError(
+                f"pool exhausted: decode step needs {need} blocks, "
+                f"free {self.pool.num_free}, cached {self.pool.num_cached}")
+        pt, lengths, toks = ops.decode_step_operands(
+            [s.table for s in seqs], tokens, page)
+        kp, vp = self._staged_pages()
+        dev = self.device
+        pt_d = torch.from_numpy(pt).to(dev)
+        len_d = torch.from_numpy(lengths).to(dev)
+        toks_d = torch.from_numpy(toks).to(dev)
+        if self.decode_mode == "kernel":
+            logits, k_new, v_new = lm.paged_decode_step(
+                params, self.cfg, toks_d, kp, vp, pt_d, len_d)
+        else:
+            logits, k_new, v_new = _paged_decode_gather(
+                params, self.cfg, toks_d, kp, vp, pt_d, len_d)
+        step = DecodeStep(index=self._steps, sids=list(sids),
+                          tokens=[int(t) for t in tokens],
+                          staged=self.staged_blocks_last_step,
+                          batch_api=batch_api, seqs=seqs,
+                          on_alloc=on_alloc)
+        step.dev.update(logits=logits, k=k_new, v=v_new)
+        self._steps += 1
+        self._inflight = step
+        return step
+
+    def sync(self, step: DecodeStep):
+        """Block on a dispatched step's logits.  The new K/V then starts
+        its non-blocking device->host copy into pinned buffers (a CUDA
+        event marks its end); the write-back commits one step later.
+        Idempotent.  Returns float32 (len(sids), V) numpy logits, or a
+        (B, 1, V) tensor for a batch-API step."""
+        self._check_released()
+        if step.synced:
+            return step.logits
+        if step is not self._inflight:
+            raise RuntimeError(
+                "sync() of a step that is not in flight on this backend")
+        B = len(step.sids)
+        step.logits = step.dev.pop("logits")[:B, 0].float().cpu().numpy()
+        if self.device.type == "cuda":
+            for name in ("k", "v"):
+                d = step.dev[name]
+                h = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
+                h.copy_(d, non_blocking=True)
+                step.dev[name] = h
+            ev = torch.cuda.Event()
+            ev.record()
+            step.dev["kv_ready"] = ev
+        if step.batch_api:
+            step.logits = torch.from_numpy(step.logits)[:, None, :] \
+                .to(self.device)
+        step.synced = True
+        self._inflight = None
+        self._pending = step
+        return step.logits
+
+    def commit(self, step: Optional[DecodeStep] = None) -> None:
+        """Land the pending synced step's KV write-back.  ``step=None``
+        commits whatever is pending; a committed step is a no-op; an
+        un-synced step is an error."""
+        self._check_released()
+        if step is not None:
+            if step.committed:
+                return
+            if step is not self._pending:
+                raise RuntimeError(
+                    "commit() of a step that is not pending on this "
+                    "backend (sync() it first)")
+        self._commit_pending()
+
+    def _commit_pending(self) -> None:
+        """The deferred write-back: wait for the step's K/V copy, append
+        it to each lane's block table (CoW on shared tails), fire
+        ``on_alloc``.  Cannot fail: capacity was prechecked at dispatch
+        and every alloc/refcount path since has flushed first."""
+        step = self._pending
+        if step is None:
+            return
+        self._pending = None
+        ev = step.dev.pop("kv_ready", None)
+        if ev is not None:
+            ev.synchronize()
+        k_new = step.dev.pop("k")   # (L, Bp, 1, K, dh), on the host
+        v_new = step.dev.pop("v")
+        for i, (s, tok) in enumerate(zip(step.seqs, step.tokens)):
+            allocs0 = self.pool.stats.allocs
+            new_tokens = s.tokens + [int(tok)]
+            s.table.extend(
+                self.pool, [int(tok)], seq_tokens=new_tokens,
+                cache=self.prefix if self.share_prefixes else None,
+                kv=(k_new[:, i], v_new[:, i]))
+            s.tokens = new_tokens     # commit only after the extend
+            if step.on_alloc is not None:
+                step.on_alloc(s.sid, self.pool.stats.allocs - allocs0)
+        step.committed = True
+        step.seqs = None
+
+    def flush(self) -> None:
+        """Barrier: sync any in-flight step and commit any pending
+        write-back.  Idempotent."""
+        self._check_released()
+        if self._inflight is not None:
+            self.sync(self._inflight)
+        self._commit_pending()
+
+    @property
+    def inflight_steps(self) -> int:
+        """Steps between dispatch and commit: 0, 1 or 2."""
+        return int(self._inflight is not None) + \
+            int(self._pending is not None)
+
+    def free_seq(self, sid: int) -> None:
+        """Finished sequence: registered prefix blocks stay evictable.
+        Flushes first — the deferred step may still owe it a token."""
+        self._check_released()
+        self.flush()
+        seq = self._seqs.pop(sid)
+        self.prefix.release(seq.table, self.pool)
+
+    def table(self, sid: int) -> BlockTable:
+        self._check_released()
+        return self._seqs[sid].table
+
+    # -- batch-level KVBackend API ------------------------------------------
+
+    def prefill(self, params, tokens):
+        """Protocol ``prefill``: one new sequence per row of the (B, S)
+        batch, freeing any lanes a prior call created.  Returns
+        last-position logits (B, 1, V) on the backend's device."""
+        self._check_released()
+        self.flush()
+        old, self._batch = self._batch, []
+        for sid in old:
+            self.free_seq(sid)
+        logits, self._batch, _ = self._add_seqs(
+            params, np.asarray(tokens, np.int32))
+        return torch.from_numpy(logits)[:, None, :].to(self.device)
+
+    def decode_step(self, params, tokens):
+        """Protocol ``decode_step``: advance the prefill lanes one token.
+        Returns next-token logits (B, 1, V) on the backend's device."""
+        self._check_released()
+        toks = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        logits = self.decode(params, self._batch, toks)
+        return torch.from_numpy(logits)[:, None, :].to(self.device)
+
+    @property
+    def lengths(self) -> np.ndarray:
+        self._check_released()
+        return np.asarray(
+            [self._seqs[s].table.num_tokens for s in self._batch], np.int32)
+
+    def release(self) -> None:
+        """Drain the decode pipeline, free every live sequence, drop the
+        mirror slots, and poison the backend."""
+        if not self._released:
+            if self._inflight is not None:
+                self.sync(self._inflight)
+            self._commit_pending()
+        for sid in list(self._seqs):
+            self.free_seq(sid)
+        self._batch = []
+        self._mirrors = [None, None]
+        self._slot_dirty = [set(), set()]
+        self._slot, self._staged_slot = 0, None
+        self._released = True
+
+
+def make_backend(cfg: ModelConfig, kind: str = "dense", *,
+                 batch: int = 1, max_seq: int = 0,
+                 pool: Optional[BlockPool] = None, device="cuda",
+                 **kw) -> KVBackend:
+    """Backend registry: "dense" | "paged".
+
+    ``batch``/``max_seq`` are the capacity request — dense allocates
+    (B, max_seq); paged sizes the pool to hold ``batch`` lanes of
+    ``max_seq`` tokens (+1 decode slot each) unless ``num_blocks`` or an
+    explicit ``pool`` overrides it.  Remaining kwargs (``decode_mode``,
+    ``block_size``, ...) forward to ``PagedBackend``.
+    """
+    if kind == "dense":
+        return DenseBackend(cfg, batch, max_seq, device=device)
+    if kind == "paged":
+        if pool is None and "num_blocks" not in kw and max_seq:
+            bs = kw.get("block_size", 16)
+            kw["num_blocks"] = batch * -(-(max_seq + 1) // bs)
+        return PagedBackend(cfg, pool=pool, device=device, **kw)
+    raise ValueError(f"unknown KV backend kind {kind!r}")

@@ -1,0 +1,106 @@
+"""Model configuration (port of ``repro/models/config.py``).
+
+Same fields and defaults as the reference ``ModelConfig`` so a config
+built here describes the same model; the dtype properties return torch
+dtypes.  The port serves the dense family only (see ``configs``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """Dtype name as used by the reference configs ("bfloat16",
+    "float32", "float8_e4m3fn", ...) -> torch dtype."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype name {name!r}")
+    return dt
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    # attention
+    rope_theta: float = 10_000.0
+    use_rope: bool = True
+    qkv_bias: bool = False
+    sliding_window: int = 0        # 0 = global attention
+    global_every: int = 0          # hybrid: every k-th layer is global
+    # normalization / mlp
+    norm: str = "rms"              # rms | ln
+    norm_eps: float = 1e-5
+    act: str = "silu"              # silu | gelu
+    mlp_gated: bool = True
+    tie_embeddings: bool = False
+    # positional fallback when use_rope=False
+    max_position: int = 32_768
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_expert: int = 0
+    n_shared_experts: int = 0
+    n_dense_layers: int = 0
+    moe_dense_residual: bool = False
+    router_scale: float = 1.0
+
+    # SSM (mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    d_ssm_head: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_chunk: int = 64
+
+    # encoder-decoder / multimodal frontend
+    enc_layers: int = 0
+    frontend: str = ""
+    frontend_seq: int = 0
+
+    # dtypes
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    kv_dtype: str = ""             # KV-cache storage ("" = compute dtype)
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def has_attention(self) -> bool:
+        return self.family != "ssm"
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def kv_dtype_name(self) -> str:
+        return self.kv_dtype or self.compute_dtype
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return torch_dtype(self.compute_dtype)
+
+    @property
+    def kvdtype(self) -> torch.dtype:
+        return torch_dtype(self.kv_dtype_name)

@@ -1,0 +1,294 @@
+"""Core transformer building blocks (port of ``repro/models/layers.py``,
+dense subset).
+
+Pure functions over a parameter tree whose layout matches the
+reference's (``wq (d, H, dh)``, ``wo (H, dh, d)``, ...), so weights
+convert leaf for leaf (``repro_torch.convert``).  The tree is a nested
+``nn.ModuleDict`` of ``nn.ParameterDict`` (``as_module``) so
+``.to(device)`` moves it; functions index it like the reference's dicts.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Parameter tree
+# ---------------------------------------------------------------------------
+
+def as_module(tree: dict) -> nn.Module:
+    """Nested dict of tensors -> nested ``ModuleDict``/``ParameterDict``
+    (frozen parameters).  A dict holds either only sub-dicts or only
+    leaves, as every tree of the reference does."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict(
+            {k: nn.Parameter(v, requires_grad=False)
+             for k, v in tree.items()})
+    return nn.ModuleDict({k: as_module(v) for k, v in tree.items()})
+
+
+def _normal(gen: torch.Generator, shape, dtype, scale: float):
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
+    return w.to(dtype)
+
+
+def _dense_init(gen, shape, dtype, scale: float | None = None,
+                stack: int = 0):
+    """``normal * scale`` with the reference's default scale
+    ``1/sqrt(fan_in)`` (``fan_in = shape[0]``); ``stack`` > 0 draws
+    ``stack`` independent layers at once."""
+    fan_in = shape[0] if len(shape) > 1 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    full = ((stack,) if stack else ()) + tuple(shape)
+    return _normal(gen, full, dtype, scale)
+
+
+def _const(shape, dtype, value: float, device, stack: int = 0):
+    full = ((stack,) if stack else ()) + tuple(shape)
+    return torch.full(full, value, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def norm_init(cfg: ModelConfig, device, stack: int = 0) -> dict:
+    out = {"scale": _const((cfg.d_model,), cfg.pdtype, 1.0, device, stack)}
+    if cfg.norm == "ln":
+        out["bias"] = _const((cfg.d_model,), cfg.pdtype, 0.0, device, stack)
+    return out
+
+
+def apply_norm(p, x, cfg: ModelConfig):
+    x32 = x.float()
+    if cfg.norm == "ln":
+        mu = x32.mean(-1, keepdim=True)
+        var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+    var = (x32 ** 2).mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + cfg.norm_eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(cfg: ModelConfig, positions: torch.Tensor) -> tuple:
+    """positions: int[...]; returns (cos, sin) with trailing dim d_head/2."""
+    d = cfg.d_head
+    exps = torch.arange(0, d, 2, dtype=torch.float32,
+                        device=positions.device) / d
+    inv = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
+                                       device=positions.device), exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, H, d_head); cos/sin: (..., S, d_head/2)."""
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA)
+# ---------------------------------------------------------------------------
+
+def attention_init(gen, cfg: ModelConfig, stack: int = 0) -> dict:
+    d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    pd = cfg.pdtype
+    out = {
+        "wq": _dense_init(gen, (d, H, dh), pd, stack=stack),
+        "wk": _dense_init(gen, (d, K, dh), pd, stack=stack),
+        "wv": _dense_init(gen, (d, K, dh), pd, stack=stack),
+        "wo": _dense_init(gen, (H, dh, d), pd, scale=1.0 / math.sqrt(H * dh),
+                          stack=stack),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = _const((H, dh), pd, 0.0, gen.device, stack)
+        out["bk"] = _const((K, dh), pd, 0.0, gen.device, stack)
+        out["bv"] = _const((K, dh), pd, 0.0, gen.device, stack)
+    return out
+
+
+def _qkv(p, x, cfg: ModelConfig, positions=None):
+    cd = cfg.cdtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    if cfg.use_rope and positions is not None:
+        cos, sin = rope_freqs(cfg, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _repeat_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    b, s, kh, dh = k.shape
+    return k[:, :, :, None, :].expand(b, s, kh, n_rep, dh) \
+        .reshape(b, s, kh * n_rep, dh)
+
+
+def sdpa(q, k, v, mask=None, scale=None):
+    """q:(B,Sq,H,dh) k,v:(B,Sk,H,dh); mask broadcastable to (B,H,Sq,Sk)."""
+    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.tensor(
+            NEG_INF, dtype=torch.float32, device=logits.device))
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def causal_mask(sq: int, sk: int, window: int = 0, device=None):
+    """bool[Sq, Sk] (True = attend).  ``sk - sq`` offsets queries to the
+    cache tail; ``window`` > 0 restricts to a sliding window."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+def attention_apply(p, x, cfg: ModelConfig, *, positions, mask,
+                    kv_cache=None, cache_positions=None):
+    """Full attention layer.  Modes:
+      - training/prefill: kv_cache is None -> self-attention over x
+      - decode: kv_cache=(k,v) of shape (B,S,K,dh) -> write x's kv at
+        ``cache_positions`` (a scalar, or one position per lane for
+        ragged decode).  Unlike the reference's functional update the
+        cache tensors are written **in place** (no cache-sized copy per
+        token); they are also what ``new_kv`` returns.
+    Returns (out, new_kv) where new_kv is (k, v) for cache maintenance.
+    """
+    cd = cfg.cdtype
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    q, k, v = _qkv(p, x, cfg, positions)
+    new_kv = (k, v)
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        if cache_positions is None:
+            k = torch.cat([ck, k], dim=1)
+            v = torch.cat([cv, v], dim=1)
+        else:
+            s = k.shape[1]
+            pos = torch.as_tensor(cache_positions, device=ck.device)
+            # dynamic_update_slice semantics: the start clamps so the
+            # update fits inside the cache
+            pos = pos.clamp(0, ck.shape[1] - s).long()
+            if pos.ndim:
+                # ragged decode: one write position per sequence
+                rows = torch.arange(ck.shape[0], device=ck.device)[:, None]
+                cols = pos[:, None] + torch.arange(s, device=ck.device)
+                ck[rows, cols] = k.to(ck.dtype)
+                cv[rows, cols] = v.to(cv.dtype)
+            else:
+                p0 = int(pos)
+                ck[:, p0:p0 + s] = k.to(ck.dtype)
+                cv[:, p0:p0 + s] = v.to(cv.dtype)
+            k, v = ck, cv
+        new_kv = (k, v)
+        k = k.to(cd)   # low-precision cache reads upcast for compute
+        v = v.to(cd)
+    k = _repeat_kv(k, H // K)
+    v = _repeat_kv(v, H // K)
+    out = sdpa(q, k, v, mask)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    return out, new_kv
+
+
+def paged_attention_apply(p, x, cfg: ModelConfig, *, lengths, k_pages,
+                          v_pages, page_tables, layer, window=0):
+    """Decode attention reading cached KV straight from the block pool
+    through ``paged_attention`` (the Hopper kernel on CUDA tensors, its
+    plain twin on CPU ones) plus the in-flight token's merge.
+
+    x: (B, 1, d); k_pages/v_pages: the pool's layered (L, P, page, K, dh)
+    buffers; ``layer`` selects the plane.  Returns (out (B, 1, d),
+    (k_new, v_new) each (B, 1, K, dh), post-RoPE, for pool write-back).
+    """
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        decode_attend
+    cd = cfg.cdtype
+    positions = lengths[:, None]
+    q, k, v = _qkv(p, x, cfg, positions)
+    # round-trip through the cache dtype so the in-flight token sees the
+    # same quantization the dense backend applies on cache write/read
+    kc = k.to(cfg.kvdtype).to(cd)
+    vc = v.to(cfg.kvdtype).to(cd)
+    o = decode_attend(q[:, 0], kc[:, 0], vc[:, 0], k_pages, v_pages,
+                      page_tables, lengths, layer=layer, window=window)
+    out = torch.einsum("bshk,hkd->bsd", o[:, None].to(cd), p["wo"].to(cd))
+    return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated or plain)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen, cfg: ModelConfig, stack: int = 0) -> dict:
+    d, f, pd = cfg.d_model, cfg.d_ff, cfg.pdtype
+    out = {"wi": _dense_init(gen, (d, f), pd, stack=stack),
+           "wo": _dense_init(gen, (f, d), pd, stack=stack)}
+    if cfg.mlp_gated:
+        out["wg"] = _dense_init(gen, (d, f), pd, stack=stack)
+    return out
+
+
+def _act(x, kind: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(p, x, cfg: ModelConfig):
+    cd = cfg.cdtype
+    h = torch.einsum("bsd,df->bsf", x, p["wi"].to(cd))
+    if cfg.mlp_gated:
+        g = torch.einsum("bsd,df->bsf", x, p["wg"].to(cd))
+        h = _act(g, cfg.act) * h
+    else:
+        h = _act(h, cfg.act)
+    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(cd))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen, cfg: ModelConfig) -> dict:
+    out = {"tok": _dense_init(gen, (cfg.vocab, cfg.d_model), cfg.pdtype,
+                              scale=0.02)}
+    if not cfg.tie_embeddings:
+        out["head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), cfg.pdtype)
+    return out
+
+
+def embed_tokens(p, tokens, cfg: ModelConfig):
+    from repro_torch.kernels.mars_gather import ops as gather_ops
+    return gather_ops.embedding_gather(p["tok"], tokens).to(cfg.cdtype)
+
+
+def lm_head(p, x, cfg: ModelConfig):
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return torch.einsum("bsd,dv->bsv", x, w.to(cfg.cdtype))

@@ -1,0 +1,284 @@
+"""Causal LM, dense family (port of ``repro/models/lm.py``).
+
+One parameter tree, a Python loop over the stacked layer axis (the
+reference's ``lax.scan``), four entry points:
+
+  ``forward``            — teacher-forced logits
+  ``prefill``            — build the serving cache from a prompt
+  ``decode_step``        — one-token serve step against the cache
+  ``paged_decode_step``  — one-token serve step reading KV straight from
+                           the block pool through ``paged_attention``
+                           (the PagedBackend's kernel decode path)
+
+Only the dense family is ported; the other families raise
+``NotImplementedError`` (ROADMAP.md queues them).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.is_moe or cfg.enc_layers:
+        raise NotImplementedError(
+            f"the torch port serves the dense family only (got "
+            f"{cfg.family!r}); see ROADMAP.md for the other families")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelConfig, gen: torch.Generator):
+    """Random parameters with the reference's distributions and layout,
+    drawn from ``gen`` on ``gen.device``.  Returns the tree as an
+    ``nn.Module`` (``layers.as_module``); per-layer leaves are stacked on
+    a leading ``n_layers`` axis (``blocks/attn/wq`` is (L, d, H, dh))."""
+    _check_family(cfg)
+    L = cfg.n_layers
+    blocks = {"ln1": layers.norm_init(cfg, gen.device, L),
+              "attn": layers.attention_init(gen, cfg, L)}
+    if cfg.d_ff:
+        blocks["ln2"] = layers.norm_init(cfg, gen.device, L)
+        blocks["mlp"] = layers.mlp_init(gen, cfg, L)
+    tree = {"embed": layers.embedding_init(gen, cfg),
+            "final_norm": layers.norm_init(cfg, gen.device),
+            "blocks": blocks}
+    return layers.as_module(tree)
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------
+
+def _layer(stacked, i: int) -> dict:
+    """Plane ``i`` of a stacked parameter subtree."""
+    return {k: (_layer(v, i) if not isinstance(v, torch.Tensor) else v[i])
+            for k, v in stacked.items()}
+
+
+def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
+                 cache_pos=None, is_global=None, paged=None):
+    """One dense transformer block.  Returns (x, new_kv).  ``paged``
+    routes decode attention through ``paged_attention`` (KV read straight
+    from the pool's layered page buffers)."""
+    h = layers.apply_norm(bp["ln1"], x, cfg)
+    if paged is not None:
+        attn_out, new_kv = layers.paged_attention_apply(
+            bp["attn"], h, cfg, lengths=paged["lengths"],
+            k_pages=paged["k_pages"], v_pages=paged["v_pages"],
+            page_tables=paged["page_tables"], layer=paged["layer"],
+            window=paged.get("window", 0))
+    else:
+        mask = masks[0]
+        if cfg.sliding_window and is_global is not None and is_global:
+            mask = masks[1]
+        attn_out, new_kv = layers.attention_apply(
+            bp["attn"], h, cfg, positions=positions, mask=mask,
+            kv_cache=kv, cache_positions=cache_pos)
+    x = x + attn_out
+    if "mlp" in bp:
+        h = layers.apply_norm(bp["ln2"], x, cfg)
+        x = x + layers.mlp_apply(bp["mlp"], h, cfg)
+    return x, new_kv
+
+
+def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
+                 layer_offset: int, n: int, kv=None, cache_pos=None,
+                 paged=None):
+    """Loop over stacked block params (+ optional per-layer caches).
+
+    ``paged``: kernel-path decode operands (pool page buffers + table +
+    lengths); the absolute layer index selects each iteration's plane of
+    the layered pool through one shared table.  Returns (x, [(k, v) per
+    layer])."""
+    glob = None
+    if cfg.sliding_window:
+        # per-layer global/window flag: global layers attend the whole
+        # cache, the rest apply the sliding window
+        glob = [(li % cfg.global_every == 0) if cfg.global_every else False
+                for li in range(layer_offset, layer_offset + n)]
+    ys = []
+    for i in range(n):
+        paged_l = None
+        if paged is not None:
+            paged_l = dict(paged, layer=layer_offset + i)
+            if cfg.sliding_window:
+                paged_l["window"] = 0 if glob[i] else cfg.sliding_window
+        kv_i = None if kv is None else (kv[0][i], kv[1][i])
+        x, new_kv = _block_apply(
+            _layer(stacked, i), x, cfg, masks=masks, positions=positions,
+            kv=kv_i, cache_pos=cache_pos,
+            is_global=None if glob is None else glob[i], paged=paged_l)
+        ys.append(new_kv)
+    return x, ys
+
+
+def _stack_kv(ys):
+    return (torch.stack([k for k, _ in ys]), torch.stack([v for _, v in ys]))
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def _masks(cfg: ModelConfig, S: int, device):
+    m_causal = layers.causal_mask(S, S, device=device)
+    m_window = layers.causal_mask(S, S, window=cfg.sliding_window,
+                                  device=device) \
+        if cfg.sliding_window else m_causal
+    return (m_window if cfg.sliding_window else m_causal, m_causal)
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """Teacher-forced logits (B, S, V).  tokens: (B, S) int."""
+    _check_family(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    x, _ = _scan_blocks(params["blocks"], x, cfg,
+                        masks=_masks(cfg, S, tokens.device),
+                        positions=positions, layer_offset=0, n=cfg.n_layers)
+    x = layers.apply_norm(params["final_norm"], x, cfg)
+    return layers.lm_head(params["embed"], x, cfg)
+
+
+@dataclasses.dataclass
+class Cache:
+    """Dense serving storage (the DenseBackend's state)."""
+    k: Any            # (L, B, Smax, K, dh)
+    v: Any
+    length: Any       # int tensor — tokens already cached; scalar, or (B,)
+                      # for ragged (per-sequence) decode
+
+
+def init_dense_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     device="cuda") -> Cache:
+    L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+    shape = (L, batch, max_seq, K, dh)
+    return Cache(torch.zeros(shape, dtype=cfg.kvdtype, device=device),
+                 torch.zeros(shape, dtype=cfg.kvdtype, device=device),
+                 torch.zeros((), dtype=torch.int32, device=device))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               kind: str = "dense", device="cuda", **backend_kw):
+    """Build a KV backend (``kind``: "dense" | "paged") on ``device``."""
+    from repro_torch.kvcache.backend import make_backend
+    return make_backend(cfg, kind, batch=batch, max_seq=max_seq,
+                        device=device, **backend_kw)
+
+
+def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
+    """One-token decode against dense storage.
+
+    tokens: (B, 1) int.  ``cache.length`` may be a scalar (all lanes at
+    the same position) or a (B,) vector for ragged decode.  The cache's
+    K/V are written in place (see ``layers.attention_apply``); returns
+    (logits, cache with length + 1)."""
+    _check_family(cfg)
+    B = tokens.shape[0]
+    pos = torch.as_tensor(cache.length, device=tokens.device)
+    ragged = pos.ndim > 0
+    posv = torch.broadcast_to(pos.reshape(-1), (B,))
+    positions = posv[:, None]
+    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    Smax = cache.k.shape[2]
+    kpos = torch.arange(Smax, device=tokens.device)[None, :]
+    m_causal = kpos <= posv[:, None]
+    m = m_causal
+    if cfg.sliding_window:
+        m = m_causal & (kpos > posv[:, None] - cfg.sliding_window)
+    masks = (m[:, None, None, :], m_causal[:, None, None, :])
+    x, ys = _scan_blocks(params["blocks"], x, cfg, masks=masks,
+                         positions=positions, layer_offset=0,
+                         n=cfg.n_layers, kv=(cache.k, cache.v),
+                         cache_pos=posv if ragged else pos)
+    x = layers.apply_norm(params["final_norm"], x, cfg)
+    logits = layers.lm_head(params["embed"], x, cfg)
+    return logits, Cache(cache.k, cache.v, cache.length + 1)
+
+
+def paged_decode_step(params, cfg: ModelConfig, tokens, k_pages, v_pages,
+                      page_tables, lengths):
+    """One-token decode reading cached KV straight from the block pool
+    through ``paged_attention`` — no gathered dense view.
+
+    tokens: (B, 1) int; k_pages/v_pages: the pool's layered
+    (L, P, page, K, dh) buffers; page_tables: (B, n_pages) int32;
+    lengths: (B,) int32 ragged per-lane cached token counts.  Returns
+    (logits (B, 1, V), k_new, v_new) with k_new/v_new (L, B, 1, K, dh) —
+    the in-flight token's per-layer K/V for the caller's write-back.
+    """
+    _check_family(cfg)
+    positions = lengths[:, None]
+    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    paged = dict(k_pages=k_pages, v_pages=v_pages, page_tables=page_tables,
+                 lengths=lengths)
+    x, ys = _scan_blocks(params["blocks"], x, cfg, masks=None,
+                         positions=positions, layer_offset=0,
+                         n=cfg.n_layers, paged=paged)
+    x = layers.apply_norm(params["final_norm"], x, cfg)
+    logits = layers.lm_head(params["embed"], x, cfg)
+    k_new, v_new = _stack_kv(ys)
+    return logits, k_new, v_new
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache):
+    """One-token decode.  ``cache`` is either a dense ``Cache`` or any
+    ``KVBackend``.  Returns (logits, cache)."""
+    if isinstance(cache, Cache):
+        return dense_decode_step(params, cfg, tokens, cache)
+    logits = cache.decode_step(params, tokens)
+    return logits, cache
+
+
+def prefill_parts(params, cfg: ModelConfig, tokens):
+    """Run the prompt, returning last-position logits plus every cacheable
+    part.  Returns (logits (B,1,V), {"k", "v"}: (L, B, S, K, dh)
+    post-RoPE in the compute dtype)."""
+    _check_family(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    x, ys = _scan_blocks(params["blocks"], x, cfg,
+                         masks=_masks(cfg, S, tokens.device),
+                         positions=positions, layer_offset=0,
+                         n=cfg.n_layers)
+    x = layers.apply_norm(params["final_norm"], x, cfg)
+    logits = layers.lm_head(params["embed"], x[:, -1:], cfg)
+    k, v = _stack_kv(ys)
+    return logits, {"k": k, "v": v}
+
+
+def dense_prefill(params, cfg: ModelConfig, tokens, max_seq: int):
+    """Prompt -> (logits, dense Cache sized ``max_seq``)."""
+    B, S = tokens.shape
+    cache = init_dense_cache(cfg, B, max_seq, device=tokens.device)
+    logits, parts = prefill_parts(params, cfg, tokens)
+    cache.k[:, :, :S] = parts["k"].to(cache.k.dtype)
+    cache.v[:, :, :S] = parts["v"].to(cache.v.dtype)
+    cache.length = torch.tensor(S, dtype=torch.int32, device=tokens.device)
+    return logits, cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_seq: int = 0,
+            backend=None):
+    """Run the prompt through the model, building the serving cache.
+
+    Returns (logits, backend).  With ``backend=None`` a ``DenseBackend``
+    sized by ``max_seq`` is created on ``tokens.device``; pass a
+    ``PagedBackend`` to prefill into pool block tables instead."""
+    if backend is None:
+        if not max_seq:
+            raise ValueError("prefill needs max_seq (or an explicit backend)")
+        backend = init_cache(cfg, tokens.shape[0], max_seq,
+                             device=tokens.device)
+    logits = backend.prefill(params, tokens)
+    return logits, backend

@@ -1,0 +1,238 @@
+"""Differential tests of the port's host-side KV-cache logic: the same
+sequence of pool / prefix-cache / block-table operations (prefill with
+prefix matching, appends, forks with copy-on-write, releases, eviction
+under a tight pool, reservations, dirty-set drains) driven through both
+packages must leave bitwise-identical state — allocator arrays, block
+tables, stats, the dirty set and the KV payload bits.  The same holds
+for the decode operand pack, the lane order, the MARS reorder and the
+embedding gather."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import reorder as jreorder  # noqa: E402
+from repro.kernels.mars_gather import ops as jgather  # noqa: E402
+from repro.kernels.paged_attention import ops as jops  # noqa: E402
+from repro.kvcache import pool as jpool  # noqa: E402
+from repro.kvcache import prefix as jprefix  # noqa: E402
+from repro_torch.core import reorder as treorder  # noqa: E402
+from repro_torch.kernels.mars_gather import ops as tgather  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as tops  # noqa: E402
+from repro_torch.kvcache import pool as tpool  # noqa: E402
+from repro_torch.kvcache import prefix as tprefix  # noqa: E402
+
+torch.set_num_threads(1)
+
+L, K, D, BS = 2, 2, 8, 4          # layers, kv heads, head dim, block size
+
+
+class Side:
+    """One package's pool + prefix cache + live tables."""
+
+    def __init__(self, pool_mod, prefix_mod, **cfg):
+        self.prefix_mod = prefix_mod
+        self.pool = pool_mod.BlockPool(pool_mod.PoolConfig(**cfg))
+        self.cache = prefix_mod.PrefixCache(self.pool.cfg.block_size)
+        self.cache.attach(self.pool)
+        self.tables: list = []
+        self.tokens: list = []
+
+    def prefill(self, prompt, kv):
+        bids, n = self.cache.match(prompt, self.pool)
+        table = self.prefix_mod.BlockTable(list(bids), n)
+        try:
+            table.extend(self.pool, prompt[n:], seq_tokens=prompt,
+                         cache=self.cache,
+                         kv=(kv[0][:, n:], kv[1][:, n:]))
+        except RuntimeError:
+            self.cache.release(table, self.pool)
+            return "exhausted"
+        self.tables.append(table)
+        self.tokens.append(list(prompt))
+        return n
+
+    def append(self, i, toks, kv):
+        """Append when the pool can take it (``extend`` is not atomic
+        under exhaustion: each appended token needs at most one block,
+        plus one for a copy-on-write tail)."""
+        if not self.pool.can_alloc(len(toks) + 1):
+            return "full"
+        seq = self.tokens[i] + list(toks)
+        self.tables[i].extend(self.pool, list(toks), seq_tokens=seq,
+                              cache=self.cache, kv=kv)
+        self.tokens[i] = seq
+        return None
+
+    def fork(self, i):
+        self.tables.append(self.tables[i].fork(self.pool))
+        self.tokens.append(list(self.tokens[i]))
+
+    def release(self, i):
+        self.cache.release(self.tables.pop(i), self.pool)
+        self.tokens.pop(i)
+
+
+def _bits(x):
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        return x.numpy()
+    x = np.asarray(x)
+    return x.view(np.uint16) if x.dtype.name == "bfloat16" else x
+
+
+def _assert_same(j: Side, t: Side):
+    jp, tp = j.pool, t.pool
+    np.testing.assert_array_equal(tp.used, jp.used)
+    np.testing.assert_array_equal(tp.refcount, jp.refcount)
+    np.testing.assert_array_equal(tp.arrival, jp.arrival)
+    np.testing.assert_array_equal(tp.last_use, jp.last_use)
+    assert tp.content == jp.content
+    assert list(tp._evictable) == list(jp._evictable)
+    assert tp.placement.free_ids() == jp.placement.free_ids()
+    assert tp.reserved == jp.reserved
+    assert tp.stats.as_dict() == jp.stats.as_dict()
+    assert tp.dirty == jp.dirty
+    assert [(x.blocks, x.num_tokens) for x in t.tables] == \
+        [(x.blocks, x.num_tokens) for x in j.tables]
+    assert t.tokens == j.tokens
+    assert t.cache._by_key == j.cache._by_key
+    np.testing.assert_array_equal(_bits(tp.k_pages), _bits(jp.k_pages))
+    np.testing.assert_array_equal(_bits(tp.v_pages), _bits(jp.v_pages))
+    tp.check_invariants()
+
+
+@pytest.mark.parametrize("placement,eviction,dtype", [
+    ("mars", "fifo", "float32"),
+    ("mars", "lru", "bfloat16"),
+    ("naive", "fifo", "float32"),
+])
+def test_pool_prefix_differential(placement, eviction, dtype):
+    cfg = dict(num_blocks=24, block_size=BS, blocks_per_group=4,
+               placement=placement, eviction=eviction, n_kv_heads=K,
+               head_dim=D, n_layers=L, dtype=dtype)
+    j = Side(jpool, jprefix, **cfg)
+    t = Side(tpool, tprefix, **cfg)
+    rng = np.random.default_rng(0)
+    hot = [tuple(int(x) for x in rng.integers(1, 50, 2 * BS))
+           for _ in range(3)]
+
+    def kv(n):
+        # float32 payload; the bf16 pools round it on write (both sides
+        # round to nearest even)
+        return (rng.standard_normal((L, n, K, D)).astype(np.float32),
+                rng.standard_normal((L, n, K, D)).astype(np.float32))
+
+    for step in range(160):
+        op = rng.choice(["prefill", "append", "fork", "release",
+                         "reserve", "drain"],
+                        p=[0.3, 0.3, 0.1, 0.15, 0.05, 0.1])
+        if op == "prefill" or not j.tables:
+            prompt = list(hot[rng.integers(3)]) + \
+                [int(x) for x in rng.integers(1, 50, rng.integers(1, 7))]
+            payload = kv(len(prompt))
+            assert t.prefill(prompt, payload) == j.prefill(prompt, payload)
+        elif op == "append":
+            i = int(rng.integers(len(j.tables)))
+            toks = [int(x) for x in rng.integers(1, 50, rng.integers(1, 4))]
+            payload = kv(len(toks))
+            assert t.append(i, toks, payload) == j.append(i, toks, payload)
+        elif op == "fork":
+            i = int(rng.integers(len(j.tables)))
+            j.fork(i)
+            t.fork(i)
+        elif op == "release":
+            i = int(rng.integers(len(j.tables)))
+            j.release(i)
+            t.release(i)
+        elif op == "reserve":
+            n = int(rng.integers(0, 4))
+            ok = j.pool.can_reserve(n)
+            assert t.pool.can_reserve(n) == ok
+            if ok:
+                j.pool.reserve(n)
+                t.pool.reserve(n)
+            j.pool.unreserve(j.pool.reserved // 2)
+            t.pool.unreserve(t.pool.reserved // 2)
+        else:
+            assert t.pool.drain_dirty() == j.pool.drain_dirty()
+        _assert_same(j, t)
+    # the run exercised every path it claims to
+    s = t.pool.stats
+    assert s.cow_copies and s.evictions and s.prefix_hits and s.alloc_fails
+
+
+def _random_tables(rng, n, block_size=4, num_blocks=64):
+    tables = []
+    for _ in range(n):
+        ntok = int(rng.integers(0, 20))
+        nblk = -(-ntok // block_size)
+        tables.append(tprefix.BlockTable(
+            [int(b) for b in rng.choice(num_blocks, nblk, replace=False)],
+            ntok))
+    return tables
+
+
+@pytest.mark.parametrize("n_lanes", [1, 3, 5, 8])
+def test_decode_step_operands_and_lane_order(n_lanes):
+    rng = np.random.default_rng(n_lanes)
+    for _ in range(3):
+        tables = _random_tables(rng, n_lanes)
+        toks = [int(x) for x in rng.integers(0, 100, n_lanes)]
+        got = tops.decode_step_operands(tables, toks, 4)
+        want = jops.decode_step_operands(tables, toks, 4)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+        # padded lanes have length 0 and token 0; page axis is a pow2
+        Bp, n_pages = got[0].shape
+        assert Bp & (Bp - 1) == 0 and n_pages & (n_pages - 1) == 0
+        assert (got[1][n_lanes:] == 0).all() and (got[2][n_lanes:] == 0).all()
+        for shard_ids in (None, [int(s) for s in rng.integers(0, 2, n_lanes)]):
+            np.testing.assert_array_equal(
+                tops.batch_lane_order(tables, 4, shard_ids),
+                jops.batch_lane_order(tables, 4, shard_ids))
+        np.testing.assert_array_equal(
+            tops.pool_page_tables(tables, pad_lanes=8)[0],
+            jops.pool_page_tables(tables, pad_lanes=8)[0])
+    assert len(tops.batch_lane_order([], 4)) == 0
+
+
+@pytest.mark.parametrize("window", [None, 1, 5, 16])
+def test_mars_order_matches_reference(window):
+    rng = np.random.default_rng(7)
+    jorder = jax.jit(jreorder.mars_order, static_argnames=("window",))
+    for n in (0, 7, 100):
+        ids = rng.integers(0, 9, n).astype(np.int32)
+        got = treorder.mars_order(ids, window=window)
+        want = np.asarray(jorder(jnp.asarray(ids), window=window))
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            treorder.mars_order(ids, num_pages=9, window=window), want)
+        np.testing.assert_array_equal(
+            treorder.inverse_permutation(got),
+            np.asarray(jreorder.inverse_permutation(jnp.asarray(want))))
+        tperm = torch.from_numpy(got.astype(np.int64))
+        np.testing.assert_array_equal(
+            treorder.inverse_permutation(tperm).numpy(),
+            treorder.inverse_permutation(got))
+
+
+@pytest.mark.parametrize("mode,rows", [("auto", 64), ("auto", 1 << 16),
+                                       ("plain", 64), ("sorted", 64)])
+def test_embedding_gather_is_a_plain_take(mode, rows):
+    """Every mode is bitwise the plain row take, and the reference's."""
+    rng = np.random.default_rng(3)
+    table = rng.standard_normal((rows, 64)).astype(np.float32)
+    ids = rng.integers(0, rows, (3, 11)).astype(np.int32)
+    got = tgather.embedding_gather(torch.from_numpy(table),
+                                   torch.from_numpy(ids), mode=mode)
+    assert tuple(got.shape) == (3, 11, 64)
+    np.testing.assert_array_equal(got.numpy(), table[ids])
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jgather.embedding_gather(
+            jnp.asarray(table), jnp.asarray(ids), mode=mode)))

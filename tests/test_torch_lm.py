@@ -1,0 +1,229 @@
+"""Port parity for the dense LM: ``forward``, ``prefill_parts``,
+``dense_decode_step`` and ``paged_decode_step`` of the port against the
+JAX package's, at float32 with the same weights (the JAX init converted
+through ``repro_torch.convert``) and the same numpy tokens.
+
+Configs: the qwen1.5-0.5b smoke config (MHA, QKV bias, tied embeddings)
+and a GQA variant of it (``n_kv_heads=2``).  Tolerance ``atol=rtol=1e-4``:
+the same float32 arithmetic, with matrix products summed in another
+order by another library."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
+
+torch.set_num_threads(1)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+VARIANTS = {"qwen_smoke": {}, "qwen_smoke_gqa": {"n_kv_heads": 2}}
+
+
+def _cfgs(variant: str, **extra):
+    kw = dict(VARIANTS[variant], **extra)
+    jc = dataclasses.replace(jconfigs.get_smoke("qwen1_5_0_5b"), **kw)
+    tc = dataclasses.replace(tconfigs.get_smoke("qwen1_5_0_5b"), **kw)
+    return jc, tc
+
+
+_PARAMS: dict = {}
+
+
+def _params(variant: str):
+    """(jax params, port params) for one f32 variant, from one JAX init
+    (cached per module: the init is the slow part)."""
+    if variant not in _PARAMS:
+        jc, tc = _cfgs(variant, **F32)
+        jp = _jax_init(jc, 0)
+        # non-zero QKV biases so the bias path is exercised
+        rng = np.random.default_rng(1)
+        attn = dict(jp["blocks"]["attn"])
+        for b in ("bq", "bk", "bv"):
+            attn[b] = jnp.asarray(
+                0.1 * rng.standard_normal(attn[b].shape), jnp.float32)
+        jp = dict(jp, blocks=dict(jp["blocks"], attn=attn))
+        tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                       "cpu")
+        _PARAMS[variant] = (jc, tc, jp, tp)
+    return _PARAMS[variant]
+
+
+def _jax_init(cfg, seed: int):
+    """The JAX init, jitted (eager init dispatches op by op and dominates
+    this file's time); both sides get the same resulting tree."""
+    return jax.jit(lambda k: jlm.init(cfg, k).params)(jax.random.key(seed))
+
+
+def _tokens(cfg, B, S, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_forward_matches_jax(variant):
+    jc, tc, jp, tp = _params(variant)
+    toks = _tokens(tc, 2, 12)
+    got = tlm.forward(tp, tc, torch.from_numpy(toks))
+    want, _ = jlm.forward(jp, jc, jnp.asarray(toks))
+    assert got.shape == (2, 12, tc.vocab) and got.dtype == torch.float32
+    _close(got, want)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_prefill_parts_matches_jax(variant):
+    jc, tc, jp, tp = _params(variant)
+    toks = _tokens(tc, 2, 9, seed=1)
+    logits, parts = tlm.prefill_parts(tp, tc, torch.from_numpy(toks))
+    jlogits, jparts = jlm.prefill_parts(jp, jc, jnp.asarray(toks))
+    _close(logits, jlogits)
+    for name in ("k", "v"):
+        assert tuple(parts[name].shape) == jparts[name].shape
+        _close(parts[name], jparts[name])
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_dense_decode_step_matches_jax(variant, ragged):
+    """Prefill into a dense cache, then decode two tokens; ``ragged``
+    gives each lane its own cache length (the paged gather path)."""
+    jc, tc, jp, tp = _params(variant)
+    toks = _tokens(tc, 2, 9, seed=2)
+    S, Smax = 9, 16
+    jlog, jcache = jlm.dense_prefill(jp, jc, jnp.asarray(toks), Smax)
+    tlog, tcache = tlm.dense_prefill(tp, tc, torch.from_numpy(toks), Smax)
+    _close(tlog, jlog)
+    if ragged:
+        lens = np.asarray([5, S], np.int32)
+        jcache = dataclasses.replace(jcache, length=jnp.asarray(lens))
+        tcache = dataclasses.replace(tcache, length=torch.from_numpy(lens))
+    nxt = _tokens(tc, 2, 2, seed=3)
+    for i in range(2):
+        jlog, jcache = jlm.dense_decode_step(jp, jc,
+                                             jnp.asarray(nxt[:, i:i + 1]),
+                                             jcache)
+        tlog, tcache = tlm.dense_decode_step(
+            tp, tc, torch.from_numpy(nxt[:, i:i + 1]), tcache)
+        _close(tlog, jlog)
+        _close(tcache.k, jcache.k)
+        _close(tcache.v, jcache.v)
+        np.testing.assert_array_equal(tcache.length.numpy(),
+                                      np.asarray(jcache.length))
+
+
+def _paged_operands(k, v, lengths, page, n_pages, seed):
+    """Scatter dense (L, B, S, K, dh) prompt K/V into a layered pool of
+    shuffled blocks; returns (k_pages, v_pages, page_tables)."""
+    L, B, S, K, dh = k.shape
+    P = B * n_pages + 3
+    rng = np.random.default_rng(seed)
+    pt = rng.permutation(P)[:B * n_pages].reshape(B, n_pages)
+    kp = rng.standard_normal((L, P, page, K, dh)).astype(np.float32)
+    vp = rng.standard_normal((L, P, page, K, dh)).astype(np.float32)
+    for b in range(B):
+        for t in range(int(lengths[b])):
+            kp[:, pt[b, t // page], t % page] = k[:, b, t]
+            vp[:, pt[b, t // page], t % page] = v[:, b, t]
+    return kp, vp, pt.astype(np.int32)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_paged_decode_step_matches_jax(variant):
+    """Kernel-path decode over a ragged layered pool (lane lengths 5 and
+    9, pages of 4; padding blocks hold noise that must stay masked)
+    against the JAX kernel path in interpret mode and against the port's
+    dense decode of the same caches."""
+    jc, tc, jp, tp = _params(variant)
+    toks = _tokens(tc, 2, 9, seed=4)
+    _, parts = jlm.prefill_parts(jp, jc, jnp.asarray(toks))
+    k, v = (np.asarray(parts[n], np.float32) for n in ("k", "v"))
+    lengths = np.asarray([5, 9], np.int32)
+    kp, vp, pt = _paged_operands(k, v, lengths, page=4, n_pages=4, seed=5)
+    nxt = _tokens(tc, 2, 1, seed=6)
+    jlog, jk, jv, _, _ = jlm.paged_decode_step(
+        jp, jc, jnp.asarray(nxt), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(pt), jnp.asarray(lengths), interpret=True)
+    tlog, tk, tv = tlm.paged_decode_step(
+        tp, tc, torch.from_numpy(nxt), torch.from_numpy(kp),
+        torch.from_numpy(vp), torch.from_numpy(pt),
+        torch.from_numpy(lengths))
+    assert tuple(tk.shape) == jk.shape == (tc.n_layers, 2, 1,
+                                           tc.n_kv_heads, tc.d_head)
+    _close(tlog, jlog)
+    _close(tk, jk)
+    _close(tv, jv)
+    # the same step through the dense path of the port (one free slot
+    # past the longest lane for the in-flight token)
+    pad = ((0, 0), (0, 0), (0, 1), (0, 0), (0, 0))
+    cache = tlm.Cache(torch.from_numpy(np.pad(k, pad)),
+                      torch.from_numpy(np.pad(v, pad)),
+                      torch.from_numpy(lengths))
+    dlog, _ = tlm.dense_decode_step(tp, tc, torch.from_numpy(nxt), cache)
+    _close(tlog, dlog.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_converter_and_init_match_jax_tree(variant, dtype):
+    """``params_from_numpy`` keeps every leaf's key, shape, dtype and
+    bits (bf16 through the uint16 view); the port's own ``lm.init`` gives
+    the same keys, shapes and dtypes as the JAX init."""
+    kw = dict(param_dtype=dtype, compute_dtype=dtype)
+    jc, tc = _cfgs(variant, **kw)
+    jtree = jax.tree.map(np.asarray, _jax_init(jc, 3))
+    ttree = convert.params_from_numpy(jtree, tc, "cpu")
+    tinit = tlm.init(tc, torch.Generator("cpu").manual_seed(3))
+    jflat = {jax.tree_util.keystr(p): a for p, a in
+             jax.tree_util.tree_flatten_with_path(jtree)[0]}
+
+    def flat(mod):
+        return {"".join(f"['{k}']" for k in n.split(".")): t
+                for n, t in mod.named_parameters()}
+    for tree in (ttree, tinit):
+        got = flat(tree)
+        assert sorted(got) == sorted(jflat)
+        for key, a in jflat.items():
+            t = got[key]
+            assert tuple(t.shape) == a.shape, key
+            assert t.dtype == getattr(torch, dtype), key
+    for key, a in jflat.items():
+        t = flat(ttree)[key].detach()
+        if dtype == "bfloat16":
+            np.testing.assert_array_equal(
+                t.view(torch.int16).numpy().view(np.uint16),
+                a.view(np.uint16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), a)
+
+
+def test_init_distributions():
+    """The port's init draws what the reference's ``_dense_init`` draws:
+    N(0, 1/fan_in) for projections, N(0, 0.02^2) for the embedding,
+    ones for norm scales, zeros for QKV biases."""
+    cfg = tconfigs.get_smoke("qwen1_5_0_5b")
+    p = tlm.init(cfg, torch.Generator("cpu").manual_seed(0))
+    d, H, dh = cfg.d_model, cfg.n_heads, cfg.d_head
+    for leaf, scale in ((p["blocks"]["attn"]["wq"], d ** -0.5),
+                        (p["blocks"]["attn"]["wo"], (H * dh) ** -0.5),
+                        (p["blocks"]["mlp"]["wo"], cfg.d_ff ** -0.5),
+                        (p["embed"]["tok"], 0.02)):
+        x = leaf.detach().float()
+        assert abs(float(x.std()) / scale - 1) < 0.1
+        assert abs(float(x.mean())) < 0.1 * scale
+    assert (p["blocks"]["ln1"]["scale"] == 1).all()
+    assert (p["blocks"]["attn"]["bq"] == 0).all()
+    assert "head" not in p["embed"]          # tied embeddings

@@ -1,0 +1,165 @@
+"""The ported slice as a whole: continuous-batching paged serving of the
+qwen1.5-0.5b smoke config through both packages' ``ServeEngine(PagedLM)``
+over ``PagedBackend(decode_mode="kernel")`` at float32, with the same
+weights (the JAX init converted through ``repro_torch.convert``) and the
+same requests (a shared hot prefix, forked samples, a pool tight enough
+to reject and evict).  Served tokens and every stat must be identical,
+step by step, on the pipelined and the synchronous decode paths.  Then
+the port's own entry point end to end on the CPU, LM and toy."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.kvcache.backend import PagedBackend as JPagedBackend  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.serve import engine as jengine  # noqa: E402
+from repro.serving import scheduler as jsched  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention as tpa  # noqa: E402
+from repro_torch.kvcache.backend import PagedBackend as TPagedBackend  # noqa: E402
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.serve import engine as tengine  # noqa: E402
+from repro_torch.serving import scheduler as tsched  # noqa: E402
+
+torch.set_num_threads(1)
+
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+
+
+def _requests(mod, cfg):
+    rng = np.random.default_rng(5)
+    shared = tuple(int(t) for t in rng.integers(1, cfg.vocab, 16))
+    out = []
+    for i in range(7):
+        tail = tuple(int(t) for t in rng.integers(1, cfg.vocab, 1 + i % 3))
+        out.append(mod.Request(rid=i, prompt=shared + tail,
+                               arrival=i * 1e-3, prefix_len=8,
+                               max_new=3 + i % 3,
+                               n_samples=2 if i in (1, 4) else 1))
+    return out
+
+
+def _engines(pipeline: bool, num_blocks: int = 26):
+    jc = dataclasses.replace(jconfigs.get_smoke("qwen1_5_0_5b"), **F32)
+    tc = dataclasses.replace(tconfigs.get_smoke("qwen1_5_0_5b"), **F32)
+    jp = jax.jit(lambda k: jlm.init(jc, k).params)(jax.random.key(0))
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    jb = JPagedBackend(jc, num_blocks=num_blocks, block_size=8,
+                       decode_mode="kernel")
+    tb = TPagedBackend(tc, num_blocks=num_blocks, block_size=8,
+                       decode_mode="kernel", device="cpu")
+    je = jengine.ServeEngine(jb.pool, jsched.MarsScheduler(pool=jb.pool),
+                             jengine.PagedLM(jp, jc, jb), max_lanes=4,
+                             pipeline=pipeline)
+    te = tengine.ServeEngine(tb.pool, tsched.MarsScheduler(pool=tb.pool),
+                             tengine.PagedLM(tp, tc, tb), max_lanes=4,
+                             pipeline=pipeline)
+    return (je, jb, _requests(jsched, jc)), (te, tb, _requests(tsched, tc))
+
+
+def _drive(j, t):
+    """``ServeEngine.run``'s loop on both engines in lockstep, comparing
+    what each step made and what it staged to the device."""
+    (je, jb, jreqs), (te, tb, treqs) = j, t
+    for step in range(200):
+        while jreqs:
+            ok = je.submit(jreqs[0])
+            assert te.submit(treqs[0]) == ok
+            if not ok:
+                break
+            jreqs.pop(0)
+            treqs.pop(0)
+        assert len(te.scheduler) == len(je.scheduler)
+        made = je.step(now=float(step))
+        assert te.step(now=float(step)) == made
+        assert tb.staged_blocks_last_step == jb.staged_blocks_last_step
+        assert tb.inflight_steps == jb.inflight_steps
+        assert [s.sid for s in te.running] == [s.sid for s in je.running]
+        if not jreqs and not je.running and not len(je.scheduler):
+            break
+    else:
+        raise AssertionError("engines did not drain")
+    assert not treqs and not te.running
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_engine_matches_jax_engine(pipeline):
+    j, t = _engines(pipeline)
+    launches = tpa.paged_attention.launches
+    _drive(j, t)
+    (je, jb, _), (te, tb, _) = j, t
+    assert te.finished == je.finished
+    assert sorted(te.finished) == list(range(7))
+    assert [len(v) for _, v in sorted(te.finished.items())] == \
+        [1, 2, 1, 1, 2, 1, 1]
+    assert te.stats.as_dict() == je.stats.as_dict()
+    assert te.pool.stats.as_dict() == je.pool.stats.as_dict()
+    assert te.scheduler.stats.as_dict() == je.scheduler.stats.as_dict()
+    assert tb._steps == jb._steps
+    s = te.pool.stats
+    assert s.prefix_hits and s.cow_copies          # shared prefix, forks
+    assert te.scheduler.stats.pool_rejects > 0     # the pool was tight
+    te.pool.check_invariants()
+    assert te.pool.num_live == 0 and te.pool.reserved == 0
+    # CPU tensors: the plain twin ran, the CUDA kernel never launched
+    assert tpa.paged_attention.launches == launches
+
+
+def test_serve_main_paged_smoke_cpu():
+    out = tserve.main(["--paged", "--smoke", "--device", "cpu",
+                       "--requests", "6", "--batch", "3", "--new-tokens",
+                       "3", "--prefixes", "2", "--pool-blocks", "40",
+                       "--parity-checks", "3"])
+    assert out["served"] == 6 and out["parity_mismatches"] == 0
+    assert out["parity_checked"] == 3 and out["decode"] == "kernel"
+    assert out["decode_tokens"] == 6 * 3
+    assert out["prefix_hits"] > 0
+    for seqs in out["finished"].values():
+        assert all(len(s) == 3 for s in seqs)
+
+
+@pytest.mark.parametrize("flags", [["--no-kernel-decode"], ["--no-pipeline"],
+                                   ["--classes", "3"]])
+def test_serve_main_paged_variants_cpu(flags):
+    base = ["--paged", "--smoke", "--device", "cpu", "--requests", "6",
+            "--batch", "3", "--new-tokens", "2", "--parity-checks", "2"]
+    ref = tserve.main(base)
+    out = tserve.main(base + flags)
+    assert out["served"] == 6 and out["parity_mismatches"] == 0
+    if flags != ["--classes", "3"]:
+        # gather vs kernel decode and pipelined vs synchronous serve the
+        # same tokens
+        assert out["finished"] == ref["finished"]
+
+
+def test_serve_main_toy_matches_jax_toy():
+    """``--paged --toy`` end to end, and its engine against the JAX
+    package's toy engine on the same stream."""
+    out = tserve.main(["--paged", "--toy", "--device", "cpu", "--requests",
+                       "10", "--batch", "4", "--new-tokens", "4",
+                       "--pool-blocks", "12"])
+    assert out["served"] == 10 and out["pool_rejects"] > 0
+
+    def run(mod, sched_mod, pool_mod, **kw):
+        pool = pool_mod.BlockPool(pool_mod.PoolConfig(
+            num_blocks=12, block_size=16, n_kv_heads=2, head_dim=64))
+        eng = mod.ServeEngine(pool, sched_mod.MarsScheduler(pool=pool),
+                              max_lanes=4, **kw)
+        reqs = [sched_mod.Request(rid=r.rid, prompt=r.prompt,
+                                  arrival=r.arrival,
+                                  prefix_len=r.prefix_len, max_new=4)
+                for r in tserve.synth_requests(10, vocab=128)]
+        return eng.run(reqs), eng
+    from repro.kvcache import pool as jpool
+    from repro_torch.kvcache import pool as tpool
+    jf, je = run(jengine, jsched, jpool, use_kernel=False)
+    tf, te = run(tengine, tsched, tpool, use_kernel=True, device="cpu")
+    assert tf == jf == out["finished"]
+    assert te.stats.as_dict() == je.stats.as_dict()
+    assert te.pool.stats.as_dict() == je.pool.stats.as_dict()
