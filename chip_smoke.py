@@ -6,22 +6,36 @@
 Phases (any failure exits non-zero and prints no result):
 
   build   compile every CUDA kernel of the port from ``src/repro_torch/
-          csrc`` with nvcc for sm_90a (one nvcc per source, started
-          together) into the git-ignored ``build/``.
-  kernel  hold each kernel against its plain PyTorch twin on the card
-          (paged_attention with its softmax state, and decode_attend,
-          whose twin is the same call on host copies) over the serving
-          shapes, a long ragged pool, GQA, sliding windows, float32 and
-          bfloat16; time the kernel at the serving and the long case
-          beside its bound, the plain twin and one PyTorch library call.
-  serve   ``repro_torch.launch.serve --paged --config qwen1_5_0_5b`` at
-          full width (24 layers, vocab 151936, random weights from a
-          seed): served tokens must pass the teacher-forced check against
-          the port's dense backend, and the paged-attention kernel must
-          have launched once per layer per dispatched decode step.
-  profile the same serve run twice more, warm: plain for its wall time,
-          then under ``torch.profiler`` for the device's kernel time by
-          kernel and its busy share.
+          csrc`` (paged_attention, ssd_scan, mars_gather) with nvcc for
+          sm_90a (one nvcc per source, started together) into the
+          git-ignored ``build/``.
+  kernel  hold each kernel against its plain PyTorch twin on the card:
+          K1 paged_attention with its softmax state, and decode_attend
+          (whose twin is the same call on host copies), over the serving
+          shapes, a long ragged pool, GQA, sliding windows and hymba's
+          shape (25 query heads over 5 KV heads, a 1024 window bound by
+          lengths up to 2048); K3 ssd_scan at hymba's prefill shape, a
+          long case and the reference test shapes; both in float32 and
+          bfloat16 within the stated tolerances; K2 gather_rows bitwise
+          on hymba's and qwen's embedding tables.  Each kernel is timed
+          beside its bound, its plain twin and, where one exists, one
+          PyTorch library call.
+  serve   ``repro_torch.launch.serve --paged --config <arch>`` at full
+          width for qwen1_5_0_5b (24 layers, vocab 151936) and
+          hymba_1_5b (32 layers, d 1600, SSM heads) in bfloat16, then
+          hymba_1_5b in float32 and through the gather decode path,
+          random weights from a seed: served tokens must pass the
+          teacher-forced check against the port's dense backend (exact
+          argmax in float32, a near-tie margin in bfloat16; each run
+          prints its largest deficit), and with every launch count set
+          to 0
+          just before each run, paged_attention must have launched once
+          per layer per decode step, ssd_scan once per layer per prefill
+          (the engine's and the check's), and gather_rows once per
+          embedding lookup.
+  profile each bfloat16 serve run twice more, warm: plain for its wall
+          time, then under ``torch.profiler`` for the device's kernel
+          time by kernel and its busy share.
 
 Prints the card's name and power limit (as ``nvidia-smi`` gives them), a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -45,9 +59,30 @@ PEAK_OPS = {"float32": 67e12,        # H100 SXM, outside the tensor cores
             "bfloat16": 989e12}      # H100 SXM tensor cores, dense
 TOL = {"float32": dict(o=(1e-4, 1e-4), ml=(1e-4, 1e-4)),
        "bfloat16": dict(o=(2e-2, 0.0), ml=(1e-5, 1e-3))}  # (atol, rtol)
+# ssd_scan against its plain twin, (atol, rtol), for float32 and bfloat16
+# inputs alike: both upcast the same values and work in f32, and differ
+# only in summation order (sums of up to 64 + 16 terms a chunk, the state
+# carried over up to 64 chunks)
+SSD_TOL = (1e-3, 1e-3)
 OUT_DIR = ROOT / "chiprun_out"
-SERVE_ARGS = ["--paged", "--config", "qwen1_5_0_5b", "--requests", "16",
-              "--batch", "8", "--device", "cuda"]
+# serve runs, each its own path for the launch counts: (config, extra
+# flags).  Without flags a config serves in its own bfloat16 through the
+# kernels.  In float32 the teacher-forced check is exact (the served
+# tokens must be the dense argmax).  The gather run decodes through the
+# dense math over a gathered view: its largest deficit in bfloat16 is the
+# noise floor the kernel path's is read against.
+RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
+        ("hymba_1_5b", ("--dtype", "float32")),
+        ("hymba_1_5b", ("--no-kernel-decode",)))
+
+
+def run_name(arch: str, flags=()) -> str:
+    return " ".join((arch,) + tuple(flags))
+
+
+def serve_args(arch: str, flags=()) -> list:
+    return ["--paged", "--config", arch, "--requests", "16", "--batch", "8",
+            "--device", "cuda", *flags]
 
 
 def fail(msg: str) -> int:
@@ -64,6 +99,29 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
         fn()
     times = []
     for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def cold_ms(torch, fn, reps: int, flush) -> float:
+    """Device time of one call of ``fn`` with a cold L2, as a caller that
+    reads fresh rows finds it: before each call the card writes ``flush``
+    (larger than the 50 MB L2) and then spins long enough that the host
+    has enqueued the call before the card reaches it, so the CUDA events
+    around the call bracket its kernels alone.  Median over ``reps``
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)       # ~0.5 ms at the H100's clock
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -159,6 +217,14 @@ def kernel_phase(torch, gen):
                                P=512, n_pages=32,
                                lengths=[0, 1, 63, 64, 65, 200, 511, 512]),
                           3, window))
+        # hymba's shape: 25 query heads over 5 KV heads (n_rep 5), d 64,
+        # pages of 16, its 1024-token window bound by lengths up to 2048
+        cases.append(("hymba", dtype,
+                      dict(B=8, H=25, Hkv=5, D=64, page=16, L=2, P=1100,
+                           n_pages=128,
+                           lengths=[0, 1, 1023, 1024, 1025, 1500, 2047,
+                                    2048]),
+                      1, 1024))
     results, max_err = [], 0.0
     timed = {}
     for name, dtype, shp, layer, window in cases:
@@ -190,8 +256,8 @@ def kernel_phase(torch, gen):
                             l_err=e_l, decode_err=e_d,
                             ok=ok_o and ok_m and ok_l and ok_d))
         max_err = max(max_err, e_o, e_d)
-        if name in ("serve", "long"):
-            timed[(name, dtype)] = (q, kp, vp, pt, ln, layer, shp)
+        if name in ("serve", "long", "hymba"):
+            timed[(name, dtype)] = (q, kp, vp, pt, ln, layer, window, shp)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain twin: {bad}")
@@ -201,14 +267,19 @@ def kernel_phase(torch, gen):
 def time_case(torch, F, ops, dtype: str):
     """Kernel, plain twin and SDPA (over pre-gathered keys) at one case,
     as device time per call and as event time per call with the host's
-    launch; bound from the bytes and operations this case's data needs."""
+    launch; bound from the bytes and operations this case's data needs
+    (under a window, only the positions and pages inside it)."""
     from repro_torch.kernels.paged_attention import paged_attention as pa_mod
-    q, kp, vp, pt, ln, layer, shp = ops
+    q, kp, vp, pt, ln, layer, window, shp = ops
     B, H, D = q.shape
     Hkv, page = shp["Hkv"], shp["page"]
     eb = q.element_size()
-    valid = int(ln.sum())
-    pages = int(((ln + page - 1) // page).sum())
+    lens = [int(x) for x in ln]
+    # valid positions [lo, len) with lo = len - window + 1 under a window
+    los = [max(n - window + 1, 0) if window else 0 for n in lens]
+    valid = sum(n - lo for n, lo in zip(lens, los))
+    pages = sum((n - 1) // page - lo // page + 1
+                for n, lo in zip(lens, los) if n > lo)
     bytes_moved = (2 * valid * Hkv * D * eb          # valid K and V rows
                    + 2 * B * H * D * eb              # q in, o out
                    + 2 * B * H * 4                   # m, l out
@@ -218,11 +289,12 @@ def time_case(torch, F, ops, dtype: str):
     t_ops = ops_count / PEAK_OPS[dtype] * 1e3
 
     def kern():
-        pa_mod.paged_attention(q, kp, vp, pt, ln, layer=layer,
+        pa_mod.paged_attention(q, kp, vp, pt, ln, layer=layer, window=window,
                                return_state=True)
 
     def plain():
-        pa_mod.paged_attention_plain(q, kp, vp, pt, ln, layer=layer)
+        pa_mod.paged_attention_plain(q, kp, vp, pt, ln, layer=layer,
+                                     window=window)
     # library yardstick: SDPA over the same keys gathered contiguously
     # beforehand (the gather is excluded); lanes as the batch, the same
     # valid-position mask; never called by the port
@@ -231,9 +303,13 @@ def time_case(torch, F, ops, dtype: str):
         .contiguous()
     vg = vp[layer][pt.long()].reshape(B, S, Hkv, D).transpose(1, 2) \
         .contiguous()
-    mask = (torch.arange(S, device=q.device)[None, :] < ln[:, None].long()
-            )[:, None, None, :]
+    pos = torch.arange(S, device=q.device)[None, :]
+    lo = torch.tensor(los, device=q.device)[:, None]
+    mask = ((pos < ln[:, None].long()) & (pos >= lo))[:, None, None, :]
     q4 = q[:, :, None, :]
+    if Hkv != H:       # GQA: K/V heads expanded beforehand, not timed
+        kg = kg.repeat_interleave(H // Hkv, dim=1)
+        vg = vg.repeat_interleave(H // Hkv, dim=1)
 
     def lib():
         F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
@@ -245,6 +321,219 @@ def time_case(torch, F, ops, dtype: str):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=bytes_moved, ops=ops_count, valid_positions=valid)
+
+
+# K3 cases: (name, B, S, H, P, N, chunk).  hymba's prefill: one request
+# of 24 prompt tokens under chunk 64 (one chunk of 24); a long case of 64
+# chunks; the shapes of the reference's kernel tests.
+SSD_CASES = [("hymba_prefill", 1, 24, 50, 64, 16, 64),
+             ("long", 4, 4096, 50, 64, 16, 64),
+             ("ref_a", 1, 64, 2, 16, 8, 16),
+             ("ref_b", 2, 128, 4, 32, 16, 32),
+             ("ref_c", 1, 96, 1, 8, 4, 32)]
+
+
+def ssd_inputs(torch, F, gen, B, S, H, P, N, dtype):
+    """x, b, c, la, dt on the card as the model feeds them: dt =
+    softplus(normal), la a negative log decay."""
+    dev = gen.device
+    x = torch.randn(B, S, H, P, generator=gen, device=dev)
+    b = torch.randn(B, S, N, generator=gen, device=dev)
+    c = torch.randn(B, S, N, generator=gen, device=dev)
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    la = -torch.exp(0.3 * torch.randn(B, S, H, generator=gen, device=dev)) \
+        * dt
+    return [t.to(dtype).contiguous() for t in (x, b, c, la, dt)]
+
+
+def ssd_phase(torch, F, gen):
+    """ssd_scan against ssd_scan_plain on the card at every case, float32
+    and bfloat16 inputs; times the kernel at hymba's prefill and the long
+    case."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
+    results, max_err, timing = [], 0.0, {}
+    for dtype in ("float32", "bfloat16"):
+        for name, B, S, H, P, N, chunk in SSD_CASES:
+            ins = ssd_inputs(torch, F, gen, B, S, H, P, N,
+                             getattr(torch, dtype))
+            y, st = ssd_mod.ssd_scan(*ins, chunk=chunk)
+            torch.cuda.synchronize()
+            py, pst = ssd_mod.ssd_scan_plain(*ins, chunk=chunk)
+            ok_y, e_y = close(y, py, *SSD_TOL)
+            ok_s, e_s = close(st, pst, *SSD_TOL)
+            finite = bool(torch.isfinite(y).all() and
+                          torch.isfinite(st).all())
+            ok = ok_y and ok_s and finite and y.dtype == torch.float32
+            print(f"[kernel] ssd_scan {name:13s} {dtype:8s} B={B} S={S} "
+                  f"H={H} P={P} N={N} q={min(chunk, S)} y_err={e_y:.3e} "
+                  f"state_err={e_s:.3e} tol(atol,rtol)={SSD_TOL} "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            results.append(dict(case=name, dtype=dtype, y_err=e_y,
+                                state_err=e_s, ok=ok))
+            max_err = max(max_err, e_y, e_s)
+            if name in ("hymba_prefill", "long"):
+                timing[f"{name}/{dtype}"] = time_ssd(torch, ssd_mod, ins,
+                                                     chunk, dtype)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"ssd_scan disagrees with its plain twin: "
+                             f"{bad}")
+    return results, max_err, timing
+
+
+def time_ssd(torch, ssd_mod, ins, chunk: int, dtype: str) -> dict:
+    """Kernel and plain twin at one case; the bound from the bytes (every
+    input read once, y and the state written once in f32) and the
+    operations of the chunked algorithm (C B^T on the lower triangle once
+    per batch and chunk; per head W x, the carried state's term and the
+    state update).  No single PyTorch call computes the scan, so there
+    is no library time."""
+    x, b = ins[0], ins[1]
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    q = min(chunk, S)
+    n_chunks = S // q
+    eb = x.element_size()
+    bytes_moved = (sum(t.numel() for t in ins) * eb
+                   + B * S * H * P * 4 + B * H * P * N * 4)
+    tri = q * (q + 1) // 2
+    ops_count = B * n_chunks * (2 * tri * N
+                                + H * (2 * tri * P + 4 * q * P * N))
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS[dtype] * 1e3
+
+    def kern():
+        ssd_mod.ssd_scan(*ins, chunk=chunk)
+
+    def plain():
+        ssd_mod.ssd_scan_plain(*ins, chunk=chunk)
+    return dict(ms=device_ms(kern, 20), plain_ms=device_ms(plain, 5),
+                library_ms=None, event_ms=time_ms(kern, 20),
+                plain_event_ms=time_ms(plain, 5),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_moved, ops=ops_count)
+
+
+# K2 tables: the embedding tables of the two served configs, bf16
+GATHER_TABLES = {"hymba": (32001, 1600), "qwen": (151936, 1024)}
+GATHER_IDS = (8, 24, 8192)
+
+
+def gather_phase(torch, F, gen):
+    """gather_rows against table[ids] on the card, bitwise, on both
+    tables at 8 (a decode step's lanes), 24 (a prefill) and 8192 ids,
+    MARS-sorted as ``embedding_gather`` sorts them; times every case
+    beside its bound, the plain twin and ``F.embedding``."""
+    from repro_torch.kernels.mars_gather import mars_gather as mg_mod
+    results, timing = [], {}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=gen.device)
+    for tname, (V, D) in GATHER_TABLES.items():
+        table = torch.randn(V, D, generator=gen, device=gen.device) \
+            .to(torch.bfloat16)
+        for n in GATHER_IDS:
+            for idx in (torch.int32, torch.int64):
+                ids = torch.randint(0, V, (n,), generator=gen,
+                                    device=gen.device).to(idx)
+                sids = ids[torch.argsort(ids >> 2, stable=True)]
+                got = mg_mod.gather_rows(table, sids)
+                torch.cuda.synchronize()
+                want = mg_mod.gather_rows_plain(table, sids)
+                ok = bool(torch.equal(got.view(torch.int16),
+                                      want.view(torch.int16)))
+                iname = str(idx).split(".")[-1]
+                print(f"[kernel] gather_rows {tname} table {V}x{D} bf16, "
+                      f"{n} {iname} ids: "
+                      f"{'bitwise equal' if ok else 'MISMATCH'}")
+                results.append(dict(table=tname, n=n, idx=iname, ok=ok))
+                if idx is torch.int32:
+                    timing[f"{tname}/{n}"] = time_gather(
+                        torch, F, mg_mod, table, sids, flush)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"gather_rows disagrees with its plain twin: "
+                             f"{bad}")
+    return results, timing
+
+
+def time_gather(torch, F, mg_mod, table, sids, flush) -> dict:
+    """Kernel, plain twin and ``F.embedding`` on the same ids, each with
+    a cold L2 (``cold_ms``: a serve step gathers rows the card has not
+    read lately; repeated calls on the same ids would find them in L2)
+    and, as ``warm_*``, repeated under the profiler; the bound is the
+    rows read and written plus the ids over the memory rate (no
+    arithmetic)."""
+    n, D = sids.shape[0], table.shape[1]
+    bytes_moved = 2 * n * D * table.element_size() \
+        + n * sids.element_size()
+
+    def kern():
+        mg_mod.gather_rows(table, sids)
+
+    def plain():
+        mg_mod.gather_rows_plain(table, sids)
+
+    def lib():
+        F.embedding(sids, table)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return dict(ms=cold_ms(torch, kern, 30, flush),
+                plain_ms=cold_ms(torch, plain, 30, flush),
+                library_ms=cold_ms(torch, lib, 30, flush),
+                warm_ms=device_ms(kern, 50), warm_plain_ms=device_ms(plain, 50),
+                warm_library_ms=device_ms(lib, 50),
+                event_ms=time_ms(kern, 50), plain_event_ms=time_ms(plain, 50),
+                library_event_ms=time_ms(lib, 50), bound_ms=t_bytes,
+                bound_by="bytes", bytes=bytes_moved, ops=0)
+
+
+def serve_phase(torch, serve, arch: str, flags=()):
+    """One full-width serve run with every launch count set to 0 just
+    before it; checks the served tokens and that each kernel of the path
+    launched as often as the run's counts say."""
+    from repro_torch.kernels.mars_gather import mars_gather as mg_mod
+    from repro_torch.kernels.paged_attention import paged_attention as pa_mod
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
+    wrappers = {"paged_attention": pa_mod.paged_attention,
+                "ssd_scan": ssd_mod.ssd_scan,
+                "gather_rows": mg_mod.gather_rows}
+    for w in wrappers.values():
+        w.launches = 0
+    out = serve.main(serve_args(arch, flags))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    name = run_name(arch, flags)
+    cfg = serve.configs.get(arch)
+    L = cfg.n_layers
+    prefills = out["prefills"] + out["parity_checked"]
+    embeds = prefills + out["decode_steps"] + out["parity_decode_steps"]
+    want = {"paged_attention": L * out["decode_steps"]
+            if out["decode"] == "kernel" else 0,
+            "ssd_scan": L * prefills if cfg.has_ssm else 0,
+            "gather_rows": embeds if cfg.vocab * cfg.d_model >= 1 << 22
+            else 0}
+    print(f"[serve {name}] served={out['served']} decode_tokens="
+          f"{out['decode_tokens']} engine_steps={out['steps']} "
+          f"prefills={out['prefills']} decode_steps={out['decode_steps']} "
+          f"parity prefills={out['parity_checked']} parity decode steps="
+          f"{out['parity_decode_steps']} wall={out['wall_s']:.3f}s "
+          f"tokens/s={out['decode_tokens'] / out['wall_s']:.1f} "
+          f"parity_mismatches={out['parity_mismatches']} largest deficit "
+          f"{out['parity_max_deficit']:.5g}")
+    print(f"[serve {name}] launches: " + ", ".join(
+        f"{k} {launches[k]} (want {want[k]})" for k in wrappers))
+    if out["served"] != 16 or out["parity_mismatches"]:
+        raise AssertionError(f"{name}: {out['served']} served, "
+                             f"{out['parity_mismatches']} parity mismatches")
+    if launches != want or not all(
+            launches[k] > 0 for k in want if want[k]):
+        raise AssertionError(f"{name}: kernel launches {launches} on the "
+                             f"main path, want {want}")
+    bad = [t for toks in out["finished"].values() for seq in toks
+           for t in seq if not 0 <= t < cfg.vocab]
+    if bad or any(len(seq) != 8 for toks in out["finished"].values()
+                  for seq in toks):
+        raise AssertionError(f"{name}: served tokens out of range or of the "
+                             f"wrong count")
+    return out, launches
 
 
 def profile_serve(torch, serve, args) -> dict:
@@ -269,12 +558,13 @@ def profile_serve(torch, serve, args) -> dict:
     for r in rows:
         n = r["name"].lower()
         b = ("paged_attention" if "paged_attention" in n else
+             "ssd_scan" if "ssd_scan_kernel" in n else
+             "gather_rows" if "gather_rows_kernel" in n else
              "memcpy" if "memcpy" in n or "memset" in n else
              "gemm" if any(k in n for k in ("gemm", "nvjet", "cutlass",
                                             "xmma", "cublas")) else
              "other")
         buckets[b] = buckets.get(b, 0.0) + r["ms"]
-    pa = [r for r in rows if "paged_attention" in r["name"]]
     dev_ms = sum(r["ms"] for r in rows)
     host = sorted(({"name": e.key, "ms": e.self_cpu_time_total / 1e3,
                     "calls": e.count} for e in prof.key_averages()
@@ -285,10 +575,40 @@ def profile_serve(torch, serve, args) -> dict:
                 warm_decode_steps=warm["decode_steps"],
                 wall_s=wall, device_ms=dev_ms,
                 busy_share=dev_ms / 1e3 / wall,
-                paged_attention_ms=sum(r["ms"] for r in pa),
-                paged_attention_calls=sum(r["calls"] for r in pa),
+                kernel_calls={k: sum(r["calls"] for r in rows
+                                     if key in r["name"])
+                              for k, key in KERNEL_NAMES.items()},
                 by_kind_ms=buckets, top=rows[:12],
                 host_ms=sum(r["ms"] for r in host), host_top=host[:12])
+
+
+# the port's kernels as their device-side names show in a profile
+KERNEL_NAMES = {"paged_attention": "paged_attention_kernel",
+                "ssd_scan": "ssd_scan_kernel",
+                "gather_rows": "gather_rows_kernel"}
+
+
+def print_profile(arch: str, prof: dict) -> None:
+    tag = f"[profile {arch}]"
+    print(f"{tag} warm serve: engine wall {prof['warm_engine_wall_s']:.3f}"
+          f"s for {prof['warm_decode_tokens']} decode tokens "
+          f"({prof['warm_decode_tokens'] / prof['warm_engine_wall_s']:.1f} "
+          f"tokens/s, {prof['warm_decode_steps']} decode steps)")
+    print(f"{tag} warm serve under torch.profiler: wall "
+          f"{prof['wall_s']:.3f}s, device kernel time "
+          f"{prof['device_ms']:.1f} ms (busy share "
+          f"{prof['busy_share']:.3f}); port kernel launches "
+          + ", ".join(f"{k} {v}" for k, v in prof["kernel_calls"].items()))
+    print(f"{tag}   device ms by kind: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(prof["by_kind_ms"].items())))
+    for row in prof["top"]:
+        print(f"{tag}   {row['ms']:9.3f} ms {row['calls']:6d}x "
+              f"{row['name'][:90]}")
+    print(f"{tag} host self time of profiled ops {prof['host_ms']:.1f} ms; "
+          f"longest:")
+    for row in prof["host_top"]:
+        print(f"{tag}   {row['ms']:9.3f} ms {row['calls']:6d}x "
+              f"{row['name'][:90]}")
 
 
 def main() -> int:
@@ -301,103 +621,102 @@ def main() -> int:
         return fail("torch.cuda.is_available() is False: no GPU to run on")
     try:
         from repro_torch.kernels import build
-        from repro_torch.kernels.paged_attention import \
-            paged_attention as pa_mod
         from repro_torch.launch import serve
     except ImportError as e:
         return fail(f"cannot import the port ({e}); run from a checkout")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     OUT_DIR.mkdir(exist_ok=True)
+    t_start = time.perf_counter()
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
     print(f"[build] {len(logs)} kernel source(s) in {build_s:.1f}s "
-          f"(nvcc sm_90a)")
+          f"(nvcc sm_90a, one process each, started together)")
     for name, log in logs.items():
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[build] {name}: {ln.strip()}")
 
-    # -- kernel vs plain twin ------------------------------------------------
+    # -- kernels vs plain twins ----------------------------------------------
     gen = torch.Generator("cuda").manual_seed(0)
     results, max_err, timed = kernel_phase(torch, gen)
     timing = {f"{name}/{dt}": time_case(torch, F, ops, dt)
               for (name, dt), ops in timed.items()}
     for case, t in timing.items():
-        print(f"[kernel] {case}: device ms per call: kernel {t['ms']:.4f}, "
-              f"bound {t['bound_ms']:.4f} ({t['bound_by']}; {t['bytes']} B,"
-              f" {t['ops']} ops, {t['valid_positions']} valid positions), "
-              f"plain twin {t['plain_ms']:.4f}, SDPA over pre-gathered keys"
-              f" (gather excluded) {t['library_ms']:.4f}; event ms per "
-              f"call with host launch: {t['event_ms']:.4f} / "
+        print(f"[kernel] paged_attention {case}: device ms per call: kernel "
+              f"{t['ms']:.4f}, bound {t['bound_ms']:.5f} ({t['bound_by']}; "
+              f"{t['bytes']} B, {t['ops']} ops, {t['valid_positions']} valid "
+              f"positions), plain twin {t['plain_ms']:.4f}, SDPA over "
+              f"pre-gathered keys (gather excluded) {t['library_ms']:.4f}; "
+              f"event ms per call with host launch: {t['event_ms']:.4f} / "
               f"{t['plain_event_ms']:.4f} / {t['library_event_ms']:.4f}")
+    ssd_results, ssd_err, ssd_timing = ssd_phase(torch, F, gen)
+    for case, t in ssd_timing.items():
+        print(f"[kernel] ssd_scan {case}: device ms per call: kernel "
+              f"{t['ms']:.4f}, bound {t['bound_ms']:.5f} ({t['bound_by']}; "
+              f"{t['bytes']} B, {t['ops']} ops), plain twin "
+              f"{t['plain_ms']:.4f}, no PyTorch library call computes the "
+              f"scan; event ms per call with host launch: "
+              f"{t['event_ms']:.4f} / {t['plain_event_ms']:.4f}")
+    gather_results, gather_timing = gather_phase(torch, F, gen)
+    for case, t in gather_timing.items():
+        print(f"[kernel] gather_rows {case} ids: device ms per call, cold "
+              f"L2: kernel {t['ms']:.5f}, bound {t['bound_ms']:.5f} (bytes; "
+              f"{t['bytes']} B), plain twin {t['plain_ms']:.5f}, "
+              f"F.embedding {t['library_ms']:.5f}; warm L2: "
+              f"{t['warm_ms']:.5f} / {t['warm_plain_ms']:.5f} / "
+              f"{t['warm_library_ms']:.5f}; event ms per call with host "
+              f"launch: {t['event_ms']:.4f} / {t['plain_event_ms']:.4f} / "
+              f"{t['library_event_ms']:.4f}")
+    kernels_s = time.perf_counter() - t_start
 
-    # -- serve at full width -------------------------------------------------
-    pa_mod.paged_attention.launches = 0
-    out = serve.main(SERVE_ARGS)
-    launches = pa_mod.paged_attention.launches
-    cfg = serve.configs.get("qwen1_5_0_5b")
-    want = cfg.n_layers * out["decode_steps"]
-    print(f"[serve] served={out['served']} decode_tokens="
-          f"{out['decode_tokens']} engine_steps={out['steps']} "
-          f"decode_steps={out['decode_steps']} wall={out['wall_s']:.3f}s "
-          f"tokens/s={out['decode_tokens'] / out['wall_s']:.1f} "
-          f"paged_attention launches={launches} (want {want}) "
-          f"parity_mismatches={out['parity_mismatches']}")
-    if out["served"] != 16 or out["parity_mismatches"]:
-        return fail(f"serve phase: {out['served']} served, "
-                    f"{out['parity_mismatches']} parity mismatches")
-    if launches == 0 or launches != want:
-        return fail(f"paged_attention launched {launches} times on the "
-                    f"main path, want {want}")
-    bad = [t for toks in out["finished"].values() for seq in toks
-           for t in seq if not 0 <= t < cfg.vocab]
-    if bad or any(len(seq) != 8 for toks in out["finished"].values()
-                  for seq in toks):
-        return fail("served tokens out of range or of the wrong count")
-
-    prof = profile_serve(torch, serve, SERVE_ARGS)
-    print(f"[profile] warm serve: engine wall {prof['warm_engine_wall_s']:.3f}"
-          f"s for {prof['warm_decode_tokens']} decode tokens "
-          f"({prof['warm_decode_tokens'] / prof['warm_engine_wall_s']:.1f} "
-          f"tokens/s, {prof['warm_decode_steps']} decode steps)")
-    print(f"[profile] warm serve under torch.profiler: wall "
-          f"{prof['wall_s']:.3f}s, device kernel time "
-          f"{prof['device_ms']:.1f} ms (busy share "
-          f"{prof['busy_share']:.3f}), paged_attention "
-          f"{prof['paged_attention_ms']:.2f} ms over "
-          f"{prof['paged_attention_calls']} launches")
-    print(f"[profile]   device ms by kind: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in sorted(prof["by_kind_ms"].items())))
-    for row in prof["top"]:
-        print(f"[profile]   {row['ms']:9.3f} ms {row['calls']:6d}x "
-              f"{row['name'][:90]}")
-    print(f"[profile] host self time of profiled ops "
-          f"{prof['host_ms']:.1f} ms; longest:")
-    for row in prof["host_top"]:
-        print(f"[profile]   {row['ms']:9.3f} ms {row['calls']:6d}x "
-              f"{row['name'][:90]}")
+    # -- serve at full width, then profile it warm ---------------------------
+    served, launches, profiles = {}, {}, {}
+    for arch, flags in RUNS:
+        name = run_name(arch, flags)
+        out, launches[name] = serve_phase(torch, serve, arch, flags)
+        served[name] = {k: v for k, v in out.items() if k != "finished"}
+        if not flags:
+            profiles[name] = profile_serve(torch, serve, serve_args(arch))
+            print_profile(name, profiles[name])
+    total_s = time.perf_counter() - t_start
+    print(f"[time] build {build_s:.1f}s, build + kernel phases "
+          f"{kernels_s:.1f}s, whole run {total_s:.1f}s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
-    t = timing["long/bfloat16"]
-    kernels = [dict(name="paged_attention", route="cuda",
-                    source="src/repro_torch/csrc/paged_attention.cu",
-                    replaces="src/repro/kernels/paged_attention/"
-                             "paged_attention.py:57",
-                    launches=launches, max_abs_err=max_err, ms=t["ms"],
-                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                    bound_by=t["bound_by"], library_ms=t["library_ms"])]
+    path = "hymba_1_5b"          # this slice's path; both in launches_by_path
+
+    def row(name, source, replaces, err, t):
+        return dict(name=name, route="cuda",
+                    source=f"src/repro_torch/csrc/{source}",
+                    replaces=f"src/repro/kernels/{replaces}",
+                    launches=launches[path][name],
+                    launches_by_path={r: n[name] for r, n in launches.items()},
+                    max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"])
+    kernels = [
+        row("paged_attention", "paged_attention.cu",
+            "paged_attention/paged_attention.py:57", max_err,
+            timing["long/bfloat16"]),
+        row("ssd_scan", "ssd_scan.cu", "ssd_scan/ssd_scan.py:21", ssd_err,
+            ssd_timing["long/bfloat16"]),
+        row("gather_rows", "mars_gather.cu", "mars_gather/mars_gather.py:25",
+            0.0, gather_timing[f"hymba/{GATHER_IDS[-1]}"]),
+    ]
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        device=smi, build_s=build_s, cases=results, timing=timing,
-        serve={k: v for k, v in out.items() if k != "finished"},
-        launches=launches, profile=prof), indent=1))
+        device=smi, build_s=build_s, kernels_s=kernels_s, total_s=total_s,
+        cases=results, timing=timing, ssd_cases=ssd_results,
+        ssd_timing=ssd_timing, gather_cases=gather_results,
+        gather_timing=gather_timing, serve=served, launches=launches,
+        profile=profiles), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

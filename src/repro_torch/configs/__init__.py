@@ -1,14 +1,16 @@
 """Architecture registry: ``get(name)`` -> full ModelConfig,
 ``get_smoke(name)`` -> reduced same-family config for CPU tests.
 
-Lists only the architectures the port can serve today (dense GQA); the
-reference's other nine wait for their slices (see ROADMAP.md)."""
+Lists only the architectures the port can serve today (dense GQA and the
+hybrid attention + SSM family); the reference's other eight wait for
+their slices (see ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = (
     "qwen1_5_0_5b",
+    "hymba_1_5b",
 )
 
 # CLI ids (--arch) map dashes to underscores

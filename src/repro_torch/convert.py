@@ -6,7 +6,8 @@ arrays — e.g. the reference's ``lm.init(cfg, key).params`` after
 layouts, and returns the port's tree (``layers.as_module``) on
 ``device``.  bfloat16 leaves (numpy dtype name "bfloat16", from
 ``ml_dtypes``) cross as raw 16-bit patterns, so no ``ml_dtypes`` import
-is needed here.
+is needed here.  Every leaf keeps its own dtype: a hybrid model's SSM
+``a_log``, ``dt_bias`` and ``d_skip`` stay float32 in a bfloat16 tree.
 """
 from __future__ import annotations
 

@@ -1,2 +1,3 @@
-"""MARS-sorted embedding gather (plain tensor code; the Pallas kernel
-K2 is not ported yet)."""
+"""MARS-sorted embedding gather: the row-gather kernel's wrapper and
+plain twin (``mars_gather.py``), the op (``ops.py``) and its oracle
+(``ref.py``)."""

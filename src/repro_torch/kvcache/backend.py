@@ -1,5 +1,6 @@
 """Unified KV-backend API: dense and paged serving caches, one interface
-(port of ``repro/kvcache/backend.py``, single device, dense family).
+(port of ``repro/kvcache/backend.py``, single device, dense and hybrid
+families).
 
 The model (``models.lm``) speaks to its KV storage only through
 ``KVBackend``: ``prefill`` runs a prompt batch and stores every layer's
@@ -10,7 +11,9 @@ K/V, ``decode_step`` advances every lane one token.  Two implementations:
                  (one block id addresses a token-chunk's KV for every
                  layer), ragged continuous-batching decode, prefix
                  sharing and copy-on-write forks — what ``serve.engine``
-                 drives.
+                 drives.  A hybrid model's per-sequence SSM state and
+                 conv context live beside the block tables, as tensors
+                 on the backend's device.
 
 Decode through the paged backend has two modes (``decode_mode``):
 
@@ -226,10 +229,12 @@ class DenseBackend:
 # ---------------------------------------------------------------------------
 
 def _paged_decode_gather(params, cfg, tokens, k_pages, v_pages, page_tables,
-                         lengths):
+                         lengths, ssm=None, conv=None):
     """Gather each lane's pages into a dense per-layer view, run the ragged
     dense decode step, and extract the new token's K/V for write-back.
-    Returns (logits, k_new (L, B, 1, K, dh), v_new)."""
+    ssm/conv: hybrid side state (L, B, H, P, N) / (L, B, k-1, ch), or
+    None.  Returns (logits, k_new (L, B, 1, K, dh), v_new, ssm_new,
+    conv_new)."""
     from repro_torch.models import lm
     L = k_pages.shape[0]
     K, dh = k_pages.shape[-2:]
@@ -238,11 +243,15 @@ def _paged_decode_gather(params, cfg, tokens, k_pages, v_pages, page_tables,
     k = k_pages[:, idx].reshape(L, B, -1, K, dh)
     v = v_pages[:, idx].reshape(L, B, -1, K, dh)
     logits, new = lm.dense_decode_step(params, cfg, tokens,
-                                       lm.Cache(k, v, lengths))
+                                       lm.Cache(k, v, lengths, ssm, conv))
     rows = torch.arange(B, device=k.device)
     pos = lengths.long()
-    return logits, new.k[:, rows, pos][:, :, None], \
-        new.v[:, rows, pos][:, :, None]
+    return (logits, new.k[:, rows, pos][:, :, None],
+            new.v[:, rows, pos][:, :, None], new.ssm, new.conv)
+
+
+def _clone(t):
+    return None if t is None else t.clone()
 
 
 @dataclasses.dataclass
@@ -250,6 +259,12 @@ class _PagedSeq:
     sid: int
     table: BlockTable
     tokens: list            # tokens whose KV is cached
+    # hybrid side state the pool cannot hold: the SSM recurrent state
+    # (L, H, P, N) float32 and the conv trailing context (L, k-1, ch), on
+    # the backend's device (no host round trip per step), cloned on
+    # fork and pause, freed with the sequence
+    ssm: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None
 
 
 class PagedBackend:
@@ -273,7 +288,7 @@ class PagedBackend:
         ``num_blocks``/``block_size`` matching the model config).
 
         Args:
-          cfg: a dense-family model config.
+          cfg: a dense- or hybrid-family model config.
           pool: existing layered ``BlockPool`` to share; its KV buffer
             shape must match ``cfg``.
           placement/eviction: pool policies when building a fresh pool.
@@ -284,7 +299,7 @@ class PagedBackend:
             device pins the pool's host buffers.
         """
         from repro_torch.models import lm
-        lm._check_family(cfg)
+        lm._check_family(cfg)       # dense, or hybrid (KV + SSM side state)
         if decode_mode not in ("kernel", "gather"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         self.decode_mode = decode_mode
@@ -408,6 +423,7 @@ class PagedBackend:
         kvd = self.cfg.kvdtype
         k_all = parts["k"].to(kvd).cpu()     # (L, B, S, K, dh)
         v_all = parts["v"].to(kvd).cpu()
+        ssm_all, conv_all = parts["ssm"], parts["conv"]   # None if dense
         sids, shared = [], []
         for b in range(B):
             prompt = [int(t) for t in tokens[b]]
@@ -429,7 +445,11 @@ class PagedBackend:
                 raise
             sid = self._next_sid
             self._next_sid += 1
-            self._seqs[sid] = _PagedSeq(sid, table, list(prompt))
+            seq = _PagedSeq(sid, table, list(prompt))
+            if ssm_all is not None:
+                seq.ssm = ssm_all[:, b].clone()
+                seq.conv = conv_all[:, b].clone()
+            self._seqs[sid] = seq
             if on_alloc is not None:
                 on_alloc(sid, self.pool.stats.allocs - allocs0)
             sids.append(sid)
@@ -437,23 +457,27 @@ class PagedBackend:
         return logits[:, 0].float().cpu().numpy(), sids, shared
 
     def fork_seq(self, sid: int) -> int:
-        """Fork a sequence, sharing every block (CoW on first append).
-        Flushes first: the fork's CoW bookkeeping must see committed KV."""
+        """Fork a sequence, sharing every block (CoW on first append); the
+        hybrid side state is cloned — it advances every step.  Flushes
+        first: the fork's CoW bookkeeping (and its side state) must see
+        the committed step."""
         self._check_released()
         self.flush()
         src = self._seqs[sid]
         nsid = self._next_sid
         self._next_sid += 1
         self._seqs[nsid] = _PagedSeq(nsid, src.table.fork(self.pool),
-                                     list(src.tokens))
+                                     list(src.tokens), ssm=_clone(src.ssm),
+                                     conv=_clone(src.conv))
         return nsid
 
     # -- decode preemption (pause -> resume) ---------------------------------
 
     def pause_seq(self, sid: int) -> dict:
         """Preempt a live decode: flush first, capture the sequence's
-        decode state host-side (cached tokens, every block's KV payload +
-        content tag), then release its blocks (registered prefix blocks
+        decode state (cached tokens, every block's KV payload + content
+        tag host-side, a copy of the hybrid side state on the device),
+        then release its blocks (registered prefix blocks
         stay as evictable cache).  Returns the record ``resume_seq``
         restores from, bitwise."""
         self._check_released()
@@ -466,7 +490,8 @@ class PagedBackend:
                   for bid in seq.table.blocks]
         rec = {"tokens": list(seq.tokens),
                "num_tokens": seq.table.num_tokens,
-               "blocks": blocks}
+               "blocks": blocks,
+               "ssm": _clone(seq.ssm), "conv": _clone(seq.conv)}
         self.prefix.release(seq.table, pool)
         return rec
 
@@ -510,7 +535,8 @@ class PagedBackend:
         sid = self._next_sid
         self._next_sid += 1
         self._seqs[sid] = _PagedSeq(
-            sid, BlockTable(list(bids) + list(fresh), num), tokens)
+            sid, BlockTable(list(bids) + list(fresh), num), tokens,
+            ssm=_clone(rec["ssm"]), conv=_clone(rec["conv"]))
         if on_alloc is not None:
             on_alloc(sid, pool.stats.allocs - allocs0)
         return sid
@@ -572,18 +598,26 @@ class PagedBackend:
         pt_d = torch.from_numpy(pt).to(dev)
         len_d = torch.from_numpy(lengths).to(dev)
         toks_d = torch.from_numpy(toks).to(dev)
+        ssm = conv = None
+        if self.cfg.has_ssm:
+            # batch the per-sequence side state along a lane axis; padded
+            # lanes get zeros (their outputs are dropped at commit)
+            ssm = _lanes([s.ssm for s in seqs], toks.shape[0])
+            conv = _lanes([s.conv for s in seqs], toks.shape[0])
         if self.decode_mode == "kernel":
-            logits, k_new, v_new = lm.paged_decode_step(
-                params, self.cfg, toks_d, kp, vp, pt_d, len_d)
+            logits, k_new, v_new, ssm_new, conv_new = lm.paged_decode_step(
+                params, self.cfg, toks_d, kp, vp, pt_d, len_d,
+                ssm_state=ssm, conv_state=conv)
         else:
-            logits, k_new, v_new = _paged_decode_gather(
-                params, self.cfg, toks_d, kp, vp, pt_d, len_d)
+            logits, k_new, v_new, ssm_new, conv_new = _paged_decode_gather(
+                params, self.cfg, toks_d, kp, vp, pt_d, len_d, ssm, conv)
         step = DecodeStep(index=self._steps, sids=list(sids),
                           tokens=[int(t) for t in tokens],
                           staged=self.staged_blocks_last_step,
                           batch_api=batch_api, seqs=seqs,
                           on_alloc=on_alloc)
-        step.dev.update(logits=logits, k=k_new, v=v_new)
+        step.dev.update(logits=logits, k=k_new, v=v_new, ssm=ssm_new,
+                        conv=conv_new)
         self._steps += 1
         self._inflight = step
         return step
@@ -635,8 +669,9 @@ class PagedBackend:
 
     def _commit_pending(self) -> None:
         """The deferred write-back: wait for the step's K/V copy, append
-        it to each lane's block table (CoW on shared tails), fire
-        ``on_alloc``.  Cannot fail: capacity was prechecked at dispatch
+        it to each lane's block table (CoW on shared tails), advance each
+        lane's hybrid side state (a view of the step's device output),
+        fire ``on_alloc``.  Cannot fail: capacity was prechecked at dispatch
         and every alloc/refcount path since has flushed first."""
         step = self._pending
         if step is None:
@@ -647,6 +682,8 @@ class PagedBackend:
             ev.synchronize()
         k_new = step.dev.pop("k")   # (L, Bp, 1, K, dh), on the host
         v_new = step.dev.pop("v")
+        ssm_new = step.dev.pop("ssm")           # (L, Bp, H, P, N) or None
+        conv_new = step.dev.pop("conv")
         for i, (s, tok) in enumerate(zip(step.seqs, step.tokens)):
             allocs0 = self.pool.stats.allocs
             new_tokens = s.tokens + [int(tok)]
@@ -655,6 +692,8 @@ class PagedBackend:
                 cache=self.prefix if self.share_prefixes else None,
                 kv=(k_new[:, i], v_new[:, i]))
             s.tokens = new_tokens     # commit only after the extend
+            if ssm_new is not None:
+                s.ssm, s.conv = ssm_new[:, i], conv_new[:, i]
             if step.on_alloc is not None:
                 step.on_alloc(s.sid, self.pool.stats.allocs - allocs0)
         step.committed = True
@@ -729,6 +768,17 @@ class PagedBackend:
         self._slot_dirty = [set(), set()]
         self._slot, self._staged_slot = 0, None
         self._released = True
+
+
+def _lanes(states: list, n_lanes: int) -> torch.Tensor:
+    """Per-sequence (L, ...) side states -> one (L, n_lanes, ...) batch,
+    zero-padded past ``len(states)``."""
+    out = torch.stack(states, dim=1)
+    pad = n_lanes - len(states)
+    if pad:
+        out = torch.cat([out, out.new_zeros(
+            (out.shape[0], pad) + tuple(out.shape[2:]))], dim=1)
+    return out
 
 
 def make_backend(cfg: ModelConfig, kind: str = "dense", *,

@@ -2,7 +2,8 @@
 
 Same fields and defaults as the reference ``ModelConfig`` so a config
 built here describes the same model; the dtype properties return torch
-dtypes.  The port serves the dense family only (see ``configs``).
+dtypes.  The port serves the dense and hybrid families (see
+``configs``).
 """
 from __future__ import annotations
 
@@ -76,6 +77,10 @@ class ModelConfig:
     @property
     def d_head(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def d_inner_ssm(self) -> int:
+        return self.ssm_expand * self.d_model
 
     @property
     def has_attention(self) -> bool:

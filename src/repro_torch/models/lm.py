@@ -1,4 +1,4 @@
-"""Causal LM, dense family (port of ``repro/models/lm.py``).
+"""Causal LM, dense and hybrid families (port of ``repro/models/lm.py``).
 
 One parameter tree, a Python loop over the stacked layer axis (the
 reference's ``lax.scan``), four entry points:
@@ -10,8 +10,10 @@ reference's ``lax.scan``), four entry points:
                            the block pool through ``paged_attention``
                            (the PagedBackend's kernel decode path)
 
-Only the dense family is ported; the other families raise
-``NotImplementedError`` (ROADMAP.md queues them).
+Families ported: dense, and hybrid (hymba: parallel attention and Mamba2
+heads per layer, mean-combined; the SSM carries a per-sequence
+recurrent state and conv context beside the KV cache).  The other
+families raise ``NotImplementedError`` (ROADMAP.md queues them).
 """
 from __future__ import annotations
 
@@ -21,14 +23,16 @@ from typing import Any
 import torch
 
 from repro_torch.models import layers
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.is_moe or cfg.enc_layers:
+    if cfg.family not in ("dense", "hybrid") or cfg.is_moe \
+            or cfg.enc_layers:
         raise NotImplementedError(
-            f"the torch port serves the dense family only (got "
-            f"{cfg.family!r}); see ROADMAP.md for the other families")
+            f"the torch port serves the dense and hybrid families only "
+            f"(got {cfg.family!r}); see ROADMAP.md for the other families")
 
 
 # ---------------------------------------------------------------------------
@@ -44,6 +48,9 @@ def init(cfg: ModelConfig, gen: torch.Generator):
     L = cfg.n_layers
     blocks = {"ln1": layers.norm_init(cfg, gen.device, L),
               "attn": layers.attention_init(gen, cfg, L)}
+    if cfg.has_ssm:
+        blocks["ln_ssm"] = layers.norm_init(cfg, gen.device, L)
+        blocks["ssm"] = ssm_mod.ssm_init(gen, cfg, L)
     if cfg.d_ff:
         blocks["ln2"] = layers.norm_init(cfg, gen.device, L)
         blocks["mlp"] = layers.mlp_init(gen, cfg, L)
@@ -64,10 +71,13 @@ def _layer(stacked, i: int) -> dict:
 
 
 def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
-                 cache_pos=None, is_global=None, paged=None):
-    """One dense transformer block.  Returns (x, new_kv).  ``paged``
-    routes decode attention through ``paged_attention`` (KV read straight
-    from the pool's layered page buffers)."""
+                 cache_pos=None, ssm_state=None, is_global=None, paged=None):
+    """One transformer block.  Returns (x, new_kv, new_ssm) — new_ssm is
+    the SSM branch's ``(state, conv_state)`` for a hybrid block, else
+    None.  ``paged`` routes decode attention through ``paged_attention``
+    (KV read straight from the pool's layered page buffers);
+    ``ssm_state`` ``(state, conv_state)`` switches the SSM branch to its
+    one-token recurrence."""
     h = layers.apply_norm(bp["ln1"], x, cfg)
     if paged is not None:
         attn_out, new_kv = layers.paged_attention_apply(
@@ -82,29 +92,41 @@ def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
         attn_out, new_kv = layers.attention_apply(
             bp["attn"], h, cfg, positions=positions, mask=mask,
             kv_cache=kv, cache_positions=cache_pos)
-    x = x + attn_out
+    new_ssm = None
+    if cfg.has_ssm:
+        hs = layers.apply_norm(bp["ln_ssm"], x, cfg)
+        st, cs = ssm_state if ssm_state is not None else (None, None)
+        ssm_out, new_ssm = ssm_mod.ssm_apply(bp["ssm"], hs, cfg, state=st,
+                                             conv_state=cs,
+                                             return_state=True)
+        # hymba: parallel heads, mean-combined
+        x = x + 0.5 * (attn_out + ssm_out)
+    else:
+        x = x + attn_out
     if "mlp" in bp:
         h = layers.apply_norm(bp["ln2"], x, cfg)
         x = x + layers.mlp_apply(bp["mlp"], h, cfg)
-    return x, new_kv
+    return x, new_kv, new_ssm
 
 
 def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
                  layer_offset: int, n: int, kv=None, cache_pos=None,
-                 paged=None):
+                 ssm_states=None, paged=None):
     """Loop over stacked block params (+ optional per-layer caches).
 
     ``paged``: kernel-path decode operands (pool page buffers + table +
     lengths); the absolute layer index selects each iteration's plane of
-    the layered pool through one shared table.  Returns (x, [(k, v) per
-    layer])."""
+    the layered pool through one shared table.  ``ssm_states``: the
+    hybrid side state ``(ssm (L, B, H, P, N), conv (L, B, k-1, ch))``
+    for decode.  Returns (x, [(k, v) per layer], [(ssm, conv) per layer,
+    or None per layer for a dense model])."""
     glob = None
     if cfg.sliding_window:
         # per-layer global/window flag: global layers attend the whole
         # cache, the rest apply the sliding window
         glob = [(li % cfg.global_every == 0) if cfg.global_every else False
                 for li in range(layer_offset, layer_offset + n)]
-    ys = []
+    ys, ss = [], []
     for i in range(n):
         paged_l = None
         if paged is not None:
@@ -112,16 +134,27 @@ def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
             if cfg.sliding_window:
                 paged_l["window"] = 0 if glob[i] else cfg.sliding_window
         kv_i = None if kv is None else (kv[0][i], kv[1][i])
-        x, new_kv = _block_apply(
+        ssm_i = None if ssm_states is None else (ssm_states[0][i],
+                                                 ssm_states[1][i])
+        x, new_kv, new_ssm = _block_apply(
             _layer(stacked, i), x, cfg, masks=masks, positions=positions,
-            kv=kv_i, cache_pos=cache_pos,
+            kv=kv_i, cache_pos=cache_pos, ssm_state=ssm_i,
             is_global=None if glob is None else glob[i], paged=paged_l)
         ys.append(new_kv)
-    return x, ys
+        ss.append(new_ssm)
+    return x, ys, ss
 
 
 def _stack_kv(ys):
     return (torch.stack([k for k, _ in ys]), torch.stack([v for _, v in ys]))
+
+
+def _stack_ssm(ss):
+    """Per-layer (state, conv) -> (ssm (L, B, H, P, N), conv (L, B, k-1,
+    ch)), or (None, None) for a dense model."""
+    if ss[0] is None:
+        return None, None
+    return (torch.stack([s for s, _ in ss]), torch.stack([c for _, c in ss]))
 
 
 # ---------------------------------------------------------------------------
@@ -142,9 +175,10 @@ def forward(params, cfg: ModelConfig, tokens):
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg)
-    x, _ = _scan_blocks(params["blocks"], x, cfg,
-                        masks=_masks(cfg, S, tokens.device),
-                        positions=positions, layer_offset=0, n=cfg.n_layers)
+    x, _, _ = _scan_blocks(params["blocks"], x, cfg,
+                           masks=_masks(cfg, S, tokens.device),
+                           positions=positions, layer_offset=0,
+                           n=cfg.n_layers)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     return layers.lm_head(params["embed"], x, cfg)
 
@@ -156,15 +190,23 @@ class Cache:
     v: Any
     length: Any       # int tensor — tokens already cached; scalar, or (B,)
                       # for ragged (per-sequence) decode
+    ssm: Any = None   # hybrid: (L, B, H, P, N) float32 recurrent state
+    conv: Any = None  # hybrid: (L, B, k-1, d_in + 2N) conv context
 
 
 def init_dense_cache(cfg: ModelConfig, batch: int, max_seq: int,
                      device="cuda") -> Cache:
     L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
     shape = (L, batch, max_seq, K, dh)
+    ssm = conv = None
+    if cfg.has_ssm:
+        ss, cs = ssm_mod.ssm_state_shapes(cfg, batch)
+        ssm = torch.zeros((L,) + ss, dtype=torch.float32, device=device)
+        conv = torch.zeros((L,) + cs, dtype=cfg.kvdtype, device=device)
     return Cache(torch.zeros(shape, dtype=cfg.kvdtype, device=device),
                  torch.zeros(shape, dtype=cfg.kvdtype, device=device),
-                 torch.zeros((), dtype=torch.int32, device=device))
+                 torch.zeros((), dtype=torch.int32, device=device),
+                 ssm, conv)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -180,8 +222,9 @@ def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
 
     tokens: (B, 1) int.  ``cache.length`` may be a scalar (all lanes at
     the same position) or a (B,) vector for ragged decode.  The cache's
-    K/V are written in place (see ``layers.attention_apply``); returns
-    (logits, cache with length + 1)."""
+    K/V are written in place (see ``layers.attention_apply``); a hybrid
+    model's SSM state and conv context advance into new tensors.
+    Returns (logits, cache with length + 1)."""
     _check_family(cfg)
     B = tokens.shape[0]
     pos = torch.as_tensor(cache.length, device=tokens.device)
@@ -196,38 +239,55 @@ def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
     if cfg.sliding_window:
         m = m_causal & (kpos > posv[:, None] - cfg.sliding_window)
     masks = (m[:, None, None, :], m_causal[:, None, None, :])
-    x, ys = _scan_blocks(params["blocks"], x, cfg, masks=masks,
-                         positions=positions, layer_offset=0,
-                         n=cfg.n_layers, kv=(cache.k, cache.v),
-                         cache_pos=posv if ragged else pos)
+    ssm_states = (cache.ssm, cache.conv) if cfg.has_ssm else None
+    x, _, ss = _scan_blocks(params["blocks"], x, cfg, masks=masks,
+                            positions=positions, layer_offset=0,
+                            n=cfg.n_layers, kv=(cache.k, cache.v),
+                            cache_pos=posv if ragged else pos,
+                            ssm_states=ssm_states)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x, cfg)
-    return logits, Cache(cache.k, cache.v, cache.length + 1)
+    ssm, conv = _stack_ssm(ss)
+    return logits, Cache(cache.k, cache.v, cache.length + 1, ssm, conv)
 
 
 def paged_decode_step(params, cfg: ModelConfig, tokens, k_pages, v_pages,
-                      page_tables, lengths):
+                      page_tables, lengths, *, ssm_state=None,
+                      conv_state=None):
     """One-token decode reading cached KV straight from the block pool
     through ``paged_attention`` — no gathered dense view.
 
     tokens: (B, 1) int; k_pages/v_pages: the pool's layered
     (L, P, page, K, dh) buffers; page_tables: (B, n_pages) int32;
-    lengths: (B,) int32 ragged per-lane cached token counts.  Returns
-    (logits (B, 1, V), k_new, v_new) with k_new/v_new (L, B, 1, K, dh) —
-    the in-flight token's per-layer K/V for the caller's write-back.
+    lengths: (B,) int32 ragged per-lane cached token counts.  A hybrid
+    model also takes its side state, ``ssm_state`` (L, B, H, P, N)
+    float32 and ``conv_state`` (L, B, k-1, ch).
+
+    Returns (logits (B, 1, V), k_new, v_new, ssm_new, conv_new) with
+    k_new/v_new (L, B, 1, K, dh) — the in-flight token's per-layer K/V
+    for the caller's write-back — and the advanced side state (None for
+    a dense model).
     """
     _check_family(cfg)
+    ssm_states = None
+    if cfg.has_ssm:
+        if ssm_state is None or conv_state is None:
+            raise ValueError("hybrid paged decode needs ssm_state and "
+                             "conv_state")
+        ssm_states = (ssm_state, conv_state)
     positions = lengths[:, None]
     x = layers.embed_tokens(params["embed"], tokens, cfg)
     paged = dict(k_pages=k_pages, v_pages=v_pages, page_tables=page_tables,
                  lengths=lengths)
-    x, ys = _scan_blocks(params["blocks"], x, cfg, masks=None,
-                         positions=positions, layer_offset=0,
-                         n=cfg.n_layers, paged=paged)
+    x, ys, ss = _scan_blocks(params["blocks"], x, cfg, masks=None,
+                             positions=positions, layer_offset=0,
+                             n=cfg.n_layers, ssm_states=ssm_states,
+                             paged=paged)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x, cfg)
     k_new, v_new = _stack_kv(ys)
-    return logits, k_new, v_new
+    ssm_new, conv_new = _stack_ssm(ss)
+    return logits, k_new, v_new, ssm_new, conv_new
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache):
@@ -241,20 +301,22 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
 
 def prefill_parts(params, cfg: ModelConfig, tokens):
     """Run the prompt, returning last-position logits plus every cacheable
-    part.  Returns (logits (B,1,V), {"k", "v"}: (L, B, S, K, dh)
-    post-RoPE in the compute dtype)."""
+    part.  Returns (logits (B,1,V), parts) with parts "k", "v" (L, B, S,
+    K, dh) post-RoPE in the compute dtype, and "ssm" (L, B, H, P, N)
+    float32 and "conv" (L, B, k-1, ch) — None for a dense model."""
     _check_family(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg)
-    x, ys = _scan_blocks(params["blocks"], x, cfg,
-                         masks=_masks(cfg, S, tokens.device),
-                         positions=positions, layer_offset=0,
-                         n=cfg.n_layers)
+    x, ys, ss = _scan_blocks(params["blocks"], x, cfg,
+                             masks=_masks(cfg, S, tokens.device),
+                             positions=positions, layer_offset=0,
+                             n=cfg.n_layers)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x[:, -1:], cfg)
     k, v = _stack_kv(ys)
-    return logits, {"k": k, "v": v}
+    ssm, conv = _stack_ssm(ss)
+    return logits, {"k": k, "v": v, "ssm": ssm, "conv": conv}
 
 
 def dense_prefill(params, cfg: ModelConfig, tokens, max_seq: int):
@@ -264,6 +326,8 @@ def dense_prefill(params, cfg: ModelConfig, tokens, max_seq: int):
     logits, parts = prefill_parts(params, cfg, tokens)
     cache.k[:, :, :S] = parts["k"].to(cache.k.dtype)
     cache.v[:, :, :S] = parts["v"].to(cache.v.dtype)
+    if cfg.has_ssm:
+        cache.ssm, cache.conv = parts["ssm"], parts["conv"]
     cache.length = torch.tensor(S, dtype=torch.int32, device=tokens.device)
     return logits, cache
 

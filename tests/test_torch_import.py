@@ -17,16 +17,20 @@ PORT = ROOT / "src" / "repro_torch"
 SLICE_MODULES = [
     "repro_torch",
     "repro_torch.configs",
+    "repro_torch.configs.hymba_1_5b",
     "repro_torch.configs.qwen1_5_0_5b",
     "repro_torch.convert",
     "repro_torch.core.reorder",
     "repro_torch.device",
     "repro_torch.kernels.build",
+    "repro_torch.kernels.mars_gather.mars_gather",
     "repro_torch.kernels.mars_gather.ops",
     "repro_torch.kernels.mars_gather.ref",
     "repro_torch.kernels.paged_attention.ops",
     "repro_torch.kernels.paged_attention.paged_attention",
     "repro_torch.kernels.paged_attention.ref",
+    "repro_torch.kernels.ssd_scan.ref",
+    "repro_torch.kernels.ssd_scan.ssd_scan",
     "repro_torch.kvcache",
     "repro_torch.kvcache.backend",
     "repro_torch.kvcache.evict",
@@ -37,6 +41,7 @@ SLICE_MODULES = [
     "repro_torch.models.config",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    "repro_torch.models.ssm",
     "repro_torch.obs",
     "repro_torch.obs.metrics",
     "repro_torch.serve.engine",

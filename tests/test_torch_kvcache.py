@@ -236,3 +236,139 @@ def test_embedding_gather_is_a_plain_take(mode, rows):
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jgather.embedding_gather(
             jnp.asarray(table), jnp.asarray(ids), mode=mode)))
+
+
+# ---------------------------------------------------------------------------
+# hybrid side state (hymba: SSM state and conv context per sequence)
+# ---------------------------------------------------------------------------
+
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+_HYBRID: dict = {}
+
+
+def _hybrid():
+    """(jax cfg, port cfg, jax params, port params): the hymba smoke
+    config at float32 with its window cut to 6 so decode crosses it."""
+    if not _HYBRID:
+        import dataclasses
+        from repro import configs as jconfigs
+        from repro.models import lm as jlm
+        from repro_torch import configs as tconfigs
+        from repro_torch import convert
+        kw = dict(F32, sliding_window=6)
+        jc = dataclasses.replace(jconfigs.get_smoke("hymba_1_5b"), **kw)
+        tc = dataclasses.replace(tconfigs.get_smoke("hymba_1_5b"), **kw)
+        jp = jax.jit(lambda k: jlm.init(jc, k).params)(jax.random.key(0))
+        tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                       "cpu")
+        _HYBRID.update(v=(jc, tc, jp, tp))
+    return _HYBRID["v"]
+
+
+HTOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _same_side_state(jb, tb, sids):
+    for sid in sids:
+        js, ts = jb._seqs[sid], tb._seqs[sid]
+        assert ts.tokens == js.tokens
+        assert ts.table.blocks == js.table.blocks
+        assert ts.ssm.device == tb.device and ts.ssm.dtype == torch.float32
+        assert tuple(ts.ssm.shape) == js.ssm.shape
+        assert tuple(ts.conv.shape) == js.conv.shape
+        np.testing.assert_allclose(ts.ssm.numpy(), js.ssm, **HTOL)
+        np.testing.assert_allclose(ts.conv.float().numpy(),
+                                   np.asarray(js.conv, np.float32), **HTOL)
+
+
+@pytest.mark.parametrize("decode_mode", ["kernel", "gather"])
+def test_hybrid_side_state_matches_jax_backend(decode_mode):
+    """Prefill, decode, fork, pause and resume carry each sequence's SSM
+    state and conv context exactly as the JAX backend does: the same
+    values after every operation, forks and paused records owning their
+    own copies, a resumed sequence continuing from its paused state."""
+    from repro.kvcache.backend import PagedBackend as JPagedBackend
+    from repro_torch.kvcache.backend import PagedBackend as TPagedBackend
+    jc, tc, jp, tp = _hybrid()
+    jb = JPagedBackend(jc, num_blocks=64, block_size=4,
+                       decode_mode=decode_mode)
+    tb = TPagedBackend(tc, num_blocks=64, block_size=4,
+                       decode_mode=decode_mode, device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, tc.vocab, n).tolist() for n in (8, 16)]
+
+    def both(fn_j, fn_t):
+        out_j, out_t = fn_j(jb), fn_t(tb)
+        return out_j, out_t
+
+    def decode(sids, toks):
+        lj, lt = both(lambda b: b.decode(jp, sids, toks),
+                      lambda b: b.decode(tp, sids, toks))
+        np.testing.assert_allclose(lt, lj, **HTOL)
+        _same_side_state(jb, tb, sids)
+
+    sids = []
+    for p in prompts:
+        (sj, lj, nj), (st, lt, nt) = both(lambda b: b.new_seq(jp, p),
+                                          lambda b: b.new_seq(tp, p))
+        assert sj == st and nj == nt
+        np.testing.assert_allclose(lt, lj, **HTOL)
+        sids.append(st)
+    a, b = sids
+    _same_side_state(jb, tb, sids)
+    decode([a, b], [3, 5])
+    fj, ft = both(lambda x: x.fork_seq(a), lambda x: x.fork_seq(a))
+    assert fj == ft
+    f = ft
+    _same_side_state(jb, tb, [a, f])
+    assert tb._seqs[f].ssm is not tb._seqs[a].ssm
+    assert torch.equal(tb._seqs[f].ssm, tb._seqs[a].ssm)
+    decode([a, b, f], [7, 9, 11])            # the fork diverges
+    assert not torch.equal(tb._seqs[f].ssm, tb._seqs[a].ssm)
+    paused_ssm = tb._seqs[b].ssm.clone()
+    rj, rt = both(lambda x: x.pause_seq(b), lambda x: x.pause_seq(b))
+    np.testing.assert_allclose(rt["ssm"].numpy(), rj["ssm"], **HTOL)
+    np.testing.assert_allclose(rt["conv"].numpy(), rj["conv"], **HTOL)
+    decode([a, f], [2, 4])
+    bj, bt = both(lambda x: x.resume_seq(rj), lambda x: x.resume_seq(rt))
+    assert bj == bt
+    assert torch.equal(tb._seqs[bt].ssm, paused_ssm)
+    assert tb._seqs[bt].ssm is not rt["ssm"]
+    _same_side_state(jb, tb, [a, f, bt])
+    decode([a, f, bt], [6, 8, 10])
+    assert torch.equal(rt["ssm"], paused_ssm)    # the record kept its copy
+    for x in (jb, tb):
+        x.release()
+        x.pool.check_invariants()
+    assert tb.pool.num_live == 0
+
+
+@pytest.mark.parametrize("decode_mode", ["kernel", "gather"])
+def test_hybrid_dense_paged_parity(decode_mode):
+    """The port's PagedBackend against its DenseBackend on the hybrid
+    model, batch API: the same logits after the prefill and after each
+    of 7 decode steps past the window (the dense cache holds the side
+    state in ``lm.Cache.ssm``/``conv``)."""
+    from repro_torch.kvcache.backend import make_backend
+    from repro_torch.models import lm as tlm
+    _, tc, _, tp = _hybrid()
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        1, tc.vocab, (2, 8)).astype(np.int32))
+    dense = make_backend(tc, "dense", batch=2, max_seq=24, device="cpu")
+    paged = make_backend(tc, "paged", num_blocks=64, block_size=4,
+                         decode_mode=decode_mode, device="cpu")
+    lg_d, _ = tlm.prefill(tp, tc, toks, backend=dense)
+    lg_p, _ = tlm.prefill(tp, tc, toks, backend=paged)
+    np.testing.assert_allclose(lg_p.numpy(), lg_d.numpy(), **HTOL)
+    tok = lg_d[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for _ in range(7):
+        lg_d, _ = tlm.decode_step(tp, tc, tok, dense)
+        lg_p, _ = tlm.decode_step(tp, tc, tok, paged)
+        np.testing.assert_allclose(lg_p.numpy(), lg_d.numpy(), **HTOL)
+        assert torch.equal(lg_p[:, -1].argmax(-1), lg_d[:, -1].argmax(-1))
+        tok = lg_d[:, -1].argmax(-1).to(torch.int32)[:, None]
+    assert dense.cache.ssm.shape == (tc.n_layers, 2) + tuple(
+        paged._seqs[paged._batch[0]].ssm.shape[1:])
+    paged.release()
+    paged.pool.check_invariants()
+    assert paged.pool.num_live == 0

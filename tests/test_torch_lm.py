@@ -3,10 +3,13 @@
 JAX package's, at float32 with the same weights (the JAX init converted
 through ``repro_torch.convert``) and the same numpy tokens.
 
-Configs: the qwen1.5-0.5b smoke config (MHA, QKV bias, tied embeddings)
-and a GQA variant of it (``n_kv_heads=2``).  Tolerance ``atol=rtol=1e-4``:
-the same float32 arithmetic, with matrix products summed in another
-order by another library."""
+Configs: the qwen1.5-0.5b smoke config (MHA, QKV bias, tied embeddings),
+a GQA variant of it (``n_kv_heads=2``), and the hymba-1.5b smoke config
+(hybrid: parallel attention and Mamba2 heads, a sliding window of 16
+with global layers, SSM chunk 8 — prompts are multiples of 8 there, and
+its SSM state and conv context are compared too).  Tolerance
+``atol=rtol=1e-4``: the same float32 arithmetic, with matrix products
+summed in another order by another library."""
 import dataclasses
 
 import numpy as np
@@ -26,14 +29,25 @@ torch.set_num_threads(1)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 F32 = dict(param_dtype="float32", compute_dtype="float32")
-VARIANTS = {"qwen_smoke": {}, "qwen_smoke_gqa": {"n_kv_heads": 2}}
+VARIANTS = {"qwen_smoke": ("qwen1_5_0_5b", {}),
+            "qwen_smoke_gqa": ("qwen1_5_0_5b", {"n_kv_heads": 2}),
+            "hymba_smoke": ("hymba_1_5b", {})}
 
 
 def _cfgs(variant: str, **extra):
-    kw = dict(VARIANTS[variant], **extra)
-    jc = dataclasses.replace(jconfigs.get_smoke("qwen1_5_0_5b"), **kw)
-    tc = dataclasses.replace(tconfigs.get_smoke("qwen1_5_0_5b"), **kw)
+    arch, kw = VARIANTS[variant]
+    kw = dict(kw, **extra)
+    jc = dataclasses.replace(jconfigs.get_smoke(arch), **kw)
+    tc = dataclasses.replace(tconfigs.get_smoke(arch), **kw)
     return jc, tc
+
+
+def _seq(cfg, n: int) -> int:
+    """A prompt length near ``n`` that the model takes: a hybrid model's
+    SSM scan needs a multiple of its chunk."""
+    if cfg.has_ssm:
+        return -(-n // cfg.ssm_chunk) * cfg.ssm_chunk
+    return n
 
 
 _PARAMS: dict = {}
@@ -45,13 +59,21 @@ def _params(variant: str):
     if variant not in _PARAMS:
         jc, tc = _cfgs(variant, **F32)
         jp = _jax_init(jc, 0)
-        # non-zero QKV biases so the bias path is exercised
+        # non-zero QKV biases, SSM biases and skips so those paths are
+        # exercised
         rng = np.random.default_rng(1)
-        attn = dict(jp["blocks"]["attn"])
-        for b in ("bq", "bk", "bv"):
-            attn[b] = jnp.asarray(
-                0.1 * rng.standard_normal(attn[b].shape), jnp.float32)
-        jp = dict(jp, blocks=dict(jp["blocks"], attn=attn))
+        blocks = dict(jp["blocks"])
+        for sub, names in (("attn", ("bq", "bk", "bv")),
+                           ("ssm", ("conv_b", "conv_b_bc", "dt_bias",
+                                    "d_skip"))):
+            if sub in blocks:
+                leaves = dict(blocks[sub])
+                for b in names:
+                    if b in leaves:
+                        leaves[b] = jnp.asarray(0.1 * rng.standard_normal(
+                            leaves[b].shape) + (b == "d_skip"), jnp.float32)
+                blocks[sub] = leaves
+        jp = dict(jp, blocks=blocks)
         tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
                                        "cpu")
         _PARAMS[variant] = (jc, tc, jp, tp)
@@ -77,23 +99,27 @@ def _close(got, want, tol=TOL):
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_forward_matches_jax(variant):
     jc, tc, jp, tp = _params(variant)
-    toks = _tokens(tc, 2, 12)
+    S = _seq(tc, 12)
+    toks = _tokens(tc, 2, S)
     got = tlm.forward(tp, tc, torch.from_numpy(toks))
     want, _ = jlm.forward(jp, jc, jnp.asarray(toks))
-    assert got.shape == (2, 12, tc.vocab) and got.dtype == torch.float32
+    assert got.shape == (2, S, tc.vocab) and got.dtype == torch.float32
     _close(got, want)
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_prefill_parts_matches_jax(variant):
     jc, tc, jp, tp = _params(variant)
-    toks = _tokens(tc, 2, 9, seed=1)
+    toks = _tokens(tc, 2, _seq(tc, 9), seed=1)
     logits, parts = tlm.prefill_parts(tp, tc, torch.from_numpy(toks))
     jlogits, jparts = jlm.prefill_parts(jp, jc, jnp.asarray(toks))
     _close(logits, jlogits)
-    for name in ("k", "v"):
+    names = ("k", "v", "ssm", "conv") if tc.has_ssm else ("k", "v")
+    for name in names:
         assert tuple(parts[name].shape) == jparts[name].shape
         _close(parts[name], jparts[name])
+    if not tc.has_ssm:
+        assert parts["ssm"] is None and parts["conv"] is None
 
 
 @pytest.mark.parametrize("ragged", [False, True])
@@ -102,8 +128,9 @@ def test_dense_decode_step_matches_jax(variant, ragged):
     """Prefill into a dense cache, then decode two tokens; ``ragged``
     gives each lane its own cache length (the paged gather path)."""
     jc, tc, jp, tp = _params(variant)
-    toks = _tokens(tc, 2, 9, seed=2)
-    S, Smax = 9, 16
+    S = _seq(tc, 9)
+    Smax = S + 7
+    toks = _tokens(tc, 2, S, seed=2)
     jlog, jcache = jlm.dense_prefill(jp, jc, jnp.asarray(toks), Smax)
     tlog, tcache = tlm.dense_prefill(tp, tc, torch.from_numpy(toks), Smax)
     _close(tlog, jlog)
@@ -121,6 +148,9 @@ def test_dense_decode_step_matches_jax(variant, ragged):
         _close(tlog, jlog)
         _close(tcache.k, jcache.k)
         _close(tcache.v, jcache.v)
+        if tc.has_ssm:
+            _close(tcache.ssm, jcache.ssm)
+            _close(tcache.conv, jcache.conv)
         np.testing.assert_array_equal(tcache.length.numpy(),
                                       np.asarray(jcache.length))
 
@@ -146,34 +176,53 @@ def test_paged_decode_step_matches_jax(variant):
     """Kernel-path decode over a ragged layered pool (lane lengths 5 and
     9, pages of 4; padding blocks hold noise that must stay masked)
     against the JAX kernel path in interpret mode and against the port's
-    dense decode of the same caches."""
+    dense decode of the same caches.  A hybrid model takes its prompt's
+    SSM state and conv context as side state and advances them."""
     jc, tc, jp, tp = _params(variant)
-    toks = _tokens(tc, 2, 9, seed=4)
+    toks = _tokens(tc, 2, _seq(tc, 9), seed=4)
     _, parts = jlm.prefill_parts(jp, jc, jnp.asarray(toks))
     k, v = (np.asarray(parts[n], np.float32) for n in ("k", "v"))
+    side = {}
+    if tc.has_ssm:
+        side = {n: np.array(parts[n], np.float32) for n in ("ssm", "conv")}
     lengths = np.asarray([5, 9], np.int32)
     kp, vp, pt = _paged_operands(k, v, lengths, page=4, n_pages=4, seed=5)
     nxt = _tokens(tc, 2, 1, seed=6)
-    jlog, jk, jv, _, _ = jlm.paged_decode_step(
+    jlog, jk, jv, jssm, jconv = jlm.paged_decode_step(
         jp, jc, jnp.asarray(nxt), jnp.asarray(kp), jnp.asarray(vp),
-        jnp.asarray(pt), jnp.asarray(lengths), interpret=True)
-    tlog, tk, tv = tlm.paged_decode_step(
+        jnp.asarray(pt), jnp.asarray(lengths),
+        ssm_state=jnp.asarray(side["ssm"]) if side else None,
+        conv_state=jnp.asarray(side["conv"]) if side else None,
+        interpret=True)
+    tlog, tk, tv, tssm, tconv = tlm.paged_decode_step(
         tp, tc, torch.from_numpy(nxt), torch.from_numpy(kp),
         torch.from_numpy(vp), torch.from_numpy(pt),
-        torch.from_numpy(lengths))
+        torch.from_numpy(lengths),
+        ssm_state=torch.from_numpy(side["ssm"]) if side else None,
+        conv_state=torch.from_numpy(side["conv"]) if side else None)
     assert tuple(tk.shape) == jk.shape == (tc.n_layers, 2, 1,
                                            tc.n_kv_heads, tc.d_head)
     _close(tlog, jlog)
     _close(tk, jk)
     _close(tv, jv)
+    if side:
+        _close(tssm, jssm)
+        _close(tconv, jconv)
+    else:
+        assert tssm is None and tconv is None
     # the same step through the dense path of the port (one free slot
     # past the longest lane for the in-flight token)
     pad = ((0, 0), (0, 0), (0, 1), (0, 0), (0, 0))
     cache = tlm.Cache(torch.from_numpy(np.pad(k, pad)),
                       torch.from_numpy(np.pad(v, pad)),
-                      torch.from_numpy(lengths))
-    dlog, _ = tlm.dense_decode_step(tp, tc, torch.from_numpy(nxt), cache)
+                      torch.from_numpy(lengths),
+                      *(torch.from_numpy(side[n]) for n in side))
+    dlog, dcache = tlm.dense_decode_step(tp, tc, torch.from_numpy(nxt),
+                                         cache)
     _close(tlog, dlog.numpy())
+    if side:
+        _close(tssm, dcache.ssm.numpy())
+        _close(tconv, dcache.conv.numpy())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -199,7 +248,11 @@ def test_converter_and_init_match_jax_tree(variant, dtype):
         for key, a in jflat.items():
             t = got[key]
             assert tuple(t.shape) == a.shape, key
-            assert t.dtype == getattr(torch, dtype), key
+            # SSM a_log / dt_bias / d_skip stay float32 in any dtype
+            want = "float32" if key.split("']")[-2].endswith(
+                ("a_log", "dt_bias", "d_skip")) else dtype
+            assert a.dtype.name == want, key
+            assert t.dtype == getattr(torch, want), key
     for key, a in jflat.items():
         t = flat(ttree)[key].detach()
         if dtype == "bfloat16":

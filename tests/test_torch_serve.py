@@ -1,11 +1,13 @@
-"""The ported slice as a whole: continuous-batching paged serving of the
-qwen1.5-0.5b smoke config through both packages' ``ServeEngine(PagedLM)``
-over ``PagedBackend(decode_mode="kernel")`` at float32, with the same
-weights (the JAX init converted through ``repro_torch.convert``) and the
-same requests (a shared hot prefix, forked samples, a pool tight enough
-to reject and evict).  Served tokens and every stat must be identical,
-step by step, on the pipelined and the synchronous decode paths.  Then
-the port's own entry point end to end on the CPU, LM and toy."""
+"""The ported slices as a whole: continuous-batching paged serving of the
+qwen1.5-0.5b and the hymba-1.5b smoke configs through both packages'
+``ServeEngine(PagedLM)`` over ``PagedBackend(decode_mode="kernel")`` at
+float32, with the same weights (the JAX init converted through
+``repro_torch.convert``) and the same requests (a shared hot prefix,
+forked samples, a pool tight enough to reject and evict; hymba's prompts
+are multiples of its SSM chunk).  Served tokens and every stat must be
+identical, step by step, on the pipelined and the synchronous decode
+paths.  Then the port's own entry point end to end on the CPU, LM and
+toy."""
 import dataclasses
 
 import numpy as np
@@ -21,7 +23,9 @@ from repro.serve import engine as jengine  # noqa: E402
 from repro.serving import scheduler as jsched  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.kernels.mars_gather import mars_gather as tmg  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as tpa  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan as tscan  # noqa: E402
 from repro_torch.kvcache.backend import PagedBackend as TPagedBackend  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
@@ -37,7 +41,11 @@ def _requests(mod, cfg):
     shared = tuple(int(t) for t in rng.integers(1, cfg.vocab, 16))
     out = []
     for i in range(7):
-        tail = tuple(int(t) for t in rng.integers(1, cfg.vocab, 1 + i % 3))
+        # a hybrid model's prompts are whole SSM chunks (of 4: tails of
+        # 4 or 12 leave the last block of 8 part-full, so forks copy it)
+        n_tail = cfg.ssm_chunk * (1 + 2 * (i % 2)) if cfg.has_ssm \
+            else 1 + i % 3
+        tail = tuple(int(t) for t in rng.integers(1, cfg.vocab, n_tail))
         out.append(mod.Request(rid=i, prompt=shared + tail,
                                arrival=i * 1e-3, prefix_len=8,
                                max_new=3 + i % 3,
@@ -45,9 +53,10 @@ def _requests(mod, cfg):
     return out
 
 
-def _engines(pipeline: bool, num_blocks: int = 26):
-    jc = dataclasses.replace(jconfigs.get_smoke("qwen1_5_0_5b"), **F32)
-    tc = dataclasses.replace(tconfigs.get_smoke("qwen1_5_0_5b"), **F32)
+def _engines(pipeline: bool, num_blocks: int = 26, arch="qwen1_5_0_5b"):
+    kw = dict(F32, ssm_chunk=4) if arch == "hymba_1_5b" else F32
+    jc = dataclasses.replace(jconfigs.get_smoke(arch), **kw)
+    tc = dataclasses.replace(tconfigs.get_smoke(arch), **kw)
     jp = jax.jit(lambda k: jlm.init(jc, k).params)(jax.random.key(0))
     tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
     jb = JPagedBackend(jc, num_blocks=num_blocks, block_size=8,
@@ -88,10 +97,13 @@ def _drive(j, t):
     assert not treqs and not te.running
 
 
+@pytest.mark.parametrize("arch,num_blocks", [("qwen1_5_0_5b", 26),
+                                             ("hymba_1_5b", 26)])
 @pytest.mark.parametrize("pipeline", [True, False])
-def test_engine_matches_jax_engine(pipeline):
-    j, t = _engines(pipeline)
-    launches = tpa.paged_attention.launches
+def test_engine_matches_jax_engine(pipeline, arch, num_blocks):
+    j, t = _engines(pipeline, num_blocks, arch)
+    launches = (tpa.paged_attention.launches, tscan.ssd_scan.launches,
+                tmg.gather_rows.launches)
     _drive(j, t)
     (je, jb, _), (te, tb, _) = j, t
     assert te.finished == je.finished
@@ -107,8 +119,9 @@ def test_engine_matches_jax_engine(pipeline):
     assert te.scheduler.stats.pool_rejects > 0     # the pool was tight
     te.pool.check_invariants()
     assert te.pool.num_live == 0 and te.pool.reserved == 0
-    # CPU tensors: the plain twin ran, the CUDA kernel never launched
-    assert tpa.paged_attention.launches == launches
+    # CPU tensors: the plain twins ran, no CUDA kernel launched
+    assert (tpa.paged_attention.launches, tscan.ssd_scan.launches,
+            tmg.gather_rows.launches) == launches
 
 
 def test_serve_main_paged_smoke_cpu():
@@ -122,6 +135,52 @@ def test_serve_main_paged_smoke_cpu():
     assert out["prefix_hits"] > 0
     for seqs in out["finished"].values():
         assert all(len(s) == 3 for s in seqs)
+
+
+def test_serve_main_paged_hymba_smoke_cpu():
+    """``--paged --config hymba_1_5b --smoke`` end to end on the CPU:
+    served tokens pass the teacher-forced check against the dense
+    backend, and the counts a chip run checks launches against add up."""
+    out = tserve.main(["--paged", "--config", "hymba_1_5b", "--smoke",
+                       "--device", "cpu", "--requests", "6", "--batch", "3",
+                       "--new-tokens", "4", "--prefixes", "2",
+                       "--pool-blocks", "40", "--parity-checks", "3"])
+    assert out["served"] == 6 and out["parity_mismatches"] == 0
+    assert out["parity_checked"] == 3 and out["decode"] == "kernel"
+    assert out["decode_tokens"] == 6 * 4 and out["prefills"] == 6
+    assert out["parity_decode_steps"] == 3 * (4 - 1)
+    assert out["prefix_hits"] > 0
+    for seqs in out["finished"].values():
+        assert all(len(s) == 4 and all(0 <= t < 128 for t in s)
+                   for s in seqs)
+
+
+def test_serve_main_paged_hymba_float32_is_exact_cpu():
+    """``--dtype float32`` serves in float32, where the teacher-forced
+    check takes no margin: every served token is the dense argmax."""
+    out = tserve.main(["--paged", "--config", "hymba_1_5b", "--smoke",
+                       "--dtype", "float32", "--device", "cpu",
+                       "--requests", "4", "--batch", "2", "--new-tokens",
+                       "3", "--parity-checks", "4"])
+    assert out["served"] == 4 and out["parity_mismatches"] == 0
+    assert out["parity_max_deficit"] == 0.0
+
+
+@pytest.mark.parametrize("top,dtype,want", [
+    (4.7, torch.bfloat16, 16 * 2.0 ** -5),   # hymba's logit scale
+    (3.0, torch.bfloat16, 16 * 2.0 ** -6),   # qwen's
+    (1.0, torch.bfloat16, 16 * 2.0 ** -7),
+    (0.1, torch.bfloat16, 5e-2),             # the floor
+    (-9.0, torch.bfloat16, 16 * 2.0 ** -4),  # largest |logit|
+    (4.7, torch.float32, 0.0)])
+def test_near_tie_margin(top, dtype, want):
+    """The teacher-forced check's margin: NEAR_TIE_SPACINGS spacings of
+    the compute dtype at the position's largest |logit|, at least 5e-2;
+    none in float32."""
+    logits = np.zeros((2, 6))
+    logits[:, 3] = top
+    np.testing.assert_allclose(tserve.near_tie_margin(logits, dtype),
+                               [want, want])
 
 
 @pytest.mark.parametrize("flags", [["--no-kernel-decode"], ["--no-pipeline"],
