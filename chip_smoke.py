@@ -2,40 +2,49 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py --phases k4        # a subset; prints no result
 
 Phases (any failure exits non-zero and prints no result):
 
   build   compile every CUDA kernel of the port from ``src/repro_torch/
-          csrc`` (paged_attention, ssd_scan, mars_gather) with nvcc for
-          sm_90a (one nvcc per source, started together) into the
-          git-ignored ``build/``.
-  kernel  hold each kernel against its plain PyTorch twin on the card:
-          K1 paged_attention with its softmax state, and decode_attend
-          (whose twin is the same call on host copies), over the serving
-          shapes, a long ragged pool, GQA, sliding windows and hymba's
-          shape (25 query heads over 5 KV heads, a 1024 window bound by
-          lengths up to 2048); K3 ssd_scan at hymba's prefill shape, a
-          long case and the reference test shapes; both in float32 and
-          bfloat16 within the stated tolerances; K2 gather_rows bitwise
-          on hymba's and qwen's embedding tables.  Each kernel is timed
-          beside its bound, its plain twin and, where one exists, one
-          PyTorch library call.
+          csrc`` (paged_attention, ssd_scan, mars_gather, moe_dispatch)
+          with nvcc for sm_90a (one nvcc per source, started together)
+          into the git-ignored ``build/``.
+  k1      K1 paged_attention with its softmax state, and decode_attend
+          (whose twin is the same call on host copies), against the plain
+          twin over the serving shapes, a long ragged pool, GQA, sliding
+          windows, hymba's shape (25 query heads over 5 KV heads, a 1024
+          window, lengths up to 2048) and arctic's (56 over 8, d 128).
+  k3      K3 ssd_scan at hymba's prefill shape, a long case and the
+          reference test shapes.
+  k2      K2 gather_rows bitwise on hymba's, qwen's and arctic's
+          embedding tables.
+  k4      K4 grouped_matmul against its plain twin on the reference test
+          shapes and on MARS-sorted, tile-padded routings at arctic's
+          decode (w_in and w_out) and prefill and kimi's decode; padding
+          rows must come out 0.
+          Every kernel is held in float32 and bfloat16 within the stated
+          tolerances and timed beside its bound, its plain twin and,
+          where one exists, one PyTorch library call.
   serve   ``repro_torch.launch.serve --paged --config <arch>`` at full
-          width for qwen1_5_0_5b (24 layers, vocab 151936) and
-          hymba_1_5b (32 layers, d 1600, SSM heads) in bfloat16, then
-          hymba_1_5b in float32 and through the gather decode path,
-          random weights from a seed: served tokens must pass the
-          teacher-forced check against the port's dense backend (exact
-          argmax in float32, a near-tie margin in bfloat16; each run
-          prints its largest deficit), and with every launch count set
-          to 0
-          just before each run, paged_attention must have launched once
-          per layer per decode step, ssd_scan once per layer per prefill
-          (the engine's and the check's), and gather_rows once per
-          embedding lookup.
-  profile each bfloat16 serve run twice more, warm: plain for its wall
-          time, then under ``torch.profiler`` for the device's kernel
-          time by kernel and its busy share.
+          width for qwen1_5_0_5b (24 layers, vocab 151936), hymba_1_5b
+          (32 layers, d 1600, SSM heads; also in float32 and through the
+          gather decode path) and arctic_480b's first 2 of 35 layers (d
+          7168, 128 experts top-2, a dense residual MLP; also through the
+          gather decode path), then the arctic and kimi-k2 smoke configs
+          in float32, random weights from a seed: served tokens must pass
+          the teacher-forced check against the port's dense backend
+          (exact argmax in float32, a near-tie margin in bfloat16; each
+          run prints its largest deficit), and with every launch count
+          set to 0 just before each run, paged_attention must have
+          launched once per layer per decode step, ssd_scan once per
+          layer per prefill (the engine's and the check's), gather_rows
+          once per embedding lookup and grouped_matmul three times per
+          MoE layer per embedding lookup.  Each run's weights are freed
+          before the next.  Each bfloat16 kernel-path run is then served
+          twice more, warm: plain for its wall time, then under
+          ``torch.profiler`` for the device's kernel time by kernel and
+          its busy share.
 
 Prints the card's name and power limit (as ``nvidia-smi`` gives them), a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -44,6 +53,8 @@ chip_smoke.json``.  Imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -66,14 +77,28 @@ TOL = {"float32": dict(o=(1e-4, 1e-4), ml=(1e-4, 1e-4)),
 SSD_TOL = (1e-3, 1e-3)
 OUT_DIR = ROOT / "chiprun_out"
 # serve runs, each its own path for the launch counts: (config, extra
-# flags).  Without flags a config serves in its own bfloat16 through the
-# kernels.  In float32 the teacher-forced check is exact (the served
-# tokens must be the dense argmax).  The gather run decodes through the
-# dense math over a gathered view: its largest deficit in bfloat16 is the
-# noise floor the kernel path's is read against.
+# flags).  A config serves in its own bfloat16 through the kernels unless
+# a flag says otherwise, and those runs are profiled.  In float32 the
+# teacher-forced check is exact (the served tokens must be the dense
+# argmax).  The gather runs decode through the dense math over a
+# gathered view: their largest deficit in bfloat16 is the noise floor the
+# kernel path's is read against.  arctic-480b serves its first 2 of 35
+# layers at published width (``--layers 2``: one card holds two); the
+# MoE smoke configs in float32 are the exact gates of the MoE path
+# through K4 (their d_head of 16 is outside K1, so they decode through
+# the gathered view; kimi's covers blocks_dense and the shared expert).
+ARCTIC = ("--layers", "2")
 RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
         ("hymba_1_5b", ("--dtype", "float32")),
-        ("hymba_1_5b", ("--no-kernel-decode",)))
+        ("hymba_1_5b", ("--no-kernel-decode",)),
+        ("arctic_480b", ARCTIC),
+        ("arctic_480b", ARCTIC + ("--no-kernel-decode",)),
+        ("arctic_480b", ("--smoke", "--dtype", "float32",
+                         "--no-kernel-decode")),
+        ("kimi_k2_1t_a32b", ("--smoke", "--dtype", "float32",
+                             "--no-kernel-decode")))
+# flags that take a run off the profiled bf16 kernel path
+UNPROFILED = {"--dtype", "--no-kernel-decode", "--smoke"}
 
 
 def run_name(arch: str, flags=()) -> str:
@@ -225,6 +250,14 @@ def kernel_phase(torch, gen):
                            lengths=[0, 1, 1023, 1024, 1025, 1500, 2047,
                                     2048]),
                       1, 1024))
+        # arctic-480b's shape: 56 query heads over 8 KV heads (n_rep 7),
+        # d 128, no window, lengths up to 2048, a 2-layer pool
+        cases.append(("arctic", dtype,
+                      dict(B=8, H=56, Hkv=8, D=128, page=16, L=2, P=1100,
+                           n_pages=128,
+                           lengths=[0, 1, 17, 255, 1024, 1500, 2047,
+                                    2048]),
+                      1, 0))
     results, max_err = [], 0.0
     timed = {}
     for name, dtype, shp, layer, window in cases:
@@ -256,7 +289,7 @@ def kernel_phase(torch, gen):
                             l_err=e_l, decode_err=e_d,
                             ok=ok_o and ok_m and ok_l and ok_d))
         max_err = max(max_err, e_o, e_d)
-        if name in ("serve", "long", "hymba"):
+        if name in ("serve", "long", "hymba", "arctic"):
             timed[(name, dtype)] = (q, kp, vp, pt, ln, layer, window, shp)
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -415,8 +448,9 @@ def time_ssd(torch, ssd_mod, ins, chunk: int, dtype: str) -> dict:
                 bytes=bytes_moved, ops=ops_count)
 
 
-# K2 tables: the embedding tables of the two served configs, bf16
-GATHER_TABLES = {"hymba": (32001, 1600), "qwen": (151936, 1024)}
+# K2 tables: the embedding tables of the served configs, bf16
+GATHER_TABLES = {"hymba": (32001, 1600), "qwen": (151936, 1024),
+                 "arctic": (32000, 7168)}
 GATHER_IDS = (8, 24, 8192)
 
 
@@ -486,38 +520,214 @@ def time_gather(torch, F, mg_mod, table, sids, flush) -> dict:
                 bound_by="bytes", bytes=bytes_moved, ops=0)
 
 
+# K4 tolerance against its plain twin, (atol, rtol): both sum the same
+# float32 products, in another order (up to 7168 a row); in bfloat16 both
+# round that sum to bf16, so a value may land one bf16 spacing away
+# (2**-7 relative)
+K4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# K4 cases: (name, dtype, spec).  "ref" specs are the reference's kernel
+# tests (M, K, N, G, bm) with random group-sorted tiles; "route" specs
+# route A assignments over E experts, sort and pad them as the serve path
+# does (bm = the serve path's tile), for one (E, K, N) weight matrix:
+# arctic-480b's decode (8 lanes x top-2) through w_in and w_out, its
+# engine prefill (24 tokens x top-2), and kimi-k2's decode (8 lanes x
+# top-8 over 384 experts, K 7168 -> N 2048).
+K4_REF = [(256, 128, 128, 2, 128), (512, 256, 128, 4, 128),
+          (256, 512, 256, 8, 64), (128, 128, 384, 3, 32)]
+K4_ROUTE = [("arctic_decode_w_in", 8, 2, 128, 7168, 4864),
+            ("arctic_decode_w_out", 8, 2, 128, 4864, 7168),
+            ("arctic_prefill_w_in", 24, 2, 128, 7168, 4864),
+            ("kimi_decode_w_in", 8, 8, 384, 7168, 2048)]
+
+
+def k4_ref_case(torch, gen, M, K, N, G, bm, dtype):
+    """The reference test's operands: x, w / sqrt(K), sorted random tile
+    groups; every tile in use, no padding rows."""
+    dev = gen.device
+    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(G, K, N, generator=gen, device=dev) / K ** 0.5) \
+        .to(dtype)
+    tg = torch.sort(torch.randint(0, G, (M // bm,), generator=gen,
+                                  device=dev))[0].to(torch.int32)
+    sizes = torch.bincount(tg, minlength=G) * bm
+    return dict(x=x, w=w, tg=tg, bm=bm, n_used=None, real_rows=None,
+                sizes=sizes, used_groups=int((sizes > 0).sum()), A=M)
+
+
+def k4_route_case(torch, gen, T, k, E, K, N, dtype):
+    """T tokens routed top-k over E experts (distinct per token), sorted
+    and padded as ``models.moe`` does, on a (E, K, N) weight of scale
+    1/sqrt(K).  The weight is drawn one expert at a time in ``dtype``."""
+    from repro_torch.kernels.moe_dispatch import ops as k4_ops
+    from repro_torch.models.moe import SERVE_BM
+    dev = gen.device
+    idx = torch.stack([torch.randperm(E, generator=gen, device=dev)[:k]
+                       for _ in range(T)])
+    flat = idx.reshape(-1)
+    perm = torch.argsort(flat, stable=True)
+    sorted_e = flat[perm]
+    A = T * k
+    rows = torch.randn(A, K, generator=gen, device=dev).to(dtype)
+    slot, tg, M_pad, n_used = k4_ops.pad_sorted_groups(
+        sorted_e, perm, E, SERVE_BM, tight=True)
+    x = torch.zeros(M_pad, K, dtype=dtype, device=dev)
+    x[slot.long()] = rows
+    w = torch.empty(E, K, N, dtype=dtype, device=dev)
+    for e in range(E):
+        w[e] = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    sizes = torch.bincount(sorted_e, minlength=E)
+    return dict(x=x, w=w, tg=tg, bm=SERVE_BM, n_used=n_used,
+                real_rows=slot.long(), rows=rows, sizes=sizes,
+                used_groups=int((sizes > 0).sum()), A=A)
+
+
+def k4_library(torch, c):
+    """One PyTorch call for the same products on the unpadded sorted
+    rows: ``torch._grouped_mm`` (bf16, group ends as ``offs``) where this
+    torch has it and takes the operands, else a loop of ``torch.matmul``
+    over the used experts.  Returns (fn, which)."""
+    x, w, sizes = c["x"], c["w"], c["sizes"]
+    rows = c["rows"] if c["real_rows"] is not None else x
+    ends = torch.cumsum(sizes, 0)
+    offs = ends.to(torch.int32)
+    if x.dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(rows, w, offs=offs)
+            torch.cuda.synchronize()
+            return (lambda: torch._grouped_mm(rows, w, offs=offs)), \
+                "torch._grouped_mm"
+        except (RuntimeError, TypeError, ValueError) as e:
+            print(f"[kernel] grouped_matmul: torch._grouped_mm refused the "
+                  f"operands ({str(e).splitlines()[0][:120]}); timing a "
+                  f"torch.matmul loop instead")
+    bounds = [0] + ends.tolist()
+    segs = [(g, bounds[g], bounds[g + 1]) for g in range(w.shape[0])
+            if bounds[g + 1] > bounds[g]]
+
+    def loop():
+        for g, a, b in segs:
+            torch.matmul(rows[a:b], w[g])
+    return loop, "torch.matmul loop over used experts"
+
+
+def k4_phase(torch, gen):
+    """grouped_matmul against grouped_matmul_plain on the card at every
+    case; padding rows and unused tiles must come out exactly 0.  Times
+    every case beside its bound, the plain twin and the library call."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    cases = [(f"ref_{M}x{K}x{N}_G{G}_bm{bm}", dtype,
+              ("ref", (M, K, N, G, bm)))
+             for dtype in ("float32", "bfloat16") for M, K, N, G, bm in K4_REF]
+    cases += [(r[0], "bfloat16", ("route", r[1:])) for r in K4_ROUTE]
+    results, timing, max_err = [], {}, 0.0
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=gen.device)
+    for name, dtype, (kind, spec) in cases:
+        dt = getattr(torch, dtype)
+        c = (k4_ref_case(torch, gen, *spec, dt) if kind == "ref"
+             else k4_route_case(torch, gen, *spec, dt))
+        got = k4.grouped_matmul(c["x"], c["w"], c["tg"], bm=c["bm"],
+                                n_tiles=c["n_used"])
+        torch.cuda.synchronize()
+        want = k4.grouped_matmul_plain(c["x"], c["w"], c["tg"], bm=c["bm"],
+                                       n_tiles=c["n_used"])
+        ok, err = close(got, want, *K4_TOL[dtype])
+        zero_ok = True
+        if c["real_rows"] is not None:
+            pad = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+            pad[c["real_rows"]] = False
+            zero_ok = bool((got[pad] == 0).all())
+        finite = bool(torch.isfinite(got.float()).all())
+        ok = ok and zero_ok and finite and got.dtype == dt
+        M, K = c["x"].shape
+        G, _, N = c["w"].shape
+        print(f"[kernel] grouped_matmul {name:28s} {dtype:8s} M={M} K={K} "
+              f"N={N} G={G} bm={c['bm']} assignments={c['A']} "
+              f"experts used={c['used_groups']} err={err:.3e} "
+              f"tol(atol,rtol)={K4_TOL[dtype]} padding rows zero={zero_ok} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        results.append(dict(case=name, dtype=dtype, err=err, ok=ok))
+        max_err = max(max_err, err)
+        timing[f"{name}/{dtype}"] = time_k4(torch, k4, c, dtype, flush)
+        del c, got, want
+        torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"grouped_matmul disagrees with its plain "
+                             f"twin: {bad}")
+    return results, max_err, timing
+
+
+def time_k4(torch, k4, c, dtype: str, flush) -> dict:
+    """Kernel, plain twin and library call at one case, each with a cold
+    L2 (``cold_ms``: a serve step reads expert weights no recent call
+    left in L2; repeated calls on the same weights would find up to 50 MB
+    of them there) and, as ``warm_*``, repeated under the profiler.
+    Bound: the bytes this case needs — x read once, the used experts'
+    weights read once, the (M, N) output written once, the tile map — and
+    the operations of the real rows (2 A K N); the larger over the H100's
+    rates."""
+    x, w, tg, bm, n_used = c["x"], c["w"], c["tg"], c["bm"], c["n_used"]
+    M, K = x.shape
+    N = w.shape[2]
+    eb = x.element_size()
+    bytes_moved = (x.numel() * eb + c["used_groups"] * K * N * eb
+                   + M * N * eb + tg.numel() * 4)
+    ops_count = 2 * c["A"] * K * N
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS[dtype] * 1e3
+    lib, which = k4_library(torch, c)
+
+    def kern():
+        k4.grouped_matmul(x, w, tg, bm=bm, n_tiles=n_used)
+
+    def plain():
+        k4.grouped_matmul_plain(x, w, tg, bm=bm, n_tiles=n_used)
+    return dict(ms=cold_ms(torch, kern, 10, flush),
+                plain_ms=cold_ms(torch, plain, 3, flush),
+                library_ms=cold_ms(torch, lib, 10, flush), library=which,
+                warm_ms=device_ms(kern, 10), warm_plain_ms=device_ms(plain, 3),
+                warm_library_ms=device_ms(lib, 10),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_moved, ops=ops_count)
+
+
 def serve_phase(torch, serve, arch: str, flags=()):
     """One full-width serve run with every launch count set to 0 just
     before it; checks the served tokens and that each kernel of the path
     launched as often as the run's counts say."""
-    from repro_torch.kernels.mars_gather import mars_gather as mg_mod
-    from repro_torch.kernels.paged_attention import paged_attention as pa_mod
-    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
-    wrappers = {"paged_attention": pa_mod.paged_attention,
-                "ssd_scan": ssd_mod.ssd_scan,
-                "gather_rows": mg_mod.gather_rows}
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     out = serve.main(serve_args(arch, flags))
     launches = {k: w.launches for k, w in wrappers.items()}
     name = run_name(arch, flags)
-    cfg = serve.configs.get(arch)
+    cfg = out["cfg"]                  # as served: --layers cuts the depth
     L = cfg.n_layers
-    prefills = out["prefills"] + out["parity_checked"]
-    embeds = prefills + out["decode_steps"] + out["parity_decode_steps"]
+    moe_layers = L - cfg.n_dense_layers if cfg.is_moe else 0
+    # the engine's prefills and decode steps, then the check's: each
+    # checked sequence alone, and in bf16 all of them in one batch
+    prefills = out["prefills"] + out["parity_checked"] \
+        + out["parity_batch_prefills"]
+    embeds = prefills + out["decode_steps"] + out["parity_decode_steps"] \
+        + out["parity_batch_decode_steps"]
     want = {"paged_attention": L * out["decode_steps"]
             if out["decode"] == "kernel" else 0,
             "ssd_scan": L * prefills if cfg.has_ssm else 0,
             "gather_rows": embeds if cfg.vocab * cfg.d_model >= 1 << 22
-            else 0}
+            else 0,
+            "grouped_matmul": 3 * moe_layers * embeds}
     print(f"[serve {name}] served={out['served']} decode_tokens="
           f"{out['decode_tokens']} engine_steps={out['steps']} "
           f"prefills={out['prefills']} decode_steps={out['decode_steps']} "
-          f"parity prefills={out['parity_checked']} parity decode steps="
-          f"{out['parity_decode_steps']} wall={out['wall_s']:.3f}s "
+          f"parity prefills={out['parity_checked']} + "
+          f"{out['parity_batch_prefills']} batched, parity decode steps="
+          f"{out['parity_decode_steps']} + {out['parity_batch_decode_steps']} "
+          f"batched wall={out['wall_s']:.3f}s "
           f"tokens/s={out['decode_tokens'] / out['wall_s']:.1f} "
           f"parity_mismatches={out['parity_mismatches']} largest deficit "
-          f"{out['parity_max_deficit']:.5g}")
+          f"{out['parity_max_deficit']:.5g}, dense noise median "
+          f"{out['parity_noise']} layers={L}")
     print(f"[serve {name}] launches: " + ", ".join(
         f"{k} {launches[k]} (want {want[k]})" for k in wrappers))
     if out["served"] != 16 or out["parity_mismatches"]:
@@ -536,29 +746,71 @@ def serve_phase(torch, serve, arch: str, flags=()):
     return out, launches
 
 
+def kernel_wrappers() -> dict:
+    """The port's kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels.mars_gather import mars_gather as mg_mod
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4_mod
+    from repro_torch.kernels.paged_attention import paged_attention as pa_mod
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
+    return {"paged_attention": pa_mod.paged_attention,
+            "ssd_scan": ssd_mod.ssd_scan,
+            "gather_rows": mg_mod.gather_rows,
+            "grouped_matmul": k4_mod.grouped_matmul}
+
+
+def free_device(torch, tag: str) -> None:
+    """Drop what the last run left (its weights go with its frames) and
+    return the cached blocks, so the next run can take the card; prints
+    what stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[memory] after {tag}: {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
+          f"reserved")
+
+
 def profile_serve(torch, serve, args) -> dict:
     """The serve run twice more, warm: once plain (engine wall time), once
-    under ``torch.profiler`` (summed device time by kernel and its share
-    of the profiled wall, the paged-attention kernel's part, and the host
-    ops with the most self time)."""
+    with ``torch.profiler`` around the engine's run alone — not the random
+    init of the weights, which at arctic-480b's width writes 55 GB — for
+    the summed device time by kernel and its share of the engine's wall,
+    and the host ops with the most self time."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import ServeEngine
     args = args + ["--parity-checks", "0"]
     t0 = time.perf_counter()
     warm = serve.main(args)              # warm, no profiler
     torch.cuda.synchronize()
     warm_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve.main(args)
+    warm = {k: v for k, v in warm.items() if k not in ("finished", "cfg")}
+    free_device(torch, "warm profile run")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    run = ServeEngine.run
+    walls = []
+
+    def profiled_run(self, *a, **kw):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        prof.start()
+        t0 = time.perf_counter()
+        try:
+            return run(self, *a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            prof.stop()
+    ServeEngine.run = profiled_run
+    try:
+        serve.main(args)
+    finally:
+        ServeEngine.run = run
+    wall, = walls
     rows = device_rows(prof)
     buckets: dict = {}
     for r in rows:
         n = r["name"].lower()
         b = ("paged_attention" if "paged_attention" in n else
              "ssd_scan" if "ssd_scan_kernel" in n else
+             "grouped_matmul" if "grouped_mm_" in n else
              "gather_rows" if "gather_rows_kernel" in n else
              "memcpy" if "memcpy" in n or "memset" in n else
              "gemm" if any(k in n for k in ("gemm", "nvjet", "cutlass",
@@ -585,7 +837,8 @@ def profile_serve(torch, serve, args) -> dict:
 # the port's kernels as their device-side names show in a profile
 KERNEL_NAMES = {"paged_attention": "paged_attention_kernel",
                 "ssd_scan": "ssd_scan_kernel",
-                "gather_rows": "gather_rows_kernel"}
+                "gather_rows": "gather_rows_kernel",
+                "grouped_matmul": "grouped_mm_"}
 
 
 def print_profile(arch: str, prof: dict) -> None:
@@ -594,7 +847,7 @@ def print_profile(arch: str, prof: dict) -> None:
           f"s for {prof['warm_decode_tokens']} decode tokens "
           f"({prof['warm_decode_tokens'] / prof['warm_engine_wall_s']:.1f} "
           f"tokens/s, {prof['warm_decode_steps']} decode steps)")
-    print(f"{tag} warm serve under torch.profiler: wall "
+    print(f"{tag} warm serve, engine run under torch.profiler: wall "
           f"{prof['wall_s']:.3f}s, device kernel time "
           f"{prof['device_ms']:.1f} ms (busy share "
           f"{prof['busy_share']:.3f}); port kernel launches "
@@ -611,7 +864,24 @@ def print_profile(arch: str, prof: dict) -> None:
               f"{row['name'][:90]}")
 
 
-def main() -> int:
+PHASES = ("k1", "k3", "k2", "k4", "serve")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                         + " (default: all; only a run of all of them "
+                           "prints the result lines)")
+    ap.add_argument("--runs", default="",
+                    help="serve only the runs whose name contains one of "
+                         "these comma-separated strings (prints no result)")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    runs = [r for r in RUNS if not args.runs or any(
+        k in run_name(*r) for k in args.runs.split(","))]
+    if not phases <= set(PHASES):
+        return fail(f"unknown phases {sorted(phases - set(PHASES))}")
     try:
         import torch
         import torch.nn.functional as F
@@ -642,46 +912,80 @@ def main() -> int:
 
     # -- kernels vs plain twins ----------------------------------------------
     gen = torch.Generator("cuda").manual_seed(0)
-    results, max_err, timed = kernel_phase(torch, gen)
-    timing = {f"{name}/{dt}": time_case(torch, F, ops, dt)
-              for (name, dt), ops in timed.items()}
-    for case, t in timing.items():
-        print(f"[kernel] paged_attention {case}: device ms per call: kernel "
-              f"{t['ms']:.4f}, bound {t['bound_ms']:.5f} ({t['bound_by']}; "
-              f"{t['bytes']} B, {t['ops']} ops, {t['valid_positions']} valid "
-              f"positions), plain twin {t['plain_ms']:.4f}, SDPA over "
-              f"pre-gathered keys (gather excluded) {t['library_ms']:.4f}; "
-              f"event ms per call with host launch: {t['event_ms']:.4f} / "
-              f"{t['plain_event_ms']:.4f} / {t['library_event_ms']:.4f}")
-    ssd_results, ssd_err, ssd_timing = ssd_phase(torch, F, gen)
-    for case, t in ssd_timing.items():
-        print(f"[kernel] ssd_scan {case}: device ms per call: kernel "
-              f"{t['ms']:.4f}, bound {t['bound_ms']:.5f} ({t['bound_by']}; "
-              f"{t['bytes']} B, {t['ops']} ops), plain twin "
-              f"{t['plain_ms']:.4f}, no PyTorch library call computes the "
-              f"scan; event ms per call with host launch: "
-              f"{t['event_ms']:.4f} / {t['plain_event_ms']:.4f}")
-    gather_results, gather_timing = gather_phase(torch, F, gen)
-    for case, t in gather_timing.items():
-        print(f"[kernel] gather_rows {case} ids: device ms per call, cold "
-              f"L2: kernel {t['ms']:.5f}, bound {t['bound_ms']:.5f} (bytes; "
-              f"{t['bytes']} B), plain twin {t['plain_ms']:.5f}, "
-              f"F.embedding {t['library_ms']:.5f}; warm L2: "
-              f"{t['warm_ms']:.5f} / {t['warm_plain_ms']:.5f} / "
-              f"{t['warm_library_ms']:.5f}; event ms per call with host "
-              f"launch: {t['event_ms']:.4f} / {t['plain_event_ms']:.4f} / "
-              f"{t['library_event_ms']:.4f}")
+    record = dict(build_s=build_s)
+    if "k1" in phases:
+        results, max_err, timed = kernel_phase(torch, gen)
+        timing = {f"{name}/{dt}": time_case(torch, F, ops, dt)
+                  for (name, dt), ops in timed.items()}
+        del timed
+        for case, t in timing.items():
+            print(f"[kernel] paged_attention {case}: device ms per call: "
+                  f"kernel {t['ms']:.4f}, bound {t['bound_ms']:.5f} "
+                  f"({t['bound_by']}; {t['bytes']} B, {t['ops']} ops, "
+                  f"{t['valid_positions']} valid positions), plain twin "
+                  f"{t['plain_ms']:.4f}, SDPA over pre-gathered keys (gather "
+                  f"excluded) {t['library_ms']:.4f}; event ms per call with "
+                  f"host launch: {t['event_ms']:.4f} / "
+                  f"{t['plain_event_ms']:.4f} / {t['library_event_ms']:.4f}")
+        record.update(cases=results, timing=timing)
+        free_device(torch, "K1 phase")
+    if "k3" in phases:
+        ssd_results, ssd_err, ssd_timing = ssd_phase(torch, F, gen)
+        for case, t in ssd_timing.items():
+            print(f"[kernel] ssd_scan {case}: device ms per call: kernel "
+                  f"{t['ms']:.4f}, bound {t['bound_ms']:.5f} "
+                  f"({t['bound_by']}; {t['bytes']} B, {t['ops']} ops), "
+                  f"plain twin {t['plain_ms']:.4f}, no PyTorch library call "
+                  f"computes the scan; event ms per call with host launch: "
+                  f"{t['event_ms']:.4f} / {t['plain_event_ms']:.4f}")
+        record.update(ssd_cases=ssd_results, ssd_timing=ssd_timing)
+    if "k2" in phases:
+        gather_results, gather_timing = gather_phase(torch, F, gen)
+        for case, t in gather_timing.items():
+            print(f"[kernel] gather_rows {case} ids: device ms per call, "
+                  f"cold L2: kernel {t['ms']:.5f}, bound {t['bound_ms']:.5f} "
+                  f"(bytes; {t['bytes']} B), plain twin {t['plain_ms']:.5f}, "
+                  f"F.embedding {t['library_ms']:.5f}; warm L2: "
+                  f"{t['warm_ms']:.5f} / {t['warm_plain_ms']:.5f} / "
+                  f"{t['warm_library_ms']:.5f}; event ms per call with host "
+                  f"launch: {t['event_ms']:.4f} / {t['plain_event_ms']:.4f} "
+                  f"/ {t['library_event_ms']:.4f}")
+        record.update(gather_cases=gather_results,
+                      gather_timing=gather_timing)
+        free_device(torch, "K2 phase")
+    if "k4" in phases:
+        k4_results, k4_err, k4_timing = k4_phase(torch, gen)
+        for case, t in k4_timing.items():
+            print(f"[kernel] grouped_matmul {case}: device ms per call, "
+                  f"cold L2: kernel {t['ms']:.4f}, bound {t['bound_ms']:.5f} "
+                  f"({t['bound_by']}; {t['bytes']} B, {t['ops']} ops), "
+                  f"plain twin {t['plain_ms']:.4f}, {t['library']} "
+                  f"{t['library_ms']:.4f}; warm L2: {t['warm_ms']:.4f} / "
+                  f"{t['warm_plain_ms']:.4f} / {t['warm_library_ms']:.4f}")
+        record.update(k4_cases=k4_results, k4_timing=k4_timing)
+        free_device(torch, "K4 phase")
     kernels_s = time.perf_counter() - t_start
 
     # -- serve at full width, then profile it warm ---------------------------
-    served, launches, profiles = {}, {}, {}
-    for arch, flags in RUNS:
+    served, launches, profiles, failed = {}, {}, {}, []
+    for arch, flags in runs if "serve" in phases else ():
         name = run_name(arch, flags)
-        out, launches[name] = serve_phase(torch, serve, arch, flags)
-        served[name] = {k: v for k, v in out.items() if k != "finished"}
-        if not flags:
-            profiles[name] = profile_serve(torch, serve, serve_args(arch))
+        try:
+            out, launches[name] = serve_phase(torch, serve, arch, flags)
+        except AssertionError as e:       # go on: later runs still report
+            print(f"[serve {name}] FAILED: {e}")
+            failed.append(name)
+            free_device(torch, name)
+            continue
+        served[name] = {k: v for k, v in out.items()
+                        if k not in ("finished", "cfg")}
+        del out
+        free_device(torch, name)
+        if not UNPROFILED & set(flags):
+            profiles[name] = profile_serve(torch, serve,
+                                           serve_args(arch, flags))
             print_profile(name, profiles[name])
+            free_device(torch, f"profiling {name}")
     total_s = time.perf_counter() - t_start
     print(f"[time] build {build_s:.1f}s, build + kernel phases "
           f"{kernels_s:.1f}s, whole run {total_s:.1f}s")
@@ -691,9 +995,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
-    path = "hymba_1_5b"          # this slice's path; both in launches_by_path
+    record.update(device=smi, kernels_s=kernels_s, total_s=total_s,
+                  serve=served, launches=launches, profile=profiles)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    if failed:
+        return fail(f"serve runs failed: {failed}")
+    if phases != set(PHASES) or runs != list(RUNS):
+        print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
+        return 0
 
-    def row(name, source, replaces, err, t):
+    def row(name, source, replaces, path, err, t):
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/csrc/{source}",
                     replaces=f"src/repro/kernels/{replaces}",
@@ -702,21 +1013,19 @@ def main() -> int:
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
+    arctic = run_name("arctic_480b", ARCTIC)        # this slice's path
     kernels = [
         row("paged_attention", "paged_attention.cu",
-            "paged_attention/paged_attention.py:57", max_err,
-            timing["long/bfloat16"]),
-        row("ssd_scan", "ssd_scan.cu", "ssd_scan/ssd_scan.py:21", ssd_err,
-            ssd_timing["long/bfloat16"]),
+            "paged_attention/paged_attention.py:57", arctic, max_err,
+            timing["arctic/bfloat16"]),
+        row("ssd_scan", "ssd_scan.cu", "ssd_scan/ssd_scan.py:21",
+            "hymba_1_5b", ssd_err, ssd_timing["long/bfloat16"]),
         row("gather_rows", "mars_gather.cu", "mars_gather/mars_gather.py:25",
-            0.0, gather_timing[f"hymba/{GATHER_IDS[-1]}"]),
+            arctic, 0.0, gather_timing[f"arctic/{GATHER_IDS[1]}"]),
+        row("grouped_matmul", "moe_dispatch.cu",
+            "moe_dispatch/moe_dispatch.py:29", arctic, k4_err,
+            k4_timing["arctic_decode_w_in/bfloat16"]),
     ]
-    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        device=smi, build_s=build_s, kernels_s=kernels_s, total_s=total_s,
-        cases=results, timing=timing, ssd_cases=ssd_results,
-        ssd_timing=ssd_timing, gather_cases=gather_results,
-        gather_timing=gather_timing, serve=served, launches=launches,
-        profile=profiles), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """Architecture registry: ``get(name)`` -> full ModelConfig,
 ``get_smoke(name)`` -> reduced same-family config for CPU tests.
 
-Lists only the architectures the port can serve today (dense GQA and the
-hybrid attention + SSM family); the reference's other eight wait for
-their slices (see ROADMAP.md)."""
+Lists only the architectures the port can serve today (dense GQA, the
+hybrid attention + SSM family and the MoE family); the reference's other
+six wait for their slices (see ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +11,8 @@ import importlib
 ARCHS = (
     "qwen1_5_0_5b",
     "hymba_1_5b",
+    "arctic_480b",
+    "kimi_k2_1t_a32b",
 )
 
 # CLI ids (--arch) map dashes to underscores

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import as_module
 
@@ -29,14 +30,19 @@ def tensor_from_numpy(a) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda"):
     """Convert a numpy parameter tree to the port's tree on ``device``.
-    Every leaf under ``blocks`` must carry the stacked layer axis
-    (``cfg.n_layers`` leading)."""
+    Every leaf under a block stack must carry its stacked layer axis:
+    ``blocks_dense`` (an MoE model's leading dense blocks) leads with
+    ``n_dense_layers``, ``blocks`` with the remaining layers."""
+    depth = {name: n for name, _, n in lm._stacks(cfg)}
+
     def conv(node, path):
         if isinstance(node, dict):
             return {k: conv(v, path + (k,)) for k, v in node.items()}
         t = tensor_from_numpy(node)
-        if path[0] == "blocks" and t.shape[0] != cfg.n_layers:
+        if path[0].startswith("blocks") and \
+                t.shape[0] != depth.get(path[0], -1):
             raise ValueError(f"{'/'.join(path)}: leading axis {t.shape[0]} "
-                             f"!= n_layers {cfg.n_layers}")
+                             f"!= {depth.get(path[0], 0)} stacked layers of "
+                             f"{path[0]}")
         return t.to(device)
     return as_module(conv(tree, ()))

@@ -1,5 +1,5 @@
 """Unified KV-backend API: dense and paged serving caches, one interface
-(port of ``repro/kvcache/backend.py``, single device, dense and hybrid
+(port of ``repro/kvcache/backend.py``, single device, dense, hybrid and MoE
 families).
 
 The model (``models.lm``) speaks to its KV storage only through
@@ -288,7 +288,9 @@ class PagedBackend:
         ``num_blocks``/``block_size`` matching the model config).
 
         Args:
-          cfg: a dense- or hybrid-family model config.
+          cfg: a dense-, hybrid- or MoE-family model config (the pool
+            holds one plane per layer across an MoE model's two block
+            stacks).
           pool: existing layered ``BlockPool`` to share; its KV buffer
             shape must match ``cfg``.
           placement/eviction: pool policies when building a fresh pool.
@@ -299,7 +301,7 @@ class PagedBackend:
             device pins the pool's host buffers.
         """
         from repro_torch.models import lm
-        lm._check_family(cfg)       # dense, or hybrid (KV + SSM side state)
+        lm._check_family(cfg)    # dense, MoE, or hybrid (+ SSM side state)
         if decode_mode not in ("kernel", "gather"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         self.decode_mode = decode_mode

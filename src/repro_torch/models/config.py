@@ -2,7 +2,7 @@
 
 Same fields and defaults as the reference ``ModelConfig`` so a config
 built here describes the same model; the dtype properties return torch
-dtypes.  The port serves the dense and hybrid families (see
+dtypes.  The port serves the dense, hybrid and MoE families (see
 ``configs``).
 """
 from __future__ import annotations
@@ -109,3 +109,51 @@ class ModelConfig:
     @property
     def kvdtype(self) -> torch.dtype:
         return torch_dtype(self.kv_dtype_name)
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), as the
+        reference counts it."""
+        d, f, V = self.d_model, self.d_ff, self.vocab
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if not self.use_rope and self.family == "encdec":
+            emb += self.max_position * d  # learned positions
+        per_attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head \
+            + self.n_heads * self.d_head * d
+        per_mlp = d * f * (3 if self.mlp_gated else 2)
+        per_moe = 0
+        if self.is_moe:
+            e = self.d_expert or f
+            per_moe = (d * self.n_experts
+                       + self.n_experts * d * e * 3
+                       + self.n_shared_experts * d * e * 3)
+        per_ssm = 0
+        if self.has_ssm:
+            di = self.d_inner_ssm
+            ns = self.ssm_heads
+            per_ssm = d * 2 * di + di * d + d * (2 * self.ssm_state) \
+                + di * self.ssm_conv + 2 * ns + di
+        blocks = 0
+        for li in range(self.n_layers):
+            blocks += per_attn if self.has_attention else 0
+            blocks += per_ssm if self.has_ssm else 0
+            if self.is_moe and li >= self.n_dense_layers:
+                blocks += per_moe + (per_mlp if self.moe_dense_residual
+                                     else 0)
+            else:
+                blocks += per_mlp if f else 0
+        enc = 0
+        if self.enc_layers:
+            enc = self.enc_layers * (per_attn + per_mlp) \
+                + self.n_layers * per_attn  # decoder cross-attention
+        return emb + blocks + enc
+
+    def n_active_params(self) -> int:
+        """Per-token active parameters (MoE: top_k + shared experts
+        only)."""
+        if not self.is_moe:
+            return self.n_params()
+        d = self.d_model
+        e = self.d_expert or self.d_ff
+        inactive = (self.n_experts - self.top_k) * d * e * 3 \
+            * (self.n_layers - self.n_dense_layers)
+        return self.n_params() - inactive

@@ -1,5 +1,5 @@
 """Core transformer building blocks (port of ``repro/models/layers.py``,
-dense subset).
+the subset the dense, hybrid and MoE families use).
 
 Pure functions over a parameter tree whose layout matches the
 reference's (``wq (d, H, dh)``, ``wo (H, dh, d)``, ...), so weights
@@ -26,19 +26,47 @@ NEG_INF = -1e30
 
 def as_module(tree: dict) -> nn.Module:
     """Nested dict of tensors -> nested ``ModuleDict``/``ParameterDict``
-    (frozen parameters).  A dict holds either only sub-dicts or only
-    leaves, as every tree of the reference does."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+    (frozen parameters).  A dict of sub-dicts only becomes a
+    ``ModuleDict``; one with leaves a ``ParameterDict``, which also holds
+    its sub-dicts as modules (an MoE layer's ``shared`` expert sits beside
+    its expert weights, as in the reference)."""
+    if any(isinstance(v, torch.Tensor) for v in tree.values()):
         return nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=False)
+             if isinstance(v, torch.Tensor) else as_module(v)
              for k, v in tree.items()})
     return nn.ModuleDict({k: as_module(v) for k, v in tree.items()})
 
 
+# elements of one float32 draw (256 MB): a larger tensor is drawn in
+# slices along its leading axes, so the init's temporary stays about one
+# expert matrix (arctic-480b's (L, E, d, e) = (2, 128, 7168, 4864)
+# expert weights would take a 36 GB float32 temporary drawn whole)
+_DRAW_ELEMS = 1 << 26
+
+
+def _fill_normal(out: torch.Tensor, gen: torch.Generator, scale: float):
+    if out.numel() <= _DRAW_ELEMS or out.dim() == 1:
+        out.copy_(torch.randn(out.shape, generator=gen, dtype=torch.float32,
+                              device=out.device).mul_(scale))
+        return
+    rows = _DRAW_ELEMS // out[0].numel()
+    if rows > 1:
+        for i in range(0, out.shape[0], rows):
+            _fill_normal(out[i:i + rows], gen, scale)
+    else:
+        for i in range(out.shape[0]):
+            _fill_normal(out[i], gen, scale)
+
+
 def _normal(gen: torch.Generator, shape, dtype, scale: float):
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device) * scale
-    return w.to(dtype)
+    """``normal * scale`` of ``shape``, drawn in float32 and stored in
+    ``dtype``.  A tensor of at most ``_DRAW_ELEMS`` elements is one draw
+    (as the reference's ``_dense_init``); a larger one is drawn into the
+    preallocated output slice by slice."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    _fill_normal(out, gen, scale)
+    return out
 
 
 def _dense_init(gen, shape, dtype, scale: float | None = None,
@@ -247,8 +275,9 @@ def paged_attention_apply(p, x, cfg: ModelConfig, *, lengths, k_pages,
 # MLP (gated or plain)
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen, cfg: ModelConfig, stack: int = 0) -> dict:
-    d, f, pd = cfg.d_model, cfg.d_ff, cfg.pdtype
+def mlp_init(gen, cfg: ModelConfig, stack: int = 0,
+             d_ff: int | None = None) -> dict:
+    d, f, pd = cfg.d_model, d_ff or cfg.d_ff, cfg.pdtype
     out = {"wi": _dense_init(gen, (d, f), pd, stack=stack),
            "wo": _dense_init(gen, (f, d), pd, stack=stack)}
     if cfg.mlp_gated:

@@ -1,4 +1,5 @@
-"""Causal LM, dense and hybrid families (port of ``repro/models/lm.py``).
+"""Causal LM, dense, hybrid and MoE families (port of
+``repro/models/lm.py``).
 
 One parameter tree, a Python loop over the stacked layer axis (the
 reference's ``lax.scan``), four entry points:
@@ -10,10 +11,15 @@ reference's ``lax.scan``), four entry points:
                            the block pool through ``paged_attention``
                            (the PagedBackend's kernel decode path)
 
-Families ported: dense, and hybrid (hymba: parallel attention and Mamba2
+Families ported: dense; hybrid (hymba: parallel attention and Mamba2
 heads per layer, mean-combined; the SSM carries a per-sequence
-recurrent state and conv context beside the KV cache).  The other
-families raise ``NotImplementedError`` (ROADMAP.md queues them).
+recurrent state and conv context beside the KV cache); and MoE (an
+optional leading stack of ``n_dense_layers`` dense blocks,
+``blocks_dense``, then ``blocks`` whose MLP is a routed expert layer
+with MARS-sorted dispatch, plus a shared expert or a parallel dense
+residual MLP where configured).  Every entry point walks both stacks
+with the absolute layer index.  The other families raise
+``NotImplementedError`` (ROADMAP.md queues them).
 """
 from __future__ import annotations
 
@@ -23,16 +29,26 @@ from typing import Any
 import torch
 
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid") or cfg.is_moe \
-            or cfg.enc_layers:
+    if cfg.family not in ("dense", "hybrid", "moe") \
+            or cfg.is_moe != (cfg.family == "moe") or cfg.enc_layers:
         raise NotImplementedError(
-            f"the torch port serves the dense and hybrid families only "
-            f"(got {cfg.family!r}); see ROADMAP.md for the other families")
+            f"the torch port serves the dense, hybrid and MoE families "
+            f"only (got {cfg.family!r}); see ROADMAP.md for the other "
+            f"families")
+
+
+def _stacks(cfg: ModelConfig):
+    """(tree key, first absolute layer, layer count) of each stacked block
+    group in order: an MoE model's leading dense blocks, then the rest."""
+    nd = cfg.n_dense_layers if cfg.is_moe else 0
+    head = [("blocks_dense", 0, nd)] if nd else []
+    return head + [("blocks", nd, cfg.n_layers - nd)]
 
 
 # ---------------------------------------------------------------------------
@@ -43,21 +59,35 @@ def init(cfg: ModelConfig, gen: torch.Generator):
     """Random parameters with the reference's distributions and layout,
     drawn from ``gen`` on ``gen.device``.  Returns the tree as an
     ``nn.Module`` (``layers.as_module``); per-layer leaves are stacked on
-    a leading ``n_layers`` axis (``blocks/attn/wq`` is (L, d, H, dh))."""
+    a leading layer axis (``blocks/attn/wq`` is (L, d, H, dh)).  An MoE
+    model's first ``n_dense_layers`` blocks stack under
+    ``blocks_dense``, the rest under ``blocks``."""
     _check_family(cfg)
-    L = cfg.n_layers
+    stacks = {name: _stack_init(gen, cfg, n,
+                                moe=cfg.is_moe and name == "blocks")
+              for name, _, n in _stacks(cfg)}
+    tree = {"embed": layers.embedding_init(gen, cfg),
+            "final_norm": layers.norm_init(cfg, gen.device), **stacks}
+    return layers.as_module(tree)
+
+
+def _stack_init(gen, cfg: ModelConfig, L: int, *, moe: bool) -> dict:
+    """``L`` stacked blocks; ``moe`` gives them a routed expert layer (and
+    the dense residual MLP where configured) in place of the MLP."""
     blocks = {"ln1": layers.norm_init(cfg, gen.device, L),
               "attn": layers.attention_init(gen, cfg, L)}
     if cfg.has_ssm:
         blocks["ln_ssm"] = layers.norm_init(cfg, gen.device, L)
         blocks["ssm"] = ssm_mod.ssm_init(gen, cfg, L)
-    if cfg.d_ff:
+    if moe:
+        blocks["ln2"] = layers.norm_init(cfg, gen.device, L)
+        blocks["moe"] = moe_mod.moe_init(gen, cfg, L)
+        if cfg.moe_dense_residual:
+            blocks["mlp"] = layers.mlp_init(gen, cfg, L)
+    elif cfg.d_ff:
         blocks["ln2"] = layers.norm_init(cfg, gen.device, L)
         blocks["mlp"] = layers.mlp_init(gen, cfg, L)
-    tree = {"embed": layers.embedding_init(gen, cfg),
-            "final_norm": layers.norm_init(cfg, gen.device),
-            "blocks": blocks}
-    return layers.as_module(tree)
+    return blocks
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +133,13 @@ def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
         x = x + 0.5 * (attn_out + ssm_out)
     else:
         x = x + attn_out
-    if "mlp" in bp:
+    if "moe" in bp:
+        h = layers.apply_norm(bp["ln2"], x, cfg)
+        mo, _ = moe_mod.moe_apply(bp["moe"], h, cfg)
+        if cfg.moe_dense_residual and "mlp" in bp:
+            mo = mo + layers.mlp_apply(bp["mlp"], h, cfg)
+        x = x + mo
+    elif "mlp" in bp:
         h = layers.apply_norm(bp["ln2"], x, cfg)
         x = x + layers.mlp_apply(bp["mlp"], h, cfg)
     return x, new_kv, new_ssm
@@ -112,14 +148,16 @@ def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
 def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
                  layer_offset: int, n: int, kv=None, cache_pos=None,
                  ssm_states=None, paged=None):
-    """Loop over stacked block params (+ optional per-layer caches).
+    """Loop over stacked block params (+ optional per-layer caches) for
+    absolute layers ``layer_offset .. layer_offset + n - 1``.
 
-    ``paged``: kernel-path decode operands (pool page buffers + table +
-    lengths); the absolute layer index selects each iteration's plane of
-    the layered pool through one shared table.  ``ssm_states``: the
-    hybrid side state ``(ssm (L, B, H, P, N), conv (L, B, k-1, ch))``
-    for decode.  Returns (x, [(k, v) per layer], [(ssm, conv) per layer,
-    or None per layer for a dense model])."""
+    ``kv`` (dense cache K and V, (L, ...)) and ``ssm_states`` (the hybrid
+    side state ``(ssm (L, B, H, P, N), conv (L, B, k-1, ch))``) span every
+    layer of the model and are read at the absolute layer index, as is
+    ``paged`` (kernel-path decode operands: pool page buffers + table +
+    lengths), whose index selects each iteration's plane of the layered
+    pool through one shared table.  Returns (x, [(k, v) per layer],
+    [(ssm, conv) per layer, or None per layer for a dense model])."""
     glob = None
     if cfg.sliding_window:
         # per-layer global/window flag: global layers attend the whole
@@ -128,20 +166,35 @@ def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
                 for li in range(layer_offset, layer_offset + n)]
     ys, ss = [], []
     for i in range(n):
+        li = layer_offset + i
         paged_l = None
         if paged is not None:
-            paged_l = dict(paged, layer=layer_offset + i)
+            paged_l = dict(paged, layer=li)
             if cfg.sliding_window:
                 paged_l["window"] = 0 if glob[i] else cfg.sliding_window
-        kv_i = None if kv is None else (kv[0][i], kv[1][i])
-        ssm_i = None if ssm_states is None else (ssm_states[0][i],
-                                                 ssm_states[1][i])
+        kv_i = None if kv is None else (kv[0][li], kv[1][li])
+        ssm_i = None if ssm_states is None else (ssm_states[0][li],
+                                                 ssm_states[1][li])
         x, new_kv, new_ssm = _block_apply(
             _layer(stacked, i), x, cfg, masks=masks, positions=positions,
             kv=kv_i, cache_pos=cache_pos, ssm_state=ssm_i,
             is_global=None if glob is None else glob[i], paged=paged_l)
         ys.append(new_kv)
         ss.append(new_ssm)
+    return x, ys, ss
+
+
+def _run_blocks(params, x, cfg: ModelConfig, **kw):
+    """``_scan_blocks`` over every stacked block group in order (an MoE
+    model's ``blocks_dense``, then ``blocks``) with the absolute layer
+    index; returns (x, per-layer kv list, per-layer side-state list) over
+    all ``n_layers`` layers."""
+    ys, ss = [], []
+    for name, off, n in _stacks(cfg):
+        x, y, s = _scan_blocks(params[name], x, cfg, layer_offset=off, n=n,
+                               **kw)
+        ys += y
+        ss += s
     return x, ys, ss
 
 
@@ -175,10 +228,9 @@ def forward(params, cfg: ModelConfig, tokens):
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg)
-    x, _, _ = _scan_blocks(params["blocks"], x, cfg,
-                           masks=_masks(cfg, S, tokens.device),
-                           positions=positions, layer_offset=0,
-                           n=cfg.n_layers)
+    x, _, _ = _run_blocks(params, x, cfg,
+                          masks=_masks(cfg, S, tokens.device),
+                          positions=positions)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     return layers.lm_head(params["embed"], x, cfg)
 
@@ -240,11 +292,10 @@ def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
         m = m_causal & (kpos > posv[:, None] - cfg.sliding_window)
     masks = (m[:, None, None, :], m_causal[:, None, None, :])
     ssm_states = (cache.ssm, cache.conv) if cfg.has_ssm else None
-    x, _, ss = _scan_blocks(params["blocks"], x, cfg, masks=masks,
-                            positions=positions, layer_offset=0,
-                            n=cfg.n_layers, kv=(cache.k, cache.v),
-                            cache_pos=posv if ragged else pos,
-                            ssm_states=ssm_states)
+    x, _, ss = _run_blocks(params, x, cfg, masks=masks,
+                           positions=positions, kv=(cache.k, cache.v),
+                           cache_pos=posv if ragged else pos,
+                           ssm_states=ssm_states)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x, cfg)
     ssm, conv = _stack_ssm(ss)
@@ -279,10 +330,9 @@ def paged_decode_step(params, cfg: ModelConfig, tokens, k_pages, v_pages,
     x = layers.embed_tokens(params["embed"], tokens, cfg)
     paged = dict(k_pages=k_pages, v_pages=v_pages, page_tables=page_tables,
                  lengths=lengths)
-    x, ys, ss = _scan_blocks(params["blocks"], x, cfg, masks=None,
-                             positions=positions, layer_offset=0,
-                             n=cfg.n_layers, ssm_states=ssm_states,
-                             paged=paged)
+    x, ys, ss = _run_blocks(params, x, cfg, masks=None,
+                            positions=positions, ssm_states=ssm_states,
+                            paged=paged)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x, cfg)
     k_new, v_new = _stack_kv(ys)
@@ -308,10 +358,9 @@ def prefill_parts(params, cfg: ModelConfig, tokens):
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     x = layers.embed_tokens(params["embed"], tokens, cfg)
-    x, ys, ss = _scan_blocks(params["blocks"], x, cfg,
-                             masks=_masks(cfg, S, tokens.device),
-                             positions=positions, layer_offset=0,
-                             n=cfg.n_layers)
+    x, ys, ss = _run_blocks(params, x, cfg,
+                            masks=_masks(cfg, S, tokens.device),
+                            positions=positions)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x[:, -1:], cfg)
     k, v = _stack_kv(ys)

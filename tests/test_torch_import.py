@@ -17,7 +17,9 @@ PORT = ROOT / "src" / "repro_torch"
 SLICE_MODULES = [
     "repro_torch",
     "repro_torch.configs",
+    "repro_torch.configs.arctic_480b",
     "repro_torch.configs.hymba_1_5b",
+    "repro_torch.configs.kimi_k2_1t_a32b",
     "repro_torch.configs.qwen1_5_0_5b",
     "repro_torch.convert",
     "repro_torch.core.reorder",
@@ -26,6 +28,9 @@ SLICE_MODULES = [
     "repro_torch.kernels.mars_gather.mars_gather",
     "repro_torch.kernels.mars_gather.ops",
     "repro_torch.kernels.mars_gather.ref",
+    "repro_torch.kernels.moe_dispatch.moe_dispatch",
+    "repro_torch.kernels.moe_dispatch.ops",
+    "repro_torch.kernels.moe_dispatch.ref",
     "repro_torch.kernels.paged_attention.ops",
     "repro_torch.kernels.paged_attention.paged_attention",
     "repro_torch.kernels.paged_attention.ref",
@@ -41,6 +46,7 @@ SLICE_MODULES = [
     "repro_torch.models.config",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    "repro_torch.models.moe",
     "repro_torch.models.ssm",
     "repro_torch.obs",
     "repro_torch.obs.metrics",

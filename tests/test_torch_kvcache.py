@@ -372,3 +372,71 @@ def test_hybrid_dense_paged_parity(decode_mode):
     paged.release()
     paged.pool.check_invariants()
     assert paged.pool.num_live == 0
+
+
+# ---------------------------------------------------------------------------
+# MoE layer offsets (kimi: a leading dense block stack)
+# ---------------------------------------------------------------------------
+
+_MOE: dict = {}
+
+
+def _moe(arch: str):
+    """(jax cfg, port cfg, jax params, port params) for an MoE smoke
+    config at float32."""
+    if arch not in _MOE:
+        import dataclasses
+        from repro import configs as jconfigs
+        from repro.models import lm as jlm
+        from repro_torch import configs as tconfigs
+        from repro_torch import convert
+        jc = dataclasses.replace(jconfigs.get_smoke(arch), **F32)
+        tc = dataclasses.replace(tconfigs.get_smoke(arch), **F32)
+        jp = jax.jit(lambda k: jlm.init(jc, k).params)(jax.random.key(0))
+        tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                       "cpu")
+        _MOE[arch] = (jc, tc, jp, tp)
+    return _MOE[arch]
+
+
+@pytest.mark.parametrize("decode_mode", ["kernel", "gather"])
+@pytest.mark.parametrize("arch", ["kimi_k2_1t_a32b", "arctic_480b"])
+def test_kernel_decode_parity_moe_layer_offsets(arch, decode_mode):
+    """Port of the reference's MoE layer-offset test: with a leading dense
+    block stack (kimi: ``n_dense_layers=1``) the paged path's absolute
+    layer index must address the right plane of the layered pool in both
+    stacks.  The port's paged backend against its dense backend and
+    against the JAX paged backend, three decode steps."""
+    from repro.kvcache.backend import PagedBackend as JPagedBackend
+    from repro.models import lm as jlm
+    from repro_torch.kvcache.backend import make_backend
+    from repro_torch.models import lm as tlm
+    jc, tc, jp, tp = _moe(arch)
+    assert tc.is_moe and (tc.n_dense_layers > 0) == (arch != "arctic_480b")
+    toks = np.random.default_rng(3).integers(1, tc.vocab, (2, 9)) \
+        .astype(np.int32)
+    dense = make_backend(tc, "dense", batch=2, max_seq=24, device="cpu")
+    paged = make_backend(tc, "paged", num_blocks=64, block_size=4,
+                         decode_mode=decode_mode, device="cpu")
+    jpaged = JPagedBackend(jc, num_blocks=64, block_size=4,
+                           decode_mode=decode_mode)
+    assert paged.pool.cfg.n_layers == tc.n_layers
+    lg_d, _ = tlm.prefill(tp, tc, torch.from_numpy(toks), backend=dense)
+    lg_p, _ = tlm.prefill(tp, tc, torch.from_numpy(toks), backend=paged)
+    lg_j, _ = jlm.prefill(jp, jc, jnp.asarray(toks), backend=jpaged)
+    np.testing.assert_allclose(lg_p.numpy(), lg_d.numpy(), **HTOL)
+    np.testing.assert_allclose(lg_p.numpy(), np.asarray(lg_j), **HTOL)
+    tok = lg_d[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for _ in range(3):
+        lg_d, _ = tlm.decode_step(tp, tc, tok, dense)
+        lg_p, _ = tlm.decode_step(tp, tc, tok, paged)
+        lg_j, _ = jlm.decode_step(jp, jc, jnp.asarray(tok.numpy()), jpaged)
+        np.testing.assert_allclose(lg_p.numpy(), lg_d.numpy(), **HTOL)
+        np.testing.assert_allclose(lg_p.numpy(), np.asarray(lg_j), **HTOL)
+        a = lg_d[:, -1].argmax(-1)
+        assert torch.equal(a, lg_p[:, -1].argmax(-1))
+        tok = a.to(torch.int32)[:, None]
+    for b in (paged, jpaged):
+        b.release()
+        b.pool.check_invariants()
+    assert paged.pool.num_live == 0

@@ -7,7 +7,11 @@ Configs: the qwen1.5-0.5b smoke config (MHA, QKV bias, tied embeddings),
 a GQA variant of it (``n_kv_heads=2``), and the hymba-1.5b smoke config
 (hybrid: parallel attention and Mamba2 heads, a sliding window of 16
 with global layers, SSM chunk 8 — prompts are multiples of 8 there, and
-its SSM state and conv context are compared too).  Tolerance
+its SSM state and conv context are compared too), and the MoE smoke
+configs of arctic-480b (128 -> 8 experts top-2 with a parallel dense
+residual MLP) and kimi-k2 (a leading dense block stack, ``blocks_dense``,
+then routed layers with a shared expert), whose expert products run the
+grouped-matmul kernel's plain twin on the CPU.  Tolerance
 ``atol=rtol=1e-4``: the same float32 arithmetic, with matrix products
 summed in another order by another library."""
 import dataclasses
@@ -31,7 +35,9 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 VARIANTS = {"qwen_smoke": ("qwen1_5_0_5b", {}),
             "qwen_smoke_gqa": ("qwen1_5_0_5b", {"n_kv_heads": 2}),
-            "hymba_smoke": ("hymba_1_5b", {})}
+            "hymba_smoke": ("hymba_1_5b", {}),
+            "arctic_smoke": ("arctic_480b", {}),
+            "kimi_smoke": ("kimi_k2_1t_a32b", {})}
 
 
 def _cfgs(variant: str, **extra):
@@ -248,9 +254,10 @@ def test_converter_and_init_match_jax_tree(variant, dtype):
         for key, a in jflat.items():
             t = got[key]
             assert tuple(t.shape) == a.shape, key
-            # SSM a_log / dt_bias / d_skip stay float32 in any dtype
+            # SSM a_log / dt_bias / d_skip and the MoE router stay
+            # float32 in any dtype
             want = "float32" if key.split("']")[-2].endswith(
-                ("a_log", "dt_bias", "d_skip")) else dtype
+                ("a_log", "dt_bias", "d_skip", "router")) else dtype
             assert a.dtype.name == want, key
             assert t.dtype == getattr(torch, want), key
     for key, a in jflat.items():

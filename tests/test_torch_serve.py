@@ -1,13 +1,13 @@
 """The ported slices as a whole: continuous-batching paged serving of the
-qwen1.5-0.5b and the hymba-1.5b smoke configs through both packages'
-``ServeEngine(PagedLM)`` over ``PagedBackend(decode_mode="kernel")`` at
+qwen1.5-0.5b, hymba-1.5b, arctic-480b and kimi-k2 smoke configs through
+both packages' ``ServeEngine(PagedLM)`` over ``PagedBackend(decode_mode="kernel")`` at
 float32, with the same weights (the JAX init converted through
 ``repro_torch.convert``) and the same requests (a shared hot prefix,
 forked samples, a pool tight enough to reject and evict; hymba's prompts
 are multiples of its SSM chunk).  Served tokens and every stat must be
 identical, step by step, on the pipelined and the synchronous decode
 paths.  Then the port's own entry point end to end on the CPU, LM and
-toy."""
+toy, and its ``--layers`` cut."""
 import dataclasses
 
 import numpy as np
@@ -24,6 +24,7 @@ from repro.serving import scheduler as jsched  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.kernels.mars_gather import mars_gather as tmg  # noqa: E402
+from repro_torch.kernels.moe_dispatch import moe_dispatch as tk4  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan as tscan  # noqa: E402
 from repro_torch.kvcache.backend import PagedBackend as TPagedBackend  # noqa: E402
@@ -98,12 +99,14 @@ def _drive(j, t):
 
 
 @pytest.mark.parametrize("arch,num_blocks", [("qwen1_5_0_5b", 26),
-                                             ("hymba_1_5b", 26)])
+                                             ("hymba_1_5b", 26),
+                                             ("arctic_480b", 26),
+                                             ("kimi_k2_1t_a32b", 26)])
 @pytest.mark.parametrize("pipeline", [True, False])
 def test_engine_matches_jax_engine(pipeline, arch, num_blocks):
     j, t = _engines(pipeline, num_blocks, arch)
     launches = (tpa.paged_attention.launches, tscan.ssd_scan.launches,
-                tmg.gather_rows.launches)
+                tmg.gather_rows.launches, tk4.grouped_matmul.launches)
     _drive(j, t)
     (je, jb, _), (te, tb, _) = j, t
     assert te.finished == je.finished
@@ -121,7 +124,7 @@ def test_engine_matches_jax_engine(pipeline, arch, num_blocks):
     assert te.pool.num_live == 0 and te.pool.reserved == 0
     # CPU tensors: the plain twins ran, no CUDA kernel launched
     assert (tpa.paged_attention.launches, tscan.ssd_scan.launches,
-            tmg.gather_rows.launches) == launches
+            tmg.gather_rows.launches, tk4.grouped_matmul.launches) == launches
 
 
 def test_serve_main_paged_smoke_cpu():
@@ -164,6 +167,117 @@ def test_serve_main_paged_hymba_float32_is_exact_cpu():
                        "3", "--parity-checks", "4"])
     assert out["served"] == 4 and out["parity_mismatches"] == 0
     assert out["parity_max_deficit"] == 0.0
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("arctic_480b", []), ("arctic_480b", ["--no-kernel-decode"]),
+    ("kimi_k2_1t_a32b", ["--layers", "2"])])
+def test_serve_main_paged_moe_smoke_cpu(arch, flags):
+    """``--paged --config <moe> --smoke`` end to end on the CPU in the
+    config's bfloat16: served tokens pass the teacher-forced check, and
+    the run reports the config it served (``--layers`` cuts kimi's 3
+    layers to its dense layer and one routed layer)."""
+    out = tserve.main(["--paged", "--config", arch, "--smoke", "--device",
+                       "cpu", "--requests", "6", "--batch", "3",
+                       "--new-tokens", "3", "--prefixes", "2",
+                       "--pool-blocks", "40", "--parity-checks", "3",
+                       *flags])
+    assert out["served"] == 6 and out["parity_mismatches"] == 0
+    assert out["decode_tokens"] == 6 * 3 and out["prefills"] == 6
+    cfg = out["cfg"]
+    assert cfg.is_moe and cfg.n_layers == (2 if flags[:1] == ["--layers"]
+                                           else tconfigs.get_smoke(
+                                               arch).n_layers)
+    for seqs in out["finished"].values():
+        assert all(len(s) == 3 and all(0 <= t < cfg.vocab for t in s)
+                   for s in seqs)
+
+
+@pytest.mark.parametrize("arch", ["arctic_480b", "kimi_k2_1t_a32b"])
+def test_serve_main_paged_moe_float32_is_exact_cpu(arch):
+    """The float32 gate of the MoE path: every served token is the dense
+    argmax, on the kernel and on the gather decode path."""
+    for flags in ([], ["--no-kernel-decode"]):
+        out = tserve.main(["--paged", "--config", arch, "--smoke",
+                           "--dtype", "float32", "--device", "cpu",
+                           "--requests", "4", "--batch", "2",
+                           "--new-tokens", "3", "--parity-checks", "4",
+                           *flags])
+        assert out["served"] == 4 and out["parity_mismatches"] == 0
+        assert out["parity_max_deficit"] == 0.0
+
+
+@pytest.mark.parametrize("arch,layers,ok", [
+    ("arctic_480b", 2, True), ("arctic_480b", 35, True),
+    ("arctic_480b", 36, False), ("arctic_480b", 0, False),
+    ("kimi_k2_1t_a32b", 2, True), ("kimi_k2_1t_a32b", 1, False),
+    ("kimi_k2_1t_a32b", 62, False), ("qwen1_5_0_5b", 25, False)])
+def test_layers_cut(arch, layers, ok):
+    """``--layers`` keeps the widths and cuts the depth; it refuses a depth
+    above the config's and one at or below its leading dense layers."""
+    cfg = tconfigs.get(arch)
+    if ok:
+        cut = tserve.cut_depth(cfg, layers)
+        assert cut.n_layers == layers
+        assert dataclasses.replace(cut, n_layers=cfg.n_layers) == cfg
+    else:
+        with pytest.raises(ValueError, match="--layers"):
+            tserve.cut_depth(cfg, layers)
+
+
+def test_layers_refused_by_the_entry_point():
+    with pytest.raises(ValueError, match="--layers"):
+        tserve.main(["--paged", "--config", "kimi_k2_1t_a32b", "--smoke",
+                     "--device", "cpu", "--requests", "1", "--layers",
+                     "1"])
+
+
+def _check_inputs(dtype):
+    from repro_torch.models import lm as tlm
+    cfg = dataclasses.replace(tconfigs.get_smoke("arctic_480b"),
+                              param_dtype=dtype, compute_dtype=dtype)
+    params = tlm.init(cfg, torch.Generator("cpu").manual_seed(0))
+    reqs = tserve.synth_requests(3, vocab=cfg.vocab, n_prefixes=2)
+    rng = np.random.default_rng(0)
+    served = [rng.integers(0, cfg.vocab, n).tolist() for n in (4, 4, 3)]
+    return cfg, params, reqs, served
+
+
+def test_dense_forced_logits_batch_matches_single_in_float32():
+    """Teacher-forcing several sequences in one batch computes what each
+    computes alone (float32), with the router gaps of every position."""
+    cfg, params, reqs, served = _check_inputs("float32")
+    prompts = [list(r.prompt) for r in reqs[:2]]
+    both, gaps = tserve._dense_forced_logits(params, cfg, prompts,
+                                             served[:2], "cpu")
+    assert both.shape == (2, 4, cfg.vocab) and gaps.shape == (2, 4)
+    assert (gaps >= 0).all()
+    for b in range(2):
+        one, g1 = tserve._dense_forced_logits(params, cfg, [prompts[b]],
+                                              [served[b]], "cpu")
+        np.testing.assert_allclose(both[b], one[0], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(gaps[b], g1[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_noise(dtype):
+    """The check's measured noise term: none in float32; in bfloat16 the
+    per-position largest |logit| difference between each sequence alone
+    and its length group in one batch (here two groups)."""
+    cfg, params, reqs, served = _check_inputs(dtype)
+    singles = [tserve._dense_forced_logits(params, cfg, [list(r.prompt)],
+                                           [s], "cpu")[0][0]
+               for r, s in zip(reqs, served)]
+    noise, prefills, steps = tserve._dense_noise(params, cfg, reqs, served,
+                                                 singles, "cpu")
+    if dtype == "float32":
+        assert (noise, prefills, steps) == (None, 0, 0)
+        return
+    assert prefills == 2 and steps == (4 - 1) + (3 - 1)
+    assert [n.shape for n in noise] == [(4,), (4,), (3,)]
+    assert all((n >= 0).all() and np.isfinite(n).all() for n in noise)
+    # a group of one is its own batch: no noise
+    assert (noise[2] == 0).all()
 
 
 @pytest.mark.parametrize("top,dtype,want", [
