@@ -2,27 +2,42 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root
-    python3 chip_smoke.py --phases k4        # a subset; prints no result
+    python3 chip_smoke.py --phases k5        # a subset; prints no result
 
 Phases (any failure exits non-zero and prints no result):
 
   build   compile every CUDA kernel of the port from ``src/repro_torch/
-          csrc`` (paged_attention, ssd_scan, mars_gather, moe_dispatch)
-          with nvcc for sm_90a (one nvcc per source, started together)
-          into the git-ignored ``build/``.
+          csrc`` (paged_attention, ssd_scan, mars_gather, moe_dispatch,
+          flash_attention) with nvcc for sm_90a (one nvcc per source,
+          started together) into the git-ignored ``build/``.
   k1      K1 paged_attention with its softmax state, and decode_attend
           (whose twin is the same call on host copies), against the plain
           twin over the serving shapes, a long ragged pool, GQA, sliding
           windows, hymba's shape (25 query heads over 5 KV heads, a 1024
           window, lengths up to 2048) and arctic's (56 over 8, d 128).
-  k3      K3 ssd_scan at hymba's prefill shape, a long case and the
+  k3      K3 ssd_scan at hymba's prefill shape, a long case, mamba2-370m's
+          prefill (8 prompts, 32 heads of 64, state 128) and a long
+          mamba2 case (chunk 64: 130 KB of shared memory), and the
           reference test shapes.
-  k2      K2 gather_rows bitwise on hymba's, qwen's and arctic's
-          embedding tables.
+  k2      K2 gather_rows bitwise on the embedding tables of hymba,
+          qwen, arctic, whisper and mamba2 in bf16 (whisper's and
+          mamba2's also in float32) at 8, 24, 192 (a dense prefill of 8
+          prompts) and 8192 ids.
   k4      K4 grouped_matmul against its plain twin on the reference test
           shapes and on MARS-sorted, tile-padded routings at arctic's
           decode (w_in and w_out) and prefill and kimi's decode; padding
           rows must come out 0.
+  k5      K5 flash_attention against its plain twin at whisper-base's
+          encoder (8 x 1500 frames, 8 heads of 64, no mask), its
+          cross-attention (24 and 1 queries over 1500 frames) and
+          decoder prefill, the causal prefills of qwen (16 x 64),
+          arctic (56 x 128), kimi (64 x 112) and the smoke configs (d
+          16), a long causal prefill (8192 tokens, 16 x 128), the
+          reference test shapes and ragged cases with few keys (1, 7
+          and 24 queries over 40 or 100 keys, head dims 16 to 128).
+          bfloat16 is held element by element to a bound derived from
+          the inputs (``K5_TOL``) and both dtypes to a gain within 2**-8
+          of 1.
           Every kernel is held in float32 and bfloat16 within the stated
           tolerances and timed beside its bound, its plain twin and,
           where one exists, one PyTorch library call.
@@ -38,13 +53,32 @@ Phases (any failure exits non-zero and prints no result):
           run prints its largest deficit), and with every launch count
           set to 0 just before each run, paged_attention must have
           launched once per layer per decode step, ssd_scan once per
-          layer per prefill (the engine's and the check's), gather_rows
-          once per embedding lookup and grouped_matmul three times per
-          MoE layer per embedding lookup.  Each run's weights are freed
+          layer per prefill (the engine's and the check's),
+          flash_attention once per unwindowed layer per prefill,
+          gather_rows once per embedding lookup and grouped_matmul three
+          times per MoE layer per embedding lookup.  hymba's bf16 runs
+          also report how far their served tokens sit from a float32
+          forward on the same weights.  Each run's weights are freed
           before the next.  Each bfloat16 kernel-path run is then served
           twice more, warm: plain for its wall time, then under
           ``torch.profiler`` for the device's kernel time by kernel and
           its busy share.
+  dense   ``repro_torch.launch.serve --config <arch>`` (the dense-backend
+          scheduler path, ``mars=False`` then ``mars=True``) at full
+          width for whisper_base (6 encoder + 6 decoder layers, d 512,
+          1500 stub frames) and mamba2_370m (48 layers, d 1024, state
+          128), each in bfloat16 and in float32: the served tokens of
+          every batch are teacher-forced through ``lm.forward`` on the
+          card (exact argmax in float32, the bf16 near-tie margin with
+          the measured noise term otherwise), and with every count set
+          to 0 just before each run, flash_attention must have launched
+          (encoder + 2 x decoder layers) times per prefill and once per
+          decoder layer per decode step, ssd_scan once per layer per
+          prefill and gather_rows once per embedding lookup.  The bf16
+          runs also report how far their served tokens, and their bf16
+          forward's own argmax, sit from a float32 forward on the same
+          weights.  Each bfloat16 run is then served twice more, warm
+          and profiled, as above.
 
 Prints the card's name and power limit (as ``nvidia-smi`` gives them), a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -72,9 +106,57 @@ TOL = {"float32": dict(o=(1e-4, 1e-4), ml=(1e-4, 1e-4)),
        "bfloat16": dict(o=(2e-2, 0.0), ml=(1e-5, 1e-3))}  # (atol, rtol)
 # ssd_scan against its plain twin, (atol, rtol), for float32 and bfloat16
 # inputs alike: both upcast the same values and work in f32, and differ
-# only in summation order (sums of up to 64 + 16 terms a chunk, the state
-# carried over up to 64 chunks)
+# only in summation order (sums of up to 64 + 128 terms a chunk, the
+# state carried over up to 64 chunks)
 SSD_TOL = (1e-3, 1e-3)
+# flash_attention against its plain twin.  float32, (atol, rtol): the
+# same f32 products and exponentials, summed in another order (32 keys a
+# step under a running maximum, against one softmax) and taken as exp2 of
+# log2(e)-scaled scores: differences near 1e-6 of |o|, which stays below
+# max |v| (about 5 for unit normal inputs).  bfloat16, element by element
+# (``k5_bf16_tol``): each side rounds every probability to bf16 before
+# the product with v (the kernel at its running maximum, the twin at the
+# final one), an error of at most u = 2**-8 of that probability, so the
+# two sums differ by at most 2 u (P|v|), where P|v| is the twin's
+# softmax applied to |v| in f32; each side then rounds o to bf16, at most
+# u of its |o|; and both sum up to Sk f32 terms (2**-24 each).  So
+#   |got - want| <= 2 u (P|v|) + u (|got| + |want|) + Sk 2**-23 (P|v|).
+# With Sk 1500 and unit normal v that is about 6e-3 while |o| is near
+# 0.04, so a bound per element cannot see a defect that scales o by a
+# few percent; both dtypes are also held to a gain: sum(got want) /
+# sum(want^2) within 2**-8 of 1 (round to nearest is unbiased, so
+# rounding moves the gain by about u / sqrt(elements), far below 2**-8,
+# while a dropped tail mask at Sk 1500 moves it by 1.4%).
+K5_TOL = {"float32": (1e-4, 1e-4)}
+K5_GAIN_TOL = 2.0 ** -8
+# K5 cases: (name, B, Sq, Sk, H, D, causal).  whisper-base serves 8
+# prompts of 24 tokens over 1500 stub frames: its encoder, its
+# cross-attention at prefill and at decode (one query), its decoder's
+# prefill; the causal 24-token prefills of qwen1.5-0.5b, arctic-480b,
+# kimi-k2 and the smoke configs (d 16); a long prefill; the reference's
+# kernel test shapes; and ragged cases with few keys at every head dim,
+# where the keys past Sk in the last tile (24 of 64 at Sk 40, 28 at Sk
+# 100) would move o by tens of percent if their mask were lost.
+K5_CASES = [("whisper_encoder", 8, 1500, 1500, 8, 64, False),
+            ("whisper_cross_prefill", 8, 24, 1500, 8, 64, False),
+            ("whisper_cross_decode", 8, 1, 1500, 8, 64, False),
+            ("whisper_decoder_prefill", 8, 24, 24, 8, 64, True),
+            ("qwen_prefill", 1, 24, 24, 16, 64, True),
+            ("arctic_prefill", 1, 24, 24, 56, 128, True),
+            ("kimi_prefill", 1, 24, 24, 64, 112, True),
+            ("smoke_prefill", 1, 24, 24, 4, 16, True),
+            ("long_prefill", 1, 8192, 8192, 16, 128, True),
+            ("ref_a", 1, 128, 128, 2, 64, True),
+            ("ref_b", 2, 256, 256, 4, 64, True),
+            ("ref_c", 1, 512, 512, 1, 128, True),
+            ("ref_noncausal", 1, 128, 128, 2, 64, False),
+            ("ragged_1x40", 2, 1, 40, 4, 64, False),
+            ("ragged_7x40", 2, 7, 40, 4, 64, False),
+            ("ragged_24x100", 2, 24, 100, 4, 64, False),
+            ("ragged_d16_24x40", 1, 24, 40, 4, 16, False),
+            ("ragged_d112_7x100", 1, 7, 100, 4, 112, False),
+            ("ragged_d128_24x40", 1, 24, 40, 4, 128, False),
+            ("ragged_causal_100", 1, 100, 100, 4, 64, True)]
 OUT_DIR = ROOT / "chiprun_out"
 # serve runs, each its own path for the launch counts: (config, extra
 # flags).  A config serves in its own bfloat16 through the kernels unless
@@ -99,6 +181,10 @@ RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
                              "--no-kernel-decode")))
 # flags that take a run off the profiled bf16 kernel path
 UNPROFILED = {"--dtype", "--no-kernel-decode", "--smoke"}
+# dense-backend runs (``serve.main`` without --paged): (config, flags);
+# the bf16 ones are profiled
+DENSE_RUNS = (("whisper_base", ()), ("whisper_base", ("--dtype", "float32")),
+              ("mamba2_370m", ()), ("mamba2_370m", ("--dtype", "float32")))
 
 
 def run_name(arch: str, flags=()) -> str:
@@ -106,7 +192,11 @@ def run_name(arch: str, flags=()) -> str:
 
 
 def serve_args(arch: str, flags=()) -> list:
-    return ["--paged", "--config", arch, "--requests", "16", "--batch", "8",
+    return ["--paged", *dense_args(arch, flags)]
+
+
+def dense_args(arch: str, flags=()) -> list:
+    return ["--config", arch, "--requests", "16", "--batch", "8",
             "--device", "cuda", *flags]
 
 
@@ -358,17 +448,22 @@ def time_case(torch, F, ops, dtype: str):
 
 # K3 cases: (name, B, S, H, P, N, chunk).  hymba's prefill: one request
 # of 24 prompt tokens under chunk 64 (one chunk of 24); a long case of 64
-# chunks; the shapes of the reference's kernel tests.
+# chunks; mamba2-370m's prefill: a batch of 8 prompts of 24 tokens, 32
+# heads of 64, state 128 (66.6 KB of shared memory a block), and a long
+# mamba2 case (chunk 64: 130 KB); the shapes of the reference's kernel
+# tests.
 SSD_CASES = [("hymba_prefill", 1, 24, 50, 64, 16, 64),
              ("long", 4, 4096, 50, 64, 16, 64),
+             ("mamba2_prefill", 8, 24, 32, 64, 128, 64),
+             ("mamba2_long", 1, 2048, 32, 64, 128, 64),
              ("ref_a", 1, 64, 2, 16, 8, 16),
              ("ref_b", 2, 128, 4, 32, 16, 32),
              ("ref_c", 1, 96, 1, 8, 4, 32)]
 
 
 def ssd_inputs(torch, F, gen, B, S, H, P, N, dtype):
-    """x, b, c, la, dt on the card as the model feeds them: dt =
-    softplus(normal), la a negative log decay."""
+    """x, b, c (in ``dtype``), la, dt (float32) on the card as the model
+    feeds them: dt = softplus(normal), la a negative log decay."""
     dev = gen.device
     x = torch.randn(B, S, H, P, generator=gen, device=dev)
     b = torch.randn(B, S, N, generator=gen, device=dev)
@@ -376,13 +471,13 @@ def ssd_inputs(torch, F, gen, B, S, H, P, N, dtype):
     dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
     la = -torch.exp(0.3 * torch.randn(B, S, H, generator=gen, device=dev)) \
         * dt
-    return [t.to(dtype).contiguous() for t in (x, b, c, la, dt)]
+    return [t.to(dtype).contiguous() for t in (x, b, c)] + [la, dt]
 
 
 def ssd_phase(torch, F, gen):
     """ssd_scan against ssd_scan_plain on the card at every case, float32
-    and bfloat16 inputs; times the kernel at hymba's prefill and the long
-    case."""
+    and bfloat16 inputs; times the kernel at hymba's and mamba2's prefill
+    and the long cases."""
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
     results, max_err, timing = [], 0.0, {}
     for dtype in ("float32", "bfloat16"):
@@ -404,7 +499,8 @@ def ssd_phase(torch, F, gen):
             results.append(dict(case=name, dtype=dtype, y_err=e_y,
                                 state_err=e_s, ok=ok))
             max_err = max(max_err, e_y, e_s)
-            if name in ("hymba_prefill", "long"):
+            if name in ("hymba_prefill", "long", "mamba2_prefill",
+                        "mamba2_long"):
                 timing[f"{name}/{dtype}"] = time_ssd(torch, ssd_mod, ins,
                                                      chunk, dtype)
     bad = [r for r in results if not r["ok"]]
@@ -416,7 +512,8 @@ def ssd_phase(torch, F, gen):
 
 def time_ssd(torch, ssd_mod, ins, chunk: int, dtype: str) -> dict:
     """Kernel and plain twin at one case; the bound from the bytes (every
-    input read once, y and the state written once in f32) and the
+    input read once in its dtype, y and the state written once in f32)
+    and the
     operations of the chunked algorithm (C B^T on the lower triangle once
     per batch and chunk; per head W x, the carried state's term and the
     state update).  No single PyTorch call computes the scan, so there
@@ -426,8 +523,7 @@ def time_ssd(torch, ssd_mod, ins, chunk: int, dtype: str) -> dict:
     N = b.shape[-1]
     q = min(chunk, S)
     n_chunks = S // q
-    eb = x.element_size()
-    bytes_moved = (sum(t.numel() for t in ins) * eb
+    bytes_moved = (sum(t.numel() * t.element_size() for t in ins)
                    + B * S * H * P * 4 + B * H * P * N * 4)
     tri = q * (q + 1) // 2
     ops_count = B * n_chunks * (2 * tri * N
@@ -448,41 +544,155 @@ def time_ssd(torch, ssd_mod, ins, chunk: int, dtype: str) -> dict:
                 bytes=bytes_moved, ops=ops_count)
 
 
-# K2 tables: the embedding tables of the served configs, bf16
-GATHER_TABLES = {"hymba": (32001, 1600), "qwen": (151936, 1024),
-                 "arctic": (32000, 7168)}
-GATHER_IDS = (8, 24, 8192)
+def k5_inputs(torch, gen, B, Sq, Sk, H, D, dtype):
+    dev = gen.device
+    return [torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+            for S in (Sq, Sk, Sk)]
+
+
+def k5_phase(torch, F, gen):
+    """flash_attention against flash_attention_plain on the card at every
+    case, float32 and bfloat16; times every case beside its bound, the
+    plain twin and SDPA."""
+    from repro_torch.kernels.flash_attention import flash_attention as k5
+    results, timing, max_err = [], {}, 0.0
+    for dtype in ("float32", "bfloat16"):
+        for name, B, Sq, Sk, H, D, causal in K5_CASES:
+            q, k, v = k5_inputs(torch, gen, B, Sq, Sk, H, D,
+                                getattr(torch, dtype))
+            got = k5.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = k5.flash_attention_plain(q, k, v, causal=causal)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            if dtype == "float32":
+                atol, rtol = K5_TOL[dtype]
+                tol = atol + rtol * want.abs()
+                tol_txt = f"tol(atol,rtol)={K5_TOL[dtype]}"
+            else:
+                tol = k5_bf16_tol(k5, q, k, v, got, want, causal)
+                tol_txt = f"tol per element {float(tol.min()):.2e}.." \
+                          f"{float(tol.max()):.2e}"
+            use = float((diff / tol).max())
+            del diff, tol
+            w = want.float()
+            gain = float((got.float() * w).sum() / (w * w).sum())
+            finite = bool(torch.isfinite(got.float()).all())
+            ok = use <= 1.0 and abs(gain - 1.0) <= K5_GAIN_TOL and finite \
+                and got.dtype == q.dtype and got.shape == q.shape
+            print(f"[kernel] flash_attention {name:23s} {dtype:8s} B={B} "
+                  f"Sq={Sq} Sk={Sk} H={H} D={D} causal={causal} "
+                  f"err={err:.3e} {tol_txt} (largest err/tol {use:.3f}) "
+                  f"gain-1={gain - 1.0:+.2e} (tol {K5_GAIN_TOL:.2e}) "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            results.append(dict(case=name, dtype=dtype, err=err,
+                                err_over_tol=use, gain=gain, ok=ok))
+            max_err = max(max_err, err)
+            del got, want, w
+            timing[f"{name}/{dtype}"] = time_k5(torch, F, k5, q, k, v,
+                                                causal, dtype)
+            del q, k, v
+            torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"twin: {bad}")
+    return results, max_err, timing
+
+
+def k5_bf16_tol(k5, q, k, v, got, want, causal: bool):
+    """The bound per element between K5 and its twin in bfloat16 (see
+    ``K5_TOL``): 2 u (P|v|) + u (|got| + |want|) + Sk 2**-23 (P|v|), with
+    P|v| the twin's softmax over |v| in float32."""
+    u = 2.0 ** -8
+    pv = k5.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                  causal=causal)
+    return pv.mul_(2 * u + k.shape[1] * 2.0 ** -23) \
+        .add_(got.float().abs().add_(want.float().abs()), alpha=u)
+
+
+def time_k5(torch, F, k5, q, k, v, causal: bool, dtype: str) -> dict:
+    """Kernel, plain twin and SDPA (on (B, H, S, D) copies made
+    beforehand, the same mask, never called by the port) at one case.
+    Bound: q, k, v read once and o written once over the memory rate,
+    and the 4 D operations of each (query, key) pair the mask keeps (a
+    causal mask keeps S (S + 1) / 2 of S^2) over the peak rate of the
+    dtype; the larger."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    ops_count = 4 * pairs * D
+    bytes_moved = 2 * (q.numel() + k.numel()) * q.element_size()
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS[dtype] * 1e3
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    long = pairs > 1 << 28
+
+    def kern():
+        k5.flash_attention(q, k, v, causal=causal)
+
+    def plain():
+        k5.flash_attention_plain(q, k, v, causal=causal)
+
+    def lib():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    return dict(ms=device_ms(kern, 20), plain_ms=device_ms(plain,
+                                                           2 if long else 10),
+                library_ms=device_ms(lib, 20), event_ms=time_ms(kern, 20),
+                plain_event_ms=time_ms(plain, 2 if long else 10),
+                library_event_ms=time_ms(lib, 20),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_moved, ops=ops_count)
+
+
+# K2 tables: the embedding tables of the served configs, (V, D, dtypes):
+# all in bf16, and the two the dense float32 runs gather also in float32
+GATHER_TABLES = {"hymba": (32001, 1600, ("bfloat16",)),
+                 "qwen": (151936, 1024, ("bfloat16",)),
+                 "arctic": (32000, 7168, ("bfloat16",)),
+                 "whisper": (51865, 512, ("bfloat16", "float32")),
+                 "mamba2": (50280, 1024, ("bfloat16", "float32"))}
+# 8: a decode step's lanes; 24: one prompt; 192: a dense prefill of 8
+# prompts of 24; 8192: a long prefill
+GATHER_IDS = (8, 24, 192, 8192)
+_BITS = {"bfloat16": "int16", "float32": "int32"}
 
 
 def gather_phase(torch, F, gen):
-    """gather_rows against table[ids] on the card, bitwise, on both
-    tables at 8 (a decode step's lanes), 24 (a prefill) and 8192 ids,
-    MARS-sorted as ``embedding_gather`` sorts them; times every case
-    beside its bound, the plain twin and ``F.embedding``."""
+    """gather_rows against table[ids] on the card, bitwise, on every
+    table and dtype at each count of ``GATHER_IDS``, MARS-sorted as
+    ``embedding_gather`` sorts them; times every case beside its bound,
+    the plain twin and ``F.embedding``."""
     from repro_torch.kernels.mars_gather import mars_gather as mg_mod
     results, timing = [], {}
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=gen.device)
-    for tname, (V, D) in GATHER_TABLES.items():
-        table = torch.randn(V, D, generator=gen, device=gen.device) \
-            .to(torch.bfloat16)
-        for n in GATHER_IDS:
-            for idx in (torch.int32, torch.int64):
-                ids = torch.randint(0, V, (n,), generator=gen,
-                                    device=gen.device).to(idx)
-                sids = ids[torch.argsort(ids >> 2, stable=True)]
-                got = mg_mod.gather_rows(table, sids)
-                torch.cuda.synchronize()
-                want = mg_mod.gather_rows_plain(table, sids)
-                ok = bool(torch.equal(got.view(torch.int16),
-                                      want.view(torch.int16)))
-                iname = str(idx).split(".")[-1]
-                print(f"[kernel] gather_rows {tname} table {V}x{D} bf16, "
-                      f"{n} {iname} ids: "
-                      f"{'bitwise equal' if ok else 'MISMATCH'}")
-                results.append(dict(table=tname, n=n, idx=iname, ok=ok))
-                if idx is torch.int32:
-                    timing[f"{tname}/{n}"] = time_gather(
-                        torch, F, mg_mod, table, sids, flush)
+    for tname, (V, D, dtypes) in GATHER_TABLES.items():
+        for dtype in dtypes:
+            table = torch.randn(V, D, generator=gen, device=gen.device) \
+                .to(getattr(torch, dtype))
+            bits = getattr(torch, _BITS[dtype])
+            for n in GATHER_IDS:
+                for idx in (torch.int32, torch.int64):
+                    ids = torch.randint(0, V, (n,), generator=gen,
+                                        device=gen.device).to(idx)
+                    sids = ids[torch.argsort(ids >> 2, stable=True)]
+                    got = mg_mod.gather_rows(table, sids)
+                    torch.cuda.synchronize()
+                    want = mg_mod.gather_rows_plain(table, sids)
+                    ok = bool(torch.equal(got.view(bits), want.view(bits)))
+                    iname = str(idx).split(".")[-1]
+                    print(f"[kernel] gather_rows {tname} table {V}x{D} "
+                          f"{dtype}, {n} {iname} ids: "
+                          f"{'bitwise equal' if ok else 'MISMATCH'}")
+                    results.append(dict(table=tname, dtype=dtype, n=n,
+                                        idx=iname, ok=ok))
+                    if idx is torch.int32:
+                        key = f"{tname}/{n}" if dtype == "bfloat16" \
+                            else f"{tname}/{n}/{dtype}"
+                        timing[key] = time_gather(torch, F, mg_mod, table,
+                                                  sids, flush)
+            del table
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"gather_rows disagrees with its plain twin: "
@@ -716,7 +926,8 @@ def serve_phase(torch, serve, arch: str, flags=()):
             "ssd_scan": L * prefills if cfg.has_ssm else 0,
             "gather_rows": embeds if cfg.vocab * cfg.d_model >= 1 << 22
             else 0,
-            "grouped_matmul": 3 * moe_layers * embeds}
+            "grouped_matmul": 3 * moe_layers * embeds,
+            "flash_attention": unwindowed_layers(cfg) * prefills}
     print(f"[serve {name}] served={out['served']} decode_tokens="
           f"{out['decode_tokens']} engine_steps={out['steps']} "
           f"prefills={out['prefills']} decode_steps={out['decode_steps']} "
@@ -743,11 +954,38 @@ def serve_phase(torch, serve, arch: str, flags=()):
                   for seq in toks):
         raise AssertionError(f"{name}: served tokens out of range or of the "
                              f"wrong count")
+    if cfg.has_ssm and cfg.cdtype != torch.float32:
+        # the SSM prefill keeps its decay in f32 (models/ssm.py): how far
+        # the served bf16 tokens sit from a float32 answer (the whole
+        # sequence is forwarded: a hybrid's scan needs a multiple of its
+        # chunk, and prompt + 8 tokens is one)
+        rids = sorted(out["finished"])
+        dev = out["params"]["embed"]["tok"].device
+        prompts = torch.tensor([out["prompts"][r] for r in rids],
+                               dtype=torch.int32, device=dev)
+        toks = torch.tensor([out["finished"][r][0] for r in rids],
+                            dtype=torch.int32, device=dev)
+        out["f32"] = f32_distance(torch, cfg, out["params"], [
+            (torch.cat([prompts, toks], dim=1), prompts.shape[1], toks,
+             None)])
+        print_f32_distance(f"[serve {name}]", out["f32"])
     return out, launches
+
+
+def unwindowed_layers(cfg) -> int:
+    """Decoder layers whose prefill attention is plain causal (through
+    flash_attention): all of them, or a windowed model's global ones."""
+    if not cfg.has_attention:
+        return 0
+    if not cfg.sliding_window:
+        return cfg.n_layers
+    return sum(1 for li in range(cfg.n_layers)
+               if cfg.global_every and li % cfg.global_every == 0)
 
 
 def kernel_wrappers() -> dict:
     """The port's kernel wrappers by name; each counts its launches."""
+    from repro_torch.kernels.flash_attention import flash_attention as k5_mod
     from repro_torch.kernels.mars_gather import mars_gather as mg_mod
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4_mod
     from repro_torch.kernels.paged_attention import paged_attention as pa_mod
@@ -755,7 +993,8 @@ def kernel_wrappers() -> dict:
     return {"paged_attention": pa_mod.paged_attention,
             "ssd_scan": ssd_mod.ssd_scan,
             "gather_rows": mg_mod.gather_rows,
-            "grouped_matmul": k4_mod.grouped_matmul}
+            "grouped_matmul": k4_mod.grouped_matmul,
+            "flash_attention": k5_mod.flash_attention}
 
 
 def free_device(torch, tag: str) -> None:
@@ -782,7 +1021,7 @@ def profile_serve(torch, serve, args) -> dict:
     warm = serve.main(args)              # warm, no profiler
     torch.cuda.synchronize()
     warm_wall = time.perf_counter() - t0
-    warm = {k: v for k, v in warm.items() if k not in ("finished", "cfg")}
+    warm = {k: v for k, v in warm.items() if k not in NOT_STATS}
     free_device(torch, "warm profile run")
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     run = ServeEngine.run
@@ -804,6 +1043,15 @@ def profile_serve(torch, serve, args) -> dict:
     finally:
         ServeEngine.run = run
     wall, = walls
+    return dict(warm_engine_wall_s=warm["wall_s"], warm_wall_s=warm_wall,
+                warm_decode_tokens=warm["decode_tokens"],
+                warm_decode_steps=warm["decode_steps"],
+                **profile_summary(prof, wall))
+
+
+def profile_summary(prof, wall: float) -> dict:
+    """Device time by kernel and by kind, busy share over ``wall`` and
+    the host ops with the most self time of a finished profile."""
     rows = device_rows(prof)
     buckets: dict = {}
     for r in rows:
@@ -812,6 +1060,7 @@ def profile_serve(torch, serve, args) -> dict:
              "ssd_scan" if "ssd_scan_kernel" in n else
              "grouped_matmul" if "grouped_mm_" in n else
              "gather_rows" if "gather_rows_kernel" in n else
+             "flash_attention" if "flash_attn_" in n else
              "memcpy" if "memcpy" in n or "memset" in n else
              "gemm" if any(k in n for k in ("gemm", "nvjet", "cutlass",
                                             "xmma", "cublas")) else
@@ -822,10 +1071,7 @@ def profile_serve(torch, serve, args) -> dict:
                     "calls": e.count} for e in prof.key_averages()
                    if e.self_cpu_time_total > 0),
                   key=lambda r: -r["ms"])
-    return dict(warm_engine_wall_s=warm["wall_s"], warm_wall_s=warm_wall,
-                warm_decode_tokens=warm["decode_tokens"],
-                warm_decode_steps=warm["decode_steps"],
-                wall_s=wall, device_ms=dev_ms,
+    return dict(wall_s=wall, device_ms=dev_ms,
                 busy_share=dev_ms / 1e3 / wall,
                 kernel_calls={k: sum(r["calls"] for r in rows
                                      if key in r["name"])
@@ -834,11 +1080,239 @@ def profile_serve(torch, serve, args) -> dict:
                 host_ms=sum(r["ms"] for r in host), host_top=host[:12])
 
 
+def dense_launches_wanted(cfg, prefills: int, steps: int) -> dict:
+    """Launches of each kernel on a dense-backend run of ``prefills``
+    batches and ``steps`` decode steps: flash_attention over the encoder,
+    the decoder's causal prefill and its cross-attention at prefill and
+    at every step; ssd_scan in every SSM layer's prefill; gather_rows in
+    every embedding lookup of a large table."""
+    L = cfg.n_layers
+    cross = L if cfg.family == "encdec" else 0
+    return {"paged_attention": 0,
+            "ssd_scan": L * prefills if cfg.has_ssm else 0,
+            "gather_rows": prefills + steps
+            if cfg.vocab * cfg.d_model >= 1 << 22 else 0,
+            "grouped_matmul": 0,
+            "flash_attention": prefills * (cfg.enc_layers
+                                           + unwindowed_layers(cfg) + cross)
+            + steps * cross}
+
+
+def _to_f32(tree):
+    """A copy of a parameter tree with its floating tensors in float32."""
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_f32(v) for v in tree)
+    if hasattr(tree, "is_floating_point") and tree.is_floating_point():
+        return tree.float()
+    return tree
+
+
+def f32_distance(torch, cfg, params, batches) -> dict:
+    """How far a bfloat16 run's served tokens sit from a float32 answer on
+    the same weights: each batch ``(seq, S, tokens, frontend)`` (prompt +
+    served tokens, at least all but the last; prompt length; served
+    tokens (B, n); frame embeddings or None) is teacher-forced through ``lm.forward``
+    with the weights cast to float32, in float32, and through the run's
+    own bfloat16 ``lm.forward``.  Reports, over all positions, the largest
+    float32 deficit of the served tokens (f32 top logit minus the f32
+    logit of the served token) and how many are not the f32 argmax, and
+    the same for the bf16 forward's own argmax — the distance bfloat16
+    math alone puts between the model and its float32 answer."""
+    import dataclasses
+    from repro_torch.models import lm
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = _to_f32(params)
+    served_def, bf16_def, served_off, bf16_off, positions = [], [], 0, 0, 0
+    with torch.no_grad():
+        for seq, S, toks, fe in batches:
+            at = slice(S - 1, S - 1 + toks.shape[1])
+            l32 = lm.forward(p32, cfg32, seq,
+                             None if fe is None else fe.float())[:, at]
+            l16 = lm.forward(params, cfg, seq, fe)[:, at]
+            top = l32.amax(-1)
+            arg16 = l16.argmax(-1)
+            arg32 = l32.argmax(-1)
+            served_def.append(float(
+                (top - l32.gather(-1, toks[..., None].long())[..., 0])
+                .max()))
+            bf16_def.append(float(
+                (top - l32.gather(-1, arg16[..., None])[..., 0]).max()))
+            served_off += int((toks.long() != arg32).sum())
+            bf16_off += int((arg16 != arg32).sum())
+            positions += toks.numel()
+    del p32
+    return dict(positions=positions, served_max_deficit=max(served_def),
+                served_not_argmax=served_off,
+                bf16_forward_max_deficit=max(bf16_def),
+                bf16_forward_not_argmax=bf16_off)
+
+
+def print_f32_distance(tag: str, d: dict) -> None:
+    print(f"{tag} against the float32 forward on the same weights: served "
+          f"tokens largest deficit {d['served_max_deficit']:.4g}, "
+          f"{d['served_not_argmax']}/{d['positions']} positions off the "
+          f"f32 argmax; the bf16 forward's own argmax: largest deficit "
+          f"{d['bf16_forward_max_deficit']:.4g}, "
+          f"{d['bf16_forward_not_argmax']}/{d['positions']} off")
+
+
+def dense_check(torch, serve, out) -> dict:
+    """Teacher-force every served batch through ``lm.forward`` (prompt +
+    served tokens but the last, the batch's frame embeddings) and hold
+    each served token against the forward logits before it: exact argmax
+    in float32; in bfloat16 within ``serve.near_tie_margin`` or
+    ``serve.NOISE_FACTOR`` times the median dense noise (the largest
+    logit change between forwarding each sequence alone and the whole
+    batch), whichever is larger, as the paged runs' check."""
+    import numpy as np
+    from repro_torch.models import lm
+    cfg, params = out["cfg"], out["params"]
+    batches = [o for mars in (False, True) for o in out[mars]["outputs"]]
+    dense, noise = [], []
+    with torch.no_grad():
+        for o in batches:
+            S = o["prompts"].shape[1]
+            seq = torch.cat([o["prompts"], o["tokens"][:, :-1]], dim=1)
+            fe = o["frontend"]
+            logits = lm.forward(params, cfg, seq, fe)[:, S - 1:].float()
+            if not torch.isfinite(logits).all():
+                raise AssertionError("non-finite forward logits")
+            dense.append(logits.cpu().numpy())
+            if cfg.cdtype != torch.float32:
+                for i in range(seq.shape[0]):
+                    one = lm.forward(params, cfg, seq[i:i + 1],
+                                     None if fe is None else fe[i:i + 1])
+                    noise.append((one[0, S - 1:].float() - logits[i]).abs()
+                                 .amax(-1).cpu().numpy())
+    noise_scale = float(np.median(np.concatenate(noise))) if noise else None
+    mismatches = exact = positions = 0
+    max_deficit = max_margin = 0.0
+    for o, d in zip(batches, dense):
+        toks = o["tokens"].cpu().numpy()
+        for b in range(toks.shape[0]):
+            margin = serve.near_tie_margin(d[b], cfg.cdtype)
+            if noise_scale is not None:
+                margin = np.maximum(margin, serve.NOISE_FACTOR * noise_scale)
+            deficit = d[b].max(-1) - d[b][np.arange(toks.shape[1]), toks[b]]
+            positions += toks.shape[1]
+            exact += int((deficit == 0).all())
+            mismatches += int((deficit > margin).any())
+            max_deficit = max(max_deficit, float(deficit.max()))
+            max_margin = max(max_margin, float(margin.max()))
+    return dict(sequences=sum(o["tokens"].shape[0] for o in batches),
+                positions=positions, exact=exact, mismatches=mismatches,
+                max_deficit=max_deficit, max_margin=max_margin,
+                noise=noise_scale)
+
+
+def dense_phase(torch, serve, arch: str, flags=()):
+    """One dense-backend serve run (``mars=False``, then ``mars=True``)
+    with every launch count set to 0 just before it; checks each kernel
+    of the path launched as often as the run's batches and steps say,
+    then the served tokens (``dense_check``)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = serve.main(dense_args(arch, flags))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    name = run_name(arch, flags)
+    cfg = out["cfg"]
+    runs = [out[False], out[True]]
+    batches = [o for r in runs for o in r["outputs"]]
+    prefills = len(batches)
+    steps = sum(o["tokens"].shape[1] - 1 for o in batches)
+    want = dense_launches_wanted(cfg, prefills, steps)
+    tokens = sum(o["tokens"].numel() for o in batches)
+    wall = sum(r["wall_s"] for r in runs)
+    print(f"[dense {name}] served={[r['served'] for r in runs]} batches="
+          f"{[r['batches'] for r in runs]} unique prefix blocks/batch="
+          f"{[r['blocks_per_batch'] for r in runs]} prefills={prefills} "
+          f"decode_steps={steps} generated_tokens={tokens} wall={wall:.3f}s "
+          f"tokens/s={tokens / wall:.1f} layers={cfg.n_layers}"
+          f"+{cfg.enc_layers} enc")
+    print(f"[dense {name}] launches: " + ", ".join(
+        f"{k} {launches[k]} (want {want[k]})" for k in wrappers))
+    bad = [o for o in batches if o["tokens"].shape != (
+        o["prompts"].shape[0], 9) or not bool(
+        ((o["tokens"] >= 0) & (o["tokens"] < cfg.vocab)).all())]
+    if any(r["served"] != 16 for r in runs) or bad:
+        raise AssertionError(f"{name}: served {[r['served'] for r in runs]}"
+                             f", {len(bad)} batches with tokens out of range "
+                             f"or of the wrong count")
+    if launches != want or not all(
+            launches[k] > 0 for k in want if want[k]):
+        raise AssertionError(f"{name}: kernel launches {launches} on the "
+                             f"main path, want {want}")
+    check = dense_check(torch, serve, out)
+    print(f"[dense {name}] teacher-forced check against lm.forward: "
+          f"{check['sequences'] - check['mismatches']}/{check['sequences']} "
+          f"sequences match ({check['exact']} argmax-exact over "
+          f"{check['positions']} positions, largest deficit "
+          f"{check['max_deficit']:.4g}, margin<={check['max_margin']:.4g}, "
+          f"dense noise median {check['noise']})")
+    if check["mismatches"]:
+        raise AssertionError(f"{name}: {check['mismatches']} served "
+                             f"sequences fail the teacher-forced check")
+    if cfg.cdtype != torch.float32:
+        check["f32"] = f32_distance(torch, cfg, out["params"], [
+            (torch.cat([o["prompts"], o["tokens"][:, :-1]], dim=1),
+             o["prompts"].shape[1], o["tokens"], o["frontend"])
+            for o in batches])
+        print_f32_distance(f"[dense {name}]", check["f32"])
+    stats = dict(served=[r["served"] for r in runs],
+                 batches=[r["batches"] for r in runs],
+                 blocks_per_batch=[r["blocks_per_batch"] for r in runs],
+                 wall_s=wall, prefills=prefills, decode_steps=steps,
+                 generated_tokens=tokens, check=check)
+    return stats, launches
+
+
+def profile_dense(torch, serve, args) -> dict:
+    """The dense run twice more, warm: once plain (its serve walls), once
+    with ``torch.profiler`` from the first batch's prefill to the end of
+    the run — not the weights' init — for the device time by kernel and
+    its busy share of that wall."""
+    from torch.profiler import ProfilerActivity, profile
+    warm = serve.main(args)
+    warm_wall = sum(warm[m]["wall_s"] for m in (False, True))
+    tokens = sum(o["tokens"].numel() for m in (False, True)
+                 for o in warm[m]["outputs"])
+    steps = sum(o["tokens"].shape[1] - 1 for m in (False, True)
+                for o in warm[m]["outputs"])
+    del warm
+    free_device(torch, "warm profile run")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    generate = serve.greedy_generate
+    t0 = []
+
+    def profiled(*a, **kw):
+        if not t0:
+            torch.cuda.synchronize()
+            prof.start()
+            t0.append(time.perf_counter())
+        return generate(*a, **kw)
+    serve.greedy_generate = profiled
+    try:
+        out = serve.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0[0]
+        prof.stop()
+    finally:
+        serve.greedy_generate = generate
+    del out
+    return dict(warm_engine_wall_s=warm_wall, warm_decode_tokens=tokens,
+                warm_decode_steps=steps, **profile_summary(prof, wall))
+
+
 # the port's kernels as their device-side names show in a profile
 KERNEL_NAMES = {"paged_attention": "paged_attention_kernel",
                 "ssd_scan": "ssd_scan_kernel",
                 "gather_rows": "gather_rows_kernel",
-                "grouped_matmul": "grouped_mm_"}
+                "grouped_matmul": "grouped_mm_",
+                "flash_attention": "flash_attn_"}
 
 
 def print_profile(arch: str, prof: dict) -> None:
@@ -864,7 +1338,9 @@ def print_profile(arch: str, prof: dict) -> None:
               f"{row['name'][:90]}")
 
 
-PHASES = ("k1", "k3", "k2", "k4", "serve")
+PHASES = ("k1", "k3", "k2", "k4", "k5", "serve", "dense")
+# what a serve run returns beside its stats: not written to the record
+NOT_STATS = ("finished", "cfg", "params", "prompts")
 
 
 def main(argv=None) -> int:
@@ -879,6 +1355,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     runs = [r for r in RUNS if not args.runs or any(
+        k in run_name(*r) for k in args.runs.split(","))]
+    dense_runs = [r for r in DENSE_RUNS if not args.runs or any(
         k in run_name(*r) for k in args.runs.split(","))]
     if not phases <= set(PHASES):
         return fail(f"unknown phases {sorted(phases - set(PHASES))}")
@@ -964,6 +1442,18 @@ def main(argv=None) -> int:
                   f"{t['warm_plain_ms']:.4f} / {t['warm_library_ms']:.4f}")
         record.update(k4_cases=k4_results, k4_timing=k4_timing)
         free_device(torch, "K4 phase")
+    if "k5" in phases:
+        k5_results, k5_err, k5_timing = k5_phase(torch, F, gen)
+        for case, t in k5_timing.items():
+            print(f"[kernel] flash_attention {case}: device ms per call: "
+                  f"kernel {t['ms']:.4f}, bound {t['bound_ms']:.5f} "
+                  f"({t['bound_by']}; {t['bytes']} B, {t['ops']} ops), "
+                  f"plain twin {t['plain_ms']:.4f}, SDPA "
+                  f"{t['library_ms']:.4f}; event ms per call with host "
+                  f"launch: {t['event_ms']:.4f} / {t['plain_event_ms']:.4f} "
+                  f"/ {t['library_event_ms']:.4f}")
+        record.update(k5_cases=k5_results, k5_timing=k5_timing)
+        free_device(torch, "K5 phase")
     kernels_s = time.perf_counter() - t_start
 
     # -- serve at full width, then profile it warm ---------------------------
@@ -977,13 +1467,28 @@ def main(argv=None) -> int:
             failed.append(name)
             free_device(torch, name)
             continue
-        served[name] = {k: v for k, v in out.items()
-                        if k not in ("finished", "cfg")}
+        served[name] = {k: v for k, v in out.items() if k not in NOT_STATS}
         del out
         free_device(torch, name)
         if not UNPROFILED & set(flags):
             profiles[name] = profile_serve(torch, serve,
                                            serve_args(arch, flags))
+            print_profile(name, profiles[name])
+            free_device(torch, f"profiling {name}")
+    for arch, flags in dense_runs if "dense" in phases else ():
+        name = run_name(arch, flags)
+        try:
+            served[name], launches[name] = dense_phase(torch, serve, arch,
+                                                       flags)
+        except AssertionError as e:       # go on: later runs still report
+            print(f"[dense {name}] FAILED: {e}")
+            failed.append(name)
+            free_device(torch, name)
+            continue
+        free_device(torch, name)
+        if not UNPROFILED & set(flags):
+            profiles[name] = profile_dense(torch, serve,
+                                           dense_args(arch, flags))
             print_profile(name, profiles[name])
             free_device(torch, f"profiling {name}")
     total_s = time.perf_counter() - t_start
@@ -1000,7 +1505,8 @@ def main(argv=None) -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if failed:
         return fail(f"serve runs failed: {failed}")
-    if phases != set(PHASES) or runs != list(RUNS):
+    if phases != set(PHASES) or runs != list(RUNS) \
+            or dense_runs != list(DENSE_RUNS):
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 0
 
@@ -1013,7 +1519,7 @@ def main(argv=None) -> int:
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
-    arctic = run_name("arctic_480b", ARCTIC)        # this slice's path
+    arctic = run_name("arctic_480b", ARCTIC)
     kernels = [
         row("paged_attention", "paged_attention.cu",
             "paged_attention/paged_attention.py:57", arctic, max_err,
@@ -1025,6 +1531,9 @@ def main(argv=None) -> int:
         row("grouped_matmul", "moe_dispatch.cu",
             "moe_dispatch/moe_dispatch.py:29", arctic, k4_err,
             k4_timing["arctic_decode_w_in/bfloat16"]),
+        row("flash_attention", "flash_attention.cu",
+            "flash_attention/flash_attention.py:27", "whisper_base", k5_err,
+            k5_timing["whisper_encoder/bfloat16"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 ``get_smoke(name)`` -> reduced same-family config for CPU tests.
 
 Lists only the architectures the port can serve today (dense GQA, the
-hybrid attention + SSM family and the MoE family); the reference's other
-six wait for their slices (see ROADMAP.md)."""
+hybrid attention + SSM family, the MoE family, the pure-SSM family and
+the encoder-decoder family); the reference's other four wait for their
+slices (see ROADMAP.md)."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +14,8 @@ ARCHS = (
     "hymba_1_5b",
     "arctic_480b",
     "kimi_k2_1t_a32b",
+    "whisper_base",
+    "mamba2_370m",
 )
 
 # CLI ids (--arch) map dashes to underscores

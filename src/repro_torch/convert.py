@@ -32,14 +32,17 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda"):
     """Convert a numpy parameter tree to the port's tree on ``device``.
     Every leaf under a block stack must carry its stacked layer axis:
     ``blocks_dense`` (an MoE model's leading dense blocks) leads with
-    ``n_dense_layers``, ``blocks`` with the remaining layers."""
+    ``n_dense_layers``, ``blocks`` with the remaining layers, an
+    encoder-decoder model's ``encoder`` with ``enc_layers``."""
     depth = {name: n for name, _, n in lm._stacks(cfg)}
+    if cfg.enc_layers:
+        depth["encoder"] = cfg.enc_layers
 
     def conv(node, path):
         if isinstance(node, dict):
             return {k: conv(v, path + (k,)) for k, v in node.items()}
         t = tensor_from_numpy(node)
-        if path[0].startswith("blocks") and \
+        if (path[0].startswith("blocks") or path[0] == "encoder") and \
                 t.shape[0] != depth.get(path[0], -1):
             raise ValueError(f"{'/'.join(path)}: leading axis {t.shape[0]} "
                              f"!= {depth.get(path[0], 0)} stacked layers of "

@@ -8,8 +8,11 @@
 //   s     = exp(cum_{q-1}) * s_prev + sum_k b_k (x) (exp(cum_{q-1} - cum_k)
 //                                                   * dt_k * x_k)
 // starting from s = 0; y (B,S,H,P) and the final state (B,H,P,N) in f32.
-// x (B,S,H,P), b and c (B,S,N), la and dt (B,S,H) share one dtype
-// (float32 or bfloat16) and are upcast to f32 on load.  The mask is
+// x (B,S,H,P), b and c (B,S,N) share one dtype (float32 or bfloat16) and
+// are upcast to f32 on load; la and dt (B,S,H) are float32: the model
+// computes them in f32 and its one-token decode recurrence uses them
+// unrounded, so the prefill must too (rounding the log decay to bf16 moves
+// exp(cum_t - cum_k) by up to a few percent a step).  The mask is
 // exp(min(li, 0)) inside the lower triangle only: the upper triangle is
 // exactly 0.
 //
@@ -61,8 +64,8 @@ inline long long smem_floats(int q, int P, int N) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                const T* __restrict__ c, const T* __restrict__ la,
-                const T* __restrict__ dt, float* __restrict__ y,
+                const T* __restrict__ c, const float* __restrict__ la,
+                const float* __restrict__ dt, float* __restrict__ y,
                 float* __restrict__ state, int S, int H, int P, int N,
                 int q) {
   extern __shared__ float smem[];
@@ -99,8 +102,8 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ b,
     }
     for (int t = tid; t < q; t += kThreads) {
       const long long off = (t0 + t) * H + h;
-      cum[t] = to_f32(la[off]);
-      dtv[t] = to_f32(dt[off]);
+      cum[t] = la[off];
+      dtv[t] = dt[off];
     }
     __syncthreads();
 
@@ -171,8 +174,8 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ b,
 }
 
 template <typename T>
-int launch(const void* x, const void* b, const void* c, const void* la,
-           const void* dt, float* y, float* state, int B, int S, int H,
+int launch(const void* x, const void* b, const void* c, const float* la,
+           const float* dt, float* y, float* state, int B, int S, int H,
            int P, int N, int q, cudaStream_t stream) {
   const size_t smem = (size_t)smem_floats(q, P, N) * sizeof(float);
   if (smem > kDefaultSmem) {
@@ -184,8 +187,7 @@ int launch(const void* x, const void* b, const void* c, const void* la,
   dim3 grid(H, B);
   ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<const T*>(la),
-      static_cast<const T*>(dt), y, state, S, H, P, N, q);
+      static_cast<const T*>(c), la, dt, y, state, S, H, P, N, q);
   return (int)cudaGetLastError();
 }
 
@@ -193,11 +195,11 @@ int launch(const void* x, const void* b, const void* c, const void* la,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, b, c, la and dt share it).
-// Returns 0 on success, -1 for an unsupported dtype or chunk, else the
-// cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16 (x, b and c share it; la and dt are
+// float32).  Returns 0 on success, -1 for an unsupported dtype or chunk,
+// else the cudaError_t of the launch.
 int mars_ssd_scan(int dtype, const void* x, const void* b, const void* c,
-                  const void* la, const void* dt, float* y, float* state,
+                  const float* la, const float* dt, float* y, float* state,
                   int B, int S, int H, int P, int N, int q, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q < 1 || q > kMaxChunk || S % q != 0) return -1;

@@ -97,12 +97,16 @@ def _launch(x, b, c, la, dt, q: int):
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.dtype != x.dtype:
-            raise TypeError(f"ssd_scan kernel takes one dtype for every "
-                            f"input; x is {x.dtype}, {name} {t.dtype}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"ssd_scan kernel takes float32 or bfloat16, not "
                         f"{x.dtype}")
+    for name, t, want in (("b", b, x.dtype), ("c", c, x.dtype),
+                          ("la", la, torch.float32),
+                          ("dt", dt, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"ssd_scan kernel takes x, b and c of one dtype "
+                            f"and la, dt in float32; x is {x.dtype}, "
+                            f"{name} {t.dtype}")
     if q > MAX_CHUNK:
         raise ValueError(f"ssd_scan kernel takes chunks of at most "
                          f"{MAX_CHUNK} positions, got {q}")
@@ -134,9 +138,9 @@ def ssd_scan(x, b, c, la, dt, *, chunk: int = 64):
     (B,H,P,N) float32)``, starting from a zero state.  The chunk length
     is ``q = min(chunk, S)`` and must divide S.
 
-    CUDA tensors launch the Hopper kernel (one dtype for all five
-    inputs, float32 or bfloat16, contiguous, q <= 64); CPU tensors run
-    the plain twin."""
+    CUDA tensors launch the Hopper kernel (x, b and c of one dtype,
+    float32 or bfloat16; la and dt float32; contiguous; q <= 64); CPU
+    tensors run the plain twin."""
     Bz, S, H, P = x.shape
     N = b.shape[-1]
     if tuple(b.shape) != (Bz, S, N) or tuple(c.shape) != (Bz, S, N) \

@@ -1,5 +1,6 @@
 """Unified KV-backend API: dense and paged serving caches, one interface
-(port of ``repro/kvcache/backend.py``, single device, dense, hybrid and MoE
+(port of ``repro/kvcache/backend.py``, single device; the dense backend
+serves every ported family, the paged one the dense, hybrid and MoE
 families).
 
 The model (``models.lm``) speaks to its KV storage only through
@@ -93,9 +94,10 @@ class KVBackend(Protocol):
 
     cfg: ModelConfig
 
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, frontend_emb=None):
         """Run a (B, S) prompt batch, store every layer's K/V; returns
-        last-position logits (B, 1, V)."""
+        last-position logits (B, 1, V).  An encoder-decoder model's
+        encoder reads ``frontend_emb`` (dense backend only)."""
         ...
 
     def decode_step(self, params, tokens):
@@ -142,16 +144,20 @@ def _tokens_on(tokens, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class DenseBackend:
-    """The concrete ``lm.Cache`` behind the backend interface."""
+    """The concrete ``lm.Cache`` behind the backend interface: K/V where
+    the model has attention, SSM state where it has an SSM, and an
+    encoder-decoder model's cross-attention K/V over ``enc_len``
+    frames."""
 
     def __init__(self, cfg: ModelConfig, batch: int, max_seq: int,
-                 device="cuda"):
+                 enc_len: int = 0, device="cuda"):
         from repro_torch.models import lm
         self.cfg = cfg
         self.batch = batch
         self.max_seq = max_seq
         self.device = resolve_device(device)
-        self._cache = lm.init_dense_cache(cfg, batch, max_seq, self.device)
+        self._cache = lm.init_dense_cache(cfg, batch, max_seq, self.device,
+                                          enc_len=enc_len)
         self._steps = 0
 
     def _check_released(self) -> None:
@@ -160,13 +166,17 @@ class DenseBackend:
                 "DenseBackend released: release() dropped the cache "
                 "storage; build a new backend to serve again")
 
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, frontend_emb=None):
         """Dense prompt run into a fresh cache sized ``max_seq``.  tokens:
-        (B, S) int with B == ``self.batch``.  Returns (B, 1, V)."""
+        (B, S) int with B == ``self.batch``; ``frontend_emb`` (B, Senc, d)
+        feeds an encoder-decoder model's encoder.  Returns (B, 1, V)."""
         from repro_torch.models import lm
         self._check_released()
+        if frontend_emb is not None:
+            frontend_emb = frontend_emb.to(self.device)
         logits, self._cache = lm.dense_prefill(
-            params, self.cfg, _tokens_on(tokens, self.device), self.max_seq)
+            params, self.cfg, _tokens_on(tokens, self.device), self.max_seq,
+            frontend_emb)
         return logits
 
     def decode_step(self, params, tokens):
@@ -301,7 +311,7 @@ class PagedBackend:
             device pins the pool's host buffers.
         """
         from repro_torch.models import lm
-        lm._check_family(cfg)    # dense, MoE, or hybrid (+ SSM side state)
+        lm.check_paged_family(cfg)   # dense, MoE, or hybrid (+ SSM state)
         if decode_mode not in ("kernel", "gather"):
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         self.decode_mode = decode_mode
@@ -729,12 +739,15 @@ class PagedBackend:
 
     # -- batch-level KVBackend API ------------------------------------------
 
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, frontend_emb=None):
         """Protocol ``prefill``: one new sequence per row of the (B, S)
         batch, freeing any lanes a prior call created.  Returns
         last-position logits (B, 1, V) on the backend's device."""
         self._check_released()
         self.flush()
+        if frontend_emb is not None:
+            raise ValueError("the paged backend keeps no frontend state "
+                             "(encoder-decoder models serve densely)")
         old, self._batch = self._batch, []
         for sid in old:
             self.free_seq(sid)
@@ -784,19 +797,21 @@ def _lanes(states: list, n_lanes: int) -> torch.Tensor:
 
 
 def make_backend(cfg: ModelConfig, kind: str = "dense", *,
-                 batch: int = 1, max_seq: int = 0,
+                 batch: int = 1, max_seq: int = 0, enc_len: int = 0,
                  pool: Optional[BlockPool] = None, device="cuda",
                  **kw) -> KVBackend:
     """Backend registry: "dense" | "paged".
 
     ``batch``/``max_seq`` are the capacity request — dense allocates
-    (B, max_seq); paged sizes the pool to hold ``batch`` lanes of
-    ``max_seq`` tokens (+1 decode slot each) unless ``num_blocks`` or an
-    explicit ``pool`` overrides it.  Remaining kwargs (``decode_mode``,
-    ``block_size``, ...) forward to ``PagedBackend``.
+    (B, max_seq) (and an encoder-decoder model's cross-attention K/V
+    over ``enc_len`` frames); paged sizes the pool to hold ``batch``
+    lanes of ``max_seq`` tokens (+1 decode slot each) unless
+    ``num_blocks`` or an explicit ``pool`` overrides it.  Remaining
+    kwargs (``decode_mode``, ``block_size``, ...) forward to
+    ``PagedBackend``.
     """
     if kind == "dense":
-        return DenseBackend(cfg, batch, max_seq, device=device)
+        return DenseBackend(cfg, batch, max_seq, enc_len, device=device)
     if kind == "paged":
         if pool is None and "num_blocks" not in kw and max_seq:
             bs = kw.get("block_size", 16)

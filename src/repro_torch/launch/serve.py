@@ -1,8 +1,10 @@
-"""Serving driver (port of ``repro/launch/serve.py``, paged path).
+"""Serving entry points (port of ``repro/launch/serve.py``).
 
 ``python -m repro_torch.launch.serve --paged --config qwen1_5_0_5b``
 ``python -m repro_torch.launch.serve --paged --config hymba_1_5b``
 ``python -m repro_torch.launch.serve --paged --config arctic_480b --layers 2``
+``python -m repro_torch.launch.serve --config whisper_base``
+``python -m repro_torch.launch.serve --config mamba2_370m``
 
 Full-LM paged serving: requests (some sharing prompt prefixes = "pages")
 flow through the MARS scheduler into the continuous-batching engine,
@@ -18,6 +20,18 @@ first N layers at published width: one card holds 2 of arctic-480b's
 35 layers.  A teacher-forced check re-runs a sample of
 served sequences through the port's own ``DenseBackend``.  ``--toy``
 serves the single-layer ToyModel instead.
+
+Without ``--paged`` (``main_dense``) the requests flow through the MARS
+scheduler into batches, each prefilled and greedily decoded through the
+``DenseBackend`` (``serve.step.greedy_generate``), once with
+``mars=False`` and once with ``mars=True``; this is how the pure-SSM
+(mamba2) and encoder-decoder (whisper) families serve, as in the
+reference.  On a CUDA device every attention over the whole prompt, the
+encoder's and the cross-attention run the ``flash_attention`` kernel,
+every embedding lookup of a large table ``mars_gather`` and every SSM
+prefill ``ssd_scan``.  An encoder-decoder model's frame embeddings are
+the reference tests' stub, ``normal * 0.02`` of shape (batch,
+frontend_seq, d_model), drawn from the ``--seed`` generator.
 
 Runs on ``--device cuda`` (the default; raises when CUDA is absent) or
 ``--device cpu``.  Weights are random, from ``lm.init`` seeded by
@@ -35,8 +49,9 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.serve.step import greedy_generate
 from repro_torch.serving.scheduler import MarsScheduler, Request, \
-    default_classes
+    default_classes, unique_prefix_blocks
 
 # Near-tie margin of the teacher-forced check, in spacings of the compute
 # dtype at a position's largest logit.  In bfloat16 the paged paths and
@@ -214,17 +229,16 @@ def main_paged(args):
     Decode runs ``paged_attention`` per layer (``--kernel-decode``,
     default) or the gathered dense view (``--no-kernel-decode``).
     Cross-checks a sample of served sequences against the dense backend
-    for end-to-end token parity."""
+    for end-to-end token parity.  Returns the run's stats with
+    ``finished`` (request id -> served token lists), ``cfg``, ``params``
+    and ``prompts`` (request id -> prompt)."""
     if args.toy:
         return main_paged_toy(args)
     from repro_torch.kvcache.backend import make_backend
     from repro_torch.serve.engine import PagedLM, ServeEngine
 
     device = resolve_device(args.device)
-    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    if args.dtype:
-        cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
-                                  compute_dtype=args.dtype)
+    cfg = _config(args)
     depth = cfg.n_layers
     if args.layers is not None:
         cfg = cut_depth(cfg, args.layers)
@@ -348,7 +362,89 @@ def main_paged(args):
                 parity_batch_prefills=batch_prefills,
                 parity_batch_decode_steps=batch_steps,
                 parity_max_deficit=max_deficit,
-                decode=backend.decode_mode, finished=finished)
+                decode=backend.decode_mode, finished=finished,
+                params=params, prompts={r.rid: r.prompt for r in reqs})
+
+
+def _config(args):
+    cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
+                                  compute_dtype=args.dtype)
+    return cfg
+
+
+def frontend_stub(cfg, batch: int, gen: torch.Generator):
+    """An encoder-decoder model's stub frame embeddings, ``normal * 0.02``
+    of shape (batch, frontend_seq, d_model) in the compute dtype, drawn
+    from ``gen`` (the reference tests' frontend); None for other
+    families."""
+    if cfg.family != "encdec":
+        return None
+    x = torch.randn((batch, cfg.frontend_seq, cfg.d_model), generator=gen,
+                    device=gen.device) * 0.02
+    return x.to(cfg.cdtype)
+
+
+def main_dense(args):
+    """The dense-backend scheduler path: the synthetic requests through
+    ``MarsScheduler(mars=False)``, then ``mars=True``, each batch served
+    by ``greedy_generate`` over a ``DenseBackend`` (prefill + ``--new-
+    tokens`` decode steps).  Returns ``{False: stats, True: stats, "cfg":
+    cfg, "params": params}``; each stats dict holds the reference's
+    ``served``, ``batches``, ``blocks_per_batch``, ``mean_wait`` and
+    ``wall_s`` (ending in a device synchronize), plus ``outputs``: per
+    batch its request ids, prompts (B, S), frame embeddings (or None)
+    and generated tokens (B, new_tokens + 1), on the device."""
+    device = resolve_device(args.device)
+    cfg = _config(args)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    params = lm.init(cfg, gen)
+    reqs = synth_requests(args.requests, cfg.vocab, seed=args.seed)
+    results = {}
+    for mars in (False, True):
+        sched = MarsScheduler(mars=mars)
+        pending = list(reqs)
+        served = blocks = batches = 0
+        outputs = []
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        while pending or len(sched):
+            while pending and sched.offer(pending[0]):
+                pending.pop(0)
+            batch = sched.schedule_batch(args.batch)
+            if not batch:
+                break
+            blocks += unique_prefix_blocks(batch)
+            batches += 1
+            # run the batch through the dense KV backend: prefill the
+            # (page-shared) prompts + greedy decode
+            prompts = torch.tensor([r.prompt for r in batch],
+                                   dtype=torch.int32, device=device)
+            frontend = frontend_stub(cfg, len(batch), gen)
+            toks = greedy_generate(params, cfg, prompts, args.new_tokens + 1,
+                                   max_seq=prompts.shape[1]
+                                   + args.new_tokens + 1, frontend=frontend)
+            outputs.append(dict(rids=[r.rid for r in batch], prompts=prompts,
+                                frontend=frontend, tokens=toks))
+            served += len(batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        results[mars] = dict(served=served, batches=batches,
+                             blocks_per_batch=blocks / max(batches, 1),
+                             mean_wait=sched.stats.mean_wait, wall_s=dt,
+                             outputs=outputs)
+        print(f"[serve] mars={mars} served={served} batches={batches} "
+              f"unique-prefix-blocks/batch={blocks/max(batches,1):.2f} "
+              f"wall={dt:.1f}s")
+    base, mars_r = results[False], results[True]
+    gain = base["blocks_per_batch"] / max(mars_r["blocks_per_batch"], 1e-9)
+    print(f"[serve] MARS page-coherence gain: {gain:.2f}x fewer unique "
+          f"prefix blocks per batch")
+    results.update(cfg=cfg, params=params)
+    return results
 
 
 def main(argv=None):
@@ -363,7 +459,9 @@ def main(argv=None):
                          "stream")
     ap.add_argument("--paged", action="store_true",
                     help="serve a real config through the paged KV backend "
-                         "(the only serving path ported so far)")
+                         "and the continuous-batching engine (default: "
+                         "MARS-scheduled batches through the dense "
+                         "backend)")
     ap.add_argument("--kernel-decode", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="with --paged: decode through paged_attention per "
@@ -401,7 +499,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     resolve_device(args.device)
     if not args.paged:
-        ap.error("only --paged serving is ported to torch so far")
+        return main_dense(args)
     return main_paged(args)
 
 

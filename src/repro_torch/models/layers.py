@@ -1,5 +1,6 @@
 """Core transformer building blocks (port of ``repro/models/layers.py``,
-the subset the dense, hybrid and MoE families use).
+the subset the dense, hybrid, MoE, pure-SSM and encoder-decoder families
+use).
 
 Pure functions over a parameter tree whose layout matches the
 reference's (``wq (d, H, dh)``, ``wo (H, dh, d)``, ...), so weights
@@ -177,13 +178,29 @@ def _repeat_kv(k, n_rep: int):
         .reshape(b, s, kh * n_rep, dh)
 
 
-def sdpa(q, k, v, mask=None, scale=None):
-    """q:(B,Sq,H,dh) k,v:(B,Sk,H,dh); mask broadcastable to (B,H,Sq,Sk)."""
-    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if mask is not None:
-        logits = torch.where(mask, logits, torch.tensor(
-            NEG_INF, dtype=torch.float32, device=logits.device))
+# mask kind: plain causal attention with as many queries as keys
+CAUSAL = "causal"
+
+
+def sdpa(q, k, v, mask=None):
+    """q:(B,Sq,H,dh) k,v:(B,Sk,H,dh).  ``mask`` is None (attend every
+    key), ``CAUSAL`` (key <= query, Sq == Sk) or a bool tensor
+    broadcastable to (B,H,Sq,Sk).  The caller names the kind, so nothing
+    reads a mask back from the device: the first two run
+    ``flash_attention`` — the Hopper kernel on CUDA tensors, its plain
+    twin on CPU ones — and a tensor mask (a sliding window, the dense
+    decode's cache mask) the plain masked softmax here."""
+    if not torch.is_tensor(mask):
+        from repro_torch.kernels.flash_attention.flash_attention import \
+            flash_attention
+        if mask not in (None, CAUSAL):
+            raise ValueError(f"unknown mask kind {mask!r}")
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=mask == CAUSAL)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() \
+        * (1.0 / math.sqrt(q.shape[-1]))
+    logits = torch.where(mask, logits, torch.tensor(
+        NEG_INF, dtype=torch.float32, device=logits.device))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
@@ -200,7 +217,7 @@ def causal_mask(sq: int, sk: int, window: int = 0, device=None):
 
 
 def attention_apply(p, x, cfg: ModelConfig, *, positions, mask,
-                    kv_cache=None, cache_positions=None):
+                    kv_cache=None, cache_positions=None, xattn_kv=None):
     """Full attention layer.  Modes:
       - training/prefill: kv_cache is None -> self-attention over x
       - decode: kv_cache=(k,v) of shape (B,S,K,dh) -> write x's kv at
@@ -208,12 +225,21 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, mask,
         ragged decode).  Unlike the reference's functional update the
         cache tensors are written **in place** (no cache-sized copy per
         token); they are also what ``new_kv`` returns.
+      - cross: xattn_kv=(k,v) precomputed from the encoder (new_kv None)
+    ``mask`` is a mask kind or tensor (see ``sdpa``).
     Returns (out, new_kv) where new_kv is (k, v) for cache maintenance.
     """
     cd = cfg.cdtype
     H, K = cfg.n_heads, cfg.n_kv_heads
-    q, k, v = _qkv(p, x, cfg, positions)
-    new_kv = (k, v)
+    if xattn_kv is not None:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(cd)
+        k, v = xattn_kv
+        new_kv = None
+    else:
+        q, k, v = _qkv(p, x, cfg, positions)
+        new_kv = (k, v)
     if kv_cache is not None:
         ck, cv = kv_cache
         if cache_positions is None:
@@ -271,6 +297,17 @@ def paged_attention_apply(p, x, cfg: ModelConfig, *, lengths, k_pages,
     return out, (k, v)
 
 
+def cross_kv(p, enc_out, cfg: ModelConfig):
+    """Precompute cross-attention K/V from encoder output."""
+    cd = cfg.cdtype
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(cd))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # MLP (gated or plain)
 # ---------------------------------------------------------------------------
@@ -310,12 +347,21 @@ def embedding_init(gen, cfg: ModelConfig) -> dict:
                               scale=0.02)}
     if not cfg.tie_embeddings:
         out["head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), cfg.pdtype)
+    if not cfg.use_rope and cfg.family == "encdec":
+        # learned positions
+        out["pos"] = _dense_init(gen, (cfg.max_position, cfg.d_model),
+                                 cfg.pdtype, scale=0.02)
     return out
 
 
-def embed_tokens(p, tokens, cfg: ModelConfig):
+def embed_tokens(p, tokens, cfg: ModelConfig, positions=None):
+    """Token rows through the MARS-sorted gather (``mars_gather``), plus
+    the learned position rows at ``positions`` where the model has them."""
     from repro_torch.kernels.mars_gather import ops as gather_ops
-    return gather_ops.embedding_gather(p["tok"], tokens).to(cfg.cdtype)
+    x = gather_ops.embedding_gather(p["tok"], tokens).to(cfg.cdtype)
+    if "pos" in p and positions is not None:
+        x = x + p["pos"].to(cfg.cdtype)[positions]
+    return x
 
 
 def lm_head(p, x, cfg: ModelConfig):

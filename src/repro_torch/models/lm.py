@@ -1,5 +1,5 @@
-"""Causal LM, dense, hybrid and MoE families (port of
-``repro/models/lm.py``).
+"""Causal LM, dense, hybrid, MoE, pure-SSM and encoder-decoder families
+(port of ``repro/models/lm.py``).
 
 One parameter tree, a Python loop over the stacked layer axis (the
 reference's ``lax.scan``), four entry points:
@@ -18,8 +18,15 @@ optional leading stack of ``n_dense_layers`` dense blocks,
 ``blocks_dense``, then ``blocks`` whose MLP is a routed expert layer
 with MARS-sorted dispatch, plus a shared expert or a parallel dense
 residual MLP where configured).  Every entry point walks both stacks
-with the absolute layer index.  The other families raise
-``NotImplementedError`` (ROADMAP.md queues them).
+with the absolute layer index.  Pure SSM (mamba2: attention-free Mamba2
+blocks, no KV) and encoder-decoder (whisper: an ``encoder`` stack over
+the stub frame embeddings ``frontend_emb``, then decoder blocks with
+cross-attention ``xattn`` over it) serve through the dense backend only,
+as in the reference.  The VLM family raises ``NotImplementedError``
+(ROADMAP.md queues it).
+
+Attention names its mask kind (``layers.sdpa``): every unwindowed
+prefill, the encoder and the cross-attention run ``flash_attention``.
 """
 from __future__ import annotations
 
@@ -35,12 +42,24 @@ from repro_torch.models.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid", "moe") \
-            or cfg.is_moe != (cfg.family == "moe") or cfg.enc_layers:
+    if cfg.family not in ("dense", "hybrid", "moe", "ssm", "encdec") \
+            or cfg.is_moe != (cfg.family == "moe") \
+            or bool(cfg.enc_layers) != (cfg.family == "encdec"):
         raise NotImplementedError(
-            f"the torch port serves the dense, hybrid and MoE families "
-            f"only (got {cfg.family!r}); see ROADMAP.md for the other "
-            f"families")
+            f"the torch port serves the dense, hybrid, MoE, SSM and "
+            f"encoder-decoder families only (got {cfg.family!r}); see "
+            f"ROADMAP.md for the VLM family")
+
+
+def check_paged_family(cfg: ModelConfig) -> None:
+    """The paged path pages attention KV (and a hybrid's SSM side state):
+    an attention-free or encoder-decoder model serves through the dense
+    backend, as in the reference."""
+    _check_family(cfg)
+    if not cfg.has_attention or cfg.family == "encdec":
+        raise ValueError(f"paged serving pages attention KV only; the "
+                         f"{cfg.family!r} family serves through the dense "
+                         f"backend")
 
 
 def _stacks(cfg: ModelConfig):
@@ -63,22 +82,36 @@ def init(cfg: ModelConfig, gen: torch.Generator):
     model's first ``n_dense_layers`` blocks stack under
     ``blocks_dense``, the rest under ``blocks``."""
     _check_family(cfg)
+    decoder = cfg.family == "encdec"
     stacks = {name: _stack_init(gen, cfg, n,
-                                moe=cfg.is_moe and name == "blocks")
+                                moe=cfg.is_moe and name == "blocks",
+                                decoder=decoder)
               for name, _, n in _stacks(cfg)}
     tree = {"embed": layers.embedding_init(gen, cfg),
             "final_norm": layers.norm_init(cfg, gen.device), **stacks}
+    if cfg.enc_layers:
+        tree["encoder"] = _stack_init(gen, cfg, cfg.enc_layers, moe=False,
+                                      encoder=True)
+        tree["enc_norm"] = layers.norm_init(cfg, gen.device)
     return layers.as_module(tree)
 
 
-def _stack_init(gen, cfg: ModelConfig, L: int, *, moe: bool) -> dict:
+def _stack_init(gen, cfg: ModelConfig, L: int, *, moe: bool,
+                decoder: bool = False, encoder: bool = False) -> dict:
     """``L`` stacked blocks; ``moe`` gives them a routed expert layer (and
-    the dense residual MLP where configured) in place of the MLP."""
-    blocks = {"ln1": layers.norm_init(cfg, gen.device, L),
-              "attn": layers.attention_init(gen, cfg, L)}
-    if cfg.has_ssm:
+    the dense residual MLP where configured) in place of the MLP,
+    ``decoder`` a cross-attention ``xattn`` with its norm ``lnx``;
+    ``encoder`` blocks have no SSM."""
+    blocks = {}
+    if cfg.has_attention:
+        blocks["ln1"] = layers.norm_init(cfg, gen.device, L)
+        blocks["attn"] = layers.attention_init(gen, cfg, L)
+    if cfg.has_ssm and not encoder:
         blocks["ln_ssm"] = layers.norm_init(cfg, gen.device, L)
         blocks["ssm"] = ssm_mod.ssm_init(gen, cfg, L)
+    if decoder:
+        blocks["lnx"] = layers.norm_init(cfg, gen.device, L)
+        blocks["xattn"] = layers.attention_init(gen, cfg, L)
     if moe:
         blocks["ln2"] = layers.norm_init(cfg, gen.device, L)
         blocks["moe"] = moe_mod.moe_init(gen, cfg, L)
@@ -101,38 +134,49 @@ def _layer(stacked, i: int) -> dict:
 
 
 def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
-                 cache_pos=None, ssm_state=None, is_global=None, paged=None):
-    """One transformer block.  Returns (x, new_kv, new_ssm) — new_ssm is
-    the SSM branch's ``(state, conv_state)`` for a hybrid block, else
-    None.  ``paged`` routes decode attention through ``paged_attention``
-    (KV read straight from the pool's layered page buffers);
-    ``ssm_state`` ``(state, conv_state)`` switches the SSM branch to its
-    one-token recurrence."""
-    h = layers.apply_norm(bp["ln1"], x, cfg)
-    if paged is not None:
-        attn_out, new_kv = layers.paged_attention_apply(
-            bp["attn"], h, cfg, lengths=paged["lengths"],
-            k_pages=paged["k_pages"], v_pages=paged["v_pages"],
-            page_tables=paged["page_tables"], layer=paged["layer"],
-            window=paged.get("window", 0))
-    else:
-        mask = masks[0]
-        if cfg.sliding_window and is_global is not None and is_global:
-            mask = masks[1]
-        attn_out, new_kv = layers.attention_apply(
-            bp["attn"], h, cfg, positions=positions, mask=mask,
-            kv_cache=kv, cache_positions=cache_pos)
+                 cache_pos=None, ssm_state=None, xkv=None, is_global=None,
+                 paged=None):
+    """One transformer block.  Returns (x, new_kv, new_ssm) — new_kv is
+    None for an attention-free block, new_ssm the SSM branch's ``(state,
+    conv_state)`` for a block with one, else None.  ``paged`` routes
+    decode attention through ``paged_attention`` (KV read straight from
+    the pool's layered page buffers); ``ssm_state`` ``(state,
+    conv_state)`` switches the SSM branch to its one-token recurrence;
+    ``xkv`` (k, v) is the encoder's cross-attention K/V of a decoder
+    block.  ``masks`` holds mask kinds or tensors (``layers.sdpa``)."""
+    attn_out = new_kv = None
+    if "attn" in bp:
+        h = layers.apply_norm(bp["ln1"], x, cfg)
+        if paged is not None:
+            attn_out, new_kv = layers.paged_attention_apply(
+                bp["attn"], h, cfg, lengths=paged["lengths"],
+                k_pages=paged["k_pages"], v_pages=paged["v_pages"],
+                page_tables=paged["page_tables"], layer=paged["layer"],
+                window=paged.get("window", 0))
+        else:
+            mask = masks[0]
+            if cfg.sliding_window and is_global is not None and is_global:
+                mask = masks[1]
+            attn_out, new_kv = layers.attention_apply(
+                bp["attn"], h, cfg, positions=positions, mask=mask,
+                kv_cache=kv, cache_positions=cache_pos)
     new_ssm = None
-    if cfg.has_ssm:
+    if "ssm" in bp:
         hs = layers.apply_norm(bp["ln_ssm"], x, cfg)
         st, cs = ssm_state if ssm_state is not None else (None, None)
         ssm_out, new_ssm = ssm_mod.ssm_apply(bp["ssm"], hs, cfg, state=st,
                                              conv_state=cs,
                                              return_state=True)
         # hymba: parallel heads, mean-combined
-        x = x + 0.5 * (attn_out + ssm_out)
+        x = x + (0.5 * (attn_out + ssm_out) if attn_out is not None
+                 else ssm_out)
     else:
         x = x + attn_out
+    if "xattn" in bp and xkv is not None:
+        h = layers.apply_norm(bp["lnx"], x, cfg)
+        xo, _ = layers.attention_apply(bp["xattn"], h, cfg, positions=None,
+                                       mask=None, xattn_kv=xkv)
+        x = x + xo
     if "moe" in bp:
         h = layers.apply_norm(bp["ln2"], x, cfg)
         mo, _ = moe_mod.moe_apply(bp["moe"], h, cfg)
@@ -147,17 +191,19 @@ def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
 
 def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
                  layer_offset: int, n: int, kv=None, cache_pos=None,
-                 ssm_states=None, paged=None):
+                 ssm_states=None, xkv=None, paged=None):
     """Loop over stacked block params (+ optional per-layer caches) for
     absolute layers ``layer_offset .. layer_offset + n - 1``.
 
-    ``kv`` (dense cache K and V, (L, ...)) and ``ssm_states`` (the hybrid
-    side state ``(ssm (L, B, H, P, N), conv (L, B, k-1, ch))``) span every
-    layer of the model and are read at the absolute layer index, as is
-    ``paged`` (kernel-path decode operands: pool page buffers + table +
-    lengths), whose index selects each iteration's plane of the layered
-    pool through one shared table.  Returns (x, [(k, v) per layer],
-    [(ssm, conv) per layer, or None per layer for a dense model])."""
+    ``kv`` (dense cache K and V, (L, ...)), ``ssm_states`` (the SSM side
+    state ``(ssm (L, B, H, P, N), conv (L, B, k-1, ch))``) and ``xkv``
+    (cross-attention K and V, (L, B, Senc, K, dh)) span every layer of
+    the model and are read at the absolute layer index, as is ``paged``
+    (kernel-path decode operands: pool page buffers + table + lengths),
+    whose index selects each iteration's plane of the layered pool
+    through one shared table.  Returns (x, [(k, v) per layer, or None
+    for an attention-free model], [(ssm, conv) per layer, or None per
+    layer for a model without SSM])."""
     glob = None
     if cfg.sliding_window:
         # per-layer global/window flag: global layers attend the whole
@@ -175,9 +221,10 @@ def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
         kv_i = None if kv is None else (kv[0][li], kv[1][li])
         ssm_i = None if ssm_states is None else (ssm_states[0][li],
                                                  ssm_states[1][li])
+        xkv_i = None if xkv is None else (xkv[0][li], xkv[1][li])
         x, new_kv, new_ssm = _block_apply(
             _layer(stacked, i), x, cfg, masks=masks, positions=positions,
-            kv=kv_i, cache_pos=cache_pos, ssm_state=ssm_i,
+            kv=kv_i, cache_pos=cache_pos, ssm_state=ssm_i, xkv=xkv_i,
             is_global=None if glob is None else glob[i], paged=paged_l)
         ys.append(new_kv)
         ss.append(new_ssm)
@@ -198,16 +245,13 @@ def _run_blocks(params, x, cfg: ModelConfig, **kw):
     return x, ys, ss
 
 
-def _stack_kv(ys):
-    return (torch.stack([k for k, _ in ys]), torch.stack([v for _, v in ys]))
-
-
-def _stack_ssm(ss):
-    """Per-layer (state, conv) -> (ssm (L, B, H, P, N), conv (L, B, k-1,
-    ch)), or (None, None) for a dense model."""
-    if ss[0] is None:
+def _stack_pairs(pairs):
+    """Per-layer pairs (K and V, or SSM state and conv) -> two stacked
+    (L, ...) tensors, or (None, None) where the layers have none."""
+    if pairs[0] is None:
         return None, None
-    return (torch.stack([s for s, _ in ss]), torch.stack([c for _, c in ss]))
+    return (torch.stack([a for a, _ in pairs]),
+            torch.stack([b for _, b in pairs]))
 
 
 # ---------------------------------------------------------------------------
@@ -215,22 +259,59 @@ def _stack_ssm(ss):
 # ---------------------------------------------------------------------------
 
 def _masks(cfg: ModelConfig, S: int, device):
-    m_causal = layers.causal_mask(S, S, device=device)
-    m_window = layers.causal_mask(S, S, window=cfg.sliding_window,
-                                  device=device) \
-        if cfg.sliding_window else m_causal
-    return (m_window if cfg.sliding_window else m_causal, m_causal)
+    """(mask of a layer, mask of a global layer) over a prompt: the kind
+    ``CAUSAL`` (``flash_attention``), and a sliding window's tensor."""
+    if not cfg.sliding_window:
+        return layers.CAUSAL, layers.CAUSAL
+    return (layers.causal_mask(S, S, window=cfg.sliding_window,
+                               device=device), layers.CAUSAL)
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """Teacher-forced logits (B, S, V).  tokens: (B, S) int."""
-    _check_family(cfg)
+def _encoder_forward(params, cfg: ModelConfig, frontend_emb):
+    """The encoder stack over the frame embeddings (B, Senc, d), no mask."""
+    x = frontend_emb.to(cfg.cdtype)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    x, _, _ = _scan_blocks(params["encoder"], x, cfg, masks=(None, None),
+                           positions=positions, layer_offset=0,
+                           n=cfg.enc_layers)
+    return layers.apply_norm(params["enc_norm"], x, cfg)
+
+
+def _cross_kvs(params, cfg: ModelConfig, enc_out):
+    """Every decoder layer's cross-attention (k, v), each stacked (L, B,
+    Senc, K, dh)."""
+    stacked = params["blocks"]["xattn"]
+    return _stack_pairs([layers.cross_kv(_layer(stacked, i), enc_out, cfg)
+                         for i in range(cfg.n_layers)])
+
+
+def _prompt(params, cfg: ModelConfig, tokens, frontend_emb):
+    """Token embeddings, positions and an encoder-decoder model's
+    cross-attention K/V (None otherwise) of a (B, S) prompt."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    x = layers.embed_tokens(params["embed"], tokens, cfg, positions)
+    xkv = None
+    if cfg.family == "encdec":
+        if frontend_emb is None:
+            raise ValueError(f"{cfg.name} needs frontend_emb, the (B, "
+                             f"{cfg.frontend_seq}, {cfg.d_model}) frame "
+                             f"embeddings its encoder reads")
+        xkv = _cross_kvs(params, cfg,
+                         _encoder_forward(params, cfg, frontend_emb))
+    return x, positions, xkv
+
+
+def forward(params, cfg: ModelConfig, tokens, frontend_emb=None):
+    """Teacher-forced logits (B, S, V).  tokens: (B, S) int; an
+    encoder-decoder model's encoder reads ``frontend_emb`` (B, Senc, d)."""
+    _check_family(cfg)
+    S = tokens.shape[1]
+    x, positions, xkv = _prompt(params, cfg, tokens, frontend_emb)
     x, _, _ = _run_blocks(params, x, cfg,
                           masks=_masks(cfg, S, tokens.device),
-                          positions=positions)
+                          positions=positions, xkv=xkv)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     return layers.lm_head(params["embed"], x, cfg)
 
@@ -238,44 +319,56 @@ def forward(params, cfg: ModelConfig, tokens):
 @dataclasses.dataclass
 class Cache:
     """Dense serving storage (the DenseBackend's state)."""
-    k: Any            # (L, B, Smax, K, dh)
+    k: Any            # (L, B, Smax, K, dh), None without attention
     v: Any
     length: Any       # int tensor — tokens already cached; scalar, or (B,)
                       # for ragged (per-sequence) decode
-    ssm: Any = None   # hybrid: (L, B, H, P, N) float32 recurrent state
-    conv: Any = None  # hybrid: (L, B, k-1, d_in + 2N) conv context
+    ssm: Any = None   # SSM: (L, B, H, P, N) float32 recurrent state
+    conv: Any = None  # SSM: (L, B, k-1, d_in + 2N) conv context
+    xk: Any = None    # encdec: (L, B, Senc, K, dh) cross-attention K/V
+    xv: Any = None
 
 
 def init_dense_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                     device="cuda") -> Cache:
+                     device="cuda", *, enc_len: int = 0) -> Cache:
+    """Zeroed dense storage: K/V of ``max_seq`` positions where the model
+    has attention, the SSM state and conv context where it has an SSM,
+    and an encoder-decoder model's cross-attention K/V over ``enc_len``
+    frames."""
     L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
-    shape = (L, batch, max_seq, K, dh)
-    ssm = conv = None
+    cd = cfg.kvdtype
+
+    def zeros(shape, dtype=cd):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    k = v = ssm = conv = xk = xv = None
+    if cfg.has_attention:
+        k, v = (zeros((L, batch, max_seq, K, dh)) for _ in range(2))
     if cfg.has_ssm:
         ss, cs = ssm_mod.ssm_state_shapes(cfg, batch)
-        ssm = torch.zeros((L,) + ss, dtype=torch.float32, device=device)
-        conv = torch.zeros((L,) + cs, dtype=cfg.kvdtype, device=device)
-    return Cache(torch.zeros(shape, dtype=cfg.kvdtype, device=device),
-                 torch.zeros(shape, dtype=cfg.kvdtype, device=device),
-                 torch.zeros((), dtype=torch.int32, device=device),
-                 ssm, conv)
+        ssm, conv = zeros((L,) + ss, torch.float32), zeros((L,) + cs)
+    if cfg.family == "encdec":
+        xk, xv = (zeros((L, batch, enc_len, K, dh)) for _ in range(2))
+    return Cache(k, v, zeros((), torch.int32), ssm, conv, xk, xv)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               kind: str = "dense", device="cuda", **backend_kw):
-    """Build a KV backend (``kind``: "dense" | "paged") on ``device``."""
+               kind: str = "dense", device="cuda", enc_len: int = 0,
+               **backend_kw):
+    """Build a KV backend (``kind``: "dense" | "paged") on ``device``;
+    ``enc_len`` sizes an encoder-decoder model's cross-attention K/V."""
     from repro_torch.kvcache.backend import make_backend
     return make_backend(cfg, kind, batch=batch, max_seq=max_seq,
-                        device=device, **backend_kw)
+                        device=device, enc_len=enc_len, **backend_kw)
 
 
 def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
     """One-token decode against dense storage.
 
     tokens: (B, 1) int.  ``cache.length`` may be a scalar (all lanes at
-    the same position) or a (B,) vector for ragged decode.  The cache's
-    K/V are written in place (see ``layers.attention_apply``); a hybrid
-    model's SSM state and conv context advance into new tensors.
+    the same position) or a (B,) vector for ragged decode; learned
+    positions are read there.  The cache's K/V are written in place (see
+    ``layers.attention_apply``); an SSM's state and conv context advance
+    into new tensors; a decoder's cross-attention reads ``cache.xk/xv``.
     Returns (logits, cache with length + 1)."""
     _check_family(cfg)
     B = tokens.shape[0]
@@ -283,23 +376,28 @@ def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
     ragged = pos.ndim > 0
     posv = torch.broadcast_to(pos.reshape(-1), (B,))
     positions = posv[:, None]
-    x = layers.embed_tokens(params["embed"], tokens, cfg)
-    Smax = cache.k.shape[2]
-    kpos = torch.arange(Smax, device=tokens.device)[None, :]
-    m_causal = kpos <= posv[:, None]
-    m = m_causal
-    if cfg.sliding_window:
-        m = m_causal & (kpos > posv[:, None] - cfg.sliding_window)
-    masks = (m[:, None, None, :], m_causal[:, None, None, :])
+    x = layers.embed_tokens(params["embed"], tokens, cfg, positions)
+    masks = kv = None
+    if cfg.has_attention:
+        Smax = cache.k.shape[2]
+        kpos = torch.arange(Smax, device=tokens.device)[None, :]
+        m_causal = kpos <= posv[:, None]
+        m = m_causal
+        if cfg.sliding_window:
+            m = m_causal & (kpos > posv[:, None] - cfg.sliding_window)
+        masks = (m[:, None, None, :], m_causal[:, None, None, :])
+        kv = (cache.k, cache.v)
     ssm_states = (cache.ssm, cache.conv) if cfg.has_ssm else None
+    xkv = (cache.xk, cache.xv) if cfg.family == "encdec" else None
     x, _, ss = _run_blocks(params, x, cfg, masks=masks,
-                           positions=positions, kv=(cache.k, cache.v),
+                           positions=positions, kv=kv,
                            cache_pos=posv if ragged else pos,
-                           ssm_states=ssm_states)
+                           ssm_states=ssm_states, xkv=xkv)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x, cfg)
-    ssm, conv = _stack_ssm(ss)
-    return logits, Cache(cache.k, cache.v, cache.length + 1, ssm, conv)
+    ssm, conv = _stack_pairs(ss)
+    return logits, Cache(cache.k, cache.v, cache.length + 1, ssm, conv,
+                         cache.xk, cache.xv)
 
 
 def paged_decode_step(params, cfg: ModelConfig, tokens, k_pages, v_pages,
@@ -317,9 +415,10 @@ def paged_decode_step(params, cfg: ModelConfig, tokens, k_pages, v_pages,
     Returns (logits (B, 1, V), k_new, v_new, ssm_new, conv_new) with
     k_new/v_new (L, B, 1, K, dh) — the in-flight token's per-layer K/V
     for the caller's write-back — and the advanced side state (None for
-    a dense model).
+    a dense model).  Attention-free and encoder-decoder models raise: they
+    serve through the dense backend.
     """
-    _check_family(cfg)
+    check_paged_family(cfg)
     ssm_states = None
     if cfg.has_ssm:
         if ssm_state is None or conv_state is None:
@@ -335,8 +434,8 @@ def paged_decode_step(params, cfg: ModelConfig, tokens, k_pages, v_pages,
                             paged=paged)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x, cfg)
-    k_new, v_new = _stack_kv(ys)
-    ssm_new, conv_new = _stack_ssm(ss)
+    k_new, v_new = _stack_pairs(ys)
+    ssm_new, conv_new = _stack_pairs(ss)
     return logits, k_new, v_new, ssm_new, conv_new
 
 
@@ -349,49 +448,60 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
     return logits, cache
 
 
-def prefill_parts(params, cfg: ModelConfig, tokens):
+def prefill_parts(params, cfg: ModelConfig, tokens, frontend_emb=None):
     """Run the prompt, returning last-position logits plus every cacheable
     part.  Returns (logits (B,1,V), parts) with parts "k", "v" (L, B, S,
-    K, dh) post-RoPE in the compute dtype, and "ssm" (L, B, H, P, N)
-    float32 and "conv" (L, B, k-1, ch) — None for a dense model."""
+    K, dh) post-RoPE in the compute dtype, "ssm" (L, B, H, P, N) float32
+    and "conv" (L, B, k-1, ch), and "xk", "xv" (L, B, Senc, K, dh) —
+    each None where the model has no such part.  An encoder-decoder
+    model's encoder reads ``frontend_emb`` (B, Senc, d)."""
     _check_family(cfg)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    S = tokens.shape[1]
+    x, positions, xkv = _prompt(params, cfg, tokens, frontend_emb)
     x, ys, ss = _run_blocks(params, x, cfg,
                             masks=_masks(cfg, S, tokens.device),
-                            positions=positions)
+                            positions=positions, xkv=xkv)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x[:, -1:], cfg)
-    k, v = _stack_kv(ys)
-    ssm, conv = _stack_ssm(ss)
-    return logits, {"k": k, "v": v, "ssm": ssm, "conv": conv}
+    k, v = _stack_pairs(ys)
+    ssm, conv = _stack_pairs(ss)
+    xk, xv = xkv if xkv is not None else (None, None)
+    return logits, {"k": k, "v": v, "ssm": ssm, "conv": conv, "xk": xk,
+                    "xv": xv}
 
 
-def dense_prefill(params, cfg: ModelConfig, tokens, max_seq: int):
+def dense_prefill(params, cfg: ModelConfig, tokens, max_seq: int,
+                  frontend_emb=None):
     """Prompt -> (logits, dense Cache sized ``max_seq``)."""
     B, S = tokens.shape
+    # the cross-attention K/V come from the prompt's encoder run below
     cache = init_dense_cache(cfg, B, max_seq, device=tokens.device)
-    logits, parts = prefill_parts(params, cfg, tokens)
-    cache.k[:, :, :S] = parts["k"].to(cache.k.dtype)
-    cache.v[:, :, :S] = parts["v"].to(cache.v.dtype)
+    logits, parts = prefill_parts(params, cfg, tokens, frontend_emb)
+    if cfg.has_attention:
+        cache.k[:, :, :S] = parts["k"].to(cache.k.dtype)
+        cache.v[:, :, :S] = parts["v"].to(cache.v.dtype)
     if cfg.has_ssm:
         cache.ssm, cache.conv = parts["ssm"], parts["conv"]
+    if cfg.family == "encdec":
+        cache.xk, cache.xv = parts["xk"], parts["xv"]
     cache.length = torch.tensor(S, dtype=torch.int32, device=tokens.device)
     return logits, cache
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_seq: int = 0,
-            backend=None):
+            frontend_emb=None, backend=None):
     """Run the prompt through the model, building the serving cache.
 
     Returns (logits, backend).  With ``backend=None`` a ``DenseBackend``
-    sized by ``max_seq`` is created on ``tokens.device``; pass a
-    ``PagedBackend`` to prefill into pool block tables instead."""
+    sized by ``max_seq`` (and an encoder-decoder model's frame count) is
+    created on ``tokens.device``; pass a ``PagedBackend`` to prefill into
+    pool block tables instead."""
     if backend is None:
         if not max_seq:
             raise ValueError("prefill needs max_seq (or an explicit backend)")
+        enc_len = frontend_emb.shape[1] if cfg.family == "encdec" \
+            and frontend_emb is not None else 0
         backend = init_cache(cfg, tokens.shape[0], max_seq,
-                             device=tokens.device)
-    logits = backend.prefill(params, tokens)
+                             device=tokens.device, enc_len=enc_len)
+    logits = backend.prefill(params, tokens, frontend_emb=frontend_emb)
     return logits, backend

@@ -119,10 +119,11 @@ def ssm_apply(p, x, cfg: ModelConfig, *, state=None, conv_state=None,
         y = torch.einsum("bhpn,bn->bhp", new_state,
                          c[:, 0].float())[:, None]
     else:
-        y, new_state = ssd_scan(xs, b.contiguous(), c.contiguous(),
-                                la.to(x.dtype), dt.to(x.dtype),
+        # la and dt stay float32, as in the decode recurrence above (the
+        # reference rounds them to x's dtype here, ssm.py:175-176, so its
+        # bf16 prefill and decode compute different decays)
+        y, new_state = ssd_scan(xs, b.contiguous(), c.contiguous(), la, dt,
                                 chunk=cfg.ssm_chunk)
-        y = y.float()
 
     y = y + p["d_skip"][:, None] * xs.float()
     y = y.reshape(Bsz, S, d_in).to(x.dtype)

@@ -20,11 +20,15 @@ SLICE_MODULES = [
     "repro_torch.configs.arctic_480b",
     "repro_torch.configs.hymba_1_5b",
     "repro_torch.configs.kimi_k2_1t_a32b",
+    "repro_torch.configs.mamba2_370m",
     "repro_torch.configs.qwen1_5_0_5b",
+    "repro_torch.configs.whisper_base",
     "repro_torch.convert",
     "repro_torch.core.reorder",
     "repro_torch.device",
     "repro_torch.kernels.build",
+    "repro_torch.kernels.flash_attention.flash_attention",
+    "repro_torch.kernels.flash_attention.ref",
     "repro_torch.kernels.mars_gather.mars_gather",
     "repro_torch.kernels.mars_gather.ops",
     "repro_torch.kernels.mars_gather.ref",
@@ -51,6 +55,7 @@ SLICE_MODULES = [
     "repro_torch.obs",
     "repro_torch.obs.metrics",
     "repro_torch.serve.engine",
+    "repro_torch.serve.step",
     "repro_torch.serving.scheduler",
 ]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
@@ -112,6 +117,15 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--paged", "--smoke", "--requests", "1"])
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "mamba2_370m"])
+def test_dense_serve_defaults_to_cuda_and_raises_without_it(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--config", arch, "--smoke", "--requests", "1"])
 
 
 @pytest.mark.parametrize("entry", ["dense_backend", "paged_backend",

@@ -440,3 +440,100 @@ def test_kernel_decode_parity_moe_layer_offsets(arch, decode_mode):
         b.release()
         b.pool.check_invariants()
     assert paged.pool.num_live == 0
+
+
+_DENSE_FAMILIES: dict = {}
+
+
+def _dense_family(arch: str):
+    """(jax cfg, port cfg, jax params, port params) of a dense-only smoke
+    config (whisper-base: encoder-decoder; mamba2-370m: pure SSM) at
+    float32."""
+    if arch not in _DENSE_FAMILIES:
+        import dataclasses
+        from repro import configs as jconfigs
+        from repro.models import lm as jlm
+        from repro_torch import configs as tconfigs
+        from repro_torch import convert
+        jc = dataclasses.replace(jconfigs.get_smoke(arch), **F32)
+        tc = dataclasses.replace(tconfigs.get_smoke(arch), **F32)
+        jp = jax.jit(lambda k: jlm.init(jc, k).params)(jax.random.key(0))
+        tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                       "cpu")
+        _DENSE_FAMILIES[arch] = (jc, tc, jp, tp)
+    return _DENSE_FAMILIES[arch]
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "mamba2_370m"])
+def test_dense_backend_matches_jax_backend(arch):
+    """``make_backend("dense", enc_len=...)`` against the JAX
+    ``DenseBackend``: whisper's cache holds cross-attention K/V over its
+    frames and its prefill takes the frame embeddings; mamba2's holds no
+    K/V, only the SSM state and conv context.  Prefill logits, every
+    cache part and three decode steps agree."""
+    from repro.kvcache.backend import DenseBackend as JDenseBackend
+    from repro_torch.kvcache.backend import DenseBackend, make_backend
+    jc, tc, jp, tp = _dense_family(arch)
+    rng = np.random.default_rng(11)
+    B, S, Smax = 2, 8, 12
+    toks = rng.integers(1, tc.vocab, (B, S)).astype(np.int32)
+    fe = None
+    if tc.family == "encdec":
+        fe = (0.02 * rng.standard_normal(
+            (B, tc.frontend_seq, tc.d_model))).astype(np.float32)
+    enc_len = 0 if fe is None else fe.shape[1]
+    jb = JDenseBackend(jc, B, Smax, enc_len)
+    tb = make_backend(tc, "dense", batch=B, max_seq=Smax, enc_len=enc_len,
+                      device="cpu")
+    assert isinstance(tb, DenseBackend)
+    for name in ("k", "v", "ssm", "conv", "xk", "xv"):
+        want = getattr(jb.cache, name)
+        got = getattr(tb.cache, name)
+        assert (got is None) == (want is None), name
+        if want is not None:
+            assert tuple(got.shape) == want.shape, name
+    jl = jb.prefill(jp, jnp.asarray(toks),
+                    frontend_emb=None if fe is None else jnp.asarray(fe))
+    tl = tb.prefill(tp, torch.from_numpy(toks),
+                    frontend_emb=None if fe is None else
+                    torch.from_numpy(fe))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **HTOL)
+
+    def same_cache():
+        for name in ("k", "v", "ssm", "conv", "xk", "xv"):
+            want = getattr(jb.cache, name)
+            got = getattr(tb.cache, name)
+            assert (got is None) == (want is None), name
+            if want is not None:
+                np.testing.assert_allclose(got.float().numpy(),
+                                           np.asarray(want, np.float32),
+                                           **HTOL)
+        np.testing.assert_array_equal(tb.lengths, jb.lengths)
+    same_cache()
+    for _ in range(3):
+        nxt = rng.integers(1, tc.vocab, (B, 1)).astype(np.int32)
+        jl = jb.decode_step(jp, jnp.asarray(nxt))
+        tl = tb.decode_step(tp, torch.from_numpy(nxt))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **HTOL)
+        same_cache()
+
+
+@pytest.mark.parametrize("arch", ["whisper_base", "mamba2_370m"])
+def test_paged_backend_refuses_dense_only_families(arch):
+    from repro_torch.kvcache.backend import PagedBackend
+    _, tc, _, _ = _dense_family(arch)
+    with pytest.raises(ValueError, match="dense backend"):
+        PagedBackend(tc, num_blocks=8, block_size=4, device="cpu")
+
+
+def test_paged_prefill_refuses_a_frontend():
+    """As the reference's: the paged backend keeps no frontend state."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.kvcache.backend import PagedBackend
+    from repro_torch.models import lm as tlm
+    cfg = tconfigs.get_smoke("qwen1_5_0_5b")
+    params = tlm.init(cfg, torch.Generator("cpu").manual_seed(0))
+    pb = PagedBackend(cfg, num_blocks=8, block_size=4, device="cpu")
+    with pytest.raises(ValueError, match="frontend"):
+        pb.prefill(params, np.ones((1, 4), np.int32),
+                   frontend_emb=torch.zeros(1, 2, cfg.d_model))

@@ -11,7 +11,13 @@ its SSM state and conv context are compared too), and the MoE smoke
 configs of arctic-480b (128 -> 8 experts top-2 with a parallel dense
 residual MLP) and kimi-k2 (a leading dense block stack, ``blocks_dense``,
 then routed layers with a shared expert), whose expert products run the
-grouped-matmul kernel's plain twin on the CPU.  Tolerance
+grouped-matmul kernel's plain twin on the CPU.  The whisper-base smoke
+config (encoder-decoder: an encoder stack over stub frame embeddings,
+cross-attention in every decoder layer, learned positions) and the
+mamba2-370m smoke config (pure SSM, no attention, no K/V) serve through
+the dense path only: their forward (with the same frontend), prefill
+parts (cross-attention K/V included) and prefill plus four dense decode
+steps are compared, and the paged decode refuses them.  Tolerance
 ``atol=rtol=1e-4``: the same float32 arithmetic, with matrix products
 summed in another order by another library."""
 import dataclasses
@@ -38,10 +44,14 @@ VARIANTS = {"qwen_smoke": ("qwen1_5_0_5b", {}),
             "hymba_smoke": ("hymba_1_5b", {}),
             "arctic_smoke": ("arctic_480b", {}),
             "kimi_smoke": ("kimi_k2_1t_a32b", {})}
+# families the paged path refuses: they serve through the dense backend
+DENSE_ONLY = {"whisper_smoke": ("whisper_base", {}),
+              "mamba2_smoke": ("mamba2_370m", {})}
+ALL_VARIANTS = {**VARIANTS, **DENSE_ONLY}
 
 
 def _cfgs(variant: str, **extra):
-    arch, kw = VARIANTS[variant]
+    arch, kw = ALL_VARIANTS[variant]
     kw = dict(kw, **extra)
     jc = dataclasses.replace(jconfigs.get_smoke(arch), **kw)
     tc = dataclasses.replace(tconfigs.get_smoke(arch), **kw)
@@ -97,66 +107,98 @@ def _tokens(cfg, B, S, seed=0):
         0, cfg.vocab, (B, S)).astype(np.int32)
 
 
+def _frontend(cfg, B, seed=10):
+    """The reference tests' stub frame embeddings (normal * 0.02) for an
+    encoder-decoder model, as numpy; None otherwise."""
+    if cfg.family != "encdec":
+        return None
+    return (0.02 * np.random.default_rng(seed).standard_normal(
+        (B, cfg.frontend_seq, cfg.d_model))).astype(np.float32)
+
+
+def _fe(fe, to):
+    return None if fe is None else to(fe)
+
+
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(got.detach().float().numpy(),
                                np.asarray(want, np.float32), **tol)
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("variant", list(ALL_VARIANTS))
 def test_forward_matches_jax(variant):
     jc, tc, jp, tp = _params(variant)
     S = _seq(tc, 12)
     toks = _tokens(tc, 2, S)
-    got = tlm.forward(tp, tc, torch.from_numpy(toks))
-    want, _ = jlm.forward(jp, jc, jnp.asarray(toks))
+    fe = _frontend(tc, 2)
+    got = tlm.forward(tp, tc, torch.from_numpy(toks),
+                      _fe(fe, torch.from_numpy))
+    want, _ = jlm.forward(jp, jc, jnp.asarray(toks), _fe(fe, jnp.asarray))
     assert got.shape == (2, S, tc.vocab) and got.dtype == torch.float32
     _close(got, want)
 
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("variant", list(ALL_VARIANTS))
 def test_prefill_parts_matches_jax(variant):
     jc, tc, jp, tp = _params(variant)
     toks = _tokens(tc, 2, _seq(tc, 9), seed=1)
-    logits, parts = tlm.prefill_parts(tp, tc, torch.from_numpy(toks))
-    jlogits, jparts = jlm.prefill_parts(jp, jc, jnp.asarray(toks))
+    fe = _frontend(tc, 2)
+    logits, parts = tlm.prefill_parts(tp, tc, torch.from_numpy(toks),
+                                      _fe(fe, torch.from_numpy))
+    jlogits, jparts = jlm.prefill_parts(jp, jc, jnp.asarray(toks),
+                                        _fe(fe, jnp.asarray))
     _close(logits, jlogits)
-    names = ("k", "v", "ssm", "conv") if tc.has_ssm else ("k", "v")
-    for name in names:
-        assert tuple(parts[name].shape) == jparts[name].shape
-        _close(parts[name], jparts[name])
-    if not tc.has_ssm:
-        assert parts["ssm"] is None and parts["conv"] is None
+    for name, jpart in jparts.items():
+        if jpart is None:
+            assert parts[name] is None, name
+        else:
+            assert tuple(parts[name].shape) == jpart.shape, name
+            _close(parts[name], jpart)
+    assert (parts["ssm"] is None) == (not tc.has_ssm)
+    assert (parts["k"] is None) == (not tc.has_attention)
+    assert (parts["xk"] is None) == (tc.family != "encdec")
 
 
 @pytest.mark.parametrize("ragged", [False, True])
-@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("variant", list(ALL_VARIANTS))
 def test_dense_decode_step_matches_jax(variant, ragged):
-    """Prefill into a dense cache, then decode two tokens; ``ragged``
-    gives each lane its own cache length (the paged gather path)."""
+    """Prefill into a dense cache, then decode two tokens (four for the
+    dense-only families); ``ragged`` gives each lane its own cache length
+    (the paged gather path; whisper reads its learned positions there)."""
     jc, tc, jp, tp = _params(variant)
     S = _seq(tc, 9)
     Smax = S + 7
     toks = _tokens(tc, 2, S, seed=2)
-    jlog, jcache = jlm.dense_prefill(jp, jc, jnp.asarray(toks), Smax)
-    tlog, tcache = tlm.dense_prefill(tp, tc, torch.from_numpy(toks), Smax)
+    fe = _frontend(tc, 2)
+    jlog, jcache = jlm.dense_prefill(jp, jc, jnp.asarray(toks), Smax,
+                                     _fe(fe, jnp.asarray))
+    tlog, tcache = tlm.dense_prefill(tp, tc, torch.from_numpy(toks), Smax,
+                                     _fe(fe, torch.from_numpy))
     _close(tlog, jlog)
     if ragged:
         lens = np.asarray([5, S], np.int32)
         jcache = dataclasses.replace(jcache, length=jnp.asarray(lens))
         tcache = dataclasses.replace(tcache, length=torch.from_numpy(lens))
-    nxt = _tokens(tc, 2, 2, seed=3)
-    for i in range(2):
+    steps = 4 if variant in DENSE_ONLY else 2
+    nxt = _tokens(tc, 2, steps, seed=3)
+    for i in range(steps):
         jlog, jcache = jlm.dense_decode_step(jp, jc,
                                              jnp.asarray(nxt[:, i:i + 1]),
                                              jcache)
         tlog, tcache = tlm.dense_decode_step(
             tp, tc, torch.from_numpy(nxt[:, i:i + 1]), tcache)
         _close(tlog, jlog)
-        _close(tcache.k, jcache.k)
-        _close(tcache.v, jcache.v)
+        if tc.has_attention:
+            _close(tcache.k, jcache.k)
+            _close(tcache.v, jcache.v)
+        else:
+            assert tcache.k is None and tcache.v is None
         if tc.has_ssm:
             _close(tcache.ssm, jcache.ssm)
             _close(tcache.conv, jcache.conv)
+        if tc.family == "encdec":
+            _close(tcache.xk, jcache.xk)
+            _close(tcache.xv, jcache.xv)
         np.testing.assert_array_equal(tcache.length.numpy(),
                                       np.asarray(jcache.length))
 
@@ -231,8 +273,30 @@ def test_paged_decode_step_matches_jax(variant):
         _close(tconv, dcache.conv.numpy())
 
 
+@pytest.mark.parametrize("variant", list(DENSE_ONLY))
+def test_paged_decode_refuses_dense_only_families(variant):
+    """As the reference, the paged path pages attention KV only: a pure
+    SSM or encoder-decoder model serves through the dense backend."""
+    _, tc = _cfgs(variant, **F32)
+    z = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="dense backend"):
+        tlm.paged_decode_step(None, tc, z, None, None, None, z[0])
+
+
+def test_encdec_needs_its_frontend():
+    jc, tc, jp, tp = _params("whisper_smoke")
+    with pytest.raises(ValueError, match="frontend_emb"):
+        tlm.forward(tp, tc, torch.from_numpy(_tokens(tc, 1, 4)))
+
+
+def test_vlm_family_still_raises():
+    _, tc = _cfgs("qwen_smoke", family="vlm")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlm.init(tc, torch.Generator("cpu").manual_seed(0))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("variant", list(ALL_VARIANTS))
 def test_converter_and_init_match_jax_tree(variant, dtype):
     """``params_from_numpy`` keeps every leaf's key, shape, dtype and
     bits (bf16 through the uint16 view); the port's own ``lm.init`` gives

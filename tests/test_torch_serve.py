@@ -7,7 +7,9 @@ forked samples, a pool tight enough to reject and evict; hymba's prompts
 are multiples of its SSM chunk).  Served tokens and every stat must be
 identical, step by step, on the pipelined and the synchronous decode
 paths.  Then the port's own entry point end to end on the CPU, LM and
-toy, and its ``--layers`` cut."""
+toy, and its ``--layers`` cut; and its dense-backend entry point (no
+``--paged``) against the JAX one: the same served requests, batches and
+unique prefix blocks per batch, with and without MARS."""
 import dataclasses
 
 import numpy as np
@@ -23,6 +25,7 @@ from repro.serve import engine as jengine  # noqa: E402
 from repro.serving import scheduler as jsched  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels.mars_gather import mars_gather as tmg  # noqa: E402
 from repro_torch.kernels.moe_dispatch import moe_dispatch as tk4  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention as tpa  # noqa: E402
@@ -106,7 +109,8 @@ def _drive(j, t):
 def test_engine_matches_jax_engine(pipeline, arch, num_blocks):
     j, t = _engines(pipeline, num_blocks, arch)
     launches = (tpa.paged_attention.launches, tscan.ssd_scan.launches,
-                tmg.gather_rows.launches, tk4.grouped_matmul.launches)
+                tmg.gather_rows.launches, tk4.grouped_matmul.launches,
+                tfa.flash_attention.launches)
     _drive(j, t)
     (je, jb, _), (te, tb, _) = j, t
     assert te.finished == je.finished
@@ -124,7 +128,8 @@ def test_engine_matches_jax_engine(pipeline, arch, num_blocks):
     assert te.pool.num_live == 0 and te.pool.reserved == 0
     # CPU tensors: the plain twins ran, no CUDA kernel launched
     assert (tpa.paged_attention.launches, tscan.ssd_scan.launches,
-            tmg.gather_rows.launches, tk4.grouped_matmul.launches) == launches
+            tmg.gather_rows.launches, tk4.grouped_matmul.launches,
+            tfa.flash_attention.launches) == launches
 
 
 def test_serve_main_paged_smoke_cpu():
@@ -336,3 +341,55 @@ def test_serve_main_toy_matches_jax_toy():
     assert tf == jf == out["finished"]
     assert te.stats.as_dict() == je.stats.as_dict()
     assert te.pool.stats.as_dict() == je.pool.stats.as_dict()
+
+
+DENSE_ARGV = ["--smoke", "--requests", "16", "--batch", "8", "--new-tokens",
+              "2"]
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "mamba2_370m"])
+def test_serve_main_dense_matches_jax_main(arch):
+    """The dense-backend entry point: requests through the MARS scheduler
+    (off, then on) into batches served by ``greedy_generate`` — the same
+    served count, batches and unique prefix blocks per batch as the JAX
+    ``main``, and MARS's page-coherence gain."""
+    from repro.launch import serve as jserve
+    want = jserve.main(["--arch", arch, *DENSE_ARGV])
+    got = tserve.main(["--config", arch, "--device", "cpu", *DENSE_ARGV])
+    for mars in (False, True):
+        for key in ("served", "batches", "blocks_per_batch"):
+            assert got[mars][key] == want[mars][key], (mars, key)
+        assert got[mars]["mean_wait"] == pytest.approx(
+            want[mars]["mean_wait"])
+    assert got[True]["blocks_per_batch"] < got[False]["blocks_per_batch"]
+    for mars in (False, True):
+        for o in got[mars]["outputs"]:
+            assert tuple(o["tokens"].shape) == (len(o["rids"]), 3)
+            assert o["frontend"] is None
+
+
+def test_serve_main_dense_whisper_serves_every_request():
+    """whisper-base (encoder-decoder) serves every request through the
+    port's dense entry point, each batch with its stub frame embeddings
+    (normal * 0.02, (batch, frontend_seq, d_model)).  The JAX ``main``
+    cannot run here: it calls ``greedy_generate`` without a frontend and
+    fails in ``lm.py`` (``'NoneType' object has no attribute 'shape'``),
+    a reference finding (ROADMAP.md §3)."""
+    from repro.launch import serve as jserve
+    with pytest.raises(AttributeError, match="shape"):
+        jserve.main(["--arch", "whisper_base", *DENSE_ARGV])
+    got = tserve.main(["--config", "whisper_base", "--device", "cpu",
+                       *DENSE_ARGV])
+    cfg = got["cfg"]
+    assert cfg.family == "encdec"
+    for mars in (False, True):
+        assert got[mars]["served"] == 16 and got[mars]["batches"] == 2
+        for o in got[mars]["outputs"]:
+            B = len(o["rids"])
+            assert tuple(o["frontend"].shape) == (B, cfg.frontend_seq,
+                                                  cfg.d_model)
+            assert abs(float(o["frontend"].float().std()) - 0.02) < 0.002
+            toks = o["tokens"]
+            assert tuple(toks.shape) == (B, 3)
+            assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
+    assert got[True]["blocks_per_batch"] < got[False]["blocks_per_batch"]

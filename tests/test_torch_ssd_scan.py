@@ -4,7 +4,8 @@ and its sequential oracle ``ssd_ref`` against the JAX package's Pallas
 ``ssd_scan`` in interpret mode and its ``ssd_ref``, on the shapes of the
 JAX kernel tests plus hymba's prefill shape (a 24-token prompt under
 chunk 64, so one chunk of 24).  Inputs come from numpy and feed both
-sides.
+sides.  The scan as the port's bf16 prefill calls it (x, b, c in bf16,
+la and dt in float32) is held against the JAX kernel given the same.
 
 Tolerances: ``atol=rtol=1e-4`` between the two chunked scans (the same
 float32 arithmetic, summed in another order), for float32 inputs and
@@ -52,6 +53,10 @@ def _sides(arrays, dtype):
             [torch.from_numpy(a).to(td) for a in arrays])
 
 
+# the mamba2-370m smoke config's scan: H 8, P 16, N 16, chunk 8
+MAMBA2_SMOKE = (2, 24, 8, 16, 16, 8)
+
+
 @pytest.fixture(autouse=True)
 def _no_kernel_launches():
     """CPU tensors never reach the CUDA kernel."""
@@ -77,6 +82,30 @@ def test_ssd_scan_matches_jax(B, S, H, P, N, chunk, dtype):
     ty, ts = tssd_ref(*t)
     np.testing.assert_allclose(ty.numpy(), np.asarray(ry), **TOL)
     np.testing.assert_allclose(ts.numpy(), np.asarray(rs), **TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SHAPES + [MAMBA2_SMOKE])
+def test_ssd_scan_takes_the_decay_in_float32(B, S, H, P, N, chunk):
+    """The port's bf16 prefill hands the scan x, b and c in bf16 with la
+    and dt in float32 (``models/ssm.py``: its one-token decode uses them
+    unrounded), where the reference rounds la and dt to x's dtype
+    (``repro/models/ssm.py:175-176``).  The port's scan matches the JAX
+    kernel given the same mixed inputs, and la and dt rounded to bf16
+    move the result well past the tolerance, so the departure is one
+    this comparison sees."""
+    x, b, c, la, dt = _inputs(B, S, H, P, N)
+    j = [jnp.asarray(a).astype(jnp.bfloat16) for a in (x, b, c)] \
+        + [jnp.asarray(la), jnp.asarray(dt)]
+    t = [torch.from_numpy(a).bfloat16() for a in (x, b, c)] \
+        + [torch.from_numpy(la), torch.from_numpy(dt)]
+    y, s = tmod.ssd_scan(*t, chunk=chunk)
+    jy, js = jssd_scan(*j, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+    ry, rs = tmod.ssd_scan(*t[:3], *(a.bfloat16().float() for a in t[3:]),
+                           chunk=chunk)
+    assert not np.allclose(ry.numpy(), np.asarray(jy), **TOL)
+    assert not np.allclose(rs.numpy(), np.asarray(js), **TOL)
 
 
 def test_ssd_scan_plain_is_the_wrapper_on_cpu():
@@ -118,6 +147,8 @@ def test_kernel_wrapper_never_falls_back():
     x, b, c, la, dt = (torch.from_numpy(a) for a in _inputs(1, 16, 2, 8, 4))
     with pytest.raises(TypeError, match="one dtype"):
         tmod._launch(x, b, c, la.double(), dt, 16)
+    with pytest.raises(TypeError, match="la, dt in float32"):
+        tmod._launch(*(t.bfloat16() for t in (x, b, c, la, dt)), 16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tmod._launch(*(t.half() for t in (x, b, c, la, dt)), 16)
     with pytest.raises(ValueError, match="contiguous"):

@@ -3,8 +3,10 @@ JAX package's at float32, with the same weights (the JAX ``ssm_init``
 converted through ``repro_torch.convert``) and the same numpy inputs, on
 the hymba smoke config: prefill (the chunked scan, three chunks of 8)
 with its returned SSM state and conv context, then O(1) decode steps
-from that state.  Plus the port's own init against the reference's
-distributions.
+from that state.  In bfloat16, the port's prefill against its own decode
+recurrence: the prefill keeps the decay in float32, as the decode does
+(a departure from the reference, which rounds it).  Plus the port's own
+init against the reference's distributions.
 
 Tolerance ``atol=rtol=1e-4``: the same float32 arithmetic, summed in
 another order by another library."""
@@ -107,6 +109,42 @@ def test_decode_continues_the_prefill():
                                **TOL)
     np.testing.assert_allclose(_np(st), _np(fst), **TOL)
     np.testing.assert_allclose(_np(cs), _np(fcs), **TOL)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "hymba_1_5b"])
+def test_bf16_prefill_decays_as_the_decode_recurrence(arch, monkeypatch):
+    """In bfloat16 the prefill hands the scan la and dt in float32, as the
+    one-token decode recurrence uses them; the reference rounds them to
+    bf16 in its prefill (``repro/models/ssm.py:175-176``), so its bf16
+    prefill and decode compute different decays.  Here a bf16 prefill of
+    24 tokens and 24 decode steps from a zero state agree: the outputs
+    within one bf16 spacing of the largest, the conv context exactly and
+    the float32 state at 1e-4.  The reference's rounding, put in the
+    port's prefill, moves the state far past that."""
+    cfg = dataclasses.replace(tconfigs.get_smoke(arch),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    p = tssm.ssm_init(torch.Generator("cpu").manual_seed(0), cfg, 0)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32)).bfloat16()
+    full, (fst, fcs) = tssm.ssm_apply(p, x, cfg, return_state=True)
+    st, cs = torch.zeros_like(fst), torch.zeros_like(fcs)
+    outs = []
+    for t in range(24):
+        o, (st, cs) = tssm.ssm_apply(p, x[:, t:t + 1], cfg, state=st,
+                                     conv_state=cs, return_state=True)
+        outs.append(o)
+    dec = torch.cat(outs, 1)
+    assert full.dtype == dec.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(full), _np(dec), rtol=0,
+                               atol=2 ** -7 * float(dec.float().abs().max()))
+    assert torch.equal(fcs, cs)
+    np.testing.assert_allclose(_np(fst), _np(st), **TOL)
+    scan = tssm.ssd_scan
+    monkeypatch.setattr(tssm, "ssd_scan", lambda x, b, c, la, dt, chunk: scan(
+        x, b, c, la.bfloat16().float(), dt.bfloat16().float(), chunk=chunk))
+    _, (rst, _) = tssm.ssm_apply(p, x, cfg, return_state=True)
+    assert not np.allclose(_np(rst), _np(st), **TOL)
 
 
 @pytest.mark.parametrize("stack", [0, 3])
