@@ -10,11 +10,18 @@ Phases (any failure exits non-zero and prints no result):
           csrc`` (paged_attention, ssd_scan, mars_gather, moe_dispatch,
           flash_attention) with nvcc for sm_90a (one nvcc per source,
           started together) into the git-ignored ``build/``.
-  k1      K1 paged_attention with its softmax state, and decode_attend
-          (whose twin is the same call on host copies), against the plain
-          twin over the serving shapes, a long ragged pool, GQA, sliding
-          windows, hymba's shape (25 query heads over 5 KV heads, a 1024
-          window, lengths up to 2048) and arctic's (56 over 8, d 128).
+  k1      K1, its split kernel and its merge kernel: paged_attention's
+          state against the plain oracle, decode_attend against
+          decode_attend_plain on the card and against the same call on
+          host copies, the merge kernel alone against
+          merge_partials_plain on the split kernel's partials (and, with
+          a forced range count of 1, 3 or 7, the partials themselves
+          against split_partials_plain), over the serving shapes, a
+          long ragged pool, GQA, sliding windows, hymba's shape (25
+          query heads over 5 KV heads, a 1024 window, lengths up to
+          2048), arctic's (56 over 8, d 128), kimi-k2's (64 over 8, d
+          112) and the edges of the split plan's page ranges (lengths on
+          an edge, a window that empties whole ranges, an empty lane).
   k3      K3 ssd_scan at hymba's prefill shape, a long case, mamba2-370m's
           prefill (8 prompts, 32 heads of 64, state 128) and a long
           mamba2 case (chunk 64: 130 KB of shared memory), and the
@@ -51,10 +58,11 @@ Phases (any failure exits non-zero and prints no result):
           the teacher-forced check against the port's dense backend
           (exact argmax in float32, a near-tie margin in bfloat16; each
           run prints its largest deficit), and with every launch count
-          set to 0 just before each run, paged_attention must have
-          launched once per layer per decode step, ssd_scan once per
-          layer per prefill (the engine's and the check's),
-          flash_attention once per unwindowed layer per prefill,
+          set to 0 just before each run, paged_attention's split and
+          merge kernels must each have launched once per layer per
+          decode step, ssd_scan once per layer per prefill (the
+          engine's and the check's), flash_attention once per
+          unwindowed layer per prefill,
           gather_rows once per embedding lookup and grouped_matmul three
           times per MoE layer per embedding lookup.  hymba's bf16 runs
           also report how far their served tokens sit from a float32
@@ -302,8 +310,15 @@ def close(got, want, atol, rtol):
 
 
 def kernel_phase(torch, gen):
+    """K1's split and merge kernels against their plain twins: the state
+    of ``paged_attention`` against the oracle, ``decode_attend`` against
+    ``decode_attend_plain`` on the card and against the same call on host
+    copies, the merge kernel alone against ``merge_partials_plain`` on the
+    split kernel's partials, and (with a forced range count) the partials
+    themselves against ``split_partials_plain``."""
     from repro_torch.kernels.paged_attention import paged_attention as pa_mod
     pa, plain = pa_mod.paged_attention, pa_mod.paged_attention_plain
+    sms = torch.cuda.get_device_properties(gen.device).multi_processor_count
     cases = []
     for dtype in ("float32", "bfloat16"):
         # serving shapes of qwen1.5-0.5b: 8 lanes, 16 heads (kv 16), d 64
@@ -348,52 +363,139 @@ def kernel_phase(torch, gen):
                            lengths=[0, 1, 17, 255, 1024, 1500, 2047,
                                     2048]),
                       1, 0))
-    results, max_err = [], 0.0
+        # kimi-k2's shape: 64 query heads over 8 KV heads (n_rep 8), d 112
+        cases.append(("kimi", dtype,
+                      dict(B=8, H=64, Hkv=8, D=112, page=16, L=2, P=1100,
+                           n_pages=128,
+                           lengths=[0, 1, 17, 255, 1024, 1500, 2047,
+                                    2048]),
+                      1, 0))
+        # the edges of the split plan's page ranges on this card: lengths
+        # on, one short of and one past a range edge, one lane at 0; a
+        # window whose start falls on range edges and empties the ranges
+        # before it; and forced range counts (1: one block walks all of a
+        # lane's pages; 3 and 7: ranges that are not whole ring stages)
+        edge = dict(B=8, H=16, Hkv=2, D=128, page=16, L=2, P=600,
+                    n_pages=64)
+        span = pa_mod.split_plan(64, 16, 8, 2, 8, sms)[1] * 16
+        S = 64 * 16
+        edge_len = [0, span, span - 1, span + 1, min(2 * span, S), S,
+                    S - 1, min(3 * span + 5, S)]
+        cases.append(("split_edges", dtype, dict(edge, lengths=edge_len),
+                       1, 0))
+        win = 100
+        cases.append(("split_window", dtype,
+                      dict(edge, lengths=[S, min(5 * span + win - 1, S),
+                                          win - 1, win, win + 1, 0, 1,
+                                          min(2 * span + win - 1, S)]),
+                      1, win))
+        for ns in (1, 3, 7):
+            cases.append((f"n_split{ns}", dtype,
+                          dict(edge, lengths=edge_len), 0, 0, ns))
+    results, max_err, merge_err = [], 0.0, 0.0
     timed = {}
-    for name, dtype, shp, layer, window in cases:
+    for name, dtype, shp, layer, window, *forced in cases:
+        n_split = forced[0] if forced else None
         q, kp, vp, kn, vn, pt, ln = make_case(gen, dtype=getattr(torch, dtype),
                                               **shp)
-        o, m, l = pa(q, kp, vp, pt, ln, layer=layer, window=window,
-                     return_state=True)
+        kw = dict(layer=layer, window=window)
+        # the split kernel's partials (a forced range count, or the plan's)
+        parts = pa_mod.paged_attention_partials(q, kp, vp, pt, ln,
+                                                n_split=n_split, **kw)
+        if n_split is None:
+            o, m, l = pa(q, kp, vp, pt, ln, return_state=True, **kw)
+            d = pa_mod.decode_attend(q, kn, vn, kp, vp, pt, ln, **kw)
+        else:
+            o, m, l = pa_mod.merge_partials(*parts, q)
+            d = pa_mod.merge_partials(*parts, q, kn, vn)
         torch.cuda.synchronize()
-        o2, m2, l2 = plain(q, kp, vp, pt, ln, layer=layer, window=window)
+        o2, m2, l2 = plain(q, kp, vp, pt, ln, **kw)
         tol = TOL[dtype]
         ok_o, e_o = close(o, o2, *tol["o"])
         ok_m, e_m = close(m, m2, *tol["ml"])
         ok_l, e_l = close(l, l2, *tol["ml"])
-        d = pa_mod.decode_attend(q, kn, vn, kp, vp, pt, ln, layer=layer,
-                                 window=window)
-        torch.cuda.synchronize()
-        # decode_attend's plain twin: the same call on host copies, where
-        # paged_attention runs its plain version
+        ok_dp, e_dp = close(d, pa_mod.decode_attend_plain(
+            q, kn, vn, kp, vp, pt, ln, **kw), *tol["o"])
+        # the same call on host copies, where decode_attend runs its plain
+        # twin on the CPU
         d2 = pa_mod.decode_attend(*(t.cpu() for t in (q, kn, vn, kp, vp, pt,
-                                                      ln)),
-                                  layer=layer, window=window)
+                                                      ln)), **kw)
         ok_d, e_d = close(d.cpu(), d2, *tol["o"])
-        line = (f"[kernel] {name:9s} {dtype:8s} o_err={e_o:.3e} "
+        # the merge kernel alone, both modes, on the split kernel's partials
+        mo, mm, ml = pa_mod.merge_partials(*parts, q)
+        md = pa_mod.merge_partials(*parts, q, kn, vn)
+        torch.cuda.synchronize()
+        po, pm, pl = pa_mod.merge_partials_plain(*parts, q)
+        pd = pa_mod.merge_partials_plain(*parts, q, kn, vn)
+        ok_mg = [close(mo, po, *tol["o"]), close(md, pd, *tol["o"]),
+                 close(mm, pm, *tol["ml"]), close(ml, pl, *tol["ml"])]
+        e_mg = max(e for _, e in ok_mg)
+        ok_all = ok_o and ok_m and ok_l and ok_d and ok_dp \
+            and all(k for k, _ in ok_mg)
+        e_part = None
+        if n_split is not None:       # the split kernel's partials alone
+            pacc, pm_, pl_ = pa_mod.split_partials_plain(
+                q, kp, vp, pt, ln, n_split=n_split, **kw)
+            acc, pmk, plk = parts
+            norm = [(a / b.clamp_min(1e-30)[..., None]) for a, b in
+                    ((acc, plk), (pacc, pl_))]
+            checks = [close(norm[0], norm[1], *tol["o"]),
+                      close(pmk, pm_, *tol["ml"]), close(plk, pl_,
+                                                         *tol["ml"])]
+            e_part = max(e for _, e in checks)
+            ok_all = ok_all and all(k for k, _ in checks)
+        line = (f"[kernel] {name:12s} {dtype:8s} o_err={e_o:.3e} "
                 f"m_err={e_m:.3e} l_err={e_l:.3e} decode_err={e_d:.3e} "
-                f"tol(o atol,rtol)={tol['o']} tol(m,l)={tol['ml']} "
-                f"{'ok' if ok_o and ok_m and ok_l and ok_d else 'MISMATCH'}")
+                f"decode_vs_plain_on_card={e_dp:.3e} merge_err={e_mg:.3e} "
+                + (f"partials_err={e_part:.3e} " if e_part is not None
+                   else "")
+                + f"n_split={n_split or 'plan'} tol(o atol,rtol)={tol['o']} "
+                f"tol(m,l)={tol['ml']} {'ok' if ok_all else 'MISMATCH'}")
         print(line)
         results.append(dict(case=name, dtype=dtype, o_err=e_o, m_err=e_m,
                             l_err=e_l, decode_err=e_d,
-                            ok=ok_o and ok_m and ok_l and ok_d))
-        max_err = max(max_err, e_o, e_d)
-        if name in ("serve", "long", "hymba", "arctic"):
-            timed[(name, dtype)] = (q, kp, vp, pt, ln, layer, window, shp)
+                            decode_plain_err=e_dp, merge_err=e_mg,
+                            partials_err=e_part, n_split=n_split,
+                            ok=ok_all))
+        max_err = max(max_err, e_o, e_d, e_dp)
+        merge_err = max(merge_err, e_mg)
+        if name in ("serve", "long", "hymba", "arctic", "kimi"):
+            timed[(name, dtype)] = (q, kp, vp, kn, vn, pt, ln, layer, window,
+                                    shp)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain twin: {bad}")
-    return results, max_err, timed
+    return results, max_err, merge_err, timed
 
 
-def time_case(torch, F, ops, dtype: str):
-    """Kernel, plain twin and SDPA (over pre-gathered keys) at one case,
-    as device time per call and as event time per call with the host's
-    launch; bound from the bytes and operations this case's data needs
-    (under a window, only the positions and pages inside it)."""
+def profile_rows(fn, reps: int) -> list:
+    """``device_rows`` of ``reps`` calls of ``fn`` after one warm-up call,
+    each row's ms per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [dict(r, ms=r["ms"] / reps) for r in device_rows(prof)]
+
+
+def rows_ms(rows, key: str) -> float:
+    return sum(r["ms"] for r in rows if key in r["name"])
+
+
+def time_case(torch, F, ops, dtype: str, flush):
+    """K1 (split + merge, each also alone), its plain twin and SDPA (over
+    pre-gathered keys) at one case, as device time per call (warm L2, and
+    CUDA events around one call after an L2 flush) and as event time per
+    call with the host's launch; ``decode_attend`` and its merge pass;
+    bound from the bytes and operations this case's data needs (under a
+    window, only the positions and pages inside it)."""
     from repro_torch.kernels.paged_attention import paged_attention as pa_mod
-    q, kp, vp, pt, ln, layer, window, shp = ops
+    q, kp, vp, kn, vn, pt, ln, layer, window, shp = ops
     B, H, D = q.shape
     Hkv, page = shp["Hkv"], shp["page"]
     eb = q.element_size()
@@ -410,14 +512,26 @@ def time_case(torch, F, ops, dtype: str):
     ops_count = 4 * valid * H * D                    # q.k and p.v
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops_count / PEAK_OPS[dtype] * 1e3
+    kw = dict(layer=layer, window=window)
 
     def kern():
-        pa_mod.paged_attention(q, kp, vp, pt, ln, layer=layer, window=window,
-                               return_state=True)
+        pa_mod.paged_attention(q, kp, vp, pt, ln, return_state=True, **kw)
 
     def plain():
-        pa_mod.paged_attention_plain(q, kp, vp, pt, ln, layer=layer,
-                                     window=window)
+        pa_mod.paged_attention_plain(q, kp, vp, pt, ln, **kw)
+
+    def decode():
+        pa_mod.decode_attend(q, kn, vn, kp, vp, pt, ln, **kw)
+
+    parts = pa_mod.paged_attention_partials(q, kp, vp, pt, ln, **kw)
+
+    def merge_plain():
+        pa_mod.merge_partials_plain(*parts, q, kn, vn)
+    # the merge pass in decode mode reads the partials, q and the token's
+    # K/V, and writes o
+    n_split = parts[0].shape[2]
+    merge_bytes = (B * H * n_split * (D + 2) * 4 + 2 * B * H * D * eb
+                   + 2 * B * Hkv * D * eb)
     # library yardstick: SDPA over the same keys gathered contiguously
     # beforehand (the gather is excluded); lanes as the batch, the same
     # valid-position mask; never called by the port
@@ -436,9 +550,22 @@ def time_case(torch, F, ops, dtype: str):
 
     def lib():
         F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
-    return dict(ms=device_ms(kern, 50), plain_ms=device_ms(plain, 10),
+    rows = profile_rows(kern, 50)
+    drows = profile_rows(decode, 50)
+    return dict(ms=sum(r["ms"] for r in rows),
+                split_ms=rows_ms(rows, "paged_attention_split"),
+                merge_ms=rows_ms(rows, "paged_attention_merge"),
+                decode_ms=sum(r["ms"] for r in drows),
+                decode_merge_ms=rows_ms(drows, "paged_attention_merge"),
+                merge_plain_ms=device_ms(merge_plain, 10),
+                merge_bound_ms=merge_bytes / HBM_BYTES_PER_S * 1e3,
+                n_split=n_split,
+                plain_ms=device_ms(plain, 10),
                 library_ms=device_ms(lib, 50),
+                cold_ms=cold_ms(torch, kern, 20, flush),
+                cold_library_ms=cold_ms(torch, lib, 20, flush),
                 event_ms=time_ms(kern, 50),
+                decode_event_ms=time_ms(decode, 50),
                 plain_event_ms=time_ms(plain, 10),
                 library_event_ms=time_ms(lib, 50),
                 bound_ms=max(t_bytes, t_ops),
@@ -906,11 +1033,10 @@ def serve_phase(torch, serve, arch: str, flags=()):
     """One full-width serve run with every launch count set to 0 just
     before it; checks the served tokens and that each kernel of the path
     launched as often as the run's counts say."""
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    counters = kernel_counters()
+    reset_counts(counters)
     out = serve.main(serve_args(arch, flags))
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_counts(counters)
     name = run_name(arch, flags)
     cfg = out["cfg"]                  # as served: --layers cuts the depth
     L = cfg.n_layers
@@ -921,8 +1047,8 @@ def serve_phase(torch, serve, arch: str, flags=()):
         + out["parity_batch_prefills"]
     embeds = prefills + out["decode_steps"] + out["parity_decode_steps"] \
         + out["parity_batch_decode_steps"]
-    want = {"paged_attention": L * out["decode_steps"]
-            if out["decode"] == "kernel" else 0,
+    k1 = L * out["decode_steps"] if out["decode"] == "kernel" else 0
+    want = {"paged_attention": k1, "paged_attention_merge": k1,
             "ssd_scan": L * prefills if cfg.has_ssm else 0,
             "gather_rows": embeds if cfg.vocab * cfg.d_model >= 1 << 22
             else 0,
@@ -940,7 +1066,7 @@ def serve_phase(torch, serve, arch: str, flags=()):
           f"{out['parity_max_deficit']:.5g}, dense noise median "
           f"{out['parity_noise']} layers={L}")
     print(f"[serve {name}] launches: " + ", ".join(
-        f"{k} {launches[k]} (want {want[k]})" for k in wrappers))
+        f"{k} {launches[k]} (want {want[k]})" for k in counters))
     if out["served"] != 16 or out["parity_mismatches"]:
         raise AssertionError(f"{name}: {out['served']} served, "
                              f"{out['parity_mismatches']} parity mismatches")
@@ -983,18 +1109,31 @@ def unwindowed_layers(cfg) -> int:
                if cfg.global_every and li % cfg.global_every == 0)
 
 
-def kernel_wrappers() -> dict:
-    """The port's kernel wrappers by name; each counts its launches."""
+def kernel_counters() -> dict:
+    """Each kernel of the port by name, as (wrapper, attribute) of the
+    count its wrapper adds one to where it launches the kernel; K1's merge
+    pass has its own count on the same wrapper."""
     from repro_torch.kernels.flash_attention import flash_attention as k5_mod
     from repro_torch.kernels.mars_gather import mars_gather as mg_mod
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4_mod
     from repro_torch.kernels.paged_attention import paged_attention as pa_mod
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_mod
-    return {"paged_attention": pa_mod.paged_attention,
-            "ssd_scan": ssd_mod.ssd_scan,
-            "gather_rows": mg_mod.gather_rows,
-            "grouped_matmul": k4_mod.grouped_matmul,
-            "flash_attention": k5_mod.flash_attention}
+    return {"paged_attention": (pa_mod.paged_attention, "launches"),
+            "paged_attention_merge": (pa_mod.paged_attention,
+                                      "merge_launches"),
+            "ssd_scan": (ssd_mod.ssd_scan, "launches"),
+            "gather_rows": (mg_mod.gather_rows, "launches"),
+            "grouped_matmul": (k4_mod.grouped_matmul, "launches"),
+            "flash_attention": (k5_mod.flash_attention, "launches")}
+
+
+def reset_counts(counters: dict) -> None:
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {k: getattr(w, a) for k, (w, a) in counters.items()}
 
 
 def free_device(torch, tag: str) -> None:
@@ -1056,7 +1195,8 @@ def profile_summary(prof, wall: float) -> dict:
     buckets: dict = {}
     for r in rows:
         n = r["name"].lower()
-        b = ("paged_attention" if "paged_attention" in n else
+        b = ("paged_attention_merge" if "paged_attention_merge" in n else
+             "paged_attention" if "paged_attention" in n else
              "ssd_scan" if "ssd_scan_kernel" in n else
              "grouped_matmul" if "grouped_mm_" in n else
              "gather_rows" if "gather_rows_kernel" in n else
@@ -1088,7 +1228,7 @@ def dense_launches_wanted(cfg, prefills: int, steps: int) -> dict:
     every embedding lookup of a large table."""
     L = cfg.n_layers
     cross = L if cfg.family == "encdec" else 0
-    return {"paged_attention": 0,
+    return {"paged_attention": 0, "paged_attention_merge": 0,
             "ssd_scan": L * prefills if cfg.has_ssm else 0,
             "gather_rows": prefills + steps
             if cfg.vocab * cfg.d_model >= 1 << 22 else 0,
@@ -1213,11 +1353,10 @@ def dense_phase(torch, serve, arch: str, flags=()):
     with every launch count set to 0 just before it; checks each kernel
     of the path launched as often as the run's batches and steps say,
     then the served tokens (``dense_check``)."""
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    counters = kernel_counters()
+    reset_counts(counters)
     out = serve.main(dense_args(arch, flags))
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_counts(counters)
     name = run_name(arch, flags)
     cfg = out["cfg"]
     runs = [out[False], out[True]]
@@ -1234,7 +1373,7 @@ def dense_phase(torch, serve, arch: str, flags=()):
           f"tokens/s={tokens / wall:.1f} layers={cfg.n_layers}"
           f"+{cfg.enc_layers} enc")
     print(f"[dense {name}] launches: " + ", ".join(
-        f"{k} {launches[k]} (want {want[k]})" for k in wrappers))
+        f"{k} {launches[k]} (want {want[k]})" for k in counters))
     bad = [o for o in batches if o["tokens"].shape != (
         o["prompts"].shape[0], 9) or not bool(
         ((o["tokens"] >= 0) & (o["tokens"] < cfg.vocab)).all())]
@@ -1308,7 +1447,8 @@ def profile_dense(torch, serve, args) -> dict:
 
 
 # the port's kernels as their device-side names show in a profile
-KERNEL_NAMES = {"paged_attention": "paged_attention_kernel",
+KERNEL_NAMES = {"paged_attention": "paged_attention_split_kernel",
+                "paged_attention_merge": "paged_attention_merge_kernel",
                 "ssd_scan": "ssd_scan_kernel",
                 "gather_rows": "gather_rows_kernel",
                 "grouped_matmul": "grouped_mm_",
@@ -1392,19 +1532,28 @@ def main(argv=None) -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     record = dict(build_s=build_s)
     if "k1" in phases:
-        results, max_err, timed = kernel_phase(torch, gen)
-        timing = {f"{name}/{dt}": time_case(torch, F, ops, dt)
+        results, max_err, merge_err, timed = kernel_phase(torch, gen)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=gen.device)
+        timing = {f"{name}/{dt}": time_case(torch, F, ops, dt, flush)
                   for (name, dt), ops in timed.items()}
-        del timed
+        del timed, flush
         for case, t in timing.items():
             print(f"[kernel] paged_attention {case}: device ms per call: "
-                  f"kernel {t['ms']:.4f}, bound {t['bound_ms']:.5f} "
-                  f"({t['bound_by']}; {t['bytes']} B, {t['ops']} ops, "
-                  f"{t['valid_positions']} valid positions), plain twin "
+                  f"split + merge {t['ms']:.4f} (split {t['split_ms']:.4f}, "
+                  f"merge {t['merge_ms']:.4f}; {t['n_split']} ranges), bound "
+                  f"{t['bound_ms']:.5f} ({t['bound_by']}; {t['bytes']} B, "
+                  f"{t['ops']} ops, {t['valid_positions']} valid positions; "
+                  f"{t['bound_ms'] / t['ms']:.3f} of it reached), plain twin "
                   f"{t['plain_ms']:.4f}, SDPA over pre-gathered keys (gather "
-                  f"excluded) {t['library_ms']:.4f}; event ms per call with "
-                  f"host launch: {t['event_ms']:.4f} / "
+                  f"excluded) {t['library_ms']:.4f}; after an L2 flush: "
+                  f"{t['cold_ms']:.4f} / SDPA {t['cold_library_ms']:.4f}; "
+                  f"event ms per call with host launch: {t['event_ms']:.4f} / "
                   f"{t['plain_event_ms']:.4f} / {t['library_event_ms']:.4f}")
+            print(f"[kernel] decode_attend {case}: device ms per call "
+                  f"{t['decode_ms']:.4f} (merge pass {t['decode_merge_ms']:.4f}"
+                  f", bound {t['merge_bound_ms']:.5f}, plain merge "
+                  f"{t['merge_plain_ms']:.4f}); event ms per call with host "
+                  f"launch {t['decode_event_ms']:.4f}")
         record.update(cases=results, timing=timing)
         free_device(torch, "K1 phase")
     if "k3" in phases:
@@ -1510,20 +1659,31 @@ def main(argv=None) -> int:
         print(f"chip_smoke: ran phases {sorted(phases)} only; no result")
         return 0
 
-    def row(name, source, replaces, path, err, t):
-        return dict(name=name, route="cuda",
-                    source=f"src/repro_torch/csrc/{source}",
-                    replaces=f"src/repro/kernels/{replaces}",
-                    launches=launches[path][name],
-                    launches_by_path={r: n[name] for r, n in launches.items()},
-                    max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
-                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                    library_ms=t["library_ms"])
+    def row(name, source, replaces, path, err, t, **over):
+        r = dict(name=name, route="cuda",
+                 source=f"src/repro_torch/csrc/{source}",
+                 replaces=f"src/repro/kernels/{replaces}",
+                 launches=launches[path][name],
+                 launches_by_path={p: n[name] for p, n in launches.items()},
+                 max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                 library_ms=t["library_ms"])
+        r.update(over)
+        return r
     arctic = run_name("arctic_480b", ARCTIC)
+    k1 = timing["arctic/bfloat16"]
     kernels = [
         row("paged_attention", "paged_attention.cu",
-            "paged_attention/paged_attention.py:57", arctic, max_err,
-            timing["arctic/bfloat16"]),
+            "paged_attention/paged_attention.py:57", arctic, max_err, k1),
+        # K1's merge pass, which folds in the in-flight token (the merge
+        # step of the reference's decode_attend): its time within a
+        # decode_attend call, against merge_partials_plain on the same
+        # partials; no single PyTorch call computes it
+        row("paged_attention_merge", "paged_attention.cu",
+            "paged_attention/paged_attention.py:204", arctic, merge_err, k1,
+            ms=k1["decode_merge_ms"], plain_ms=k1["merge_plain_ms"],
+            bound_ms=k1["merge_bound_ms"], bound_by="bytes",
+            library_ms=None),
         row("ssd_scan", "ssd_scan.cu", "ssd_scan/ssd_scan.py:21",
             "hymba_1_5b", ssd_err, ssd_timing["long/bfloat16"]),
         row("gather_rows", "mars_gather.cu", "mars_gather/mars_gather.py:25",

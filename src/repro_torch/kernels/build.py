@@ -70,8 +70,15 @@ def build_all(names=SOURCES) -> dict[str, str]:
     together.  Returns ``{name: compiler log}`` ("" when the library
     was already built)."""
     jobs = {n: _start(n) for n in names}
-    return {n: ("" if job is None else _finish(n, job))
-            for n, job in jobs.items()}
+    try:
+        return {n: ("" if job is None else _finish(n, job))
+                for n, job in jobs.items()}
+    finally:                      # a failed build stops the others
+        for job in jobs.values():
+            if job is not None and job[2].poll() is None:
+                job[2].kill()
+                job[2].wait()
+                job[1].unlink(missing_ok=True)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,6 +8,9 @@ and GQA.  Inputs come from numpy and feed both sides.
 Tolerances: float32 ``atol=rtol=1e-5`` (the same f32 arithmetic, summed
 in another order); bfloat16 ``atol=2e-2`` on the output (one bf16 ulp at
 |o| ~ 2 is 1.6e-2; m/l stay f32 and keep 1e-5)."""
+import functools
+import inspect
+
 import numpy as np
 import pytest
 
@@ -79,10 +82,12 @@ def _check_state(t_out, j_out, dtype):
 
 @pytest.fixture(autouse=True)
 def _no_kernel_launches():
-    """CPU tensors never reach the CUDA kernel."""
-    before = tpa.paged_attention.launches
+    """CPU tensors never reach the CUDA kernels."""
+    before = (tpa.paged_attention.launches,
+              tpa.paged_attention.merge_launches)
     yield
-    assert tpa.paged_attention.launches == before
+    assert (tpa.paged_attention.launches,
+            tpa.paged_attention.merge_launches) == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -247,3 +252,269 @@ def test_oracles_agree(window):
         _np(jref.paged_attention_ref(*args_j[:1], *args_j[3:], layer=1,
                                      window=window)),
         **TOL["float32"])
+
+
+# -- the split-and-merge arithmetic of the two CUDA kernels ------------------
+# ``paged_attention_split_plain`` cuts the pages into the kernels' ranges,
+# computes each range's partial state and merges them; it is held against
+# the JAX kernel (interpret mode) at the tolerances above: f32 1e-5 (the
+# same f32 arithmetic, summed per range and then across ranges), bf16 2e-2
+# on o (one bf16 ulp at |o| ~ 2 is 1.6e-2), m/l f32 1e-5.  Each case:
+# (B, H, Hkv, D, page, npages, L, layer, lengths, window).
+SPLIT_CASES = {
+    # ragged lengths, an empty lane and a full one, n_rep 1
+    "ragged": (4, 8, 8, 64, 4, 12, None, 0, [0, 5, 48, 17], 0),
+    # windows that leave only the last ranges (whole ranges masked), and
+    # window 1, which admits no cached key
+    "window_masks_ranges": (3, 4, 2, 64, 4, 12, None, 0, [48, 45, 20], 9),
+    "window1": (3, 4, 2, 64, 4, 12, None, 0, [48, 0, 7], 1),
+    # GQA at the head dims the kernels build: n_rep 5 (hymba), 7
+    # (arctic), 8 (kimi-k2, d 112), n_rep 1 at d 112; a layered pool
+    # read at layer > 0
+    "rep5_d64": (2, 10, 2, 64, 8, 6, 2, 1, [0, 37], 0),
+    "rep7_d128": (2, 14, 2, 128, 8, 6, 2, 1, [48, 29], 0),
+    "rep8_d112": (2, 8, 1, 112, 16, 4, 3, 2, [64, 33], 0),
+    "rep1_d112": (2, 4, 4, 112, 16, 4, 3, 2, [15, 64], 0),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(name, dtype):
+    """Operands of a split case and the JAX kernel's state on them."""
+    B, H, Hkv, D, page, npages, L, layer, lengths, window = \
+        SPLIT_CASES[name]
+    c = _case(60, B=B, H=H, Hkv=Hkv, D=D, page=page, npages=npages, L=L,
+              lengths=lengths)
+    j, t = _sides(c, dtype)
+    kw = dict(layer=layer) if L else {}
+    want = jpa.paged_attention(j["q"], j["kp"], j["vp"], j["pt"], j["ln"],
+                               window=window, interpret=True,
+                               return_state=True, **kw)
+    return t, dict(layer=layer, window=window), want
+
+
+def _layered(t, L):
+    return (t["kp"], t["vp"]) if L else (t["kp"][None], t["vp"][None])
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_plain_matches_jax(name, n_split):
+    t, kw, want = _split_case(name, "float32")
+    kp, vp = _layered(t, SPLIT_CASES[name][6])
+    got = tpa.paged_attention_split_plain(t["q"], kp, vp, t["pt"], t["ln"],
+                                          n_split=n_split, **kw)
+    _check_state(got, want, "float32")
+    if kw["window"] == 1 or name == "ragged":
+        o, m, l = got
+        empty = [b for b, n in enumerate(SPLIT_CASES[name][8])
+                 if n == 0 or kw["window"] == 1]
+        assert (o[empty] == 0).all() and (m[empty] == -1e30).all() \
+            and (l[empty] == 0).all()
+
+
+@pytest.mark.parametrize("n_split", [2, 7])
+@pytest.mark.parametrize("name", ["ragged", "rep7_d128", "rep8_d112"])
+def test_split_plain_matches_jax_bf16(name, n_split):
+    t, kw, want = _split_case(name, "bfloat16")
+    kp, vp = _layered(t, SPLIT_CASES[name][6])
+    got = tpa.paged_attention_split_plain(t["q"], kp, vp, t["pt"], t["ln"],
+                                          n_split=n_split, **kw)
+    _check_state(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+def test_split_plain_lengths_on_range_edges(n_split):
+    """Lengths that are exact multiples of a range's span (and one short
+    of, and one past, an edge): each range ends where a lane does."""
+    B, H, Hkv, D, page, npages = 5, 4, 2, 64, 4, 14
+    pps = tpa.split_span(npages, n_split)[1]
+    span = pps * page
+    lengths = [min(span, npages * page), min(2 * span, npages * page),
+               span - 1, min(span + 1, npages * page), npages * page]
+    c = _case(61, B=B, H=H, Hkv=Hkv, D=D, page=page, npages=npages,
+              lengths=lengths)
+    j, t = _sides(c, "float32")
+    got = tpa.paged_attention_split_plain(t["q"], t["kp"][None],
+                                          t["vp"][None], t["pt"], t["ln"],
+                                          layer=0, n_split=n_split)
+    want = jpa.paged_attention(j["q"], j["kp"], j["vp"], j["pt"], j["ln"],
+                               interpret=True, return_state=True)
+    _check_state(got, want, "float32")
+
+
+def test_split_partials_are_the_kernels_ranges():
+    """Each partial state covers exactly its range's valid positions: a
+    range past a lane's length is empty (0, -1e30, 0), and merging the
+    partials (``merge_partials``, the CPU twin of the merge kernel)
+    gives the oracle."""
+    c = _case(62, B=2, H=4, Hkv=2, D=64, page=4, npages=12,
+              lengths=[10, 48])
+    _, t = _sides(c, "float32")
+    kp, vp = t["kp"][None], t["vp"][None]
+    acc, m, l = tpa.paged_attention_partials(t["q"], kp, vp, t["pt"],
+                                             t["ln"], layer=0, n_split=3)
+    assert acc.shape == (2, 4, 3, 64) and m.shape == l.shape == (2, 4, 3)
+    # lane 0 holds 10 positions: pages 0-2 of range [0, 4); ranges 1, 2
+    # are empty
+    assert (m[0, :, 1:] == -1e30).all() and (l[0, :, 1:] == 0).all() \
+        and (acc[0, :, 1:] == 0).all()
+    assert (l[1] > 0).all()
+    o, M, L = tpa.merge_partials(acc, m, l, t["q"])
+    want = tpa.paged_attention_plain(t["q"], kp, vp, t["pt"], t["ln"],
+                                     layer=0)
+    _check_state((o, M, L), want, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["ragged", "window_masks_ranges",
+                                  "window1", "rep7_d128", "rep8_d112"])
+def test_decode_attend_plain_matches_jax(name, dtype):
+    """The cached positions' state and the in-flight token's merge step
+    against the JAX ``decode_attend`` (kernel state + one merge step)."""
+    B, H, Hkv, D, page, npages, L, layer, lengths, window = \
+        SPLIT_CASES[name]
+    c = _case(63, B=B, H=H, Hkv=Hkv, D=D, page=page, npages=npages, L=L,
+              lengths=lengths)
+    j, t = _sides(c, dtype)
+    kp, vp = _layered(t, L)
+    got = tpa.decode_attend_plain(t["q"], t["kn"], t["vn"], kp, vp, t["pt"],
+                                  t["ln"], layer=layer, window=window)
+    assert got.dtype == getattr(torch, dtype)
+    kw = dict(layer=layer) if L else {}
+    want = jpa.decode_attend(j["q"], j["kn"], j["vn"], j["kp"], j["vp"],
+                             j["pt"], j["ln"], window=window, interpret=True,
+                             **kw)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    # the merge pass's twin folds the token into the split twin's partial
+    # states: the same answer
+    parts = tpa.split_partials_plain(t["q"], kp, vp, t["pt"], t["ln"],
+                                     layer=layer, window=window, n_split=3)
+    merged = tpa.merge_partials_plain(*parts, t["q"], t["kn"], t["vn"])
+    np.testing.assert_allclose(_np(merged), _np(want), **TOL[dtype])
+
+
+def test_decode_attend_rounds_o_as_the_reference():
+    """The in-flight merge keeps the reference's rounding point: JAX
+    ``decode_attend`` rounds the kernel's o to q's dtype before the merge
+    step, and so do the port's merge kernel and its twins.  In bf16 the
+    port then agrees with the reference to within one bf16 spacing of
+    |o| (2**-7: summation order may move a value across a rounding
+    boundary), closer than the bf16 tolerance; the f32 answer rounded
+    once stays within that tolerance; in f32 both agree to summation
+    order."""
+    c = _case(64, B=4, H=8, Hkv=2, D=64, page=4, npages=8, L=2,
+              lengths=[0, 9, 32, 30])
+    j, t = _sides(c, "bfloat16")
+    args = (t["q"], t["kn"], t["vn"], t["kp"], t["vp"], t["pt"], t["ln"])
+    got = tpa.decode_attend(*args, layer=1)
+    want = jpa.decode_attend(j["q"], j["kn"], j["vn"], j["kp"], j["vp"],
+                             j["pt"], j["ln"], layer=1, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6,
+                               rtol=2.0 ** -7)
+    once = tref.paged_decode_ref(*(a.float() if a.is_floating_point()
+                                   else a for a in args), layer=1)
+    np.testing.assert_allclose(_np(got), _np(once), **TOL["bfloat16"])
+    parts = tpa.split_partials_plain(t["q"], t["kp"], t["vp"], t["pt"],
+                                     t["ln"], layer=1, n_split=3)
+    merged = tpa.merge_partials_plain(*parts, t["q"], t["kn"], t["vn"])
+    np.testing.assert_allclose(_np(merged), _np(want), atol=1e-6,
+                               rtol=2.0 ** -7)
+    j32, t32 = _sides(c, "float32")
+    got32 = tpa.decode_attend(t32["q"], t32["kn"], t32["vn"], t32["kp"],
+                              t32["vp"], t32["pt"], t32["ln"], layer=1)
+    want32 = jpa.decode_attend(j32["q"], j32["kn"], j32["vn"], j32["kp"],
+                               j32["vp"], j32["pt"], j32["ln"], layer=1,
+                               interpret=True)
+    np.testing.assert_allclose(_np(got32), _np(want32), **TOL["float32"])
+
+
+# -- the split plan: a function of shapes ------------------------------------
+def test_split_plan_takes_shapes_alone():
+    """The wrapper picks the ranges from ints it already knows: no
+    tensor goes in, so ``lengths`` is never read back from the card."""
+    params = list(inspect.signature(tpa.split_plan).parameters)
+    assert params == ["n_pages", "page", "B", "Hkv", "n_rep", "sm_count"]
+    plan = tpa.split_plan(256, 16, 8, 16, 1, 132)
+    assert plan == tpa.split_plan(256, 16, 8, 16, 1, 132)
+    assert all(type(x) is int for x in plan)
+
+
+@pytest.mark.parametrize("n_pages,page", [(1, 16), (4, 16), (8, 8),
+                                          (16, 4), (3, 4)])
+def test_split_plan_one_range_when_too_few_pages(n_pages, page):
+    """No more pages than one 64-token stage: nothing to split."""
+    assert tpa.split_plan(n_pages, page, 1, 1, 1, 132)[0] == 1
+
+
+@pytest.mark.parametrize("n_pages", [1, 5, 8, 31, 128, 256, 1000])
+@pytest.mark.parametrize("page", [4, 8, 16])
+@pytest.mark.parametrize("B,Hkv,n_rep,sms", [(1, 1, 1, 132), (8, 16, 1, 132),
+                                             (8, 5, 5, 132), (64, 8, 7, 78),
+                                             (3, 1, 32, 132)])
+def test_split_plan_tiles_the_pages(n_pages, page, B, Hkv, n_rep, sms):
+    """The ranges tile [0, n_pages) without gap or overlap, none empty,
+    each a whole number of 64-token stages but the last."""
+    n, pps = tpa.split_plan(n_pages, page, B, Hkv, n_rep, sms)
+    ranges = tpa.split_ranges(n_pages, pps)
+    assert len(ranges) == n >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_pages
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(n - 1))
+    assert pps % max(64 // page, 1) == 0
+
+
+@pytest.mark.parametrize("n_pages", [1, 2, 9, 12, 64])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, 100])
+def test_split_span_tiles_the_pages(n_pages, n_split):
+    n, pps = tpa.split_span(n_pages, n_split)
+    ranges = tpa.split_ranges(n_pages, pps)
+    assert len(ranges) == n <= max(n_split, 1)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_pages
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(n - 1))
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("long", (256, 16, 8, 16, 1)),       # 8 lanes, 16 heads of 64, 4096
+    ("arctic", (128, 16, 8, 8, 7)),      # 56 heads over 8, lengths 2048
+    ("hymba", (128, 16, 8, 5, 5)),       # 25 heads over 5, window 1024
+    ("kimi", (128, 16, 8, 8, 8)),        # 64 heads over 8 of 112
+])
+def test_split_plan_fills_an_h100(name, shape):
+    """At the timed cases an H100's 132 SMs get at least two blocks each
+    (before a lane's empty ranges exit)."""
+    n_pages, page, B, Hkv, n_rep = shape
+    n, _ = tpa.split_plan(n_pages, page, B, Hkv, n_rep, 132)
+    assert n * B * Hkv * -(-n_rep // 16) >= 2 * 132
+
+
+@pytest.mark.parametrize("D,page", [(32, 16), (96, 16), (256, 16),
+                                    (64, 32), (128, 2)])
+def test_cuda_branch_refuses_unbuilt_shapes(D, page):
+    """A head dim or page the kernels were not built for raises before
+    any build or launch, and never falls back to a plain twin."""
+    q = torch.zeros(1, 4, D)
+    kp = torch.zeros(1, 3, page, 2, D)
+    pt = torch.zeros(1, 1, dtype=torch.int32)
+    ln = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa._launch(q, kp, kp, pt, ln, 0, 0)
+
+
+def test_merge_kernel_refuses_bad_operands():
+    """The merge pass's wrapper checks the partial states and the
+    in-flight token before any build or launch."""
+    q = torch.zeros(2, 4, 64)
+    acc, m, l = torch.zeros(2, 4, 3, 64), torch.zeros(2, 4, 3), \
+        torch.zeros(2, 4, 3)
+    with pytest.raises(ValueError, match="partial acc"):
+        tpa._launch_merge(acc[..., :32], m, l, q)
+    with pytest.raises(ValueError, match="partial m"):
+        tpa._launch_merge(acc, m.double(), l, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa._launch_merge(acc[..., :32].contiguous(), m, l,
+                          q[..., :32].contiguous())
+    kn = torch.zeros(2, 2, 128)[..., ::2]          # last dim strided
+    with pytest.raises(ValueError, match="k_new"):
+        tpa._launch_merge(acc, m, l, q, kn, kn)
