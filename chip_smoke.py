@@ -21,7 +21,13 @@ Phases (any failure exits non-zero and prints no result):
           query heads over 5 KV heads, a 1024 window, lengths up to
           2048), arctic's (56 over 8, d 128), kimi-k2's (64 over 8, d
           112) and the edges of the split plan's page ranges (lengths on
-          an edge, a window that empties whole ranges, an empty lane).
+          an edge, a window that empties whole ranges, an empty lane);
+          then the serve, long and arctic shapes with float8_e4m3fn
+          pages (a KV cache stored in fp8) under float32 and bfloat16 q,
+          and qwen1.5-0.5b at full width decoding 4 steps through
+          ``PagedBackend`` with an fp8 cache against the same run with a
+          bf16 cache (``kv_fp8_check``: the reference's criterion from
+          ``tests/test_kv_quant.py``, and K1's launch counts).
   k3      K3 ssd_scan at hymba's prefill shape, a long case, mamba2-370m's
           prefill (8 prompts, 32 heads of 64, state 128) and a long
           mamba2 case (chunk 64: 130 KB of shared memory), and the
@@ -29,7 +35,8 @@ Phases (any failure exits non-zero and prints no result):
   k2      K2 gather_rows bitwise on the embedding tables of hymba,
           qwen, arctic, whisper and mamba2 in bf16 (whisper's and
           mamba2's also in float32) at 8, 24, 192 (a dense prefill of 8
-          prompts) and 8192 ids.
+          prompts) and 8192 ids, each timed after an L2 flush beside
+          ``F.embedding``.
   k4      K4 grouped_matmul against its plain twin on the reference test
           shapes and on MARS-sorted, tile-padded routings at arctic's
           decode (w_in and w_out) and prefill and kimi's decode; padding
@@ -41,13 +48,17 @@ Phases (any failure exits non-zero and prints no result):
           arctic (56 x 128), kimi (64 x 112) and the smoke configs (d
           16), a long causal prefill (8192 tokens, 16 x 128), the
           reference test shapes and ragged cases with few keys (1, 7
-          and 24 queries over 40 or 100 keys, head dims 16 to 128).
-          bfloat16 is held element by element to a bound derived from
-          the inputs (``K5_TOL``) and both dtypes to a gain within 2**-8
-          of 1.
+          and 24 queries over 40 or 100 keys, head dims 16 to 128),
+          each through the kernel ``split_plan`` picks (wgmma tiles for
+          many bf16 queries; 16-row tiles with the keys split over
+          blocks and merged in the launch for few; float32).  bfloat16
+          is held element by element to a bound derived from the inputs
+          (``K5_TOL``) and both dtypes to a gain within 2**-8 of 1.
           Every kernel is held in float32 and bfloat16 within the stated
           tolerances and timed beside its bound, its plain twin and,
-          where one exists, one PyTorch library call.
+          where one exists, one PyTorch library call.  A device time the
+          profiler did not record is retried, then fails the run naming
+          the case; it is never read as 0 ms.
   serve   ``repro_torch.launch.serve --paged --config <arch>`` at full
           width for qwen1_5_0_5b (24 layers, vocab 151936), hymba_1_5b
           (32 layers, d 1600, SSM heads; also in float32 and through the
@@ -134,7 +145,12 @@ SSD_TOL = (1e-3, 1e-3)
 # few percent; both dtypes are also held to a gain: sum(got want) /
 # sum(want^2) within 2**-8 of 1 (round to nearest is unbiased, so
 # rounding moves the gain by about u / sqrt(elements), far below 2**-8,
-# while a dropped tail mask at Sk 1500 moves it by 1.4%).
+# while a dropped tail mask at Sk 1500 moves it by 1.4%).  Where
+# ``split_plan`` splits the keys over blocks, each range rounds its
+# probabilities at its own running maximum and the merge scales them by
+# exp(m_range - m) in f32: each p is still rounded once, with a relative
+# error of at most u (and 2**-24 from the f32 scaling), so the same bound
+# holds, unwidened.
 K5_TOL = {"float32": (1e-4, 1e-4)}
 K5_GAIN_TOL = 2.0 ** -8
 # K5 cases: (name, B, Sq, Sk, H, D, causal).  whisper-base serves 8
@@ -271,30 +287,54 @@ def device_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r["ms"])
 
 
-def device_ms(fn, reps: int) -> float:
+class Unread(RuntimeError):
+    """The profiler recorded no device time for a call that launches
+    kernels."""
+
+
+def device_profile(fn, reps: int, case: str = "", need=(),
+                   tries: int = 4) -> list:
+    """``profile_rows`` of ``fn``, retried while the profile holds no
+    device row or lacks a kernel named in ``need`` (a profile can come
+    back empty, most often the first of a process); after ``tries`` such
+    profiles the case is reported unread (``Unread``, naming it), never
+    read as 0 ms."""
+    for _ in range(tries):
+        rows = profile_rows(fn, reps)
+        if rows and all(rows_ms(rows, key) > 0 for key in need):
+            return rows
+    raise Unread(f"{case or fn}: torch.profiler recorded no device time"
+                 f"{' for ' + ', '.join(need) if need else ''} in {tries} "
+                 f"profiles of {reps} calls")
+
+
+def device_ms(fn, reps: int, case: str = "", tries: int = 4) -> float:
     """Device time of one call of ``fn``: the summed time of every kernel
     it launches (``torch.profiler``), over ``reps`` calls after one
-    warm-up call.  Host launch overhead is not in it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(r["ms"] for r in device_rows(prof)) / reps
+    warm-up call.  Host launch overhead is not in it.  Read through
+    ``device_profile``, so never 0 ms."""
+    return sum(r["ms"] for r in device_profile(fn, reps, case, tries=tries))
 
 
-def make_case(gen, *, B, H, Hkv, D, page, L, P, n_pages, lengths, dtype):
+def warm_profiler(torch) -> None:
+    """One throwaway profile of a small kernel, so that the profiler's
+    first session of the process, whose device rows have been seen to
+    come back empty, reads no case."""
+    x = torch.ones(1 << 20, device="cuda")
+    profile_rows(lambda: x.mul_(1.0), 5)
+
+
+def make_case(gen, *, B, H, Hkv, D, page, L, P, n_pages, lengths, dtype,
+              kv_dtype=None):
     """Random paged-attention operands on the card: distinct blocks per
-    lane from a pool of P blocks, the given per-lane lengths."""
+    lane from a pool of P blocks, the given per-lane lengths; the pages in
+    ``kv_dtype`` (default: q's)."""
     import torch
     dev = gen.device
+    kvd = kv_dtype or dtype
     q = torch.randn(B, H, D, generator=gen, device=dev).to(dtype)
-    kp = torch.randn(L, P, page, Hkv, D, generator=gen, device=dev).to(dtype)
-    vp = torch.randn(L, P, page, Hkv, D, generator=gen, device=dev).to(dtype)
+    kp = torch.randn(L, P, page, Hkv, D, generator=gen, device=dev).to(kvd)
+    vp = torch.randn(L, P, page, Hkv, D, generator=gen, device=dev).to(kvd)
     kn = torch.randn(B, Hkv, D, generator=gen, device=dev).to(dtype)
     vn = torch.randn(B, Hkv, D, generator=gen, device=dev).to(dtype)
     perm = torch.randperm(P, generator=gen, device=dev)[:B * n_pages]
@@ -392,6 +432,13 @@ def kernel_phase(torch, gen):
         for ns in (1, 3, 7):
             cases.append((f"n_split{ns}", dtype,
                           dict(edge, lengths=edge_len), 0, 0, ns))
+        # a KV cache stored in float8_e4m3fn (cfg.kv_dtype): the serve,
+        # long and arctic shapes with fp8 pages, q and the token in dtype
+        for name in ("serve", "long", "arctic"):
+            base = next(c for c in cases if c[0] == name and c[1] == dtype)
+            cases.append((f"{name}_fp8", dtype,
+                          dict(base[2], kv_dtype=torch.float8_e4m3fn),
+                          base[3], base[4]))
     results, max_err, merge_err = [], 0.0, 0.0
     timed = {}
     for name, dtype, shp, layer, window, *forced in cases:
@@ -459,13 +506,78 @@ def kernel_phase(torch, gen):
                             ok=ok_all))
         max_err = max(max_err, e_o, e_d, e_dp)
         merge_err = max(merge_err, e_mg)
-        if name in ("serve", "long", "hymba", "arctic", "kimi"):
+        if name in ("serve", "long", "hymba", "arctic", "kimi", "serve_fp8",
+                    "long_fp8", "arctic_fp8"):
             timed[(name, dtype)] = (q, kp, vp, kn, vn, pt, ln, layer, window,
                                     shp)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain twin: {bad}")
     return results, max_err, merge_err, timed
+
+
+def kv_fp8_check(torch, arch: str = "qwen1_5_0_5b") -> dict:
+    """A KV cache stored in float8_e4m3fn at full width: ``arch`` (random
+    weights from seed 0) takes 4 prompt tokens, then 4 decode steps through
+    ``PagedBackend`` in kernel mode, once with the cache in its compute
+    dtype and once in fp8, on the same weights.  Held to the reference's
+    criterion (``tests/test_kv_quant.py``): the last step's top-1 token is
+    kept unless the bf16 run's top two are within twice the largest logit
+    change (then fp8's top-1 is among bf16's top two), and the logits
+    agree to atol = rtol = 0.35.  K1 (split and merge) must launch once a
+    layer a decode step in each run."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.models import lm
+    cfg = configs.get(arch)
+    params = lm.init(cfg, torch.Generator("cuda").manual_seed(0))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (1, 8)) \
+        .astype(np.int32)
+    counters = kernel_counters()
+    logits, launches = {}, {}
+    for kv in ("", "float8_e4m3fn"):
+        c = dataclasses.replace(cfg, kv_dtype=kv)
+        backend = lm.init_cache(c, 1, 16, kind="paged", device="cuda")
+        reset_counts(counters)
+        with torch.no_grad():
+            _, backend = lm.prefill(params, c, tokens[:, :4], backend=backend)
+            for t in range(4, 8):
+                lg, backend = lm.decode_step(params, c, tokens[:, t:t + 1],
+                                             backend)
+        torch.cuda.synchronize()
+        name = kv or cfg.compute_dtype
+        launches[name] = read_counts(counters)
+        if backend.pool.k_pages.dtype != c.kvdtype:
+            raise AssertionError(f"{arch} {name}: pool holds "
+                                 f"{backend.pool.k_pages.dtype}")
+        logits[name] = lg[0, 0].float().cpu().numpy()
+        backend.release()
+    a, b = logits[cfg.compute_dtype], logits["float8_e4m3fn"]
+    top = np.sort(a)
+    gap, dev = float(top[-1] - top[-2]), float(np.abs(a - b).max())
+    kept = int(np.argmax(a)) == int(np.argmax(b)) if gap > 2 * dev \
+        else int(np.argmax(b)) in np.argsort(a)[-2:]
+    close_ok = bool(np.allclose(b, a, rtol=0.35, atol=0.35))
+    want = cfg.n_layers * 4
+    k1_ok = all(n["paged_attention"] == want
+                and n["paged_attention_merge"] == want
+                for n in launches.values())
+    ok = kept and close_ok and k1_ok and bool(np.isfinite(b).all())
+    print(f"[kernel] kv fp8 {arch} full width: 4 prompt tokens + 4 paged "
+          f"decode steps, {cfg.compute_dtype} KV vs float8_e4m3fn KV: top-1 "
+          f"{int(np.argmax(a))} / {int(np.argmax(b))} (bf16 top-2 gap "
+          f"{gap:.4g}, largest logit change {dev:.4g}), allclose(0.35, "
+          f"0.35) {close_ok}; K1 launches "
+          + ", ".join(f"{k}: {n['paged_attention']} + "
+                      f"{n['paged_attention_merge']}"
+                      for k, n in launches.items())
+          + f" (want {want} + {want}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"fp8 KV decode of {arch} fails the criterion "
+                             f"or its launch counts: {launches}")
+    return dict(arch=arch, top1=[int(np.argmax(a)), int(np.argmax(b))],
+                gap=gap, max_logit_change=dev, launches=launches)
 
 
 def profile_rows(fn, reps: int) -> list:
@@ -487,7 +599,7 @@ def rows_ms(rows, key: str) -> float:
     return sum(r["ms"] for r in rows if key in r["name"])
 
 
-def time_case(torch, F, ops, dtype: str, flush):
+def time_case(torch, F, ops, case: str, dtype: str, flush):
     """K1 (split + merge, each also alone), its plain twin and SDPA (over
     pre-gathered keys) at one case, as device time per call (warm L2, and
     CUDA events around one call after an L2 flush) and as event time per
@@ -498,14 +610,14 @@ def time_case(torch, F, ops, dtype: str, flush):
     q, kp, vp, kn, vn, pt, ln, layer, window, shp = ops
     B, H, D = q.shape
     Hkv, page = shp["Hkv"], shp["page"]
-    eb = q.element_size()
+    eb, kvb = q.element_size(), kp.element_size()
     lens = [int(x) for x in ln]
     # valid positions [lo, len) with lo = len - window + 1 under a window
     los = [max(n - window + 1, 0) if window else 0 for n in lens]
     valid = sum(n - lo for n, lo in zip(lens, los))
     pages = sum((n - 1) // page - lo // page + 1
                 for n, lo in zip(lens, los) if n > lo)
-    bytes_moved = (2 * valid * Hkv * D * eb          # valid K and V rows
+    bytes_moved = (2 * valid * Hkv * D * kvb         # valid K and V rows
                    + 2 * B * H * D * eb              # q in, o out
                    + 2 * B * H * 4                   # m, l out
                    + pages * 4 + B * 4)              # page-table entries, lengths
@@ -533,13 +645,14 @@ def time_case(torch, F, ops, dtype: str, flush):
     merge_bytes = (B * H * n_split * (D + 2) * 4 + 2 * B * H * D * eb
                    + 2 * B * Hkv * D * eb)
     # library yardstick: SDPA over the same keys gathered contiguously
-    # beforehand (the gather is excluded); lanes as the batch, the same
-    # valid-position mask; never called by the port
+    # (and, for fp8 pages, widened to q's dtype) beforehand (excluded);
+    # lanes as the batch, the same valid-position mask; never called by
+    # the port
     S = pt.shape[1] * page
     kg = kp[layer][pt.long()].reshape(B, S, Hkv, D).transpose(1, 2) \
-        .contiguous()
+        .to(q.dtype).contiguous()
     vg = vp[layer][pt.long()].reshape(B, S, Hkv, D).transpose(1, 2) \
-        .contiguous()
+        .to(q.dtype).contiguous()
     pos = torch.arange(S, device=q.device)[None, :]
     lo = torch.tensor(los, device=q.device)[:, None]
     mask = ((pos < ln[:, None].long()) & (pos >= lo))[:, None, None, :]
@@ -550,18 +663,20 @@ def time_case(torch, F, ops, dtype: str, flush):
 
     def lib():
         F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
-    rows = profile_rows(kern, 50)
-    drows = profile_rows(decode, 50)
+    need = ("paged_attention_split", "paged_attention_merge")
+    rows = device_profile(kern, 50, f"paged_attention {case}", need)
+    drows = device_profile(decode, 50, f"decode_attend {case}", need)
     return dict(ms=sum(r["ms"] for r in rows),
                 split_ms=rows_ms(rows, "paged_attention_split"),
                 merge_ms=rows_ms(rows, "paged_attention_merge"),
                 decode_ms=sum(r["ms"] for r in drows),
                 decode_merge_ms=rows_ms(drows, "paged_attention_merge"),
-                merge_plain_ms=device_ms(merge_plain, 10),
+                merge_plain_ms=device_ms(merge_plain, 10,
+                                         f"merge twin {case}"),
                 merge_bound_ms=merge_bytes / HBM_BYTES_PER_S * 1e3,
                 n_split=n_split,
-                plain_ms=device_ms(plain, 10),
-                library_ms=device_ms(lib, 50),
+                plain_ms=device_ms(plain, 10, f"paged_attention twin {case}"),
+                library_ms=device_ms(lib, 50, f"K1 SDPA {case}"),
                 cold_ms=cold_ms(torch, kern, 20, flush),
                 cold_library_ms=cold_ms(torch, lib, 20, flush),
                 event_ms=time_ms(kern, 50),
@@ -663,7 +778,8 @@ def time_ssd(torch, ssd_mod, ins, chunk: int, dtype: str) -> dict:
 
     def plain():
         ssd_mod.ssd_scan_plain(*ins, chunk=chunk)
-    return dict(ms=device_ms(kern, 20), plain_ms=device_ms(plain, 5),
+    return dict(ms=device_ms(kern, 20, "ssd_scan"),
+                plain_ms=device_ms(plain, 5, "ssd_scan twin"),
                 library_ms=None, event_ms=time_ms(kern, 20),
                 plain_event_ms=time_ms(plain, 5),
                 bound_ms=max(t_bytes, t_ops),
@@ -683,6 +799,7 @@ def k5_phase(torch, F, gen):
     plain twin and SDPA."""
     from repro_torch.kernels.flash_attention import flash_attention as k5
     results, timing, max_err = [], {}, 0.0
+    sms = torch.cuda.get_device_properties(gen.device).multi_processor_count
     for dtype in ("float32", "bfloat16"):
         for name, B, Sq, Sk, H, D, causal in K5_CASES:
             q, k, v = k5_inputs(torch, gen, B, Sq, Sk, H, D,
@@ -707,17 +824,21 @@ def k5_phase(torch, F, gen):
             finite = bool(torch.isfinite(got.float()).all())
             ok = use <= 1.0 and abs(gain - 1.0) <= K5_GAIN_TOL and finite \
                 and got.dtype == q.dtype and got.shape == q.shape
+            plan = k5.split_plan(B, Sq, Sk, H, D, q.dtype, sms)
             print(f"[kernel] flash_attention {name:23s} {dtype:8s} B={B} "
                   f"Sq={Sq} Sk={Sk} H={H} D={D} causal={causal} "
+                  f"kernel={plan.path} key ranges={plan.n_split} "
                   f"err={err:.3e} {tol_txt} (largest err/tol {use:.3f}) "
                   f"gain-1={gain - 1.0:+.2e} (tol {K5_GAIN_TOL:.2e}) "
                   f"{'ok' if ok else 'MISMATCH'}")
             results.append(dict(case=name, dtype=dtype, err=err,
-                                err_over_tol=use, gain=gain, ok=ok))
+                                err_over_tol=use, gain=gain, ok=ok,
+                                kernel=plan.path, key_ranges=plan.n_split))
             max_err = max(max_err, err)
             del got, want, w
             timing[f"{name}/{dtype}"] = time_k5(torch, F, k5, q, k, v,
-                                                causal, dtype)
+                                                causal, dtype,
+                                                f"{name}/{dtype}")
             del q, k, v
             torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
@@ -738,13 +859,11 @@ def k5_bf16_tol(k5, q, k, v, got, want, causal: bool):
         .add_(got.float().abs().add_(want.float().abs()), alpha=u)
 
 
-def time_k5(torch, F, k5, q, k, v, causal: bool, dtype: str) -> dict:
-    """Kernel, plain twin and SDPA (on (B, H, S, D) copies made
-    beforehand, the same mask, never called by the port) at one case.
-    Bound: q, k, v read once and o written once over the memory rate,
-    and the 4 D operations of each (query, key) pair the mask keeps (a
-    causal mask keeps S (S + 1) / 2 of S^2) over the peak rate of the
-    dtype; the larger."""
+def k5_bound(q, k, causal: bool, dtype: str) -> dict:
+    """K5's bound at one case: q, k, v read once and o written once over
+    the memory rate, and the 4 D operations of each (query, key) pair the
+    mask keeps (a causal mask keeps S (S + 1) / 2 of S^2) over the peak
+    rate of the dtype; the larger."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
@@ -752,8 +871,19 @@ def time_k5(torch, F, k5, q, k, v, causal: bool, dtype: str) -> dict:
     bytes_moved = 2 * (q.numel() + k.numel()) * q.element_size()
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops_count / PEAK_OPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_moved, ops=ops_count, pairs=pairs)
+
+
+def time_k5(torch, F, k5, q, k, v, causal: bool, dtype: str,
+            case: str = "") -> dict:
+    """Kernel, plain twin and SDPA (on (B, H, S, D) copies made
+    beforehand, the same mask, never called by the port) at one case,
+    beside ``k5_bound``."""
+    bound = k5_bound(q, k, causal, dtype)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    long = pairs > 1 << 28
+    long = bound["pairs"] > 1 << 28
 
     def kern():
         k5.flash_attention(q, k, v, causal=causal)
@@ -763,14 +893,13 @@ def time_k5(torch, F, k5, q, k, v, causal: bool, dtype: str) -> dict:
 
     def lib():
         F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    return dict(ms=device_ms(kern, 20), plain_ms=device_ms(plain,
-                                                           2 if long else 10),
-                library_ms=device_ms(lib, 20), event_ms=time_ms(kern, 20),
+    return dict(ms=device_ms(kern, 20, f"flash_attention {case}"),
+                plain_ms=device_ms(plain, 2 if long else 10,
+                                   f"flash_attention twin {case}"),
+                library_ms=device_ms(lib, 20, f"SDPA {case}"),
+                event_ms=time_ms(kern, 20),
                 plain_event_ms=time_ms(plain, 2 if long else 10),
-                library_event_ms=time_ms(lib, 20),
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=bytes_moved, ops=ops_count)
+                library_event_ms=time_ms(lib, 20), **bound)
 
 
 # K2 tables: the embedding tables of the served configs, (V, D, dtypes):
@@ -850,8 +979,9 @@ def time_gather(torch, F, mg_mod, table, sids, flush) -> dict:
     return dict(ms=cold_ms(torch, kern, 30, flush),
                 plain_ms=cold_ms(torch, plain, 30, flush),
                 library_ms=cold_ms(torch, lib, 30, flush),
-                warm_ms=device_ms(kern, 50), warm_plain_ms=device_ms(plain, 50),
-                warm_library_ms=device_ms(lib, 50),
+                warm_ms=device_ms(kern, 50, "gather_rows"),
+                warm_plain_ms=device_ms(plain, 50, "gather_rows twin"),
+                warm_library_ms=device_ms(lib, 50, "F.embedding"),
                 event_ms=time_ms(kern, 50), plain_event_ms=time_ms(plain, 50),
                 library_event_ms=time_ms(lib, 50), bound_ms=t_bytes,
                 bound_by="bytes", bytes=bytes_moved, ops=0)
@@ -1022,8 +1152,9 @@ def time_k4(torch, k4, c, dtype: str, flush) -> dict:
     return dict(ms=cold_ms(torch, kern, 10, flush),
                 plain_ms=cold_ms(torch, plain, 3, flush),
                 library_ms=cold_ms(torch, lib, 10, flush), library=which,
-                warm_ms=device_ms(kern, 10), warm_plain_ms=device_ms(plain, 3),
-                warm_library_ms=device_ms(lib, 10),
+                warm_ms=device_ms(kern, 10, "grouped_matmul"),
+                warm_plain_ms=device_ms(plain, 3, "grouped_matmul twin"),
+                warm_library_ms=device_ms(lib, 10, which),
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=bytes_moved, ops=ops_count)
@@ -1192,6 +1323,8 @@ def profile_summary(prof, wall: float) -> dict:
     """Device time by kernel and by kind, busy share over ``wall`` and
     the host ops with the most self time of a finished profile."""
     rows = device_rows(prof)
+    if not rows:
+        raise Unread("serve profile: torch.profiler recorded no device time")
     buckets: dict = {}
     for r in rows:
         n = r["name"].lower()
@@ -1531,10 +1664,12 @@ def main(argv=None) -> int:
     # -- kernels vs plain twins ----------------------------------------------
     gen = torch.Generator("cuda").manual_seed(0)
     record = dict(build_s=build_s)
+    warm_profiler(torch)
     if "k1" in phases:
         results, max_err, merge_err, timed = kernel_phase(torch, gen)
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=gen.device)
-        timing = {f"{name}/{dt}": time_case(torch, F, ops, dt, flush)
+        timing = {f"{name}/{dt}": time_case(torch, F, ops, f"{name}/{dt}",
+                                            dt, flush)
                   for (name, dt), ops in timed.items()}
         del timed, flush
         for case, t in timing.items():
@@ -1554,7 +1689,8 @@ def main(argv=None) -> int:
                   f", bound {t['merge_bound_ms']:.5f}, plain merge "
                   f"{t['merge_plain_ms']:.4f}); event ms per call with host "
                   f"launch {t['decode_event_ms']:.4f}")
-        record.update(cases=results, timing=timing)
+        record.update(cases=results, timing=timing,
+                      kv_fp8=kv_fp8_check(torch))
         free_device(torch, "K1 phase")
     if "k3" in phases:
         ssd_results, ssd_err, ssd_timing = ssd_phase(torch, F, gen)

@@ -64,14 +64,28 @@
 //     merge (merging from the f32 accumulators instead moved arctic's
 //     served bf16 tokens past the teacher-forced check at a router near
 //     tie; PERF.md §6 and ROADMAP.md §3 give the run).
+//   * float8_e4m3fn pages (a KV cache stored in fp8, the reference's
+//     cfg.kv_dtype) with float32 or bfloat16 q: the ring holds the fp8
+//     rows as they lie in the pool (16-byte cp.async, half the bytes of
+//     bf16), and once a stage has landed the block widens it into one
+//     stage buffer of q's dtype (cvt.f16x2.e4m3x2, then to f32 or bf16:
+//     every e4m3 value, subnormals included, is exact in both), which the
+//     unchanged bf16 or f32 stage code then reads.  So the result is the
+//     reference's cast of the pages to f32 followed by the same
+//     arithmetic.  The in-flight token and the partial states keep q's
+//     dtype and f32.
 //   * `layer` and `window` are runtime ints: one build serves every layer
 //     and any global/window layout.  An empty lane (length 0, or window
 //     == 1) gives o = 0, m = -1e30, l = 0 exactly.  Block ids are not
 //     clamped.  The kernels allocate nothing: the wrapper passes the f32
 //     partial scratch (B, H, n_split, D) and (B, H, n_split).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -172,6 +186,69 @@ struct Geo {
   static_assert(kStagePages % kWarps == 0, "pages a stage split by warp");
   static_assert(D % 16 == 0, "head dim a multiple of 16");
 };
+
+// The split kernel's shared memory with q of type T and pages of type KV:
+// the ring of KV stages; for fp8 pages, one stage widened to T; q's rows;
+// for float32, p and alpha.  The warp states of the end overlay the ring.
+template <typename T, typename KV, int D, int PAGE>
+struct Layout {
+  using G = Geo<T, D, PAGE>;
+  using GK = Geo<KV, D, PAGE>;
+  static constexpr bool kWiden = !std::is_same<T, KV>::value;
+  static constexpr size_t kWideOff = GK::kRing;
+  static constexpr size_t kQOff =
+      kWideOff + (kWiden ? (size_t)G::kStageElems * sizeof(T) : 0);
+  static constexpr size_t kPOff = kQOff + G::kQ;
+  static constexpr size_t kSmem = kPOff + G::kP;
+};
+
+// Two e4m3 values (the low byte first) as f32, through f16: exact.
+__device__ __forceinline__ float2 fp8x2_to_float2(uint32_t pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+
+__device__ __forceinline__ void store8(float* d, const float2* f) {
+  reinterpret_cast<float4*>(d)[0] = make_float4(f[0].x, f[0].y, f[1].x,
+                                                f[1].y);
+  reinterpret_cast<float4*>(d)[1] = make_float4(f[2].x, f[2].y, f[3].x,
+                                                f[3].y);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* d, const float2* f) {
+  uint4 w;
+  uint32_t* u = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b = __float22bfloat162_rn(f[i]);
+    u[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  *reinterpret_cast<uint4*>(d) = w;
+}
+
+// A landed stage of fp8 rows (K then V at the ring's pitch) widened into
+// a stage of T at T's pitch, which the stage code reads; 16 values a
+// thread a step.
+template <typename T, int D, int PAGE>
+__device__ __forceinline__ void widen_stage(T* dst, const uint8_t* src) {
+  using G = Geo<T, D, PAGE>;
+  using GK = Geo<uint8_t, D, PAGE>;
+  for (int c = threadIdx.x; c < 2 * kStageTok * GK::kChunks; c += kThreads) {
+    const int r = c / GK::kChunks, dc = (c - r * GK::kChunks) * 16;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(src + r * GK::kPitch + dc);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float2 f[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = fp8x2_to_float2(w[i]);
+      f[2 * i + 1] = fp8x2_to_float2(w[i] >> 16);
+    }
+    T* d = dst + r * G::kPitch + dc;
+    store8(d, f);
+    store8(d + 8, f + 4);
+  }
+}
 
 // Issue one stage's copies: warp w fills page slots w, w + kWarps, ...
 // from the page ids in `pid` (-1: a slot past the range, zero-filled so
@@ -399,11 +476,11 @@ __device__ __forceinline__ void f32_stage(
 }
 
 // ---- split pass -----------------------------------------------------------
-template <typename T, int D, int PAGE>
+template <typename T, typename KV, int D, int PAGE>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_split_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k_pages,
-                             const T* __restrict__ v_pages,
+                             const KV* __restrict__ k_pages,
+                             const KV* __restrict__ v_pages,
                              const int* __restrict__ page_tables,
                              const int* __restrict__ lengths,
                              float* __restrict__ part_acc,
@@ -413,9 +490,12 @@ paged_attention_split_kernel(const T* __restrict__ q,
                              long long plane_stride, int layer, int window,
                              float scale) {
   using G = Geo<T, D, PAGE>;
+  using GK = Geo<KV, D, PAGE>;
+  using Lay = Layout<T, KV, D, PAGE>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  T* qs = reinterpret_cast<T*>(smem_raw + G::kRing);
+  KV* ring = reinterpret_cast<KV*>(smem_raw);
+  T* wide = reinterpret_cast<T*>(smem_raw + Lay::kWideOff);
+  T* qs = reinterpret_cast<T*>(smem_raw + Lay::kQOff);
 
   const int split = blockIdx.x, n_split = gridDim.x, b = blockIdx.z;
   const int n_rep = H / Hkv;
@@ -451,8 +531,8 @@ paged_attention_split_kernel(const T* __restrict__ q,
   const int end = min(ln, (last + 1) * PAGE);   // valid: [lo, end)
   const int n_stages =
       (last - first + G::kStagePages) / G::kStagePages;
-  const T* kbase = k_pages + (long long)layer * plane_stride;
-  const T* vbase = v_pages + (long long)layer * plane_stride;
+  const KV* kbase = k_pages + (long long)layer * plane_stride;
+  const KV* vbase = v_pages + (long long)layer * plane_stride;
   const int* pt_row = page_tables + (long long)b * n_pages;
 
   // q rows of this block (rows past nr zero), in the first copy group
@@ -474,8 +554,8 @@ paged_attention_split_kernel(const T* __restrict__ q,
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < n_stages)
-      issue_stage<T, D, PAGE>(ring + st * G::kStageElems, kbase, vbase,
-                              first_pids[st], g, Hkv, warp, lane);
+      issue_stage<KV, D, PAGE>(ring + st * GK::kStageElems, kbase, vbase,
+                               first_pids[st], g, Hkv, warp, lane);
     cp_async_commit();
   }
   int pid[G::kWarpPages];
@@ -485,7 +565,7 @@ paged_attention_split_kernel(const T* __restrict__ q,
   constexpr bool kBf16 = sizeof(T) == 2;
   Bf16State<D> bs;
   F32State<D> fs;
-  float* ps = reinterpret_cast<float*>(smem_raw + G::kRing + G::kQ);
+  float* ps = reinterpret_cast<float*>(smem_raw + Lay::kPOff);
   float* as = ps + kWarps * kRows * (kWarpTok + 1);
   if constexpr (kBf16) {
 #pragma unroll
@@ -509,15 +589,21 @@ paged_attention_split_kernel(const T* __restrict__ q,
   for (int it = 0; it < n_stages; ++it) {
     const int ahead = it + kStages - 1;       // the stage issued now
     if (ahead < n_stages)
-      issue_stage<T, D, PAGE>(ring + (ahead % kStages) * G::kStageElems,
-                              kbase, vbase, pid, g, Hkv, warp, lane);
+      issue_stage<KV, D, PAGE>(ring + (ahead % kStages) * GK::kStageElems,
+                               kbase, vbase, pid, g, Hkv, warp, lane);
     cp_async_commit();
     // the next stage's page ids load while this stage is computed
     stage_pids(pid, pt_row, first, last, ahead + 1, n_stages,
                G::kStagePages, warp);
     cp_async_wait<kStages - 1>();             // stage it (and q) landed
     __syncthreads();
-    const T* ks = ring + (it % kStages) * G::kStageElems;
+    const KV* landed = ring + (it % kStages) * GK::kStageElems;
+    const T* ks = reinterpret_cast<const T*>(landed);
+    if constexpr (Lay::kWiden) {              // fp8 pages: widen to T
+      widen_stage<T, D, PAGE>(wide, reinterpret_cast<const uint8_t*>(landed));
+      __syncthreads();
+      ks = wide;
+    }
     const int pos0 = (first + it * G::kStagePages) * PAGE + warp * kWarpTok;
     const bool active = pos0 < end && pos0 + kWarpTok > lo;   // warp-uniform
     if constexpr (kBf16) {
@@ -689,45 +775,51 @@ struct SplitArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int D, int PAGE>
+template <typename T, typename KV, int D, int PAGE>
 int launch_split(const SplitArgs& a) {
-  using G = Geo<T, D, PAGE>;
-  auto kernel = paged_attention_split_kernel<T, D, PAGE>;
+  constexpr size_t kSmem = Layout<T, KV, D, PAGE>::kSmem;
+  auto kernel = paged_attention_split_kernel<T, KV, D, PAGE>;
   static bool smem_ok = false;
-  if (G::kSmem > (size_t)kDefaultSmem && !smem_ok) {
+  if (kSmem > (size_t)kDefaultSmem && !smem_ok) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (e != cudaSuccess) return (int)e;
     smem_ok = true;
   }
   const int n_rep = a.H / a.Hkv;
   dim3 grid(a.n_split, a.Hkv * ((n_rep + kRows - 1) / kRows), a.B);
-  kernel<<<grid, kThreads, G::kSmem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.pt, a.lengths, a.acc, a.m, a.l, a.H,
+  kernel<<<grid, kThreads, kSmem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), a.pt, a.lengths, a.acc, a.m, a.l, a.H,
       a.Hkv, a.n_pages, a.pages_per_split, a.plane_stride, a.layer, a.window,
       a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 int launch_split_page(int page, const SplitArgs& a) {
   switch (page) {
-    case 4: return launch_split<T, D, 4>(a);
-    case 8: return launch_split<T, D, 8>(a);
-    case 16: return launch_split<T, D, 16>(a);
+    case 4: return launch_split<T, KV, D, 4>(a);
+    case 8: return launch_split<T, KV, D, 8>(a);
+    case 16: return launch_split<T, KV, D, 16>(a);
+    default: return -1;
+  }
+}
+
+template <typename T, typename KV>
+int launch_split_dim(int D, int page, const SplitArgs& a) {
+  switch (D) {
+    case 64: return launch_split_page<T, KV, 64>(page, a);
+    case 112: return launch_split_page<T, KV, 112>(page, a);
+    case 128: return launch_split_page<T, KV, 128>(page, a);
     default: return -1;
   }
 }
 
 template <typename T>
-int launch_split_dim(int D, int page, const SplitArgs& a) {
-  switch (D) {
-    case 64: return launch_split_page<T, 64>(page, a);
-    case 112: return launch_split_page<T, 112>(page, a);
-    case 128: return launch_split_page<T, 128>(page, a);
-    default: return -1;
-  }
+int launch_split_kv(int kv_fp8, int D, int page, const SplitArgs& a) {
+  if (kv_fp8) return launch_split_dim<T, uint8_t>(D, page, a);
+  return launch_split_dim<T, T>(D, page, a);
 }
 
 struct MergeArgs {
@@ -767,11 +859,12 @@ int launch_merge_dim(int D, const MergeArgs& a) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q and pages share it).  Writes the
-// f32 partial states acc (B, H, n_split, D), m and l (B, H, n_split).
-// Returns 0 on success, -1 for an unsupported (dtype, D, page), else the
-// cudaError_t of the launch.
-int mars_paged_attention_split(int dtype, const void* q, const void* k_pages,
+// dtype: q's, 0 = float32, 1 = bfloat16; kv_fp8: 0 = pages of q's dtype,
+// 1 = float8_e4m3fn pages.  Writes the f32 partial states acc (B, H,
+// n_split, D), m and l (B, H, n_split).  Returns 0 on success, -1 for an
+// unsupported (dtype, D, page), else the cudaError_t of the launch.
+int mars_paged_attention_split(int dtype, int kv_fp8, const void* q,
+                               const void* k_pages,
                                const void* v_pages, const int* page_tables,
                                const int* lengths, float* part_acc,
                                float* part_m, float* part_l, int B, int H,
@@ -783,8 +876,8 @@ int mars_paged_attention_split(int dtype, const void* q, const void* k_pages,
                     part_m, part_l, B, H, Hkv, n_pages, n_split,
                     pages_per_split, plane_stride, layer, window, scale,
                     static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return launch_split_dim<float>(D, page, a);
-  if (dtype == 1) return launch_split_dim<__nv_bfloat16>(D, page, a);
+  if (dtype == 0) return launch_split_kv<float>(kv_fp8, D, page, a);
+  if (dtype == 1) return launch_split_kv<__nv_bfloat16>(kv_fp8, D, page, a);
   return -1;
 }
 

@@ -1,13 +1,19 @@
 """Blockwise (flash) attention (port of ``repro/kernels/flash_attention/
 flash_attention.py``).
 
-``flash_attention`` is the wrapper around the hand-written Hopper kernel
-``csrc/flash_attention.cu`` (which replaces the Pallas ``_kernel`` /
-``flash_attention``; the source comment there gives its bound and
-design).  On CUDA tensors it launches the kernel or raises — there is no
-fallback; on CPU tensors it runs ``flash_attention_plain``, the kernel's
-plain PyTorch twin, which the CPU tests and ``chip_smoke.py`` compare
-against.  ``flash_attention.launches`` counts kernel launches.
+``flash_attention`` is the wrapper around the hand-written Hopper kernels
+in ``csrc/flash_attention.cu`` (which replace the Pallas ``_kernel`` /
+``flash_attention``; the source comment there gives their bound and
+design).  ``split_plan`` picks one of three from the shapes and the SM
+count alone: bfloat16 ``wgmma`` tiles of 128 queries fed by TMA for many
+queries; bfloat16 16-row ``mma.sync`` tiles whose keys are split into
+ranges over blocks (merged inside the same launch) for few queries; and
+float32 on CUDA cores, with the same key split for few queries.  On CUDA
+tensors it launches one kernel or raises — there is no fallback; on CPU
+tensors it runs ``flash_attention_plain``, the kernel's plain PyTorch
+twin, which the CPU tests and ``chip_smoke.py`` compare against.
+``flash_attention_split_plain`` does the key split and merge in PyTorch.
+``flash_attention.launches`` counts kernel launches.
 
 The port's ``layers.sdpa`` routes here every attention whose mask is
 none or plain causal with as many queries as keys.
@@ -15,7 +21,9 @@ none or plain causal with as many queries as keys.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,7 +33,68 @@ NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 112, 128)
-_MAX_BATCH_HEADS = 65535          # the kernel's grid y
+_MAX_BATCH_HEADS = 65535          # the kernels' grid z (y for wgmma)
+_MAX_QUERIES = 65535 * 16         # the few-query kernel's grid y
+WGMMA_HEAD_DIMS = (64, 112, 128)  # padded to 64 or 128 columns
+FEW_QUERIES = 64                  # bf16 up to this many queries: key split
+BLOCKS_PER_SM = 3                 # key-split blocks the plan aims for, per SM
+MAX_SPLIT = 32                    # key ranges a query tile takes at most
+# query rows a block owns, keys a range is a multiple of, and the fewest
+# keys a range takes, by path: a bf16 range of one 64-key stage costs its
+# merge more than its split saves (two ring stages pay), while the f32
+# tiles gain from any split
+PATHS = {"f32": dict(code=0, rows=32, step=32, min_keys=32),
+         "few": dict(code=1, rows=16, step=64, min_keys=128),
+         "wgmma": dict(code=2, rows=128, step=128)}
+
+
+class Plan(NamedTuple):
+    """Which kernel runs and how the keys split: ``n_split`` ranges of
+    ``keys_per_split`` keys (the last one shorter), ``rows`` query rows a
+    block."""
+    path: str
+    n_split: int
+    keys_per_split: int
+    rows: int
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(B: int, Sq: int, Sk: int, H: int, D: int, dtype,
+               sm_count: int) -> Plan:
+    """The kernel and its key ranges, from shapes and the SM count alone
+    (it reads no tensor).
+
+    bfloat16 with more than ``FEW_QUERIES`` queries (and some keys) takes
+    the wgmma tiles, which fill the card with query tiles; bfloat16
+    otherwise, and head dim 16, takes 16-row tiles; float32 its CUDA-core
+    tiles of 32 rows.  Those two split the keys when B * H query tiles
+    leave the card short of ``BLOCKS_PER_SM`` blocks an SM: into ranges
+    of whole steps (64 keys a ring stage, 32 in float32), as many as
+    bring the blocks to about that count, at most ``MAX_SPLIT``, none
+    shorter than the path's ``min_keys``."""
+    if dtype == torch.float32:
+        path = "f32"
+    elif Sq > FEW_QUERIES and D in WGMMA_HEAD_DIMS and Sk > 0:
+        path = "wgmma"
+    else:
+        path = "few"
+    rows, step = PATHS[path]["rows"], PATHS[path]["step"]
+    keys = max(int(Sk), 1)
+    if path == "wgmma":
+        return Plan(path, 1, -(-keys // step) * step, rows)
+    base = max(B * H * -(-Sq // rows), 1)
+    want = min(max(-(-BLOCKS_PER_SM * sm_count // base), 1), MAX_SPLIT)
+    kps = max(-(-keys // want), PATHS[path]["min_keys"])
+    kps = -(-kps // step) * step
+    return Plan(path, -(-keys // kps), kps, rows)
+
+
+def split_ranges(Sk: int, keys_per_split: int) -> list:
+    """The key ranges ``[start, stop)`` of a cut of ``[0, Sk)`` into
+    ranges of ``keys_per_split`` keys, in order (the last may be
+    shorter)."""
+    return [(start, min(start + keys_per_split, Sk))
+            for start in range(0, max(Sk, 1), keys_per_split)]
 
 
 def _check(q, k, v, causal: bool) -> None:
@@ -47,16 +116,56 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     the product with v, the sum in float32 divided by ``max(l, 1e-30)``,
     the result in q's dtype.  Same contract as ``flash_attention``."""
     _check(q, k, v, causal)
-    S = q.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    s.mul_(1.0 / math.sqrt(q.shape[-1]))
-    if causal:
-        keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril_()
+    s, keep = _masked_scores(q, k, causal)
+    if keep is not None:
         s.masked_fill_(~keep, NEG_INF)
     s.sub_(s.amax(-1, keepdim=True)).exp_()
     l = s.sum(-1, keepdim=True)                        # (B, H, Sq, 1)
     acc = torch.einsum("bhqk,bkhd->bqhd", s.to(v.dtype).float(), v.float())
     return (acc / l.clamp_min(1e-30).transpose(1, 2)).to(q.dtype)
+
+
+def _masked_scores(q, k, causal: bool):
+    """f32 scores (B, H, Sq, Sk) and the mask of the kept (query, key)
+    pairs (None: all kept)."""
+    S = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s.mul_(1.0 / math.sqrt(q.shape[-1]))
+    if not causal:
+        return s, None
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril_()
+    return s, keep
+
+
+def flash_attention_split_plain(q, k, v, *, causal: bool = True,
+                                keys_per_split: int):
+    """The key split's arithmetic in PyTorch: the keys cut into ranges of
+    ``keys_per_split`` (``split_ranges``, as ``split_plan`` cuts them),
+    each range's f32 state (m its maximum, p = exp(s - m) rounded to v's
+    dtype in its product with v, l the sum of the unrounded p), then the
+    states merged with weights exp(m - max m) and the result divided by
+    max(l, 1e-30) in q's dtype.  A range a query keeps no key of adds
+    nothing."""
+    _check(q, k, v, causal)
+    Sk = k.shape[1]
+    kps = max(int(keys_per_split), 1)
+    s, keep = _masked_scores(q, k, causal)
+    if keep is None:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device)
+    parts = []
+    for start, stop in split_ranges(Sk, kps):
+        sr, kr = s[..., start:stop], keep[:, start:stop]
+        sr = sr.masked_fill(~kr, NEG_INF)
+        m = sr.amax(-1, keepdim=True)
+        p = torch.where(kr, torch.exp(sr - m), torch.zeros_like(sr))
+        acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                           v[:, start:stop].float())
+        parts.append((acc, m, p.sum(-1, keepdim=True)))
+    acc, m, l = (torch.stack(t) for t in zip(*parts))
+    M = m.amax(0)
+    w = torch.where(l > 0, torch.exp(m - M), torch.zeros_like(l))
+    o = (acc * w).sum(0) / (l * w).sum(0).clamp_min(1e-30)
+    return o.transpose(1, 2).to(q.dtype)
 
 
 def _library() -> ctypes.CDLL:
@@ -66,16 +175,36 @@ def _library() -> ctypes.CDLL:
     fn = lib.mars_flash_attention
     if fn.argtypes is None:               # first use: declare once
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 6 + [ctypes.c_float]
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
         err = lib.mars_cuda_error_string
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_counters: dict = {}
+
+
+def _arrival_counters(dev, n: int) -> torch.Tensor:
+    """The key split's arrival counters on ``dev``: at least ``n`` int32
+    zeros, kept across calls (the merging block of each query tile sets
+    its counter back to 0, so calls on one stream reuse them)."""
+    buf = _counters.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _counters[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=dev)
+    return buf
+
+
 def _launch(q, k, v, causal: bool):
-    """Check operands and launch the CUDA kernel on the current stream."""
+    """Check operands and launch the CUDA kernel of ``split_plan`` on the
+    current stream."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     dev = q.device
@@ -97,20 +226,32 @@ def _launch(q, k, v, causal: bool):
     if B * H > _MAX_BATCH_HEADS:
         raise ValueError(f"flash_attention kernel takes B * H <= "
                          f"{_MAX_BATCH_HEADS}; got {B * H}")
+    if Sq > _MAX_QUERIES:
+        raise ValueError(f"flash_attention kernel takes at most "
+                         f"{_MAX_QUERIES} queries; got {Sq}")
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
     lib = _library()
+    plan = split_plan(B, Sq, Sk, H, D, q.dtype, _sm_count(dev.index or 0))
+    part = counters = None
+    if plan.n_split > 1:
+        tiles = B * H * -(-Sq // plan.rows)
+        part = torch.empty(tiles * plan.n_split * plan.rows * (D + 2),
+                           dtype=torch.float32, device=dev)
+        counters = _arrival_counters(dev, tiles)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.mars_flash_attention(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), B, H, Sq, Sk, D, int(causal), 1.0 / math.sqrt(D),
-        stream)
+        _DTYPE_CODES[q.dtype], PATHS[plan.path]["code"], q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Sq, Sk, D,
+        int(causal), 1.0 / math.sqrt(D), plan.n_split, plan.keys_per_split,
+        None if part is None else part.data_ptr(),
+        None if counters is None else counters.data_ptr(), stream)
     if rc != 0:
-        why = lib.mars_cuda_error_string(rc).decode() if rc > 0 \
-            else "unsupported"
+        why = "unsupported" if rc == -1 \
+            else lib.mars_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: rc={rc} "
-                           f"({why})")
+                           f"({why}; plan {plan})")
     flash_attention.launches += 1
     return o
 
@@ -121,9 +262,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
     when ``causal``, key <= query (which needs Sq == Sk).  Any sequence
     lengths; no GQA (repeat K/V heads first).
 
-    CUDA tensors launch the Hopper kernel (float32 or bfloat16, one dtype,
-    contiguous, head dim in ``HEAD_DIMS``); CPU tensors run the plain
-    twin."""
+    CUDA tensors launch one Hopper kernel (float32 or bfloat16, one dtype,
+    contiguous, head dim in ``HEAD_DIMS``; ``split_plan`` says which);
+    CPU tensors run the plain twin."""
     _check(q, k, v, causal)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal)

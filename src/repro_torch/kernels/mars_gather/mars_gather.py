@@ -15,6 +15,7 @@ gather the rows in sorted order, unsort.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +23,8 @@ from repro_torch.core.reorder import inverse_permutation
 from repro_torch.kernels import build
 
 _IDX_CODES = {torch.int32: 0, torch.int64: 1}
+WARPS = 4                 # warps of a block, one (row, chunk) item each
+MAX_LANE_VECS = 4         # vectors a lane keeps in flight
 
 
 def gather_rows_plain(table: torch.Tensor, sorted_ids: torch.Tensor):
@@ -37,10 +40,35 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:               # first use: declare once
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
         err = lib.mars_cuda_error_string
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def grid_plan(n: int, row_vecs: int, sm_count: int) -> tuple[int, int, int]:
+    """``(chunk_vecs, n_chunks, blocks)`` for a gather of ``n`` rows of
+    ``row_vecs`` vectors, from shapes and the SM count alone: each row is
+    cut into ``n_chunks`` chunks of ``chunk_vecs`` vectors (the last one
+    shorter), one warp a chunk, ``WARPS`` warps a block.  The chunk is
+    the widest of 128, 64 and 32 vectors (4, 2 or 1 a lane; never wider
+    than the row rounded up to 32) whose items still give at least one
+    block an SM, else 32."""
+    chunk = 32 * MAX_LANE_VECS
+    while chunk > 32 and chunk >= 2 * max(row_vecs, 1):
+        chunk //= 2
+
+    def blocks(c):
+        return -(-n * -(-row_vecs // c) // WARPS)
+    while chunk > 32 and blocks(chunk) < sm_count:
+        chunk //= 2
+    return chunk, -(-row_vecs // chunk), blocks(chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _vector_bytes(row_bytes: int, *ptrs: int) -> int:
@@ -75,10 +103,13 @@ def _launch(table: torch.Tensor, sorted_ids: torch.Tensor) -> torch.Tensor:
         return out
     lib = _library()
     vec = _vector_bytes(row_bytes, table.data_ptr(), out.data_ptr())
+    chunk_vecs = grid_plan(n, row_bytes // vec,
+                           _sm_count(dev.index or 0))[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.mars_gather_rows(
         _IDX_CODES[sorted_ids.dtype], vec, table.data_ptr(),
-        sorted_ids.data_ptr(), out.data_ptr(), V, row_bytes, n, stream)
+        sorted_ids.data_ptr(), out.data_ptr(), V, row_bytes, n, chunk_vecs,
+        stream)
     if rc != 0:
         why = lib.mars_cuda_error_string(rc).decode() if rc > 0 \
             else "unsupported"

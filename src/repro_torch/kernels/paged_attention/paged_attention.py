@@ -14,6 +14,10 @@ is no fallback.  On CPU tensors they run their plain twins,
 ``paged_attention.launches`` counts split launches (one a call),
 ``paged_attention.merge_launches`` merge launches.
 
+The pages may be of q's dtype or ``float8_e4m3fn`` (a KV cache stored in
+fp8, ``cfg.kv_dtype``): the split kernel widens fp8 pages exactly, as
+the reference casts them to f32, and the plain twins do the same.
+
 ``paged_attention_split_plain`` does in PyTorch what the two kernels do
 (the same partition into ranges, the partial states and their merge), so
 the CPU tests hold that arithmetic against the JAX kernel.
@@ -31,6 +35,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+FP8 = torch.float8_e4m3fn        # the one page dtype besides q's
 _HEAD_DIMS = (64, 112, 128)
 _PAGE_SIZES = (4, 8, 16)
 STAGE_TOKENS = 64        # tokens a stage of the kernel's ring holds
@@ -104,11 +109,11 @@ def _scores(q, k_pages, v_pages, page_tables, lengths, layer, window):
     """Every cached position's f32 score, value and validity:
     ``(s (B, Hkv, n_rep, S), v (B, S, Hkv, D), valid (B, 1, 1, S))``."""
     B, H, D = q.shape
-    kp, vp = k_pages[layer], v_pages[layer]
+    kp, vp = k_pages[layer].float(), v_pages[layer].float()   # fp8: exact
     Hkv = kp.shape[2]
     idx = page_tables.long()
-    k = kp[idx].reshape(B, -1, Hkv, D).float()          # (B, S, Hkv, D)
-    v = vp[idx].reshape(B, -1, Hkv, D).float()
+    k = kp[idx].reshape(B, -1, Hkv, D)                   # (B, S, Hkv, D)
+    v = vp[idx].reshape(B, -1, Hkv, D)
     qg = q.reshape(B, Hkv, H // Hkv, D).float()
     s = torch.einsum("bgrd,bsgd->bgrs", qg, k) * (1.0 / math.sqrt(D))
     pos = torch.arange(k.shape[1], device=q.device)
@@ -227,8 +232,8 @@ def _library() -> ctypes.CDLL:
     if split.argtypes is None:            # first use: declare once
         i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
         split.restype = merge.restype = i
-        split.argtypes = ([i] + [p] * 8 + [i] * 8 + [ll, i, i,
-                                                     ctypes.c_float, p])
+        split.argtypes = ([i] * 2 + [p] * 8 + [i] * 8 + [ll, i, i,
+                                                         ctypes.c_float, p])
         merge.argtypes = ([i] + [p] * 3 + [i] + [p] * 3 + [ll] * 4
                           + [p] * 3 + [i] * 4 + [ctypes.c_float, i, p])
         err = lib.mars_cuda_error_string
@@ -260,12 +265,12 @@ def _check_operands(q, k_pages, v_pages, page_tables, lengths, layer: int):
                     ("page_tables", page_tables), ("lengths", lengths)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != v_pages.dtype \
+            or k_pages.dtype not in (q.dtype, FP8):
         raise TypeError(
-            f"paged_attention kernel takes float32 or bfloat16 q and pages "
-            f"of q's dtype; got q {q.dtype}, pages {k_pages.dtype}/"
-            f"{v_pages.dtype}")
+            f"paged_attention kernel takes float32 or bfloat16 q and K/V "
+            f"pages of one dtype, q's or {FP8}; got q {q.dtype}, pages "
+            f"{k_pages.dtype}/{v_pages.dtype}")
     if page_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_tables and lengths must be int32")
     if v_pages.shape != k_pages.shape or Dk != D or H % Hkv \
@@ -307,7 +312,8 @@ def _launch(q, k_pages, v_pages, page_tables, lengths, layer: int,
     if B == 0:
         return acc, m, l
     rc = lib.mars_paged_attention_split(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+        _DTYPE_CODES[q.dtype], int(k_pages.dtype == FP8),
+        q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_tables.data_ptr(), lengths.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, Hkv, D, page,
         n_pages, n, pps, P * page * Hkv * D, layer, window,

@@ -373,6 +373,9 @@ class PagedBackend:
         cuda = self.device.type == "cuda"
         vals = torch.empty(shape, dtype=host.dtype, pin_memory=cuda)
         torch.index_select(host, 1, idx, out=vals)
+        if host.dtype == torch.float8_e4m3fn:
+            # index_copy_ has no float8 kernel: copy the same bytes
+            mirror, vals = mirror.view(torch.uint8), vals.view(torch.uint8)
         mirror.index_copy_(1, idx.to(self.device, non_blocking=cuda),
                            vals.to(self.device, non_blocking=cuda))
 

@@ -167,3 +167,86 @@ def test_every_csrc_source_is_built():
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sorted(build.SOURCES) == sources
     assert "flash_attention" in sources and "moe_dispatch" in sources
+
+
+# ---- the kernels' plan and the key split's arithmetic ---------------------
+# shapes the serving paths give K5: whisper-base's encoder, cross-attention
+# at prefill and decode, decoder prefill; qwen's, arctic's and kimi's
+# 24-token prefills; a long causal prefill
+PLAN_SHAPES = {"whisper_encoder": (8, 1500, 1500, 8, 64, False),
+               "whisper_cross_prefill": (8, 24, 1500, 8, 64, False),
+               "whisper_cross_decode": (8, 1, 1500, 8, 64, False),
+               "whisper_decoder_prefill": (8, 24, 24, 8, 64, True),
+               "qwen_prefill": (1, 24, 24, 16, 64, True),
+               "arctic_prefill": (1, 24, 24, 56, 128, True),
+               "kimi_prefill": (1, 24, 24, 64, 112, True),
+               "long_prefill": (1, 8192, 8192, 16, 128, True)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sms", [132, 114, 8])
+@pytest.mark.parametrize("name", list(PLAN_SHAPES))
+def test_split_plan_covers_every_key_once(name, sms, dtype):
+    """``split_plan`` reads shapes and the SM count only; its ranges cover
+    every key exactly once, in whole steps of the path (all but the last
+    range), within the kernel's 32 ranges; bf16 takes the wgmma tiles for
+    many queries and the key split for few."""
+    B, Sq, Sk, H, D, causal = PLAN_SHAPES[name]
+    plan = tfa.split_plan(B, Sq, Sk, H, D, getattr(torch, dtype), sms)
+    assert plan.path == ("f32" if dtype == "float32" else
+                         "wgmma" if Sq > tfa.FEW_QUERIES else "few")
+    assert 1 <= plan.n_split <= tfa.MAX_SPLIT
+    assert plan.keys_per_split % tfa.PATHS[plan.path]["step"] == 0
+    ranges = tfa.split_ranges(Sk, plan.keys_per_split)
+    assert len(ranges) == plan.n_split
+    seen = np.zeros(Sk, np.int64)
+    for start, stop in ranges:
+        assert stop > start
+        seen[start:stop] += 1
+    assert (seen == 1).all()
+    if plan.path == "wgmma":
+        assert plan.n_split == 1
+
+
+def test_split_plan_fills_the_card_at_decode():
+    """Whisper's one-query cross-attention (64 query tiles of 1500 keys)
+    splits its keys so the blocks cover the card; a prefill of many
+    queries does not split."""
+    plan = tfa.split_plan(8, 1, 1500, 8, 64, torch.bfloat16, 132)
+    assert plan.n_split > 1 and 64 * plan.n_split >= 132
+    assert tfa.split_plan(8, 1500, 1500, 8, 64, torch.float32,
+                          132).n_split == 1
+
+
+@pytest.mark.parametrize("keys_per_split", [64, 128, 192, 1000])
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", [
+    (2, 1, 300, 4, 64, False),      # cross-attention at decode
+    (2, 7, 300, 4, 16, False),
+    (1, 100, 100, 3, 64, True),     # causal: ranges past a row are empty
+    (1, 24, 200, 2, 112, False),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_plain_matches_plain_and_oracle(B, Sq, Sk, H, D, causal,
+                                              keys_per_split, dtype):
+    """The key split's arithmetic (``flash_attention_split_plain``) against
+    the one-softmax twin and the JAX oracle, at the tolerances above."""
+    (jq, jk, jv), (tq, tk, tv) = _sides(_qkv(6, B, Sq, Sk, H, D), dtype)
+    got = tfa.flash_attention_split_plain(tq, tk, tv, causal=causal,
+                                          keys_per_split=keys_per_split)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, tfa.flash_attention_plain(tq, tk, tv, causal=causal)
+           .float().numpy(), TOL[dtype])
+    _close(got, jref.attention_ref(jq, jk, jv, causal=causal), TOL[dtype])
+
+
+@pytest.mark.parametrize("keys_per_split", [64, 192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_plain_matches_pallas(keys_per_split, dtype):
+    """The key split against the Pallas kernel in interpret mode at the
+    reference test's shapes."""
+    (jq, jk, jv), (tq, tk, tv) = _sides(_qkv(7, 2, 256, 256, 4, 64), dtype)
+    want = jfa.flash_attention(jq, jk, jv, causal=True, bq=128, bk=128,
+                               interpret=True)
+    got = tfa.flash_attention_split_plain(tq, tk, tv, causal=True,
+                                          keys_per_split=keys_per_split)
+    _close(got, want, TOL[dtype])

@@ -18,6 +18,7 @@ SLICE_MODULES = [
     "repro_torch",
     "repro_torch.configs",
     "repro_torch.configs.arctic_480b",
+    "repro_torch.configs.deepseek_coder_33b",
     "repro_torch.configs.hymba_1_5b",
     "repro_torch.configs.kimi_k2_1t_a32b",
     "repro_torch.configs.mamba2_370m",

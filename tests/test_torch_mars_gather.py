@@ -122,3 +122,43 @@ def test_kernel_wrapper_never_falls_back():
     except RuntimeError:
         with pytest.raises(RuntimeError, match="nvcc"):
             tmg._launch(tt, ids)
+
+
+# row widths in bytes of the served configs' tables in bf16 (hymba 1600,
+# qwen and mamba2 1024, arctic 7168, whisper 512) and whisper's and
+# mamba2's in float32, at the counts the paths gather
+GRID_ROWS = {"hymba": 3200, "qwen": 2048, "arctic": 14336, "whisper": 1024,
+             "mamba2": 2048, "whisper_f32": 2048, "mamba2_f32": 4096,
+             "odd": 6}
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("n", [1, 8, 24, 192, 8192])
+@pytest.mark.parametrize("table", list(GRID_ROWS))
+def test_grid_plan_covers_every_byte_once(table, n, sms):
+    """``grid_plan`` reads shapes and the SM count only; the kernel's items
+    (block b, warp w -> item 4 b + w -> row item // n_chunks, vectors
+    [chunk * chunk_vecs, + chunk_vecs) cut at the row's end) cover every
+    vector of every output row exactly once, with at most 4 vectors a
+    lane."""
+    row_bytes = GRID_ROWS[table]
+    vec = tmg._vector_bytes(row_bytes)
+    row_vecs = row_bytes // vec
+    chunk, n_chunks, blocks = tmg.grid_plan(n, row_vecs, sms)
+    assert chunk in (32, 64, 128) and n_chunks == -(-row_vecs // chunk)
+    seen = np.zeros((n, row_vecs), np.int64)
+    for item in range(blocks * tmg.WARPS):
+        if item >= n * n_chunks:
+            continue
+        row, c = divmod(item, n_chunks)
+        seen[row, c * chunk:min((c + 1) * chunk, row_vecs)] += 1
+    assert (seen == 1).all()
+
+
+def test_grid_plan_spreads_few_long_rows():
+    """Arctic's 24 ids of 14 336 bytes fill at least one block an SM of an
+    H100 (the chunk shrinks to one 16-byte vector a lane); 8192 ids keep
+    4 vectors a lane."""
+    chunk, n_chunks, blocks = tmg.grid_plan(24, 14336 // 16, 132)
+    assert blocks >= 132 and chunk == 32
+    assert tmg.grid_plan(8192, 14336 // 16, 132)[0] == 128

@@ -65,10 +65,11 @@ def main(argv=None) -> int:
         for blocks in (int(x) for x in args.blocks.split(",")):
             pa.BLOCKS_PER_SM = blocks
             n, pps = pa.split_plan(n_pages, page, B, Hkv, H // Hkv, sms)
-            rows = chip_smoke.profile_rows(
+            rows = chip_smoke.device_profile(
                 lambda: pa.paged_attention(q, kp, vp, pt, ln, layer=layer,
                                            window=window, return_state=True),
-                50)
+                50, f"{name} blocks/SM {blocks}",
+                ("paged_attention_split", "paged_attention_merge"))
             print(json.dumps(dict(
                 case=name, dtype=args.dtype, blocks_per_sm=blocks,
                 n_split=n, pages_per_split=pps,
