@@ -28,10 +28,12 @@ Phases (any failure exits non-zero and prints no result):
           ``PagedBackend`` with an fp8 cache against the same run with a
           bf16 cache (``kv_fp8_check``: the reference's criterion from
           ``tests/test_kv_quant.py``, and K1's launch counts).
-  k3      K3 ssd_scan at hymba's prefill shape, a long case, mamba2-370m's
+  k3      K3 ssd_scan (one launch for one chunk; for more, a state
+          pass, a pass that carries the state over the chunks and an
+          output pass) at hymba's prefill shape, a long case, mamba2-370m's
           prefill (8 prompts, 32 heads of 64, state 128) and a long
-          mamba2 case (chunk 64: 130 KB of shared memory), and the
-          reference test shapes.
+          mamba2 case (chunk 64), the reference test shapes, many chunks
+          of 24, chunks of one position and mamba2's width over 4 chunks.
   k2      K2 gather_rows bitwise on the embedding tables of hymba,
           qwen, arctic, whisper and mamba2 in bf16 (whisper's and
           mamba2's also in float32) at 8, 24, 192 (a dense prefill of 8
@@ -39,8 +41,11 @@ Phases (any failure exits non-zero and prints no result):
           ``F.embedding``.
   k4      K4 grouped_matmul against its plain twin on the reference test
           shapes and on MARS-sorted, tile-padded routings at arctic's
-          decode (w_in and w_out) and prefill and kimi's decode; padding
-          rows must come out 0.
+          decode (w_in and w_out) and prefill and kimi's decode, then on
+          the edges of the TMA kernel's cuts (a K and an N that no slab or
+          span divides, one expert over consecutive tiles, n_tiles 0 and
+          every tile, group ids outside [0, G), K and N not multiples of
+          8); padding rows and dead tiles must come out exactly 0.
   k5      K5 flash_attention against its plain twin at whisper-base's
           encoder (8 x 1500 frames, 8 heads of 64, no mask), its
           cross-attention (24 and 1 queries over 1500 frames) and
@@ -72,7 +77,8 @@ Phases (any failure exits non-zero and prints no result):
           set to 0 just before each run, paged_attention's split and
           merge kernels must each have launched once per layer per
           decode step, ssd_scan once per layer per prefill (the
-          engine's and the check's), flash_attention once per
+          engine's and the check's; its extra passes twice per layer per
+          prefill of more than one chunk: none here), flash_attention once per
           unwindowed layer per prefill,
           gather_rows once per embedding lookup and grouped_matmul three
           times per MoE layer per embedding lookup.  hymba's bf16 runs
@@ -689,18 +695,23 @@ def time_case(torch, F, ops, case: str, dtype: str, flush):
 
 
 # K3 cases: (name, B, S, H, P, N, chunk).  hymba's prefill: one request
-# of 24 prompt tokens under chunk 64 (one chunk of 24); a long case of 64
-# chunks; mamba2-370m's prefill: a batch of 8 prompts of 24 tokens, 32
-# heads of 64, state 128 (66.6 KB of shared memory a block), and a long
-# mamba2 case (chunk 64: 130 KB); the shapes of the reference's kernel
-# tests.
+# of 24 prompt tokens under chunk 64 (one chunk of 24, one launch); a
+# long case of 64 chunks; mamba2-370m's prefill: a batch of 8 prompts of
+# 24 tokens, 32 heads of 64, state 128, and a long mamba2 case (chunk 64:
+# 145 KB of shared memory a block of its output pass); the shapes of the
+# reference's kernel tests; then cases the chunks-in-parallel design can
+# get wrong: many chunks of a length that is not a power of two (96 =
+# 4 x 24), chunks of one position, and mamba2's width over 4 chunks.
 SSD_CASES = [("hymba_prefill", 1, 24, 50, 64, 16, 64),
              ("long", 4, 4096, 50, 64, 16, 64),
              ("mamba2_prefill", 8, 24, 32, 64, 128, 64),
              ("mamba2_long", 1, 2048, 32, 64, 128, 64),
              ("ref_a", 1, 64, 2, 16, 8, 16),
              ("ref_b", 2, 128, 4, 32, 16, 32),
-             ("ref_c", 1, 96, 1, 8, 4, 32)]
+             ("ref_c", 1, 96, 1, 8, 4, 32),
+             ("chunks_q24", 2, 96, 8, 32, 16, 24),
+             ("chunks_q1", 2, 16, 4, 8, 4, 1),
+             ("mamba2_chunks", 2, 256, 32, 64, 128, 64)]
 
 
 def ssd_inputs(torch, F, gen, B, S, H, P, N, dtype):
@@ -1005,6 +1016,21 @@ K4_ROUTE = [("arctic_decode_w_in", 8, 2, 128, 7168, 4864),
             ("arctic_decode_w_out", 8, 2, 128, 4864, 7168),
             ("arctic_prefill_w_in", 24, 2, 128, 7168, 4864),
             ("kimi_decode_w_in", 8, 8, 384, 7168, 2048)]
+# K4 cases the TMA kernel's cuts can get wrong: (name, dtype, spec) with
+# spec (M, K, N, G, bm, tile groups, n_tiles).  A K that no slab (nor a
+# 32-row stage) divides and an N that no 512-column span (nor a 64-column
+# box) divides; several consecutive tiles of one expert; n_tiles 0 and
+# n_tiles = every tile; group ids outside [0, G) (-1 and G) among live
+# tiles; a K and an N that are not multiples of 8 (bf16 through the
+# CUDA-core kernel: TMA cannot map them).  Tiles at or past n_tiles and
+# tiles of a bad group must come out exactly 0.
+K4_EDGE = [("ragged_k_n", (64, 7000, 1000, 4, 16, (0, 1, 1, 3), 4)),
+           ("one_expert_run", (128, 2048, 1536, 4, 16,
+                                (2, 2, 2, 2, 2, 3, 3, 3), 8)),
+           ("n_tiles_0", (64, 1024, 1024, 4, 16, (0, 1, 2, 3), 0)),
+           ("bad_groups", (96, 1024, 1024, 4, 16, (0, -1, 1, 4, 2, 3), 6)),
+           ("bm32_ragged", (128, 1000, 520, 3, 32, (0, 0, 2, 2), 3)),
+           ("unaligned_k_n", (64, 100, 36, 2, 16, (0, 1, 1, 0), 4))]
 
 
 def k4_ref_case(torch, gen, M, K, N, G, bm, dtype):
@@ -1048,6 +1074,28 @@ def k4_route_case(torch, gen, T, k, E, K, N, dtype):
                 used_groups=int((sizes > 0).sum()), A=A)
 
 
+def k4_edge_case(torch, gen, M, K, N, G, bm, groups, n_tiles, dtype):
+    """Operands with a given tile -> group map and n_tiles: x drawn in
+    full (padding rows are not zero here, so a dead tile's zeros are the
+    kernel's own), w / sqrt(K)."""
+    dev = gen.device
+    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(G, K, N, generator=gen, device=dev) / K ** 0.5) \
+        .to(dtype)
+    tg = torch.tensor(groups, dtype=torch.int32, device=dev)
+    n_used = torch.tensor([n_tiles], dtype=torch.int32, device=dev)
+    live = [i for i, g in enumerate(groups) if i < n_tiles and 0 <= g < G]
+    dead = torch.ones(M, dtype=torch.bool, device=dev)
+    for i in live:
+        dead[i * bm:(i + 1) * bm] = False
+    used = {groups[i] for i in live}
+    sizes = torch.tensor([bm * sum(1 for i in live if groups[i] == g)
+                          for g in range(G)], device=dev)
+    return dict(x=x, w=w, tg=tg, bm=bm, n_used=n_used, real_rows=None,
+                dead_rows=dead, sizes=sizes, used_groups=len(used),
+                A=len(live) * bm)
+
+
 def k4_library(torch, c):
     """One PyTorch call for the same products on the unpadded sorted
     rows: ``torch._grouped_mm`` (bf16, group ends as ``offs``) where this
@@ -1086,12 +1134,15 @@ def k4_phase(torch, gen):
               ("ref", (M, K, N, G, bm)))
              for dtype in ("float32", "bfloat16") for M, K, N, G, bm in K4_REF]
     cases += [(r[0], "bfloat16", ("route", r[1:])) for r in K4_ROUTE]
+    cases += [(name, dtype, ("edge", spec)) for dtype in
+              ("bfloat16", "float32") for name, spec in K4_EDGE]
     results, timing, max_err = [], {}, 0.0
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=gen.device)
     for name, dtype, (kind, spec) in cases:
         dt = getattr(torch, dtype)
         c = (k4_ref_case(torch, gen, *spec, dt) if kind == "ref"
-             else k4_route_case(torch, gen, *spec, dt))
+             else k4_route_case(torch, gen, *spec, dt) if kind == "route"
+             else k4_edge_case(torch, gen, *spec, dt))
         got = k4.grouped_matmul(c["x"], c["w"], c["tg"], bm=c["bm"],
                                 n_tiles=c["n_used"])
         torch.cuda.synchronize()
@@ -1103,6 +1154,8 @@ def k4_phase(torch, gen):
             pad = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
             pad[c["real_rows"]] = False
             zero_ok = bool((got[pad] == 0).all())
+        if c.get("dead_rows") is not None:
+            zero_ok = bool((got[c["dead_rows"]] == 0).all())
         finite = bool(torch.isfinite(got.float()).all())
         ok = ok and zero_ok and finite and got.dtype == dt
         M, K = c["x"].shape
@@ -1114,7 +1167,8 @@ def k4_phase(torch, gen):
               f"{'ok' if ok else 'MISMATCH'}")
         results.append(dict(case=name, dtype=dtype, err=err, ok=ok))
         max_err = max(max_err, err)
-        timing[f"{name}/{dtype}"] = time_k4(torch, k4, c, dtype, flush)
+        if kind != "edge":
+            timing[f"{name}/{dtype}"] = time_k4(torch, k4, c, dtype, flush)
         del c, got, want
         torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
@@ -1181,6 +1235,8 @@ def serve_phase(torch, serve, arch: str, flags=()):
     k1 = L * out["decode_steps"] if out["decode"] == "kernel" else 0
     want = {"paged_attention": k1, "paged_attention_merge": k1,
             "ssd_scan": L * prefills if cfg.has_ssm else 0,
+            "ssd_scan_passes": ssd_passes(cfg, out["prompts"]) * L
+            * prefills,
             "gather_rows": embeds if cfg.vocab * cfg.d_model >= 1 << 22
             else 0,
             "grouped_matmul": 3 * moe_layers * embeds,
@@ -1229,6 +1285,16 @@ def serve_phase(torch, serve, arch: str, flags=()):
     return out, launches
 
 
+def ssd_passes(cfg, prompts) -> int:
+    """K3's extra launches a prefill of these prompts takes in an SSM
+    layer: 2 when the scan has more than one chunk, else 0 (one length
+    for every prompt, as the serve load draws them)."""
+    lengths = {len(p) for p in (prompts.values() if isinstance(
+        prompts, dict) else prompts)}
+    S, = lengths
+    return 2 if cfg.has_ssm and S > cfg.ssm_chunk else 0
+
+
 def unwindowed_layers(cfg) -> int:
     """Decoder layers whose prefill attention is plain causal (through
     flash_attention): all of them, or a windowed model's global ones."""
@@ -1243,7 +1309,8 @@ def unwindowed_layers(cfg) -> int:
 def kernel_counters() -> dict:
     """Each kernel of the port by name, as (wrapper, attribute) of the
     count its wrapper adds one to where it launches the kernel; K1's merge
-    pass has its own count on the same wrapper."""
+    pass has its own count on the same wrapper, and so have K3's state
+    pass and output pass (two a call of more than one chunk)."""
     from repro_torch.kernels.flash_attention import flash_attention as k5_mod
     from repro_torch.kernels.mars_gather import mars_gather as mg_mod
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4_mod
@@ -1253,6 +1320,7 @@ def kernel_counters() -> dict:
             "paged_attention_merge": (pa_mod.paged_attention,
                                       "merge_launches"),
             "ssd_scan": (ssd_mod.ssd_scan, "launches"),
+            "ssd_scan_passes": (ssd_mod.ssd_scan, "pass_launches"),
             "gather_rows": (mg_mod.gather_rows, "launches"),
             "grouped_matmul": (k4_mod.grouped_matmul, "launches"),
             "flash_attention": (k5_mod.flash_attention, "launches")}
@@ -1330,7 +1398,7 @@ def profile_summary(prof, wall: float) -> dict:
         n = r["name"].lower()
         b = ("paged_attention_merge" if "paged_attention_merge" in n else
              "paged_attention" if "paged_attention" in n else
-             "ssd_scan" if "ssd_scan_kernel" in n else
+             "ssd_scan" if "ssd_scan_" in n else
              "grouped_matmul" if "grouped_mm_" in n else
              "gather_rows" if "gather_rows_kernel" in n else
              "flash_attention" if "flash_attn_" in n else
@@ -1363,6 +1431,7 @@ def dense_launches_wanted(cfg, prefills: int, steps: int) -> dict:
     cross = L if cfg.family == "encdec" else 0
     return {"paged_attention": 0, "paged_attention_merge": 0,
             "ssd_scan": L * prefills if cfg.has_ssm else 0,
+            "ssd_scan_passes": 0,
             "gather_rows": prefills + steps
             if cfg.vocab * cfg.d_model >= 1 << 22 else 0,
             "grouped_matmul": 0,
@@ -1497,6 +1566,9 @@ def dense_phase(torch, serve, arch: str, flags=()):
     prefills = len(batches)
     steps = sum(o["tokens"].shape[1] - 1 for o in batches)
     want = dense_launches_wanted(cfg, prefills, steps)
+    want["ssd_scan_passes"] = sum(
+        ssd_passes(cfg, o["prompts"].tolist()) for o in batches) \
+        * cfg.n_layers
     tokens = sum(o["tokens"].numel() for o in batches)
     wall = sum(r["wall_s"] for r in runs)
     print(f"[dense {name}] served={[r['served'] for r in runs]} batches="
@@ -1582,7 +1654,8 @@ def profile_dense(torch, serve, args) -> dict:
 # the port's kernels as their device-side names show in a profile
 KERNEL_NAMES = {"paged_attention": "paged_attention_split_kernel",
                 "paged_attention_merge": "paged_attention_merge_kernel",
-                "ssd_scan": "ssd_scan_kernel",
+                "ssd_scan": "ssd_scan_chunk_kernel",
+                "ssd_scan_passes": "ssd_scan_pass_kernel",
                 "gather_rows": "gather_rows_kernel",
                 "grouped_matmul": "grouped_mm_",
                 "flash_attention": "flash_attn_"}

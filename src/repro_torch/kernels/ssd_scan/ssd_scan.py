@@ -1,18 +1,27 @@
 """SSD (Mamba2) chunked scan (port of ``repro/kernels/ssd_scan/
 ssd_scan.py``).
 
-``ssd_scan`` is the wrapper around the hand-written Hopper kernel
-``csrc/ssd_scan.cu`` (which replaces the Pallas ``_kernel`` /
-``ssd_scan``; the source comment there gives its bound and design).  On
-CUDA tensors it launches the kernel or raises — there is no fallback; on
-CPU tensors it runs ``ssd_scan_plain``, the kernel's plain PyTorch twin:
-the same chunked math in float32, which the CPU tests and
-``chip_smoke.py`` compare against.  ``ssd_scan.launches`` counts kernel
-launches.
+``ssd_scan`` is the wrapper around the hand-written Hopper kernels
+``csrc/ssd_scan.cu`` (which replace the Pallas ``_kernel`` /
+``ssd_scan``; the source comment there gives their bound and design).
+One chunk (S <= the chunk: every serve prefill) is one launch; more
+chunks are three: every chunk's state contribution in parallel, a pass
+that carries the state over the chunks, then every chunk's output.
+``split_plan`` picks the heads and the P columns a block owns from the
+shapes and the SM count.  On CUDA tensors it launches the kernels or
+raises — there is no fallback; on CPU tensors it runs ``ssd_scan_plain``,
+the kernel's plain PyTorch twin: the same chunked math in float32, chunk
+by chunk, which the CPU tests and ``chip_smoke.py`` compare against.
+``ssd_scan_chunked_plain`` does the kernels' passes in PyTorch.
+``ssd_scan.launches`` counts calls that launched the kernels, and
+``ssd_scan.pass_launches`` the two extra launches of a call of more than
+one chunk.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +30,22 @@ from repro_torch.kernels import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 64                    # the kernel's largest chunk
 _SMEM_LIMIT = 232_448             # bytes of shared memory a block may use
+MODES = {"fused": 0, "state": 1, "output": 2}
+P_BLOCKS = (64, 32, 16)           # columns of P a block may own
+HEAD_GROUPS = (1, 2, 4, 8)        # heads a block may own
+# a block's fixed cost (its loads, barriers and scan) in multiply-adds:
+# on an H100, 1792 blocks of 8 heads ran the long case (B 4, S 4096, 50
+# heads) faster than 6400 blocks of 2, which a count of products alone
+# ranks the other way
+BLOCK_MACS = 100_000
+
+
+class Plan(NamedTuple):
+    """How a call cuts its work: ``heads`` heads and ``p_block`` columns
+    of P a block; ``n_chunks`` chunks, one launch if 1, else three."""
+    heads: int
+    p_block: int
+    n_chunks: int
 
 
 def chunk_len(S: int, chunk: int) -> int:
@@ -66,6 +91,108 @@ def ssd_scan_plain(x, b, c, la, dt, *, chunk: int = 64):
     return torch.cat(ys, dim=1), s
 
 
+def ssd_scan_chunked_plain(x, b, c, la, dt, *, chunk: int = 64):
+    """The kernels' passes in float32 torch: every chunk's state
+    contribution ``z_c`` and total decay at once; the state carried over
+    the chunks, ``s_c = decay_c s_{c-1} + z_c``, keeping the state that
+    enters each chunk; then every chunk's output, the intra-chunk term
+    plus ``exp(cum_t) c_t . s_{c-1}``.  Same contract as ``ssd_scan``."""
+    Bz, S, H, P = x.shape
+    N = b.shape[-1]
+    q = chunk_len(S, chunk)
+    nc = S // q
+    x, b, c, la, dt = (t.float() for t in (x, b, c, la, dt))
+    xc = x.reshape(Bz, nc, q, H, P)
+    bc, cc = b.reshape(Bz, nc, q, N), c.reshape(Bz, nc, q, N)
+    cum = torch.cumsum(la.reshape(Bz, nc, q, H), dim=2)     # (B, nc, q, H)
+    dtc = dt.reshape(Bz, nc, q, H)
+    # pass 1: each chunk's contribution to the state, and its decay
+    dec = torch.exp(cum[:, :, -1:] - cum) * dtc
+    z = torch.einsum("bckn,bckh,bckhp->bchpn", bc, dec, xc)
+    decay = torch.exp(cum[:, :, -1])                        # (B, nc, H)
+    # pass 2: the state entering each chunk
+    s = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
+    entering = []
+    for ic in range(nc):
+        entering.append(s)
+        s = decay[:, ic, :, None, None] * s + z[:, ic]
+    s_prev = torch.stack(entering, 1)                       # (B, nc, H, P, N)
+    # pass 3: the outputs
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B, nc, t, k, H)
+    L = torch.where(tri[None, None, :, :, None],
+                    torch.exp(torch.clamp_max(li, 0.0)),
+                    torch.zeros((), device=x.device))
+    w = torch.einsum("bctn,bckn->bctk", cc, bc)[..., None] * L \
+        * dtc[:, :, None, :, :]                             # (B, nc, t, k, H)
+    y = torch.einsum("bctkh,bckhp->bcthp", w, xc) \
+        + torch.einsum("bctn,bchpn,bcth->bcthp", cc, s_prev, torch.exp(cum))
+    return y.reshape(Bz, S, H, P), s
+
+
+def smem_bytes(q: int, p_block: int, N: int, mode: str) -> int:
+    """Shared memory one block of the chunk kernel takes in ``mode``
+    (mirrors ``smem_floats`` in ``csrc/ssd_scan.cu``)."""
+    q4, n4, p4 = (-(-v // 4) * 4 for v in (q, N, p_block))
+    f = 4 * q4 + q4 * p4
+    if mode != "output":
+        f += q4 * n4
+    if mode != "state":
+        f += 2 * n4 * q4 + 2 * q4 * q4
+    if mode == "output":
+        f += n4 * p4
+    return 4 * f
+
+
+def _modes(n_chunks: int) -> tuple:
+    return ("fused",) if n_chunks == 1 else ("state", "output")
+
+
+def _block_macs(q: int, pb: int, N: int, heads: int, mode: str) -> int:
+    """Multiply-adds a block of the chunk kernel does in ``mode`` (q, N
+    and pb padded to 4, as it computes them), plus ``BLOCK_MACS``."""
+    q4, n4, p4 = (-(-v // 4) * 4 for v in (q, N, pb))
+    z = q4 * p4 * n4                          # the state contribution
+    y = q4 * q4 * p4 // 2                     # W x, lower triangle
+    if mode == "state":
+        return BLOCK_MACS + heads * z
+    cb = q4 * q4 * n4                         # C B^T, once a block
+    if mode == "fused":
+        return BLOCK_MACS + cb + heads * (y + z)
+    return BLOCK_MACS + cb + heads * (y + q4 * n4 * p4)   # + C s_prev
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(B: int, S: int, H: int, P: int, N: int, q: int,
+               sm_count: int) -> Plan:
+    """Heads and P columns a block owns, from the shapes and the SM count
+    alone: of every pair in ``HEAD_GROUPS`` x ``P_BLOCKS`` (a P block no
+    wider than P, padded to 4) whose shared memory fits a block, the one
+    that least loads the busiest SM, counted as the blocks an SM gets
+    times the multiply-adds of a block (with ``BLOCK_MACS`` for its fixed
+    cost), summed over the call's chunk kernels; ties go to the wider P
+    block, then to fewer heads."""
+    nc = S // q
+    p4 = -(-P // 4) * 4
+    best = None
+    for pb in sorted({min(v, p4) for v in P_BLOCKS}, reverse=True):
+        for hg in sorted({min(v, max(H, 1)) for v in HEAD_GROUPS}):
+            fits = all(smem_bytes(q, pb, N, m) <= _SMEM_LIMIT
+                       for m in _modes(nc))
+            blocks = (1 if nc == 1 else nc) * B * -(-H // hg) * -(-P // pb)
+            cost = sum(-(-blocks // sm_count) * _block_macs(q, pb, N, hg, m)
+                       for m in _modes(nc))
+            key = (not fits, cost)
+            if best is None or key < best[0]:
+                best = (key, Plan(hg, pb, nc))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _library() -> ctypes.CDLL:
     """The kernel's shared library (built at first use), with the C
     signatures declared."""
@@ -73,17 +200,11 @@ def _library() -> ctypes.CDLL:
     fn = lib.mars_ssd_scan
     if fn.argtypes is None:               # first use: declare once
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         err = lib.mars_cuda_error_string
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
     return lib
-
-
-def smem_bytes(q: int, P: int, N: int) -> int:
-    """Shared memory one block of the kernel takes (mirrors
-    ``smem_floats`` in ``csrc/ssd_scan.cu``)."""
-    return 4 * (q * P + 2 * q * (N + 1) + q * q + P * (N + 1) + 4 * q)
 
 
 def _launch(x, b, c, la, dt, q: int):
@@ -110,24 +231,38 @@ def _launch(x, b, c, la, dt, q: int):
     if q > MAX_CHUNK:
         raise ValueError(f"ssd_scan kernel takes chunks of at most "
                          f"{MAX_CHUNK} positions, got {q}")
-    if smem_bytes(q, P, N) > _SMEM_LIMIT:
-        raise ValueError(f"ssd_scan kernel needs {smem_bytes(q, P, N)} B of "
-                         f"shared memory for q={q}, P={P}, N={N}; a block "
-                         f"has {_SMEM_LIMIT}")
+    # the narrowest P block needs the least; split_plan picks one that fits
+    need = max(smem_bytes(q, min(P_BLOCKS[-1], P), N, m)
+               for m in _modes(S // q))
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"ssd_scan kernel needs {need} B of shared memory "
+                         f"for q={q}, N={N}; a block has {_SMEM_LIMIT}")
     y = torch.empty((Bz, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((Bz, H, P, N), dtype=torch.float32, device=dev)
     if Bz == 0 or H == 0 or P == 0:
         return y, state
     lib = _library()
+    plan = split_plan(Bz, S, H, P, N, q, _sm_count(dev.index or 0))
+    zbuf = decay = None
+    if plan.n_chunks > 1:
+        zbuf = torch.empty((Bz, plan.n_chunks, H, P, N), dtype=torch.float32,
+                           device=dev)
+        decay = torch.empty((Bz, plan.n_chunks, H), dtype=torch.float32,
+                            device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.mars_ssd_scan(
         _DTYPE_CODES[x.dtype], x.data_ptr(), b.data_ptr(), c.data_ptr(),
         la.data_ptr(), dt.data_ptr(), y.data_ptr(), state.data_ptr(),
-        Bz, S, H, P, N, q, stream)
+        None if zbuf is None else zbuf.data_ptr(),
+        None if decay is None else decay.data_ptr(),
+        Bz, S, H, P, N, q, plan.heads, plan.p_block, stream)
     if rc != 0:
         why = lib.mars_cuda_error_string(rc).decode() if rc > 0 \
             else "unsupported"
-        raise RuntimeError(f"ssd_scan kernel launch failed: rc={rc} ({why})")
+        raise RuntimeError(f"ssd_scan kernel launch failed: rc={rc} ({why}; "
+                           f"plan {plan})")
+    if plan.n_chunks > 1:
+        ssd_scan.pass_launches += 2
     ssd_scan.launches += 1
     return y, state
 
@@ -138,7 +273,7 @@ def ssd_scan(x, b, c, la, dt, *, chunk: int = 64):
     (B,H,P,N) float32)``, starting from a zero state.  The chunk length
     is ``q = min(chunk, S)`` and must divide S.
 
-    CUDA tensors launch the Hopper kernel (x, b and c of one dtype,
+    CUDA tensors launch the Hopper kernels (x, b and c of one dtype,
     float32 or bfloat16; la and dt float32; contiguous; q <= 64); CPU
     tensors run the plain twin."""
     Bz, S, H, P = x.shape
@@ -157,3 +292,4 @@ def ssd_scan(x, b, c, la, dt, *, chunk: int = 64):
 
 
 ssd_scan.launches = 0
+ssd_scan.pass_launches = 0

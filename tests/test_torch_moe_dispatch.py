@@ -6,7 +6,11 @@ parametrisation, ``pad_sorted_groups`` bitwise against the reference's
 ``mars_moe_ffn`` against the reference's ``use_pallas=True`` route, the
 device-side MARS sort helpers against ``repro.core.reorder``, and the
 wrapper's contract (tiles past ``n_tiles`` are zero; CUDA-bound launches
-go to the kernel or raise).  Inputs come from numpy with a seed.
+go to the kernel or raise).  ``grouped_matmul_split_plain``, the TMA
+kernel's K split in PyTorch, is held against the Pallas kernel at the
+reference shapes and at a routed arctic-like case, and ``split_plan`` is
+checked to cover every row, K row and column of every tile once.  Inputs
+come from numpy with a seed.
 
 Tolerances: the reference's own — 1e-5 in float32 and 2e-2 in bfloat16
 for the grouped matmul (both sides sum float32 products, in other
@@ -225,3 +229,116 @@ def test_wrapper_checks_and_never_falls_back():
         with pytest.raises(RuntimeError, match="nvcc"):
             tk4._launch(x, w, tg, 16, None)
     assert tk4.grouped_matmul.launches == launches
+
+
+# ---- the TMA kernel's K split (split_plan, grouped_matmul_split_plain) ----
+
+# (M, K, N, bm): the serve path's route shapes (arctic decode w_in and
+# w_out, its prefill, kimi's decode), the reference test shapes, and edges
+# no slab, stage, span or box divides
+PLAN_SHAPES = [(256, 7168, 4864, 16), (256, 4864, 7168, 16),
+               (768, 7168, 4864, 16), (1024, 7168, 2048, 16),
+               *[(M, K, N, bm) for M, K, N, _, bm in REF_SHAPES],
+               (64, 7000, 1000, 16), (128, 1000, 520, 32), (80, 264, 72, 80)]
+
+
+@pytest.mark.parametrize("M,K,N,bm", PLAN_SHAPES)
+@pytest.mark.parametrize("sm_count", [1, 132, 1000])
+def test_split_plan_covers_every_row_once(M, K, N, bm, sm_count):
+    """Every (row, K row, column) of every tile is in exactly one work
+    unit, slabs are whole 32-row stages but the last, and the grid is the
+    C launcher's ((M / rows) x n_split x n_span units): it is a function
+    of the shapes and the SM count, never of n_tiles."""
+    plan = tk4.split_plan(M, K, N, bm, torch.bfloat16, sm_count)
+    assert plan.path == "tma" and bm % plan.rows == 0
+    assert plan.span == tk4.SPAN * 16 // plan.rows
+    assert plan.k_per_split % tk4.STAGE_K == 0
+    assert (plan.n_split - 1) * plan.k_per_split < K \
+        <= plan.n_split * plan.k_per_split
+    assert plan.n_split == 1 or plan.k_per_split >= tk4.MIN_K_PER_SPLIT
+    units = tk4.work_units(plan, M, K, N, bm)
+    assert len(units) == M // plan.rows * plan.n_split * plan.n_span
+    cover = np.zeros((M, K, N), dtype=np.int8) if M * K * N < 1 << 27 \
+        else None
+    rows = np.zeros(M, dtype=np.int64)
+    for tile, row0, nr, col0, nc, k0, k1 in units:
+        assert tile == row0 // bm and 0 < nc <= plan.span and k0 < k1
+        rows[row0:row0 + nr] += (k1 - k0) * nc
+        if cover is not None:
+            cover[row0:row0 + nr, k0:k1, col0:col0 + nc] += 1
+    assert (rows == K * N).all()
+    if cover is not None:
+        assert (cover == 1).all()
+
+
+def test_split_plan_reads_no_device_state():
+    """The plan takes shapes, the dtype and the SM count only: no
+    ``n_tiles`` and no tensor, so it never waits on the device."""
+    import inspect
+    assert list(inspect.signature(tk4.split_plan).parameters) == \
+        ["M", "K", "N", "bm", "dtype", "sm_count", "tma"]
+    assert tk4.split_plan(256, 128, 128, 128, torch.float32, 132).path \
+        == "cores"
+    assert tk4.split_plan(256, 100, 36, 16, torch.bfloat16, 132,
+                          tma=False).path == "cores"
+
+
+@pytest.mark.parametrize("M,K,N,G,bm", REF_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kps", ["plan", 32])
+def test_grouped_matmul_split_plain_matches_pallas(M, K, N, G, bm, dtype,
+                                                   kps):
+    """The K split's arithmetic (f32 partials per slab, summed in slab
+    order) against the Pallas kernel in interpret mode, with the plan's
+    slabs and with 32-row slabs (one ring stage each)."""
+    jx, jw, tx, tw, tg = _operands(M, K, N, G, bm, 0, dtype)
+    if kps == "plan":
+        kps = tk4.split_plan(M, K, N, bm, torch.bfloat16, 132).k_per_split
+    want = jgrouped_matmul(jx, jw, jnp.asarray(tg), bm=bm, interpret=True)
+    got = tk4.grouped_matmul_split_plain(tx, tw, torch.from_numpy(tg), bm=bm,
+                                         k_per_split=kps)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (M, N)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_split_plain_routed_arctic_like(dtype):
+    """arctic-480b's decode routing narrowed (8 lanes x top-2 over 32
+    experts, K 1000 and N 520: no slab, span or box divides them), sorted
+    and tight-padded as the serve path does (bm 16, n_tiles on the
+    device side): the split twin against the Pallas kernel, padding rows
+    and tiles past n_tiles exactly 0."""
+    rng = np.random.default_rng(7)
+    T, k, E, K, N, bm = 8, 2, 32, 1000, 520, 16
+    flat = np.stack([rng.permutation(E)[:k] for _ in range(T)]) \
+        .reshape(-1).astype(np.int32)
+    perm = np.argsort(flat, kind="stable")
+    sorted_e = torch.from_numpy(flat[perm])
+    slot, tg, M, n_used = tops.pad_sorted_groups(sorted_e, None, E, bm,
+                                                 tight=True)
+    rows = rng.standard_normal((T * k, K)).astype(np.float32)
+    x = np.zeros((M, K), np.float32)
+    x[slot.numpy()] = rows
+    w = (rng.standard_normal((E, K, N)) / np.sqrt(K)).astype(np.float32)
+    if dtype == "bfloat16":
+        (jx, tx), (jw, tw) = _bf16(x), _bf16(w)
+    else:
+        jx, jw, tx, tw = (jnp.asarray(x), jnp.asarray(w), torch.from_numpy(x),
+                          torch.from_numpy(w))
+    plan = tk4.split_plan(M, K, N, bm, torch.bfloat16, 132)
+    assert plan.n_split > 1
+    got = tk4.grouped_matmul_split_plain(tx, tw, tg, bm=bm, n_tiles=n_used,
+                                         k_per_split=plan.k_per_split)
+    want = jgrouped_matmul(jx, jw, jnp.asarray(tg.numpy()), bm=bm, bk=K,
+                           bn=N, interpret=True)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+    pad = np.ones(M, bool)
+    pad[slot.numpy()] = False
+    assert (got[torch.from_numpy(pad)] == 0).all()
+    assert (got[int(n_used) * bm:] == 0).all()

@@ -6,6 +6,10 @@ JAX kernel tests plus hymba's prefill shape (a 24-token prompt under
 chunk 64, so one chunk of 24).  Inputs come from numpy and feed both
 sides.  The scan as the port's bf16 prefill calls it (x, b, c in bf16,
 la and dt in float32) is held against the JAX kernel given the same.
+``ssd_scan_chunked_plain``, the CUDA kernels' passes in PyTorch (every
+chunk's state contribution, the state carried over the chunks, every
+chunk's output), is held against the same, with a case of 8 chunks, and
+``split_plan`` is checked to cover every head and column once.
 
 Tolerances: ``atol=rtol=1e-4`` between the two chunked scans (the same
 float32 arithmetic, summed in another order), for float32 inputs and
@@ -158,7 +162,7 @@ def test_kernel_wrapper_never_falls_back():
         big = [torch.from_numpy(a) for a in _inputs(1, 128, 1, 8, 4)]
         tmod._launch(*big, 128)
     with pytest.raises(ValueError, match="shared memory"):
-        wide = [torch.from_numpy(a) for a in _inputs(1, 64, 1, 512, 128)]
+        wide = [torch.from_numpy(a) for a in _inputs(1, 64, 1, 8, 512)]
         tmod._launch(*wide, 64)
     with pytest.raises(ValueError, match="shape mismatch"):
         tmod.ssd_scan(x, b[:, :8], c, la, dt, chunk=8)
@@ -170,7 +174,82 @@ def test_kernel_wrapper_never_falls_back():
 
 
 def test_smem_bytes_at_hymba_widths():
-    """hymba (q 64, P 64, N 16) fits the default 48 KB of shared memory;
-    the largest chunk at P 128, N 128 still fits a block's 227 KB."""
-    assert tmod.smem_bytes(64, 64, 16) == 4 * 11712 <= 48 * 1024
-    assert tmod.smem_bytes(64, 128, 128) <= tmod._SMEM_LIMIT
+    """The chunk kernel's shared memory by mode, as ``smem_floats`` in
+    ``csrc/ssd_scan.cu`` lays it out: hymba's prefill (one chunk of 24, a
+    P block of 32, N 16) and its long scan (q 64, P 64) fit the default
+    48 KB in the fused and state modes and a block's 227 KB in the output
+    mode; the largest chunk at mamba2's state (N 128), P 128 cut in P
+    blocks of 64, fits a block's 227 KB in every mode."""
+    floats = 4 * 24 + 24 * 32 + 24 * 16 + 2 * 16 * 24 + 2 * 24 * 24
+    assert tmod.smem_bytes(24, 32, 16, "fused") == 4 * floats <= 48 * 1024
+    assert tmod.smem_bytes(24, 64, 128, "fused") == 4 * (
+        4 * 24 + 24 * 64 + 24 * 128 + 2 * 128 * 24 + 2 * 24 * 24) \
+        <= 48 * 1024
+    assert tmod.smem_bytes(64, 64, 16, "state") == \
+        4 * (4 * 64 + 64 * 64 + 64 * 16) <= 48 * 1024
+    assert tmod.smem_bytes(64, 64, 16, "output") == \
+        4 * (4 * 64 + 64 * 64 + 2 * 16 * 64 + 2 * 64 * 64 + 16 * 64)
+    plan = tmod.split_plan(1, 2048, 32, 128, 128, 64, 132)
+    assert plan.p_block == 64
+    for mode in tmod.MODES:
+        assert tmod.smem_bytes(64, plan.p_block, 128, mode) \
+            <= tmod._SMEM_LIMIT
+
+
+# ---- the kernels' passes (split_plan, ssd_scan_chunked_plain) ----
+
+MANY_CHUNKS = (1, 128, 2, 16, 8, 16)          # 8 chunks of 16
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SHAPES + [MANY_CHUNKS])
+def test_ssd_scan_chunked_plain_matches_jax(B, S, H, P, N, chunk, dtype):
+    """The kernels' passes (every chunk's state contribution, the state
+    carried over the chunks, every chunk's output) against the JAX
+    kernel in interpret mode and the sequential recurrence."""
+    j, t = _sides(_inputs(B, S, H, P, N, seed=3), dtype)
+    y, s = tmod.ssd_scan_chunked_plain(*t, chunk=chunk)
+    assert y.dtype == s.dtype == torch.float32
+    assert tuple(y.shape) == (B, S, H, P) and tuple(s.shape) == (B, H, P, N)
+    jy, js = jssd_scan(*j, chunk=chunk, interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+    ry, rs = jssd_ref(*j)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), **SEQ_TOL)
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), **SEQ_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 24, 50, 64, 16, 64), (8, 24, 32, 64, 128, 64),
+    (4, 4096, 50, 64, 16, 64), (1, 2048, 32, 64, 128, 64),
+    (2, 96, 8, 32, 16, 24), (2, 16, 4, 8, 4, 1), *SHAPES, MAMBA2_SMOKE])
+@pytest.mark.parametrize("sm_count", [1, 132])
+def test_split_plan_covers_every_head_and_column(B, S, H, P, N, chunk,
+                                                 sm_count):
+    """The plan's blocks cover every (head, p) of every (batch, chunk)
+    once, a call of one chunk takes one launch, and the blocks' shared
+    memory fits in every mode the call runs."""
+    q = tmod.chunk_len(S, chunk)
+    plan = tmod.split_plan(B, S, H, P, N, q, sm_count)
+    assert plan.n_chunks == S // q
+    assert tmod._modes(plan.n_chunks) == (
+        ("fused",) if S == q else ("state", "output"))
+    assert plan.heads in tmod.HEAD_GROUPS or plan.heads == H
+    assert 1 <= plan.p_block <= 64
+    seen = np.zeros((H, P), dtype=np.int64)
+    for g in range(-(-H // plan.heads)):
+        for pb in range(-(-P // plan.p_block)):
+            h0, p0 = g * plan.heads, pb * plan.p_block
+            seen[h0:min(H, h0 + plan.heads),
+                 p0:min(P, p0 + plan.p_block)] += 1
+    assert (seen == 1).all()
+    for mode in tmod._modes(plan.n_chunks):
+        assert tmod.smem_bytes(q, plan.p_block, N, mode) <= tmod._SMEM_LIMIT
+
+
+def test_split_plan_spreads_a_short_prefill_over_the_card():
+    """hymba's prefill (one request, one chunk, 50 heads) takes more blocks
+    than heads; mamba2-370m's long scan shares C B^T over 8 heads."""
+    plan = tmod.split_plan(1, 24, 50, 64, 16, 24, 132)
+    assert -(-50 // plan.heads) * -(-64 // plan.p_block) > 50
+    assert tmod.split_plan(1, 2048, 32, 64, 128, 64, 132).heads == 8
