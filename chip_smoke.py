@@ -19,9 +19,11 @@ Phases (any failure exits non-zero and prints no result):
           against split_partials_plain), over the serving shapes, a
           long ragged pool, GQA, sliding windows, hymba's shape (25
           query heads over 5 KV heads, a 1024 window, lengths up to
-          2048), arctic's (56 over 8, d 128), kimi-k2's (64 over 8, d
-          112) and the edges of the split plan's page ranges (lengths on
-          an edge, a window that empties whole ranges, an empty lane);
+          2048), arctic's (56 over 8, d 128; deepseek-coder-33b's too),
+          kimi-k2's (64 over 8, d 112), starcoder2-7b's (36 over 4, d
+          128), phi3-medium-14b's (40 over 10, d 128) and the edges of
+          the split plan's page ranges (lengths on an edge, a window
+          that empties whole ranges, an empty lane);
           then the serve, long and arctic shapes with float8_e4m3fn
           pages (a KV cache stored in fp8) under float32 and bfloat16 q,
           and qwen1.5-0.5b at full width decoding 4 steps through
@@ -34,11 +36,12 @@ Phases (any failure exits non-zero and prints no result):
           prefill (8 prompts, 32 heads of 64, state 128) and a long
           mamba2 case (chunk 64), the reference test shapes, many chunks
           of 24, chunks of one position and mamba2's width over 4 chunks.
-  k2      K2 gather_rows bitwise on the embedding tables of hymba,
-          qwen, arctic, whisper and mamba2 in bf16 (whisper's and
-          mamba2's also in float32) at 8, 24, 192 (a dense prefill of 8
-          prompts) and 8192 ids, each timed after an L2 flush beside
-          ``F.embedding``.
+  k2      K2 gather_rows bitwise on the embedding tables of every
+          served config (hymba, qwen, arctic, whisper, mamba2,
+          starcoder2, phi3, deepseek, kimi, paligemma) in bf16 (whisper's,
+          mamba2's, starcoder2's and paligemma's also in float32) at 8,
+          24, 192 (a dense prefill of 8 prompts) and 8192 ids, each timed
+          after an L2 flush beside ``F.embedding``.
   k4      K4 grouped_matmul against its plain twin on the reference test
           shapes and on MARS-sorted, tile-padded routings at arctic's
           decode (w_in and w_out) and prefill and kimi's decode, then on
@@ -50,10 +53,12 @@ Phases (any failure exits non-zero and prints no result):
           encoder (8 x 1500 frames, 8 heads of 64, no mask), its
           cross-attention (24 and 1 queries over 1500 frames) and
           decoder prefill, the causal prefills of qwen (16 x 64),
-          arctic (56 x 128), kimi (64 x 112) and the smoke configs (d
-          16), a long causal prefill (8192 tokens, 16 x 128), the
-          reference test shapes and ragged cases with few keys (1, 7
-          and 24 queries over 40 or 100 keys, head dims 16 to 128),
+          arctic (56 x 128), kimi (64 x 112), starcoder2 (36 x 128),
+          phi3 (40 x 128), paligemma (8 prompts, 8 x 256) and the smoke
+          configs (d 16), long causal prefills (8192 tokens, 16 x 128;
+          2048 tokens, 8 x 256), the reference test shapes and ragged
+          cases with few keys (1, 7 and 24 queries over 40 or 100 keys,
+          head dims 16 to 256; one query over 1000 keys at d 256),
           each through the kernel ``split_plan`` picks (wgmma tiles for
           many bf16 queries; 16-row tiles with the keys split over
           blocks and merged in the launch for few; float32).  bfloat16
@@ -70,8 +75,13 @@ Phases (any failure exits non-zero and prints no result):
           gather decode path) and arctic_480b's first 2 of 35 layers (d
           7168, 128 experts top-2, a dense residual MLP; also through the
           gather decode path), then the arctic and kimi-k2 smoke configs
-          in float32, random weights from a seed: served tokens must pass
-          the teacher-forced check against the port's dense backend
+          in float32, starcoder2_7b (32 layers, d 4608, 36 heads over 4;
+          also in float32), phi3_medium_14b (40 layers, d 5120, 40 over
+          10), deepseek_coder_33b (all 62 layers, d 7168, 56 over 8) and
+          kimi_k2_1t_a32b's first 2 of 61 layers (d 7168, its dense layer
+          and one of 384 experts top-8 with a shared expert), random
+          weights from a seed: served tokens must pass the
+          teacher-forced check against the port's dense backend
           (exact argmax in float32, a near-tie margin in bfloat16; each
           run prints its largest deficit), and with every launch count
           set to 0 just before each run, paged_attention's split and
@@ -91,18 +101,21 @@ Phases (any failure exits non-zero and prints no result):
   dense   ``repro_torch.launch.serve --config <arch>`` (the dense-backend
           scheduler path, ``mars=False`` then ``mars=True``) at full
           width for whisper_base (6 encoder + 6 decoder layers, d 512,
-          1500 stub frames) and mamba2_370m (48 layers, d 1024, state
-          128), each in bfloat16 and in float32: the served tokens of
-          every batch are teacher-forced through ``lm.forward`` on the
-          card (exact argmax in float32, the bf16 near-tie margin with
-          the measured noise term otherwise), and with every count set
-          to 0 just before each run, flash_attention must have launched
-          (encoder + 2 x decoder layers) times per prefill and once per
-          decoder layer per decode step, ssd_scan once per layer per
-          prefill and gather_rows once per embedding lookup.  The bf16
-          runs also report how far their served tokens, and their bf16
-          forward's own argmax, sit from a float32 forward on the same
-          weights.  Each bfloat16 run is then served twice more, warm
+          1500 stub frames), mamba2_370m (48 layers, d 1024, state 128)
+          and paligemma_3b (18 layers, d 2048, 8 heads of 256 over one KV
+          head, its text-only decoder as the reference serves it), each
+          in bfloat16 and in float32: the served tokens of every batch
+          are teacher-forced through ``lm.forward`` on the card
+          (paligemma's with an empty image prefix; exact argmax in
+          float32, the bf16 near-tie margin with the measured noise term
+          otherwise), and with every count set to 0 just before each
+          run, flash_attention must have launched (encoder + 2 x decoder
+          layers) times per prefill and once per decoder layer per
+          decode step (paligemma: once a layer a prefill), ssd_scan once
+          per layer per prefill and gather_rows once per embedding
+          lookup.  The bf16 runs also report how far their served
+          tokens, and their bf16 forward's own argmax, sit from a
+          float32 forward on the same weights.  Each bfloat16 run is then served twice more, warm
           and profiled, as above.
 
 Prints the card's name and power limit (as ``nvidia-smi`` gives them), a
@@ -162,11 +175,16 @@ K5_GAIN_TOL = 2.0 ** -8
 # K5 cases: (name, B, Sq, Sk, H, D, causal).  whisper-base serves 8
 # prompts of 24 tokens over 1500 stub frames: its encoder, its
 # cross-attention at prefill and at decode (one query), its decoder's
-# prefill; the causal 24-token prefills of qwen1.5-0.5b, arctic-480b,
-# kimi-k2 and the smoke configs (d 16); a long prefill; the reference's
-# kernel test shapes; and ragged cases with few keys at every head dim,
-# where the keys past Sk in the last tile (24 of 64 at Sk 40, 28 at Sk
-# 100) would move o by tens of percent if their mask were lost.
+# prefill; the causal 24-token prefills of qwen1.5-0.5b, arctic-480b
+# (and deepseek-coder-33b: 56 x 128 too), kimi-k2, starcoder2-7b,
+# phi3-medium-14b, paligemma-3b's dense batch of 8 (d 256, 8 heads after
+# its one KV head is repeated) and the smoke configs (d 16); a long
+# prefill at d 128 and at d 256 (d 256 runs the 16-row tiles at every
+# length); the reference's kernel test shapes; and ragged cases with few
+# keys at every head dim, where the keys past Sk in the last tile (24 of
+# 64 at Sk 40, 28 at Sk 100) would move o by tens of percent if their
+# mask were lost (at d 256 also one query over 1000 keys, cut into key
+# ranges merged in the launch).
 K5_CASES = [("whisper_encoder", 8, 1500, 1500, 8, 64, False),
             ("whisper_cross_prefill", 8, 24, 1500, 8, 64, False),
             ("whisper_cross_decode", 8, 1, 1500, 8, 64, False),
@@ -174,8 +192,12 @@ K5_CASES = [("whisper_encoder", 8, 1500, 1500, 8, 64, False),
             ("qwen_prefill", 1, 24, 24, 16, 64, True),
             ("arctic_prefill", 1, 24, 24, 56, 128, True),
             ("kimi_prefill", 1, 24, 24, 64, 112, True),
+            ("starcoder2_prefill", 1, 24, 24, 36, 128, True),
+            ("phi3_prefill", 1, 24, 24, 40, 128, True),
+            ("paligemma_prefill", 8, 24, 24, 8, 256, True),
             ("smoke_prefill", 1, 24, 24, 4, 16, True),
             ("long_prefill", 1, 8192, 8192, 16, 128, True),
+            ("long_d256", 1, 2048, 2048, 8, 256, True),
             ("ref_a", 1, 128, 128, 2, 64, True),
             ("ref_b", 2, 256, 256, 4, 64, True),
             ("ref_c", 1, 512, 512, 1, 128, True),
@@ -186,6 +208,8 @@ K5_CASES = [("whisper_encoder", 8, 1500, 1500, 8, 64, False),
             ("ragged_d16_24x40", 1, 24, 40, 4, 16, False),
             ("ragged_d112_7x100", 1, 7, 100, 4, 112, False),
             ("ragged_d128_24x40", 1, 24, 40, 4, 128, False),
+            ("ragged_d256_7x100", 1, 7, 100, 4, 256, False),
+            ("ragged_d256_1x1000", 2, 1, 1000, 4, 256, False),
             ("ragged_causal_100", 1, 100, 100, 4, 64, True)]
 OUT_DIR = ROOT / "chiprun_out"
 # serve runs, each its own path for the launch counts: (config, extra
@@ -199,6 +223,13 @@ OUT_DIR = ROOT / "chiprun_out"
 # MoE smoke configs in float32 are the exact gates of the MoE path
 # through K4 (their d_head of 16 is outside K1, so they decode through
 # the gathered view; kimi's covers blocks_dense and the shared expert).
+# The dense GQA models at d 128 serve at full width: starcoder2-7b
+# (LayerNorm, GELU, QKV bias; 36 heads over 4) in bf16 and in float32
+# (about 30 GB: the exact gate of K1 and K5 at n_rep 9), phi3-medium-14b
+# (40 over 10) and deepseek-coder-33b, all 62 layers (66.7 GB in bf16,
+# 56 over 8); kimi-k2 serves its first 2 of 61 layers at published
+# width (its dense layer and one of 384 experts top-8 with a shared
+# expert, 39 GB).
 ARCTIC = ("--layers", "2")
 RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
         ("hymba_1_5b", ("--dtype", "float32")),
@@ -208,13 +239,18 @@ RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
         ("arctic_480b", ("--smoke", "--dtype", "float32",
                          "--no-kernel-decode")),
         ("kimi_k2_1t_a32b", ("--smoke", "--dtype", "float32",
-                             "--no-kernel-decode")))
+                             "--no-kernel-decode")),
+        ("starcoder2_7b", ()), ("starcoder2_7b", ("--dtype", "float32")),
+        ("phi3_medium_14b", ()), ("deepseek_coder_33b", ()),
+        ("kimi_k2_1t_a32b", ("--layers", "2")))
 # flags that take a run off the profiled bf16 kernel path
 UNPROFILED = {"--dtype", "--no-kernel-decode", "--smoke"}
 # dense-backend runs (``serve.main`` without --paged): (config, flags);
-# the bf16 ones are profiled
+# the bf16 ones are profiled.  paligemma-3b serves its text-only decoder
+# (d 256 heads, MQA), as the reference's ``main`` does
 DENSE_RUNS = (("whisper_base", ()), ("whisper_base", ("--dtype", "float32")),
-              ("mamba2_370m", ()), ("mamba2_370m", ("--dtype", "float32")))
+              ("mamba2_370m", ()), ("mamba2_370m", ("--dtype", "float32")),
+              ("paligemma_3b", ()), ("paligemma_3b", ("--dtype", "float32")))
 
 
 def run_name(arch: str, flags=()) -> str:
@@ -278,19 +314,9 @@ def cold_ms(torch, fn, reps: int, flush) -> float:
 
 
 def device_rows(prof) -> list:
-    """Device-side rows (kernels, copies) of a ``torch.profiler`` run:
-    name, summed device ms and count, longest first."""
-    from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append(dict(name=e.key, ms=us / 1e3, calls=e.count))
-    return sorted(rows, key=lambda r: -r["ms"])
+    """Device-side rows (kernels, copies) of a finished ``torch.profiler``
+    run: name, summed device ms and count, longest first (``raw_rows``)."""
+    return raw_rows(prof)[0]
 
 
 class Unread(RuntimeError):
@@ -416,6 +442,17 @@ def kernel_phase(torch, gen):
                            lengths=[0, 1, 17, 255, 1024, 1500, 2047,
                                     2048]),
                       1, 0))
+        # starcoder2-7b's (36 over 4, n_rep 9) and phi3-medium-14b's (40
+        # over 10, n_rep 4) shapes at d 128: a KV head's query group
+        # fills 9 and 4 of the 16 rows a block holds (deepseek-coder-33b's
+        # 56 over 8 is arctic's)
+        for name, H, Hkv in (("starcoder2", 36, 4), ("phi3", 40, 10)):
+            cases.append((name, dtype,
+                          dict(B=8, H=H, Hkv=Hkv, D=128, page=16, L=2,
+                               P=1100, n_pages=128,
+                               lengths=[0, 1, 17, 255, 1024, 1500, 2047,
+                                        2048]),
+                          1, 0))
         # the edges of the split plan's page ranges on this card: lengths
         # on, one short of and one past a range edge, one lane at 0; a
         # window whose start falls on range edges and empties the ranges
@@ -512,8 +549,8 @@ def kernel_phase(torch, gen):
                             ok=ok_all))
         max_err = max(max_err, e_o, e_d, e_dp)
         merge_err = max(merge_err, e_mg)
-        if name in ("serve", "long", "hymba", "arctic", "kimi", "serve_fp8",
-                    "long_fp8", "arctic_fp8"):
+        if name in ("serve", "long", "hymba", "arctic", "kimi", "starcoder2",
+                    "phi3", "serve_fp8", "long_fp8", "arctic_fp8"):
             timed[(name, dtype)] = (q, kp, vp, kn, vn, pt, ln, layer, window,
                                     shp)
     bad = [r for r in results if not r["ok"]]
@@ -914,12 +951,18 @@ def time_k5(torch, F, k5, q, k, v, causal: bool, dtype: str,
 
 
 # K2 tables: the embedding tables of the served configs, (V, D, dtypes):
-# all in bf16, and the two the dense float32 runs gather also in float32
+# all in bf16, and those the dense float32 runs and starcoder2's float32
+# run gather also in float32
 GATHER_TABLES = {"hymba": (32001, 1600, ("bfloat16",)),
                  "qwen": (151936, 1024, ("bfloat16",)),
                  "arctic": (32000, 7168, ("bfloat16",)),
                  "whisper": (51865, 512, ("bfloat16", "float32")),
-                 "mamba2": (50280, 1024, ("bfloat16", "float32"))}
+                 "mamba2": (50280, 1024, ("bfloat16", "float32")),
+                 "starcoder2": (49152, 4608, ("bfloat16", "float32")),
+                 "phi3": (100352, 5120, ("bfloat16",)),
+                 "deepseek": (32256, 7168, ("bfloat16",)),
+                 "kimi": (163840, 7168, ("bfloat16",)),
+                 "paligemma": (257216, 2048, ("bfloat16", "float32"))}
 # 8: a decode step's lanes; 24: one prompt; 192: a dense prefill of 8
 # prompts of 24; 8192: a long prefill
 GATHER_IDS = (8, 24, 192, 8192)
@@ -1271,7 +1314,9 @@ def serve_phase(torch, serve, arch: str, flags=()):
         # the SSM prefill keeps its decay in f32 (models/ssm.py): how far
         # the served bf16 tokens sit from a float32 answer (the whole
         # sequence is forwarded: a hybrid's scan needs a multiple of its
-        # chunk, and prompt + 8 tokens is one)
+        # chunk, and prompt + 8 tokens is one).  Not for the paged dense
+        # and MoE runs: a float32 copy of deepseek-coder-33b's, kimi-k2's
+        # or arctic's weights does not fit on the card beside them
         rids = sorted(out["finished"])
         dev = out["params"]["embed"]["tok"].device
         prompts = torch.tensor([out["prompts"][r] for r in rids],
@@ -1282,7 +1327,96 @@ def serve_phase(torch, serve, arch: str, flags=()):
             (torch.cat([prompts, toks], dim=1), prompts.shape[1], toks,
              None)])
         print_f32_distance(f"[serve {name}]", out["f32"])
+    if cfg.is_moe and cfg.cdtype != torch.float32:
+        # router near ties decide the teacher-forced check of a bf16 MoE
+        # run; this one holds K4 on the run's own hidden states instead
+        out["routed"] = routed_layer_check(torch, cfg, out)
+        r = out["routed"]
+        print(f"[serve {name}] routed layer (K4) on {r['tokens']} served "
+              f"tokens against float32 math on the same weights and expert "
+              f"choices: largest per-token relative error "
+              f"{r['k4_max_rel']:.4g} (mean {r['k4_mean_rel']:.4g}); the "
+              f"plain bf16 math's {r['plain_max_rel']:.4g} (mean "
+              f"{r['plain_mean_rel']:.4g}); limit {ROUTED_NOISE_FACTOR} x "
+              f"the plain's")
+        if not r["k4_max_rel"] <= ROUTED_NOISE_FACTOR * r["plain_max_rel"]:
+            raise AssertionError(f"{name}: the routed layer through K4 is "
+                                 f"further from float32 than "
+                                 f"{ROUTED_NOISE_FACTOR} x bf16 math: {r}")
     return out, launches
+
+
+# How far from float32 math the routed layer through K4 may be, as a
+# multiple of the plain bfloat16 math's own distance on the same inputs
+ROUTED_NOISE_FACTOR = 2
+
+
+class _Captured(Exception):
+    """Stops a forward once the first MoE layer's input is read."""
+
+
+def moe_layer_input(torch, cfg, params, seq):
+    """The first MoE layer's parameters and the hidden states (B, S, d)
+    that ``lm.forward`` of ``seq`` hands its routed experts."""
+    from repro_torch.models import lm, moe
+    apply, got = moe.moe_apply, []
+
+    def capture(p, x, c):
+        got.append((p, x))
+        raise _Captured
+    moe.moe_apply = capture
+    try:
+        with torch.no_grad():
+            lm.forward(params, cfg, seq)
+    except _Captured:
+        pass
+    finally:
+        moe.moe_apply = apply
+    return got[0]
+
+
+def routed_layer_check(torch, cfg, out) -> dict:
+    """K4 on a served MoE run's own data, with no router tie in the way:
+    the served sequences (prompt + served tokens) are forwarded to the
+    first MoE layer, whose routed experts then run through the serve
+    path's dispatch (K4, in the compute dtype), through float32 math on
+    the same weights and the same expert choices and gates, and through
+    the same per-expert math in the compute dtype (the plain version).
+    Reports each one's largest and mean per-token relative L2 distance
+    from the float32 answer."""
+    from repro_torch.models import layers, moe
+    rids = sorted(out["finished"])
+    dev = out["params"]["embed"]["tok"].device
+    seq = torch.cat([
+        torch.tensor([out["prompts"][r] for r in rids], dtype=torch.int32,
+                     device=dev),
+        torch.tensor([out["finished"][r][0] for r in rids],
+                     dtype=torch.int32, device=dev)], dim=1)
+    p, x = moe_layer_input(torch, cfg, out["params"], seq)
+    cd, f32 = cfg.cdtype, torch.float32
+    xf = x.reshape(-1, cfg.d_model)
+    with torch.no_grad():
+        idx, gates, _ = moe.router_topk(p, xf, cfg)
+        got = moe._mars_dispatch_local(p, xf, cfg)[0].float()
+        T, k = idx.shape
+        parts = {dt: torch.empty(T, k, cfg.d_model, dtype=dt, device=dev)
+                 for dt in (f32, cd)}
+        for e in idx.unique().tolist():
+            t, j = (idx == e).nonzero(as_tuple=True)
+            for dt, part in parts.items():
+                xe = xf[t].to(cd).to(dt)
+                w_in, w_gate, w_out = (p[n][e].to(cd).to(dt)
+                                       for n in ("w_in", "w_gate", "w_out"))
+                h = layers._act(xe @ w_gate, cfg.act) * (xe @ w_in)
+                part[t, j] = h @ w_out
+        ref = (parts[f32] * gates.float()[..., None]).sum(1)
+        plain = (parts[cd] * gates.to(cd)[..., None]).sum(1).float()
+        norm = ref.norm(dim=-1).clamp_min(1e-30)
+        k4 = (got - ref).norm(dim=-1) / norm
+        bf = (plain - ref).norm(dim=-1) / norm
+    return dict(tokens=T, k4_max_rel=float(k4.max()),
+                k4_mean_rel=float(k4.mean()), plain_max_rel=float(bf.max()),
+                plain_mean_rel=float(bf.mean()))
 
 
 def ssd_passes(cfg, prompts) -> int:
@@ -1387,10 +1521,53 @@ def profile_serve(torch, serve, args) -> dict:
                 **profile_summary(prof, wall))
 
 
+def raw_rows(prof) -> tuple:
+    """The device rows (kernels, copies) of a finished profile and its
+    host ops with their self time, each row a name, summed ms and count,
+    longest first, read from the profiler's raw events: building its
+    event tree (``key_averages``) for a serve run of hundreds of
+    thousands of events took most of a profiled run's time on the H100.
+    A host op's self time is its duration less that of the ops nested in
+    it on its thread."""
+    from torch.autograd import DeviceType
+    dev, host, threads = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            r = dev.setdefault(e.name(), [0, 0])
+            r[0] += e.duration_ns()
+            r[1] += 1
+        elif e.device_type() == DeviceType.CPU and not e.is_async():
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), e.name()))
+
+    def close(op):
+        r = host.setdefault(op[1], [0, 0])
+        r[0] += op[2]
+        r[1] += 1
+    for ops in threads.values():
+        ops.sort()
+        stack = []                      # open ops: [end, name, self ns]
+        for start, neg_end, name in ops:
+            while stack and stack[-1][0] <= start:
+                close(stack.pop())
+            end = -neg_end
+            if stack:
+                stack[-1][2] -= min(end, stack[-1][0]) - start
+            stack.append([end, name, end - start])
+        for op in stack:
+            close(op)
+
+    def rows(d):
+        return sorted((dict(name=k, ms=v[0] / 1e6, calls=v[1])
+                       for k, v in d.items() if v[0] > 0),
+                      key=lambda r: -r["ms"])
+    return rows(dev), rows(host)
+
+
 def profile_summary(prof, wall: float) -> dict:
     """Device time by kernel and by kind, busy share over ``wall`` and
     the host ops with the most self time of a finished profile."""
-    rows = device_rows(prof)
+    rows, host = raw_rows(prof)
     if not rows:
         raise Unread("serve profile: torch.profiler recorded no device time")
     buckets: dict = {}
@@ -1408,10 +1585,6 @@ def profile_summary(prof, wall: float) -> dict:
              "other")
         buckets[b] = buckets.get(b, 0.0) + r["ms"]
     dev_ms = sum(r["ms"] for r in rows)
-    host = sorted(({"name": e.key, "ms": e.self_cpu_time_total / 1e3,
-                    "calls": e.count} for e in prof.key_averages()
-                   if e.self_cpu_time_total > 0),
-                  key=lambda r: -r["ms"])
     return dict(wall_s=wall, device_ms=dev_ms,
                 busy_share=dev_ms / 1e3 / wall,
                 kernel_calls={k: sum(r["calls"] for r in rows
@@ -1425,7 +1598,8 @@ def dense_launches_wanted(cfg, prefills: int, steps: int) -> dict:
     """Launches of each kernel on a dense-backend run of ``prefills``
     batches and ``steps`` decode steps: flash_attention over the encoder,
     the decoder's causal prefill and its cross-attention at prefill and
-    at every step; ssd_scan in every SSM layer's prefill; gather_rows in
+    at every step (a VLM's text-only decoder: once a layer a prefill, no
+    cross term); ssd_scan in every SSM layer's prefill; gather_rows in
     every embedding lookup of a large table."""
     L = cfg.n_layers
     cross = L if cfg.family == "encdec" else 0
@@ -1501,9 +1675,21 @@ def print_f32_distance(tag: str, d: dict) -> None:
           f"{d['bf16_forward_not_argmax']}/{d['positions']} off")
 
 
+def forward_frontend(torch, cfg, o):
+    """What ``lm.forward`` reads beside a served batch's tokens: the
+    batch's frame embeddings, or for a VLM, which served its text-only
+    decoder, an empty (B, 0, d) image prefix (the same model)."""
+    if cfg.family != "vlm":
+        return o["frontend"]
+    p = o["prompts"]
+    return torch.zeros((p.shape[0], 0, cfg.d_model), dtype=cfg.cdtype,
+                       device=p.device)
+
+
 def dense_check(torch, serve, out) -> dict:
     """Teacher-force every served batch through ``lm.forward`` (prompt +
-    served tokens but the last, the batch's frame embeddings) and hold
+    served tokens but the last, the batch's frame embeddings or a VLM's
+    empty image prefix, ``forward_frontend``) and hold
     each served token against the forward logits before it: exact argmax
     in float32; in bfloat16 within ``serve.near_tie_margin`` or
     ``serve.NOISE_FACTOR`` times the median dense noise (the largest
@@ -1518,7 +1704,7 @@ def dense_check(torch, serve, out) -> dict:
         for o in batches:
             S = o["prompts"].shape[1]
             seq = torch.cat([o["prompts"], o["tokens"][:, :-1]], dim=1)
-            fe = o["frontend"]
+            fe = forward_frontend(torch, cfg, o)
             logits = lm.forward(params, cfg, seq, fe)[:, S - 1:].float()
             if not torch.isfinite(logits).all():
                 raise AssertionError("non-finite forward logits")
@@ -1603,8 +1789,8 @@ def dense_phase(torch, serve, arch: str, flags=()):
     if cfg.cdtype != torch.float32:
         check["f32"] = f32_distance(torch, cfg, out["params"], [
             (torch.cat([o["prompts"], o["tokens"][:, :-1]], dim=1),
-             o["prompts"].shape[1], o["tokens"], o["frontend"])
-            for o in batches])
+             o["prompts"].shape[1], o["tokens"],
+             forward_frontend(torch, cfg, o)) for o in batches])
         print_f32_distance(f"[dense {name}]", check["f32"])
     stats = dict(served=[r["served"] for r in runs],
                  batches=[r["batches"] for r in runs],
@@ -1816,8 +2002,15 @@ def main(argv=None) -> int:
 
     # -- serve at full width, then profile it warm ---------------------------
     served, launches, profiles, failed = {}, {}, {}, []
+    run_s = {}                    # seconds of each run: checked, profiled
+
+    def timed_run(name, t0, t1):
+        run_s[name] = [t1 - t0, time.perf_counter() - t1]
+        print(f"[time] {name}: checked run {run_s[name][0]:.1f}s, warm and "
+              f"profiled runs {run_s[name][1]:.1f}s")
     for arch, flags in runs if "serve" in phases else ():
         name = run_name(arch, flags)
+        t0 = time.perf_counter()
         try:
             out, launches[name] = serve_phase(torch, serve, arch, flags)
         except AssertionError as e:       # go on: later runs still report
@@ -1828,13 +2021,16 @@ def main(argv=None) -> int:
         served[name] = {k: v for k, v in out.items() if k not in NOT_STATS}
         del out
         free_device(torch, name)
+        t1 = time.perf_counter()
         if not UNPROFILED & set(flags):
             profiles[name] = profile_serve(torch, serve,
                                            serve_args(arch, flags))
             print_profile(name, profiles[name])
             free_device(torch, f"profiling {name}")
+        timed_run(name, t0, t1)
     for arch, flags in dense_runs if "dense" in phases else ():
         name = run_name(arch, flags)
+        t0 = time.perf_counter()
         try:
             served[name], launches[name] = dense_phase(torch, serve, arch,
                                                        flags)
@@ -1844,11 +2040,13 @@ def main(argv=None) -> int:
             free_device(torch, name)
             continue
         free_device(torch, name)
+        t1 = time.perf_counter()
         if not UNPROFILED & set(flags):
             profiles[name] = profile_dense(torch, serve,
                                            dense_args(arch, flags))
             print_profile(name, profiles[name])
             free_device(torch, f"profiling {name}")
+        timed_run(name, t0, t1)
     total_s = time.perf_counter() - t_start
     print(f"[time] build {build_s:.1f}s, build + kernel phases "
           f"{kernels_s:.1f}s, whole run {total_s:.1f}s")
@@ -1859,6 +2057,7 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
     record.update(device=smi, kernels_s=kernels_s, total_s=total_s,
+                  run_s=run_s,
                   serve=served, launches=launches, profile=profiles)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if failed:

@@ -1,24 +1,26 @@
 """Architecture registry: ``get(name)`` -> full ModelConfig,
 ``get_smoke(name)`` -> reduced same-family config for CPU tests.
 
-Lists the architectures the port has a config for: those it serves today
-(dense GQA, the hybrid attention + SSM family, the MoE family, the
-pure-SSM family and the encoder-decoder family) and deepseek-coder-33b,
-whose smoke config the fp8 KV-cache tests need (its full-width serve is
-still to come); the reference's other three wait for their slices (see
-ROADMAP.md)."""
+Every config of the reference registry (``repro/configs``), field for
+field: the dense GQA models, the hybrid attention + SSM family, the MoE
+family, the pure-SSM family, the encoder-decoder family and the VLM
+family (paligemma, served as its text-only decoder, as the reference
+serves it)."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = (
+    "mamba2_370m",
+    "deepseek_coder_33b",
     "qwen1_5_0_5b",
-    "hymba_1_5b",
+    "starcoder2_7b",
+    "phi3_medium_14b",
     "arctic_480b",
     "kimi_k2_1t_a32b",
     "whisper_base",
-    "mamba2_370m",
-    "deepseek_coder_33b",
+    "paligemma_3b",
+    "hymba_1_5b",
 )
 
 # CLI ids (--arch) map dashes to underscores

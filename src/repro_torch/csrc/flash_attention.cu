@@ -14,7 +14,7 @@
 // Sk - Sq; no caller needs that case, so it is refused).  Unlike the TPU
 // kernel, any Sq and Sk are taken (the ragged tail is masked here), Sq
 // may differ from Sk when not causal (cross-attention), and the head dim
-// is 16, 64, 112 or 128.
+// is 16, 64, 112, 128 or 256.
 //
 // Bound: operations at the path's long shapes.  Whisper-base's encoder
 // self-attention (B 8, S 1500, 8 heads of 64) does 4 B H S^2 D = 36.9
@@ -55,18 +55,28 @@
 //     the wgmmas in order for want of registers; overlapping a tile's
 //     softmax with the last tile's p.v, with setmaxnreg or a ping-pong of
 //     the warpgroups, measured slower on an H100: see PERF.md.)
-//   * bfloat16 otherwise (few queries, or head dim 16): mma.sync tiles of
-//     16 query rows, the keys split into ranges over blocks.  With few
-//     queries a 64-row tile is mostly padding (1/64 useful at one query)
-//     and B*H blocks leave most of the card idle while each walks every
-//     key in series (whisper's cross-attention at decode: 64 blocks over
-//     1500 keys).  So the keys [0, Sk) are cut into ranges of whole
-//     64-key stages, from shapes and the SM count alone (about 3 blocks
-//     an SM), and block (range, query tile, batch-head) walks its range:
-//     K and V through a 2-stage cp.async ring (37 KB at D 64, so five
-//     blocks share an SM and their loads overlap), each warp 16 keys of a
-//     stage with its own softmax state, q.k and p.v on mma.sync m16n8k16
-//     (p in registers), the four warp states merged in shared memory.
+//   * bfloat16 otherwise (few queries, or head dim 16 or 256): mma.sync
+//     tiles of 16 query rows, the keys split into ranges over blocks.
+//     With few queries a 64-row tile is mostly padding (1/64 useful at
+//     one query) and B*H blocks leave most of the card idle while each
+//     walks every key in series (whisper's cross-attention at decode: 64
+//     blocks over 1500 keys).  So the keys [0, Sk) are cut into ranges of
+//     whole 64-key stages, from shapes and the SM count alone (about 3
+//     blocks an SM), and block (range, query tile, batch-head) walks its
+//     range: K and V through a 2-stage cp.async ring (37 KB at D 64, so
+//     five blocks share an SM and their loads overlap), each warp 16 keys
+//     of a stage with its own softmax state, q.k and p.v on mma.sync
+//     m16n8k16 (p in registers), the four warp states merged in shared
+//     memory.
+//     At D 256 (paligemma's heads; a 64 x 256 f32 wgmma accumulator
+//     would take 128 registers a thread before S and P, so the wgmma
+//     tiles stop at 128) a stage of K and V is 66 KB: the ring takes 3
+//     stages (206 KB with q, one block an SM) so that two stages are in
+//     flight while one is read, and the q fragments are read from shared
+//     memory at each step instead of being held in 64 registers beside
+//     the 128 of the accumulator.  Halving the keys a stage would give
+//     two blocks an SM only with two warps each: the same four warps and
+//     keys in flight an SM, with more barriers.
 //     With one range the block writes o; with more it writes an f32
 //     partial (acc, m, l) to scratch and counts itself on an arrival
 //     counter of its query tile, and the last block of the tile to arrive
@@ -594,10 +604,13 @@ constexpr int kWarps = 4;
 constexpr int kRows = 16;              // query rows a block owns
 constexpr int kStage = 64;             // keys a ring stage holds
 constexpr int kWarpKeys = kStage / kWarps;
-constexpr int kStages = 2;             // small blocks: 5 an SM at D 64
 
 template <int D>
 struct Geo {
+  // small blocks below D 256: 5 an SM at D 64; at D 256 one block an SM
+  // with a deeper ring (see the design note above)
+  static constexpr int kStages = D == 256 ? 3 : 2;
+  static constexpr bool kQInRegs = D <= 128;   // q fragments in registers
   static constexpr int kPitch = D + 8;                 // padded bf16 row
   static constexpr int kChunks = D / 8;                // 16-byte copies a row
   static constexpr int kStageElems = 2 * kStage * kPitch;   // K then V
@@ -606,6 +619,7 @@ struct Geo {
   static constexpr size_t kSmem = kRing + kQ;
   static constexpr size_t kComb = (size_t)kWarps * kRows * (D + 2) * 4;
   static_assert(kComb <= kRing, "warp states must fit in the ring");
+  static_assert(kSmem <= 227 * 1024, "fits one block an SM");
 };
 
 // K and V rows [k0, k0 + 64) of one stage into shared memory; rows at or
@@ -644,6 +658,7 @@ flash_attn_split_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              int Sk, float scale_log2, int causal,
                              int keys_per_split) {
   using G = Geo<D>;
+  constexpr int kStages = G::kStages;
   constexpr int kPitch = G::kPitch;
   constexpr int kKSteps = D / 16;
   constexpr int kNT = D / 8;
@@ -687,7 +702,7 @@ flash_attn_split_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
   }
 
-  uint32_t qf[kKSteps][4];
+  uint32_t qf[G::kQInRegs ? kKSteps : 1][4];
   float acc[kNT][4];
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)
@@ -703,13 +718,12 @@ flash_attn_split_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<kStages - 1>();              // stage it (and q) landed
     __syncthreads();
-    if (it == 0) {
+    const int qrow = (mat & 1) * 8 + (lane & 7);
+    if (G::kQInRegs && it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        const int row = (mat & 1) * 8 + (lane & 7);
+      for (int kk = 0; kk < kKSteps; ++kk)
         ldmatrix_x4(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-                    qs + row * kPitch + kk * 16 + (mat >> 1) * 8);
-      }
+                    qs + qrow * kPitch + kk * 16 + (mat >> 1) * 8);
     }
     const __nv_bfloat16* kst = ring + (it % kStages) * G::kStageElems;
     const __nv_bfloat16* vst = kst + kStage * kPitch;
@@ -723,12 +737,16 @@ flash_attn_split_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
+        const int qk = G::kQInRegs ? kk : 0;
+        if (!G::kQInRegs)
+          ldmatrix_x4(qf[0][0], qf[0][1], qf[0][2], qf[0][3],
+                      qs + qrow * kPitch + kk * 16 + (mat >> 1) * 8);
         uint32_t b0, b1, b2, b3;
         const int key = key0 + (mat >> 1) * 8 + (lane & 7);
         ldmatrix_x4(b0, b1, b2, b3,
                     kst + key * kPitch + kk * 16 + (mat & 1) * 8);
-        mma_bf16(s[0], qf[kk], b0, b1);
-        mma_bf16(s[1], qf[kk], b2, b3);
+        mma_bf16(s[0], qf[qk], b0, b1);
+        mma_bf16(s[1], qf[qk], b2, b3);
       }
       // online softmax (log2 units) of rows g (r = 0) and g + 8 (r = 1);
       // a masked key gets p = 0 outright, since a row may have no valid
@@ -1102,7 +1120,8 @@ int launch_few(const Args& a) {
 template <int D>
 int launch_f32(const Args& a) {
   static bool attr_set = false;
-  const size_t smem = f32::smem_bytes<D>();
+  constexpr size_t smem = f32::smem_bytes<D>();
+  static_assert(smem <= 227 * 1024, "fits one block an SM");
   const int rc = allow_smem(f32::flash_attn_f32_kernel<D>, smem, &attr_set);
   if (rc) return rc;
   const dim3 grid((unsigned)a.n_split,
@@ -1123,7 +1142,7 @@ int launch(int path, const Args& a) {
     case 0: return launch_f32<D>(a);
     case 1: return launch_few<D>(a);
     case 2:
-      if constexpr (D == 16) return -1;
+      if constexpr (D == 16 || D == 256) return -1;
       else return launch_wgmma<D>(a);
     default: return -1;
   }
@@ -1142,9 +1161,10 @@ extern "C" {
 // n_split * R * (D + 2) floats (R: 16 for path 1, 32 for path 0) and
 // counters B * H * ceil(Sq / R) ints that are 0 before the launch and 0
 // again after it.  scale: the softmax scale (1 / sqrt(D)).  Returns 0 on
-// success, -1 for an unsupported argument (head dim, dtype, path, causal
-// with Sq != Sk, a grid dimension above 65535), -2 when no tensor map can
-// be encoded, else the cudaError_t of the launch.
+// success, -1 for an unsupported argument (head dim, dtype, path, the
+// wgmma path at head dim 16 or 256, causal with Sq != Sk, a grid
+// dimension above 65535), -2 when no tensor map can be encoded, else the
+// cudaError_t of the launch.
 int mars_flash_attention(int dtype, int path, const void* q, const void* k,
                          const void* v, void* o, int B, int H, int Sq, int Sk,
                          int D, int causal, float scale, int n_split,
@@ -1166,6 +1186,7 @@ int mars_flash_attention(int dtype, int path, const void* q, const void* k,
     case 64: return launch<64>(path, a);
     case 112: return launch<112>(path, a);
     case 128: return launch<128>(path, a);
+    case 256: return launch<256>(path, a);
     default: return -1;
   }
 }

@@ -32,7 +32,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 112, 128)
+HEAD_DIMS = (16, 64, 112, 128, 256)
 _MAX_BATCH_HEADS = 65535          # the kernels' grid z (y for wgmma)
 _MAX_QUERIES = 65535 * 16         # the few-query kernel's grid y
 WGMMA_HEAD_DIMS = (64, 112, 128)  # padded to 64 or 128 columns
@@ -66,8 +66,9 @@ def split_plan(B: int, Sq: int, Sk: int, H: int, D: int, dtype,
 
     bfloat16 with more than ``FEW_QUERIES`` queries (and some keys) takes
     the wgmma tiles, which fill the card with query tiles; bfloat16
-    otherwise, and head dim 16, takes 16-row tiles; float32 its CUDA-core
-    tiles of 32 rows.  Those two split the keys when B * H query tiles
+    otherwise, and head dims 16 and 256 at every length (outside
+    ``WGMMA_HEAD_DIMS``), takes 16-row tiles; float32 its CUDA-core tiles
+    of 32 rows.  Those two split the keys when B * H query tiles
     leave the card short of ``BLOCKS_PER_SM`` blocks an SM: into ranges
     of whole steps (64 keys a ring stage, 32 in float32), as many as
     bring the blocks to about that count, at most ``MAX_SPLIT``, none
@@ -263,7 +264,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     lengths; no GQA (repeat K/V heads first).
 
     CUDA tensors launch one Hopper kernel (float32 or bfloat16, one dtype,
-    contiguous, head dim in ``HEAD_DIMS``; ``split_plan`` says which);
+    contiguous, head dim in ``HEAD_DIMS``: 16, 64, 112, 128, 256;
+    ``split_plan`` says which);
     CPU tensors run the plain twin."""
     _check(q, k, v, causal)
     if q.device.type == "cuda":

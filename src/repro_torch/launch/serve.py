@@ -3,35 +3,46 @@
 ``python -m repro_torch.launch.serve --paged --config qwen1_5_0_5b``
 ``python -m repro_torch.launch.serve --paged --config hymba_1_5b``
 ``python -m repro_torch.launch.serve --paged --config arctic_480b --layers 2``
+``python -m repro_torch.launch.serve --paged --config deepseek_coder_33b``
 ``python -m repro_torch.launch.serve --config whisper_base``
-``python -m repro_torch.launch.serve --config mamba2_370m``
+``python -m repro_torch.launch.serve --config paligemma_3b``
+
+Every config of the registry serves: the dense GQA models (qwen1.5-0.5b,
+starcoder2-7b, phi3-medium-14b, deepseek-coder-33b), hymba-1.5b and the
+MoE models through ``--paged`` or the dense backend; mamba2-370m,
+whisper-base and paligemma-3b through the dense backend only, as in the
+reference.
 
 Full-LM paged serving: requests (some sharing prompt prefixes = "pages")
 flow through the MARS scheduler into the continuous-batching engine,
 which decodes every layer through ``PagedBackend`` — on a CUDA device the
 attention of each layer and step runs the hand-written Hopper
 ``paged_attention`` kernel, every embedding lookup of a large table the
-``mars_gather`` row-gather kernel, a hybrid model's prefill the
+``mars_gather`` row-gather kernel, every unwindowed prefill the
+``flash_attention`` kernel in each layer, a hybrid model's prefill the
 ``ssd_scan`` kernel in each layer (its decode carries the SSM state per
 sequence beside the block tables), and an MoE model's three expert
 products in each MoE layer the ``moe_dispatch`` grouped-GEMM kernel over
 the MARS-sorted assignments.  ``--layers N`` cuts the model to its
 first N layers at published width: one card holds 2 of arctic-480b's
-35 layers.  A teacher-forced check re-runs a sample of
-served sequences through the port's own ``DenseBackend``.  ``--toy``
-serves the single-layer ToyModel instead.
+35 layers, and 2 of kimi-k2's 61.  A teacher-forced check re-runs a
+sample of served sequences through the port's own ``DenseBackend``.
+``--toy`` serves the single-layer ToyModel instead.
 
 Without ``--paged`` (``main_dense``) the requests flow through the MARS
 scheduler into batches, each prefilled and greedily decoded through the
 ``DenseBackend`` (``serve.step.greedy_generate``), once with
 ``mars=False`` and once with ``mars=True``; this is how the pure-SSM
-(mamba2) and encoder-decoder (whisper) families serve, as in the
-reference.  On a CUDA device every attention over the whole prompt, the
-encoder's and the cross-attention run the ``flash_attention`` kernel,
-every embedding lookup of a large table ``mars_gather`` and every SSM
-prefill ``ssd_scan``.  An encoder-decoder model's frame embeddings are
-the reference tests' stub, ``normal * 0.02`` of shape (batch,
-frontend_seq, d_model), drawn from the ``--seed`` generator.
+(mamba2), encoder-decoder (whisper) and VLM (paligemma) families serve,
+as in the reference.  On a CUDA device every attention over the whole
+prompt, the encoder's and the cross-attention run the
+``flash_attention`` kernel, every embedding lookup of a large table
+``mars_gather`` and every SSM prefill ``ssd_scan``.  An encoder-decoder
+model's frame embeddings are the reference tests' stub, ``normal *
+0.02`` of shape (batch, frontend_seq, d_model), drawn from the
+``--seed`` generator.  A VLM serves its text-only decoder: the
+reference's ``main`` passes no image prefix, and its prefill would not
+read one (ROADMAP.md §3).
 
 Runs on ``--device cuda`` (the default; raises when CUDA is absent) or
 ``--device cpu``.  Weights are random, from ``lm.init`` seeded by
@@ -378,7 +389,8 @@ def frontend_stub(cfg, batch: int, gen: torch.Generator):
     """An encoder-decoder model's stub frame embeddings, ``normal * 0.02``
     of shape (batch, frontend_seq, d_model) in the compute dtype, drawn
     from ``gen`` (the reference tests' frontend); None for other
-    families."""
+    families, a VLM's included: its serving path is the text-only
+    decoder, as the reference's ``main`` serves it."""
     if cfg.family != "encdec":
         return None
     x = torch.randn((batch, cfg.frontend_seq, cfg.d_model), generator=gen,

@@ -2,7 +2,7 @@
 
 Same fields and defaults as the reference ``ModelConfig`` so a config
 built here describes the same model; the dtype properties return torch
-dtypes.  The port serves the dense, hybrid and MoE families (see
+dtypes.  The port serves every family of the reference (see
 ``configs``).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Core transformer building blocks (port of ``repro/models/layers.py``,
-the subset the dense, hybrid, MoE, pure-SSM and encoder-decoder families
-use).
+the subset the dense, hybrid, MoE, pure-SSM, encoder-decoder and VLM
+families use).
 
 Pure functions over a parameter tree whose layout matches the
 reference's (``wq (d, H, dh)``, ``wo (H, dh, d)``, ...), so weights
@@ -188,8 +188,9 @@ def sdpa(q, k, v, mask=None):
     broadcastable to (B,H,Sq,Sk).  The caller names the kind, so nothing
     reads a mask back from the device: the first two run
     ``flash_attention`` — the Hopper kernel on CUDA tensors, its plain
-    twin on CPU ones — and a tensor mask (a sliding window, the dense
-    decode's cache mask) the plain masked softmax here."""
+    twin on CPU ones — and a tensor mask (a sliding window, a VLM's image
+    prefix, the dense decode's cache mask) the plain masked softmax
+    here."""
     if not torch.is_tensor(mask):
         from repro_torch.kernels.flash_attention.flash_attention import \
             flash_attention
@@ -205,14 +206,19 @@ def sdpa(q, k, v, mask=None):
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
-def causal_mask(sq: int, sk: int, window: int = 0, device=None):
+def causal_mask(sq: int, sk: int, window: int = 0, prefix_len=None,
+                device=None):
     """bool[Sq, Sk] (True = attend).  ``sk - sq`` offsets queries to the
-    cache tail; ``window`` > 0 restricts to a sliding window."""
+    cache tail; ``window`` > 0 restricts to a sliding window;
+    ``prefix_len`` makes the first ``prefix_len`` keys visible to every
+    query (a VLM's bidirectional image prefix)."""
     qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
     kpos = torch.arange(sk, device=device)[None, :]
     m = kpos <= qpos
     if window:
         m &= kpos > qpos - window
+    if prefix_len is not None:
+        m |= kpos < prefix_len
     return m
 
 

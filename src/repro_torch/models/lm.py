@@ -1,5 +1,5 @@
-"""Causal LM, dense, hybrid, MoE, pure-SSM and encoder-decoder families
-(port of ``repro/models/lm.py``).
+"""Causal LM, dense, hybrid, MoE, pure-SSM, encoder-decoder and VLM
+families (port of ``repro/models/lm.py``).
 
 One parameter tree, a Python loop over the stacked layer axis (the
 reference's ``lax.scan``), four entry points:
@@ -22,8 +22,12 @@ with the absolute layer index.  Pure SSM (mamba2: attention-free Mamba2
 blocks, no KV) and encoder-decoder (whisper: an ``encoder`` stack over
 the stub frame embeddings ``frontend_emb``, then decoder blocks with
 cross-attention ``xattn`` over it) serve through the dense backend only,
-as in the reference.  The VLM family raises ``NotImplementedError``
-(ROADMAP.md queues it).
+as in the reference.  The VLM family (paligemma: a gemma decoder, MQA)
+prepends the stub image-patch embeddings ``frontend_emb`` to the tokens
+in ``forward`` only, as a bidirectional prefix (positions, and so RoPE,
+run over prefix and tokens; logits come back for the tokens); its
+prefill and decode serve the text-only decoder, as the reference's do,
+through the dense backend only.
 
 Attention names its mask kind (``layers.sdpa``): every unwindowed
 prefill, the encoder and the cross-attention run ``flash_attention``.
@@ -42,21 +46,22 @@ from repro_torch.models.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "hybrid", "moe", "ssm", "encdec") \
+    if cfg.family not in ("dense", "hybrid", "moe", "ssm", "encdec", "vlm") \
             or cfg.is_moe != (cfg.family == "moe") \
             or bool(cfg.enc_layers) != (cfg.family == "encdec"):
         raise NotImplementedError(
-            f"the torch port serves the dense, hybrid, MoE, SSM and "
-            f"encoder-decoder families only (got {cfg.family!r}); see "
-            f"ROADMAP.md for the VLM family")
+            f"the torch port serves the dense, hybrid, MoE, SSM, "
+            f"encoder-decoder and VLM families (got {cfg.family!r} with "
+            f"n_experts={cfg.n_experts}, enc_layers={cfg.enc_layers})")
 
 
 def check_paged_family(cfg: ModelConfig) -> None:
     """The paged path pages attention KV (and a hybrid's SSM side state):
-    an attention-free or encoder-decoder model serves through the dense
-    backend, as in the reference."""
+    an attention-free, encoder-decoder or VLM model serves through the
+    dense backend, as in the reference (``kvcache/backend.py:493-499``
+    there)."""
     _check_family(cfg)
-    if not cfg.has_attention or cfg.family == "encdec":
+    if not cfg.has_attention or cfg.family in ("encdec", "vlm"):
         raise ValueError(f"paged serving pages attention KV only; the "
                          f"{cfg.family!r} family serves through the dense "
                          f"backend")
@@ -258,9 +263,19 @@ def _stack_pairs(pairs):
 # Entry points
 # ---------------------------------------------------------------------------
 
-def _masks(cfg: ModelConfig, S: int, device):
-    """(mask of a layer, mask of a global layer) over a prompt: the kind
-    ``CAUSAL`` (``flash_attention``), and a sliding window's tensor."""
+def _masks(cfg: ModelConfig, S: int, device, prefix: int = 0):
+    """(mask of a layer, mask of a global layer) over a prompt of ``S``
+    positions: the kind ``CAUSAL`` (``flash_attention``), and a sliding
+    window's tensor.  With a VLM's image prefix of ``prefix`` positions
+    both are tensors in which every query sees the prefix (the plain
+    masked softmax: K5 has no prefix mode, as the Pallas kernel has
+    none)."""
+    if prefix:
+        glob = layers.causal_mask(S, S, prefix_len=prefix, device=device)
+        if not cfg.sliding_window:
+            return glob, glob
+        return (layers.causal_mask(S, S, window=cfg.sliding_window,
+                                   prefix_len=prefix, device=device), glob)
     if not cfg.sliding_window:
         return layers.CAUSAL, layers.CAUSAL
     return (layers.causal_mask(S, S, window=cfg.sliding_window,
@@ -303,16 +318,37 @@ def _prompt(params, cfg: ModelConfig, tokens, frontend_emb):
     return x, positions, xkv
 
 
+def _prepend_image(cfg: ModelConfig, x, frontend_emb):
+    """A VLM's image-patch embeddings ``frontend_emb`` (B, P, d), in the
+    compute dtype, before the token embeddings ``x`` (B, S, d); returns
+    the (B, P + S, d) sequence and its positions 0 .. P + S - 1."""
+    if frontend_emb is None:
+        raise ValueError(f"{cfg.name} needs frontend_emb, the (B, "
+                         f"{cfg.frontend_seq}, {cfg.d_model}) image-patch "
+                         f"embeddings forward prepends (P may be 0)")
+    img = frontend_emb.to(device=x.device, dtype=cfg.cdtype)
+    x = torch.cat([img, x], dim=1)
+    B, n = x.shape[:2]
+    return x, torch.arange(n, device=x.device)[None, :].expand(B, n)
+
+
 def forward(params, cfg: ModelConfig, tokens, frontend_emb=None):
     """Teacher-forced logits (B, S, V).  tokens: (B, S) int; an
-    encoder-decoder model's encoder reads ``frontend_emb`` (B, Senc, d)."""
+    encoder-decoder model's encoder reads ``frontend_emb`` (B, Senc, d);
+    a VLM prepends it (B, P, d) as a bidirectional image prefix and
+    returns the logits of the token positions (P = 0 is the text-only
+    model)."""
     _check_family(cfg)
-    S = tokens.shape[1]
     x, positions, xkv = _prompt(params, cfg, tokens, frontend_emb)
+    prefix = 0
+    if cfg.family == "vlm":
+        x, positions = _prepend_image(cfg, x, frontend_emb)
+        prefix = frontend_emb.shape[1]
     x, _, _ = _run_blocks(params, x, cfg,
-                          masks=_masks(cfg, S, tokens.device),
+                          masks=_masks(cfg, x.shape[1], tokens.device,
+                                       prefix),
                           positions=positions, xkv=xkv)
-    x = layers.apply_norm(params["final_norm"], x, cfg)
+    x = layers.apply_norm(params["final_norm"], x[:, prefix:], cfg)
     return layers.lm_head(params["embed"], x, cfg)
 
 
@@ -454,9 +490,16 @@ def prefill_parts(params, cfg: ModelConfig, tokens, frontend_emb=None):
     K, dh) post-RoPE in the compute dtype, "ssm" (L, B, H, P, N) float32
     and "conv" (L, B, k-1, ch), and "xk", "xv" (L, B, Senc, K, dh) —
     each None where the model has no such part.  An encoder-decoder
-    model's encoder reads ``frontend_emb`` (B, Senc, d)."""
+    model's encoder reads ``frontend_emb`` (B, Senc, d).  A VLM serves
+    its text-only decoder, as the reference does, and refuses a
+    ``frontend_emb`` rather than drop it (ROADMAP.md §3)."""
     _check_family(cfg)
     S = tokens.shape[1]
+    if cfg.family == "vlm" and frontend_emb is not None:
+        raise ValueError(
+            f"{cfg.name}: the serving path runs the text-only decoder and "
+            f"takes no frontend_emb (the reference drops it unread; see "
+            f"ROADMAP.md §3); lm.forward takes the image prefix")
     x, positions, xkv = _prompt(params, cfg, tokens, frontend_emb)
     x, ys, ss = _run_blocks(params, x, cfg,
                             masks=_masks(cfg, S, tokens.device),

@@ -1,0 +1,135 @@
+"""Two pieces of ``chip_smoke.py`` on smoke serve runs.
+
+``raw_rows``, the profile reader of the serve summaries and the kernel
+phases, read from the profiler's raw events, against ``key_averages``
+(which builds the event tree): every host op's summed self time agrees
+(to 1e-6 relative: both sum the same nanosecond durations), and so does
+every device row's summed time and count where a card is present; a
+CPU-only profile has no device row.
+
+``routed_layer_check``, which holds a bf16 MoE run's routed layer
+against float32 math on the run's own expert choices: it passes the
+dispatch and catches a broken one."""
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def _profiled_serve(device: str):
+    """A profiled paged serve run: the smoke config on the CPU; on the
+    card qwen1.5-0.5b at full width, whose head dim K1 takes."""
+    from torch.profiler import ProfilerActivity, profile
+    model = ["--smoke"] if device == "cpu" else ["--config", "qwen1_5_0_5b"]
+    argv = ["--paged", *model, "--device", device, "--requests", "4",
+            "--batch", "2", "--new-tokens", "2", "--parity-checks", "0"]
+    acts = [ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        serve.main(argv)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    return prof
+
+
+def _assert_rows(rows, want: dict):
+    got = {r["name"]: r["ms"] for r in rows}
+    assert got.keys() == want.keys()
+    for name, ms in want.items():
+        assert got[name] == pytest.approx(ms, rel=1e-6, abs=1e-6), name
+    assert [r["ms"] for r in rows] == sorted((r["ms"] for r in rows),
+                                             reverse=True)
+
+
+def _check_against_key_averages(prof):
+    """``raw_rows`` (and ``device_rows``, which the kernel phases read)
+    of ``prof`` equal ``key_averages``' rows; returns the device rows."""
+    from torch.autograd import DeviceType
+    dev, host = chip_smoke.raw_rows(prof)
+    assert chip_smoke.device_rows(prof) == dev
+    want_host, want_dev, want_calls = {}, {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                want_dev[e.key] = us / 1e3
+                want_calls[e.key] = e.count
+        elif e.self_cpu_time_total > 0:
+            want_host[e.key] = e.self_cpu_time_total / 1e3
+    _assert_rows(host, want_host)
+    _assert_rows(dev, want_dev)
+    assert {r["name"]: r["calls"] for r in dev} == want_calls
+    return dev
+
+
+def test_raw_rows_match_key_averages_on_the_host():
+    assert _check_against_key_averages(_profiled_serve("cpu")) == []
+
+
+@pytest.mark.cuda
+def test_raw_rows_match_key_averages_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the device rows exist only there")
+    assert _check_against_key_averages(_profiled_serve("cuda")), \
+        "a card's profile of a serve run has device rows"
+
+
+def _served_moe_bf16():
+    out = serve.main(["--paged", "--config", "kimi_k2_1t_a32b", "--smoke",
+                      "--device", "cpu", "--requests", "4", "--batch", "2",
+                      "--new-tokens", "8", "--dtype", "bfloat16",
+                      "--parity-checks", "0"])
+    assert out["cfg"].is_moe and out["cfg"].cdtype == torch.bfloat16
+    return out
+
+
+_GROUPED_FFN = moe._grouped_ffn
+
+
+def _rolled_experts(tokens, local_ids, w_in, w_gate, w_out, n_local, act,
+                    **kw):
+    """A dispatch that reads each expert's neighbour's up-projection."""
+    return _GROUPED_FFN(tokens, local_ids, w_in.roll(1, 0), w_gate, w_out,
+                        n_local, act, **kw)
+
+
+def _one_row_zeroed(*args, **kw):
+    """A dispatch that loses the output of one assignment."""
+    y = _GROUPED_FFN(*args, **kw).clone()
+    y[0] = 0
+    return y
+
+
+@pytest.mark.parametrize("fault", [None, _rolled_experts, _one_row_zeroed])
+def test_routed_layer_check_holds_k4_apart_from_router_ties(fault,
+                                                            monkeypatch):
+    """``routed_layer_check`` on a bf16 MoE serve run (kimi-k2 smoke): on
+    the CPU the dispatch's plain twin sits within ``ROUTED_NOISE_FACTOR``
+    of the plain bf16 math's distance from float32 (both are the same
+    arithmetic here), and a dispatch that reads the wrong expert's weights
+    or loses one assignment's output is far outside it."""
+    out = _served_moe_bf16()
+    if fault is not None:
+        monkeypatch.setattr(moe, "_grouped_ffn", fault)
+    r = chip_smoke.routed_layer_check(torch, out["cfg"], out)
+    assert r["tokens"] == 4 * (24 + 8)
+    assert 0 < r["plain_max_rel"] < 0.05
+    limit = chip_smoke.ROUTED_NOISE_FACTOR * r["plain_max_rel"]
+    if fault is None:
+        assert r["k4_max_rel"] <= limit
+    else:
+        assert r["k4_max_rel"] > 10 * limit

@@ -52,6 +52,7 @@ def _close(got, want, tol):
     (1, 128, 2, 64, 64, 64),
     (2, 256, 4, 64, 128, 128),
     (1, 512, 1, 128, 256, 256),
+    (1, 128, 2, 256, 64, 64),      # paligemma's head dim
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_causal(B, S, H, D, bq, bk, dtype):
@@ -81,6 +82,8 @@ def test_plain_matches_pallas_noncausal(dtype):
     (2, 24, 24, 4, 16, True),      # the smoke configs' head dim
     (1, 24, 24, 2, 112, True),     # kimi-k2's head dim
     (1, 7, 40, 2, 112, False),
+    (2, 24, 24, 2, 256, True),     # paligemma's head dim
+    (1, 7, 100, 2, 256, False),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_oracle_where_pallas_refuses(B, Sq, Sk, H, D, causal,
@@ -180,7 +183,9 @@ PLAN_SHAPES = {"whisper_encoder": (8, 1500, 1500, 8, 64, False),
                "qwen_prefill": (1, 24, 24, 16, 64, True),
                "arctic_prefill": (1, 24, 24, 56, 128, True),
                "kimi_prefill": (1, 24, 24, 64, 112, True),
-               "long_prefill": (1, 8192, 8192, 16, 128, True)}
+               "long_prefill": (1, 8192, 8192, 16, 128, True),
+               "paligemma_prefill": (8, 24, 24, 8, 256, True),
+               "long_d256": (1, 2048, 2048, 8, 256, True)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -190,11 +195,13 @@ def test_split_plan_covers_every_key_once(name, sms, dtype):
     """``split_plan`` reads shapes and the SM count only; its ranges cover
     every key exactly once, in whole steps of the path (all but the last
     range), within the kernel's 32 ranges; bf16 takes the wgmma tiles for
-    many queries and the key split for few."""
+    many queries and the key split for few, and at head dim 256 (outside
+    the wgmma tiles) the key split at every length."""
     B, Sq, Sk, H, D, causal = PLAN_SHAPES[name]
     plan = tfa.split_plan(B, Sq, Sk, H, D, getattr(torch, dtype), sms)
     assert plan.path == ("f32" if dtype == "float32" else
-                         "wgmma" if Sq > tfa.FEW_QUERIES else "few")
+                         "wgmma" if Sq > tfa.FEW_QUERIES and D != 256
+                         else "few")
     assert 1 <= plan.n_split <= tfa.MAX_SPLIT
     assert plan.keys_per_split % tfa.PATHS[plan.path]["step"] == 0
     ranges = tfa.split_ranges(Sk, plan.keys_per_split)
@@ -224,6 +231,7 @@ def test_split_plan_fills_the_card_at_decode():
     (2, 7, 300, 4, 16, False),
     (1, 100, 100, 3, 64, True),     # causal: ranges past a row are empty
     (1, 24, 200, 2, 112, False),
+    (2, 1, 300, 2, 256, False),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_plain_matches_plain_and_oracle(B, Sq, Sk, H, D, causal,
@@ -250,3 +258,20 @@ def test_split_plain_matches_pallas(keys_per_split, dtype):
     got = tfa.flash_attention_split_plain(tq, tk, tv, causal=True,
                                           keys_per_split=keys_per_split)
     _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("D", tfa.HEAD_DIMS)
+def test_split_plan_gives_wgmma_only_its_head_dims(D):
+    """The kernels take every head dim of ``HEAD_DIMS`` on the 16-row and
+    float32 tiles, and the wgmma tiles only at ``WGMMA_HEAD_DIMS`` (the
+    launcher refuses them at 16 and 256, where a 64 x 256 accumulator
+    leaves no registers): at no length does the plan ask for wgmma
+    outside them, and bf16 at head dim 256 takes the 16-row tiles."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for Sq in (1, 24, tfa.FEW_QUERIES + 1, 2048):
+            plan = tfa.split_plan(1, Sq, Sq, 8, D, dtype, 132)
+            if plan.path == "wgmma":
+                assert D in tfa.WGMMA_HEAD_DIMS
+            if D == 256:
+                assert plan.path == ("f32" if dtype == torch.float32
+                                     else "few")

@@ -22,7 +22,10 @@ SLICE_MODULES = [
     "repro_torch.configs.hymba_1_5b",
     "repro_torch.configs.kimi_k2_1t_a32b",
     "repro_torch.configs.mamba2_370m",
+    "repro_torch.configs.paligemma_3b",
+    "repro_torch.configs.phi3_medium_14b",
     "repro_torch.configs.qwen1_5_0_5b",
+    "repro_torch.configs.starcoder2_7b",
     "repro_torch.configs.whisper_base",
     "repro_torch.convert",
     "repro_torch.core.reorder",

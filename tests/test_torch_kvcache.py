@@ -447,8 +447,8 @@ _DENSE_FAMILIES: dict = {}
 
 def _dense_family(arch: str):
     """(jax cfg, port cfg, jax params, port params) of a dense-only smoke
-    config (whisper-base: encoder-decoder; mamba2-370m: pure SSM) at
-    float32."""
+    config (whisper-base: encoder-decoder; mamba2-370m: pure SSM;
+    paligemma-3b: VLM, served as its text-only decoder) at float32."""
     if arch not in _DENSE_FAMILIES:
         import dataclasses
         from repro import configs as jconfigs
@@ -464,12 +464,14 @@ def _dense_family(arch: str):
     return _DENSE_FAMILIES[arch]
 
 
-@pytest.mark.parametrize("arch", ["whisper_base", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["whisper_base", "mamba2_370m",
+                                  "paligemma_3b"])
 def test_dense_backend_matches_jax_backend(arch):
     """``make_backend("dense", enc_len=...)`` against the JAX
     ``DenseBackend``: whisper's cache holds cross-attention K/V over its
     frames and its prefill takes the frame embeddings; mamba2's holds no
-    K/V, only the SSM state and conv context.  Prefill logits, every
+    K/V, only the SSM state and conv context; paligemma's holds the K/V
+    of its one KV head, with no image prefix.  Prefill logits, every
     cache part and three decode steps agree."""
     from repro.kvcache.backend import DenseBackend as JDenseBackend
     from repro_torch.kvcache.backend import DenseBackend, make_backend
@@ -518,7 +520,8 @@ def test_dense_backend_matches_jax_backend(arch):
         same_cache()
 
 
-@pytest.mark.parametrize("arch", ["whisper_base", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["whisper_base", "mamba2_370m",
+                                  "paligemma_3b"])
 def test_paged_backend_refuses_dense_only_families(arch):
     from repro_torch.kvcache.backend import PagedBackend
     _, tc, _, _ = _dense_family(arch)
@@ -537,3 +540,55 @@ def test_paged_prefill_refuses_a_frontend():
     with pytest.raises(ValueError, match="frontend"):
         pb.prefill(params, np.ones((1, 4), np.int32),
                    frontend_emb=torch.zeros(1, 2, cfg.d_model))
+
+
+@pytest.mark.parametrize("decode_mode", ["gather", "kernel"])
+def test_dense_paged_parity_sliding_window(decode_mode):
+    """Port of the reference's pure-window case
+    (``tests/test_kv_backend.py``): starcoder2's smoke config with every
+    layer windowed (``sliding_window=5``), prefilled and decoded 7 steps
+    past the window edge, so the mask cuts keys.  The port's paged
+    backend against its dense backend (whose window is a tensor mask) and
+    against the JAX paged backend on the same converted weights, in
+    float32: the same logits and argmaxes at every step."""
+    import dataclasses
+    from repro import configs as jconfigs
+    from repro.kvcache.backend import PagedBackend as JPagedBackend
+    from repro.models import lm as jlm
+    from repro_torch import configs as tconfigs
+    from repro_torch import convert
+    from repro_torch.kvcache.backend import make_backend
+    from repro_torch.models import lm as tlm
+    jc = dataclasses.replace(jconfigs.get_smoke("starcoder2_7b"),
+                             sliding_window=5, **F32)
+    tc = dataclasses.replace(tconfigs.get_smoke("starcoder2_7b"),
+                             sliding_window=5, **F32)
+    jp = jax.jit(lambda k: jlm.init(jc, k).params)(jax.random.key(0))
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    toks = np.random.default_rng(11).integers(1, tc.vocab, (2, 9)) \
+        .astype(np.int32)
+    dense = make_backend(tc, "dense", batch=2, max_seq=24, device="cpu")
+    paged = make_backend(tc, "paged", num_blocks=64, block_size=4,
+                         decode_mode=decode_mode, device="cpu")
+    jpaged = JPagedBackend(jc, num_blocks=64, block_size=4,
+                           decode_mode=decode_mode)
+    assert paged.decode_mode == decode_mode
+    lg_d, _ = tlm.prefill(tp, tc, torch.from_numpy(toks), backend=dense)
+    lg_p, _ = tlm.prefill(tp, tc, torch.from_numpy(toks), backend=paged)
+    lg_j, _ = jlm.prefill(jp, jc, jnp.asarray(toks), backend=jpaged)
+    np.testing.assert_allclose(lg_p.numpy(), lg_d.numpy(), **HTOL)
+    np.testing.assert_allclose(lg_p.numpy(), np.asarray(lg_j), **HTOL)
+    tok = lg_d[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for _ in range(7):          # lengths reach 16 >> window 5
+        lg_d, _ = tlm.decode_step(tp, tc, tok, dense)
+        lg_p, _ = tlm.decode_step(tp, tc, tok, paged)
+        lg_j, _ = jlm.decode_step(jp, jc, jnp.asarray(tok.numpy()), jpaged)
+        np.testing.assert_allclose(lg_p.numpy(), lg_d.numpy(), **HTOL)
+        np.testing.assert_allclose(lg_p.numpy(), np.asarray(lg_j), **HTOL)
+        a = lg_d[:, -1].argmax(-1)
+        assert torch.equal(a, lg_p[:, -1].argmax(-1))
+        tok = a.to(torch.int32)[:, None]
+    for b in (paged, jpaged):
+        b.release()
+        b.pool.check_invariants()
+    assert paged.pool.num_live == 0

@@ -11,15 +11,20 @@ its SSM state and conv context are compared too), and the MoE smoke
 configs of arctic-480b (128 -> 8 experts top-2 with a parallel dense
 residual MLP) and kimi-k2 (a leading dense block stack, ``blocks_dense``,
 then routed layers with a shared expert), whose expert products run the
-grouped-matmul kernel's plain twin on the CPU.  The whisper-base smoke
+grouped-matmul kernel's plain twin on the CPU, and the smoke configs of
+the dense GQA models starcoder2-7b (LayerNorm, non-gated GELU, QKV
+bias), phi3-medium-14b and deepseek-coder-33b.  The whisper-base smoke
 config (encoder-decoder: an encoder stack over stub frame embeddings,
 cross-attention in every decoder layer, learned positions) and the
 mamba2-370m smoke config (pure SSM, no attention, no K/V) serve through
-the dense path only: their forward (with the same frontend), prefill
-parts (cross-attention K/V included) and prefill plus four dense decode
-steps are compared, and the paged decode refuses them.  Tolerance
-``atol=rtol=1e-4``: the same float32 arithmetic, with matrix products
-summed in another order by another library."""
+the dense path only, as does the paligemma-3b smoke config (VLM: one KV
+head, d_head 16, gated GELU, tied embeddings), whose forward prepends an
+image prefix of ``frontend_seq`` stub patches and whose prefill and
+decode serve the text-only decoder: their forward (with the same
+frontend), prefill parts (cross-attention K/V included) and prefill plus
+four dense decode steps are compared, and the paged decode refuses them.
+Tolerance ``atol=rtol=1e-4``: the same float32 arithmetic, with matrix
+products summed in another order by another library."""
 import dataclasses
 
 import numpy as np
@@ -43,10 +48,14 @@ VARIANTS = {"qwen_smoke": ("qwen1_5_0_5b", {}),
             "qwen_smoke_gqa": ("qwen1_5_0_5b", {"n_kv_heads": 2}),
             "hymba_smoke": ("hymba_1_5b", {}),
             "arctic_smoke": ("arctic_480b", {}),
-            "kimi_smoke": ("kimi_k2_1t_a32b", {})}
+            "kimi_smoke": ("kimi_k2_1t_a32b", {}),
+            "starcoder2_smoke": ("starcoder2_7b", {}),
+            "phi3_smoke": ("phi3_medium_14b", {}),
+            "deepseek_smoke": ("deepseek_coder_33b", {})}
 # families the paged path refuses: they serve through the dense backend
 DENSE_ONLY = {"whisper_smoke": ("whisper_base", {}),
-              "mamba2_smoke": ("mamba2_370m", {})}
+              "mamba2_smoke": ("mamba2_370m", {}),
+              "paligemma_smoke": ("paligemma_3b", {})}
 ALL_VARIANTS = {**VARIANTS, **DENSE_ONLY}
 
 
@@ -107,10 +116,12 @@ def _tokens(cfg, B, S, seed=0):
         0, cfg.vocab, (B, S)).astype(np.int32)
 
 
-def _frontend(cfg, B, seed=10):
-    """The reference tests' stub frame embeddings (normal * 0.02) for an
-    encoder-decoder model, as numpy; None otherwise."""
-    if cfg.family != "encdec":
+def _frontend(cfg, B, seed=10, forward=False):
+    """The reference tests' stub embeddings (normal * 0.02) as numpy: an
+    encoder-decoder model's frames and, for ``forward``, a VLM's image
+    prefix of ``frontend_seq`` patches (its prefill and decode serve the
+    text-only decoder and take none); None otherwise."""
+    if cfg.family != "encdec" and not (forward and cfg.family == "vlm"):
         return None
     return (0.02 * np.random.default_rng(seed).standard_normal(
         (B, cfg.frontend_seq, cfg.d_model))).astype(np.float32)
@@ -130,7 +141,7 @@ def test_forward_matches_jax(variant):
     jc, tc, jp, tp = _params(variant)
     S = _seq(tc, 12)
     toks = _tokens(tc, 2, S)
-    fe = _frontend(tc, 2)
+    fe = _frontend(tc, 2, forward=True)
     got = tlm.forward(tp, tc, torch.from_numpy(toks),
                       _fe(fe, torch.from_numpy))
     want, _ = jlm.forward(jp, jc, jnp.asarray(toks), _fe(fe, jnp.asarray))
@@ -287,12 +298,6 @@ def test_encdec_needs_its_frontend():
     jc, tc, jp, tp = _params("whisper_smoke")
     with pytest.raises(ValueError, match="frontend_emb"):
         tlm.forward(tp, tc, torch.from_numpy(_tokens(tc, 1, 4)))
-
-
-def test_vlm_family_still_raises():
-    _, tc = _cfgs("qwen_smoke", family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init(tc, torch.Generator("cpu").manual_seed(0))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -7,9 +7,11 @@ forked samples, a pool tight enough to reject and evict; hymba's prompts
 are multiples of its SSM chunk).  Served tokens and every stat must be
 identical, step by step, on the pipelined and the synchronous decode
 paths.  Then the port's own entry point end to end on the CPU, LM and
-toy, and its ``--layers`` cut; and its dense-backend entry point (no
-``--paged``) against the JAX one: the same served requests, batches and
-unique prefix blocks per batch, with and without MARS."""
+toy (the dense GQA smoke configs of starcoder2-7b, phi3-medium-14b and
+deepseek-coder-33b exact in float32), and its ``--layers`` cut; and its
+dense-backend entry point (no ``--paged``) against the JAX one: the same
+served requests, batches and unique prefix blocks per batch, with and
+without MARS."""
 import dataclasses
 
 import numpy as np
@@ -198,6 +200,26 @@ def test_serve_main_paged_moe_smoke_cpu(arch, flags):
                    for s in seqs)
 
 
+@pytest.mark.parametrize("arch", ["starcoder2_7b", "phi3_medium_14b",
+                                  "deepseek_coder_33b"])
+def test_serve_main_paged_dense_gqa_float32_is_exact_cpu(arch):
+    """``--paged --config <dense GQA model> --smoke --dtype float32`` end
+    to end on the CPU, on the kernel and the gather decode paths: every
+    request served, every served token the dense argmax, and both paths
+    serve the same tokens."""
+    outs = [tserve.main(["--paged", "--config", arch, "--smoke", "--dtype",
+                         "float32", "--device", "cpu", "--requests", "6",
+                         "--batch", "3", "--new-tokens", "3",
+                         "--prefixes", "2", "--pool-blocks", "40",
+                         "--parity-checks", "3", *flags])
+            for flags in ([], ["--no-kernel-decode"])]
+    for out in outs:
+        assert out["served"] == 6 and out["parity_mismatches"] == 0
+        assert out["parity_max_deficit"] == 0.0
+        assert out["cfg"].name == tconfigs.get_smoke(arch).name
+    assert outs[0]["finished"] == outs[1]["finished"]
+
+
 @pytest.mark.parametrize("arch", ["arctic_480b", "kimi_k2_1t_a32b"])
 def test_serve_main_paged_moe_float32_is_exact_cpu(arch):
     """The float32 gate of the MoE path: every served token is the dense
@@ -347,12 +369,15 @@ DENSE_ARGV = ["--smoke", "--requests", "16", "--batch", "8", "--new-tokens",
               "2"]
 
 
-@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "mamba2_370m",
+                                  "paligemma_3b"])
 def test_serve_main_dense_matches_jax_main(arch):
     """The dense-backend entry point: requests through the MARS scheduler
     (off, then on) into batches served by ``greedy_generate`` — the same
     served count, batches and unique prefix blocks per batch as the JAX
-    ``main``, and MARS's page-coherence gain."""
+    ``main``, and MARS's page-coherence gain.  paligemma serves its
+    text-only decoder, as the JAX ``main`` does: no batch carries an
+    image prefix."""
     from repro.launch import serve as jserve
     want = jserve.main(["--arch", arch, *DENSE_ARGV])
     got = tserve.main(["--config", arch, "--device", "cpu", *DENSE_ARGV])

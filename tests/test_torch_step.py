@@ -1,9 +1,9 @@
 """Port parity for the serving steps: ``serve.step.greedy_generate`` of the
-port against the JAX package's on the qwen1.5-0.5b, whisper-base (with
-the same stub frame embeddings) and mamba2-370m smoke configs at
-float32, with the same weights (the JAX init converted through
-``repro_torch.convert``) and the same numpy prompts: the generated
-tokens must be identical.  Also ``make_prefill`` and
+port against the JAX package's on the qwen1.5-0.5b, whisper-base (with the
+same stub frame embeddings), mamba2-370m and paligemma-3b (its text-only
+decoder) smoke configs at float32, with the same weights (the JAX init
+converted through ``repro_torch.convert``) and the same numpy prompts: the
+generated tokens must be identical.  Also ``make_prefill`` and
 ``make_decode_step`` over the dense ``Cache``."""
 import dataclasses
 
@@ -24,7 +24,7 @@ from repro_torch.serve import step as tstep  # noqa: E402
 torch.set_num_threads(1)
 
 F32 = dict(param_dtype="float32", compute_dtype="float32")
-ARCHS = ["qwen1_5_0_5b", "whisper_base", "mamba2_370m"]
+ARCHS = ["qwen1_5_0_5b", "whisper_base", "mamba2_370m", "paligemma_3b"]
 _MODELS: dict = {}
 
 
