@@ -79,7 +79,11 @@ Phases (any failure exits non-zero and prints no result):
           also in float32), phi3_medium_14b (40 layers, d 5120, 40 over
           10), deepseek_coder_33b (all 62 layers, d 7168, 56 over 8) and
           kimi_k2_1t_a32b's first 2 of 61 layers (d 7168, its dense layer
-          and one of 384 experts top-8 with a shared expert), random
+          and one of 384 experts top-8 with a shared expert), then
+          qwen1_5_0_5b with ``--tiered-kv`` (64 requests over 32 hot
+          prefixes through a pool of 24 blocks; bf16 and float32) and
+          with ``--shards 4``, and starcoder2_7b with ``--shards 2
+          --tiered-kv`` (every shard on the one card), random
           weights from a seed: served tokens must pass the
           teacher-forced check against the port's dense backend
           (exact argmax in float32, a near-tie margin in bfloat16; each
@@ -91,10 +95,21 @@ Phases (any failure exits non-zero and prints no result):
           prefill of more than one chunk: none here), flash_attention once per
           unwindowed layer per prefill,
           gather_rows once per embedding lookup and grouped_matmul three
-          times per MoE layer per embedding lookup.  hymba's bf16 runs
+          times per MoE layer per embedding lookup (a sharded run's
+          decode steps are the shards' own, summed).  A tiered run must
+          demote and promote, and every promoted block still resident
+          must have its staged device mirror pages (and host pool pages)
+          equal to its tier payload bit for bit (``mirror_check``; once
+          more with the qwen tiered run's pool in float8_e4m3fn,
+          ``tier_fp8_check``); a sharded run must dispatch every shard
+          before it syncs any, with no synchronizing CUDA call inside a
+          shard's dispatch (``dispatch_order_check``, one profiled
+          round), and starcoder2's must have the scheduler's tier probe
+          wired.  hymba's bf16 runs
           also report how far their served tokens sit from a float32
           forward on the same weights.  Each run's weights are freed
-          before the next.  Each bfloat16 kernel-path run is then served
+          before the next.  Each bfloat16 kernel-path run (but the
+          starcoder2 sharded one) is then served
           twice more, warm: plain for its wall time, then under
           ``torch.profiler`` for the device's kernel time by kernel and
           its busy share.
@@ -230,7 +245,17 @@ OUT_DIR = ROOT / "chiprun_out"
 # 56 over 8); kimi-k2 serves its first 2 of 61 layers at published
 # width (its dense layer and one of 384 experts top-8 with a shared
 # expert, 39 GB).
+# The tiered runs serve 64 requests over 32 hot prefixes through a pool of
+# 24 blocks (8 lanes of 2 blocks leave 8 to cache 32 prefixes): prefix
+# blocks are evicted, demoted to the spill tiers and promoted back (about
+# 32 each, 50 MB of qwen1.5-0.5b's 1.57 MB blocks).  The sharded runs put
+# all their shards on the one card: qwen1.5-0.5b over 4 shards of 64
+# blocks, starcoder2-7b (GQA at n_rep 9) over 2 shards of 12 with tiers.
 ARCTIC = ("--layers", "2")
+TIERED = ("--tiered-kv", "--pool-blocks", "24", "--prefixes", "32",
+          "--requests", "64")
+SHARDED = ("--shards", "4")
+SHARDED_TIERED = ("--shards", "2") + TIERED
 RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
         ("hymba_1_5b", ("--dtype", "float32")),
         ("hymba_1_5b", ("--no-kernel-decode",)),
@@ -242,9 +267,16 @@ RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
                              "--no-kernel-decode")),
         ("starcoder2_7b", ()), ("starcoder2_7b", ("--dtype", "float32")),
         ("phi3_medium_14b", ()), ("deepseek_coder_33b", ()),
-        ("kimi_k2_1t_a32b", ("--layers", "2")))
-# flags that take a run off the profiled bf16 kernel path
+        ("kimi_k2_1t_a32b", ("--layers", "2")),
+        ("qwen1_5_0_5b", TIERED),
+        ("qwen1_5_0_5b", TIERED + ("--dtype", "float32")),
+        ("qwen1_5_0_5b", SHARDED),
+        ("starcoder2_7b", SHARDED_TIERED))
+# flags that take a run off the profiled bf16 kernel path; the starcoder2
+# sharded run is not profiled either (two more 7B serve runs for a
+# breakdown the qwen runs give)
 UNPROFILED = {"--dtype", "--no-kernel-decode", "--smoke"}
+UNPROFILED_RUNS = {"starcoder2_7b " + " ".join(SHARDED_TIERED)}
 # dense-backend runs (``serve.main`` without --paged): (config, flags);
 # the bf16 ones are profiled.  paligemma-3b serves its text-only decoder
 # (d 256 heads, MQA), as the reference's ``main`` does
@@ -1257,13 +1289,209 @@ def time_k4(torch, k4, c, dtype: str, flush) -> dict:
                 bytes=bytes_moved, ops=ops_count)
 
 
+def flag_value(flags, flag: str, default):
+    """The value a flag takes in ``serve_args(arch, flags)`` (the last
+    occurrence wins, as in argparse)."""
+    args = serve_args("", flags)
+    if flag not in args:
+        return default
+    last = max(i for i, a in enumerate(args) if a == flag)
+    return type(default)(args[last + 1])
+
+
+class Promotions:
+    """Records the destination blocks of every ``flush_promotions`` call
+    of every ``TierManager`` while in use (a ``with`` block)."""
+
+    def __enter__(self):
+        from repro_torch.kvcache import tiers
+        self.cls, self.orig = tiers.TierManager, \
+            tiers.TierManager.flush_promotions
+        self.dsts: dict = {}
+        orig, dsts = self.orig, self.dsts
+
+        def recording(tm):
+            out = orig(tm)
+            dsts.setdefault(id(tm), []).extend(out)
+            return out
+        self.cls.flush_promotions = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.flush_promotions = self.orig
+
+
+def mirror_check(torch, backend, promotions: Promotions) -> dict:
+    """For every block that was promoted from a spill tier and still holds
+    that prefix, after one more staging of its backend's mirror: the
+    block's K and V pages in the staged device mirror, and in the host
+    pool, equal the tier entry's payload bit for bit (byte views,
+    ``torch.equal``).  Fails when no promoted block is left to check."""
+    inner = getattr(backend, "backends", None) or [backend]
+    checked = bad = 0
+    for b in inner:
+        if b.tiers is None:
+            continue
+        k_dev, v_dev = b._staged_pages()
+        for dst in sorted(set(promotions.dsts.get(id(b.tiers), []))):
+            key = b.prefix._by_bid.get(dst)
+            entry = next((t._entries[key] for t in b.tiers.tiers
+                          if key is not None and t.holds(key)), None)
+            if entry is None:
+                continue          # evicted (or dropped) since
+            for dev, host, want in ((k_dev, b.pool.k_pages, entry.k),
+                                    (v_dev, b.pool.v_pages, entry.v)):
+                w = want.contiguous().view(torch.uint8)
+                ok = torch.equal(dev[:, dst].cpu().contiguous()
+                                 .view(torch.uint8), w) and torch.equal(
+                    host[:, dst].contiguous().view(torch.uint8), w)
+                bad += not ok
+            checked += 1
+    if bad or not checked:
+        raise AssertionError(f"tier mirror check: {checked} promoted blocks "
+                             f"resident, {bad} K/V planes differ from their "
+                             f"tier payload")
+    return dict(blocks=checked, dtype=str(inner[0].pool.k_pages.dtype))
+
+
+def dispatch_order_check(torch, out) -> dict:
+    """The sharded decode's dispatch-all-before-sync-any on one stream, at
+    the run's width: two lanes a shard on the run's backend, two warm
+    rounds, then one round under ``torch.profiler`` with each shard's
+    dispatch and sync marked.  Holds that no shard's dispatch blocks the
+    host (no synchronizing CUDA call inside any dispatch), that each
+    shard's dispatch launched K1 once a layer, and that the last shard's
+    K1 launches were issued on the host before shard 0's logits came
+    back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    backend, params, cfg = out["backend"], out["params"], out["cfg"]
+    n = len(backend.backends)
+    prompts = list(out["prompts"].values())[:2 * n]
+    sids = [backend.new_seq(params, list(p), shard=i % n)[0]
+            for i, p in enumerate(prompts)]
+    toks = [1] * len(sids)
+    for _ in range(2):
+        backend.decode(params, sids, toks)
+    marks: list = []                  # (event, shard, K1 launches, time)
+
+    def marked(i, what, fn):
+        def call(*a, **kw):
+            with record_function(f"shard{i}.{what}"):
+                r = fn(*a, **kw)
+            marks.append((what, i, pa.paged_attention.launches,
+                          time.perf_counter()))
+            return r
+        return call
+    for i, b in enumerate(backend.backends):
+        b.dispatch_decode = marked(i, "dispatch", b.dispatch_decode)
+        b.sync = marked(i, "sync", b.sync)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    backend.flush()
+    torch.cuda.synchronize()
+    k1_0 = pa.paged_attention.launches
+    t0 = time.perf_counter()
+    with prof:
+        step = backend.dispatch_decode(params, toks, sids=sids)
+        backend.sync(step)
+        torch.cuda.synchronize()
+    for b in backend.backends:
+        del b.dispatch_decode, b.sync
+    backend.flush()
+    windows, calls = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            continue
+        if e.name().startswith("shard") and "." in e.name():
+            windows[e.name()] = (e.start_ns(), e.end_ns())
+        elif e.name().startswith("cuda"):
+            calls.append((e.start_ns(), e.name()))
+    inside = {}
+    for i in range(n):
+        lo, hi = windows[f"shard{i}.dispatch"]
+        for t, name in calls:
+            if lo <= t <= hi:
+                inside[name] = inside.get(name, 0) + 1
+    blocking = {k: v for k, v in inside.items() if "Synchronize" in k
+                or k in ("cudaMemcpy", "cudaFreeHost", "cudaFree")}
+    disp = [m for m in marks if m[0] == "dispatch"]
+    k1 = [b[2] - a for a, b in zip([k1_0] + [m[2] for m in disp], disp)]
+    sync0 = next(m for m in marks if m[0] == "sync" and m[1] == 0)
+    res = dict(shards=n, lanes=len(sids), calls_in_dispatch=inside,
+               blocking=blocking, k1_per_dispatch=k1,
+               dispatch_ms=[(m[3] - t0) * 1e3 for m in disp],
+               shard0_logits_ms=(sync0[3] - t0) * 1e3,
+               last_dispatch_before_logits=disp[-1][3] < sync0[3])
+    print(f"[serve {out['cfg'].name} dispatch] {n} shards x 2 lanes, one "
+          f"profiled round: dispatches end at "
+          + ", ".join(f"{t:.2f}" for t in res["dispatch_ms"])
+          + f" ms, shard 0's logits back at {res['shard0_logits_ms']:.2f} "
+          f"ms; K1 launches per dispatch {k1}; CUDA calls inside the "
+          f"dispatches: {inside}; blocking: {blocking or 'none'}")
+    for sid in sids:
+        backend.free_seq(sid)
+    if blocking or not res["last_dispatch_before_logits"] or \
+            any(c != cfg.n_layers for c in k1):
+        raise AssertionError(f"sharded dispatch blocked the host or ran out "
+                             f"of order: {res}")
+    return res
+
+
+TIER_FP8 = "qwen1_5_0_5b --tiered-kv float8_e4m3fn"
+
+
+def tier_fp8_check(torch, serve) -> dict:
+    """The tiered qwen1.5-0.5b run (``TIERED``) with its KV pool in
+    float8_e4m3fn, whose dirty blocks cross to the mirror as bytes: it
+    must demote and promote, pass ``mirror_check``, and launch K1's split
+    and merge passes once a layer a decode step.  No teacher-forced check
+    (``--parity-checks 0``): how far an fp8 cache moves the tokens is
+    ``kv_fp8_check``'s question."""
+    import dataclasses
+    config = serve._config
+    serve._config = lambda a: dataclasses.replace(config(a),
+                                                  kv_dtype="float8_e4m3fn")
+    counters = kernel_counters()
+    reset_counts(counters)
+    try:
+        with Promotions() as promoted:
+            out = serve.main(serve_args("qwen1_5_0_5b", TIERED + (
+                "--parity-checks", "0")))
+    finally:
+        serve._config = config
+    launches = read_counts(counters)
+    k1 = out["cfg"].n_layers * out["decode_steps"]
+    mirror = mirror_check(torch, out["backend"], promoted)
+    t = out["tiers"]
+    print(f"[serve {TIER_FP8}] served={out['served']} decode_steps="
+          f"{out['decode_steps']} tiers: demotes {t['demotes']}, promotes "
+          f"{t['promotes']}; mirror check ({mirror['dtype']} pool): "
+          f"{mirror['blocks']} promoted blocks resident, bitwise equal; K1 "
+          f"launches {launches['paged_attention']} + "
+          f"{launches['paged_attention_merge']} (want {k1} + {k1})")
+    if out["served"] != flag_value(TIERED, "--requests", 16) \
+            or mirror["dtype"] != "torch.float8_e4m3fn" \
+            or not (t["demotes"] > 0 and t["promotes"] > 0) \
+            or launches["paged_attention"] != k1 \
+            or launches["paged_attention_merge"] != k1:
+        raise AssertionError(f"{TIER_FP8}: {out['served']} served, tiers "
+                             f"{t}, mirror {mirror}, launches {launches}")
+    return dict(served=out["served"], decode_steps=out["decode_steps"],
+                tiers=t, mirror=mirror, launches=launches)
+
+
 def serve_phase(torch, serve, arch: str, flags=()):
     """One full-width serve run with every launch count set to 0 just
     before it; checks the served tokens and that each kernel of the path
-    launched as often as the run's counts say."""
+    launched as often as the run's counts say.  A tiered run must demote
+    and promote and pass ``mirror_check``; a sharded run reports each
+    shard (``main_paged`` prints them) and passes
+    ``dispatch_order_check`` after its counts are read."""
     counters = kernel_counters()
     reset_counts(counters)
-    out = serve.main(serve_args(arch, flags))
+    with Promotions() as promoted:
+        out = serve.main(serve_args(arch, flags))
     launches = read_counts(counters)
     name = run_name(arch, flags)
     cfg = out["cfg"]                  # as served: --layers cuts the depth
@@ -1297,7 +1525,26 @@ def serve_phase(torch, serve, arch: str, flags=()):
           f"{out['parity_noise']} layers={L}")
     print(f"[serve {name}] launches: " + ", ".join(
         f"{k} {launches[k]} (want {want[k]})" for k in counters))
-    if out["served"] != 16 or out["parity_mismatches"]:
+    if "--tiered-kv" in flags:
+        t = out["tiers"]
+        out["mirror"] = mirror_check(torch, out["backend"], promoted)
+        print(f"[serve {name}] tiers: demotes {t['demotes']}, promotes "
+              f"{t['promotes']}, promoted_tokens {t['promoted_tokens']}, "
+              f"modelled stall_us {t['stall_us']:.1f}; tier_probe "
+              f"{'wired' if out['tier_probe'] else 'none'}; mirror check: "
+              f"{out['mirror']['blocks']} promoted blocks resident, their "
+              f"staged mirror pages equal the tier payloads bitwise")
+        if not (t["demotes"] > 0 and t["promotes"] > 0
+                and t["promoted_tokens"] > 0):
+            raise AssertionError(f"{name}: the tiers never spilled and "
+                                 f"re-promoted: {t}")
+        if "--shards" in flags and not out["tier_probe"]:
+            raise AssertionError(f"{name}: the scheduler's tier_probe is "
+                                 f"not wired")
+    if "--shards" in flags and cfg.cdtype != torch.float32:
+        out["dispatch"] = dispatch_order_check(torch, out)
+    if out["served"] != flag_value(flags, "--requests", 16) \
+            or out["parity_mismatches"]:
         raise AssertionError(f"{name}: {out['served']} served, "
                              f"{out['parity_mismatches']} parity mismatches")
     if launches != want or not all(
@@ -1872,7 +2119,7 @@ def print_profile(arch: str, prof: dict) -> None:
 
 PHASES = ("k1", "k3", "k2", "k4", "k5", "serve", "dense")
 # what a serve run returns beside its stats: not written to the record
-NOT_STATS = ("finished", "cfg", "params", "prompts")
+NOT_STATS = ("finished", "cfg", "params", "prompts", "backend")
 
 
 def main(argv=None) -> int:
@@ -2022,12 +2269,22 @@ def main(argv=None) -> int:
         del out
         free_device(torch, name)
         t1 = time.perf_counter()
-        if not UNPROFILED & set(flags):
+        if not UNPROFILED & set(flags) and name not in UNPROFILED_RUNS:
             profiles[name] = profile_serve(torch, serve,
                                            serve_args(arch, flags))
             print_profile(name, profiles[name])
             free_device(torch, f"profiling {name}")
         timed_run(name, t0, t1)
+    if "serve" in phases and (not args.runs or any(
+            k in TIER_FP8 for k in args.runs.split(","))):
+        t0 = time.perf_counter()
+        try:
+            served[TIER_FP8] = tier_fp8_check(torch, serve)
+        except AssertionError as e:
+            print(f"[serve {TIER_FP8}] FAILED: {e}")
+            failed.append(TIER_FP8)
+        free_device(torch, TIER_FP8)
+        timed_run(TIER_FP8, t0, time.perf_counter())
     for arch, flags in dense_runs if "dense" in phases else ():
         name = run_name(arch, flags)
         t0 = time.perf_counter()

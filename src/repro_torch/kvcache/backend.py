@@ -1,11 +1,11 @@
 """Unified KV-backend API: dense and paged serving caches, one interface
-(port of ``repro/kvcache/backend.py``, single device; the dense backend
-serves every ported family, the paged one the dense, hybrid and MoE
-families).
+(port of ``repro/kvcache/backend.py``; the dense backend serves every
+ported family, the paged ones the dense, hybrid and MoE families).
 
 The model (``models.lm``) speaks to its KV storage only through
 ``KVBackend``: ``prefill`` runs a prompt batch and stores every layer's
-K/V, ``decode_step`` advances every lane one token.  Two implementations:
+K/V, ``decode_step`` advances every lane one token.  Three
+implementations:
 
   DenseBackend   the concrete per-layer ``lm.Cache`` on the device.
   PagedBackend   per-sequence block tables over a layered ``BlockPool``
@@ -14,7 +14,16 @@ K/V, ``decode_step`` advances every lane one token.  Two implementations:
                  sharing and copy-on-write forks — what ``serve.engine``
                  drives.  A hybrid model's per-sequence SSM state and
                  conv context live beside the block tables, as tensors
-                 on the backend's device.
+                 on the backend's device.  ``tiered=True`` puts spill
+                 tiers behind the pool (``kvcache.tiers``): eviction
+                 demotes registered prefix blocks, prefix misses that
+                 hit a tier promote them back.
+  ShardedPagedBackend  one complete ``PagedBackend`` per shard of a
+                 ``kvcache.sharded_pool.ShardedBlockPool`` (own pool,
+                 prefix cache, tiers, mirror pair and device — on one GPU
+                 every shard's device is the same card): the kernels run
+                 per shard over shard-local page tables, sequences never
+                 span shards.
 
 Decode through the paged backend has two modes (``decode_mode``):
 
@@ -38,7 +47,9 @@ Decode is split-phase:
     ...                                # sample / emit while KV is in flight
     backend.flush()                    # commit the deferred KV write-back
 
-``dispatch_decode`` enqueues the step's device work and returns; ``sync``
+``dispatch_decode`` enqueues the step's device work and returns without
+blocking the host (operands cross from pinned buffers asynchronously;
+only a backend's first stage, which builds the mirrors, waits); ``sync``
 blocks on the logits and starts the non-blocking device->host copy of the
 new K/V into pinned buffers behind a CUDA event; ``commit`` (normally via
 ``flush`` or the next ``dispatch_decode``) waits on that event and
@@ -51,6 +62,7 @@ Construction goes through ``make_backend``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Protocol, Sequence, \
     runtime_checkable
 
@@ -70,7 +82,8 @@ class DecodeStep:
     ``dispatch_decode`` returns one; ``sync(step)`` fills ``logits`` and
     flips ``synced``; ``commit(step)`` (or ``flush()``, or the next
     ``dispatch_decode``) lands the deferred KV write-back and flips
-    ``committed``.  ``dev`` holds backend-internal in-flight tensors.
+    ``committed``.  ``dev`` holds backend-internal in-flight tensors and
+    ``parts`` the per-shard inner steps of a sharded dispatch.
     """
     index: int                       # per-backend dispatch counter
     sids: list                       # sequences this step advances
@@ -83,6 +96,7 @@ class DecodeStep:
     dev: dict = dataclasses.field(default_factory=dict)
     seqs: Optional[list] = None      # resolved _PagedSeq refs
     on_alloc: Optional[Callable[[int, int], None]] = None
+    parts: Optional[list] = None     # sharded: (shard, inner step, idxs)
 
 
 @runtime_checkable
@@ -137,6 +151,15 @@ def _tokens_on(tokens, device) -> torch.Tensor:
     if isinstance(tokens, torch.Tensor):
         return tokens.to(device=device, dtype=torch.int32)
     return torch.as_tensor(np.asarray(tokens, np.int32)).to(device)
+
+
+def _upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device`` without blocking the host: on CUDA
+    through a pinned copy and an asynchronous upload (the caching host
+    allocator keeps the pinned copy alive until the upload is done)."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +316,7 @@ class PagedBackend:
                  num_blocks: int = 256, block_size: int = 16,
                  placement: str = "mars", eviction: str = "fifo",
                  share_prefixes: bool = True, decode_mode: str = "kernel",
-                 device="cuda"):
+                 device="cuda", tiered: bool = False, tier_specs=None):
         """Build a paged backend over ``pool`` (or a fresh pool sized by
         ``num_blocks``/``block_size`` matching the model config).
 
@@ -303,12 +326,21 @@ class PagedBackend:
             stacks).
           pool: existing layered ``BlockPool`` to share; its KV buffer
             shape must match ``cfg``.
-          placement/eviction: pool policies when building a fresh pool.
+          placement/eviction: pool policies when building a fresh pool
+            ("cost" eviction pairs with ``tiered``: the tier manager
+            installs its recompute-vs-refetch scoring hook).
           share_prefixes: storage-level prefix sharing via ``PrefixCache``.
           decode_mode: "kernel" (``paged_attention`` per layer, the
             default) or "gather" (dense-view oracle).
           device: where the staged KV mirror and the decode run; a CUDA
             device pins the pool's host buffers.
+          tiered: put host / mock-remote spill tiers behind the pool
+            (``kvcache.tiers.TierManager``): eviction demotes registered
+            prefix blocks instead of dropping them, and prefix misses
+            that hit a lower tier promote them back through a
+            MARS-reordered batched copy-in.  Requires prefix sharing.
+          tier_specs: ``TierSpec`` sequence overriding
+            ``tiers.default_tiers``.
         """
         from repro_torch.models import lm
         lm.check_paged_family(cfg)   # dense, MoE, or hybrid (+ SSM state)
@@ -335,6 +367,16 @@ class PagedBackend:
         if share_prefixes:
             self.prefix.attach(pool)
         self.share_prefixes = share_prefixes
+        # spill tiers: the manager interposes on pool.on_evict AFTER
+        # prefix.attach, so demotion captures the payload before the
+        # prefix cache unregisters the block
+        self.tiers = None
+        if tiered:
+            assert share_prefixes, \
+                "tiered KV spills registered prefix blocks; enable " \
+                "share_prefixes"
+            from repro_torch.kvcache.tiers import TierManager
+            self.tiers = TierManager(pool, self.prefix, tier_specs)
         self._seqs: dict[int, _PagedSeq] = {}
         self._next_sid = 0
         self._batch: list[int] = []      # batch-level API lane order
@@ -367,7 +409,7 @@ class PagedBackend:
         """Copy host pool planes ``blocks`` into a device mirror along the
         block axis.  On CUDA the gathered planes land in a fresh pinned
         buffer and cross asynchronously (the caching host allocator keeps
-        it alive until the copy is done)."""
+        it alive until the copy is done), so the host never waits."""
         idx = torch.as_tensor(blocks, dtype=torch.long)
         shape = (host.shape[0], len(blocks)) + tuple(host.shape[2:])
         cuda = self.device.type == "cuda"
@@ -376,7 +418,7 @@ class PagedBackend:
         if host.dtype == torch.float8_e4m3fn:
             # index_copy_ has no float8 kernel: copy the same bytes
             mirror, vals = mirror.view(torch.uint8), vals.view(torch.uint8)
-        mirror.index_copy_(1, idx.to(self.device, non_blocking=cuda),
+        mirror.index_copy_(1, _upload(idx, self.device),
                            vals.to(self.device, non_blocking=cuda))
 
     def _staged_pages(self):
@@ -442,10 +484,7 @@ class PagedBackend:
         sids, shared = [], []
         for b in range(B):
             prompt = [int(t) for t in tokens[b]]
-            if not self.share_prefixes:
-                bids, n = [], 0
-            else:
-                bids, n = self.prefix.match(prompt, self.pool)
+            bids, n = self._match(prompt)
             table = BlockTable(list(bids), n)
             allocs0 = self.pool.stats.allocs
             try:
@@ -454,6 +493,12 @@ class PagedBackend:
                     cache=self.prefix if self.share_prefixes else None,
                     kv=(k_all[:, b, n:], v_all[:, b, n:]))
             except RuntimeError:
+                # roll back: queued promotions first (their destination
+                # blocks are released with the tables below; the tier
+                # entries were never removed), then this row's partial
+                # table, then the rows this call already created
+                if self.tiers is not None:
+                    self.tiers.cancel_promotions()
                 self.prefix.release(table, self.pool)
                 for sid in sids:
                     self.free_seq(sid)
@@ -469,7 +514,23 @@ class PagedBackend:
                 on_alloc(sid, self.pool.stats.allocs - allocs0)
             sids.append(sid)
             shared.append(n)
+        if self.tiers is not None:
+            # the whole batch's promotions land in one MARS-reordered
+            # copy-in; the dirtied blocks stage to the device mirror
+            # before the next decode step reads them
+            self.tiers.flush_promotions()
         return logits[:, 0].float().cpu().numpy(), sids, shared
+
+    def _match(self, prompt) -> tuple[list[int], int]:
+        """The prompt's reusable full-block prefix: none without prefix
+        sharing; through the tiers (in-pool chain, then promotable
+        lower-tier blocks, queued for ``flush_promotions``) when tiered;
+        else the prefix cache."""
+        if not self.share_prefixes:
+            return [], 0
+        if self.tiers is not None:
+            return self.tiers.match(prompt)
+        return self.prefix.match(prompt, self.pool)
 
     def fork_seq(self, sid: int) -> int:
         """Fork a sequence, sharing every block (CoW on first append); the
@@ -492,9 +553,9 @@ class PagedBackend:
         """Preempt a live decode: flush first, capture the sequence's
         decode state (cached tokens, every block's KV payload + content
         tag host-side, a copy of the hybrid side state on the device),
-        then release its blocks (registered prefix blocks
-        stay as evictable cache).  Returns the record ``resume_seq``
-        restores from, bitwise."""
+        then release its blocks (registered prefix blocks stay as
+        evictable cache, demotable to the spill tiers under pressure).
+        Returns the record ``resume_seq`` restores from, bitwise."""
         self._check_released()
         self.flush()
         seq = self._seqs.pop(sid)
@@ -514,7 +575,8 @@ class PagedBackend:
                    on_alloc: Optional[Callable[[int, int], None]] = None
                    ) -> int:
         """Re-admit a paused sequence bitwise-identically under a new sid:
-        leading blocks re-enter through the prefix cache, the rest are
+        leading blocks re-enter through the prefix cache and the tiers
+        (the same bytes: demotion captured them verbatim), the rest are
         restored from the record's captured pages.  Atomic under pool
         exhaustion."""
         self._check_released()
@@ -523,10 +585,9 @@ class PagedBackend:
         bs = pool.cfg.block_size
         tokens = list(rec["tokens"])
         num = rec["num_tokens"]
-        if not self.share_prefixes:
-            bids, n = [], 0
-        else:
-            bids, n = self.prefix.match(tokens, pool)
+        bids, n = self._match(tokens)
+        # the on_alloc claim counts only the restore's own allocations
+        # (promotion destinations are the tier manager's)
         allocs0 = pool.stats.allocs
         start = n // bs
         need = len(rec["blocks"]) - start
@@ -537,6 +598,8 @@ class PagedBackend:
                     f"free {pool.num_free}, cached {pool.num_cached}")
             fresh = pool.alloc(need, hint_blocks=bids) if need else []
         except RuntimeError:
+            if self.tiers is not None:
+                self.tiers.cancel_promotions()
             self.prefix.release(BlockTable(list(bids), n), pool)
             raise
         for j, bid in enumerate(fresh):
@@ -547,6 +610,8 @@ class PagedBackend:
             end = (start + j + 1) * bs
             if self.share_prefixes and end <= num:
                 self.prefix.register(tuple(tokens[:end]), bid, pool)
+        if self.tiers is not None:
+            self.tiers.flush_promotions()
         sid = self._next_sid
         self._next_sid += 1
         self._seqs[sid] = _PagedSeq(
@@ -577,9 +642,9 @@ class PagedBackend:
         Commits the pending prior step first, prechecks capacity for this
         step (each lane needs at most one fresh block: a new tail or a
         CoW copy), stages the next mirror slot, and enqueues the step's
-        device work.  ``sids=None`` dispatches the batch-API lanes
-        (``tokens`` is the (B, 1) batch).  Raising leaves every sequence
-        exactly as it was.
+        device work without blocking the host.  ``sids=None`` dispatches
+        the batch-API lanes (``tokens`` is the (B, 1) batch).  Raising
+        leaves every sequence exactly as it was.
         """
         from repro_torch.kernels.paged_attention import ops
         from repro_torch.models import lm
@@ -594,6 +659,11 @@ class PagedBackend:
                 "a decode step is already in flight; sync() it before "
                 "dispatching the next")
         self._commit_pending()
+        # tier contract: every queued promotion is flushed (copied in and
+        # dirtied for staging) before a promoted page can enter a decode
+        # batch — prefill and resume flush theirs, so the queue is empty
+        assert self.tiers is None or self.tiers.pending == 0, \
+            "unflushed tier promotions entering a decode batch"
         seqs = [self._seqs[s] for s in sids]
         page = self.pool.cfg.block_size
         need = 0
@@ -610,9 +680,9 @@ class PagedBackend:
             [s.table for s in seqs], tokens, page)
         kp, vp = self._staged_pages()
         dev = self.device
-        pt_d = torch.from_numpy(pt).to(dev)
-        len_d = torch.from_numpy(lengths).to(dev)
-        toks_d = torch.from_numpy(toks).to(dev)
+        pt_d = _upload(torch.from_numpy(pt), dev)
+        len_d = _upload(torch.from_numpy(lengths), dev)
+        toks_d = _upload(torch.from_numpy(toks), dev)
         ssm = conv = None
         if self.cfg.has_ssm:
             # batch the per-sequence side state along a lane axis; padded
@@ -740,6 +810,14 @@ class PagedBackend:
         self._check_released()
         return self._seqs[sid].table
 
+    def block_of(self, sid: int, layer: int, token_index: int) -> int:
+        """Pool block holding a token's KV for one layer — the layer axis
+        shares the block id, so one placement covers all layers."""
+        assert 0 <= layer < self.cfg.n_layers
+        seq = self._seqs[sid]
+        assert token_index < seq.table.num_tokens
+        return seq.table.blocks[token_index // self.pool.cfg.block_size]
+
     # -- batch-level KVBackend API ------------------------------------------
 
     def prefill(self, params, tokens, frontend_emb=None):
@@ -799,25 +877,475 @@ def _lanes(states: list, n_lanes: int) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Mesh-sharded paged backend
+# ---------------------------------------------------------------------------
+
+class ShardedPagedBackend:
+    """One ``PagedBackend`` per shard of a ``ShardedBlockPool``.
+
+    Each shard owns a complete serving stack: its own block pool, prefix
+    cache, spill tiers (``tiered=``), staged-dirty mirror pair and
+    ``device`` (on one GPU every shard's is the same card), so
+    ``lm.paged_decode_step`` runs the kernels per shard over shard-local
+    pools.  A sequence lives entirely on one shard: ``fork_seq`` forks
+    within the parent's shard and prefix sharing only matches blocks the
+    same shard stored — which is why the scheduler routes shared
+    prefixes to one shard.
+
+    Sequence ids handed out here are backend-global; the mapping to
+    (shard, inner sid) is internal.  ``decode`` accepts any mix of
+    sequences, groups them by shard, runs one ragged step per shard (all
+    dispatched before any is synced), and reassembles logits in call
+    order.  The batch-level ``KVBackend`` API routes prefill rows to the
+    least-loaded shard.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, pool=None,
+                 n_shards: Optional[int] = None, mesh=None,
+                 devices: Optional[Sequence] = None,
+                 num_blocks: int = 256, block_size: int = 16,
+                 placement: str = "mars", eviction: str = "fifo", **kw):
+        """Prefer ``make_backend(cfg, "paged", shards=N, ...)``.
+
+        Args:
+          pool: a ``ShardedBlockPool`` to drive, or None to build one
+            (``num_blocks`` total across shards, rounded up to a multiple
+            of the shard count).
+          n_shards/mesh: shard-count discovery when building the pool —
+            forwarded to ``ShardedBlockPool`` (mesh model axis; 1
+            without a mesh).
+          devices: per-shard devices for the mirrors and the decode
+            (length ``n_shards``; entries may repeat when fewer devices
+            than shards exist).  None puts every shard on "cuda".
+          Remaining kwargs (decode_mode, share_prefixes, tiered,
+          tier_specs) configure every per-shard backend alike.
+        """
+        from repro_torch.kvcache.sharded_pool import ShardedBlockPool, \
+            discover_shards
+        if pool is None:
+            n_shards = discover_shards(n_shards, mesh)
+            num_blocks = -(-num_blocks // n_shards) * n_shards
+            pool = ShardedBlockPool(
+                PoolConfig(num_blocks=num_blocks, block_size=block_size,
+                           placement=placement, eviction=eviction,
+                           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.d_head,
+                           n_layers=cfg.n_layers, dtype=cfg.kv_dtype_name),
+                n_shards=n_shards, mesh=mesh)
+        assert isinstance(pool, ShardedBlockPool), \
+            "ShardedPagedBackend needs a ShardedBlockPool"
+        if devices is None:
+            devices = ["cuda"] * pool.n_shards
+        assert len(devices) == pool.n_shards, (len(devices), pool.n_shards)
+        self.cfg = cfg
+        self.pool = pool
+        self.backends = [PagedBackend(cfg, pool=shard_pool, device=devices[i],
+                                      **kw)
+                         for i, shard_pool in enumerate(pool.shards)]
+        self._seqs: dict[int, tuple[int, int]] = {}   # gsid -> (shard, isid)
+        self._rev: dict[tuple[int, int], int] = {}    # (shard, isid) -> gsid
+        self._next_sid = 0
+        self._batch: list[int] = []
+        self._released = False
+        # split-phase state (as PagedBackend's; the per-shard inner steps
+        # live in the outer step's ``parts``)
+        self._inflight: Optional[DecodeStep] = None
+        self._pending: Optional[DecodeStep] = None
+        self._steps = 0
+
+    def _check_released(self) -> None:
+        if self._released:
+            raise RuntimeError(
+                "ShardedPagedBackend released: release() returned every "
+                "block to its shard pool; build a new backend to serve "
+                "again")
+
+    # decode_mode and staging reads mirror PagedBackend's so the engine's
+    # use_kernel override stays backend-agnostic (the setter fans out)
+
+    @property
+    def decode_mode(self) -> str:
+        return self.backends[0].decode_mode
+
+    @decode_mode.setter
+    def decode_mode(self, mode: str) -> None:
+        if mode not in ("kernel", "gather"):
+            raise ValueError(f"unknown decode_mode {mode!r}")
+        for b in self.backends:
+            b.decode_mode = mode
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device: where batch-API logits land."""
+        return self.backends[0].device
+
+    @property
+    def staged_blocks_last_step(self) -> int:
+        return sum(b.staged_blocks_last_step for b in self.backends)
+
+    # -- sequence-level API (what the serve engine drives) ------------------
+
+    def _new_sid(self) -> int:
+        gsid = self._next_sid
+        self._next_sid += 1
+        return gsid
+
+    def _adopt(self, gsid: int, shard: int, isid: int) -> int:
+        """Map backend-global ``gsid`` to shard ``shard``'s ``isid``."""
+        self._seqs[gsid] = (shard, isid)
+        self._rev[(shard, isid)] = gsid
+        return gsid
+
+    def new_seq(self, params, prompt: Sequence[int],
+                on_alloc: Optional[Callable[[int, int], None]] = None,
+                shard: Optional[int] = None) -> tuple[int, Any, int]:
+        """Prefill one sequence on one shard: ``shard`` is the routed
+        shard (what ``MarsScheduler`` stamped on the request), None the
+        least-loaded one.  Returns as ``PagedBackend.new_seq``; every
+        block of the sequence lives in ``pool.shards[shard]``."""
+        self._check_released()
+        # barrier across all shards (the inner new_seq flushes its own)
+        self.flush()
+        if shard is None:
+            shard = self.pool.least_loaded()
+        assert 0 <= shard < self.pool.n_shards, shard
+        gsid = self._new_sid()
+        cb = None if on_alloc is None else \
+            (lambda _isid, n: on_alloc(gsid, n))
+        isid, logits, shared = self.backends[shard].new_seq(
+            params, prompt, on_alloc=cb)
+        self._adopt(gsid, shard, isid)
+        return gsid, logits, shared
+
+    def fork_seq(self, sid: int) -> int:
+        """Fork within the parent's shard (CoW is shard-local); flushes
+        every shard first."""
+        self._check_released()
+        self.flush()
+        shard, isid = self._seqs[sid]
+        nisid = self.backends[shard].fork_seq(isid)
+        return self._adopt(self._new_sid(), shard, nisid)
+
+    def pause_seq(self, sid: int) -> dict:
+        """Preempt a live decode on its shard (``PagedBackend.pause_seq``)
+        after a barrier across every shard.  The record remembers the
+        shard, so an un-routed resume goes back to where the cached and
+        demoted blocks live."""
+        self._check_released()
+        self.flush()
+        shard, isid = self._seqs.pop(sid)
+        del self._rev[(shard, isid)]
+        rec = self.backends[shard].pause_seq(isid)
+        rec["shard"] = shard
+        return rec
+
+    def resume_seq(self, rec: dict,
+                   on_alloc: Optional[Callable[[int, int], None]] = None,
+                   shard: Optional[int] = None) -> int:
+        """Re-admit a paused sequence under a new global sid: on the pause
+        shard by default (prefix and tier matches only hit there), or on
+        ``shard`` (the captured payload is restored there).  Bitwise
+        either way."""
+        self._check_released()
+        self.flush()
+        if shard is None:
+            shard = rec.get("shard", self.pool.least_loaded())
+        assert 0 <= shard < self.pool.n_shards, shard
+        gsid = self._new_sid()
+        cb = None if on_alloc is None else \
+            (lambda _isid, n: on_alloc(gsid, n))
+        isid = self.backends[shard].resume_seq(rec, on_alloc=cb)
+        return self._adopt(gsid, shard, isid)
+
+    def decode(self, params, sids: Sequence[int], tokens: Sequence[int],
+               on_alloc: Optional[Callable[[int, int], None]] = None):
+        """One ragged decode round across shards, synchronously
+        (``dispatch_decode`` + ``sync`` + ``commit``).  All-or-nothing
+        across shards.  Returns float32 (len(sids), V) numpy logits
+        row-aligned to sids."""
+        step = self.dispatch_decode(params, tokens, sids=sids,
+                                    on_alloc=on_alloc)
+        out = self.sync(step)
+        self.commit(step)
+        return out
+
+    # -- split-phase decode lifecycle (issue-then-gather) --------------------
+
+    def dispatch_decode(self, params, tokens, *, sids=None,
+                        on_alloc: Optional[Callable[[int, int], None]]
+                        = None) -> DecodeStep:
+        """Dispatch one decode round on every involved shard before any
+        is synced: commit the prior round everywhere, run the cross-shard
+        capacity precheck (so a raise leaves every shard as it was), then
+        enqueue each shard's step back to back — none blocks the host, so
+        the shards' mirror uploads and kernels queue up on the device."""
+        self._check_released()
+        batch_api = sids is None
+        if batch_api:
+            sids = list(self._batch)
+            tokens = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        assert sids, "no active sequences to decode (prefill first)"
+        if self._inflight is not None:
+            raise RuntimeError(
+                "a decode step is already in flight; sync() it before "
+                "dispatching the next")
+        self._commit_pending()
+        by_shard: dict[int, list[int]] = {}
+        for i, s in enumerate(sids):
+            by_shard.setdefault(self._seqs[s][0], []).append(i)
+        # cross-shard capacity precheck (the per-shard one, for every
+        # shard before any dispatches): each lane needs at most one fresh
+        # block — a new tail, or a CoW copy of a shared tail
+        page = self.pool.cfg.block_size
+        for shard, idxs in by_shard.items():
+            inner = self.backends[shard]
+            need = 0
+            for i in idxs:
+                t = inner._seqs[self._seqs[sids[i]][1]].table
+                fill = t.num_tokens % page
+                if fill == 0 or inner.pool.refcount[t.blocks[-1]] > 1:
+                    need += 1
+            if not inner.pool.can_alloc(need):
+                raise RuntimeError(
+                    f"pool exhausted on shard {shard}: decode step needs "
+                    f"{need} blocks, free {inner.pool.num_free}, "
+                    f"cached {inner.pool.num_cached}")
+        parts = []
+        for shard, idxs in sorted(by_shard.items()):
+            cb = None if on_alloc is None else \
+                functools.partial(self._on_alloc, on_alloc, shard)
+            inner_step = self.backends[shard].dispatch_decode(
+                params, [tokens[i] for i in idxs],
+                sids=[self._seqs[sids[i]][1] for i in idxs], on_alloc=cb)
+            parts.append((shard, inner_step, idxs))
+        step = DecodeStep(index=self._steps, sids=list(sids),
+                          tokens=[int(t) for t in tokens],
+                          staged=self.staged_blocks_last_step,
+                          batch_api=batch_api, parts=parts)
+        self._steps += 1
+        self._inflight = step
+        return step
+
+    def _on_alloc(self, on_alloc, shard: int, isid: int, n: int) -> None:
+        on_alloc(self._rev[(shard, isid)], n)
+
+    def sync(self, step: DecodeStep):
+        """Gather every shard's logits (every shard's step was already
+        enqueued) and reassemble rows in call order.  Idempotent."""
+        self._check_released()
+        if step.synced:
+            return step.logits
+        if step is not self._inflight:
+            raise RuntimeError(
+                "sync() of a step that is not in flight on this backend")
+        rows: dict[int, np.ndarray] = {}
+        for shard, inner_step, idxs in step.parts:
+            lg = self.backends[shard].sync(inner_step)
+            for j, i in enumerate(idxs):
+                rows[i] = lg[j]
+        step.logits = np.stack([rows[i] for i in range(len(step.sids))])
+        if step.batch_api:
+            step.logits = torch.from_numpy(step.logits)[:, None, :] \
+                .to(self.device)
+        step.synced = True
+        self._inflight = None
+        self._pending = step
+        return step.logits
+
+    def commit(self, step: Optional[DecodeStep] = None) -> None:
+        """Commit every shard's part of the pending round."""
+        self._check_released()
+        if step is not None:
+            if step.committed:
+                return
+            if step is not self._pending:
+                raise RuntimeError(
+                    "commit() of a step that is not pending on this "
+                    "backend (sync() it first)")
+        self._commit_pending()
+
+    def _commit_pending(self) -> None:
+        step = self._pending
+        if step is None:
+            return
+        self._pending = None
+        for shard, inner_step, _ in step.parts:
+            self.backends[shard].commit(inner_step)
+        step.committed = True
+
+    def flush(self) -> None:
+        """Barrier across every shard: sync the in-flight round, commit
+        the pending one, and drain each shard backend.  Idempotent."""
+        self._check_released()
+        if self._inflight is not None:
+            self.sync(self._inflight)
+        self._commit_pending()
+        for b in self.backends:
+            b.flush()
+
+    @property
+    def inflight_steps(self) -> int:
+        """Cross-shard rounds between dispatch and commit (0, 1 or 2)."""
+        return int(self._inflight is not None) + \
+            int(self._pending is not None)
+
+    def free_seq(self, sid: int) -> None:
+        """Release a finished sequence to its shard's pool (after the
+        flush barrier)."""
+        self._check_released()
+        self.flush()
+        shard, isid = self._seqs.pop(sid)
+        del self._rev[(shard, isid)]
+        self.backends[shard].free_seq(isid)
+
+    def table(self, sid: int) -> BlockTable:
+        self._check_released()
+        shard, isid = self._seqs[sid]
+        return self.backends[shard].table(isid)
+
+    def shard_of(self, sid: int) -> int:
+        """Shard a live sequence's blocks occupy — the leading coordinate
+        of its placement key (``placement.placement_key``)."""
+        self._check_released()
+        return self._seqs[sid][0]
+
+    # -- tiered KV memory (per-shard tiers, shard-local) ---------------------
+
+    @property
+    def tiered(self) -> bool:
+        """True iff the per-shard backends carry spill tiers (one
+        ``TierManager`` per shard pool: payloads never cross shards)."""
+        return self.backends[0].tiers is not None
+
+    def tier_shard_for(self, prompt: Sequence[int]) -> Optional[int]:
+        """Shard whose spill tiers hold the prompt's first full prefix
+        block, or None — the lower-tier hit ``MarsScheduler.tier_probe``
+        counts toward routing, turning a recompute into a shard-local
+        promotion."""
+        self._check_released()
+        for i, b in enumerate(self.backends):
+            if b.tiers is not None and b.tiers.holds_prefix(prompt):
+                return i
+        return None
+
+    # -- batch-level KVBackend API ------------------------------------------
+
+    def prefill(self, params, tokens, frontend_emb=None):
+        """Protocol ``prefill``: rows route greedily to the least-loaded
+        shard (each row charged its block need), then each shard
+        prefills its rows in one batched call.  Atomic across shards: if
+        a later shard exhausts its pool, rows already prefilled on
+        earlier shards are freed before the error re-raises.  Returns
+        last-position logits (B, 1, V) in row order."""
+        from repro_torch.obs.observer import shard_load_snapshot
+        self._check_released()
+        if frontend_emb is not None:
+            raise ValueError("the paged backend keeps no frontend state "
+                             "(encoder-decoder models serve densely)")
+        self.flush()
+        old, self._batch = self._batch, []
+        for sid in old:
+            self.free_seq(sid)
+        tokens = np.asarray(tokens, np.int32)
+        B = tokens.shape[0]
+        row_blocks = -(-tokens.shape[1] // self.pool.cfg.block_size)
+        load = [r["load"] for r in shard_load_snapshot(self.pool)]
+        plan: dict[int, list[int]] = {}
+        for i in range(B):
+            s = min(range(self.pool.n_shards), key=lambda x: (load[x], x))
+            plan.setdefault(s, []).append(i)
+            load[s] += row_blocks
+        out = np.zeros((B, self.cfg.vocab), np.float32)
+        gsids: dict[int, int] = {}
+        for shard, idxs in sorted(plan.items()):
+            try:
+                lg, isids, _ = self.backends[shard]._add_seqs(
+                    params, tokens[idxs])
+            except RuntimeError:
+                # the failing shard rolled itself back; free the rows
+                # earlier shards already created
+                for gsid in gsids.values():
+                    self.free_seq(gsid)
+                raise
+            for j, i in enumerate(idxs):
+                out[i] = lg[j]
+                gsids[i] = self._adopt(self._new_sid(), shard, isids[j])
+        self._batch = [gsids[i] for i in range(B)]
+        return torch.from_numpy(out)[:, None, :].to(self.device)
+
+    def decode_step(self, params, tokens):
+        """Protocol ``decode_step`` over the prefill lanes; lanes decode
+        on their own shards.  Returns next-token logits (B, 1, V)."""
+        self._check_released()
+        toks = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        logits = self.decode(params, self._batch, toks)
+        return torch.from_numpy(logits)[:, None, :].to(self.device)
+
+    @property
+    def lengths(self) -> np.ndarray:
+        self._check_released()
+        return np.asarray([self.table(s).num_tokens for s in self._batch],
+                          np.int32)
+
+    def release(self) -> None:
+        """Drain the pipeline, then release every shard backend; later
+        entry points raise."""
+        if not self._released:
+            if self._inflight is not None:
+                self.sync(self._inflight)
+            self._commit_pending()
+        for b in self.backends:
+            b.release()
+        self._seqs.clear()
+        self._rev.clear()
+        self._batch = []
+        self._released = True
+
+
 def make_backend(cfg: ModelConfig, kind: str = "dense", *,
                  batch: int = 1, max_seq: int = 0, enc_len: int = 0,
-                 pool: Optional[BlockPool] = None, device="cuda",
+                 pool=None, shards: Optional[int] = None, device=None,
                  **kw) -> KVBackend:
-    """Backend registry: "dense" | "paged".
+    """Backend registry: "dense" | "paged" | "sharded-paged".
 
     ``batch``/``max_seq`` are the capacity request — dense allocates
     (B, max_seq) (and an encoder-decoder model's cross-attention K/V
-    over ``enc_len`` frames); paged sizes the pool to hold ``batch``
-    lanes of ``max_seq`` tokens (+1 decode slot each) unless
-    ``num_blocks`` or an explicit ``pool`` overrides it.  Remaining
-    kwargs (``decode_mode``, ``block_size``, ...) forward to
-    ``PagedBackend``.
+    over ``enc_len`` frames); paged kinds size the pool to hold
+    ``batch`` lanes of ``max_seq`` tokens (+1 decode slot each) unless
+    ``num_blocks`` or an explicit ``pool`` overrides it — a sharded pool
+    to hold whole lanes on every shard.  ``shards > 1`` turns "paged"
+    into "sharded-paged" (``n_shards`` there).  ``device`` (default
+    "cuda") places a dense or paged backend; sharded kinds take per-shard
+    ``devices=[...]`` and refuse ``device=``.  Remaining kwargs
+    (``decode_mode``, ``block_size``, ``tiered``, ...) forward to the
+    backend.
     """
     if kind == "dense":
-        return DenseBackend(cfg, batch, max_seq, enc_len, device=device)
+        return DenseBackend(cfg, batch, max_seq, enc_len,
+                            device="cuda" if device is None else device)
+    if kind not in ("paged", "sharded-paged"):
+        raise ValueError(f"unknown KV backend kind {kind!r}")
+    if shards is not None and kind == "paged" and shards > 1:
+        kind = "sharded-paged"
+    if kind == "sharded-paged" and shards is not None:
+        kw.setdefault("n_shards", shards)
+    size_request = pool is None and "num_blocks" not in kw and max_seq
+    bs = kw.get("block_size", 16)
+    lane_blocks = -(-(max_seq + 1) // bs)
     if kind == "paged":
-        if pool is None and "num_blocks" not in kw and max_seq:
-            bs = kw.get("block_size", 16)
-            kw["num_blocks"] = batch * -(-(max_seq + 1) // bs)
-        return PagedBackend(cfg, pool=pool, device=device, **kw)
-    raise ValueError(f"unknown KV backend kind {kind!r}")
+        if size_request:
+            kw["num_blocks"] = batch * lane_blocks
+        return PagedBackend(cfg, pool=pool,
+                            device="cuda" if device is None else device,
+                            **kw)
+    if device is not None:
+        raise ValueError(
+            "sharded-paged takes per-shard devices=[...], not device=")
+    if size_request:
+        from repro_torch.kvcache.sharded_pool import discover_shards
+        n = kw["n_shards"] = discover_shards(kw.get("n_shards"),
+                                             kw.get("mesh"))
+        # a lane never spans shards: every shard holds its share of
+        # WHOLE lanes
+        kw["num_blocks"] = n * (-(-batch // n)) * lane_blocks
+    return ShardedPagedBackend(cfg, pool=pool, **kw)

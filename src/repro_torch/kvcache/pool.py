@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.kvcache.evict import EvictionPolicy
-from repro_torch.kvcache.placement import PlacementPolicy
+from repro_torch.kvcache.placement import PlacementPolicy, row_group_of
 from repro_torch.models.config import torch_dtype
 from repro_torch.obs.metrics import StatGroup
 
@@ -95,6 +95,9 @@ class BlockPool:
         # admitted-but-not-yet-allocated work
         self.reserved = 0
         self.stats = PoolStats()
+        # blocks whose allocator state changed since the last incremental
+        # invariant sweep (check_invariants(incremental=True))
+        self._meta_dirty: set[int] = set()
         # KV payload: host-resident CPU tensors, mutated in place
         self.k_pages = self.v_pages = None
         # blocks whose payload changed since the last drain_dirty()
@@ -175,6 +178,7 @@ class BlockPool:
             self.last_use[bid] = self._tick
             self.content[bid] = None
         self.stats.allocs += n
+        self._meta_dirty.update(out)
         return out
 
     def incref(self, bid: int) -> None:
@@ -189,6 +193,7 @@ class BlockPool:
         if self.refcount[bid] == 0:
             if cache:
                 self._evictable[bid] = None
+                self._meta_dirty.add(bid)
             else:
                 self._free_block(bid)
 
@@ -200,6 +205,7 @@ class BlockPool:
         self._tick += 1
         self.last_use[bid] = self._tick
         self.stats.prefix_hits += 1
+        self._meta_dirty.add(bid)
 
     def touch(self, bid: int) -> None:
         self._tick += 1
@@ -214,6 +220,7 @@ class BlockPool:
         self.dirty.discard(bid)
         self.placement.add_free(bid)
         self.stats.frees += 1
+        self._meta_dirty.add(bid)
 
     def _evict(self, n: int) -> None:
         victims = self.eviction.select(self._evictable, self.arrival,
@@ -254,6 +261,13 @@ class BlockPool:
             self.dirty.add(dst)
         self.stats.cow_copies += 1
 
+    def forget_dirty(self, bid: int) -> None:
+        """Drop a block from the dirty-staging set without draining, for
+        an owner that invalidates the block's pending payload out of band
+        (``kvcache.tiers.TierManager`` capturing a demoted block's KV
+        before the slot is reused)."""
+        self.dirty.discard(bid)
+
     def drain_dirty(self) -> list[int]:
         """Block ids whose payload changed since the last drain (sorted),
         clearing the set.  A single consumer — the owning backend's
@@ -265,9 +279,15 @@ class BlockPool:
 
     # -- invariants ---------------------------------------------------------
 
-    def check_invariants(self) -> None:
-        """Allocator ground truth (exhaustive O(num_blocks) sweep); raises
-        AssertionError on the first violation."""
+    def check_invariants(self, incremental: bool = False) -> None:
+        """Allocator ground truth; raises AssertionError on the first
+        violation.  ``incremental=False`` is the exhaustive O(num_blocks)
+        sweep; ``incremental=True`` checks only the blocks whose allocator
+        state changed since the previous incremental sweep, plus O(1)
+        aggregate counts."""
+        if incremental:
+            self._check_incremental()
+            return
         free = self.placement.free_ids()
         assert len(free) == len(set(free)), "free list holds duplicates"
         free_set = set(free)
@@ -289,3 +309,30 @@ class BlockPool:
             assert self.refcount[bid] > 0, f"live block {bid} has refcount 0"
         assert len(free_set) + len(cached) + len(live) == self.cfg.num_blocks
         assert 0 <= self.reserved <= self.cfg.num_blocks
+        self._meta_dirty.clear()   # full sweep subsumes the pending one
+
+    def _check_incremental(self) -> None:
+        """O(dirty) slice of the invariant sweep: aggregate accounting plus
+        per-block state for every block touched since the last sweep."""
+        n = self.cfg.num_blocks
+        n_used = int(self.used.sum())
+        assert self.num_free + n_used == n, \
+            (self.num_free, n_used, "free/used partition lost blocks")
+        assert self.num_cached <= n_used, (self.num_cached, n_used)
+        assert 0 <= self.reserved <= n, self.reserved
+        bpg = self.placement.blocks_per_group
+        for bid in self._meta_dirty:
+            in_free = bid in \
+                self.placement._group_free[row_group_of(bid, bpg)]
+            if in_free:
+                assert not self.used[bid], f"block {bid} free AND used"
+                assert self.refcount[bid] == 0, bid
+            else:
+                assert self.used[bid], \
+                    f"block {bid} leaked (not free, not used)"
+                if bid in self._evictable:
+                    assert self.refcount[bid] == 0, bid
+                else:
+                    assert self.refcount[bid] > 0, \
+                        f"live block {bid} has refcount 0"
+        self._meta_dirty.clear()

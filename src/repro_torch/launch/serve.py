@@ -4,6 +4,8 @@
 ``python -m repro_torch.launch.serve --paged --config hymba_1_5b``
 ``python -m repro_torch.launch.serve --paged --config arctic_480b --layers 2``
 ``python -m repro_torch.launch.serve --paged --config deepseek_coder_33b``
+``python -m repro_torch.launch.serve --paged --tiered-kv --pool-blocks 24``
+``python -m repro_torch.launch.serve --paged --shards 4 [--tiered-kv]``
 ``python -m repro_torch.launch.serve --config whisper_base``
 ``python -m repro_torch.launch.serve --config paligemma_3b``
 
@@ -25,9 +27,16 @@ sequence beside the block tables), and an MoE model's three expert
 products in each MoE layer the ``moe_dispatch`` grouped-GEMM kernel over
 the MARS-sorted assignments.  ``--layers N`` cuts the model to its
 first N layers at published width: one card holds 2 of arctic-480b's
-35 layers, and 2 of kimi-k2's 61.  A teacher-forced check re-runs a
-sample of served sequences through the port's own ``DenseBackend``.
-``--toy`` serves the single-layer ToyModel instead.
+35 layers, and 2 of kimi-k2's 61.  ``--tiered-kv`` puts host and mock
+remote spill tiers behind the block pool (``kvcache.tiers``): eviction
+demotes registered prefix blocks, prefix misses promote them back.
+``--shards N`` partitions the pool into N shard pools, each with its own
+backend, prefix cache, tiers and device mirror pair, the scheduler
+routing admissions by prefix page, tier hint and shard load; the shards
+map round robin onto the CUDA devices there are (one H100: all N on
+it).  A teacher-forced check re-runs a sample of served sequences
+through the port's own ``DenseBackend``.  ``--toy`` serves the
+single-layer ToyModel instead.
 
 Without ``--paged`` (``main_dense``) the requests flow through the MARS
 scheduler into batches, each prefilled and greedily decoded through the
@@ -239,10 +248,14 @@ def main_paged(args):
     in the layered block pool, ragged lanes, prefix sharing, CoW forks.
     Decode runs ``paged_attention`` per layer (``--kernel-decode``,
     default) or the gathered dense view (``--no-kernel-decode``).
+    ``--tiered-kv`` adds spill tiers behind the pool(s); ``--shards N``
+    serves through ``ShardedPagedBackend`` over a serving mesh.
     Cross-checks a sample of served sequences against the dense backend
     for end-to-end token parity.  Returns the run's stats with
-    ``finished`` (request id -> served token lists), ``cfg``, ``params``
-    and ``prompts`` (request id -> prompt)."""
+    ``finished`` (request id -> served token lists), ``cfg``, ``params``,
+    ``prompts`` (request id -> prompt) and ``backend`` (unreleased, for
+    the caller's own checks).  ``decode_steps`` counts the model's decode
+    steps: one per shard a round."""
     if args.toy:
         return main_paged_toy(args)
     from repro_torch.kvcache.backend import make_backend
@@ -255,13 +268,38 @@ def main_paged(args):
         cfg = cut_depth(cfg, args.layers)
     assert cfg.n_layers > 1, "full-LM paged serving needs a multi-layer cfg"
     params = lm.init(cfg, torch.Generator(device).manual_seed(args.seed))
-    backend = make_backend(
-        cfg, "paged", num_blocks=args.pool_blocks, block_size=16,
-        decode_mode="kernel" if args.kernel_decode else "gather",
-        device=device)
+    decode_mode = "kernel" if args.kernel_decode else "gather"
+    if args.shards > 1:
+        # one block pool + paged backend per shard of the serving mesh's
+        # model axis, each shard's mirrors on its device (round robin
+        # when there are fewer devices than shards)
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.sharding import context as shctx
+        mesh = mesh_mod.make_serve_mesh(args.shards, device)
+        devices = [mesh.devices[s % len(mesh.devices)]
+                   for s in range(args.shards)]
+        with shctx.use_mesh(mesh):
+            pool_blocks = -(-args.pool_blocks // args.shards) * args.shards
+            backend = make_backend(
+                cfg, "paged", shards=args.shards, devices=devices,
+                num_blocks=pool_blocks, block_size=16,
+                decode_mode=decode_mode, tiered=args.tiered_kv)
+        print(f"[serve --paged {cfg.name}] shards={args.shards} "
+              f"mesh_devices={len(mesh.devices)} "
+              f"blocks/shard={backend.pool.shard_blocks}")
+        inner = backend.backends
+    else:
+        backend = make_backend(
+            cfg, "paged", num_blocks=args.pool_blocks, block_size=16,
+            decode_mode=decode_mode, device=device, tiered=args.tiered_kv)
+        inner = [backend]
     pool = backend.pool
     classes = default_classes(args.classes) if args.classes > 1 else None
     sched = MarsScheduler(pool=pool, classes=classes)
+    if args.tiered_kv and args.shards > 1:
+        # admission counts a promotable lower-tier prefix hit toward
+        # shard routing: land the request where its demoted blocks are
+        sched.tier_probe = backend.tier_shard_for
     eng = ServeEngine(pool, sched, PagedLM(params, cfg, backend),
                       max_lanes=args.batch, pipeline=args.pipeline)
     cnames = [c.name for c in classes] if classes else None
@@ -282,13 +320,16 @@ def main_paged(args):
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     pool.check_invariants()
+    decode_steps = sum(b._steps for b in inner)
     cut = f" (cut from {depth})" if cfg.n_layers != depth else ""
+    shard_note = "" if args.shards <= 1 else \
+        f"shards={args.shards} shard_defers={sched.stats.shard_defers} "
     print(f"[serve --paged {cfg.name}] device={device} "
           f"layers={cfg.n_layers}{cut} "
           f"decode={backend.decode_mode} "
-          f"pipeline={'on' if args.pipeline else 'off'} "
+          f"pipeline={'on' if args.pipeline else 'off'} {shard_note}"
           f"served={len(finished)} steps={eng.stats.steps} "
-          f"decode_steps={backend._steps} "
+          f"decode_steps={decode_steps} "
           f"prefill_tokens={eng.stats.prefill_tokens} "
           f"decode_tokens={eng.stats.decode_tokens} "
           f"prefix_hits={pool.stats.prefix_hits} "
@@ -302,6 +343,31 @@ def main_paged(args):
                   f"preempt={cs.preempt} scheduled={cs.scheduled} "
                   f"wait p50={h.quantile(0.5):.1f}ms "
                   f"p99={h.quantile(0.99):.1f}ms")
+    if args.shards > 1:
+        from repro_torch.obs.observer import shard_load_snapshot
+        for row, b in zip(shard_load_snapshot(pool), inner):
+            mirror = sum(m.numel() * m.element_size()
+                         for slot in b._mirrors if slot is not None
+                         for m in slot)
+            print(f"[serve --paged {cfg.name}] shard {row['shard']}: "
+                  f"decode_steps={b._steps} live={row['live']} "
+                  f"cached={row['cached']} free={row['free']} "
+                  f"load={row['load']} occupancy={row['occupancy']:.3f} "
+                  f"prefix_hits={b.pool.stats.prefix_hits} "
+                  f"evictions={b.pool.stats.evictions} "
+                  f"mirror_bytes={mirror}")
+    tiers = [b.tiers for b in inner if b.tiers is not None]
+    tier_stats = {f: sum(getattr(t.stats, f) for t in tiers)
+                  for f in tiers[0].stats.fields()} if tiers else {}
+    if tiers:
+        held = sum(t_.nbytes for t in tiers for t_ in t.tiers)
+        print(f"[serve --paged {cfg.name}] tiers: "
+              + " ".join(f"{k}={v}" for k, v in tier_stats.items()
+                         if k != "stall_us")
+              + f" stall_us={tier_stats['stall_us']:.1f} (modelled) "
+              f"held_bytes={held}")
+        for t in tiers:
+            t.check()
 
     # dense-vs-paged parity on a sample of served requests (salt-0 lane of
     # each request is plain greedy): the check teacher-forces the dense
@@ -364,7 +430,10 @@ def main_paged(args):
                              f"{n_check} sequences")
     return dict(served=len(finished), steps=eng.stats.steps,
                 cfg=cfg, prefills=eng.stats.prefills,
-                decode_steps=backend._steps,
+                decode_steps=decode_steps,
+                shard_defers=sched.stats.shard_defers,
+                tier_probe=sched.tier_probe is not None,
+                evictions=pool.stats.evictions, tiers=tier_stats,
                 decode_tokens=eng.stats.decode_tokens,
                 prefix_hits=pool.stats.prefix_hits, wall_s=dt,
                 parity_checked=n_check, parity_mismatches=mismatches,
@@ -374,7 +443,8 @@ def main_paged(args):
                 parity_batch_decode_steps=batch_steps,
                 parity_max_deficit=max_deficit,
                 decode=backend.decode_mode, finished=finished,
-                params=params, prompts={r.rid: r.prompt for r in reqs})
+                params=params, prompts={r.rid: r.prompt for r in reqs},
+                backend=backend)
 
 
 def _config(args):
@@ -486,6 +556,20 @@ def main(argv=None):
                     help="with --paged: drive the split-phase decode "
                          "pipeline (default on); --no-pipeline serves "
                          "through the synchronous decode() wrapper")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="with --paged: partition the KV pool across this "
+                         "many shards (per-shard pools, prefix caches, "
+                         "tiers and device mirrors, prefix-affinity "
+                         "admission routing, per-shard kernel decode); "
+                         "shards map round robin onto the devices there "
+                         "are")
+    ap.add_argument("--tiered-kv", action="store_true",
+                    help="with --paged: spill tiers behind the block "
+                         "pool(s) — eviction demotes registered prefix "
+                         "blocks to host/remote tiers, prefix misses "
+                         "promote them back (MARS-reordered batched "
+                         "copy-in); size --pool-blocks small and "
+                         "--prefixes large to force spill traffic")
     ap.add_argument("--pool-blocks", type=int, default=256)
     ap.add_argument("--classes", type=int, default=0,
                     help="with --paged (full-LM): install the first N "

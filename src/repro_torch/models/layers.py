@@ -118,8 +118,10 @@ def rope_freqs(cfg: ModelConfig, positions: torch.Tensor) -> tuple:
     d = cfg.d_head
     exps = torch.arange(0, d, 2, dtype=torch.float32,
                         device=positions.device) / d
-    inv = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                       device=positions.device), exps)
+    # the base is filled on the device: a host scalar copied there would
+    # make the host wait for the stream at every layer of a decode step
+    inv = 1.0 / torch.pow(torch.full((), cfg.rope_theta, dtype=torch.float32,
+                                     device=positions.device), exps)
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -200,8 +202,8 @@ def sdpa(q, k, v, mask=None):
                                v.contiguous(), causal=mask == CAUSAL)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() \
         * (1.0 / math.sqrt(q.shape[-1]))
-    logits = torch.where(mask, logits, torch.tensor(
-        NEG_INF, dtype=torch.float32, device=logits.device))
+    logits = torch.where(mask, logits, torch.full(
+        (), NEG_INF, dtype=torch.float32, device=logits.device))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 

@@ -16,8 +16,10 @@ on CUDA tensors, its plain twin on CPU ones.  Everything stays on the
 device: the sort, the counts, the slots and the number of row tiles in
 use are tensors, so a layer never waits on the host.
 
-The port runs on one device; the reference's expert-parallel
-``_mars_dispatch_sharded`` waits for the sharding slice.
+The port dispatches on one device; the reference's expert-parallel
+``_mars_dispatch_sharded`` is reached only by its training and dry-run
+entry points (its serve path never hands the model a mesh), so it waits
+for the training slice.
 """
 from __future__ import annotations
 
@@ -125,12 +127,13 @@ def _mars_dispatch_local(p, xf, cfg: ModelConfig):
 
 def _mars_dispatch_sharded(p, xf, cfg: ModelConfig, mesh):
     """Expert-parallel dispatch across a mesh's ``model`` axis (reference
-    ``moe.py:112``): not ported — it comes with the sharding slice
-    (ROADMAP.md, slice 11)."""
+    ``moe.py:112``): not ported — only training and the dry run reach
+    it, and it comes with the training slice (ROADMAP.md §1 item 6)."""
     raise NotImplementedError(
         "expert-parallel MoE dispatch (_mars_dispatch_sharded) waits for "
-        "the sharding slice of the torch port (ROADMAP.md slice 11); the "
-        "port dispatches on one device")
+        "the training slice of the torch port, with the parameter "
+        "sharding rules (ROADMAP.md §1 item 6); the port dispatches on "
+        "one device")
 
 
 def moe_apply_einsum(p, xf, cfg: ModelConfig):

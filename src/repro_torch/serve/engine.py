@@ -1,5 +1,6 @@
 """Continuous-batching serve engine over the paged KV-cache pool (port of
-``repro/serve/engine.py``, single pool, uninstrumented).
+``repro/serve/engine.py``, uninstrumented; a single pool or a
+``ShardedBlockPool`` served through ``ShardedPagedBackend``).
 
 The loop ties the MARS serving stack together, one step per call:
 
@@ -18,7 +19,8 @@ Two model drivers:
                  tables) decoded inline through ``paged_attention`` (or
                  its oracle ``paged_attention_ref``).
   ``PagedLM``    a real ``ModelConfig`` model decoded through
-                 ``kvcache.backend.PagedBackend``; greedy sampling plus a
+                 ``kvcache.backend.PagedBackend`` (or
+                 ``ShardedPagedBackend``); greedy sampling plus a
                  per-fork salt so parallel samples diverge.
 
 The LM decode round drives the backend's split-phase pipeline by default
@@ -71,11 +73,13 @@ class ToyModel:
 
 
 class PagedLM:
-    """Real-LM engine driver: (params, cfg) served through a PagedBackend."""
+    """A real LM for the engine: (params, cfg) served through a
+    PagedBackend or a ShardedPagedBackend."""
 
     def __init__(self, params, cfg, backend):
-        from repro_torch.kvcache.backend import PagedBackend
-        assert isinstance(backend, PagedBackend)
+        from repro_torch.kvcache.backend import PagedBackend, \
+            ShardedPagedBackend
+        assert isinstance(backend, (PagedBackend, ShardedPagedBackend))
         self.params = params
         self.cfg = cfg
         self.backend = backend
@@ -104,7 +108,7 @@ class SeqState:
     sid: int = -1                # PagedBackend sequence id (PagedLM driver)
     pending: Optional[int] = None  # first token, produced by prefill logits
     traffic_class: str = "default"  # scheduler stream (preemption policy)
-    page: str = ""               # prefix-page key
+    page: str = ""               # prefix-page key (re-routing on resume)
 
     @property
     def done(self) -> bool:
@@ -138,6 +142,9 @@ class ServeEngine:
         assert pool.k_pages is not None, "engine needs a pool with KV buffers"
         self.pool = pool
         self.scheduler = scheduler
+        # mesh-sharded pools: reservations are per routed request and the
+        # lane order leads with the shard of each lane's blocks
+        self._sharded = bool(getattr(pool, "is_sharded", False))
         if isinstance(model, PagedLM):
             assert model.backend.pool is pool, \
                 "PagedLM backend must share the engine's pool"
@@ -150,10 +157,12 @@ class ServeEngine:
                 model.backend.decode_mode = \
                     "kernel" if use_kernel else "gather"
             self.model = model
-            self.cache = model.backend.prefix
+            self.cache = getattr(model.backend, "prefix", None)
             self.use_kernel = model.backend.decode_mode == "kernel"
             self.device = model.backend.device
         else:
+            assert not self._sharded, \
+                "sharded pools serve through PagedLM + ShardedPagedBackend"
             self.model = model or ToyModel(n_kv_heads=pool.cfg.n_kv_heads,
                                            head_dim=pool.cfg.head_dim)
             self.cache = PrefixCache(pool.cfg.block_size)
@@ -179,7 +188,13 @@ class ServeEngine:
         return self.model if isinstance(self.model, PagedLM) else None
 
     def _unreserve(self, rid: int, n: int) -> None:
-        if n:
+        """Release ``n`` of a request's admission reservation — on its
+        routed shard for a sharded pool, aggregate otherwise."""
+        if n == 0:
+            return
+        if self._sharded:
+            self.pool.unreserve(n, rid=rid)
+        else:
             self.pool.unreserve(n)
 
     def _claim(self, rid: int, n_allocs: int) -> None:
@@ -244,7 +259,12 @@ class ServeEngine:
     def _prefill_lm(self, req: Request, prompt: list) -> list[SeqState]:
         lm = self._lm
         allocs0 = self.pool.stats.allocs
-        sid, logits, shared = lm.backend.new_seq(lm.params, prompt)
+        kw = {}
+        if self._sharded:
+            # the scheduler's routing decision (prefix-page affinity, then
+            # shard load); None lets the backend pick
+            kw["shard"] = getattr(req, "_shard", None)
+        sid, logits, shared = lm.backend.new_seq(lm.params, prompt, **kw)
         self._sid_rid[sid] = req.rid
         self._claim(req.rid, self.pool.stats.allocs - allocs0)
         self.stats.shared_prompt_tokens += shared
@@ -282,8 +302,15 @@ class ServeEngine:
         if not self.running:
             return 0
         # page-coherent lane order: tail blocks grouped by row neighborhood
+        # (the shard first when the pool is sharded: block ids are
+        # shard-local, so equal ids on two shards are not neighbours)
+        shard_ids = None
+        if self._sharded and self._lm is not None:
+            shard_ids = [self._lm.backend.shard_of(s.sid)
+                         for s in self.running]
         order = ops.batch_lane_order([s.table for s in self.running],
-                                     self.pool.cfg.blocks_per_group)
+                                     self.pool.cfg.blocks_per_group,
+                                     shard_ids=shard_ids)
         self.running = [self.running[i] for i in order]
 
         nxt = self._decode_lm() if self._lm is not None \
@@ -342,7 +369,9 @@ class ServeEngine:
 
     def _try_resume(self) -> None:
         """Opportunistic un-pause, oldest first, when a decode lane and
-        pool headroom are both available again."""
+        pool headroom are both available again (re-routed through the
+        sharded pool's page affinity, the pause shard as its tier hint,
+        when the pool is sharded)."""
         lm = self._lm
         while self.paused and len(self.running) < self.max_lanes:
             seq, rec = self.paused[0]
@@ -352,11 +381,19 @@ class ServeEngine:
             if not self.pool.can_reserve(need):
                 return
             self.pool.reserve(need)
+            kw = {}
+            if self._sharded:
+                shard = self.pool.route(seq.rid, seq.page, need,
+                                        tier_hint=rec.get("shard"))
+                if shard is None:
+                    self.pool.cancel_pending(need)
+                    return
+                kw["shard"] = shard
             self.paused.pop(0)
             self._claims[seq.rid] = self._claims.get(seq.rid, 0) + need
             self._live_seqs[seq.rid] = self._live_seqs.get(seq.rid, 0) + 1
             allocs0 = self.pool.stats.allocs
-            sid = lm.backend.resume_seq(rec)
+            sid = lm.backend.resume_seq(rec, **kw)
             self._sid_rid[sid] = seq.rid
             self._claim(seq.rid, self.pool.stats.allocs - allocs0)
             seq.sid = sid

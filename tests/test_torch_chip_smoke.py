@@ -9,7 +9,14 @@ CPU-only profile has no device row.
 
 ``routed_layer_check``, which holds a bf16 MoE run's routed layer
 against float32 math on the run's own expert choices: it passes the
-dispatch and catches a broken one."""
+dispatch and catches a broken one.
+
+``mirror_check``, which holds a tiered run's promoted blocks in the
+staged device mirror (and the host pool) against their tier payloads
+bit for bit: it passes a tiered smoke run, in bfloat16 and with an fp8
+pool, and catches a mirror page or a payload that differs.  On the card
+``dispatch_order_check`` holds a sharded smoke run's dispatches free of
+blocking CUDA calls."""
 import sys
 from pathlib import Path
 
@@ -133,3 +140,75 @@ def test_routed_layer_check_holds_k4_apart_from_router_ties(fault,
         assert r["k4_max_rel"] <= limit
     else:
         assert r["k4_max_rel"] > 10 * limit
+
+
+TIERED_SMOKE = ["--paged", "--smoke", "--requests", "24", "--prefixes", "12",
+                "--pool-blocks", "12", "--batch", "4", "--new-tokens", "3",
+                "--parity-checks", "0", "--tiered-kv"]
+
+
+def test_flag_value_reads_the_last_occurrence():
+    assert chip_smoke.flag_value((), "--requests", 16) == 16
+    assert chip_smoke.flag_value(chip_smoke.TIERED, "--requests", 16) == 64
+    assert chip_smoke.flag_value(chip_smoke.TIERED + ("--requests", "5"),
+                                 "--requests", 16) == 5
+    assert chip_smoke.flag_value(chip_smoke.SHARDED, "--shards", 1) == 4
+
+
+def _tiered_run(monkeypatch, fp8: bool):
+    import dataclasses
+    if fp8:
+        config = serve._config
+        monkeypatch.setattr(serve, "_config", lambda a: dataclasses.replace(
+            config(a), kv_dtype="float8_e4m3fn"))
+    with chip_smoke.Promotions() as promoted:
+        out = serve.main(TIERED_SMOKE + ["--device", "cpu"])
+    assert out["tiers"]["promotes"] > 0
+    return out, promoted
+
+
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("fault", [None, "mirror", "payload"])
+def test_mirror_check_holds_promoted_pages_to_their_payload(fp8, fault,
+                                                            monkeypatch):
+    out, promoted = _tiered_run(monkeypatch, fp8)
+    backend = out["backend"]
+    dsts = promoted.dsts[id(backend.tiers)]
+    assert dsts and set(dsts) <= set(range(backend.pool.cfg.num_blocks))
+    if fault is not None:
+        k_dev, _ = backend._staged_pages()
+        live = next(d for d in dsts if backend.prefix._by_bid.get(d))
+        if fault == "mirror":
+            # a mirror page that misses one upload: the next staging
+            # writes only dirty blocks, so the corruption stays
+            k_dev.view(torch.uint8)[:, live].bitwise_xor_(1)
+            backend._slot = backend._staged_slot
+        else:
+            key = backend.prefix._by_bid[live]
+            entry = next(t._entries[key] for t in backend.tiers.tiers
+                         if t.holds(key))
+            entry.k.view(torch.uint8).bitwise_xor_(1)
+        with pytest.raises(AssertionError, match="differ"):
+            chip_smoke.mirror_check(torch, backend, promoted)
+        return
+    r = chip_smoke.mirror_check(torch, backend, promoted)
+    assert r["blocks"] > 0
+    assert r["dtype"] == ("torch.float8_e4m3fn" if fp8 else
+                          "torch.bfloat16")
+
+
+def test_mirror_check_needs_a_promoted_block():
+    out = serve.main(TIERED_SMOKE[:-1] + ["--device", "cpu"])
+    with pytest.raises(AssertionError, match="0 promoted blocks"):
+        chip_smoke.mirror_check(torch, out["backend"], chip_smoke.Promotions())
+
+
+@pytest.mark.cuda
+def test_dispatch_order_check_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the check profiles CUDA calls")
+    out = serve.main(["--paged", "--config", "qwen1_5_0_5b", "--shards", "2",
+                      "--device", "cuda", "--requests", "4", "--batch", "4",
+                      "--new-tokens", "2", "--parity-checks", "0"])
+    r = chip_smoke.dispatch_order_check(torch, out)
+    assert r["blocking"] == {} and r["last_dispatch_before_logits"]

@@ -50,6 +50,9 @@ SLICE_MODULES = [
     "repro_torch.kvcache.placement",
     "repro_torch.kvcache.pool",
     "repro_torch.kvcache.prefix",
+    "repro_torch.kvcache.sharded_pool",
+    "repro_torch.kvcache.tiers",
+    "repro_torch.launch.mesh",
     "repro_torch.launch.serve",
     "repro_torch.models.config",
     "repro_torch.models.layers",
@@ -58,9 +61,12 @@ SLICE_MODULES = [
     "repro_torch.models.ssm",
     "repro_torch.obs",
     "repro_torch.obs.metrics",
+    "repro_torch.obs.observer",
     "repro_torch.serve.engine",
     "repro_torch.serve.step",
     "repro_torch.serving.scheduler",
+    "repro_torch.sharding.context",
+    "repro_torch.sharding.rules",
 ]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
@@ -80,6 +86,20 @@ def test_import_leaves_jax_out():
             " 'repro'))\n"
             "assert not bad, bad\n"
             "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.kvcache.tiers", "repro_torch.kvcache.sharded_pool",
+    "repro_torch.sharding.context", "repro_torch.launch.mesh"])
+def test_tier_and_shard_modules_leave_jax_out(module):
+    """Each module of the tiered and sharded serve path, imported alone
+    in a fresh interpreter, loads no JAX."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "assert 'jax' not in sys.modules\nprint('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -133,6 +153,7 @@ def test_dense_serve_defaults_to_cuda_and_raises_without_it(arch):
 
 
 @pytest.mark.parametrize("entry", ["dense_backend", "paged_backend",
+                                   "sharded_backend", "serve_mesh",
                                    "toy_engine"])
 def test_entry_points_raise_without_cuda(entry):
     if torch.cuda.is_available():
@@ -148,6 +169,11 @@ def test_entry_points_raise_without_cuda(entry):
             make_backend(cfg, "dense", batch=1, max_seq=8)
         elif entry == "paged_backend":
             make_backend(cfg, "paged", batch=1, max_seq=8)
+        elif entry == "sharded_backend":
+            make_backend(cfg, "paged", shards=2, batch=2, max_seq=8)
+        elif entry == "serve_mesh":
+            from repro_torch.launch.mesh import make_serve_mesh
+            make_serve_mesh(2)
         else:
             pool = BlockPool(PoolConfig(num_blocks=8, n_kv_heads=2,
                                         head_dim=64))

@@ -11,8 +11,11 @@ toy (the dense GQA smoke configs of starcoder2-7b, phi3-medium-14b and
 deepseek-coder-33b exact in float32), and its ``--layers`` cut; and its
 dense-backend entry point (no ``--paged``) against the JAX one: the same
 served requests, batches and unique prefix blocks per batch, with and
-without MARS."""
+without MARS; and ``--paged`` with ``--tiered-kv``, ``--shards 2`` and
+both against the JAX ``main_paged`` (served count, steps, prefix hits,
+evictions, shard defers and tier stats)."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -418,3 +421,71 @@ def test_serve_main_dense_whisper_serves_every_request():
             assert tuple(toks.shape) == (B, 3)
             assert bool(((toks >= 0) & (toks < cfg.vocab)).all())
     assert got[True]["blocks_per_batch"] < got[False]["blocks_per_batch"]
+
+
+SPILL_ARGV = ["--paged", "--smoke", "--requests", "24", "--prefixes", "12",
+              "--pool-blocks", "12", "--batch", "4", "--new-tokens", "3",
+              "--parity-checks", "1"]
+
+
+def _printed(text: str, key: str) -> str:
+    """The value of ``key=`` on the JAX entry point's summary lines."""
+    return text.split(f" {key}=", 1)[1].split()[0]
+
+
+def _class_counts(text: str) -> list:
+    """Each traffic class's admit/reject/defer/preempt/scheduled counts
+    from an entry point's class lines."""
+    return [line.split("class ", 1)[1].split(" wait")[0]
+            for line in text.splitlines() if "] class " in line]
+
+
+@pytest.mark.parametrize("flags", [["--tiered-kv"], ["--shards", "2"],
+                                   ["--shards", "2", "--tiered-kv"],
+                                   ["--shards", "2", "--tiered-kv",
+                                    "--classes", "3"]])
+def test_serve_main_paged_tiered_and_sharded_match_jax_main(flags, capsys,
+                                                            monkeypatch):
+    """``--paged --tiered-kv``, ``--shards 2`` and both on the CPU, against
+    the JAX ``main_paged`` on the same stream (a pool too small for the
+    12 hot prefixes, so blocks spill and come back): the same served
+    count, engine steps, prefix hits, evictions, pool rejects, shard
+    defers and tier stats, and the teacher-forced check passes.  With
+    traffic classes, overload pauses batch-class decodes and resumes
+    them through the shard routing: the same class counts, preemptions
+    included."""
+    from repro.launch import serve as jserve
+    # the JAX entry point asks XLA for host devices through the
+    # environment; keep that inside this test
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    capsys.readouterr()
+    jserve.main(SPILL_ARGV + ["--arch", "qwen1_5_0_5b",
+                              "--no-kernel-decode"] + flags)
+    jax_out = capsys.readouterr().out
+    got = tserve.main(SPILL_ARGV + ["--device", "cpu"] + flags)
+    port_out = capsys.readouterr().out
+    assert got["served"] == 24 and got["parity_mismatches"] == 0
+    for key in ("served", "steps", "prefix_hits", "evictions"):
+        assert str(got[key]) == _printed(jax_out, key), key
+    assert _printed(port_out, "pool_rejects") == \
+        _printed(jax_out, "pool_rejects")
+    assert _class_counts(port_out) == _class_counts(jax_out)
+    if "--classes" in flags:
+        assert len(_class_counts(port_out)) == 3
+        assert "preempt=0 " not in _class_counts(port_out)[1]
+    if "--shards" in flags:
+        assert str(got["shard_defers"]) == _printed(jax_out, "shard_defers")
+        backend = got["backend"]
+        assert backend.pool.n_shards == 2
+        assert got["decode_steps"] == sum(b._steps
+                                          for b in backend.backends)
+        assert got["tier_probe"] == ("--tiered-kv" in flags)
+    if "--tiered-kv" in flags:
+        t = got["tiers"]
+        for key in ("demotes", "promotes", "promoted_tokens", "clean_drops",
+                    "drops"):
+            assert str(t[key]) == _printed(jax_out, key), key
+        assert f"{t['stall_us']:.1f}" == _printed(jax_out, "stall_us")
+        assert t["demotes"] > 0 and t["promotes"] > 0
+    else:
+        assert got["tiers"] == {}

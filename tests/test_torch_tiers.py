@@ -1,0 +1,800 @@
+"""Differential tests of the port's spill tiers (``kvcache.tiers``) against
+the JAX package's: every case of ``tests/test_tiers.py`` but
+``test_observer_adopts_tier_stats_and_orders_events``, which waits for
+the observability slice.  Each allocator-level case drives the same
+operations through both packages and holds the host state bitwise:
+allocator arrays, the dirty set, block tables, tier entries (keys, order,
+content tags, payload bytes), the promotion queue and order, and the
+tier stats.  The backend cases run the JAX backend in ``"gather"`` decode
+mode and the port's in ``"kernel"`` mode (on CPU tensors its plain twin)
+on the reference's init converted through ``repro_torch.convert``, and
+hold the allocator and tier state equal (prefill K/V payloads come from
+two implementations of the model, so there the port holds its own mirror
+against its own pool).  ``analysis.refsan`` is not ported yet: the
+round-trip property checks ``check_invariants`` and ``TierManager.check``
+after every round instead, in bfloat16, float32 and float8_e4m3fn."""
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:          # the property test skips below
+    given = settings = st = None
+
+from repro.kvcache import evict as jevict  # noqa: E402
+from repro.kvcache import pool as jpool  # noqa: E402
+from repro.kvcache import prefix as jprefix  # noqa: E402
+from repro.kvcache import sharded_pool as jsharded  # noqa: E402
+from repro.kvcache import tiers as jtiers  # noqa: E402
+from repro.serving import scheduler as jsched  # noqa: E402
+from repro_torch.kvcache import evict as tevict  # noqa: E402
+from repro_torch.kvcache import pool as tpool  # noqa: E402
+from repro_torch.kvcache import prefix as tprefix  # noqa: E402
+from repro_torch.kvcache import sharded_pool as tsharded  # noqa: E402
+from repro_torch.kvcache import tiers as ttiers  # noqa: E402
+from repro_torch.serving import scheduler as tsched  # noqa: E402
+
+torch.set_num_threads(1)
+
+J = SimpleNamespace(pool=jpool, prefix=jprefix, tiers=jtiers,
+                    sharded=jsharded, evict=jevict, sched=jsched, port=False)
+T = SimpleNamespace(pool=tpool, prefix=tprefix, tiers=ttiers,
+                    sharded=tsharded, evict=tevict, sched=tsched, port=True)
+SIDES = (J, T)
+F32 = dict(param_dtype="float32", compute_dtype="float32")
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float8_e4m3fn": torch.float8_e4m3fn}
+
+
+def _bytes(x) -> np.ndarray:
+    """The payload's bytes, whichever package holds it."""
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().view(torch.uint8).numpy().reshape(-1)
+    return np.ascontiguousarray(x).view(np.uint8).reshape(-1)
+
+
+def _payload(m, bits: np.ndarray, dtype: str):
+    """Raw bits (uint8/16/32 numpy) as a KV payload for side ``m``."""
+    if m.port:
+        return torch.from_numpy(bits.copy()).view(_TORCH_DTYPES[dtype])
+    import ml_dtypes
+    return bits.view(np.float32 if dtype == "float32"
+                     else getattr(ml_dtypes, dtype))
+
+
+def _random_bits(rng, shape, dtype: str) -> np.ndarray:
+    if dtype == "float32":
+        return rng.standard_normal(shape).astype(np.float32).view(np.uint32)
+    if dtype == "bfloat16":
+        f = rng.standard_normal(shape).astype(np.float32).view(np.uint32)
+        return (f >> 16).astype(np.uint16)
+    return rng.integers(0, 256, shape, dtype=np.uint8)    # every e4m3 byte
+
+
+def _same_pool(jp, tp, payload: bool = True):
+    np.testing.assert_array_equal(tp.used, jp.used)
+    np.testing.assert_array_equal(tp.refcount, jp.refcount)
+    np.testing.assert_array_equal(tp.arrival, jp.arrival)
+    np.testing.assert_array_equal(tp.last_use, jp.last_use)
+    assert tp.content == jp.content
+    assert list(tp._evictable) == list(jp._evictable)
+    assert tp.placement.free_ids() == jp.placement.free_ids()
+    assert tp.reserved == jp.reserved
+    assert tp.stats.as_dict() == jp.stats.as_dict()
+    assert tp.dirty == jp.dirty
+    if payload and jp.k_pages is not None:
+        np.testing.assert_array_equal(_bytes(tp.k_pages), _bytes(jp.k_pages))
+        np.testing.assert_array_equal(_bytes(tp.v_pages), _bytes(jp.v_pages))
+
+
+def _same_tiers(jt, tt, payload: bool = True):
+    assert tt.stats.as_dict() == jt.stats.as_dict()
+    assert [dataclasses.astuple(t.spec) for t in tt.tiers] == \
+        [dataclasses.astuple(t.spec) for t in jt.tiers]
+    for a, b in zip(jt.tiers, tt.tiers):
+        assert list(b._entries) == list(a._entries)      # LRU order too
+        for key, ea in a._entries.items():
+            eb = b._entries[key]
+            assert (eb.key, eb.content, eb.depth, eb.nbytes) == \
+                (ea.key, ea.content, ea.depth, ea.nbytes)
+            if payload:
+                np.testing.assert_array_equal(_bytes(eb.k), _bytes(ea.k))
+                np.testing.assert_array_equal(_bytes(eb.v), _bytes(ea.v))
+    assert [(d, e.key, lv) for d, e, lv in tt._pending] == \
+        [(d, e.key, lv) for d, e, lv in jt._pending]
+    assert tt._pending_by_key == jt._pending_by_key
+    assert tt.prefix._by_key == jt.prefix._by_key
+    assert tt.prefix._by_bid == jt.prefix._by_bid
+
+
+def _tiered_pool(m, num_blocks=8, block_size=4, specs=None, *, kv=True,
+                 **kw):
+    """(pool, cache, tiers) with KV buffers unless ``kv=False``."""
+    cfg = m.pool.PoolConfig(num_blocks=num_blocks, block_size=block_size,
+                            **(dict(n_kv_heads=1, head_dim=2) if kv else {}),
+                            **kw)
+    pool = m.pool.BlockPool(cfg)
+    cache = m.prefix.PrefixCache(block_size)
+    cache.attach(pool)
+    if specs is not None:
+        specs = [m.tiers.TierSpec(*dataclasses.astuple(s)) for s in specs]
+    return pool, cache, m.tiers.TierManager(pool, cache, specs)
+
+
+def _seq(m, pool, cache, tokens, kv=None):
+    """Prefill a sequence's block table, registering full blocks."""
+    t = m.prefix.BlockTable()
+    t.extend(pool, tokens, seq_tokens=tokens, cache=cache, kv=kv)
+    return t
+
+
+def _both(scenario, payload: bool = True):
+    """Run ``scenario(m)`` -> (pool, tiers, result) on both packages and
+    hold their host state and results equal."""
+    (jp, jt, jr), (tp, tt, tr) = (scenario(m) for m in SIDES)
+    _same_pool(jp, tp, payload)
+    _same_tiers(jt, tt, payload)
+    assert tr == jr
+    tt.check()
+    tp.check_invariants()
+    return tp, tt, tr
+
+
+# ---------------------------------------------------------------------------
+# demotion
+# ---------------------------------------------------------------------------
+
+def test_demote_on_evict_captures_payload():
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=4)
+        t = _seq(m, pool, cache, [1, 2, 3, 4, 5, 6, 7, 8])
+        blk = np.full((pool.cfg.n_layers, pool.cfg.block_size,
+                       pool.cfg.n_kv_heads, pool.cfg.head_dim), 7.5,
+                      np.float32)
+        pool.write_kv(t.blocks[0], 0, blk, blk)   # payload + pending staging
+        bid0 = t.blocks[0]
+        k0 = _bytes(pool.k_pages[:, bid0]).copy()
+        cache.release(t, pool)
+        grab = pool.alloc(4)                      # pressure: demote both
+        assert tiers.stats.demotes == 2 and pool.num_cached == 0
+        assert bid0 not in pool.dirty       # an evicted id leaves the set
+        e = tiers.tiers[0].get((1, 2, 3, 4))
+        assert e is not None and e.content == (1, 2, 3, 4)
+        np.testing.assert_array_equal(_bytes(e.k), k0)   # freshest payload
+        assert tiers.tiers[0].holds((1, 2, 3, 4, 5, 6, 7, 8))
+        for b in grab:
+            pool.decref(b)
+        return pool, tiers, grab
+    tp, tt, _ = _both(scenario)
+    # the entry is a copy: rewriting the freed slot leaves it as it was
+    e = tt.tiers[0].get((1, 2, 3, 4))
+    before = _bytes(e.k).copy()
+    tp.k_pages.fill_(-1.0)
+    np.testing.assert_array_equal(_bytes(e.k), before)
+
+
+def test_unregistered_blocks_evict_without_demotion():
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=4)
+        t = m.prefix.BlockTable()
+        t.extend(pool, [1, 2, 3], seq_tokens=[1, 2, 3])   # private
+        for b in t.blocks:
+            pool.decref(b, cache=True)
+        grab = pool.alloc(4)
+        assert tiers.stats.demotes == 0 and len(tiers.tiers[0]) == 0
+        return pool, tiers, grab
+    _both(scenario)
+
+
+def test_tier_overflow_cascades_then_drops():
+    specs = (jtiers.TierSpec("host", 2), jtiers.TierSpec("remote", 2))
+
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=4, specs=specs)
+        for i in range(6):
+            t = _seq(m, pool, cache, [10 * i + 1, 10 * i + 2, 10 * i + 3,
+                                      10 * i + 4, 99])
+            cache.release(t, pool)
+            grab = pool.alloc(pool.num_free + pool.num_cached)
+            for b in grab:
+                pool.decref(b)
+        assert tiers.stats.demotes == 6 and tiers.stats.drops == 2
+        assert len(tiers.tiers[0]) == 2 and len(tiers.tiers[1]) == 2
+        assert tiers.tiers[0].holds((51, 52, 53, 54))
+        assert tiers.tiers[1].holds((31, 32, 33, 34))
+        return pool, tiers, None
+    _both(scenario)
+
+
+# ---------------------------------------------------------------------------
+# promotion
+# ---------------------------------------------------------------------------
+
+def test_promote_on_miss_is_bitwise_roundtrip():
+    tokens = [1, 2, 3, 4, 5, 6, 7, 8, 9]
+    rng = np.random.default_rng(0)
+    kv = (rng.standard_normal((1, 9, 1, 2), np.float32),
+          rng.standard_normal((1, 9, 1, 2), np.float32))
+
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=6)
+        t = _seq(m, pool, cache, tokens, kv=kv)
+        k_before = _bytes(pool.k_pages[:, t.blocks[:2]]).copy()
+        v_before = _bytes(pool.v_pages[:, t.blocks[:2]]).copy()
+        cache.release(t, pool)
+        grab = pool.alloc(6)                 # demote the two full blocks
+        for b in grab:
+            pool.decref(b)
+        assert tiers.stats.demotes == 2
+        bids, n = tiers.match(tokens)
+        assert n == 8 and len(bids) == 2 and tiers.pending == 2
+        dsts = tiers.flush_promotions()
+        assert sorted(dsts) == sorted(bids)
+        np.testing.assert_array_equal(_bytes(pool.k_pages[:, bids]),
+                                      k_before)
+        np.testing.assert_array_equal(_bytes(pool.v_pages[:, bids]),
+                                      v_before)
+        assert set(bids) <= pool.dirty
+        assert cache.is_registered(bids[0]) and cache.is_registered(bids[1])
+        promotes = tiers.stats.promotes
+        bids2, n2 = tiers.match(tokens)
+        assert n2 == 8 and tiers.pending == 0
+        assert tiers.stats.promotes == promotes
+        assert tiers.stats.promoted_tokens == 8
+        return pool, tiers, (bids, dsts, bids2)
+    _both(scenario)
+
+
+def test_promotion_dedup_within_one_batch():
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=6)
+        t = _seq(m, pool, cache, [1, 2, 3, 4, 5])
+        cache.release(t, pool)
+        for b in pool.alloc(6):
+            pool.decref(b)
+        bids_a, na = tiers.match([1, 2, 3, 4, 6])
+        bids_b, nb = tiers.match([1, 2, 3, 4, 7])   # same pending key
+        assert na == nb == 4 and bids_a == bids_b and tiers.pending == 1
+        assert pool.refcount[bids_a[0]] == 2
+        dsts = tiers.flush_promotions()
+        assert tiers.stats.promotes == 1
+        return pool, tiers, (bids_a, dsts)
+    _both(scenario)
+
+
+def test_inclusive_tier_makes_reeviction_a_clean_drop():
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=4)
+        t = _seq(m, pool, cache, [1, 2, 3, 4, 5])
+        cache.release(t, pool)
+        for b in pool.alloc(4):
+            pool.decref(b)
+        bids, _ = tiers.match([1, 2, 3, 4, 9])
+        tiers.flush_promotions()
+        pool.decref(bids[0], cache=True)         # release the promoted block
+        demotes = tiers.stats.demotes
+        grab = pool.alloc(4)                     # evict it again
+        assert tiers.stats.demotes == demotes and tiers.stats.clean_drops == 1
+        assert tiers.tiers[0].holds((1, 2, 3, 4))
+        return pool, tiers, grab
+    _both(scenario)
+
+
+def test_match_stops_cleanly_on_pool_exhaustion():
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=4)
+        t = _seq(m, pool, cache, list(range(1, 17)))   # 4 full blocks
+        cache.release(t, pool)
+        grab = pool.alloc(4)                           # demote all four
+        assert tiers.stats.demotes == 4
+        pool.decref(grab[0])      # 1 destination for 4 promotions
+        bids, n = tiers.match(list(range(1, 17)) + [99])
+        assert n == 4 and len(bids) == 1 and tiers.pending == 1
+        dsts = tiers.flush_promotions()
+        return pool, tiers, (grab, bids, dsts)
+    _both(scenario)
+
+
+def test_cancel_promotions_rolls_back_clean():
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=6)
+        t = _seq(m, pool, cache, [1, 2, 3, 4, 5])
+        cache.release(t, pool)
+        for b in pool.alloc(6):
+            pool.decref(b)
+        bids, n = tiers.match([1, 2, 3, 4, 6])
+        assert tiers.pending == 1
+        tiers.cancel_promotions()                     # rollback path
+        assert tiers.pending == 0
+        pool.decref(bids[0])                          # caller's rollback
+        assert tiers.tiers[0].holds((1, 2, 3, 4))
+        bids2, n2 = tiers.match([1, 2, 3, 4, 7])
+        assert n2 == 4
+        dsts = tiers.flush_promotions()
+        return pool, tiers, (bids, bids2, dsts)
+    _both(scenario)
+
+
+# ---------------------------------------------------------------------------
+# MARS promotion reorder
+# ---------------------------------------------------------------------------
+
+def test_promotion_order_matches_core_mars_order():
+    """``promotion_order`` against the JAX ``core.reorder.mars_order``
+    and the JAX ``promotion_order``; ``_key_tag`` hashes alike."""
+    from repro.core.reorder import mars_order
+    rng = np.random.default_rng(1)
+    for n in (1, 7, 32):
+        groups = [int(g) for g in rng.integers(0, 5, n)]
+        want = list(np.asarray(mars_order(np.asarray(groups), num_pages=5,
+                                          window=n)))
+        assert ttiers.promotion_order(groups) == want \
+            == jtiers.promotion_order(groups)
+    for key in ((1, 2, 3, 4), tuple(range(64))):
+        assert ttiers._key_tag(key) == jtiers._key_tag(key)
+
+
+def test_flush_groups_by_destination_row_group():
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=32, block_size=2,
+                                          kv=False)
+        prompts = []
+        for i in range(8):
+            p = [100 * i + 1, 100 * i + 2, 9]
+            cache.release(_seq(m, pool, cache, p), pool)
+            prompts.append(p)
+        for b in pool.alloc(pool.num_free + pool.num_cached):
+            pool.decref(b)
+        # scatter the free list so destinations interleave row groups
+        grab = pool.alloc(32)
+        for i in np.random.default_rng(2).permutation(32)[:16]:
+            pool.decref(grab[i])
+        for p in prompts:
+            tiers.match(p)
+        dsts = tiers.flush_promotions()
+        groups = [m.tiers.row_group_of(d, pool.cfg.blocks_per_group)
+                  for d in dsts]
+        switches = sum(1 for a, b in zip(groups, groups[1:]) if a != b)
+        assert switches == len(set(groups)) - 1, groups
+        return pool, tiers, dsts
+    _both(scenario)
+
+
+def test_write_trace_interleaves_bounded_queue():
+    L = tpool.LINES_PER_BLOCK
+    tr = ttiers.TierManager.write_trace([3, 9], chunk_lines=8, queue_depth=4)
+    np.testing.assert_array_equal(
+        tr, jtiers.TierManager.write_trace([3, 9], chunk_lines=8,
+                                           queue_depth=4))
+    assert len(tr) == 2 * L and tr[0] == 3 * L and tr[8] == 9 * L
+    assert tr[16] == 3 * L + 8 and len(np.unique(tr)) == len(tr)
+    assert len(ttiers.TierManager.write_trace([])) == 0
+    dsts = [int(d) for d in np.random.default_rng(4).integers(0, 40, 9)]
+    for depth in (1, 3):
+        np.testing.assert_array_equal(
+            ttiers.TierManager.write_trace(dsts, 16, depth),
+            jtiers.TierManager.write_trace(dsts, 16, depth))
+
+
+# ---------------------------------------------------------------------------
+# cost-aware eviction
+# ---------------------------------------------------------------------------
+
+def test_cost_policy_requires_mode_and_hook():
+    with pytest.raises(ValueError, match="unknown eviction mode"):
+        tevict.EvictionPolicy("bogus")
+    pool, cache, tiers = _tiered_pool(T, num_blocks=4, eviction="cost")
+    assert pool.eviction.cost_fn == tiers.evict_cost
+    pool, cache, tiers = _tiered_pool(T, num_blocks=4, eviction="lru")
+    assert pool.eviction.cost_fn is None
+
+
+def test_cost_eviction_beats_lru_on_recurring_deep_prefixes(monkeypatch):
+    """The reference's deterministic bench workload
+    (``benchmarks.kvcache_bench.tiered_eviction_comparison``) run on the
+    port's pool, prefix cache and tiers gives the JAX run's numbers
+    exactly — and cost mode protects the deep chains LRU throws away."""
+    from benchmarks import kvcache_bench as bench
+    want = bench.tiered_eviction_comparison(rounds=12)
+    for name, mod in (("BlockPool", tpool), ("PoolConfig", tpool),
+                      ("PrefixCache", tprefix), ("BlockTable", tprefix)):
+        monkeypatch.setattr(bench, name, getattr(mod, name))
+    monkeypatch.setattr(jtiers, "TierManager", ttiers.TierManager)
+    monkeypatch.setattr(jtiers, "TierSpec", ttiers.TierSpec)
+    out = bench.tiered_eviction_comparison(rounds=12)
+    assert out == want
+    assert out["cost"]["reuse"] > out["lru"]["reuse"] + 0.2, out
+    assert out["cost"]["recompute_tokens"] < out["lru"]["recompute_tokens"]
+    assert out["cost"]["drops"] < out["lru"]["drops"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float8_e4m3fn"])
+def test_evict_cost_tiers_full_scales_with_depth(dtype):
+    specs = (jtiers.TierSpec("host", 1),)
+
+    def scenario(m):
+        pool, cache, tiers = _tiered_pool(m, num_blocks=8, specs=specs,
+                                          dtype=dtype)
+        t = _seq(m, pool, cache, list(range(1, 9)) + [99])
+        shallow, deep = t.blocks[0], t.blocks[1]
+        costs = [tiers.evict_cost(t.blocks[2])]          # unregistered tail
+        fetch = tiers.evict_cost(shallow)
+        assert costs[0] == 0.0 and 0 < fetch < 100       # refetchable
+        t2 = _seq(m, pool, cache, [301, 302, 303, 304, 99])
+        cache.release(t2, pool)
+        pool.alloc(pool.num_free + 1)           # evict + demote t2's block
+        assert len(tiers.tiers[0]) == 1
+        costs += [fetch, tiers.evict_cost(shallow), tiers.evict_cost(deep)]
+        assert costs[3] > costs[2] > fetch
+        cache.release(t, pool)
+        return pool, tiers, costs
+    _both(scenario)
+
+
+# ---------------------------------------------------------------------------
+# evict-while-dirty staging (plain + sharded backends)
+# ---------------------------------------------------------------------------
+
+_MODEL: dict = {}
+
+
+def _model(f32: bool = False):
+    """(jax cfg, port cfg, jax params, port params): the qwen1.5-0.5b
+    smoke config, the reference's init converted to the port."""
+    if f32 not in _MODEL:
+        from repro import configs as jconfigs
+        from repro.models import lm as jlm
+        from repro_torch import configs as tconfigs
+        from repro_torch import convert
+        kw = F32 if f32 else {}
+        jc = dataclasses.replace(jconfigs.get_smoke("qwen1_5_0_5b"), **kw)
+        tc = dataclasses.replace(tconfigs.get_smoke("qwen1_5_0_5b"), **kw)
+        jp = jax.jit(lambda k: jlm.init(jc, k).params)(jax.random.key(0))
+        tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                       "cpu")
+        _MODEL[f32] = (jc, tc, jp, tp)
+    return _MODEL[f32]
+
+
+def _backends(sharded: bool, **kw):
+    from repro.kvcache.backend import PagedBackend as JPaged, \
+        ShardedPagedBackend as JSharded
+    from repro_torch.kvcache.backend import PagedBackend as TPaged, \
+        ShardedPagedBackend as TSharded
+    jc, tc, jp, tp = _model()
+    if sharded:
+        return (JSharded(jc, decode_mode="gather", **kw),
+                TSharded(tc, decode_mode="kernel",
+                         devices=["cpu"] * kw["n_shards"], **kw), jp, tp)
+    return (JPaged(jc, decode_mode="gather", **kw),
+            TPaged(tc, decode_mode="kernel", device="cpu", **kw), jp, tp)
+
+
+def _staged_mirror_equals_pool(b):
+    k, v = b._staged_pages()           # drain what is pending
+    assert torch.equal(k.view(torch.uint8), b.pool.k_pages.view(torch.uint8))
+    assert torch.equal(v.view(torch.uint8), b.pool.v_pages.view(torch.uint8))
+
+
+def test_evicted_dirty_block_never_restaged_plain():
+    """A block evicted while still in ``pool.dirty`` leaves the set, and
+    after the next staging the port's mirror equals its host pool bit
+    for bit; allocator and tier state equal the JAX backend's."""
+    jb, tb, jp, tp = _backends(False, num_blocks=8, block_size=4,
+                               tiered=True)
+    for b, p in ((jb, jp), (tb, tp)):
+        sid, _, _ = b.new_seq(p, list(range(1, 10)))       # 3 blocks
+        assert len(b.pool.dirty) > 0
+        b.free_seq(sid)
+        sid2, _, _ = b.new_seq(p, list(range(20, 48)))     # 7 blocks
+        assert b.tiers.stats.demotes > 0
+        assert all(b.pool.used[x] for x in b.pool.dirty)
+        b.decode(p, [sid2], [3])
+    _same_pool(jb.pool, tb.pool, payload=False)
+    _same_tiers(jb.tiers, tb.tiers, payload=False)
+    _staged_mirror_equals_pool(tb)
+    for b in (jb, tb):
+        b.release()
+        b.pool.check_invariants()
+
+
+def test_evicted_dirty_block_never_restaged_sharded():
+    jb, tb, jp, tp = _backends(True, n_shards=2, num_blocks=16,
+                               block_size=4, tiered=True)
+    for b, p in ((jb, jp), (tb, tp)):
+        sid, _, _ = b.new_seq(p, list(range(1, 10)), shard=0)
+        assert len(b.pool.shards[0].dirty) > 0
+        b.free_seq(sid)
+        sid2, _, _ = b.new_seq(p, list(range(20, 48)), shard=0)
+        assert b.backends[0].tiers.stats.demotes > 0
+        for pl in b.pool.shards:
+            assert all(pl.used[x] for x in pl.dirty)
+        b.decode(p, [sid2], [3])
+    for i in range(2):
+        _same_pool(jb.pool.shards[i], tb.pool.shards[i], payload=False)
+        _same_tiers(jb.backends[i].tiers, tb.backends[i].tiers,
+                    payload=False)
+    _staged_mirror_equals_pool(tb.backends[0])
+    for b in (jb, tb):
+        b.release()
+        b.pool.check_invariants()
+
+
+def test_backend_rollback_cancels_pending_promotions():
+    jb, tb, jp, tp = _backends(False, num_blocks=8, block_size=4,
+                               tiered=True)
+    for b, p in ((jb, jp), (tb, tp)):
+        sid, _, _ = b.new_seq(p, list(range(1, 10)))
+        b.free_seq(sid)
+        grab = b.pool.alloc(b.pool.num_free + b.pool.num_cached)
+        assert b.tiers.stats.demotes > 0
+        for x in grab[:-6]:                            # leave 2 free
+            b.pool.decref(x)
+        with pytest.raises(RuntimeError, match="pool exhausted"):
+            b.new_seq(p, list(range(1, 10)) + list(range(50, 80)))
+        assert b.tiers.pending == 0
+        b.tiers.check()
+        b.pool.check_invariants()
+    _same_pool(jb.pool, tb.pool, payload=False)
+    _same_tiers(jb.tiers, tb.tiers, payload=False)
+    for b in (jb, tb):
+        b.release()
+
+
+def test_resume_through_the_tiers_is_bitwise():
+    """Pause a sequence, spill its prefix blocks to the tiers under
+    pressure, resume it: the leading blocks come back by promotion, the
+    rest from the pause record, every page bit for bit what it was, and
+    the allocator and tier decisions are the JAX backend's."""
+    jb, tb, jp, tp = _backends(False, num_blocks=10, block_size=4,
+                               tiered=True)
+    prompt = list(range(1, 14))
+    pages = {}
+    for b, p in ((jb, jp), (tb, tp)):
+        sid, _, _ = b.new_seq(p, prompt)
+        b.decode(p, [sid], [5])
+        b.decode(p, [sid], [6])
+        t = b.table(sid)
+        pages[id(b)] = [_bytes(b.pool.k_pages[:, x]).copy()
+                        for x in t.blocks]
+        rec = b.pause_seq(sid)
+        grab = b.pool.alloc(b.pool.num_free + b.pool.num_cached)
+        assert b.tiers.stats.demotes > 0
+        for x in grab:
+            b.pool.decref(x)
+        allocs = []
+        sid2 = b.resume_seq(rec, on_alloc=lambda s, n: allocs.append(n))
+        assert b.tiers.stats.promotes > 0 and b.tiers.pending == 0
+        t2 = b.table(sid2)
+        assert t2.num_tokens == len(prompt) + 2
+        for x, want in zip(t2.blocks, pages[id(b)]):
+            np.testing.assert_array_equal(_bytes(b.pool.k_pages[:, x]), want)
+        b.decode(p, [sid2], [7])
+    _same_pool(jb.pool, tb.pool, payload=False)
+    _same_tiers(jb.tiers, tb.tiers, payload=False)
+    _staged_mirror_equals_pool(tb)
+    for b in (jb, tb):
+        b.release()
+        b.pool.check_invariants()
+
+
+# ---------------------------------------------------------------------------
+# sharded routing (tier probe)
+# ---------------------------------------------------------------------------
+
+def test_route_prefers_tier_hint_over_load():
+    def run(m):
+        sp = m.sharded.ShardedBlockPool(
+            m.pool.PoolConfig(num_blocks=16, block_size=4), n_shards=2)
+        sp.reserve(2)
+        out = [sp.route(rid=0, page="a", n=2, tier_hint=1)]
+        sp.reserve(8)
+        out.append(sp.route(rid=1, page="b", n=8, tier_hint=1))
+        sp.unreserve(2, rid=0)
+        sp.unreserve(8, rid=1)
+        sp.check_invariants()
+        return out
+    assert run(T) == run(J) == [1, 0]
+
+
+def test_tier_shard_for_and_scheduler_probe():
+    jb, tb, jp, tp = _backends(True, n_shards=2, num_blocks=16,
+                               block_size=4, tiered=True)
+    prompt = list(range(1, 10))
+    shards = []
+    for b, p, sched in ((jb, jp, jsched), (tb, tp, tsched)):
+        assert b.tiered
+        sid, _, _ = b.new_seq(p, prompt, shard=1)
+        b.free_seq(sid)
+        p1 = b.pool.shards[1]
+        for x in p1.alloc(p1.num_free + p1.num_cached):   # demote shard 1
+            p1.decref(x)
+        assert b.backends[1].tiers.stats.demotes > 0
+        assert b.tier_shard_for(prompt) == 1
+        assert b.tier_shard_for(list(range(900, 920))) is None
+        s = sched.MarsScheduler(pool=b.pool)
+        s.tier_probe = b.tier_shard_for
+        assert s.offer(sched.Request(rid=7, prompt=tuple(prompt),
+                                     prefix_len=4, max_new=2))
+        batch = s.schedule_batch(4)
+        shards.append([r._shard for r in batch])
+        b.pool.unreserve(batch[0].blocks_needed(4), rid=7)
+    assert shards[0] == shards[1] == [1]
+    for i in range(2):
+        _same_tiers(jb.backends[i].tiers, tb.backends[i].tiers,
+                    payload=False)
+    for b in (jb, tb):
+        b.release()
+
+
+# ---------------------------------------------------------------------------
+# end-to-end tiered serving under forced spill
+# ---------------------------------------------------------------------------
+
+def _spill_requests(sched, vocab, n=18, n_prefixes=6, prefix_len=8,
+                    max_new=3):
+    rng = np.random.default_rng(5)
+    prefixes = [tuple(int(t) for t in rng.integers(1, vocab, prefix_len))
+                for _ in range(n_prefixes)]
+    reqs = []
+    for i in range(n):
+        tail = tuple(int(t) for t in rng.integers(1, vocab, 2))
+        reqs.append(sched.Request(rid=i, prompt=prefixes[i % n_prefixes]
+                                  + tail, arrival=i * 1e-3,
+                                  prefix_len=prefix_len, max_new=max_new))
+    return reqs
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_tiered_serving_token_parity_under_spill(shards):
+    """A pool too small for the prefix working set spills and re-promotes
+    mid-serve: the port's engine (kernel decode) serves the JAX engine's
+    (gather decode) tokens on the same converted float32 weights, with
+    the same tier stats, engine and pool stats and shard defers."""
+    from repro.kvcache.backend import PagedBackend as JPaged, \
+        ShardedPagedBackend as JSharded
+    from repro.serve import engine as jengine
+    from repro_torch.kvcache.backend import PagedBackend as TPaged, \
+        ShardedPagedBackend as TSharded
+    from repro_torch.serve import engine as tengine
+    jc, tc, jp, tp = _model(f32=True)
+    if shards == 1:
+        jb = JPaged(jc, num_blocks=10, block_size=4, decode_mode="gather",
+                    tiered=True)
+        tb = TPaged(tc, num_blocks=10, block_size=4, decode_mode="kernel",
+                    tiered=True, device="cpu")
+        managers = [(jb.tiers, tb.tiers)]
+    else:
+        jb = JSharded(jc, n_shards=2, num_blocks=20, block_size=4,
+                      decode_mode="gather", tiered=True)
+        tb = TSharded(tc, n_shards=2, num_blocks=20, block_size=4,
+                      decode_mode="kernel", tiered=True,
+                      devices=["cpu", "cpu"])
+        managers = [(a.tiers, b.tiers)
+                    for a, b in zip(jb.backends, tb.backends)]
+    outs, engines = [], []
+    for b, p, c, sched, eng_mod in ((jb, jp, jc, jsched, jengine),
+                                    (tb, tp, tc, tsched, tengine)):
+        s = sched.MarsScheduler(pool=b.pool)
+        if shards > 1:
+            s.tier_probe = b.tier_shard_for
+        eng = eng_mod.ServeEngine(b.pool, s, eng_mod.PagedLM(p, c, b),
+                                  max_lanes=3)
+        outs.append(eng.run(_spill_requests(sched, c.vocab)))
+        engines.append(eng)
+    assert outs[1] == outs[0]
+    assert sorted(outs[1]) == list(range(18))
+    je, te = engines
+    assert te.stats.as_dict() == je.stats.as_dict()
+    assert te.pool.stats.as_dict() == je.pool.stats.as_dict()
+    assert te.scheduler.stats.as_dict() == je.scheduler.stats.as_dict()
+    for jt, tt in managers:
+        _same_tiers(jt, tt, payload=False)
+        tt.check()
+    assert sum(tt.stats.demotes for _, tt in managers) > 0, "never spilled"
+    assert sum(tt.stats.promotes for _, tt in managers) > 0, \
+        "never promoted"
+    tb.pool.check_invariants()
+    for b in (getattr(tb, "backends", None) or [tb]):
+        _staged_mirror_equals_pool(b)
+
+
+# ---------------------------------------------------------------------------
+# property: demote -> promote bitwise round trip under interleaved
+# sharing / CoW forks / eviction pressure, against the JAX tiers
+# ---------------------------------------------------------------------------
+
+def _roundtrip(dtype, bs, hkv, dh, layers, seed):
+    """The reference property's workload on both packages in lockstep:
+    every promoted block's payload is bitwise what was demoted, the host
+    state is the JAX state after every round, and the invariants hold."""
+    rng = np.random.default_rng(seed)
+    sides = []
+    for m in SIDES:
+        pool = m.pool.BlockPool(m.pool.PoolConfig(
+            num_blocks=8, block_size=bs, n_kv_heads=hkv, head_dim=dh,
+            n_layers=layers, dtype=dtype))
+        cache = m.prefix.PrefixCache(bs)
+        cache.attach(pool)
+        tiers = m.tiers.TierManager(pool, cache,
+                                    (m.tiers.TierSpec("host", 4),
+                                     m.tiers.TierSpec("remote", 8)))
+        sides.append((m, pool, cache, tiers))
+    prompts = [[int(t) for t in rng.integers(1, 50, 2 * bs + 1)]
+               for _ in range(3)]
+    prompts.append(list(prompts[0][:bs]) + [77])        # shared prefix
+    golden: dict = {}                                   # key -> (k, v)
+    for _ in range(4):
+        for p in prompts:
+            n_new = None
+            fork = rng.random() < 0.4
+            bits = None
+            for m, pool, cache, tiers in sides:
+                bids, n = tiers.match(p)
+                tiers.flush_promotions()       # payload lands before reads
+                for j, bid in enumerate(bids):
+                    key = tuple(p[:(j + 1) * bs])
+                    if key in golden:                   # bitwise survival
+                        np.testing.assert_array_equal(
+                            _bytes(pool.k_pages[:, bid]), golden[key][0])
+                        np.testing.assert_array_equal(
+                            _bytes(pool.v_pages[:, bid]), golden[key][1])
+                if bits is None:
+                    n_new = len(p) - n
+                    bits = [_random_bits(rng, (layers, n_new, hkv, dh),
+                                         dtype) for _ in range(2)]
+                assert len(p) - n == n_new
+                table = m.prefix.BlockTable(list(bids), n)
+                table.extend(pool, p[n:], seq_tokens=p, cache=cache,
+                             kv=tuple(_payload(m, b, dtype) for b in bits))
+                for j, bid in enumerate(table.blocks[:len(p) // bs]):
+                    golden.setdefault(tuple(p[:(j + 1) * bs]), (
+                        _bytes(pool.k_pages[:, bid]).copy(),
+                        _bytes(pool.v_pages[:, bid]).copy()))
+                if fork:                                # CoW fork churn
+                    f = table.fork(pool)
+                    f.extend(pool, [7], seq_tokens=p + [7])
+                    for b in f.blocks:
+                        pool.decref(b)
+                cache.release(table, pool)
+                pool.check_invariants()
+                tiers.check()
+            _same_pool(sides[0][1], sides[1][1])
+            _same_tiers(sides[0][3], sides[1][3])
+        n_grab = int(rng.integers(1, sides[1][1].num_free
+                                  + sides[1][1].num_cached + 1))
+        for m, pool, cache, tiers in sides:             # eviction pressure
+            for b in pool.alloc(n_grab):
+                pool.decref(b)
+            pool.check_invariants()
+            tiers.check()
+        _same_pool(sides[0][1], sides[1][1])
+        _same_tiers(sides[0][3], sides[1][3])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float8_e4m3fn"])
+def test_tier_roundtrip_fixed_seed(dtype):
+    """One fixed instance of the property per dtype, so each dtype runs
+    where hypothesis is absent too."""
+    _roundtrip(dtype, bs=3, hkv=2, dh=3, layers=2, seed=11)
+
+
+if st is not None:
+    @settings(max_examples=12, deadline=None)
+    @given(st.sampled_from(["float32", "bfloat16", "float8_e4m3fn"]),
+           st.integers(2, 5),                          # block_size
+           st.integers(1, 2),                          # kv heads
+           st.integers(1, 3),                          # head_dim
+           st.integers(2, 3),                          # layered pool depth
+           st.integers(0, 10_000))                     # workload seed
+    def test_tier_roundtrip_property(dtype, bs, hkv, dh, layers, seed):
+        _roundtrip(dtype, bs, hkv, dh, layers, seed)
+else:
+    def test_tier_roundtrip_property():
+        pytest.importorskip("hypothesis")
