@@ -105,7 +105,27 @@ Phases (any failure exits non-zero and prints no result):
           before it syncs any, with no synchronizing CUDA call inside a
           shard's dispatch (``dispatch_order_check``, one profiled
           round), and starcoder2's must have the scheduler's tier probe
-          wired.  hymba's bf16 runs
+          wired.  Then qwen1_5_0_5b four times with ``--metrics``
+          (an ``obs.Observer`` through the serving stack), with the
+          flags of the reference CI's obs smokes: the plain run's, 2
+          shards (12 requests, batch 4, 5 tokens, ``--paranoid``), 2
+          tiered shards sized to spill (``--pool-blocks 16 --prefixes
+          20``, 48 requests) and 3 traffic classes overloaded
+          (``--classes 3 --pool-blocks 16``, 24 requests): each passes
+          its teacher-forced check and launch counts, then
+          ``metrics_check`` reads its ``metrics.json`` and
+          ``trace.jsonl`` (under ``chiprun_out/metrics``) with the
+          port's code — the ``analysis.races`` replay with no violation
+          and a lagged write-back, gauges in range, the phase histograms
+          counted, a request's lifecycle in order, the tiers' demote ->
+          promote -> decode, the classes' pause/resume and quotas — and
+          prints the host phases (step, dispatch, sync, commit; p50,
+          p99, mean), the trace's kept and dropped events, the modelled
+          row-hit % and tokens/s; the sharded ones pass
+          ``dispatch_order_check`` with telemetry on.  The plain qwen
+          run is then served warm without and with ``--metrics`` in
+          turns for the telemetry's overhead (``metrics_overhead``).
+          hymba's bf16 runs
           also report how far their served tokens sit from a float32
           forward on the same weights.  Each run's weights are freed
           before the next.  Each bfloat16 kernel-path run (but the
@@ -256,6 +276,34 @@ TIERED = ("--tiered-kv", "--pool-blocks", "24", "--prefixes", "32",
           "--requests", "64")
 SHARDED = ("--shards", "4")
 SHARDED_TIERED = ("--shards", "2") + TIERED
+# The telemetry runs (``--metrics``): qwen1.5-0.5b at full width with an
+# ``obs.Observer`` wired through the serving stack, each with the flags of
+# one of the reference CI's four obs smokes (less ``--smoke``): the plain
+# run's, the pipelined 2-shard run, the tiered 2-shard run sized to spill
+# and the overloaded 3-class run.  Each writes its snapshot and trace
+# under ``chiprun_out/metrics/<run>`` and ``metrics_check`` reads them
+# with the port's own code.  Not profiled: the profiler would inflate the
+# host phases the runs measure.
+METRICS_DIR = "chiprun_out/metrics"
+METRICS_SMOKES = {
+    "plain": (),
+    "pipeline": ("--shards", "2", "--requests", "12", "--batch", "4",
+                 "--new-tokens", "5", "--paranoid"),
+    "tiered": ("--shards", "2", "--tiered-kv", "--pool-blocks", "16",
+               "--prefixes", "20", "--requests", "48", "--batch", "4",
+               "--new-tokens", "6", "--paranoid"),
+    "classes": ("--classes", "3", "--pool-blocks", "16", "--requests",
+                "24", "--batch", "4", "--new-tokens", "6", "--paranoid"),
+}
+
+
+def metrics_flags(tag: str, root: str = METRICS_DIR) -> tuple:
+    """The ``METRICS_SMOKES`` run ``tag`` with ``--metrics``, writing
+    under ``root/tag``."""
+    return METRICS_SMOKES[tag] + ("--metrics", "--metrics-path",
+                                  f"{root}/{tag}")
+
+
 RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
         ("hymba_1_5b", ("--dtype", "float32")),
         ("hymba_1_5b", ("--no-kernel-decode",)),
@@ -271,11 +319,12 @@ RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
         ("qwen1_5_0_5b", TIERED),
         ("qwen1_5_0_5b", TIERED + ("--dtype", "float32")),
         ("qwen1_5_0_5b", SHARDED),
-        ("starcoder2_7b", SHARDED_TIERED))
-# flags that take a run off the profiled bf16 kernel path; the starcoder2
-# sharded run is not profiled either (two more 7B serve runs for a
-# breakdown the qwen runs give)
-UNPROFILED = {"--dtype", "--no-kernel-decode", "--smoke"}
+        ("starcoder2_7b", SHARDED_TIERED)) + tuple(
+    ("qwen1_5_0_5b", metrics_flags(tag)) for tag in METRICS_SMOKES)
+# flags that take a run off the profiled bf16 kernel path (and the
+# telemetry runs); the starcoder2 sharded run is not profiled either (two
+# more 7B serve runs for a breakdown the qwen runs give)
+UNPROFILED = {"--dtype", "--no-kernel-decode", "--smoke", "--metrics"}
 UNPROFILED_RUNS = {"starcoder2_7b " + " ".join(SHARDED_TIERED)}
 # dense-backend runs (``serve.main`` without --paged): (config, flags);
 # the bf16 ones are profiled.  paligemma-3b serves its text-only decoder
@@ -1438,6 +1487,163 @@ def dispatch_order_check(torch, out) -> dict:
     return res
 
 
+# the engine's phase histograms (host clock): a pipelined decode round is
+# flush (commit) -> dispatch -> sync inside one engine step
+PHASES_MS = ("engine.step_ms", "engine.dispatch_ms", "engine.sync_ms",
+             "engine.commit_ms")
+# one request's timeline, in order, as the reference's validator wants it
+LIFECYCLE = ("sched.offer", "engine.admit", "engine.prefill",
+             "engine.token", "engine.free")
+
+
+def metrics_check(out, name: str, flags) -> dict:
+    """A ``--metrics`` run's ``metrics.json`` and ``trace.jsonl``, read
+    with the port's own code: the trace replayed through
+    ``analysis.races`` with ``require_pipeline`` (no violation, tokens
+    sampled inside the write-back lag); gauges in range (the modelled
+    row-hit %, occupancies, the prefix hit rate); decode tokens counted
+    (the run's own); the step and the three phase histograms counted
+    work with p50 <= p99; one request's offer -> admit -> prefill ->
+    token -> free in order.  A tiered run must promote only what it
+    demoted earlier on the same shard and decode after a promotion; a
+    class run must pause at least once, alternate each request's pause
+    and resume, and keep every ``sched.batch`` within its quotas.
+    Prints one line; raises AssertionError on the first failure."""
+    from repro_torch.analysis import races
+    path = Path(flag_value(flags, "--metrics-path", "metrics_out"))
+    snap = json.loads((path / "metrics.json").read_text())
+    lines = (path / "trace.jsonl").read_text().splitlines()
+    evs = [json.loads(line) for line in lines]
+    g, c, h = snap["gauges"], snap["counters"], snap["histograms"]
+    bad = []
+    report = races.analyze_trace(lines, require_pipeline=True)
+    bad += [f"races: {v}" for v in report.violations]
+    in_range = [("dram.row_hit_pct", 100.0),
+                ("kvcache.prefix_hit_rate", 1.0),
+                ("tier.promote_row_hit_pct", 100.0)] + [
+        (k, 1.0) for k in g if k.endswith(".occupancy")]
+    bad += [f"gauge {k} = {g.get(k)}" for k, hi in in_range
+            if k in g and not 0.0 <= g[k] <= hi]
+    if "dram.row_hit_pct" not in g:
+        bad.append("no dram.row_hit_pct gauge")
+    bad += [f"counter {k} = {v}" for k, v in c.items() if v < 0]
+    if not 0 < c.get("engine.decode_tokens", 0) == out["decode_tokens"]:
+        bad.append(f"engine.decode_tokens {c.get('engine.decode_tokens')}, "
+                   f"the run's {out['decode_tokens']}")
+    for k in PHASES_MS:
+        if not (k in h and h[k]["count"] > 0
+                and h[k]["p50"] <= h[k]["p99"]):
+            bad.append(f"histogram {k}: {h.get(k)}")
+    first: dict = {}                  # (rid, event) -> first ts
+    for e in evs:
+        if "rid" in e:
+            first.setdefault((e["rid"], e["ev"]), e["ts"])
+
+    def in_order(rid) -> bool:
+        ts = [first.get((rid, k)) for k in LIFECYCLE]
+        return None not in ts and ts == sorted(ts)
+    if not any(in_order(rid) for rid in out["finished"]):
+        bad.append("no request's " + " -> ".join(LIFECYCLE) + " in order")
+    if "--tiered-kv" in flags:
+        demoted: dict = {}            # (shard, key) -> first demote ts
+        promotes = [e for e in evs if e["ev"] == "tier.promote"]
+        for e in evs:
+            key = (e.get("shard"), e.get("key"))
+            if e["ev"] == "tier.demote":
+                demoted.setdefault(key, e["ts"])
+            elif e["ev"] == "tier.promote" and (
+                    key not in demoted or demoted[key] > e["ts"]):
+                bad.append(f"tier.promote of {key} not demoted before")
+        if not promotes or not any(
+                e["ev"] == "backend.decode" and e["ts"] >= promotes[0]["ts"]
+                for e in evs):
+            bad.append("no tier.promote followed by a backend.decode")
+    if "--classes" in flags:
+        paused, pauses = set(), 0
+        for e in evs:
+            if e["ev"] == "sched.batch":
+                bad += [f"sched.batch: class {k} {n} over quota "
+                        f"{e['quotas'][k]}"
+                        for k, n in e["classes"].items()
+                        if e["quotas"].get(k, 0) and n > e["quotas"][k]]
+            elif e["ev"] == "engine.pause":
+                pauses += 1
+                if e["rid"] in paused:
+                    bad.append(f"rid {e['rid']} paused twice")
+                paused.add(e["rid"])
+            elif e["ev"] == "engine.resume":
+                if e["rid"] not in paused:
+                    bad.append(f"rid {e['rid']} resumed, not paused")
+                paused.discard(e["rid"])
+        if not pauses:
+            bad.append("no engine.pause")
+    if bad:
+        raise AssertionError(f"{name}: telemetry check failed: {bad[:10]}")
+    q, rest, line = host_phases(snap)
+    res = dict(phases_ms=q, rest_of_step_mean_ms=rest,
+               trace=snap["trace"], kept=len(evs),
+               row_hit_pct_modelled=g["dram.row_hit_pct"],
+               races=report.stats,
+               tokens_per_s=out["decode_tokens"] / out["wall_s"])
+    print(f"[metrics {name}] {line}; trace "
+          f"events kept {len(evs)}, dropped {snap['trace']['dropped']}; "
+        f"dram.row_hit_pct {res['row_hit_pct_modelled']:.2f} (modelled: the "
+        f"reference's grid order on the paper's LPDDR4 map, not HBM3); "
+        f"races {report.stats['dispatched']} dispatches, "
+        f"{len(report.violations)} violations, lag_tokens "
+        f"{report.stats['lag_tokens']}; tokens/s {res['tokens_per_s']:.1f}")
+    return res
+
+
+def host_phases(snap: dict) -> tuple:
+    """The step and its three decode-round phases from a snapshot's
+    histograms (host ms: p50 and p99 interpolated in the histogram's
+    buckets, the mean exact), and the mean of the rest of a step
+    (admission, prefills, sampling: the step's sum less the phases').
+    Returns (phases, rest, a printable summary)."""
+    h = snap["histograms"]
+    q = {k.split(".")[1][:-3]: h[k] for k in PHASES_MS}
+    rest = (q["step"]["sum"] - sum(q[k]["sum"] for k in
+                                   ("dispatch", "sync", "commit"))) \
+        / q["step"]["count"]
+    line = "host ms p50/p99 (mean): " + ", ".join(
+        f"{k} {v['p50']:.3f}/{v['p99']:.3f} ({v['mean']:.3f}, n={v['count']})"
+        for k, v in q.items()) + f", rest of step (mean) {rest:.3f}"
+    return q, rest, line
+
+
+OVERHEAD_RUN = "qwen1_5_0_5b --metrics overhead"
+OVERHEAD_ORDER = ("plain", "metrics", "metrics", "plain")
+
+
+def metrics_overhead(torch, serve) -> dict:
+    """Tokens/s of the plain qwen1.5-0.5b run without and with
+    ``--metrics``, warm, in turns (``OVERHEAD_ORDER``), each its engine's
+    wall on the host clock ending in a synchronize; no teacher-forced
+    check.  Reported, not gated: host clocks spread between runs."""
+    args = serve_args("qwen1_5_0_5b", ("--parity-checks", "0"))
+    tps: dict = {"plain": [], "metrics": []}
+    order = OVERHEAD_ORDER
+    for kind in order:
+        flags = metrics_flags("plain", f"{METRICS_DIR}/overhead") \
+            if kind == "metrics" else ()
+        out = serve.main(args + list(flags))
+        tps[kind].append(out["decode_tokens"] / out["wall_s"])
+        if out["obs"] is not None:
+            print(f"[metrics overhead] warm --metrics run: "
+                  + host_phases(out["obs"].snapshot())[2])
+        del out
+        free_device(torch, f"overhead run ({kind})")
+    mean = {k: statistics.mean(v) for k, v in tps.items()}
+    res = dict(order=order, tokens_per_s=tps,
+               overhead=1.0 - mean["metrics"] / mean["plain"])
+    print(f"[metrics overhead] qwen1_5_0_5b tokens/s, in turns "
+          f"{'/'.join(order)}: plain {tps['plain']}, --metrics "
+          f"{tps['metrics']}; overhead {100 * res['overhead']:.1f} % of "
+          f"the plain mean (host clock; reported, not gated)")
+    return res
+
+
 TIER_FP8 = "qwen1_5_0_5b --tiered-kv float8_e4m3fn"
 
 
@@ -1541,6 +1747,9 @@ def serve_phase(torch, serve, arch: str, flags=()):
         if "--shards" in flags and not out["tier_probe"]:
             raise AssertionError(f"{name}: the scheduler's tier_probe is "
                                  f"not wired")
+    if "--metrics" in flags:
+        # the snapshot and trace written right after the engine's run
+        out["metrics"] = metrics_check(out, name, flags)
     if "--shards" in flags and cfg.cdtype != torch.float32:
         out["dispatch"] = dispatch_order_check(torch, out)
     if out["served"] != flag_value(flags, "--requests", 16) \
@@ -1553,8 +1762,8 @@ def serve_phase(torch, serve, arch: str, flags=()):
                              f"main path, want {want}")
     bad = [t for toks in out["finished"].values() for seq in toks
            for t in seq if not 0 <= t < cfg.vocab]
-    if bad or any(len(seq) != 8 for toks in out["finished"].values()
-                  for seq in toks):
+    if bad or any(len(seq) != out["max_new"][rid]
+                  for rid, toks in out["finished"].items() for seq in toks):
         raise AssertionError(f"{name}: served tokens out of range or of the "
                              f"wrong count")
     if cfg.has_ssm and cfg.cdtype != torch.float32:
@@ -2119,7 +2328,8 @@ def print_profile(arch: str, prof: dict) -> None:
 
 PHASES = ("k1", "k3", "k2", "k4", "k5", "serve", "dense")
 # what a serve run returns beside its stats: not written to the record
-NOT_STATS = ("finished", "cfg", "params", "prompts", "backend")
+NOT_STATS = ("finished", "cfg", "params", "prompts", "max_new",
+             "backend", "obs")
 
 
 def main(argv=None) -> int:
@@ -2285,6 +2495,11 @@ def main(argv=None) -> int:
             failed.append(TIER_FP8)
         free_device(torch, TIER_FP8)
         timed_run(TIER_FP8, t0, time.perf_counter())
+    if "serve" in phases and (not args.runs or any(
+            k in OVERHEAD_RUN for k in args.runs.split(","))):
+        t0 = time.perf_counter()
+        served[OVERHEAD_RUN] = metrics_overhead(torch, serve)
+        timed_run(OVERHEAD_RUN, t0, time.perf_counter())
     for arch, flags in dense_runs if "dense" in phases else ():
         name = run_name(arch, flags)
         t0 = time.perf_counter()

@@ -10,9 +10,19 @@
                            share a DRAM row neighborhood sit adjacent — the
                            ``reorder.mars_order`` policy applied to the batch
 
-The DRAM-trace builders (``kv_read_trace``, ``kv_read_trace_kernel``)
-arrive with the observability slice.  Host-side numpy, bitwise equal to
-the reference.
+  ``kv_read_trace``        the 64B-line address stream the paged *gather*
+                           emits toward memory (per-lane streams interleaved
+                           round robin)
+  ``kv_read_trace_kernel`` the same step's reads as the reference's Pallas
+                           grid issues them: sequence-major, each lane's
+                           pages in page-table order, page-contiguously.
+                           The port's K1 walks page ranges of every lane
+                           at once; this is the reference's order, the
+                           model the live row-hit gauge reads
+                           (``obs.Observer.observe_kv_walk``)
+
+Host-side numpy, bitwise equal to the reference.  The trace builders
+accept empty inputs and return an empty int32 stream.
 """
 from __future__ import annotations
 
@@ -21,7 +31,9 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.core.reorder import mars_order
+from repro_torch.core.streams import _round_robin_merge
 from repro_torch.kvcache.placement import row_group_of
+from repro_torch.kvcache.pool import LINES_PER_BLOCK
 
 
 def pool_page_tables(tables: Sequence, pad_to: int | None = None,
@@ -81,3 +93,65 @@ def batch_lane_order(tables: Sequence, blocks_per_group: int,
         span = int(groups.max()) + 2        # local groups live in [-1, max]
         groups = np.asarray(shard_ids, np.int32) * span + groups
     return np.asarray(mars_order(groups))
+
+
+def kv_read_trace(tables: Sequence, *, grant_beats: int = 4,
+                  lines_per_block: int = LINES_PER_BLOCK) -> np.ndarray:
+    """64B-line addresses of one decode step's full KV gather.
+
+    Each lane reads its whole block list sequentially (one block = one 4KB
+    page); lanes run in parallel, so the stream the memory system sees is
+    the round-robin interleave of the per-lane streams — the same
+    multi-stream merge that destroys locality at the paper's GPU boundary.
+    """
+    lanes = [_lane_lines(t, lines_per_block) for t in tables if t.blocks]
+    if not lanes:
+        return np.zeros(0, np.int32)
+    addr, _ = _round_robin_merge(lanes, grant_beats)
+    return addr
+
+
+def kv_read_trace_kernel(tables: Sequence, *,
+                         lines_per_block: int = LINES_PER_BLOCK,
+                         window_tokens: int = 0,
+                         block_size: int = 16) -> np.ndarray:
+    """64B-line addresses of one decode step's KV reads as the reference's
+    Pallas ``paged_attention`` grid issues them: lanes served one after
+    another (grid axis 0), each lane's pages in page-table order (grid
+    axis 1), lines within a page contiguous.  No cross-lane interleave
+    ever reaches the memory system — the kernel-path rendering of the MARS
+    reorder.
+
+    ``window_tokens`` > 0 models the kernel's sliding-window page gate: a
+    query at position ``num_tokens`` attends cached positions
+    ``(num_tokens - window, num_tokens)`` only, so pages entirely outside
+    the window are never fetched (the gather path has no such gate — it
+    gathers the full table and masks afterwards).
+    """
+    chunks = [_lane_lines(t, lines_per_block,
+                          window_tokens=window_tokens,
+                          block_size=block_size)
+              for t in tables if t.blocks]
+    chunks = [c for c in chunks if c.size]
+    if not chunks:
+        return np.zeros(0, np.int32)
+    return np.concatenate(chunks)
+
+
+def _lane_lines(table, lines_per_block: int, *, window_tokens: int = 0,
+                block_size: int = 16) -> np.ndarray:
+    blocks = table.blocks
+    if window_tokens:
+        # first valid cached position for the in-flight query (canonical
+        # definition: paged_attention ref._window_lo).  A window of 1
+        # admits no cached position (lo == num_tokens), but the kernel's
+        # clamped index map still names one in-range page per lane — the
+        # pipeline DMAs it even though the body never runs — so model a
+        # single residual page, not an empty trace.
+        lo = table.num_tokens - window_tokens + 1
+        if lo >= table.num_tokens:
+            blocks = blocks[-1:]
+        else:
+            blocks = blocks[max(lo, 0) // block_size:]
+    base = np.asarray(blocks, np.int64)[:, None] * lines_per_block
+    return (base + np.arange(lines_per_block)).reshape(-1).astype(np.int32)

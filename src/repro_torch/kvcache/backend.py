@@ -381,6 +381,10 @@ class PagedBackend:
         self._next_sid = 0
         self._batch: list[int] = []      # batch-level API lane order
         self._released = False
+        # telemetry (obs.Observer.attach): spans + the modelled row-
+        # locality feed; obs_shard tags events with this backend's shard
+        self.obs = None
+        self.obs_shard = 0
         # double-buffered device mirrors of the pool's KV buffers: two
         # (k, v) slots, swapped every stage, each with its own pending-
         # dirty set (both fed from pool.drain_dirty — this backend is the
@@ -449,6 +453,10 @@ class PagedBackend:
                 self._upload_blocks(v, pool.v_pages, pend)
             self._slot_dirty[s].clear()
             self._staged_slot, self._slot = s, 1 - s
+        if self.obs is not None:
+            self.obs.trace.event("backend.stage", shard=self.obs_shard,
+                                 blocks=self.staged_blocks_last_step,
+                                 slot=self._staged_slot)
         return self._mirrors[self._staged_slot]
 
     # -- sequence-level API (continuous batching) ---------------------------
@@ -469,11 +477,22 @@ class PagedBackend:
         under pool exhaustion: on RuntimeError every partial table and
         every row this call added is released, then the error
         re-raises."""
-        from repro_torch.models import lm
         self._check_released()
         # flush barrier: prefill allocates, and the prefix match reads
         # refcounts/tokens — both must see the deferred step committed
         self.flush()
+        if self.obs is not None:
+            with self.obs.trace.span("backend.prefill",
+                                     shard=self.obs_shard,
+                                     rows=int(tokens.shape[0])) as sp:
+                out = self._add_seqs_impl(params, tokens, on_alloc)
+                sp["shared_tokens"] = int(sum(out[2]))
+                return out
+        return self._add_seqs_impl(params, tokens, on_alloc)
+
+    def _add_seqs_impl(self, params, tokens: np.ndarray,
+                       on_alloc=None) -> tuple[Any, list[int], list[int]]:
+        from repro_torch.models import lm
         B, S = tokens.shape
         logits, parts = lm.prefill_parts(params, self.cfg,
                                          _tokens_on(tokens, self.device))
@@ -558,6 +577,9 @@ class PagedBackend:
         Returns the record ``resume_seq`` restores from, bitwise."""
         self._check_released()
         self.flush()
+        if self.obs is not None:
+            self.obs.trace.event("backend.pause", shard=self.obs_shard,
+                                 sid=sid)
         seq = self._seqs.pop(sid)
         pool = self.pool
         blocks = [{"content": pool.content[bid],
@@ -581,6 +603,9 @@ class PagedBackend:
         exhaustion."""
         self._check_released()
         self.flush()
+        if self.obs is not None:
+            self.obs.trace.event("backend.resume", shard=self.obs_shard,
+                                 tokens=len(rec["tokens"]))
         pool = self.pool
         bs = pool.cfg.block_size
         tokens = list(rec["tokens"])
@@ -679,6 +704,15 @@ class PagedBackend:
         pt, lengths, toks = ops.decode_step_operands(
             [s.table for s in seqs], tokens, page)
         kp, vp = self._staged_pages()
+        if self.obs is not None:
+            # modelled row locality: this step's page walk in the
+            # reference kernel's grid order (sequence-major, page-
+            # contiguous), from the host block tables, fed to this
+            # shard's open-row model
+            self.obs.observe_kv_walk(
+                self.obs_shard,
+                ops.kv_read_trace_kernel([s.table for s in seqs],
+                                         block_size=page))
         dev = self.device
         pt_d = _upload(torch.from_numpy(pt), dev)
         len_d = _upload(torch.from_numpy(lengths), dev)
@@ -705,6 +739,10 @@ class PagedBackend:
                         conv=conv_new)
         self._steps += 1
         self._inflight = step
+        if self.obs is not None:
+            self.obs.trace.event("backend.dispatch", shard=self.obs_shard,
+                                 step=step.index, lanes=len(seqs),
+                                 staged=step.staged)
         return step
 
     def sync(self, step: DecodeStep):
@@ -720,7 +758,17 @@ class PagedBackend:
             raise RuntimeError(
                 "sync() of a step that is not in flight on this backend")
         B = len(step.sids)
-        step.logits = step.dev.pop("logits")[:B, 0].float().cpu().numpy()
+        if self.obs is not None:
+            # the span measures the blocking wait on the host — on a CUDA
+            # device, where the step's device work becomes visible
+            with self.obs.trace.span("backend.decode",
+                                     shard=self.obs_shard,
+                                     step=step.index, lanes=B) as sp:
+                sp["staged"] = step.staged
+                step.logits = step.dev.pop("logits")[:B, 0].float() \
+                    .cpu().numpy()
+        else:
+            step.logits = step.dev.pop("logits")[:B, 0].float().cpu().numpy()
         if self.device.type == "cuda":
             for name in ("k", "v"):
                 d = step.dev[name]
@@ -783,6 +831,9 @@ class PagedBackend:
                 step.on_alloc(s.sid, self.pool.stats.allocs - allocs0)
         step.committed = True
         step.seqs = None
+        if self.obs is not None:
+            self.obs.trace.event("backend.commit", shard=self.obs_shard,
+                                 step=step.index, lanes=len(step.sids))
 
     def flush(self) -> None:
         """Barrier: sync any in-flight step and commit any pending

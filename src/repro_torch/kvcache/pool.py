@@ -94,6 +94,10 @@ class BlockPool:
         # admission reservations (see reserve()): blocks promised to
         # admitted-but-not-yet-allocated work
         self.reserved = 0
+        # telemetry (obs.Observer.attach): None = uninstrumented; events
+        # carry obs_shard so sharded pools tag their shard index
+        self.obs = None
+        self.obs_shard = 0
         self.stats = PoolStats()
         # blocks whose allocator state changed since the last incremental
         # invariant sweep (check_invariants(incremental=True))
@@ -145,11 +149,16 @@ class BlockPool:
     def reserve(self, n: int) -> None:
         """Promise ``n`` blocks to admitted-but-not-yet-allocated work."""
         self.reserved += n
+        if self.obs is not None:
+            self.obs.trace.event("pool.reserve", n=n, shard=self.obs_shard)
 
     def unreserve(self, n: int) -> None:
         """Release ``n`` previously reserved blocks (n ≤ reserved)."""
         assert n <= self.reserved, (n, self.reserved)
         self.reserved -= n
+        if self.obs is not None:
+            self.obs.trace.event("pool.unreserve", n=n,
+                                 shard=self.obs_shard)
 
     # -- alloc / ref / free -------------------------------------------------
 
@@ -163,6 +172,9 @@ class BlockPool:
         if short > 0:
             if short > self.num_cached:
                 self.stats.alloc_fails += 1
+                if self.obs is not None:
+                    self.obs.trace.event("pool.alloc_fail", n=n,
+                                         shard=self.obs_shard)
                 raise RuntimeError(
                     f"pool exhausted: want {n}, free {self.num_free}, "
                     f"cached {self.num_cached}")
@@ -179,6 +191,8 @@ class BlockPool:
             self.content[bid] = None
         self.stats.allocs += n
         self._meta_dirty.update(out)
+        if self.obs is not None:
+            self.obs.trace.event("pool.alloc", n=n, shard=self.obs_shard)
         return out
 
     def incref(self, bid: int) -> None:
@@ -231,6 +245,9 @@ class BlockPool:
                 self.on_evict(bid)
             self._free_block(bid)
             self.stats.evictions += 1
+        if victims and self.obs is not None:
+            self.obs.trace.event("pool.evict", n=len(victims),
+                                 shard=self.obs_shard)
 
     # -- KV payload ---------------------------------------------------------
 
@@ -260,6 +277,9 @@ class BlockPool:
             self.v_pages[:, dst] = self.v_pages[:, src]
             self.dirty.add(dst)
         self.stats.cow_copies += 1
+        if self.obs is not None:
+            self.obs.trace.event("pool.cow", src=src, dst=dst,
+                                 shard=self.obs_shard)
 
     def forget_dirty(self, bid: int) -> None:
         """Drop a block from the dirty-staging set without draining, for
@@ -275,6 +295,9 @@ class BlockPool:
         exactly those blocks."""
         out = sorted(self.dirty)
         self.dirty.clear()
+        if out and self.obs is not None:
+            self.obs.trace.event("pool.drain_dirty", n=len(out),
+                                 shard=self.obs_shard)
         return out
 
     # -- invariants ---------------------------------------------------------

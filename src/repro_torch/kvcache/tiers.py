@@ -26,9 +26,11 @@ at demotion (``.clone()``: indexing the pool gives a view of the slot
 that is being freed), so the pool slot → tier entry → ``write_kv`` into
 the promoted slot chain is a bit copy for every pool dtype, fp8
 included.  ``TierStats.stall_us`` is the *modelled* fetch cost
-(``TierSpec.fetch_us``), never a measured time.  Trace events arrive
-with the observability slice; ``obs`` takes a hook with a ``registry``
-(tier occupancy gauges) meanwhile.
+(``TierSpec.fetch_us``), never a measured time.  With an
+``obs.Observer`` attached, demotions, promotions and each batch's
+modelled stall are trace events (``tier.demote``/``promote``/
+``stall``), and each promotion batch's write stream feeds the modelled
+``tier.promote_row_hit_pct`` gauge.
 
 >>> from repro_torch.kvcache.pool import BlockPool, PoolConfig
 >>> from repro_torch.kvcache.prefix import BlockTable, PrefixCache
@@ -227,7 +229,7 @@ class TierManager:
         assert self.tiers, "need at least one spill tier"
         self.reorder = reorder
         self.stats = TierStats()
-        self.obs = None           # telemetry hook with a ``registry``
+        self.obs = None           # telemetry hook (obs.Observer.attach)
         self.obs_shard = 0
         # lookahead promotion queue: (dst block id, entry, tier index)
         self._pending: list[tuple[int, TierEntry, int]] = []
@@ -271,6 +273,10 @@ class TierManager:
             v=pool.v_pages[:, bid].clone()
             if pool.v_pages is not None else torch.zeros(0))
         self.stats.demotes += 1
+        if self.obs is not None:
+            self.obs.trace.event("tier.demote", key=_key_tag(key),
+                                 shard=self.obs_shard,
+                                 tier=self.tiers[0].spec.name)
         self._cascade(entry, 0)
 
     def _cascade(self, entry: TierEntry, level: int) -> None:
@@ -369,8 +375,19 @@ class TierManager:
             self.stats.promoted_tokens += len(entry.content)
             self.stats.refetched_bytes += entry.nbytes
             dsts.append(dst)
-        self.stats.stall_us += sum(self.tiers[lv].spec.fetch_us(nb)
-                                   for lv, nb in tier_bytes.items())
+            if self.obs is not None:
+                self.obs.trace.event("tier.promote", key=_key_tag(entry.key),
+                                     shard=self.obs_shard, dst=dst,
+                                     tier=self.tiers[level].spec.name)
+        stall = sum(self.tiers[lv].spec.fetch_us(nb)
+                    for lv, nb in tier_bytes.items())
+        self.stats.stall_us += stall
+        if self.obs is not None:
+            self.obs.trace.event("tier.stall", shard=self.obs_shard,
+                                 blocks=len(dsts),
+                                 us=round(stall, 3))
+            self.obs.observe_promotion(self.obs_shard,
+                                       self.write_trace(dsts))
         self._publish()
         return dsts
 

@@ -53,6 +53,17 @@ model's frame embeddings are the reference tests' stub, ``normal *
 reference's ``main`` passes no image prefix, and its prefill would not
 read one (ROADMAP.md §3).
 
+``--metrics`` (with ``--paged``) serves instrumented: an
+``obs.Observer`` wired through the engine, scheduler, pool(s),
+backend(s) and tiers; right after the engine's run (before the
+teacher-forced check, whose prefills stay out of it) it writes
+``<--metrics-path>/metrics.json`` (the registry snapshot) and
+``trace.jsonl`` (the span/event log) and prints a summary.  Spans and
+the ``engine.{step,commit,dispatch,sync}_ms`` histograms are host time;
+``dram.row_hit_pct`` is the reference's order model on the paper's DRAM
+map, not a reading of the card.  ``--paranoid`` adds the pool's
+incremental invariant sweep every few engine steps.
+
 Runs on ``--device cuda`` (the default; raises when CUDA is absent) or
 ``--device cpu``.  Weights are random, from ``lm.init`` seeded by
 ``--seed``.
@@ -161,6 +172,41 @@ def synth_requests(n: int, vocab: int, n_prefixes: int = 8,
     return out
 
 
+def _attach_metrics(args, eng):
+    """--metrics: wire an ``obs.Observer`` through the engine (spans,
+    counters, the modelled row-hit gauge; ``--paranoid`` adds the
+    periodic incremental invariant sweep).  None when telemetry is
+    off."""
+    if not args.metrics:
+        return None
+    from repro_torch.obs import Observer
+    return Observer(paranoid=args.paranoid).attach(eng)
+
+
+def _dump_metrics(obs, args):
+    """Write ``<metrics-path>/metrics.json`` (registry snapshot) and
+    ``<metrics-path>/trace.jsonl`` (span/event log), then print the
+    one-screen summary table."""
+    if obs is None:
+        return
+    import json
+    import os
+    os.makedirs(args.metrics_path, exist_ok=True)
+    snap_path = os.path.join(args.metrics_path, "metrics.json")
+    trace_path = os.path.join(args.metrics_path, "trace.jsonl")
+    with open(snap_path, "w", encoding="utf-8") as fh:
+        json.dump(obs.snapshot(), fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    open(trace_path, "w").close()       # fresh file; flush() appends
+    n = obs.trace.flush(trace_path)
+    print("[metrics] " + "-" * 50)
+    for line in obs.summary_lines():
+        print(f"[metrics]   {line}")
+    print("[metrics] " + "-" * 50)
+    print(f"[metrics] snapshot -> {snap_path}")
+    print(f"[metrics] trace    -> {trace_path} ({n} events)")
+
+
 def main_paged_toy(args):
     """Continuous batching over the paged KV pool with the deterministic
     single-layer ToyModel: admission bounded by pool capacity,
@@ -173,6 +219,7 @@ def main_paged_toy(args):
     sched = MarsScheduler(pool=pool)
     eng = ServeEngine(pool, sched, max_lanes=args.batch,
                       use_kernel=args.kernel_decode, device=args.device)
+    obs = _attach_metrics(args, eng)
     reqs = [Request(rid=r.rid, prompt=r.prompt, arrival=r.arrival,
                     prefix_len=r.prefix_len, max_new=args.new_tokens)
             for r in synth_requests(args.requests, vocab=128,
@@ -180,6 +227,7 @@ def main_paged_toy(args):
     t0 = time.time()
     finished = eng.run(reqs)
     dt = time.time() - t0
+    _dump_metrics(obs, args)
     print(f"[serve --paged --toy] served={len(finished)} "
           f"steps={eng.stats.steps} "
           f"prefill_tokens={eng.stats.prefill_tokens} "
@@ -192,7 +240,7 @@ def main_paged_toy(args):
     return dict(served=len(finished), steps=eng.stats.steps,
                 prefix_hits=pool.stats.prefix_hits,
                 pool_rejects=sched.stats.pool_rejects,
-                finished=finished)
+                finished=finished, obs=obs)
 
 
 def cut_depth(cfg, n_layers: int):
@@ -253,9 +301,10 @@ def main_paged(args):
     Cross-checks a sample of served sequences against the dense backend
     for end-to-end token parity.  Returns the run's stats with
     ``finished`` (request id -> served token lists), ``cfg``, ``params``,
-    ``prompts`` (request id -> prompt) and ``backend`` (unreleased, for
-    the caller's own checks).  ``decode_steps`` counts the model's decode
-    steps: one per shard a round."""
+    ``prompts`` (request id -> prompt), ``max_new`` (request id -> its
+    decode length), ``backend`` (unreleased, for the caller's own checks)
+    and ``obs`` (the ``--metrics`` observer, or None).  ``decode_steps``
+    counts the model's decode steps: one per shard a round."""
     if args.toy:
         return main_paged_toy(args)
     from repro_torch.kvcache.backend import make_backend
@@ -302,6 +351,7 @@ def main_paged(args):
         sched.tier_probe = backend.tier_shard_for
     eng = ServeEngine(pool, sched, PagedLM(params, cfg, backend),
                       max_lanes=args.batch, pipeline=args.pipeline)
+    obs = _attach_metrics(args, eng)
     cnames = [c.name for c in classes] if classes else None
     reqs = []
     for r in synth_requests(args.requests, vocab=cfg.vocab,
@@ -320,6 +370,7 @@ def main_paged(args):
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     pool.check_invariants()
+    _dump_metrics(obs, args)
     decode_steps = sum(b._steps for b in inner)
     cut = f" (cut from {depth})" if cfg.n_layers != depth else ""
     shard_note = "" if args.shards <= 1 else \
@@ -444,7 +495,8 @@ def main_paged(args):
                 parity_max_deficit=max_deficit,
                 decode=backend.decode_mode, finished=finished,
                 params=params, prompts={r.rid: r.prompt for r in reqs},
-                backend=backend)
+                max_new={r.rid: r.max_new for r in reqs},
+                backend=backend, obs=obs)
 
 
 def _config(args):
@@ -577,6 +629,16 @@ def main(argv=None):
                          "class-blind)")
     ap.add_argument("--parity-checks", type=int, default=4,
                     help="with --paged: served sequences re-checked densely")
+    ap.add_argument("--metrics", action="store_true",
+                    help="with --paged: serve instrumented (obs.Observer) "
+                         "and dump a JSON metrics snapshot + JSONL span "
+                         "trace, plus a one-screen summary (host-clock "
+                         "times; the row-hit gauge is a model)")
+    ap.add_argument("--metrics-path", default="metrics_out",
+                    help="directory for metrics.json / trace.jsonl")
+    ap.add_argument("--paranoid", action="store_true",
+                    help="with --metrics: run the pool's incremental "
+                         "invariant sweep every few engine steps")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model and kernels run; cuda raises "
                          "when no GPU is available")

@@ -1,6 +1,6 @@
 """Continuous-batching serve engine over the paged KV-cache pool (port of
-``repro/serve/engine.py``, uninstrumented; a single pool or a
-``ShardedBlockPool`` served through ``ShardedPagedBackend``).
+``repro/serve/engine.py``; a single pool or a ``ShardedBlockPool`` served
+through ``ShardedPagedBackend``).
 
 The loop ties the MARS serving stack together, one step per call:
 
@@ -26,10 +26,17 @@ Two model drivers:
 The LM decode round drives the backend's split-phase pipeline by default
 (``flush -> dispatch_decode -> sync``); ``pipeline=False`` uses the
 synchronous ``decode()`` wrapper.  Served tokens are identical either way.
+
+With an ``obs.Observer`` attached (``engine.obs``) the engine traces
+admit, prefill, pause, resume, token and free events, times each step
+into ``engine.step_ms`` and each pipelined decode round's three phases
+into ``engine.commit_ms`` (flush), ``engine.dispatch_ms`` and
+``engine.sync_ms``, all on the host clock.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Union
 
 import numpy as np
@@ -176,6 +183,7 @@ class ServeEngine:
         self.paused: list = []
         self.finished: dict[int, list] = {}
         self.stats = EngineStats()
+        self.obs = None          # telemetry hook (obs.Observer.attach)
         # admission-reservation bookkeeping per request: every actual block
         # allocation converts one reserved block into a live one; leftovers
         # release when the request's last lane finishes
@@ -207,6 +215,9 @@ class ServeEngine:
         self._claim(self._sid_rid[sid], n_allocs)
 
     def _finish_seq(self, seq: SeqState) -> None:
+        if self.obs is not None:
+            self.obs.trace.event("engine.free", rid=seq.rid, sid=seq.sid,
+                                 tokens=seq.n_generated)
         self.finished.setdefault(seq.rid, []).append(seq.out_tokens)
         if self._lm is not None:
             self._lm.backend.free_seq(seq.sid)
@@ -225,6 +236,17 @@ class ServeEngine:
 
     def _prefill(self, req: Request) -> list[SeqState]:
         prompt = list(req.prompt)
+        if self.obs is not None:
+            shared0 = self.stats.shared_prompt_tokens
+            with self.obs.trace.span("engine.prefill", rid=req.rid,
+                                     tokens=len(prompt)) as sp:
+                seqs = self._prefill_impl(req, prompt)
+                sp["lanes"] = len(seqs)
+                sp["shared"] = self.stats.shared_prompt_tokens - shared0
+                return seqs
+        return self._prefill_impl(req, prompt)
+
+    def _prefill_impl(self, req: Request, prompt: list) -> list[SeqState]:
         self._claims[req.rid] = self._claims.get(req.rid, 0) \
             + req.blocks_needed(self.pool.cfg.block_size)
         self._live_seqs[req.rid] = self._live_seqs.get(req.rid, 0) \
@@ -287,6 +309,8 @@ class ServeEngine:
         if not self.running and not self.paused \
                 and not len(self.scheduler):
             return 0
+        obs = self.obs
+        t0 = time.perf_counter() if obs is not None else 0.0
         # overload first: a latency-class arrival bounced since the last
         # step -> pause a throughput decode so this round's admission
         # sees the freed headroom
@@ -296,6 +320,9 @@ class ServeEngine:
             # a request occupies one decode lane per forked sample
             for req in self.scheduler.schedule_batch(
                     free, now=now, cost_fn=lambda r: r.n_samples):
+                if obs is not None:
+                    obs.trace.event("engine.admit", rid=req.rid,
+                                    n_samples=req.n_samples)
                 self.running.extend(self._prefill(req))
         if not preempted:
             self._try_resume()
@@ -334,6 +361,9 @@ class ServeEngine:
                 still.append(seq)
         self.running = still
         self.stats.steps += 1
+        if obs is not None:
+            obs.step_done(self, (time.perf_counter() - t0) * 1e3,
+                          lanes=len(nxt), tokens=len(nxt))
         return len(nxt)
 
     # -- decode preemption (overload) ----------------------------------------
@@ -358,6 +388,11 @@ class ServeEngine:
             return False
         victim = max(cand, key=lambda s: s.max_new - s.n_generated)
         rec = lm.backend.pause_seq(victim.sid)
+        if self.obs is not None:
+            self.obs.trace.event("engine.pause", rid=victim.rid,
+                                 sid=victim.sid,
+                                 traffic_class=victim.traffic_class,
+                                 tokens=victim.n_generated)
         self.running.remove(victim)
         del self._sid_rid[victim.sid]
         victim.sid = -1
@@ -398,6 +433,10 @@ class ServeEngine:
             self._claim(seq.rid, self.pool.stats.allocs - allocs0)
             seq.sid = sid
             seq.table = lm.backend.table(sid)
+            if self.obs is not None:
+                self.obs.trace.event("engine.resume", rid=seq.rid, sid=sid,
+                                     traffic_class=seq.traffic_class,
+                                     tokens=seq.n_generated)
             self.running.append(seq)
 
     def _commit_token(self, seq: SeqState, tok: int) -> int:
@@ -407,9 +446,19 @@ class ServeEngine:
         seq.out_tokens.append(tok)
         seq.n_generated += 1
         self.stats.decode_tokens += 1
+        if self.obs is not None:
+            self.obs.trace.event("engine.token", rid=seq.rid, sid=seq.sid,
+                                 n=seq.n_generated)
         return tok
 
     def _decode_toy(self) -> list:
+        if self.obs is not None:
+            # modelled row locality: the reference kernel's page walk for
+            # this step (the LM driver feeds the same walk inside
+            # backend.dispatch_decode)
+            self.obs.observe_kv_walk(0, ops.kv_read_trace_kernel(
+                [s.table for s in self.running],
+                block_size=self.pool.cfg.block_size))
         pt, lengths = ops.pool_page_tables([s.table for s in self.running])
         dev = self.device
         q = torch.from_numpy(
@@ -443,19 +492,35 @@ class ServeEngine:
             sids = [s.sid for s in live]
             toks = [s.tokens[-1] for s in live]
             if self.pipeline:
-                # flush commits the PREVIOUS step's deferred KV write-back;
-                # dispatch launches this step; sync blocks on logits only
-                backend = lm.backend
-                backend.flush()
-                step = backend.dispatch_decode(lm.params, toks, sids=sids,
-                                               on_alloc=self._on_alloc)
-                logits = backend.sync(step)
+                logits = self._decode_lm_pipelined(sids, toks)
             else:
                 logits = lm.backend.decode(lm.params, sids, toks,
                                            on_alloc=self._on_alloc)
             for s, lg in zip(live, logits):
                 nxt[id(s)] = lm.next_token(lg, s.salt)
         return [nxt[id(s)] for s in self.running]
+
+    def _decode_lm_pipelined(self, sids: list, toks: list):
+        """Split-phase decode round: ``flush`` commits the PREVIOUS step's
+        deferred KV write-back, ``dispatch_decode`` launches this step on
+        every shard without blocking, ``sync`` blocks on the logits only.
+        With an observer, the host-clock splits feed the
+        ``engine.{commit,dispatch,sync}_ms`` histograms."""
+        lm, obs = self._lm, self.obs
+        backend = lm.backend
+        t0 = time.perf_counter()
+        backend.flush()
+        t1 = time.perf_counter()
+        step = backend.dispatch_decode(lm.params, toks, sids=sids,
+                                       on_alloc=self._on_alloc)
+        t2 = time.perf_counter()
+        logits = backend.sync(step)
+        t3 = time.perf_counter()
+        if obs is not None:
+            obs.registry.observe("engine.commit_ms", (t1 - t0) * 1e3)
+            obs.registry.observe("engine.dispatch_ms", (t2 - t1) * 1e3)
+            obs.registry.observe("engine.sync_ms", (t3 - t2) * 1e3)
+        return logits
 
     def run(self, requests, *, max_steps: int = 10_000) -> dict[int, list]:
         """Drive submit/step to completion (the offline serving loop)."""

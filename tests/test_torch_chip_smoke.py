@@ -16,7 +16,16 @@ staged device mirror (and the host pool) against their tier payloads
 bit for bit: it passes a tiered smoke run, in bfloat16 and with an fp8
 pool, and catches a mirror page or a payload that differs.  On the card
 ``dispatch_order_check`` holds a sharded smoke run's dispatches free of
-blocking CUDA calls."""
+blocking CUDA calls.
+
+``metrics_check``, which reads a telemetry run's ``metrics.json`` and
+``trace.jsonl``: it passes each of the four telemetry runs' smoke
+counterparts and prints their line, and catches a trace whose write-back
+lands before its sync, a request that never frees, a promotion of a
+block never demoted, a batch over its class quota, a run that never
+pauses, and an empty phase histogram; the host rows of a profiled run
+with telemetry on read as ``key_averages`` reads them."""
+import json
 import sys
 from pathlib import Path
 
@@ -212,3 +221,97 @@ def test_dispatch_order_check_on_the_card():
                       "--new-tokens", "2", "--parity-checks", "0"])
     r = chip_smoke.dispatch_order_check(torch, out)
     assert r["blocking"] == {} and r["last_dispatch_before_logits"]
+
+
+# ---------------------------------------------------------------------------
+# the telemetry runs' checks
+# ---------------------------------------------------------------------------
+
+def _metrics_run(tag: str, tmp_path):
+    """A ``chip_smoke.METRICS_SMOKES`` run at the smoke config on the CPU,
+    its files under ``tmp_path``."""
+    flags = chip_smoke.metrics_flags(tag, str(tmp_path))
+    out = serve.main(["--paged", "--smoke", "--device", "cpu",
+                      "--parity-checks", "1", *flags])
+    return out, flags
+
+
+@pytest.mark.parametrize("tag", sorted(chip_smoke.METRICS_SMOKES))
+def test_metrics_check_passes_the_telemetry_runs(tag, tmp_path, capsys):
+    """``metrics_check`` passes each telemetry run's own output, reads
+    its lag from the races replay, and prints the host phases, the
+    trace's kept and dropped events, the modelled row-hit % and
+    tokens/s."""
+    out, flags = _metrics_run(tag, tmp_path)
+    r = chip_smoke.metrics_check(out, tag, flags)
+    line = capsys.readouterr().out.splitlines()[-1]
+    assert line.startswith(f"[metrics {tag}] host ms p50/p99 (mean): step ")
+    for word in ("dispatch", "sync", "commit", "rest of step", "kept",
+                 "dropped 0", "(modelled", "0 violations", "tokens/s"):
+        assert word in line, word
+    assert r["races"]["lag_tokens"] > 0 and r["trace"]["dropped"] == 0
+    assert set(r["phases_ms"]) == {"step", "dispatch", "sync", "commit"}
+    assert r["kept"] == r["trace"]["events"]
+    assert 0.0 <= r["row_hit_pct_modelled"] <= 100.0
+    if tag == "classes":
+        assert sorted(set(out["max_new"].values())) == [6, 12, 24]
+
+
+def _rewrite(path, fn):
+    evs = [json.loads(line) for line in path.read_text().splitlines()]
+    path.write_text("".join(json.dumps(e) + "\n" for e in fn(evs)))
+
+
+def _swap_first_sync_commit(evs):
+    """A write-back that lands before its logits: the first commit's
+    stamp moved ahead of its step's sync."""
+    c = next(e for e in evs if e["ev"] == "backend.commit")
+    d = next(e for e in evs if e["ev"] == "backend.decode"
+             and e["step"] == c["step"] and e["shard"] == c["shard"])
+    c["ts"] = d["ts"] - 1
+    return sorted(evs, key=lambda e: e["ts"])
+
+
+FAULTS = {
+    "commit_before_sync": ("plain", _swap_first_sync_commit, "races"),
+    "no_free": ("plain", lambda evs: [e for e in evs
+                                      if e["ev"] != "engine.free"],
+                "in order"),
+    "promote_without_demote": ("tiered", lambda evs: [
+        e for e in evs if e["ev"] != "tier.demote"], "not demoted"),
+    "over_quota": ("classes", lambda evs: [
+        dict(e, classes={k: v + 99 for k, v in e["classes"].items()})
+        if e["ev"] == "sched.batch" else e for e in evs], "over quota"),
+    "resume_without_pause": ("classes", lambda evs: [
+        e for e in evs if e["ev"] != "engine.pause"], "no engine.pause"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_metrics_check_catches_a_broken_trace(fault, tmp_path):
+    tag, fn, match = FAULTS[fault]
+    out, flags = _metrics_run(tag, tmp_path)
+    _rewrite(tmp_path / tag / "trace.jsonl", fn)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.metrics_check(out, tag, flags)
+
+
+def test_metrics_check_catches_an_empty_phase_histogram(tmp_path):
+    out, flags = _metrics_run("pipeline", tmp_path)
+    path = tmp_path / "pipeline" / "metrics.json"
+    snap = json.loads(path.read_text())
+    snap["histograms"]["engine.sync_ms"]["count"] = 0
+    path.write_text(json.dumps(snap))
+    with pytest.raises(AssertionError, match="engine.sync_ms"):
+        chip_smoke.metrics_check(out, "pipeline", flags)
+
+
+def test_raw_rows_match_key_averages_on_a_metrics_run(tmp_path):
+    """The host rows of a profiled serve run with telemetry on."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        serve.main(["--paged", "--smoke", "--device", "cpu", "--requests",
+                    "4", "--batch", "2", "--new-tokens", "2",
+                    "--parity-checks", "0",
+                    *chip_smoke.metrics_flags("plain", str(tmp_path))])
+    assert _check_against_key_averages(prof) == []

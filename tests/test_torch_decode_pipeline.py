@@ -14,9 +14,9 @@ the JAX backend's.
 Not ported: ``test_positional_pool_construction_deprecated`` and
 ``test_dense_kv_compat_reads_deprecated`` test deprecation shims (a pool
 passed positionally, ``DenseBackend.k``/``.v``) that the port never had.
-The reference's trace of the sharded issue-then-gather order comes from
-``obs.Observer``, which is not ported yet: the port's case records the
-order of the per-shard calls instead."""
+The sharded issue-then-gather order is read from an ``obs.Observer``
+trace, as the reference reads it, and, as a second case, from the order
+of the per-shard calls."""
 import dataclasses
 
 import numpy as np
@@ -174,12 +174,25 @@ def test_dispatch_while_inflight_raises(model):
 # sharded issue-then-gather
 # ---------------------------------------------------------------------------
 
-def test_sharded_dispatch_all_before_sync_any(model):
+@pytest.mark.parametrize("order_from", ["trace", "calls"])
+def test_sharded_dispatch_all_before_sync_any(model, order_from):
     """Every shard's step is dispatched before any shard is synced, and
-    every shard synced before any commits; the logits are the JAX sharded
-    backend's."""
+    every shard synced before any commits — read from an ``Observer``
+    trace (each inner backend's ``backend.dispatch`` events precede the
+    first ``backend.decode`` sync span), as the reference does, and from
+    the order of the per-shard calls; the logits are the JAX sharded
+    backend's, and the trace's events are the JAX trace's."""
+    from repro.obs import Observer as JObserver
+    from repro_torch.obs import Observer as TObserver
     (jb, jp), (tb, tp) = _pair(model, sharded=True, num_blocks=32,
                                block_size=4)
+    observers = []
+    for b, cls in ((jb, JObserver), (tb, TObserver)):
+        obs = cls()
+        for i, inner in enumerate(b.backends):
+            inner.obs = obs
+            inner.obs_shard = i
+        observers.append(obs)
     calls = []
     for i, inner in enumerate(tb.backends):
         for name in ("dispatch_decode", "sync", "commit"):
@@ -196,10 +209,22 @@ def test_sharded_dispatch_all_before_sync_any(model):
         step = b.dispatch_decode(p, [3, 4], sids=[sa, sb])
         logits.append(np.asarray(b.sync(step)))
         b.flush()
-    ev = calls
-    dispatch = [i for i, c in enumerate(ev) if c[0] == "dispatch_decode"]
-    sync = [i for i, c in enumerate(ev) if c[0] == "sync"]
-    commit = [i for i, c in enumerate(ev) if c[0] == "commit"]
+    jevs, evs = (o.trace.events() for o in observers)
+    assert [{k: v for k, v in e.items() if k not in ("ts", "dur_us")}
+            for e in evs] == \
+        [{k: v for k, v in e.items() if k not in ("ts", "dur_us")}
+         for e in jevs]
+    if order_from == "trace":
+        ev = [(e["ev"], e["shard"]) for e in evs
+              if e["ev"] in ("backend.dispatch", "backend.decode",
+                             "backend.commit")]
+        names = ("backend.dispatch", "backend.decode", "backend.commit")
+    else:
+        ev = calls
+        names = ("dispatch_decode", "sync", "commit")
+    dispatch = [i for i, c in enumerate(ev) if c[0] == names[0]]
+    sync = [i for i, c in enumerate(ev) if c[0] == names[1]]
+    commit = [i for i, c in enumerate(ev) if c[0] == names[2]]
     assert {ev[i][1] for i in dispatch} == {0, 1}
     assert len(sync) == len(commit) == 2
     assert max(dispatch) < min(sync), "a shard synced before all dispatched"

@@ -16,6 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SLICE_MODULES = [
     "repro_torch",
+    "repro_torch.analysis.races",
+    "repro_torch.analysis.refsan",
     "repro_torch.configs",
     "repro_torch.configs.arctic_480b",
     "repro_torch.configs.deepseek_coder_33b",
@@ -28,7 +30,9 @@ SLICE_MODULES = [
     "repro_torch.configs.starcoder2_7b",
     "repro_torch.configs.whisper_base",
     "repro_torch.convert",
+    "repro_torch.core.dram",
     "repro_torch.core.reorder",
+    "repro_torch.core.streams",
     "repro_torch.device",
     "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention.flash_attention",
@@ -62,6 +66,8 @@ SLICE_MODULES = [
     "repro_torch.obs",
     "repro_torch.obs.metrics",
     "repro_torch.obs.observer",
+    "repro_torch.obs.rowsim",
+    "repro_torch.obs.trace",
     "repro_torch.serve.engine",
     "repro_torch.serve.step",
     "repro_torch.serving.scheduler",
@@ -104,6 +110,36 @@ def test_tier_and_shard_modules_leave_jax_out(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.obs", "repro_torch.analysis.races",
+    "repro_torch.analysis.refsan", "repro_torch.core.dram",
+    "repro_torch.core.streams"])
+def test_obs_and_analysis_modules_leave_jax_and_repro_out(module):
+    """Each module of the telemetry and sanitizer slice, imported alone in
+    a fresh interpreter, loads neither JAX nor the JAX package (the
+    reference's ``obs`` reaches JAX through ``core/dram``)."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'repro'))\n"
+            "assert not bad, bad\nprint('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_races_cli_runs_as_a_module(tmp_path):
+    """``python -m repro_torch.analysis.races`` replays a trace file and
+    exits 1 on a violation (here: no pipelined decode at all)."""
+    trace = tmp_path / "trace.jsonl"
+    trace.write_text('{"ts": 0, "ev": "engine.token", "rid": 0}\n')
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis.races",
+                          str(trace), "--require-pipeline"], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 1, out.stderr
+    assert "[races] BAD" in out.stdout and "RuntimeWarning" not in out.stderr
 
 
 def _imports(path: Path):

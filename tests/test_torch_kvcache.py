@@ -5,7 +5,8 @@ under a tight pool, reservations, dirty-set drains) driven through both
 packages must leave bitwise-identical state — allocator arrays, block
 tables, stats, the dirty set and the KV payload bits.  The same holds
 for the decode operand pack, the lane order, the MARS reorder and the
-embedding gather."""
+embedding gather, and for the reference's 400-step randomized soak, run
+under each package's ``analysis.refsan``."""
 import numpy as np
 import pytest
 
@@ -592,3 +593,97 @@ def test_dense_paged_parity_sliding_window(decode_mode):
         b.release()
         b.pool.check_invariants()
     assert paged.pool.num_live == 0
+
+
+# ---------------------------------------------------------------------------
+# randomized alloc/share/free soak under the refcount sanitizer
+# ---------------------------------------------------------------------------
+
+def _soak(pool_mod, prefix_mod, refsan, steps=400):
+    """The reference's ``test_soak_invariants`` on one package: 400
+    randomized start / extend / fork / finish steps on a 96-block host
+    pool with a small vocabulary (heavy prefix reuse), the package's
+    ``refsan`` attached.  Checks as the reference does at every step
+    (exact refcounts, shared blocks never mutated, the full sweep every
+    25 steps) and returns the allocator state after every step."""
+    rng = np.random.default_rng(7)
+    pool = pool_mod.BlockPool(pool_mod.PoolConfig(num_blocks=96,
+                                                  block_size=4))
+    cache = prefix_mod.PrefixCache(4)
+    cache.attach(pool)
+    san = refsan.attach(pool)           # shadow refcounts with provenance
+    vocab = 30
+    live: list = []
+    shared: dict = {}
+    states = []
+    for step in range(steps):
+        op = rng.random()
+        if op < 0.35 and pool.can_alloc(6):
+            toks = rng.integers(1, vocab, int(rng.integers(3, 14))).tolist()
+            bids, n = cache.match(toks, pool)
+            t = prefix_mod.BlockTable(list(bids), n)
+            try:
+                t.extend(pool, toks[n:], seq_tokens=toks, cache=cache)
+            except RuntimeError:        # pool momentarily full: roll back
+                cache.release(t, pool)
+                continue
+            live.append((t, toks))
+        elif op < 0.55 and live:
+            t, toks = live[int(rng.integers(len(live)))]
+            new = rng.integers(1, vocab, int(rng.integers(1, 4))).tolist()
+            pre = t.num_tokens
+            try:
+                t.extend(pool, new, seq_tokens=toks + new, cache=cache)
+                toks.extend(new)
+            except RuntimeError:        # partial extension: resync tokens
+                toks.extend(new[:t.num_tokens - pre])
+        elif op < 0.7 and live:
+            t, toks = live[int(rng.integers(len(live)))]
+            live.append((t.fork(pool), list(toks)))
+        elif live:
+            t, _ = live.pop(int(rng.integers(len(live))))
+            cache.release(t, pool)
+        for bid in range(pool.cfg.num_blocks):     # CoW never mutates
+            if pool.refcount[bid] > 1:
+                assert shared.setdefault(bid, pool.content[bid]) == \
+                    pool.content[bid], f"shared block {bid} mutated"
+            else:
+                shared.pop(bid, None)
+        exp = np.zeros(pool.cfg.num_blocks, np.int32)
+        for t, _ in live:
+            for b in t.blocks:
+                exp[b] += 1
+        np.testing.assert_array_equal(pool.refcount, exp)
+        if step % 25 == 0:
+            pool.check_invariants()
+        states.append((pool.used.tolist(), pool.refcount.tolist(),
+                       pool.arrival.tolist(), pool.last_use.tolist(),
+                       list(pool.content), list(pool._evictable),
+                       pool.placement.free_ids(), pool.stats.as_dict(),
+                       [(list(t.blocks), t.num_tokens) for t, _ in live]))
+    for t, _ in live:
+        cache.release(t, pool)
+    pool.check_invariants()
+    assert pool.num_live == 0
+    assert pool.num_free + pool.num_cached == pool.cfg.num_blocks
+    report = san.report(quiesced=True)
+    san.check(quiesced=True)            # no leaks, no double-frees, no UAF
+    san.detach()
+    pool.alloc(pool.cfg.num_blocks)     # the cached set drains too
+    assert pool.num_cached == 0 and len(cache) == 0
+    return states, report
+
+
+def test_soak_invariants():
+    """No leak, no double-free, exact refcounts, CoW never mutates a shared
+    block under randomized traffic on the port's pool, under the port's
+    ``refsan``; the allocator state after every step, and the sanitizer's
+    final report, are the reference's on the same seed."""
+    from repro.analysis import refsan as jrefsan
+    from repro_torch.analysis import refsan as trefsan
+    want = _soak(jpool, jprefix, jrefsan)
+    got = _soak(tpool, tprefix, trefsan)
+    assert len(got[0]) == len(want[0]) > 300
+    for step, (g, w) in enumerate(zip(*(s[0] for s in (got, want)))):
+        assert g == w, f"allocator state differs after step {step}"
+    assert got[1] == want[1] and got[1]["ok"]

@@ -6,9 +6,9 @@ reference's step by step; backends hold their allocator state and shard
 placement equal and their logits within float32 tolerance (the JAX
 backend decodes in ``"gather"`` mode, the port's in ``"kernel"`` mode,
 its plain twin on CPU tensors), and engines serve the JAX engine's tokens
-with the same ``shard_defers``.  The soak runs uninstrumented and
-without ``analysis.refsan`` (neither is ported yet); its incremental and
-full invariant sweeps run as in the reference."""
+with the same ``shard_defers``.  The soak runs under each package's
+``analysis.refsan`` and an ``Observer(paranoid=True)``, as in the
+reference; the two packages' traces and snapshots must be equal."""
 import dataclasses
 from types import SimpleNamespace
 
@@ -19,11 +19,15 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro import obs as jobs  # noqa: E402
+from repro.analysis import refsan as jrefsan  # noqa: E402
 from repro.kvcache import placement as jplacement  # noqa: E402
 from repro.kvcache import pool as jpool  # noqa: E402
 from repro.kvcache import prefix as jprefix  # noqa: E402
 from repro.kvcache import sharded_pool as jsharded  # noqa: E402
 from repro.serving import scheduler as jsched  # noqa: E402
+from repro_torch import obs as tobs  # noqa: E402
+from repro_torch.analysis import refsan as trefsan  # noqa: E402
 from repro_torch.kvcache import placement as tplacement  # noqa: E402
 from repro_torch.kvcache import pool as tpool  # noqa: E402
 from repro_torch.kvcache import prefix as tprefix  # noqa: E402
@@ -33,9 +37,11 @@ from repro_torch.serving import scheduler as tsched  # noqa: E402
 torch.set_num_threads(1)
 
 J = SimpleNamespace(pool=jpool, prefix=jprefix, sharded=jsharded,
-                    sched=jsched, placement=jplacement)
+                    sched=jsched, placement=jplacement, obs=jobs,
+                    refsan=jrefsan)
 T = SimpleNamespace(pool=tpool, prefix=tprefix, sharded=tsharded,
-                    sched=tsched, placement=tplacement)
+                    sched=tsched, placement=tplacement, obs=tobs,
+                    refsan=trefsan)
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -350,37 +356,60 @@ def test_fork_stays_shard_local_and_cow_isolates():
 # soak: admit / fork / free with reservation routing
 # ---------------------------------------------------------------------------
 
-def _soak(m, steps=300):
+def _fake_clock():
+    t = [0.0]
+
+    def clk():
+        t[0] += 1e-5
+        return t[0]
+    return clk
+
+
+def _soak(m, trace_path, steps=300):
     """The reference soak's randomized admit (route + reserve + extend),
     fork (CoW) and free over a 4-shard metadata pool, the incremental
-    sweep every step and the full one every 25.  Returns the pool and the
-    per-step decision log."""
+    sweep every step and the full one every 25, fully instrumented as in
+    the reference: the package's ``refsan`` on every shard, and an
+    ``Observer(paranoid=True)`` adopting each shard's stats and tracing
+    each step as a span (under a fake clock, so the two packages' traces
+    compare stamp for stamp), flushed to ``trace_path`` at the end.
+    Returns the pool and the per-step decision log, the sanitizer's
+    report, the snapshot, the events and the flushed JSONL."""
+    import json
     rng = np.random.default_rng(0)
+    obs = m.obs.Observer(paranoid=True, clock=_fake_clock())
     sp = _spool(m, num_blocks=64, n_shards=4, block_size=4)
+    san = m.refsan.attach(sp)            # per-shard shadow refcounts
+    sp.obs = obs
+    for i, p in enumerate(sp.shards):
+        p.obs = obs
+        p.obs_shard = i
+        obs.registry.adopt(f"pool.shard{i}", p.stats)
     live, log = [], []
     next_rid = 0
-    for step in range(steps):
+
+    def soak_step(step: int) -> None:
+        nonlocal next_rid
         r = rng.random()
         if r < 0.45 and len(live) < 12:
             n_tokens = int(rng.integers(1, 20))
             n_blocks = -(-n_tokens // 4)
             if not sp.can_reserve(n_blocks):
                 log.append(("full", step))
-            else:
-                sp.reserve(n_blocks)
-                shard = sp.route(next_rid, f"page{rng.integers(4)}",
-                                 n_blocks)
-                if shard is None:
-                    sp.cancel_pending(n_blocks)
-                    log.append(("defer", step))
-                else:
-                    t = m.prefix.BlockTable()
-                    toks = [int(x) for x in rng.integers(0, 99, n_tokens)]
-                    t.extend(sp.shards[shard], toks, seq_tokens=toks)
-                    sp.unreserve(n_blocks, rid=next_rid)
-                    live.append((next_rid, shard, t))
-                    log.append(("admit", next_rid, shard, list(t.blocks)))
-                    next_rid += 1
+                return
+            sp.reserve(n_blocks)
+            shard = sp.route(next_rid, f"page{rng.integers(4)}", n_blocks)
+            if shard is None:
+                sp.cancel_pending(n_blocks)
+                log.append(("defer", step))
+                return
+            t = m.prefix.BlockTable()
+            toks = [int(x) for x in rng.integers(0, 99, n_tokens)]
+            t.extend(sp.shards[shard], toks, seq_tokens=toks)
+            sp.unreserve(n_blocks, rid=next_rid)
+            live.append((next_rid, shard, t))
+            log.append(("admit", next_rid, shard, list(t.blocks)))
+            next_rid += 1
         elif r < 0.65 and live:
             rid, shard, t = live[int(rng.integers(len(live)))]
             if sp.shards[shard].num_free + sp.shards[shard].num_cached > 2:
@@ -393,6 +422,10 @@ def _soak(m, steps=300):
             for b in t.blocks:
                 sp.shards[shard].decref(b)
             log.append(("free", rid, shard))
+
+    for step in range(steps):
+        with obs.trace.span("soak.step", step=step):
+            soak_step(step)
         sp.check_invariants(incremental=True)      # O(dirty), every step
         if step % 25 == 0:
             sp.check_invariants()
@@ -401,16 +434,44 @@ def _soak(m, steps=300):
         for b in t.blocks:
             sp.shards[shard].decref(b)
     sp.check_invariants()
-    return sp, log
+    report = san.report(quiesced=True)
+    san.check(quiesced=True)             # no leaks, no double-frees, no UAF
+    san.detach()
+    events = obs.trace.events()
+    n = obs.trace.flush(trace_path)      # drains the ring to JSONL
+    with open(trace_path, encoding="utf-8") as fh:
+        flushed = [json.loads(line) for line in fh]
+    assert n == len(flushed) and obs.trace.events() == []
+    return sp, dict(log=log, refsan=report, snapshot=obs.snapshot(),
+                    events=events, flushed=flushed)
 
 
-def test_sharded_soak_admit_fork_free_invariants():
-    tsp, log = _both(_soak)
+def test_sharded_soak_admit_fork_free_invariants(tmp_path):
+    tsp, out = _both(lambda m: _soak(m, str(tmp_path / f"{id(m)}.jsonl")))
+    log, snap, evs = out["log"], out["snapshot"], out["events"]
     assert tsp.num_live == 0 and tsp.reserved == 0
     assert tsp.stats.allocs > 0
     assert sum(p.stats.allocs for p in tsp.shards) == tsp.stats.allocs
     kinds = {e[0] for e in log if isinstance(e, tuple)}
     assert {"admit", "fork", "free"} <= kinds
+    assert out["refsan"]["ok"]
+    # the adopted per-shard counters are the live stats objects
+    for i, p in enumerate(tsp.shards):
+        for f in p.stats.fields():
+            assert snap["counters"][f"pool.shard{i}.{f}"] == \
+                getattr(p.stats, f)
+    assert sum(snap["counters"][f"pool.shard{i}.allocs"]
+               for i in range(tsp.n_shards)) == tsp.stats.allocs > 0
+    # spans wrapped every pool event: 300 step spans at depth 0, every
+    # other event stamped inside some step's [ts, ts+dur] window
+    steps = [e for e in evs if e["ev"] == "soak.step"]
+    assert len(steps) == 300 and all(e["depth"] == 0 for e in steps)
+    spans = [(e["ts"], e["ts"] + e["dur_us"]) for e in steps]
+    for e in evs:
+        if e["ev"] != "soak.step":
+            assert any(lo <= e["ts"] <= hi for lo, hi in spans), e
+    assert out["flushed"] == evs
+    assert sum(1 for e in evs if e["ev"] == "pool.alloc") > 0
 
 
 def test_incremental_sweep_catches_a_leak():

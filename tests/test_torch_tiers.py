@@ -1,7 +1,7 @@
 """Differential tests of the port's spill tiers (``kvcache.tiers``) against
-the JAX package's: every case of ``tests/test_tiers.py`` but
-``test_observer_adopts_tier_stats_and_orders_events``, which waits for
-the observability slice.  Each allocator-level case drives the same
+the JAX package's: every case of ``tests/test_tiers.py``, the observer's
+(the tiers' trace events and gauges, ``obs.Observer``) included.  Each
+allocator-level case drives the same
 operations through both packages and holds the host state bitwise:
 allocator arrays, the dirty set, block tables, tier entries (keys, order,
 content tags, payload bytes), the promotion queue and order, and the
@@ -10,9 +10,9 @@ mode and the port's in ``"kernel"`` mode (on CPU tensors its plain twin)
 on the reference's init converted through ``repro_torch.convert``, and
 hold the allocator and tier state equal (prefill K/V payloads come from
 two implementations of the model, so there the port holds its own mirror
-against its own pool).  ``analysis.refsan`` is not ported yet: the
-round-trip property checks ``check_invariants`` and ``TierManager.check``
-after every round instead, in bfloat16, float32 and float8_e4m3fn."""
+against its own pool).  The round-trip property checks
+``check_invariants`` and ``TierManager.check`` after every round, as the
+reference's does, in bfloat16, float32 and float8_e4m3fn."""
 import dataclasses
 from types import SimpleNamespace
 
@@ -27,12 +27,14 @@ try:
 except ImportError:          # the property test skips below
     given = settings = st = None
 
+from repro.analysis import refsan as jrefsan  # noqa: E402
 from repro.kvcache import evict as jevict  # noqa: E402
 from repro.kvcache import pool as jpool  # noqa: E402
 from repro.kvcache import prefix as jprefix  # noqa: E402
 from repro.kvcache import sharded_pool as jsharded  # noqa: E402
 from repro.kvcache import tiers as jtiers  # noqa: E402
 from repro.serving import scheduler as jsched  # noqa: E402
+from repro_torch.analysis import refsan as trefsan  # noqa: E402
 from repro_torch.kvcache import evict as tevict  # noqa: E402
 from repro_torch.kvcache import pool as tpool  # noqa: E402
 from repro_torch.kvcache import prefix as tprefix  # noqa: E402
@@ -43,9 +45,11 @@ from repro_torch.serving import scheduler as tsched  # noqa: E402
 torch.set_num_threads(1)
 
 J = SimpleNamespace(pool=jpool, prefix=jprefix, tiers=jtiers,
-                    sharded=jsharded, evict=jevict, sched=jsched, port=False)
+                    sharded=jsharded, evict=jevict, sched=jsched,
+                    refsan=jrefsan, port=False)
 T = SimpleNamespace(pool=tpool, prefix=tprefix, tiers=ttiers,
-                    sharded=tsharded, evict=tevict, sched=tsched, port=True)
+                    sharded=tsharded, evict=tevict, sched=tsched,
+                    refsan=trefsan, port=True)
 SIDES = (J, T)
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -224,6 +228,8 @@ def test_promote_on_miss_is_bitwise_roundtrip():
 
     def scenario(m):
         pool, cache, tiers = _tiered_pool(m, num_blocks=6)
+        # the demote/promote path under the package's own sanitizer
+        san = m.refsan.attach(pool)
         t = _seq(m, pool, cache, tokens, kv=kv)
         k_before = _bytes(pool.k_pages[:, t.blocks[:2]]).copy()
         v_before = _bytes(pool.v_pages[:, t.blocks[:2]]).copy()
@@ -247,6 +253,8 @@ def test_promote_on_miss_is_bitwise_roundtrip():
         assert n2 == 8 and tiers.pending == 0
         assert tiers.stats.promotes == promotes
         assert tiers.stats.promoted_tokens == 8
+        san.check()                     # no double-frees / UAF on the path
+        san.detach()
         return pool, tiers, (bids, dsts, bids2)
     _both(scenario)
 
@@ -706,6 +714,85 @@ def test_tiered_serving_token_parity_under_spill(shards):
 
 
 # ---------------------------------------------------------------------------
+# observability
+# ---------------------------------------------------------------------------
+
+def _fake_clock():
+    t = [0.0]
+
+    def clk():
+        t[0] += 1e-5
+        return t[0]
+    return clk
+
+
+def test_observer_adopts_tier_stats_and_orders_events():
+    """An ``Observer`` adopts the tiers' stats and occupancy gauges from
+    step 0, and the trace orders demote -> promote -> decode per key; the
+    port's trace (timestamps dropped), counters and tier gauges equal the
+    JAX engine's on the same converted float32 weights and requests."""
+    from repro.kvcache.backend import PagedBackend as JPaged
+    from repro.obs import Observer as JObserver
+    from repro.serve import engine as jengine
+    from repro_torch.kvcache.backend import PagedBackend as TPaged
+    from repro_torch.obs import Observer as TObserver
+    from repro_torch.serve import engine as tengine
+    jc, tc, jp, tp = _model(f32=True)
+    runs = []
+    for backend, params, cfg, sched, eng_mod, obs_cls in (
+            (JPaged(jc, num_blocks=10, block_size=4, decode_mode="gather",
+                    tiered=True), jp, jc, jsched, jengine, JObserver),
+            (TPaged(tc, num_blocks=10, block_size=4, decode_mode="kernel",
+                    tiered=True, device="cpu"), tp, tc, tsched, tengine,
+             TObserver)):
+        eng = eng_mod.ServeEngine(backend.pool,
+                                  sched.MarsScheduler(pool=backend.pool),
+                                  eng_mod.PagedLM(params, cfg, backend),
+                                  max_lanes=3)
+        obs = obs_cls(paranoid=True, paranoid_every=2,
+                      clock=_fake_clock()).attach(eng)
+        assert backend.tiers.obs is obs
+        snap0 = obs.registry.snapshot()
+        assert "tier.shard0.host.occupancy" in snap0["gauges"]
+        out = eng.run(_spill_requests(sched, cfg.vocab, n=12))
+        runs.append((backend, obs, out, snap0))
+    (jb, jo, jout, jsnap0), (backend, obs, out, snap0) = runs
+    assert out == jout and snap0 == jsnap0
+    assert backend.tiers.stats.demotes > 0
+    snap = obs.registry.snapshot()
+    want = jo.registry.snapshot()
+    assert snap["counters"] == want["counters"]
+    assert {k: v for k, v in snap["gauges"].items() if k.startswith("tier")} \
+        == {k: v for k, v in want["gauges"].items() if k.startswith("tier")}
+    assert snap["counters"]["tier.shard0.demotes"] \
+        == backend.tiers.stats.demotes
+    assert snap["counters"]["tier.shard0.promotes"] \
+        == backend.tiers.stats.promotes
+    assert 0.0 <= snap["gauges"]["tier.shard0.host.occupancy"] <= 1.0
+    assert 0.0 <= snap["gauges"]["tier.promote_row_hit_pct"] <= 100.0
+    evs = list(obs.trace.events())
+    assert [{k: v for k, v in e.items() if k not in ("ts", "dur_us")}
+            for e in evs] == \
+        [{k: v for k, v in e.items() if k not in ("ts", "dur_us")}
+         for e in jo.trace.events()]
+    # demote -> promote -> decode, per key, in the trace
+    demoted = {}
+    saw_promote = False
+    for e in evs:
+        if e["ev"] == "tier.demote":
+            demoted.setdefault(e["key"], e["ts"])
+        elif e["ev"] == "tier.promote":
+            saw_promote = True
+            assert e["key"] in demoted and demoted[e["key"]] <= e["ts"]
+    assert saw_promote
+    first_promote = min(e["ts"] for e in evs if e["ev"] == "tier.promote")
+    assert any(e["ev"] == "backend.decode" and e["ts"] >= first_promote
+               for e in evs)
+    backend.release()
+    jb.release()
+
+
+# ---------------------------------------------------------------------------
 # property: demote -> promote bitwise round trip under interleaved
 # sharing / CoW forks / eviction pressure, against the JAX tiers
 # ---------------------------------------------------------------------------
@@ -726,6 +813,7 @@ def _roundtrip(dtype, bs, hkv, dh, layers, seed):
                                     (m.tiers.TierSpec("host", 4),
                                      m.tiers.TierSpec("remote", 8)))
         sides.append((m, pool, cache, tiers))
+    sans = [m.refsan.attach(pool) for m, pool, _, _ in sides]
     prompts = [[int(t) for t in rng.integers(1, 50, 2 * bs + 1)]
                for _ in range(3)]
     prompts.append(list(prompts[0][:bs]) + [77])        # shared prefix
@@ -776,6 +864,9 @@ def _roundtrip(dtype, bs, hkv, dh, layers, seed):
             tiers.check()
         _same_pool(sides[0][1], sides[1][1])
         _same_tiers(sides[0][3], sides[1][3])
+    for san in sans:
+        san.check()
+        san.detach()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float8_e4m3fn"])
