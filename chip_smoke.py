@@ -8,7 +8,8 @@ Phases (any failure exits non-zero and prints no result):
 
   build   compile every CUDA kernel of the port from ``src/repro_torch/
           csrc`` (paged_attention, ssd_scan, mars_gather, moe_dispatch,
-          flash_attention) with nvcc for sm_90a (one nvcc per source,
+          flash_attention, mars_engine, dram_channel) with nvcc for
+          sm_90a (one nvcc per source,
           started together) into the git-ignored ``build/``.
   k1      K1, its split kernel and its merge kernel: paged_attention's
           state against the plain oracle, decode_attend against
@@ -69,6 +70,26 @@ Phases (any failure exits non-zero and prints no result):
           where one exists, one PyTorch library call.  A device time the
           profiler did not record is retried, then fails the run naming
           the case; it is never read as 0 ms.
+  sim     the paper simulator's two device scans: S1, the MARS cycle
+          engine (``csrc/mars_engine.cu``), against its plain twin
+          (perm bitwise, stall events, total cycles) on WL1-WL5 at 256
+          requests a core (64 cores, 8 ports, n = 16384) and on seeded
+          random streams (one page, few pages, many pages, 3 ways, a
+          RequestQ of 1024; there also against the OrderedDict oracle),
+          and against the oracle on the ablation grid of
+          ``benchmarks/ablations.py`` at 128 a core; S2, the FR-FCFS
+          DRAM channels (``csrc/dram_channel.cu``), against its twin
+          (t_end, n_act, hits a channel) on the baseline and MARS-ordered
+          streams of all five workloads at windows 8, 32 and 64, on
+          streams shorter than the window, one empty channel and n = 0;
+          then the port's ``benchmarks/run.py --smoke`` simulated rows on
+          the card against ``results/bench_baseline.json`` (exact), and
+          the main path, ``experiment.run_all`` at 256 a core on the
+          card, with every count set to 0 just before it (5 S1 and 10
+          S2 launches): Fig 7 and Fig 8 per workload and their means,
+          which must equal the reference's (29.31 % / 107.71 %).  Each
+          kernel is timed at WL1 (device ms, its plain twin's host ms,
+          simulated cycles and ns per dependent step).
   serve   ``repro_torch.launch.serve --paged --config <arch>`` at full
           width for qwen1_5_0_5b (24 layers, vocab 151936), hymba_1_5b
           (32 layers, d 1600, SSM heads; also in float32 and through the
@@ -1338,6 +1359,324 @@ def time_k4(torch, k4, c, dtype: str, flush) -> dict:
                 bytes=bytes_moved, ops=ops_count)
 
 
+# The paper simulator's two device scans (S1, the MARS cycle engine; S2,
+# the FR-FCFS DRAM channels).  Both are integer programs: the kernels must
+# equal their plain twins (and S1 the OrderedDict oracle) exactly.
+SIM_RPC = 256                      # paper_figures.RPC: n = 16384 a workload
+SIM_GRID_RPC = 128                 # ablations.RPC
+SIM_WINDOWS = (8, 32, 64)
+# the reference's means at SIM_RPC (JAX package on the CPU): Fig 7, Fig 8
+SIM_FIG_MEANS = (0.2931131004369563, 1.0771324453693047)
+# the new rows of the kernels line: (name, source, replaces)
+SIM_KERNELS = (("mars_engine", "mars_engine.cu", "src/repro/core/mars.py:247"),
+               ("dram_channel", "dram_channel.cu",
+                "src/repro/core/dram.py:219"))
+
+
+def sim_streams(name: str, rpc: int):
+    """(addr, ports, src, is_write) of one of the paper's workloads."""
+    import numpy as np
+    from repro_torch.core import streams
+    gpu = streams.GpuConfig()
+    wl = streams.make_workload(name, gpu, reqs_per_core=rpc)
+    src = np.asarray(wl.source)
+    return (np.asarray(wl.addr), src // gpu.cores_per_group, src,
+            np.asarray(wl.is_write))
+
+
+def sim_random_streams():
+    """Seeded random streams: (name, addr, ports, src, MarsConfig).  One
+    page (every request hits one entry), few pages (sets fill, ports
+    stall on full sets), many pages (misses everywhere, ways 4, 4 ports
+    over 32 cores at an MSHR cap of 4), a PhyPageList of 3 ways (sets
+    not a power of two) and a RequestQ of 1024 (every free word)."""
+    import numpy as np
+    from repro_torch.core import mars
+    rng = np.random.default_rng(0)
+    out = []
+    for name, n_pages, n, cfg in (
+            ("one_page", 1, 4096, mars.MarsConfig()),
+            ("few_pages", 6, 4096, mars.MarsConfig(request_q=64,
+                                                   page_entries=8)),
+            ("many_pages", 5000, 8192, mars.MarsConfig(
+                ways=4, n_ports=4, mshr_per_core=4)),
+            ("ways3", 300, 8192, mars.MarsConfig(page_entries=96, ways=3)),
+            ("request_q_1024", 2000, 8192, mars.MarsConfig(
+                request_q=1024, page_entries=256, mshr_per_core=64))):
+        pages = rng.integers(0, n_pages, n)
+        addr = (pages * 64 + rng.integers(0, 64, n)).astype(np.int32)
+        src = rng.integers(0, 32, n).astype(np.int32)
+        out.append((name, addr, src % cfg.n_ports, src, cfg))
+    return out
+
+
+def sim_plain_mars(addr, ports, src, cfg):
+    """S1's plain twin on the host: (perm, stall events, total cycles,
+    host ms)."""
+    import numpy as np
+    from repro_torch.core import mars
+    from repro_torch.kernels.mars_engine.ref import mars_engine_plain
+    t0 = time.perf_counter()
+    pages, port_req, port_len, src_, n_cores = mars.prepare(addr, ports, cfg,
+                                                            src)
+    emits, stalls = mars_engine_plain(pages, port_req, port_len, src_,
+                                      len(addr), n_cores, cfg)
+    ms = (time.perf_counter() - t0) * 1e3
+    cycles = np.flatnonzero(emits >= 0)
+    return (emits[cycles].astype(np.int64), stalls,
+            int(cycles[-1]) + 1 if len(cycles) else 0, ms)
+
+
+def sim_channel_operands(torch, addr, is_write, cfg, device="cuda"):
+    """``dram_channels``' operands for a stream on ``device``, as
+    ``simulate`` builds them."""
+    from repro_torch.core import dram
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in dram.channel_operands(addr, cfg, is_write))
+
+
+def sim_plain_channels(ops, cfg):
+    """S2's plain twin on host copies of the operands: ((t_end, n_act,
+    hits) a channel, host ms)."""
+    from repro_torch.kernels.dram_channel.ref import run_channel_plain
+    local, wr, off = (t.cpu() for t in ops)
+    t0 = time.perf_counter()
+    b = off.tolist()
+    rows = [run_channel_plain(local[i:j].tolist(), wr[i:j].tolist(), cfg)
+            for i, j in zip(b, b[1:])]
+    return rows, (time.perf_counter() - t0) * 1e3
+
+
+def sim_bytes_mars(addr, ports, src, cfg) -> int:
+    """Bytes S1 must move: pages, src and the port queues read once, the
+    permutation (int64) and 3 stats written once."""
+    from repro_torch.core import mars
+    _, port_req, port_len, _, _ = mars.prepare(addr, ports, cfg, src)
+    n = len(addr)
+    return 4 * n + 4 * n + 4 * port_req.size + 4 * port_len.size + 8 * n + 12
+
+
+def sim_bytes_channels(ops) -> int:
+    """Bytes S2 must move: line ids (int32), write flags (uint8) and
+    offsets read once, 3 int32 a channel written once."""
+    local, wr, off = ops
+    return 4 * local.numel() + wr.numel() + 8 * off.numel() \
+        + 12 * (off.numel() - 1)
+
+
+SIM_PATH = "experiment.run_all --device cuda"
+
+
+def sim_kernel_rows(launches: dict, timing: dict) -> list:
+    """The ``{"kernels": [...]}`` rows of S1 and S2: launches on the main
+    path (``SIM_PATH`` in ``launches``), exact against their twins, timed
+    at WL1 (``sim_phase``).  ``plain_ms`` is the twin's host time: it is a
+    host loop.  No PyTorch call computes either scan."""
+    rows = []
+    for name, source, replaces in SIM_KERNELS:
+        t = timing[name]
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
+            replaces=replaces, launches=launches[SIM_PATH][name],
+            launches_by_path={p: n[name] for p, n in launches.items()},
+            max_abs_err=0, ms=t["ms"], plain_ms=t["plain_ms"],
+            plain_on="host", bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=None, serial_steps=t["serial_steps"],
+            ns_per_step=t["ns_per_step"]))
+    return rows
+
+
+def sim_baseline_check(rows, path=None) -> list:
+    """The port's ``benchmarks/run.py`` comparison of simulated rows with
+    ``results/bench_baseline.json`` (exact at the printed precision)."""
+    from repro_torch.benchmarks import run as bench_run
+    with open(path or ROOT / "results" / "bench_baseline.json") as f:
+        baseline = json.load(f)
+    return bench_run.check_baseline(rows, baseline)
+
+
+def sim_phase(torch):
+    """S1 and S2 against their plain twins, S1 against the oracle, the
+    smoke rows against the repo's baseline, then the main path
+    (``experiment.run_all`` at RPC 256 on the card) with its launches
+    counted, Fig 7 / Fig 8 printed, and each kernel timed.  Returns
+    (record, timing, launches of the main path)."""
+    import numpy as np
+    from repro_torch.benchmarks import ablations, kvcache_sim
+    from repro_torch.core import dram, experiment, mars, streams
+    from repro_torch.kernels.dram_channel import dram_channel as dc_mod
+    from repro_torch.kernels.mars_engine import mars_engine as me_mod
+    record, timing, bad = {"mars": {}, "dram": {}}, {}, []
+
+    def held(kind, case, ok, **info):
+        record[kind][case] = dict(ok=bool(ok), **info)
+        if not ok:
+            bad.append(f"{kind} {case}: {info}")
+
+    # S1 against its twin: WL1-WL5 at RPC 256, then the random streams
+    cfg0 = mars.MarsConfig()
+    cases = [(wl,) + sim_streams(wl, SIM_RPC)[:3] + (cfg0,)
+             for wl in streams.WORKLOADS] + sim_random_streams()
+    for case, addr, ports, src, cfg in cases:
+        perm, st = mars.mars_reorder(addr, ports, cfg, src=src)
+        want, stalls, total, host_ms = sim_plain_mars(addr, ports, src, cfg)
+        info = dict(n=len(addr), stall_events=st["stall_events"],
+                    total_cycles=st["total_cycles"], twin_stalls=stalls,
+                    twin_cycles=total, twin_host_ms=host_ms)
+        ok = (np.array_equal(perm, want) and st["stall_events"] == stalls
+              and st["total_cycles"] == total)
+        if not case.startswith("WL"):
+            ok = ok and np.array_equal(perm, mars.mars_reorder_reference(
+                addr, ports, cfg, src))
+        held("mars", case, ok, **info)
+        print(f"[sim] mars_engine {case}: n {len(addr)}, perm "
+              f"{'equal' if ok else 'DIFFERENT'} to the plain twin"
+              f"{'' if case.startswith('WL') else ' and the oracle'}; "
+              f"stall events {st['stall_events']} (twin {stalls}), total "
+              f"cycles {st['total_cycles']} (twin {total}); twin host "
+              f"{host_ms:.0f} ms")
+    # S1 against the oracle on the ablation grid at RPC 128
+    grid_ok = 0
+    for name, v, cfg in ablations.configs():
+        for wl in streams.WORKLOADS:
+            addr, ports, src, _ = sim_streams(wl, SIM_GRID_RPC)
+            perm, st = mars.mars_reorder(addr, ports, cfg, src=src)
+            ok = np.array_equal(perm, mars.mars_reorder_reference(
+                addr, ports, cfg, src))
+            grid_ok += ok
+            if not ok:
+                held("mars", f"grid {name}={v} {wl}", ok,
+                     stall_events=st["stall_events"])
+    n_grid = len(ablations.configs()) * len(streams.WORKLOADS)
+    record["mars"]["grid"] = dict(ok=grid_ok == n_grid, equal=grid_ok,
+                                  of=n_grid)
+    print(f"[sim] mars_engine ablation grid at RPC {SIM_GRID_RPC}: "
+          f"{grid_ok} of {n_grid} permutations equal to the oracle")
+    # S2 against its twin: baseline and MARS-ordered streams, 3 windows
+    for wl in streams.WORKLOADS:
+        addr, ports, src, wr = sim_streams(wl, SIM_RPC)
+        perm, _ = mars.mars_reorder(addr, ports, cfg0, src=src)
+        for order, a, w in (("base", addr, wr),
+                            ("mars", addr[perm], wr[perm])):
+            for window in SIM_WINDOWS:
+                cfg = dram.DramConfig(window=window)
+                ops = sim_channel_operands(torch, a, w, cfg)
+                got = dc_mod.dram_channels(*ops, cfg).cpu().tolist()
+                want, host_ms = sim_plain_channels(ops, cfg)
+                held("dram", f"{wl}/{order}/w{window}",
+                     [tuple(r) for r in got] == want, got=got, want=want,
+                     twin_host_ms=host_ms)
+    # short streams: n below the window, one channel empty, n = 0
+    rng = np.random.default_rng(1)
+    for n, window in ((5, 8), (20, 32), (40, 64), (3, 64)):
+        cfg = dram.DramConfig(window=window)
+        a = rng.integers(0, 1 << 20, n).astype(np.int32)
+        w = rng.random(n) < 0.3
+        ops = sim_channel_operands(torch, a, w, cfg)
+        got = dc_mod.dram_channels(*ops, cfg).cpu().tolist()
+        held("dram", f"short{n}/w{window}",
+             [tuple(r) for r in got] == sim_plain_channels(ops, cfg)[0],
+             got=got)
+    one = (np.arange(64, dtype=np.int32) // 2) * 4   # channel 0 alone
+    r = dram.simulate(one)
+    held("dram", "one_channel", r.per_channel_cycles[1] == 0 and
+         r == dram.simulate(one, device="cpu"), cycles=r.cycles)
+    r = dram.simulate(np.zeros(0, np.int32))
+    held("dram", "empty", r.cycles == 0 and r.n_act == 1
+         and r.achieved_gbps == 0.0, cycles=r.cycles)
+    n_dram = len(record["dram"])
+    n_eq = sum(v["ok"] for v in record["dram"].values())
+    print(f"[sim] dram_channel: {n_eq} of {n_dram} cases (5 workloads x "
+          f"baseline/MARS order x windows {SIM_WINDOWS}, short streams, one "
+          f"channel, n = 0) equal to the plain twin")
+
+    # the smoke rows of benchmarks/run.py on the card against the baseline
+    rows = []
+    kvcache_sim.run(lambda name, us, derived="": rows.append(
+        dict(name=name, us_per_call=us, derived=derived)), smoke=True,
+        device="cuda")
+    diff = sim_baseline_check(rows)
+    record["baseline"] = dict(rows=len(rows), differences=diff)
+    bad += [f"baseline {d}" for d in diff]
+    print(f"[sim] benchmarks/run.py --smoke rows on the card: {len(rows)} "
+          f"rows, {len(diff)} differences from results/bench_baseline.json"
+          + "".join(f"\n[sim]   {d}" for d in diff))
+
+    # the main path: Fig 7 / Fig 8 at RPC 256, launches counted
+    counters = kernel_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    results = experiment.run_all(reqs_per_core=SIM_RPC, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    n_wl = len(streams.WORKLOADS)
+    want = {k: 0 for k in counters}
+    want.update(mars_engine=n_wl, dram_channel=2 * n_wl)
+    summary = experiment.summarize(results)
+    for r in results:
+        print(f"[sim] {r.name}: baseline {r.baseline.cycles} cycles, "
+              f"{r.baseline.n_act} ACTs; MARS {r.with_mars.cycles} cycles, "
+              f"{r.with_mars.n_act} ACTs; Fig 7 bandwidth uplift "
+              f"{100 * r.bw_uplift:.2f}%, Fig 8 CAS/ACT uplift "
+              f"{100 * r.cas_act_uplift:.2f}%")
+    means = (summary["mean_bw_uplift"], summary["mean_cas_act_uplift"])
+    print(f"[sim] mean over WL1-WL5 at RPC {SIM_RPC}: Fig 7 "
+          f"{100 * means[0]:.2f}%, Fig 8 {100 * means[1]:.2f}% (reference "
+          f"{100 * SIM_FIG_MEANS[0]:.2f}% / {100 * SIM_FIG_MEANS[1]:.2f}%); "
+          f"run_all wall {wall:.2f}s; launches "
+          + ", ".join(f"{k} {launches[k]}" for k, _, _ in SIM_KERNELS))
+    record["figures"] = dict(summary, wall_s=wall, workloads={
+        r.name: dict(baseline_cycles=r.baseline.cycles,
+                     baseline_acts=r.baseline.n_act,
+                     mars_cycles=r.with_mars.cycles,
+                     mars_acts=r.with_mars.n_act) for r in results})
+    if means != SIM_FIG_MEANS:
+        bad.append(f"Fig 7 / Fig 8 means {means}, reference {SIM_FIG_MEANS}")
+    if launches != want:
+        bad.append(f"main path launches {launches}, want {want}")
+
+    # each kernel per call at the main path's shapes (WL1, RPC 256)
+    addr, ports, src, wr = sim_streams("WL1", SIM_RPC)
+    pages, port_req, port_len, src_, n_cores = mars.prepare(addr, ports,
+                                                            cfg0, src)
+    dev_in = [torch.from_numpy(a).cuda()
+              for a in (pages, port_req, port_len, src_)]
+    total = record["mars"]["WL1"]["total_cycles"]
+    steps = total * (cfg0.n_ports + 1)
+    rows_ = device_profile(lambda: me_mod.mars_engine(*dev_in, n_cores, cfg0),
+                           3, "mars_engine WL1", need=("mars_engine_kernel",))
+    ms = rows_ms(rows_, "mars_engine_kernel")
+    t_bytes = sim_bytes_mars(addr, ports, src, cfg0) / HBM_BYTES_PER_S * 1e3
+    timing["mars_engine"] = dict(
+        ms=ms, plain_ms=sim_plain_mars(addr, ports, src, cfg0)[3],
+        bound_ms=t_bytes, bound_by="bytes", library_ms=None,
+        cycles=total, serial_steps=steps, us_per_cycle=1e3 * ms / total,
+        ns_per_step=1e6 * ms / steps)
+    cfg = dram.DramConfig()
+    ops = sim_channel_operands(torch, addr, wr, cfg)
+    rows_ = device_profile(lambda: dc_mod.dram_channels(*ops, cfg), 5,
+                           "dram_channel WL1", need=("dram_channel_kernel",))
+    ms = rows_ms(rows_, "dram_channel_kernel")
+    steps = int(max(np.diff(ops[2].cpu().numpy())))   # the longer channel
+    timing["dram_channel"] = dict(
+        ms=ms, plain_ms=sim_plain_channels(ops, cfg)[1],
+        bound_ms=sim_bytes_channels(ops) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, cycles=steps, serial_steps=steps,
+        us_per_cycle=1e3 * ms / steps, ns_per_step=1e6 * ms / steps)
+    for name, t in timing.items():
+        print(f"[kernel] {name} WL1 at RPC {SIM_RPC}: device ms per call "
+              f"{t['ms']:.3f}, bound {t['bound_ms']:.6f} (bytes; the serial "
+              f"chain binds: {t['serial_steps']} dependent steps, "
+              f"{t['ns_per_step']:.1f} ns each), {t['cycles']} simulated "
+              f"{'cycles' if name == 'mars_engine' else 'requests'} "
+              f"({t['us_per_cycle']:.4f} us each); plain twin on the host "
+              f"{t['plain_ms']:.0f} ms; no PyTorch call computes the scan")
+    if bad:
+        raise AssertionError("sim phase: " + "; ".join(bad))
+    return record, timing, launches
+
+
 def flag_value(flags, flag: str, default):
     """The value a flag takes in ``serve_args(arch, flags)`` (the last
     occurrence wins, as in argparse)."""
@@ -1717,7 +2056,8 @@ def serve_phase(torch, serve, arch: str, flags=()):
             "gather_rows": embeds if cfg.vocab * cfg.d_model >= 1 << 22
             else 0,
             "grouped_matmul": 3 * moe_layers * embeds,
-            "flash_attention": unwindowed_layers(cfg) * prefills}
+            "flash_attention": unwindowed_layers(cfg) * prefills,
+            "mars_engine": 0, "dram_channel": 0}
     print(f"[serve {name}] served={out['served']} decode_tokens="
           f"{out['decode_tokens']} engine_steps={out['steps']} "
           f"prefills={out['prefills']} decode_steps={out['decode_steps']} "
@@ -1901,7 +2241,9 @@ def kernel_counters() -> dict:
     count its wrapper adds one to where it launches the kernel; K1's merge
     pass has its own count on the same wrapper, and so have K3's state
     pass and output pass (two a call of more than one chunk)."""
+    from repro_torch.kernels.dram_channel import dram_channel as dc_mod
     from repro_torch.kernels.flash_attention import flash_attention as k5_mod
+    from repro_torch.kernels.mars_engine import mars_engine as me_mod
     from repro_torch.kernels.mars_gather import mars_gather as mg_mod
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4_mod
     from repro_torch.kernels.paged_attention import paged_attention as pa_mod
@@ -1913,7 +2255,9 @@ def kernel_counters() -> dict:
             "ssd_scan_passes": (ssd_mod.ssd_scan, "pass_launches"),
             "gather_rows": (mg_mod.gather_rows, "launches"),
             "grouped_matmul": (k4_mod.grouped_matmul, "launches"),
-            "flash_attention": (k5_mod.flash_attention, "launches")}
+            "flash_attention": (k5_mod.flash_attention, "launches"),
+            "mars_engine": (me_mod.mars_engine, "launches"),
+            "dram_channel": (dc_mod.dram_channels, "launches")}
 
 
 def reset_counts(counters: dict) -> None:
@@ -2067,7 +2411,8 @@ def dense_launches_wanted(cfg, prefills: int, steps: int) -> dict:
             "grouped_matmul": 0,
             "flash_attention": prefills * (cfg.enc_layers
                                            + unwindowed_layers(cfg) + cross)
-            + steps * cross}
+            + steps * cross,
+            "mars_engine": 0, "dram_channel": 0}
 
 
 def _to_f32(tree):
@@ -2300,7 +2645,9 @@ KERNEL_NAMES = {"paged_attention": "paged_attention_split_kernel",
                 "ssd_scan_passes": "ssd_scan_pass_kernel",
                 "gather_rows": "gather_rows_kernel",
                 "grouped_matmul": "grouped_mm_",
-                "flash_attention": "flash_attn_"}
+                "flash_attention": "flash_attn_",
+                "mars_engine": "mars_engine_kernel",
+                "dram_channel": "dram_channel_kernel"}
 
 
 def print_profile(arch: str, prof: dict) -> None:
@@ -2326,7 +2673,7 @@ def print_profile(arch: str, prof: dict) -> None:
               f"{row['name'][:90]}")
 
 
-PHASES = ("k1", "k3", "k2", "k4", "k5", "serve", "dense")
+PHASES = ("k1", "k3", "k2", "k4", "k5", "sim", "serve", "dense")
 # what a serve run returns beside its stats: not written to the record
 NOT_STATS = ("finished", "cfg", "params", "prompts", "max_new",
              "backend", "obs")
@@ -2455,10 +2802,18 @@ def main(argv=None) -> int:
                   f"/ {t['library_event_ms']:.4f}")
         record.update(k5_cases=k5_results, k5_timing=k5_timing)
         free_device(torch, "K5 phase")
+    if "sim" in phases:
+        t0 = time.perf_counter()
+        sim_record, sim_timing, sim_launches = sim_phase(torch)
+        record.update(sim=sim_record, sim_timing=sim_timing,
+                      sim_s=time.perf_counter() - t0)
+        print(f"[time] sim phase {record['sim_s']:.1f}s")
     kernels_s = time.perf_counter() - t_start
 
     # -- serve at full width, then profile it warm ---------------------------
     served, launches, profiles, failed = {}, {}, {}, []
+    if "sim" in phases:
+        launches[SIM_PATH] = sim_launches
     run_s = {}                    # seconds of each run: checked, profiled
 
     def timed_run(name, t0, t1):
@@ -2574,7 +2929,7 @@ def main(argv=None) -> int:
         row("flash_attention", "flash_attention.cu",
             "flash_attention/flash_attention.py:27", "whisper_base", k5_err,
             k5_timing["whisper_encoder/bfloat16"]),
-    ]
+    ] + sim_kernel_rows(launches, sim_timing)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

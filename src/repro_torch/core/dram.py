@@ -1,26 +1,44 @@
-"""The DRAM model's address map (port of the numpy half of
-``repro/core/dram.py``).
+"""LPDDR4-3200 dual-channel DRAM timing model with an FR-FCFS controller
+(port of ``repro/core/dram.py``).
 
 Paper Section 2/4 memory system: dual-channel LPDDR4-3200, single rank,
-8 banks, BL8, tCAS-tRCD-tRP = 15-15-15.  A 64B line is one BL8 burst;
-the row buffer is 2 KB a bank a channel (32 lines), and a 4 KB OS page
-maps to one (bank, row) pair in each channel, so the requests of one
-page on one channel share a row.
+8 banks, BL8, tCAS-tRCD-tRP = 15-15-15.  The controller has a *small*
+pending-queue window per channel (the realistic baseline — row-hit-first
+scheduling inside a limited lookahead).  MARS's whole premise is that this
+window is too small to recover locality that multi-level arbitration
+destroyed, while naively growing it is impractical.
 
-This module holds the configuration, the result record and the address
-map the live open-row model (``obs/rowsim.py``) shares with the
-reference's controller: ``split_channels`` (channel striped at 128B)
-and ``decode_lines`` (column, XOR-folded bank hash, row), on numpy,
-element for element the reference's.  The FR-FCFS timing model
-(``_run_channel``/``simulate``, a ``jax.lax.scan`` over served requests)
-is not ported yet: it arrives with the paper simulator's slice, with
-``core/mars.py`` and ``core/experiment.py``.
+Model (documented simplifications):
+  * unit = DRAM command clock @ 1.6 GHz (LPDDR4-3200 => 2 transfers/clock)
+  * one 64B line = BL8 burst = 4 data-bus clocks; per-channel peak
+    bandwidth = 64 B / 4 clk = 25.6 GB/s, 51.2 GB/s total
+  * row buffer 2 KB/bank/channel (32 lines); a 4 KB OS page maps to one
+    (bank, row) pair in each channel -> requests of one page on one channel
+    share a row, exactly the paper's memory-map-agnostic locality argument
+  * row hit:   data start >= max(bus_free, bank_ready)
+    row miss:  PRE (tRP, if a row was open) + ACT (ACT->CAS tRCD) off the
+    critical path of other banks' transfers; tFAW (max 4 ACTs / 40 clk) and
+    tRRD (8 clk) limit activate rate — these are what make a low CAS/ACT
+    stream bandwidth-bound
+  * read<->write direction switches pay a bus-turnaround penalty
+    (tWTR / tRTW), so mixed-direction streams cap below pure-stream peak
+
+The address map (``split_channels``, ``decode_lines``) is numpy, element
+for element the reference's, and shared with the live open-row model
+(``obs/rowsim.py``).  ``simulate`` serves every channel's stream, one
+request a step, through the FR-FCFS window: on a CUDA device in one launch
+of the hand-written kernel ``csrc/dram_channel.cu`` (one warp a channel),
+on the CPU through its plain twin (``kernels/dram_channel/ref.py``); both
+give the reference's ``_run_channel`` integers.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,3 +111,47 @@ def decode_lines(local: np.ndarray, cfg: DramConfig):
     the reference's FR-FCFS controller uses, shared with the live
     open-row model in ``obs/rowsim.py``."""
     return _decode(np.asarray(local), cfg)
+
+
+def channel_operands(addr: np.ndarray, cfg: DramConfig,
+                     is_write: np.ndarray | None = None):
+    """The channel model's operands for a stream: each channel's line ids
+    (int32, as the reference casts them) and write flags (uint8) in
+    arrival order, channels back to back, and the int64 offsets of the
+    channels (``n_channels + 1``)."""
+    ch, local = split_channels(addr, cfg)
+    if is_write is None:
+        is_write = np.zeros(len(ch), bool)
+    order = np.argsort(ch, kind="stable")
+    offsets = np.concatenate(
+        [[0], np.cumsum(np.bincount(ch, minlength=cfg.n_channels))])
+    return (local[order].astype(np.int32),
+            np.asarray(is_write, bool)[order].astype(np.uint8),
+            offsets.astype(np.int64))
+
+
+def simulate(addr: np.ndarray, cfg: DramConfig | None = None,
+             is_write: np.ndarray | None = None, *,
+             device="cuda") -> DramResult:
+    """Serve ``addr`` (64B-line ids, already in arrival order) and report
+    achieved bandwidth + CAS/ACT.  ``device="cuda"`` (the default) serves
+    the channels in one launch of the CUDA kernel and raises without a
+    GPU; ``device="cpu"`` runs its plain twin."""
+    from repro_torch.kernels.dram_channel.dram_channel import dram_channels
+    cfg = cfg or DramConfig()
+    dev = resolve_device(device)
+    n_total = len(addr)
+    res = dram_channels(*(torch.from_numpy(a).to(dev) for a in
+                          channel_operands(addr, cfg, is_write)), cfg).cpu()
+    t_ends = [int(v) for v in res[:, 0]]
+    n_act = int(res[:, 1].sum())
+    cycles = max(t_ends) if t_ends else 0
+    secs = cycles / (cfg.clock_ghz * 1e9) if cycles else 1.0
+    gbps = n_total * cfg.line_bytes / secs / 1e9 if cycles else 0.0
+    return DramResult(
+        cycles=cycles, n_requests=n_total, n_act=max(n_act, 1),
+        achieved_gbps=gbps,
+        bus_utilization=gbps / cfg.peak_gbps if cycles else 0.0,
+        cas_per_act=n_total / max(n_act, 1),
+        per_channel_cycles=tuple(t_ends),
+    )

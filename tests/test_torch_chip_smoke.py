@@ -24,7 +24,14 @@ counterparts and prints their line, and catches a trace whose write-back
 lands before its sync, a request that never frees, a promotion of a
 block never demoted, a batch over its class quota, a run that never
 pauses, and an empty phase histogram; the host rows of a profiled run
-with telemetry on read as ``key_averages`` reads them."""
+with telemetry on read as ``key_averages`` reads them.
+
+The ``sim`` phase's host-side helpers: its comparison of the simulated
+benchmark rows with ``results/bench_baseline.json`` passes the port's CPU
+rows and catches a changed or missing row; its two kernel rows
+(``mars_engine``, ``dram_channel``) carry every key of the kernels line
+and name the reference's ``jax.lax.scan`` lines; its host twins agree
+with the oracle and with ``dram.simulate``."""
 import json
 import sys
 from pathlib import Path
@@ -315,3 +322,77 @@ def test_raw_rows_match_key_averages_on_a_metrics_run(tmp_path):
                     "--parity-checks", "0",
                     *chip_smoke.metrics_flags("plain", str(tmp_path))])
     assert _check_against_key_averages(prof) == []
+
+
+# ---------------------------------------------------------------------------
+# the sim phase's host-side helpers
+# ---------------------------------------------------------------------------
+
+def _sim_rows():
+    from repro_torch.benchmarks import kvcache_sim
+    rows = []
+    kvcache_sim.run(lambda name, us, derived="": rows.append(
+        dict(name=name, us_per_call=us, derived=derived)), smoke=True,
+        device="cpu")
+    return rows
+
+
+def test_sim_baseline_check_passes_the_rows_and_catches_a_change(tmp_path):
+    rows = _sim_rows()
+    assert chip_smoke.sim_baseline_check(rows) == []
+    base = json.loads((ROOT / "results" / "bench_baseline.json").read_text())
+    base["kvcache/placement/sharded/gbps/shards2"] = 101.8
+    path = tmp_path / "baseline.json"
+    path.write_text(json.dumps(base))
+    diff = chip_smoke.sim_baseline_check(rows, path)
+    assert len(diff) == 1 and "sharded/gbps/shards2" in diff[0]
+    rows = [r for r in rows if "tier/promote/naive" not in r["name"]]
+    assert len(chip_smoke.sim_baseline_check(rows)) == 1
+
+
+def test_sim_kernel_rows_list_the_new_kernels():
+    """Two rows, mars_engine and dram_channel, with every key of the
+    kernels line, their sources in the port, and ``replaces`` naming the
+    reference's ``jax.lax.scan`` lines."""
+    timing = {name: dict(ms=1.0, plain_ms=2.0, bound_ms=1e-4,
+                         bound_by="bytes", serial_steps=10, ns_per_step=1e5)
+              for name, _, _ in chip_smoke.SIM_KERNELS}
+    counts = {name: 0 for name, _, _ in chip_smoke.SIM_KERNELS}
+    launches = {chip_smoke.SIM_PATH: dict(counts, mars_engine=5,
+                                          dram_channel=10),
+                "qwen1_5_0_5b": counts}
+    rows = chip_smoke.sim_kernel_rows(launches, timing)
+    assert [r["name"] for r in rows] == ["mars_engine", "dram_channel"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for r in rows:
+        assert keys <= set(r)
+        assert r["route"] == "cuda" and r["library_ms"] is None
+        assert (ROOT / r["source"]).is_file()
+        path, line = r["replaces"].split(":")
+        assert "jax.lax.scan" in (ROOT / path).read_text().splitlines()[
+            int(line) - 1]
+    assert [r["launches"] for r in rows] == [5, 10]
+    assert rows[0]["launches_by_path"] == {chip_smoke.SIM_PATH: 5,
+                                           "qwen1_5_0_5b": 0}
+    assert set(chip_smoke.KERNEL_NAMES) == set(chip_smoke.kernel_counters())
+
+
+def test_sim_twins_agree_with_the_port_on_the_host():
+    """The phase's host twins: S1's on a random stream equals the oracle,
+    S2's on ``simulate``'s operands equals ``simulate`` (CPU)."""
+    import numpy as np
+    from repro_torch.core import dram, mars
+    name, addr, ports, src, cfg = chip_smoke.sim_random_streams()[1]
+    perm, stalls, total, _ = chip_smoke.sim_plain_mars(addr, ports, src, cfg)
+    np.testing.assert_array_equal(
+        perm, mars.mars_reorder_reference(addr, ports, cfg, src))
+    assert total >= len(addr) and stalls > 0
+    addr, _, _, wr = chip_smoke.sim_streams("WL3", 16)
+    cfg = dram.DramConfig(window=8)
+    ops = chip_smoke.sim_channel_operands(torch, addr, wr, cfg, "cpu")
+    rows, _ = chip_smoke.sim_plain_channels(ops, cfg)
+    res = dram.simulate(addr, cfg, wr, device="cpu")
+    assert tuple(r[0] for r in rows) == res.per_channel_cycles
+    assert sum(r[1] for r in rows) == res.n_act
+    assert chip_smoke.sim_bytes_channels(ops) == 5 * len(addr) + 8 * 3 + 24

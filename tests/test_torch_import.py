@@ -18,6 +18,10 @@ SLICE_MODULES = [
     "repro_torch",
     "repro_torch.analysis.races",
     "repro_torch.analysis.refsan",
+    "repro_torch.benchmarks.ablations",
+    "repro_torch.benchmarks.kvcache_sim",
+    "repro_torch.benchmarks.paper_figures",
+    "repro_torch.benchmarks.run",
     "repro_torch.configs",
     "repro_torch.configs.arctic_480b",
     "repro_torch.configs.deepseek_coder_33b",
@@ -31,12 +35,18 @@ SLICE_MODULES = [
     "repro_torch.configs.whisper_base",
     "repro_torch.convert",
     "repro_torch.core.dram",
+    "repro_torch.core.experiment",
+    "repro_torch.core.mars",
     "repro_torch.core.reorder",
     "repro_torch.core.streams",
     "repro_torch.device",
     "repro_torch.kernels.build",
+    "repro_torch.kernels.dram_channel.dram_channel",
+    "repro_torch.kernels.dram_channel.ref",
     "repro_torch.kernels.flash_attention.flash_attention",
     "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.mars_engine.mars_engine",
+    "repro_torch.kernels.mars_engine.ref",
     "repro_torch.kernels.mars_gather.mars_gather",
     "repro_torch.kernels.mars_gather.ops",
     "repro_torch.kernels.mars_gather.ref",
@@ -121,6 +131,27 @@ def test_obs_and_analysis_modules_leave_jax_and_repro_out(module):
     a fresh interpreter, loads neither JAX nor the JAX package (the
     reference's ``obs`` reaches JAX through ``core/dram``)."""
     code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'repro'))\n"
+            "assert not bad, bad\nprint('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.mars", "repro_torch.core.dram",
+    "repro_torch.core.experiment", "repro_torch.benchmarks.run",
+    "repro_torch.benchmarks.paper_figures", "repro_torch.benchmarks.ablations",
+    "repro_torch.benchmarks.kvcache_sim"])
+def test_simulator_modules_leave_jax_and_repro_out(module):
+    """Each module of the paper simulator's slice, imported alone in a
+    fresh interpreter (the benchmarks' sections too), loads neither JAX
+    nor the JAX package."""
+    code = (f"import importlib, sys\nm = importlib.import_module({module!r})\n"
+            "getattr(m, 'sections', lambda d: None)('cpu')\n"
+            "assert 'jax' not in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'repro'))\n"
             "assert not bad, bad\nprint('clean')\n")

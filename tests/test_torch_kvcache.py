@@ -687,3 +687,178 @@ def test_soak_invariants():
     for step, (g, w) in enumerate(zip(*(s[0] for s in (got, want)))):
         assert g == w, f"allocator state differs after step {step}"
     assert got[1] == want[1] and got[1]["ok"]
+
+
+# ---------------------------------------------------------------------------
+# the DRAM-model acceptance tests of ``tests/test_kvcache.py``, on the port
+# (``core.dram.simulate`` through the channel kernel's plain twin), and the
+# port's simulated benchmark rows against the reference's and the baseline
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from repro_torch.benchmarks import kvcache_sim  # noqa: E402
+from repro_torch.benchmarks import run as bench_run  # noqa: E402
+from repro_torch.core import dram as tdram  # noqa: E402
+
+BASELINE = Path(__file__).resolve().parents[1] / "results" \
+    / "bench_baseline.json"
+
+
+def _tchurn(placement, seed=0, n=256, n_live=12):
+    """The reference test's ``_churn`` on the port's pool."""
+    rng = np.random.default_rng(seed)
+    pool = tpool.BlockPool(tpool.PoolConfig(num_blocks=n, block_size=4,
+                                            placement=placement))
+    cache = tprefix.PrefixCache(4)
+    cache.attach(pool)
+    live = []
+    for _ in range(300):
+        if live and (len(live) >= n_live or rng.random() < 0.5):
+            t = live.pop(int(rng.integers(len(live))))
+            for b in t.blocks:
+                pool.decref(b)
+        else:
+            t = tprefix.BlockTable()
+            for _ in range(int(rng.integers(2, 8))):
+                t.blocks.append(pool.alloc(1, hint_blocks=t.blocks)[0])
+            t.num_tokens = len(t.blocks) * pool.cfg.block_size
+            live.append(t)
+    while len(live) < n_live:
+        t = tprefix.BlockTable()
+        for _ in range(int(rng.integers(2, 8))):
+            t.blocks.append(pool.alloc(1, hint_blocks=t.blocks)[0])
+        live.append(t)
+    pool.check_invariants()
+    return pool, live
+
+
+def test_mars_placement_bandwidth_at_least_naive():
+    """Acceptance: MARS-placed >= naive-placed achieved bandwidth through
+    the port's DRAM model (seed-averaged decode-batch gather)."""
+    gbps = {"mars": [], "naive": []}
+    for seed in (0, 1):
+        for placement in gbps:
+            _, live = _tchurn(placement, seed=seed)
+            trace = tops.kv_read_trace(live, grant_beats=2)
+            gbps[placement].append(
+                tdram.simulate(trace, device="cpu").achieved_gbps)
+    assert np.mean(gbps["mars"]) >= np.mean(gbps["naive"])
+
+
+def test_kernel_path_row_hits_at_least_gather():
+    """Acceptance: the reference kernel's sequence-major page walk hits
+    the row buffer at least as often as the gather path's round-robin
+    lane interleave, on both placements, and at least matches its
+    bandwidth; a 64-token window shortens the walk."""
+    kb = kvcache_sim
+    for placement in ("naive", "mars"):
+        res = kb.decode_path_comparison(placement=placement, device="cpu")
+        assert kb.row_hit_rate(res["kernel"]) >= \
+            kb.row_hit_rate(res["gather"]), placement
+        assert res["kernel"].achieved_gbps >= \
+            res["gather"].achieved_gbps * 0.99, placement
+    res = kb.decode_path_comparison(placement="mars", window_tokens=64,
+                                    device="cpu")
+    assert kb.row_hit_rate(res["kernel"]) >= kb.row_hit_rate(res["gather"])
+    full = kb.decode_path_comparison(placement="mars", device="cpu")
+    assert res["kernel"].n_requests < full["kernel"].n_requests, \
+        "window page gate did not shorten the kernel's address stream"
+    assert res["gather"].n_requests == full["gather"].n_requests
+
+
+def _fields(res) -> dict:
+    """Every field of a result dict's DramResults (or their sharded
+    aggregate), per-shard results included."""
+    out = {}
+    for k, r in res.items():
+        d = dataclasses.asdict(r)
+        if "per_shard" in d:
+            d["per_shard"] = [sorted(s.items()) for s in d["per_shard"]]
+        out[k] = d
+    return out
+
+
+@pytest.mark.parametrize("fn", ["placement", "decode", "decode_window",
+                                "sharded", "tier"])
+def test_simulated_rows_equal_the_reference_functions(fn):
+    """Each function behind the smoke pass's simulated rows gives the
+    reference's ``benchmarks/kvcache_bench.py`` results exactly."""
+    import benchmarks.kvcache_bench as jkb
+    calls = {"placement": ("placement_comparison", dict(n_live=8)),
+             "decode": ("decode_path_comparison", dict(placement="naive")),
+             "decode_window": ("decode_path_comparison",
+                               dict(window_tokens=64)),
+             "sharded": ("sharded_placement_comparison", dict(n_shards=2)),
+             "tier": ("tiered_promotion_comparison", {})}
+    name, kw = calls[fn]
+    want = getattr(jkb, name)(**kw)
+    got = getattr(kvcache_sim, name)(device="cpu", **kw)
+    assert _fields(got) == _fields(want)
+
+
+@pytest.fixture(scope="module")
+def smoke_rows():
+    rows = []
+    kvcache_sim.run(lambda name, us, derived="": rows.append(
+        {"name": name, "us_per_call": us, "derived": derived}),
+        smoke=True, device="cpu")
+    return rows
+
+
+def test_smoke_rows_equal_the_baseline(smoke_rows):
+    """The 19 simulated keys of ``results/bench_baseline.json`` (placement
+    lanes8, decode gather and kernel, sharded shards2, tier promote), each
+    at its printed precision, and no other row."""
+    baseline = json.loads(BASELINE.read_text())
+    sim_keys = sorted(k for k in baseline if bench_run.SIMULATED.match(k))
+    assert len(sim_keys) == 19
+    assert sorted(r["name"] for r in smoke_rows) == sim_keys
+    assert bench_run.check_baseline(smoke_rows, baseline) == []
+    got = {r["name"]: r["derived"] for r in smoke_rows}
+    assert got["kvcache/placement/mars/lanes8"] == "51.02GB/s"
+    assert got["kvcache/placement/naive/lanes8"] == "45.73GB/s"
+    assert got["kvcache/placement/uplift/lanes8"] == "11.59%"
+
+
+def test_baseline_check_catches_a_changed_row(smoke_rows):
+    baseline = json.loads(BASELINE.read_text())
+    changed = dict(baseline)
+    changed["kvcache/decode/kernel/mars/rowhit"] += 0.01
+    fails = bench_run.check_baseline(smoke_rows, changed)
+    assert len(fails) == 1 and "kernel/mars/rowhit" in fails[0]
+    missing = [r for r in smoke_rows
+               if r["name"] != "kvcache/tier/promote/mars/rowhit"]
+    fails = bench_run.check_baseline(missing, baseline)
+    assert len(fails) == 1 and "missing" in fails[0]
+    # rows outside the simulated names are not this runner's to check
+    assert bench_run.check_baseline(smoke_rows, {
+        "kvcache/alloc/single/locality": 1.0}) == []
+
+
+def test_run_cli_smoke_against_the_baseline(tmp_path, capsys):
+    """``python -m repro_torch.benchmarks.run --smoke --device cpu
+    --baseline results/bench_baseline.json`` passes; a snapshot with one
+    changed simulated row fails it."""
+    assert bench_run.main(["--smoke", "--device", "cpu", "--baseline",
+                           str(BASELINE)]) == 0
+    out = capsys.readouterr()
+    assert out.out.startswith("name,us_per_call,derived\n")
+    assert "baseline check passed (19 simulated keys equal)" in out.err
+    bad = json.loads(BASELINE.read_text())
+    bad["kvcache/placement/uplift/lanes8"] = 11.6
+    path = tmp_path / "bad.json"
+    path.write_text(json.dumps(bad))
+    assert bench_run.main(["--smoke", "--device", "cpu", "--only",
+                           "kvcache", "--baseline", str(path)]) == 1
+    assert "DIFFERENT kvcache/placement/uplift/lanes8" in \
+        capsys.readouterr().err
+
+
+def test_run_cli_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_run.main(["--smoke"])

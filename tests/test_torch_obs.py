@@ -8,7 +8,9 @@ events (under one fake clock, timestamps included), open-row hit counts
 and the allocator's dirty sets.  The port's ``OpenRowCounter`` is held to
 the reference's FR-FCFS ``dram.simulate`` (the JAX function) within its
 0.1 %; the address map, the trace builders and the synthetic request
-streams are bitwise the reference's.
+streams are bitwise the reference's.  Each replay through the
+reference's ``dram.simulate`` also runs through the port's own, which
+must equal it field for field.
 
 A whole serve run is traced by both engines (float32 smoke qwen, the same
 converted weights and requests, one fake clock): the events, with ``ts``
@@ -262,8 +264,12 @@ def _churned_tables(m, placement="mars", num_blocks=256, n_live=12, seed=0):
 
 
 def _sim_hit_rate(trace) -> float:
-    """The reference's FR-FCFS controller (the JAX function)."""
+    """The reference's FR-FCFS controller (the JAX function), beside the
+    port's own ``dram.simulate`` replay of the same trace (its channel
+    kernel's plain twin), which must give every field exactly."""
     res = jdram.simulate(trace)
+    port = tdram.simulate(trace, device="cpu")
+    assert dataclasses.asdict(port) == dataclasses.asdict(res)
     return 1.0 - res.n_act / max(res.n_requests, 1)
 
 
