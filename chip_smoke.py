@@ -8,9 +8,10 @@ Phases (any failure exits non-zero and prints no result):
 
   build   compile every CUDA kernel of the port from ``src/repro_torch/
           csrc`` (paged_attention, ssd_scan, mars_gather, moe_dispatch,
-          flash_attention, mars_engine, dram_channel) with nvcc for
-          sm_90a (one nvcc per source,
-          started together) into the git-ignored ``build/``.
+          flash_attention, mars_engine, dram_channel,
+          flash_attention_bwd, embedding_grad_scatter) with nvcc for
+          sm_90a (one nvcc per source, started together) into the
+          git-ignored ``build/``.
   k1      K1, its split kernel and its merge kernel: paged_attention's
           state against the plain oracle, decode_attend against
           decode_attend_plain on the card and against the same call on
@@ -173,6 +174,41 @@ Phases (any failure exits non-zero and prints no result):
           tokens, and their bf16 forward's own argmax, sit from a
           float32 forward on the same weights.  Each bfloat16 run is then served twice more, warm
           and profiled, as above.
+  train   the training path (``repro_torch.launch.train``) and its two
+          backward kernels.  First, beside the other kernel phases
+          (before the serve runs, whose long profiles have been followed
+          by profiles short of device events): B5 ``flash_attention_bwd``
+          against its plain twin (the explicit formulas) in float32 and
+          bfloat16, o from K5, at qwen1.5-0.5b's training attention (8 x
+          512, 16 heads of 64, causal), a 4096-token causal case,
+          whisper-base's encoder (8 x 1500, 8 x 64, no mask),
+          cross-attention (512 over 1500) and decoder, and head dim 128
+          (``B5_TOL``); B2 ``embedding_grad_scatter`` on qwen's and
+          whisper's tables with TokenStream's zipf ids and uniform ids (8
+          x 512), bitwise against its twin on host copies and within
+          ``B2_TOL`` of it on the card; each timed (from a profile that
+          holds every launch) beside its bound, its twin and the library
+          call (SDPA's backward, ``F.embedding``'s backward).  After the
+          dense runs: one float32 step of qwen1.5-0.5b at full width
+          (batch 2 x 128), the loss and every gradient leaf on the card
+          against the same step on host copies, and remat on against
+          off; ``launch.train`` on CUDA must refuse hymba-1.5b,
+          mamba2-370m and arctic-480b (K3's and K4's backward kernels do
+          not exist yet), and K3's and K4's wrappers must raise for an
+          input that needs a gradient without launching
+          (``kernel_grad_refusals``); then ``launch.train`` in bf16 at
+          full width with every count set to 0 just before it: qwen1.5-0.5b 30
+          steps of 8 x 512, a checkpoint every 10, and whisper-base 12
+          steps (checkpoint every 4; stub frames, ``--frontend stub``:
+          the reference's zero frames train nothing at its width):
+          finite losses, the last below the first, K5 once per
+          attention a step (24; whisper 18), B5 three times as often,
+          K2 and B2 once a step; the same run killed after step 19
+          (whisper 7) and resumed with ``--resume`` must end at the
+          uninterrupted last loss within rtol 1e-4; prints step ms,
+          tokens/s and peak allocated memory, then one warm step of
+          each under ``torch.profiler`` (device time by kernel and
+          kind, busy share).
 
 Prints the card's name and power limit (as ``nvidia-smi`` gives them), a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -2057,7 +2093,8 @@ def serve_phase(torch, serve, arch: str, flags=()):
             else 0,
             "grouped_matmul": 3 * moe_layers * embeds,
             "flash_attention": unwindowed_layers(cfg) * prefills,
-            "mars_engine": 0, "dram_channel": 0}
+            "mars_engine": 0, "dram_channel": 0,
+            "flash_attention_bwd": 0, "embedding_grad_scatter": 0}
     print(f"[serve {name}] served={out['served']} decode_tokens="
           f"{out['decode_tokens']} engine_steps={out['steps']} "
           f"prefills={out['prefills']} decode_steps={out['decode_steps']} "
@@ -2257,7 +2294,10 @@ def kernel_counters() -> dict:
             "grouped_matmul": (k4_mod.grouped_matmul, "launches"),
             "flash_attention": (k5_mod.flash_attention, "launches"),
             "mars_engine": (me_mod.mars_engine, "launches"),
-            "dram_channel": (dc_mod.dram_channels, "launches")}
+            "dram_channel": (dc_mod.dram_channels, "launches"),
+            "flash_attention_bwd": (k5_mod.flash_attention_bwd, "launches"),
+            "embedding_grad_scatter": (mg_mod.scatter_add_rows,
+                                       "launches")}
 
 
 def reset_counts(counters: dict) -> None:
@@ -2379,6 +2419,8 @@ def profile_summary(prof, wall: float) -> dict:
              "grouped_matmul" if "grouped_mm_" in n else
              "gather_rows" if "gather_rows_kernel" in n else
              "flash_attention" if "flash_attn_" in n else
+             "flash_attention_bwd" if "flash_bwd_" in n else
+             "embedding_grad_scatter" if "embedding_grad_scatter" in n else
              "memcpy" if "memcpy" in n or "memset" in n else
              "gemm" if any(k in n for k in ("gemm", "nvjet", "cutlass",
                                             "xmma", "cublas")) else
@@ -2412,7 +2454,8 @@ def dense_launches_wanted(cfg, prefills: int, steps: int) -> dict:
             "flash_attention": prefills * (cfg.enc_layers
                                            + unwindowed_layers(cfg) + cross)
             + steps * cross,
-            "mars_engine": 0, "dram_channel": 0}
+            "mars_engine": 0, "dram_channel": 0,
+            "flash_attention_bwd": 0, "embedding_grad_scatter": 0}
 
 
 def _to_f32(tree):
@@ -2638,6 +2681,637 @@ def profile_dense(torch, serve, args) -> dict:
                 warm_decode_steps=steps, **profile_summary(prof, wall))
 
 
+# -- the train phase ---------------------------------------------------------
+# B5 cases: (name, B, Sq, Sk, H, D, causal).  qwen1.5-0.5b's attention in
+# the training run (batch 8 x 512, 16 heads of 64, causal), a long causal
+# case, whisper-base's encoder (8 x 1500 frames, 8 heads of 64, no
+# mask), its cross-attention (512 decoder positions over 1500 frames)
+# and its causal decoder, and head dim 128 with ragged tiles (no mask, Sq
+# != Sk; and causal).
+B5_CASES = [("qwen", 8, 512, 512, 16, 64, True),
+            ("long_causal", 1, 4096, 4096, 16, 64, True),
+            ("whisper_encoder", 8, 1500, 1500, 8, 64, False),
+            ("whisper_cross", 8, 512, 1500, 8, 64, False),
+            ("whisper_decoder", 8, 512, 512, 8, 64, True),
+            ("ragged_d128", 2, 200, 300, 4, 128, False),
+            ("causal_d128", 2, 300, 300, 4, 128, True)]
+# B5 against its plain twin, per element of each gradient, (atol, rtol):
+# |got - want| <= atol max|want| + rtol |want|, max over the gradient.
+# Both compute the same f32 products from the same inputs and differ in
+# summation order (up to 4096 terms) and in how the row log-sum-exp is
+# taken (an online max and sum over 64-key tiles against one logsumexp):
+# 1e-4 of the largest value and of each value.  In bfloat16 each side
+# then rounds its f32 value to bf16 once, which may land one bf16 spacing
+# (2**-7 relative) apart.
+B5_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
+# B2 cases: the training runs' tables (qwen1.5-0.5b's 151936 x 1024,
+# whisper-base's 51865 x 512) with a batch of 8 x 512 ids from
+# TokenStream (zipf: id 1 takes about a quarter) and uniform ids.  B2 must
+# equal its twin on host copies bit for bit (both sum in f32 in sorted
+# order); against the twin on the card (index_add_ adds with atomics, in
+# another order) per element as B5: (atol, rtol) of 1e-5 in f32, and one
+# bf16 spacing in bfloat16.
+B2_TABLES = {"qwen": (151936, 1024), "whisper": (51865, 512)}
+B2_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
+TRAIN_TOKENS = (8, 512)             # batch x sequence of the training runs
+# The training runs at full width, bf16: (config, steps, checkpoint
+# interval, the step a second run is killed at, extra flags).  The killed
+# run resumes with --resume from its last checkpoint and must end at the
+# uninterrupted run's last loss within the reference's rtol (1e-4,
+# tests/test_ft.py:134).  whisper-base reads stub frames (normal * 0.02,
+# drawn per step): with the reference's zero frames every encoder
+# LayerNorm sees zero variance, the global gradient norm overflows to
+# inf and the clip zeroes every update, in the reference as in the port
+# (ROADMAP.md §3), so nothing would train.
+TRAIN_RUNS = (("qwen1_5_0_5b", 30, 10, 20, ()),
+              ("whisper_base", 12, 4, 8, ("--frontend", "stub")))
+TRAIN_RESUME_RTOL = 1e-4
+# configs whose CUDA training forward would launch a kernel with no
+# backward kernel (K3, K4): launch.train must refuse them
+TRAIN_REFUSED = ("hymba_1_5b", "mamba2_370m", "arctic_480b")
+# The float32 step at full width on the card against the same step on
+# host copies (the CPU's twins): qwen1.5-0.5b, batch 2 x 128.  Both run
+# the same f32 arithmetic in other orders and libraries through 24
+# layers: the loss within 1e-4 relative, each gradient leaf within
+# 1e-3 of its largest value; remat on against off on the card to the
+# same bound (the recomputed forward repeats the same kernels).
+F32_TRAIN = ("qwen1_5_0_5b", 2, 128)
+F32_LOSS_RTOL = 1e-4
+F32_GRAD_TOL = 1e-3
+
+
+def bwd_err(got, want, tol) -> tuple:
+    """Largest |got - want| and its largest ratio to the bound ``atol
+    max|want| + rtol |want|``."""
+    atol, rtol = tol
+    w = want.float()
+    diff = (got.float() - w).abs()
+    bound = atol * float(w.abs().max()) + rtol * w.abs()
+    return float(diff.max()), float((diff / bound.clamp_min(1e-30)).max())
+
+
+def b5_bound(q, k, causal: bool, dtype: str) -> dict:
+    """B5's bound at one case: q, o, do and k, v read once, dq, dk, dv
+    written once, over the memory rate; and 10 D operations for each
+    (query, key) pair the mask keeps (q.k, do.v, p^T do, ds k, ds^T q)
+    over the dtype's peak; the larger."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    ops_count = 10 * pairs * D
+    bytes_moved = 4 * (q.numel() + k.numel()) * q.element_size()
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=bytes_moved, ops=ops_count, pairs=pairs)
+
+
+def b5_phase(torch, F, gen):
+    """B5 (flash_attention_bwd) against its plain twin on the card at
+    every case, float32 and bfloat16, o from K5; times every case beside
+    its bound, the twin and SDPA's backward."""
+    from repro_torch.kernels.flash_attention import flash_attention as k5
+    results, timing, max_err = [], {}, 0.0
+    for dtype in ("float32", "bfloat16"):
+        for name, B, Sq, Sk, H, D, causal in B5_CASES:
+            dt = getattr(torch, dtype)
+            q, k, v = k5_inputs(torch, gen, B, Sq, Sk, H, D, dt)
+            do = torch.randn(q.shape, generator=gen, device=gen.device) \
+                .to(dt)
+            o = k5.flash_attention(q, k, v, causal=causal)
+            got = k5.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            torch.cuda.synchronize()
+            want = k5.flash_attention_bwd_plain(q, k, v, o, do,
+                                                causal=causal)
+            errs = [bwd_err(g, w, B5_TOL[dtype]) for g, w in zip(got, want)]
+            ok = all(e[1] <= 1.0 for e in errs) and all(
+                bool(torch.isfinite(g.float()).all()) and g.dtype == dt
+                and g.shape == w.shape for g, w in zip(got, want))
+            err = max(e[0] for e in errs)
+            print(f"[train] flash_attention_bwd {name:15s} {dtype:8s} B={B} "
+                  f"Sq={Sq} Sk={Sk} H={H} D={D} causal={causal}: dq/dk/dv "
+                  f"err " + " / ".join(f"{e[0]:.3e}" for e in errs)
+                  + f", largest err/tol " + " / ".join(
+                      f"{e[1]:.3f}" for e in errs)
+                  + f" (tol atol*max|want| + rtol|want|, "
+                  f"(atol, rtol)={B5_TOL[dtype]}) "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            results.append(dict(case=name, dtype=dtype, err=err,
+                                err_over_tol=[e[1] for e in errs], ok=ok))
+            max_err = max(max_err, err)
+            del got, want
+            timing[f"{name}/{dtype}"] = time_b5(torch, F, k5, q, k, v, o,
+                                                do, causal, dtype,
+                                                f"{name}/{dtype}")
+            del q, k, v, o, do
+            torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain "
+                             f"twin: {bad}")
+    return results, max_err, timing
+
+
+def counted_ms(fn, reps: int, case: str, key: str, per_call: int,
+               tries: int = 4) -> float:
+    """``device_ms`` of ``fn`` read from a profile that holds all of its
+    kernel launches: ``per_call`` launches of kernels named ``key`` a
+    call.  A profile short of them (the profiler has been seen to drop
+    device events late in a long process) is retried; after ``tries``
+    the time is read with CUDA events over ``reps`` calls instead
+    (``time_ms``: the host's launch is in it, so it can only read
+    slower), never from a short profile."""
+    for _ in range(tries):
+        rows = device_profile(fn, reps, case, need=(key,))
+        calls = sum(r["calls"] for r in rows if key in r["name"])
+        if calls == per_call * reps:
+            return sum(r["ms"] for r in rows)
+        print(f"[train] {case}: the profile holds {calls} launches of "
+              f"{key}, not {per_call * reps}; profiled again")
+    print(f"[train] {case}: {tries} profiles short of {key}'s launches; "
+          f"timed with CUDA events instead")
+    return time_ms(fn, reps)
+
+
+def time_b5(torch, F, k5, q, k, v, o, do, causal: bool, dtype: str,
+            case: str) -> dict:
+    """B5, its plain twin and SDPA's backward (``torch.autograd.grad``
+    of ``scaled_dot_product_attention`` on (B, H, S, D) copies, the
+    forward run beforehand; never called by the port) at one case,
+    beside ``b5_bound``."""
+    bound = b5_bound(q, k, causal, dtype)
+    long = bound["pairs"] > 1 << 27
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2).contiguous()
+
+    def kern():
+        k5.flash_attention_bwd(q, k, v, o, do, causal=causal)
+
+    def plain():
+        k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+
+    def lib():
+        torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    return dict(ms=counted_ms(kern, 10, f"flash_attention_bwd {case}",
+                              "flash_bwd_", k5.BWD_LAUNCHES),
+                plain_ms=device_ms(plain, 2 if long else 5,
+                                   f"flash_attention_bwd twin {case}"),
+                library_ms=device_ms(lib, 10, f"SDPA backward {case}"),
+                **bound)
+
+
+def b2_phase(torch, gen):
+    """B2 (embedding_grad_scatter) against its plain twin on host copies
+    (bitwise) and on the card (``B2_TOL``), on the training runs' tables
+    with TokenStream's zipf ids and uniform ids, float32 and bfloat16;
+    times every case beside its bound, the twin on the card and
+    ``F.embedding``'s backward."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels.mars_gather import ops
+    B, S = TRAIN_TOKENS
+    results, timing = [], {}
+    for tname, (V, D) in B2_TABLES.items():
+        zipf = next(TokenStream(DataConfig(vocab=V, seq_len=S,
+                                           global_batch=B)))["tokens"]
+        uniform = np.random.default_rng(3).integers(0, V, (B, S)) \
+            .astype(np.int32)
+        for ids_name, ids_np in (("zipf", zipf), ("uniform", uniform)):
+            ids = torch.from_numpy(ids_np).cuda()
+            longest = int(np.bincount(ids_np.ravel()).max())
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                g = torch.randn(B, S, D, generator=gen,
+                                device=gen.device).to(dt)
+                got = ops.embedding_grad_scatter(ids, g, V)
+                torch.cuda.synchronize()
+                host = ops.embedding_grad_scatter_plain(ids.cpu(), g.cpu(), V)
+                bits = getattr(torch, _BITS[dtype])
+                bitwise = bool(torch.equal(got.cpu().view(bits),
+                                           host.view(bits)))
+                host_err = float((got.cpu().float() - host.float()).abs()
+                                 .max())
+                card = ops.embedding_grad_scatter_plain(ids, g, V)
+                err, use = bwd_err(got, card, B2_TOL[dtype])
+                ok = bitwise and use <= 1.0 and got.dtype == dt \
+                    and got.shape == (V, D)
+                case = f"{tname}/{ids_name}/{dtype}"
+                print(f"[train] embedding_grad_scatter {case}: {B}x{S} ids "
+                      f"(longest run {longest}) into {V}x{D}: "
+                      f"{'bitwise equal' if bitwise else 'DIFFERENT'} to "
+                      f"the twin on host copies; against the twin on the "
+                      f"card err {err:.3e} (largest err/tol {use:.3f}, "
+                      f"(atol, rtol)={B2_TOL[dtype]}) "
+                      f"{'ok' if ok else 'MISMATCH'}")
+                results.append(dict(case=case, bitwise=bitwise, err=err,
+                                    host_err=host_err, err_over_tol=use,
+                                    longest_run=longest, ok=ok))
+                del got, host, card
+                timing[case] = time_b2(torch, ops, ids, g, V, case)
+                del g
+            torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"embedding_grad_scatter disagrees with its "
+                             f"plain twin: {bad}")
+    return results, timing
+
+
+def time_b2(torch, ops, ids, g, V: int, case: str) -> dict:
+    """B2 (the zeroed output and the kernel, on ids sorted beforehand),
+    its plain twin on the card and ``F.embedding``'s backward
+    (``embedding_dense_backward`` on the ids and rows in token order;
+    never called by the port), beside the bound: g and the sorted ids and
+    permutation read once, the whole (V, d) gradient written once."""
+    from repro_torch.kernels.mars_gather import mars_gather as mg_mod
+    sids, perm, g2 = ops._sort(ids, g)
+    flat = ids.reshape(-1).long()
+    bytes_moved = g2.numel() * g2.element_size() + 16 * sids.numel() \
+        + V * g2.shape[1] * g2.element_size()
+
+    def kern():
+        mg_mod.scatter_add_rows(sids, perm, g2, V)
+
+    def plain():
+        mg_mod.scatter_add_rows_plain(sids, perm, g2, V)
+
+    def lib():
+        torch.ops.aten.embedding_dense_backward(g2, flat, V, -1, False)
+    return dict(ms=counted_ms(kern, 20, f"embedding_grad_scatter {case}",
+                              "embedding_grad_scatter", 1),
+                plain_ms=device_ms(plain, 20, f"scatter twin {case}"),
+                library_ms=device_ms(lib, 20, f"F.embedding backward {case}"),
+                bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", bytes=bytes_moved, ops=0)
+
+
+def train_f32_check(torch) -> dict:
+    """The float32 training loss and every gradient leaf of qwen1.5-0.5b
+    at full width (``F32_TRAIN``) on the card, through K5, B5, K2 and
+    B2, against the same step on host copies (the plain twins), and with
+    remat on against off on the card."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import leaf_paths, tree_map
+    arch, B, S = F32_TRAIN
+    cfg = dataclasses.replace(configs.get(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    params = lm.init(cfg, torch.Generator("cuda").manual_seed(0))
+    batch = next(TokenStream(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                        global_batch=B)))
+
+    def grads(p, device, remat):
+        named = leaf_paths(p)
+        for _, t in named:
+            t.requires_grad_(True)
+        tokens, labels = (torch.from_numpy(batch[k]).to(device)
+                          for k in ("tokens", "labels"))
+        loss, _ = lm.loss_fn(p, cfg, tokens, labels, remat=remat)
+        gs = torch.autograd.grad(loss, [t for _, t in named])
+        return float(loss.detach()), {n: g for (n, _), g in zip(named,
+                                                              gs)}
+
+    counters = kernel_counters()
+    reset_counts(counters)
+    loss_c, g_c = grads(params, "cuda", False)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    loss_r, g_r = grads(params, "cuda", True)
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    del params
+    loss_h, g_h = grads(host, "cpu", False)
+    worst = {"host": (0.0, ""), "remat": (0.0, "")}
+    for name, want in g_h.items():
+        scale = float(want.abs().max()) or 1.0
+        for tag, other in (("host", g_c[name].cpu()),
+                           ("remat", g_r[name].cpu())):
+            ref = want if tag == "host" else g_c[name].cpu()
+            r = float((other - ref).abs().max()) / scale
+            if r > worst[tag][0]:
+                worst[tag] = (r, name)
+    bitwise = all(torch.equal(g_r[n], g_c[n]) for n in g_c)
+    loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    ok = loss_rel <= F32_LOSS_RTOL \
+        and abs(loss_r - loss_c) <= F32_LOSS_RTOL * abs(loss_c) \
+        and worst["host"][0] <= F32_GRAD_TOL \
+        and worst["remat"][0] <= F32_GRAD_TOL \
+        and launches["flash_attention_bwd"] > 0 \
+        and launches["embedding_grad_scatter"] > 0
+    print(f"[train] float32 step, {arch} at full width, batch {B}x{S}: loss "
+          f"card {loss_c:.6f} / host {loss_h:.6f} (relative {loss_rel:.2e}, "
+          f"tol {F32_LOSS_RTOL}); {len(g_h)} gradient leaves, largest "
+          f"|card - host| / max|host| {worst['host'][0]:.2e} "
+          f"({worst['host'][1]}); remat on vs off: loss {loss_r:.6f}, "
+          f"largest {worst['remat'][0]:.2e} ({worst['remat'][1]}), "
+          f"bitwise {bitwise} (tol {F32_GRAD_TOL}); card launches "
+          + ", ".join(f"{k} {launches[k]}" for k in TRAIN_KERNELS)
+          + f" {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"float32 training step on the card disagrees "
+                             f"with the host: loss {loss_c} vs {loss_h}, "
+                             f"{worst}, launches {launches}")
+    return dict(loss_card=loss_c, loss_host=loss_h, loss_remat=loss_r,
+                worst_host=worst["host"], worst_remat=worst["remat"],
+                remat_bitwise=bitwise, launches=launches)
+
+
+TRAIN_PATH = "train qwen1_5_0_5b"          # the slice's main path
+# the training path's backward kernels: (name, source, the reference
+# function each takes the place of -- no Pallas kernel: the JAX trainer
+# differentiates plain layers.sdpa and calls the jnp
+# embedding_grad_scatter -- the timing record and case of its row)
+TRAIN_KERNELS_ROWS = (
+    ("flash_attention_bwd", "flash_attention_bwd.cu",
+     "src/repro/models/layers.py:199", "b5_timing", "qwen/bfloat16"),
+    ("embedding_grad_scatter", "embedding_grad_scatter.cu",
+     "src/repro/kernels/mars_gather/ops.py:50", "b2_timing",
+     "qwen/zipf/bfloat16"))
+
+
+def train_kernel_rows(launches: dict, record: dict, b5_err: float) -> list:
+    """The ``{"kernels": [...]}`` rows of B5 and B2: launches on the
+    training main path (``TRAIN_PATH``), their largest error against the
+    twin (B2's on host copies, which it must equal bitwise), timed at
+    qwen1.5-0.5b's training shapes in bf16 beside the library call."""
+    errs = {"flash_attention_bwd": b5_err,
+            "embedding_grad_scatter": max(r["host_err"]
+                                          for r in record["b2_cases"])}
+    rows = []
+    for name, source, replaces, timing, case in TRAIN_KERNELS_ROWS:
+        t = record[timing][case]
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
+            replaces=replaces, launches=launches[TRAIN_PATH][name],
+            launches_by_path={p: n[name] for p, n in launches.items()},
+            max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], case=case))
+    return rows
+
+
+class _Killed(Exception):
+    """Stops a training run after a step, as a lost host would."""
+
+
+# the four kernels of the training path, as ``kernel_counters`` names them
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gather_rows",
+                 "embedding_grad_scatter")
+
+
+def train_launches_wanted(cfg, steps: int, counters: dict) -> dict:
+    """Launches of a training run of ``steps`` steps with remat off: K5
+    once per attention a step (an encoder-decoder model's encoder,
+    decoder and cross-attention layers), B5 ``BWD_LAUNCHES`` times as
+    often, K2 and B2 once a step (a table of at least 2**22 elements)."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        BWD_LAUNCHES
+    attn = cfg.enc_layers + unwindowed_layers(cfg) \
+        + (cfg.n_layers if cfg.family == "encdec" else 0)
+    table = steps if cfg.vocab * cfg.d_model >= 1 << 22 else 0
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=attn * steps,
+                flash_attention_bwd=attn * BWD_LAUNCHES * steps,
+                gather_rows=table, embedding_grad_scatter=table)
+    return want
+
+
+def train_run(torch, arch: str, steps: int, interval: int, kill_at: int,
+              flags=()):
+    """``launch.train`` at full width in bf16 (batch and sequence
+    ``TRAIN_TOKENS``, a checkpoint every ``interval`` steps) with every
+    count set to 0 just before it: finite losses, the last below the
+    first, the launches of ``train_launches_wanted``; then the same run
+    killed after step ``kill_at - 1`` and resumed with ``--resume`` must
+    end at the uninterrupted run's last loss (``TRAIN_RESUME_RTOL``).
+    Returns the record and the launches."""
+    import math
+    import shutil
+    from repro_torch.ft.manager import RunSupervisor
+    from repro_torch.launch import train
+    B, S = TRAIN_TOKENS
+    work = ROOT / "build" / "train" / arch
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S), "--ckpt-interval", str(interval),
+            "--log-every", "5", "--device", "cuda", *flags]
+    name = f"train {arch}"
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    full = train.run(argv + ["--workdir", str(work / "full")])
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, losses = full["cfg"], full["losses"]
+    shutil.rmtree(work / "full", ignore_errors=True)
+    free_device(torch, name)
+    want = train_launches_wanted(cfg, steps, counters)
+    step_ms = statistics.median(full["step_s"][1:]) * 1e3
+    print(f"[{name}] {steps} steps, batch {B}x{S}, bf16: loss {losses[0]:.4f}"
+          f" -> {losses[-1]:.4f}; median step {step_ms:.1f} ms (first "
+          f"{full['step_s'][0] * 1e3:.0f} ms), {B * S / step_ms * 1e3:.0f} "
+          f"tokens/s; peak allocated {peak / 2**30:.2f} GiB; launches "
+          + ", ".join(f"{k} {launches[k]} (want {want[k]})"
+                      for k in counters))
+    if not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses not finite or not falling: "
+                             f"{losses}")
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches} on the "
+                             f"main path, want {want}")
+
+    after_step = RunSupervisor.after_step
+
+    def killing(self, step, dt):
+        events = after_step(self, step, dt)
+        if step == kill_at - 1:
+            raise _Killed(step)
+        return events
+    RunSupervisor.after_step = killing
+    try:
+        train.run(argv + ["--workdir", str(work / "killed")])
+        raise AssertionError(f"{name}: the run was not killed")
+    except _Killed:
+        pass
+    finally:
+        RunSupervisor.after_step = after_step
+    free_device(torch, f"{name} killed at {kill_at}")
+    resumed = train.run(argv + ["--workdir", str(work / "killed"),
+                                "--resume"])
+    shutil.rmtree(work, ignore_errors=True)
+    free_device(torch, f"{name} resumed")
+    last, want_last = resumed["losses"][-1], losses[-1]
+    rel = abs(last - want_last) / abs(want_last)
+    print(f"[{name}] killed after step {kill_at - 1}, resumed from step "
+          f"{resumed['start_step']}: last loss {last:.6f} against "
+          f"{want_last:.6f} uninterrupted (relative {rel:.2e}, tol "
+          f"{TRAIN_RESUME_RTOL})")
+    if rel > TRAIN_RESUME_RTOL or not 0 < resumed["start_step"] < kill_at:
+        raise AssertionError(f"{name}: resumed run ends at {last}, "
+                             f"uninterrupted at {want_last}")
+    return dict(losses=losses, step_ms=step_ms, tokens_per_s=B * S
+                / step_ms * 1e3, peak_bytes=peak, first_step_ms=full[
+                    "step_s"][0] * 1e3, resumed_from=resumed["start_step"],
+                resumed_losses=resumed["losses"], resume_rel=rel), launches
+
+
+def profile_train(torch, arch: str, flags=()) -> dict:
+    """One warm training step (the third of four, bf16, batch and
+    sequence ``TRAIN_TOKENS``) under ``torch.profiler``: its wall, the
+    device time by kernel and kind, and the busy share."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    B, S = TRAIN_TOKENS
+    work = ROOT / "build" / "train" / f"{arch}_profile"
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    make, walls = train.make_train_step, []
+
+    def make_profiled(*a, **kw):
+        step, calls = make(*a, **kw), []
+
+        def profiled(*args):
+            calls.append(1)
+            if len(calls) != 3:
+                return step(*args)
+            torch.cuda.synchronize()
+            prof.start()
+            t0 = time.perf_counter()
+            try:
+                out = step(*args)
+                torch.cuda.synchronize()
+                return out
+            finally:
+                walls.append(time.perf_counter() - t0)
+                prof.stop()
+        return profiled
+    train.make_train_step = make_profiled
+    try:
+        train.run(["--arch", arch, "--steps", "4", "--batch", str(B),
+                   "--seq", str(S), "--ckpt-interval", "1000",
+                   "--log-every", "100", "--device", "cuda",
+                   "--workdir", str(work), *flags])
+    finally:
+        train.make_train_step = make
+        shutil.rmtree(work, ignore_errors=True)
+    out = profile_summary(prof, walls[0])
+    tag = f"[profile train {arch}]"
+    print(f"{tag} one warm step under torch.profiler: wall "
+          f"{out['wall_s'] * 1e3:.1f} ms, device kernel time "
+          f"{out['device_ms']:.1f} ms (busy share {out['busy_share']:.3f}); "
+          f"port kernel launches " + ", ".join(
+              f"{k} {v}" for k, v in out["kernel_calls"].items() if v))
+    print(f"{tag}   device ms by kind: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sorted(out["by_kind_ms"].items())))
+    for row in out["top"]:
+        print(f"{tag}   {row['ms']:9.3f} ms {row['calls']:6d}x "
+              f"{row['name'][:90]}")
+    print(f"{tag} host self time of profiled ops {out['host_ms']:.1f} ms")
+    return out
+
+
+def train_refusals() -> list:
+    """``launch.train`` on CUDA refuses every config of
+    ``TRAIN_REFUSED`` before it builds anything."""
+    from repro_torch.launch import train
+    out = []
+    for arch in TRAIN_REFUSED:
+        try:
+            train.run(["--arch", arch, "--steps", "1", "--device", "cuda"])
+        except NotImplementedError as e:
+            print(f"[train] {arch} refused on CUDA: {e}")
+            out.append(arch)
+            continue
+        raise AssertionError(f"launch.train trained {arch} on CUDA")
+    return out
+
+
+def kernel_grad_refusals(torch) -> list:
+    """K3's and K4's wrappers, called on the card with an input that
+    needs a gradient, raise without launching (they have no backward
+    kernel); under ``torch.no_grad()`` the same call launches."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    from repro_torch.kernels.ssd_scan import ssd_scan as k3
+
+    def args_k3():
+        x = torch.randn(1, 16, 2, 64, device="cuda")
+        b, c = (torch.randn(1, 16, 16, device="cuda") for _ in range(2))
+        dt = torch.rand(1, 16, 2, device="cuda")
+        return (x.requires_grad_(), b, c, -dt, dt), {"chunk": 16}
+
+    def args_k4():
+        x = torch.randn(32, 64, device="cuda")
+        w = torch.randn(2, 64, 64, device="cuda").requires_grad_()
+        return (x, w, torch.tensor([0, 1], dtype=torch.int32,
+                                   device="cuda")), {"bm": 16}
+
+    out = []
+    for fn, make in ((k3.ssd_scan, args_k3), (k4.grouped_matmul, args_k4)):
+        name = fn.__name__
+        args, kw = make()
+        before = fn.launches
+        try:
+            fn(*args, **kw)
+        except NotImplementedError as e:
+            assert fn.launches == before, f"{name} launched, then refused"
+            print(f"[train] {name} refused a gradient on CUDA: {e}")
+        else:
+            raise AssertionError(f"{name} ran on CUDA outside autograd")
+        with torch.no_grad():
+            fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, f"{name} did not launch"
+        fn.launches = before
+        out.append(name)
+    return out
+
+
+def train_kernel_phase(torch, F, gen) -> tuple:
+    """The train phase's kernel part, run beside the other kernel phases
+    (before the serve runs' long profiles): B5 and B2 against their
+    twins, each timed.  Returns (record, B5's largest error)."""
+    b5_results, b5_err, b5_timing = b5_phase(torch, F, gen)
+    for case, t in b5_timing.items():
+        print(f"[train] flash_attention_bwd {case}: device ms per call: "
+              f"kernel {t['ms']:.4f}, bound {t['bound_ms']:.5f} "
+              f"({t['bound_by']}; {t['bytes']} B, {t['ops']} ops), plain "
+              f"twin {t['plain_ms']:.4f}, SDPA backward {t['library_ms']:.4f}")
+    free_device(torch, "B5 cases")
+    b2_results, b2_timing = b2_phase(torch, gen)
+    for case, t in b2_timing.items():
+        print(f"[train] embedding_grad_scatter {case}: device ms per call: "
+              f"kernel (with its zeroed output) {t['ms']:.4f}, bound "
+              f"{t['bound_ms']:.5f} (bytes; {t['bytes']} B), plain twin "
+              f"{t['plain_ms']:.4f}, F.embedding backward "
+              f"{t['library_ms']:.4f}")
+    free_device(torch, "B2 cases")
+    return dict(b5_cases=b5_results, b5_timing=b5_timing,
+                b2_cases=b2_results, b2_timing=b2_timing), b5_err
+
+
+def train_phase(torch) -> tuple:
+    """The train phase's runs: the float32 step at full width, the
+    refusals, the bf16 training runs (launch counts, resume) and a
+    profiled step of each.  Returns (record, launches by run)."""
+    f32 = train_f32_check(torch)
+    free_device(torch, "float32 training step")
+    record = dict(f32=f32, refused=train_refusals(),
+                  refused_grad=kernel_grad_refusals(torch), runs={})
+    launches = {}
+    for arch, steps, interval, kill_at, flags in TRAIN_RUNS:
+        record["runs"][arch], launches[f"train {arch}"] = train_run(
+            torch, arch, steps, interval, kill_at, flags)
+        record["runs"][arch]["profile"] = profile_train(torch, arch, flags)
+        free_device(torch, f"profiling train {arch}")
+    return record, launches
+
+
 # the port's kernels as their device-side names show in a profile
 KERNEL_NAMES = {"paged_attention": "paged_attention_split_kernel",
                 "paged_attention_merge": "paged_attention_merge_kernel",
@@ -2647,7 +3321,9 @@ KERNEL_NAMES = {"paged_attention": "paged_attention_split_kernel",
                 "grouped_matmul": "grouped_mm_",
                 "flash_attention": "flash_attn_",
                 "mars_engine": "mars_engine_kernel",
-                "dram_channel": "dram_channel_kernel"}
+                "dram_channel": "dram_channel_kernel",
+                "flash_attention_bwd": "flash_bwd_",
+                "embedding_grad_scatter": "embedding_grad_scatter_kernel"}
 
 
 def print_profile(arch: str, prof: dict) -> None:
@@ -2673,7 +3349,7 @@ def print_profile(arch: str, prof: dict) -> None:
               f"{row['name'][:90]}")
 
 
-PHASES = ("k1", "k3", "k2", "k4", "k5", "sim", "serve", "dense")
+PHASES = ("k1", "k3", "k2", "k4", "k5", "sim", "serve", "dense", "train")
 # what a serve run returns beside its stats: not written to the record
 NOT_STATS = ("finished", "cfg", "params", "prompts", "max_new",
              "backend", "obs")
@@ -2802,6 +3478,10 @@ def main(argv=None) -> int:
                   f"/ {t['library_event_ms']:.4f}")
         record.update(k5_cases=k5_results, k5_timing=k5_timing)
         free_device(torch, "K5 phase")
+    if "train" in phases:
+        t0 = time.perf_counter()
+        train_record, b5_err = train_kernel_phase(torch, F, gen)
+        record.update(train_kernels_s=time.perf_counter() - t0)
     if "sim" in phases:
         t0 = time.perf_counter()
         sim_record, sim_timing, sim_launches = sim_phase(torch)
@@ -2874,6 +3554,14 @@ def main(argv=None) -> int:
             print_profile(name, profiles[name])
             free_device(torch, f"profiling {name}")
         timed_run(name, t0, t1)
+    if "train" in phases:
+        t0 = time.perf_counter()
+        runs_record, train_launches = train_phase(torch)
+        train_record.update(runs_record)
+        launches.update(train_launches)
+        record.update(train=train_record,
+                      train_s=time.perf_counter() - t0)
+        print(f"[time] train phase {record['train_s']:.1f}s")
     total_s = time.perf_counter() - t_start
     print(f"[time] build {build_s:.1f}s, build + kernel phases "
           f"{kernels_s:.1f}s, whole run {total_s:.1f}s")
@@ -2929,7 +3617,8 @@ def main(argv=None) -> int:
         row("flash_attention", "flash_attention.cu",
             "flash_attention/flash_attention.py:27", "whisper_base", k5_err,
             k5_timing["whisper_encoder/bfloat16"]),
-    ] + sim_kernel_rows(launches, sim_timing)
+    ] + sim_kernel_rows(launches, sim_timing) \
+        + train_kernel_rows(launches, train_record, b5_err)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("paged_attention", "ssd_scan", "mars_gather", "moe_dispatch",
-           "flash_attention", "mars_engine", "dram_channel")
+           "flash_attention", "mars_engine", "dram_channel",
+           "flash_attention_bwd", "embedding_grad_scatter")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,6 +17,17 @@ twin, which the CPU tests and ``chip_smoke.py`` compare against.
 
 The port's ``layers.sdpa`` routes here every attention whose mask is
 none or plain causal with as many queries as keys.
+
+Training: when q, k or v needs a gradient, ``flash_attention`` runs as a
+``torch.autograd.Function`` whose backward is ``flash_attention_bwd``:
+B5, the hand-written backward kernels in ``csrc/flash_attention_bwd.cu``
+(a pre-pass for the row log-sum-exp and rowsum(dO o), then dK/dV and dQ;
+the JAX trainer differentiates plain attention, so no Pallas kernel
+corresponds), on CUDA tensors, and ``flash_attention_bwd_plain``, the
+explicit formulas in PyTorch, on CPU ones.  B5 takes head dims
+``BWD_HEAD_DIMS``; a CUDA forward that needs a gradient at another head
+dim raises before it launches.  ``flash_attention_bwd.launches`` counts
+B5's kernel launches (``BWD_LAUNCHES`` a call).
 """
 from __future__ import annotations
 
@@ -119,8 +130,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     _check(q, k, v, causal)
     s, keep = _masked_scores(q, k, causal)
     if keep is not None:
-        s.masked_fill_(~keep, NEG_INF)
-    s.sub_(s.amax(-1, keepdim=True)).exp_()
+        s = s.masked_fill(~keep, NEG_INF)
+    # out of place, so autograd can differentiate the twin too
+    s = torch.exp(s - s.amax(-1, keepdim=True))
     l = s.sum(-1, keepdim=True)                        # (B, H, Sq, 1)
     acc = torch.einsum("bhqk,bkhd->bqhd", s.to(v.dtype).float(), v.float())
     return (acc / l.clamp_min(1e-30).transpose(1, 2)).to(q.dtype)
@@ -130,8 +142,8 @@ def _masked_scores(q, k, causal: bool):
     """f32 scores (B, H, Sq, Sk) and the mask of the kept (query, key)
     pairs (None: all kept)."""
     S = q.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    s.mul_(1.0 / math.sqrt(q.shape[-1]))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(q.shape[-1]))
     if not causal:
         return s, None
     keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril_()
@@ -257,6 +269,32 @@ def _launch(q, k, v, causal: bool):
     return o
 
 
+def _forward(q, k, v, causal: bool):
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K5 forward, B5 backward (their plain twins on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, Sq, H, D); k, v: (B, Sk, H, D) -> (B, Sq, H, D) in q's dtype:
     ``softmax(q k^T / sqrt(D)) v`` per batch and head, with no mask or,
@@ -266,13 +304,127 @@ def flash_attention(q, k, v, *, causal: bool = True):
     CUDA tensors launch one Hopper kernel (float32 or bfloat16, one dtype,
     contiguous, head dim in ``HEAD_DIMS``: 16, 64, 112, 128, 256;
     ``split_plan`` says which);
-    CPU tensors run the plain twin."""
+    CPU tensors run the plain twin.  Differentiable: with a gradient to
+    take, the backward is ``flash_attention_bwd`` (on CUDA only at head
+    dims ``BWD_HEAD_DIMS``)."""
     _check(q, k, v, causal)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, causal)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
-    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q.device.type == "cuda":
+            _check_bwd(q)
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward (B5)
+# ---------------------------------------------------------------------------
+
+BWD_HEAD_DIMS = (64, 128)
+BWD_LAUNCHES = 3          # pre-pass, dK/dV, dQ: the kernels of one call
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True):
+    """B5's plain twin, the explicit formulas in float32: s = q k^T /
+    sqrt(D) (masked), p = exp(s - logsumexp(s)), delta = rowsum(do o),
+    dv = p^T do, ds = p (do v^T - delta), dq = ds k / sqrt(D), dk = ds^T
+    q / sqrt(D); each gradient in its input's dtype."""
+    _check(q, k, v, causal)
+    s, keep = _masked_scores(q, k, causal)
+    if keep is not None:
+        s.masked_fill_(~keep, float("-inf"))
+    p = s.sub_(torch.logsumexp(s, -1, keepdim=True)).exp_()
+    dof = do.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p.mul_(dp.sub_(delta))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q) -> None:
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention's backward kernel (B5) takes "
+                         f"head_dim in {BWD_HEAD_DIMS}; got {q.shape[-1]}")
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    fn = lib.mars_flash_attention_bwd
+    if fn.argtypes is None:               # first use: declare once
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 6 + [ctypes.c_float]
+                       + [ctypes.c_void_p])
+        err = lib.mars_cuda_error_string
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return lib
+
+
+def _bwd_launch(q, k, v, o, do, causal: bool):
+    """Check operands and launch B5's three kernels on the current
+    stream."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention_bwd takes one dtype; {name} "
+                            f"is {t.dtype}, q {q.dtype}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} "
+                         f"must be shaped as q {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention_bwd kernel takes float32 or "
+                        f"bfloat16; got {q.dtype}")
+    _check_bwd(q)
+    if B * H > _MAX_BATCH_HEADS:
+        raise ValueError(f"flash_attention_bwd kernel takes B * H <= "
+                         f"{_MAX_BATCH_HEADS}; got {B * H}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse, delta = (torch.empty(B * H * Sq, dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    lib = _bwd_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.mars_flash_attention_bwd(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, H, Sq, Sk, D,
+        int(causal), 1.0 / math.sqrt(D), stream)
+    if rc != 0:
+        why = "unsupported" if rc == -1 \
+            else lib.mars_cuda_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"rc={rc} ({why})")
+    flash_attention_bwd.launches += BWD_LAUNCHES
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal) == o``
+    for the incoming gradient ``do`` (shaped as q), each in its input's
+    dtype.  CUDA tensors launch B5 (float32 or bfloat16, one dtype,
+    contiguous, head dim in ``BWD_HEAD_DIMS``); CPU tensors run the plain
+    twin."""
+    _check(q, k, v, causal)
+    if q.device.type == "cuda":
+        return _bwd_launch(q, k, v, o, do, causal)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
+                     f"{q.device}")
+
+
+flash_attention_bwd.launches = 0

@@ -11,6 +11,17 @@ The copy is bitwise, so kernel and twin agree exactly.
 
 ``mars_gather`` is the port of ``mars_gather_pallas``: sort the ids,
 gather the rows in sorted order, unsort.
+
+``scatter_add_rows`` is the gather's backward, B2, around the
+hand-written kernel ``csrc/embedding_grad_scatter.cu`` (the reference's
+``embedding_grad_scatter`` is plain jnp; the source comment gives B2's
+bound and design): given ids stable-sorted by row and the permutation
+that sorts them, each run of equal ids sums its gradient rows in f32 in
+sorted order and writes its table row once; rows no id names are 0.  On
+CUDA tensors it launches B2 or raises; on CPU tensors it runs
+``scatter_add_rows_plain`` (``index_add_`` of the sorted rows in f32, a
+sequential sum on the CPU, so bit for bit B2's).
+``scatter_add_rows.launches`` counts B2's launches.
 """
 from __future__ import annotations
 
@@ -146,3 +157,87 @@ def mars_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     perm = torch.argsort(flat, stable=True)
     rows = gather_rows(table, flat[perm])
     return rows[inverse_permutation(perm)].reshape(*shape, table.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# Backward (B2): sorted segment sum of gradient rows
+# ---------------------------------------------------------------------------
+
+_SCATTER_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def scatter_add_rows_plain(sorted_ids, perm, g, vocab: int):
+    """B2's plain twin: ``zeros(vocab, d)`` in float32 plus the rows
+    ``g[perm]`` at ``sorted_ids`` (``index_add_``), rounded to g's
+    dtype."""
+    out = torch.zeros((vocab, g.shape[1]), dtype=torch.float32,
+                      device=g.device)
+    out.index_add_(0, sorted_ids, g[perm].float())
+    return out.to(g.dtype)
+
+
+def _scatter_library() -> ctypes.CDLL:
+    lib = build.load("embedding_grad_scatter")
+    fn = lib.mars_embedding_grad_scatter
+    if fn.argtypes is None:               # first use: declare once
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        err = lib.mars_cuda_error_string
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return lib
+
+
+def _scatter_launch(sorted_ids, perm, g, vocab: int):
+    """Check operands and launch B2 on the current stream."""
+    dev = g.device
+    for name, t in (("sorted_ids", sorted_ids), ("perm", perm)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, g on {dev}")
+        if t.dtype != torch.int64 or t.dim() != 1:
+            raise TypeError(f"scatter_add_rows takes (N,) int64 {name}; "
+                            f"got {t.dtype} {tuple(t.shape)}")
+    if g.dim() != 2 or g.shape[0] != sorted_ids.shape[0] \
+            or perm.shape != sorted_ids.shape:
+        raise ValueError(f"scatter_add_rows takes g (N, d) with N ids; got "
+                         f"g {tuple(g.shape)}, {sorted_ids.shape[0]} ids")
+    if g.dtype not in _SCATTER_DTYPE_CODES:
+        raise TypeError(f"scatter_add_rows kernel takes float32 or bfloat16 "
+                        f"g; got {g.dtype}")
+    if not (g.is_contiguous() and sorted_ids.is_contiguous()
+            and perm.is_contiguous()):
+        raise ValueError("g, sorted_ids and perm must be contiguous")
+    n, d = g.shape
+    out = torch.zeros((vocab, d), dtype=g.dtype, device=dev)
+    if n == 0 or d == 0:
+        return out
+    lib = _scatter_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.mars_embedding_grad_scatter(
+        _SCATTER_DTYPE_CODES[g.dtype], sorted_ids.data_ptr(), perm.data_ptr(),
+        g.data_ptr(), out.data_ptr(), n, vocab, d, stream)
+    if rc != 0:
+        why = lib.mars_cuda_error_string(rc).decode() if rc > 0 \
+            else "unsupported"
+        raise RuntimeError(f"scatter_add_rows kernel launch failed: rc={rc} "
+                           f"({why})")
+    scatter_add_rows.launches += 1
+    return out
+
+
+def scatter_add_rows(sorted_ids, perm, g, vocab: int):
+    """sorted_ids: int64 (N,), stable-sorted, and perm, the permutation
+    that sorts them; g: (N, d) rows in token order.  Returns (vocab, d) in
+    g's dtype: row ``r`` is the f32 sum, in sorted order, of ``g[perm[j]]``
+    over the j with ``sorted_ids[j] == r`` (0 where none).
+
+    CUDA tensors launch B2 (float32 or bfloat16 g; ids outside [0,
+    vocab) add nothing there); CPU tensors run the plain twin."""
+    if g.device.type == "cuda":
+        return _scatter_launch(sorted_ids, perm, g, vocab)
+    if g.device.type == "cpu":
+        return scatter_add_rows_plain(sorted_ids, perm, g, vocab)
+    raise ValueError(f"scatter_add_rows runs on cuda or cpu, not {g.device}")
+
+
+scatter_add_rows.launches = 0

@@ -13,7 +13,9 @@ On CUDA tensors it launches the kernel or raises — there is no fallback;
 on CPU tensors it runs ``grouped_matmul_plain``, the kernel's plain
 twin: one float32 product per row tile, cast to x's dtype.
 ``grouped_matmul_split_plain`` does the K split's arithmetic in PyTorch.
-``grouped_matmul.launches`` counts kernel launches.
+``grouped_matmul.launches`` counts kernel launches.  The kernels have no
+backward yet: on CUDA tensors a call that autograd would differentiate
+raises (``_refuse_grad``) instead of running outside the graph.
 
 The ``tile_group`` contract is the reference's: token rows sorted by
 expert, each expert's segment padded to a multiple of ``bm`` rows
@@ -245,6 +247,16 @@ def _launch(x, w, tile_group, bm: int, n_tiles):
     return out
 
 
+def _refuse_grad(*ts) -> None:
+    """Raise when autograd would differentiate a launch: the kernels run
+    outside the graph and have no backward kernel yet."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "grouped_matmul (K4) has no backward kernel yet (ROADMAP.md §1, "
+            "the next training slice): call it under torch.no_grad() on "
+            "CUDA, or train on the CPU")
+
+
 def grouped_matmul(x, w, tile_group, *, bm: int = DEFAULT_BM, n_tiles=None):
     """x: (M, K), rows sorted by group and group-padded so each row tile
     ``[i*bm, (i+1)*bm)`` belongs to one group; w: (G, K, N); tile_group:
@@ -254,10 +266,11 @@ def grouped_matmul(x, w, tile_group, *, bm: int = DEFAULT_BM, n_tiles=None):
     any positive multiple of 16 that divides M.
 
     CUDA tensors launch the Hopper kernel ``split_plan`` picks (x and w
-    of one dtype, float32 or bfloat16, contiguous); CPU tensors run the
-    plain twin."""
+    of one dtype, float32 or bfloat16, contiguous, neither needing a
+    gradient); CPU tensors run the plain twin."""
     _check_shapes(x, w, tile_group, bm)
     if x.device.type == "cuda":
+        _refuse_grad(x, w)
         return _launch(x, w, tile_group, bm, n_tiles)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w, tile_group, bm=bm, n_tiles=n_tiles)

@@ -15,7 +15,9 @@ by chunk, which the CPU tests and ``chip_smoke.py`` compare against.
 ``ssd_scan_chunked_plain`` does the kernels' passes in PyTorch.
 ``ssd_scan.launches`` counts calls that launched the kernels, and
 ``ssd_scan.pass_launches`` the two extra launches of a call of more than
-one chunk.
+one chunk.  The kernels have no backward yet: on CUDA tensors a call
+that autograd would differentiate raises (``_refuse_grad``) instead of
+running outside the graph.
 """
 from __future__ import annotations
 
@@ -267,6 +269,16 @@ def _launch(x, b, c, la, dt, q: int):
     return y, state
 
 
+def _refuse_grad(*ts) -> None:
+    """Raise when autograd would differentiate a launch: the kernels run
+    outside the graph and have no backward kernel yet."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "ssd_scan (K3) has no backward kernel yet (ROADMAP.md §1, the "
+            "next training slice): call it under torch.no_grad() on CUDA, "
+            "or train on the CPU")
+
+
 def ssd_scan(x, b, c, la, dt, *, chunk: int = 64):
     """x: (B,S,H,P); b,c: (B,S,N); la,dt: (B,S,H) (la is the per-step log
     decay ``dt * A``).  Returns ``(y (B,S,H,P) float32, final state
@@ -274,8 +286,8 @@ def ssd_scan(x, b, c, la, dt, *, chunk: int = 64):
     is ``q = min(chunk, S)`` and must divide S.
 
     CUDA tensors launch the Hopper kernels (x, b and c of one dtype,
-    float32 or bfloat16; la and dt float32; contiguous; q <= 64); CPU
-    tensors run the plain twin."""
+    float32 or bfloat16; la and dt float32; contiguous; q <= 64; no
+    input that needs a gradient); CPU tensors run the plain twin."""
     Bz, S, H, P = x.shape
     N = b.shape[-1]
     if tuple(b.shape) != (Bz, S, N) or tuple(c.shape) != (Bz, S, N) \
@@ -285,6 +297,7 @@ def ssd_scan(x, b, c, la, dt, *, chunk: int = 64):
             f"{tuple(c.shape)}, la {tuple(la.shape)}, dt {tuple(dt.shape)}")
     q = chunk_len(S, chunk)
     if x.device.type == "cuda":
+        _refuse_grad(x, b, c, la, dt)
         return _launch(x, b, c, la, dt, q)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, b, c, la, dt, chunk=chunk)

@@ -2,9 +2,12 @@
 families (port of ``repro/models/lm.py``).
 
 One parameter tree, a Python loop over the stacked layer axis (the
-reference's ``lax.scan``), four entry points:
+reference's ``lax.scan``), and these entry points:
 
-  ``forward``            — teacher-forced logits
+  ``forward``            — teacher-forced logits (``forward_aux`` also
+                           returns the MoE router losses, ``loss_fn`` the
+                           training loss; ``remat`` recomputes each block
+                           in the backward)
   ``prefill``            — build the serving cache from a prompt
   ``decode_step``        — one-token serve step against the cache
   ``paged_decode_step``  — one-token serve step reading KV straight from
@@ -38,6 +41,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
@@ -132,24 +136,38 @@ def _stack_init(gen, cfg: ModelConfig, L: int, *, moe: bool,
 # Block apply
 # ---------------------------------------------------------------------------
 
-def _layer(stacked, i: int) -> dict:
-    """Plane ``i`` of a stacked parameter subtree."""
-    return {k: (_layer(v, i) if not isinstance(v, torch.Tensor) else v[i])
-            for k, v in stacked.items()}
+def _planes(stacked, n: int) -> list:
+    """The ``n`` per-layer planes of a stacked parameter subtree, each
+    stacked leaf unbound once (under autograd one backward node a leaf
+    that stacks the planes' gradients, not ``n`` indexing nodes each
+    writing a full-size zero gradient)."""
+    if isinstance(stacked, torch.Tensor):
+        return list(stacked.unbind(0))
+    per = {k: _planes(v, n) for k, v in stacked.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _add_aux(total: dict, aux: dict) -> dict:
+    """Router losses summed key by key (a missing key counts 0)."""
+    return {k: total.get(k, 0.0) + aux.get(k, 0.0)
+            for k in total.keys() | aux.keys()}
 
 
 def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
                  cache_pos=None, ssm_state=None, xkv=None, is_global=None,
                  paged=None):
-    """One transformer block.  Returns (x, new_kv, new_ssm) — new_kv is
-    None for an attention-free block, new_ssm the SSM branch's ``(state,
-    conv_state)`` for a block with one, else None.  ``paged`` routes
+    """One transformer block.  Returns (x, new_kv, new_ssm, aux) — new_kv
+    is None for an attention-free block, new_ssm the SSM branch's
+    ``(state, conv_state)`` for a block with one, else None, and aux an
+    MoE block's router losses (``moe_lb``, ``moe_z``; else empty).
+    ``paged`` routes
     decode attention through ``paged_attention`` (KV read straight from
     the pool's layered page buffers); ``ssm_state`` ``(state,
     conv_state)`` switches the SSM branch to its one-token recurrence;
     ``xkv`` (k, v) is the encoder's cross-attention K/V of a decoder
     block.  ``masks`` holds mask kinds or tensors (``layers.sdpa``)."""
     attn_out = new_kv = None
+    aux = {}
     if "attn" in bp:
         h = layers.apply_norm(bp["ln1"], x, cfg)
         if paged is not None:
@@ -184,19 +202,19 @@ def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
         x = x + xo
     if "moe" in bp:
         h = layers.apply_norm(bp["ln2"], x, cfg)
-        mo, _ = moe_mod.moe_apply(bp["moe"], h, cfg)
+        mo, aux = moe_mod.moe_apply(bp["moe"], h, cfg)
         if cfg.moe_dense_residual and "mlp" in bp:
             mo = mo + layers.mlp_apply(bp["mlp"], h, cfg)
         x = x + mo
     elif "mlp" in bp:
         h = layers.apply_norm(bp["ln2"], x, cfg)
         x = x + layers.mlp_apply(bp["mlp"], h, cfg)
-    return x, new_kv, new_ssm
+    return x, new_kv, new_ssm, aux
 
 
 def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
                  layer_offset: int, n: int, kv=None, cache_pos=None,
-                 ssm_states=None, xkv=None, paged=None):
+                 ssm_states=None, xkv=None, paged=None, remat: bool = False):
     """Loop over stacked block params (+ optional per-layer caches) for
     absolute layers ``layer_offset .. layer_offset + n - 1``.
 
@@ -206,9 +224,12 @@ def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
     the model and are read at the absolute layer index, as is ``paged``
     (kernel-path decode operands: pool page buffers + table + lengths),
     whose index selects each iteration's plane of the layered pool
-    through one shared table.  Returns (x, [(k, v) per layer, or None
-    for an attention-free model], [(ssm, conv) per layer, or None per
-    layer for a model without SSM])."""
+    through one shared table.  ``remat`` recomputes each block's
+    activations in the backward (``torch.utils.checkpoint`` per block,
+    the reference's ``jax.checkpoint`` of the scan body).  Returns (x,
+    [(k, v) per layer, or None for an attention-free model], [(ssm,
+    conv) per layer, or None per layer for a model without SSM], the
+    layers' summed router losses)."""
     glob = None
     if cfg.sliding_window:
         # per-layer global/window flag: global layers attend the whole
@@ -216,6 +237,8 @@ def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
         glob = [(li % cfg.global_every == 0) if cfg.global_every else False
                 for li in range(layer_offset, layer_offset + n)]
     ys, ss = [], []
+    aux_sum = {}
+    planes = _planes(stacked, n)
     for i in range(n):
         li = layer_offset + i
         paged_l = None
@@ -227,27 +250,34 @@ def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
         ssm_i = None if ssm_states is None else (ssm_states[0][li],
                                                  ssm_states[1][li])
         xkv_i = None if xkv is None else (xkv[0][li], xkv[1][li])
-        x, new_kv, new_ssm = _block_apply(
-            _layer(stacked, i), x, cfg, masks=masks, positions=positions,
-            kv=kv_i, cache_pos=cache_pos, ssm_state=ssm_i, xkv=xkv_i,
-            is_global=None if glob is None else glob[i], paged=paged_l)
+        kw = dict(masks=masks, positions=positions, kv=kv_i,
+                  cache_pos=cache_pos, ssm_state=ssm_i, xkv=xkv_i,
+                  is_global=None if glob is None else glob[i], paged=paged_l)
+        if remat:
+            x, new_kv, new_ssm, aux = torch.utils.checkpoint.checkpoint(
+                _block_apply, planes[i], x, cfg, use_reentrant=False, **kw)
+        else:
+            x, new_kv, new_ssm, aux = _block_apply(planes[i], x, cfg, **kw)
+        aux_sum = _add_aux(aux_sum, aux)
         ys.append(new_kv)
         ss.append(new_ssm)
-    return x, ys, ss
+    return x, ys, ss, aux_sum
 
 
 def _run_blocks(params, x, cfg: ModelConfig, **kw):
     """``_scan_blocks`` over every stacked block group in order (an MoE
     model's ``blocks_dense``, then ``blocks``) with the absolute layer
     index; returns (x, per-layer kv list, per-layer side-state list) over
-    all ``n_layers`` layers."""
+    all ``n_layers`` layers, and the summed router losses."""
     ys, ss = [], []
+    aux_sum = {}
     for name, off, n in _stacks(cfg):
-        x, y, s = _scan_blocks(params[name], x, cfg, layer_offset=off, n=n,
-                               **kw)
+        x, y, s, aux = _scan_blocks(params[name], x, cfg, layer_offset=off,
+                                    n=n, **kw)
         ys += y
         ss += s
-    return x, ys, ss
+        aux_sum = _add_aux(aux_sum, aux)
+    return x, ys, ss, aux_sum
 
 
 def _stack_pairs(pairs):
@@ -282,26 +312,27 @@ def _masks(cfg: ModelConfig, S: int, device, prefix: int = 0):
                                device=device), layers.CAUSAL)
 
 
-def _encoder_forward(params, cfg: ModelConfig, frontend_emb):
+def _encoder_forward(params, cfg: ModelConfig, frontend_emb,
+                     remat: bool = False):
     """The encoder stack over the frame embeddings (B, Senc, d), no mask."""
     x = frontend_emb.to(cfg.cdtype)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    x, _, _ = _scan_blocks(params["encoder"], x, cfg, masks=(None, None),
-                           positions=positions, layer_offset=0,
-                           n=cfg.enc_layers)
+    x, _, _, _ = _scan_blocks(params["encoder"], x, cfg, masks=(None, None),
+                              positions=positions, layer_offset=0,
+                              n=cfg.enc_layers, remat=remat)
     return layers.apply_norm(params["enc_norm"], x, cfg)
 
 
 def _cross_kvs(params, cfg: ModelConfig, enc_out):
     """Every decoder layer's cross-attention (k, v), each stacked (L, B,
     Senc, K, dh)."""
-    stacked = params["blocks"]["xattn"]
-    return _stack_pairs([layers.cross_kv(_layer(stacked, i), enc_out, cfg)
-                         for i in range(cfg.n_layers)])
+    return _stack_pairs([layers.cross_kv(p, enc_out, cfg) for p in
+                         _planes(params["blocks"]["xattn"], cfg.n_layers)])
 
 
-def _prompt(params, cfg: ModelConfig, tokens, frontend_emb):
+def _prompt(params, cfg: ModelConfig, tokens, frontend_emb,
+            remat: bool = False):
     """Token embeddings, positions and an encoder-decoder model's
     cross-attention K/V (None otherwise) of a (B, S) prompt."""
     B, S = tokens.shape
@@ -314,7 +345,7 @@ def _prompt(params, cfg: ModelConfig, tokens, frontend_emb):
                              f"{cfg.frontend_seq}, {cfg.d_model}) frame "
                              f"embeddings its encoder reads")
         xkv = _cross_kvs(params, cfg,
-                         _encoder_forward(params, cfg, frontend_emb))
+                         _encoder_forward(params, cfg, frontend_emb, remat))
     return x, positions, xkv
 
 
@@ -332,24 +363,54 @@ def _prepend_image(cfg: ModelConfig, x, frontend_emb):
     return x, torch.arange(n, device=x.device)[None, :].expand(B, n)
 
 
-def forward(params, cfg: ModelConfig, tokens, frontend_emb=None):
-    """Teacher-forced logits (B, S, V).  tokens: (B, S) int; an
+def forward_aux(params, cfg: ModelConfig, tokens, frontend_emb=None,
+                remat: bool = False):
+    """Teacher-forced logits (B, S, V) and the MoE router losses summed
+    over the decoder's layers (``moe_lb``, ``moe_z``; 0 without MoE), as
+    the reference's ``forward`` returns them.  tokens: (B, S) int; an
     encoder-decoder model's encoder reads ``frontend_emb`` (B, Senc, d);
     a VLM prepends it (B, P, d) as a bidirectional image prefix and
     returns the logits of the token positions (P = 0 is the text-only
-    model)."""
+    model).  ``remat`` recomputes each block in the backward."""
     _check_family(cfg)
-    x, positions, xkv = _prompt(params, cfg, tokens, frontend_emb)
+    x, positions, xkv = _prompt(params, cfg, tokens, frontend_emb, remat)
     prefix = 0
     if cfg.family == "vlm":
         x, positions = _prepend_image(cfg, x, frontend_emb)
         prefix = frontend_emb.shape[1]
-    x, _, _ = _run_blocks(params, x, cfg,
-                          masks=_masks(cfg, x.shape[1], tokens.device,
-                                       prefix),
-                          positions=positions, xkv=xkv)
+    x, _, _, aux = _run_blocks(params, x, cfg,
+                               masks=_masks(cfg, x.shape[1], tokens.device,
+                                            prefix),
+                               positions=positions, xkv=xkv, remat=remat)
     x = layers.apply_norm(params["final_norm"], x[:, prefix:], cfg)
-    return layers.lm_head(params["embed"], x, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return layers.lm_head(params["embed"], x, cfg), \
+        {k: aux.get(k, zero) for k in ("moe_lb", "moe_z")}
+
+
+def forward(params, cfg: ModelConfig, tokens, frontend_emb=None):
+    """Teacher-forced logits (B, S, V) alone (``forward_aux`` without the
+    router losses)."""
+    return forward_aux(params, cfg, tokens, frontend_emb)[0]
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
+            remat: bool = False, aux_weight: float = 0.01):
+    """Causal LM cross-entropy with the MoE router losses (reference
+    ``lm.py:607``): the mean negative log-likelihood of ``labels`` over
+    the positions whose label is >= 0, plus ``aux_weight * (moe_lb +
+    1e-3 moe_z)``.  Returns (loss, {"lm_loss": loss, "moe_lb",
+    "moe_z"}), as the reference's."""
+    logits, aux = forward_aux(params, cfg, tokens, frontend_emb,
+                              remat=remat)
+    logits = logits.float()
+    mask = labels >= 0
+    safe = torch.clamp_min(labels, 0).long()
+    ll = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(ll, -1, safe[..., None])[..., 0]
+    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+    loss = loss + aux_weight * (aux["moe_lb"] + 1e-3 * aux["moe_z"])
+    return loss, {"lm_loss": loss, **aux}
 
 
 @dataclasses.dataclass
@@ -425,7 +486,7 @@ def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
         kv = (cache.k, cache.v)
     ssm_states = (cache.ssm, cache.conv) if cfg.has_ssm else None
     xkv = (cache.xk, cache.xv) if cfg.family == "encdec" else None
-    x, _, ss = _run_blocks(params, x, cfg, masks=masks,
+    x, _, ss, _ = _run_blocks(params, x, cfg, masks=masks,
                            positions=positions, kv=kv,
                            cache_pos=posv if ragged else pos,
                            ssm_states=ssm_states, xkv=xkv)
@@ -465,7 +526,7 @@ def paged_decode_step(params, cfg: ModelConfig, tokens, k_pages, v_pages,
     x = layers.embed_tokens(params["embed"], tokens, cfg)
     paged = dict(k_pages=k_pages, v_pages=v_pages, page_tables=page_tables,
                  lengths=lengths)
-    x, ys, ss = _run_blocks(params, x, cfg, masks=None,
+    x, ys, ss, _ = _run_blocks(params, x, cfg, masks=None,
                             positions=positions, ssm_states=ssm_states,
                             paged=paged)
     x = layers.apply_norm(params["final_norm"], x, cfg)
@@ -501,8 +562,8 @@ def prefill_parts(params, cfg: ModelConfig, tokens, frontend_emb=None):
             f"takes no frontend_emb (the reference drops it unread; see "
             f"ROADMAP.md §3); lm.forward takes the image prefix")
     x, positions, xkv = _prompt(params, cfg, tokens, frontend_emb)
-    x, ys, ss = _run_blocks(params, x, cfg,
-                            masks=_masks(cfg, S, tokens.device),
+    x, ys, ss, _ = _run_blocks(params, x, cfg,
+                               masks=_masks(cfg, S, tokens.device),
                             positions=positions, xkv=xkv)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x[:, -1:], cfg)

@@ -31,7 +31,12 @@ benchmark rows with ``results/bench_baseline.json`` passes the port's CPU
 rows and catches a changed or missing row; its two kernel rows
 (``mars_engine``, ``dram_channel``) carry every key of the kernels line
 and name the reference's ``jax.lax.scan`` lines; its host twins agree
-with the oracle and with ``dram.simulate``."""
+with the oracle and with ``dram.simulate``.
+
+The ``train`` phase's host-side helpers: the launch counts a training
+step must show, B5's bound, the CUDA refusals (which need no card) and
+the kernel rows' ``replaces`` lines; on the card, B5 against its twin
+within ``B5_TOL`` and B2 bitwise against its twin on host copies."""
 import json
 import sys
 from pathlib import Path
@@ -396,3 +401,164 @@ def test_sim_twins_agree_with_the_port_on_the_host():
     assert tuple(r[0] for r in rows) == res.per_channel_cycles
     assert sum(r[1] for r in rows) == res.n_act
     assert chip_smoke.sim_bytes_channels(ops) == 5 * len(addr) + 8 * 3 + 24
+
+
+def test_train_launches_wanted_per_step():
+    """The train phase's launch counts a step, remat off: K5 once per
+    attention (qwen's 24 causal layers; whisper's 6 encoder, 6 decoder
+    and 6 cross-attention layers), B5 ``BWD_LAUNCHES`` (3) times as
+    often, K2 and B2 once (both tables exceed 2**22 elements)."""
+    from repro_torch import configs
+    counters = chip_smoke.kernel_counters()
+    for arch, attn in (("qwen1_5_0_5b", 24), ("whisper_base", 18)):
+        want = chip_smoke.train_launches_wanted(configs.get(arch), 5,
+                                                counters)
+        assert set(want) == set(counters)
+        assert want["flash_attention"] == 5 * attn
+        assert want["flash_attention_bwd"] == 5 * attn * 3
+        assert want["gather_rows"] == want["embedding_grad_scatter"] == 5
+        assert sum(want.values()) == 5 * (4 * attn + 2)
+    assert set(chip_smoke.TRAIN_KERNELS) <= set(counters)
+
+
+def test_b5_bound_counts_the_kept_pairs():
+    """qwen's training attention: 8 x 16 heads of 512 causal positions
+    keep 512 * 513 / 2 pairs a head, 10 * 64 operations each (10.8
+    GFLOP); in bf16 its 67 MB of operands bind (20 us against 11 us of
+    the tensor cores), in float32 the CUDA cores' 67 TFLOP/s do."""
+    q = torch.zeros(8, 512, 16, 64, dtype=torch.bfloat16)
+    b = chip_smoke.b5_bound(q, q, True, "bfloat16")
+    assert b["pairs"] == 8 * 16 * 512 * 513 // 2
+    assert b["ops"] == 10 * 64 * b["pairs"]
+    assert b["bytes"] == 8 * q.numel() * 2
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e12 * 1e3)
+    f = chip_smoke.b5_bound(q.float(), q.float(), True, "float32")
+    assert f["bound_by"] == "operations"
+    assert f["bound_ms"] == pytest.approx(f["ops"] / 67e12 * 1e3)
+    nc = chip_smoke.b5_bound(q[:, :100], q, False, "float32")
+    assert nc["pairs"] == 8 * 16 * 100 * 512
+
+
+def test_train_refusals_need_no_card():
+    """``launch.train`` refuses the configs whose forward launches K3 or
+    K4 on CUDA before it builds anything, with or without a card."""
+    assert chip_smoke.train_refusals() == list(chip_smoke.TRAIN_REFUSED)
+
+
+def test_train_kernel_rows_list_the_backward_kernels():
+    """Two rows, flash_attention_bwd (B5) and embedding_grad_scatter
+    (B2), with every key of the kernels line, their sources in the port,
+    launches on the training main path, and ``replaces`` naming the
+    reference functions they take the place of: ``layers.sdpa`` (which
+    the JAX trainer differentiates) and ``embedding_grad_scatter``."""
+    t = dict(ms=1.0, plain_ms=2.0, bound_ms=0.1, bound_by="bytes",
+             library_ms=0.5)
+    record = {"b5_timing": {"qwen/bfloat16": t},
+              "b2_timing": {"qwen/zipf/bfloat16": dict(t, library_ms=0.2)},
+              "b2_cases": [dict(host_err=0.0), dict(host_err=0.0)]}
+    counts = {k: 0 for k in chip_smoke.kernel_counters()}
+    launches = {chip_smoke.TRAIN_PATH: dict(
+        counts, flash_attention_bwd=2160, embedding_grad_scatter=30),
+        "qwen1_5_0_5b": counts}
+    rows = chip_smoke.train_kernel_rows(launches, record, 3e-3)
+    assert [r["name"] for r in rows] == ["flash_attention_bwd",
+                                         "embedding_grad_scatter"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    heads = ["def sdpa(", "def embedding_grad_scatter("]
+    for r, head in zip(rows, heads):
+        assert keys <= set(r) and r["route"] == "cuda"
+        assert (ROOT / r["source"]).is_file()
+        path, line = r["replaces"].split(":")
+        assert (ROOT / path).read_text().splitlines()[int(line) - 1] \
+            .startswith(head)
+    assert [r["launches"] for r in rows] == [2160, 30]
+    assert [r["max_abs_err"] for r in rows] == [3e-3, 0.0]
+    assert [r["library_ms"] for r in rows] == [0.5, 0.2]
+    assert rows[0]["launches_by_path"] == {chip_smoke.TRAIN_PATH: 2160,
+                                           "qwen1_5_0_5b": 0}
+
+
+@pytest.mark.parametrize("short", [0, 2, 9])
+def test_counted_ms_reads_only_whole_profiles(short, monkeypatch):
+    """``counted_ms`` takes a profile only when it holds every launch
+    (per_call x reps of the kernel): a short one is profiled again, and
+    after four short ones the time comes from CUDA events, never from a
+    short profile."""
+    seen = []
+
+    def profile(fn, reps, case, need=(), tries=4):
+        seen.append(1)
+        whole = len(seen) > short
+        return [dict(name="flash_bwd_dq", ms=2.0,
+                     calls=3 * reps - (0 if whole else 1)),
+                dict(name="memset", ms=0.5, calls=reps)]
+    monkeypatch.setattr(chip_smoke, "device_profile", profile)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, reps: 7.0)
+    got = chip_smoke.counted_ms(lambda: None, 10, "case", "flash_bwd_", 3)
+    if short < 4:
+        assert got == 2.5 and len(seen) == short + 1
+    else:
+        assert got == 7.0 and len(seen) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", [
+    (2, 130, 130, 3, 64, True), (2, 70, 200, 2, 64, False),
+    (1, 100, 100, 2, 128, True)])
+def test_b5_matches_its_twin_on_the_card(B, Sq, Sk, H, D, causal, dtype):
+    """B5 on the card against its plain twin on the same inputs (o from
+    K5), held to the train phase's ``B5_TOL`` by its ``bwd_err``; each
+    call launches ``BWD_LAUNCHES`` kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: B5 runs only there")
+    from repro_torch.kernels.flash_attention import flash_attention as k5
+    gen = torch.Generator("cuda").manual_seed(2)
+    dt = getattr(torch, dtype)
+    q, k, v = chip_smoke.k5_inputs(torch, gen, B, Sq, Sk, H, D, dt)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+    o = k5.flash_attention(q, k, v, causal=causal)
+    before = k5.flash_attention_bwd.launches
+    got = k5.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert k5.flash_attention_bwd.launches == before + k5.BWD_LAUNCHES
+    want = k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        assert chip_smoke.bwd_err(g, w, chip_smoke.B5_TOL[dtype])[1] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b2_equals_its_twin_on_host_copies(dtype):
+    """B2 on the card, on TokenStream's zipf ids (long runs, unused
+    rows), equals its twin on host copies bit for bit and launches once
+    a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: B2 runs only there")
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels.mars_gather import mars_gather as mg
+    from repro_torch.kernels.mars_gather import ops
+    V, D = 5000, 520
+    ids = torch.from_numpy(next(TokenStream(DataConfig(
+        vocab=V, seq_len=300, global_batch=4)))["tokens"])
+    g = torch.randn(4, 300, D, generator=torch.Generator().manual_seed(3)) \
+        .to(getattr(torch, dtype))
+    before = mg.scatter_add_rows.launches
+    got = ops.embedding_grad_scatter(ids.cuda(), g.cuda(), V)
+    torch.cuda.synchronize()
+    assert mg.scatter_add_rows.launches == before + 1
+    want = ops.embedding_grad_scatter(ids, g, V)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_a_gradient_on_the_card():
+    """K3's and K4's wrappers on the card raise, without launching, for
+    an input that needs a gradient, and launch under ``no_grad``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K3 and K4 run only there")
+    assert chip_smoke.kernel_grad_refusals(torch) == ["ssd_scan",
+                                                       "grouped_matmul"]

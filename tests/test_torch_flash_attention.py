@@ -275,3 +275,110 @@ def test_split_plan_gives_wgmma_only_its_head_dims(D):
             if D == 256:
                 assert plan.path == ("f32" if dtype == torch.float32
                                      else "few")
+
+
+# ---- the backward (B5) ----------------------------------------------------
+# B5's plain twin against jax.grad of the reference's oracle and against
+# torch autograd of the forward twin, float32: the same f32 arithmetic in
+# another order (the twin's explicit formulas against autograd's chain),
+# so 2e-5, the forward's float32 tolerance.  The cases: causal, and no
+# mask with fewer and more queries than keys, at head dims 16 and 64.
+BWD_CASES = [(2, 40, 40, 3, 16, True), (2, 130, 130, 2, 64, True),
+             (2, 24, 70, 3, 64, False), (1, 70, 24, 2, 16, False)]
+
+
+def _bwd_inputs(B, Sq, Sk, H, D, seed=3):
+    q, k, v = _qkv(seed, B, Sq, Sk, H, D)
+    do = np.random.default_rng(seed + 1).standard_normal(
+        (B, Sq, H, D)).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", BWD_CASES)
+def test_bwd_twin_matches_jax_grad_of_oracle(B, Sq, Sk, H, D, causal):
+    q, k, v, do = _bwd_inputs(B, Sq, Sk, H, D)
+
+    def f(q, k, v):
+        return jnp.sum(jref.attention_ref(q, k, v, causal=causal) * do)
+    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o = tfa.flash_attention_plain(tq, tk, tv, causal=causal)
+    got = tfa.flash_attention_bwd(tq, tk, tv, o, tdo, causal=causal)
+    for g, w in zip(got, want):
+        _close(g, w, TOL["float32"])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", BWD_CASES)
+def test_bwd_twin_matches_autograd_of_forward_twin(B, Sq, Sk, H, D, causal):
+    arrays = _bwd_inputs(B, Sq, Sk, H, D, seed=5)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in arrays[:3])
+    do = torch.from_numpy(arrays[3])
+    o = tfa.flash_attention_plain(tq, tk, tv, causal=causal)
+    want = torch.autograd.grad(o, (tq, tk, tv), do)
+    got = tfa.flash_attention_bwd_plain(tq.detach(), tk.detach(), tv.detach(),
+                                        o.detach(), do, causal=causal)
+    for g, w in zip(got, want):
+        _close(g, w.numpy(), TOL["float32"])
+
+
+@pytest.mark.parametrize("kind", ["none", "causal"])
+def test_flash_attention_is_differentiable_through_the_bwd_twin(kind):
+    """With a gradient to take, ``flash_attention`` runs its autograd
+    Function: the values are the forward twin's, and q, k and v get the
+    backward twin's gradients (float32, exact: the same functions)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(2, 33, 33, 2,
+                                                            64))
+    causal = kind == "causal"
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = tfa.flash_attention(*leaves, causal=causal)
+    o.backward(do)
+    want_o = tfa.flash_attention_plain(q, k, v, causal=causal)
+    assert torch.equal(o.detach(), want_o)
+    want = tfa.flash_attention_bwd_plain(q, k, v, want_o, do, causal=causal)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+
+
+def test_sdpa_trains_through_flash_attention():
+    """``layers.sdpa`` with the causal kind carries gradients to q, k, v
+    as its plain masked form does (float32, 2e-5)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(1, 20, 20, 2,
+                                                            16))
+    mask = layers.causal_mask(20, 20)
+    grads = []
+    for m in (layers.CAUSAL, mask):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        layers.sdpa(*leaves, m).backward(do)
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        _close(g, w.numpy(), TOL["float32"])
+
+
+def test_bwd_kernel_wrapper_never_falls_back():
+    """B5's wrapper raises on what the kernel does not take (dtype, head
+    dim, layout, mismatched o) before any build; operands it takes go to
+    the build (which needs nvcc), never to the twin; and a forward that
+    needs a gradient on CUDA at another head dim raises before K5."""
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa._bwd_launch(*(q.half(),) * 5, False)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa._bwd_launch(q, q, q, q, q.bfloat16(), False)
+    q16 = q[..., :16].contiguous()
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._bwd_launch(q16, q16, q16, q16, q16, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa._bwd_launch(q, q, q, q, q.transpose(1, 2).contiguous()
+                        .transpose(1, 2), False)
+    with pytest.raises(ValueError, match="shaped as q"):
+        tfa._bwd_launch(q, q, q, q[:, :2].contiguous(), q, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._check_bwd(q16)
+    launches = tfa.flash_attention_bwd.launches
+    try:
+        build._nvcc()
+    except RuntimeError:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tfa._bwd_launch(q, q, q, q, q, False)
+    assert tfa.flash_attention_bwd.launches == launches
+

@@ -39,7 +39,10 @@ SLICE_MODULES = [
     "repro_torch.core.mars",
     "repro_torch.core.reorder",
     "repro_torch.core.streams",
+    "repro_torch.data.pipeline",
     "repro_torch.device",
+    "repro_torch.ft.checkpoint",
+    "repro_torch.ft.manager",
     "repro_torch.kernels.build",
     "repro_torch.kernels.dram_channel.dram_channel",
     "repro_torch.kernels.dram_channel.ref",
@@ -68,6 +71,7 @@ SLICE_MODULES = [
     "repro_torch.kvcache.tiers",
     "repro_torch.launch.mesh",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
     "repro_torch.models.config",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
@@ -78,11 +82,14 @@ SLICE_MODULES = [
     "repro_torch.obs.observer",
     "repro_torch.obs.rowsim",
     "repro_torch.obs.trace",
+    "repro_torch.optim.adamw",
     "repro_torch.serve.engine",
     "repro_torch.serve.step",
     "repro_torch.serving.scheduler",
     "repro_torch.sharding.context",
     "repro_torch.sharding.rules",
+    "repro_torch.train.step",
+    "repro_torch.utils.tree",
 ]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
@@ -159,6 +166,32 @@ def test_simulator_modules_leave_jax_and_repro_out(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.train", "repro_torch.train.step",
+    "repro_torch.optim.adamw", "repro_torch.ft.checkpoint",
+    "repro_torch.ft.manager", "repro_torch.data.pipeline"])
+def test_training_modules_leave_jax_and_repro_out(module):
+    """Each module of the training slice, imported alone in a fresh
+    interpreter, loads neither JAX nor the JAX package."""
+    code = (f"import importlib, sys\nimportlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'repro'))\n"
+            "assert not bad, bad\nprint('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "qwen1_5_0_5b", "--steps", "1",
+                    "--workdir", str(tmp_path)])
 
 
 def test_races_cli_runs_as_a_module(tmp_path):

@@ -162,3 +162,120 @@ def test_grid_plan_spreads_few_long_rows():
     chunk, n_chunks, blocks = tmg.grid_plan(24, 14336 // 16, 132)
     assert blocks >= 132 and chunk == 32
     assert tmg.grid_plan(8192, 14336 // 16, 132)[0] == 128
+
+
+# ---- the backward (B2): the MARS-sorted segment sum ------------------------
+def _grad_case(kind, T=300, V=500, D=24, seed=7):
+    """Ids with duplicates and unused rows: zipf-skewed as TokenStream
+    draws them, uniform over few rows, or one row only."""
+    rng = np.random.default_rng(seed)
+    if kind == "zipf":
+        ids = rng.zipf(1.3, T) % V
+    elif kind == "few_rows":
+        ids = rng.integers(0, 7, T) * 61
+    else:
+        ids = np.full(T, V - 1)
+    g = rng.standard_normal((T, D)).astype(np.float32)
+    return ids.astype(np.int32), g, V
+
+
+@pytest.mark.parametrize("kind", ["zipf", "few_rows", "one_row"])
+@pytest.mark.parametrize("shape", [(300,), (6, 50)])
+def test_grad_scatter_twin_matches_reference(kind, shape):
+    """The port's ``embedding_grad_scatter`` (B2's twin on CPU tensors)
+    against the reference's in float32; both sum each row's rows in
+    sorted order, the reference's ``.at[].add`` perhaps in another, so
+    1e-5 (sums of up to 300 unit normals)."""
+    ids, g, V = _grad_case(kind)
+    ids, g = ids.reshape(shape), g.reshape(*shape, g.shape[-1])
+    want = jops.embedding_grad_scatter(jnp.asarray(ids), jnp.asarray(g), V)
+    got = tops.embedding_grad_scatter(torch.from_numpy(ids),
+                                      torch.from_numpy(g), V)
+    assert got.shape == (V, g.shape[-1]) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    unused = np.setdiff1d(np.arange(V), ids)
+    assert unused.size and not got.numpy()[unused].any()
+
+
+def test_grad_scatter_sums_each_row_in_sorted_order():
+    """Each row of the twin is the f32 sum of its gradient rows in token
+    order (the sorted order of a stable sort), bit for bit: the order B2
+    sums in on the card."""
+    ids, g, V = _grad_case("zipf")
+    got = tops.embedding_grad_scatter(torch.from_numpy(ids),
+                                      torch.from_numpy(g), V).numpy()
+    for r in np.unique(ids):
+        want = np.zeros(g.shape[1], np.float32)
+        for j in np.flatnonzero(ids == r):
+            want = (want + g[j]).astype(np.float32)
+        assert np.array_equal(got[r], want), r
+
+
+def test_grad_scatter_rounds_once_in_bf16():
+    """A deliberate departure (ROADMAP.md §3): bf16 gradients are summed
+    in f32 and rounded once, where the reference's ``.at[].add`` adds in
+    bf16.  512 contributions of 2**-9 to one row sum to exactly 1.0 here;
+    in bf16 the running sum stalls once the addend falls below half a
+    spacing (at 0.5 the spacing is 2**-8), so the reference's row stays
+    short of 1."""
+    ids = np.zeros(512, np.int32)
+    g = np.full((512, 4), 2.0 ** -9, np.float32)
+    got = tops.embedding_grad_scatter(torch.from_numpy(ids),
+                                      torch.from_numpy(g).bfloat16(), 3)
+    assert got.dtype == torch.bfloat16
+    assert got[0].float().eq(1.0).all() and not got[1:].any()
+    want = jops.embedding_grad_scatter(jnp.asarray(ids),
+                                       jnp.asarray(g, jnp.bfloat16), 3)
+    assert float(np.asarray(want, np.float32)[0, 0]) < 1.0
+
+
+@pytest.mark.parametrize("ids_kind", ["zipf", "uniform"])
+def test_sorted_gather_table_gradient_matches_jax(ids_kind):
+    """The sorted path (a table above 2**22 elements) as an autograd
+    Function: its table gradient (B2's twin over the ids in token order)
+    against ``jax.grad`` of the reference's ``embedding_gather``, float32,
+    1e-5; and its values bitwise the plain take's."""
+    V, D = 4200, 1000                       # 4.2 M > 2**22 elements
+    rng = np.random.default_rng(11)
+    table = rng.standard_normal((V, D)).astype(np.float32)
+    ids = (rng.zipf(1.3, (4, 64)) % V if ids_kind == "zipf"
+           else rng.integers(0, V, (4, 64))).astype(np.int32)
+    w = rng.standard_normal((4, 64, D)).astype(np.float32)
+
+    def f(t):
+        return jnp.sum(jops.embedding_gather(t, jnp.asarray(ids)) * w)
+    want = jax.grad(f)(jnp.asarray(table))
+    tt = torch.from_numpy(table).requires_grad_()
+    out = tops.embedding_gather(tt, torch.from_numpy(ids))
+    node = out.grad_fn.next_functions[0][0]       # under the reshape
+    assert "SortedGather" in type(node).__name__
+    assert torch.equal(out.detach(), torch.from_numpy(table)[ids])
+    out.backward(torch.from_numpy(w))
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_scatter_wrapper_never_falls_back():
+    """B2's wrapper raises on what the kernel does not take before any
+    build; operands it takes go to the build (which needs nvcc), never to
+    the twin."""
+    g = torch.zeros(4, 8)
+    sids = torch.tensor([0, 1, 1, 3])
+    perm = torch.arange(4)
+    with pytest.raises(TypeError, match="int64"):
+        tmg._scatter_launch(sids.int(), perm, g, 5)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tmg._scatter_launch(sids, perm, g.half(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmg._scatter_launch(sids, perm, torch.zeros(8, 4).t(), 5)
+    with pytest.raises(ValueError, match="g \\(N, d\\)"):
+        tmg._scatter_launch(sids, perm, g[:3], 5)
+    launches = tmg.scatter_add_rows.launches
+    try:
+        build._nvcc()
+    except RuntimeError:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tmg._scatter_launch(sids, perm, g, 5)
+    assert tmg.scatter_add_rows.launches == launches
+
