@@ -65,12 +65,19 @@ Phases (any failure exits non-zero and prints no result):
           many bf16 queries; 16-row tiles with the keys split over
           blocks and merged in the launch for few; float32).  bfloat16
           is held element by element to a bound derived from the inputs
-          (``K5_TOL``) and both dtypes to a gain within 2**-8 of 1.
+          (``K5_TOL``) and both dtypes to a gain within 2**-8 of 1; a call
+          that also writes the rows' log-sum-exp (the training forward)
+          must give the same o bit for bit and an lse within
+          ``K5_LSE_TOL`` of the twin's.
           Every kernel is held in float32 and bfloat16 within the stated
           tolerances and timed beside its bound, its plain twin and,
           where one exists, one PyTorch library call.  A device time the
           profiler did not record is retried, then fails the run naming
-          the case; it is never read as 0 ms.
+          the case; it is never read as 0 ms.  K1's, K3's and K5's (and
+          B5's and B2's) times come only from a profile that holds every
+          launch of the call (``counted_rows``, by the wrapper's counts);
+          one short after four tries is timed with CUDA events, and says
+          so.
   sim     the paper simulator's two device scans: S1, the MARS cycle
           engine (``csrc/mars_engine.cu``), against its plain twin
           (perm bitwise, stall events, total cycles) on WL1-WL5 at 256
@@ -178,17 +185,23 @@ Phases (any failure exits non-zero and prints no result):
           backward kernels.  First, beside the other kernel phases
           (before the serve runs, whose long profiles have been followed
           by profiles short of device events): B5 ``flash_attention_bwd``
-          against its plain twin (the explicit formulas) in float32 and
-          bfloat16, o from K5, at qwen1.5-0.5b's training attention (8 x
-          512, 16 heads of 64, causal), a 4096-token causal case,
+          against its plain twin (the explicit formulas, rounding p and
+          ds to bf16 where B5 does) in float32 and bfloat16, o and the
+          rows' log-sum-exp from K5, at qwen1.5-0.5b's training attention
+          (8 x 512, 16 heads of 64, causal), a 4096-token causal case,
           whisper-base's encoder (8 x 1500, 8 x 64, no mask),
           cross-attention (512 over 1500) and decoder, and head dim 128
-          (``B5_TOL``); B2 ``embedding_grad_scatter`` on qwen's and
-          whisper's tables with TokenStream's zipf ids and uniform ids (8
-          x 512), bitwise against its twin on host copies and within
-          ``B2_TOL`` of it on the card; each timed (from a profile that
-          holds every launch) beside its bound, its twin and the library
-          call (SDPA's backward, ``F.embedding``'s backward).  After the
+          (``B5_TOL``, in bf16 plus the rounding flips of p and ds,
+          ``b5_bounds``), and in bf16 B5's and SDPA backward's distance
+          from the unrounded float32 twin; B2 ``embedding_grad_scatter``
+          on qwen's and whisper's tables with TokenStream's zipf ids and
+          uniform ids (8 x 512), and its worst cases (``B2_WORST``: one id
+          for all 4096 tokens, widths 1000 and 999), bitwise against its
+          twin on host copies and within ``B2_TOL`` of it on the card;
+          each timed (from a profile that holds every launch) beside its
+          bound, its twin and the library call (SDPA's backward,
+          ``F.embedding``'s backward), and K5 at each B5 shape with and
+          without the lse output.  After the
           dense runs: one float32 step of qwen1.5-0.5b at full width
           (batch 2 x 128), the loss and every gradient leaf on the card
           against the same step on host copies, and remat on against
@@ -264,6 +277,13 @@ SSD_TOL = (1e-3, 1e-3)
 # holds, unwidened.
 K5_TOL = {"float32": (1e-4, 1e-4)}
 K5_GAIN_TOL = 2.0 ** -8
+# A call that also writes the rows' log-sum-exp (the training forward)
+# must give the same o bit for bit, and its lse must be the twin's
+# (``flash_attention_plain(..., return_lse=True)``: logsumexp of the same
+# f32 scores) within 2e-4: the kernel sums up to 8192 exponentials in
+# another order (relative 1e-4 at most in l, so in log l) and takes its
+# maximum in log2 units (m ln 2 loses 2**-24 of |m|).
+K5_LSE_TOL = 2e-4
 # K5 cases: (name, B, Sq, Sk, H, D, causal).  whisper-base serves 8
 # prompts of 24 tokens over 1500 stub frames: its encoder, its
 # cross-attention at prefill and at decode (one query), its decoder's
@@ -484,6 +504,49 @@ def device_ms(fn, reps: int, case: str = "", tries: int = 4) -> float:
     warm-up call.  Host launch overhead is not in it.  Read through
     ``device_profile``, so never 0 ms."""
     return sum(r["ms"] for r in device_profile(fn, reps, case, tries=tries))
+
+
+def launches_of(fn, *counts) -> int:
+    """Kernel launches of one call of ``fn`` by the wrappers' own counts:
+    ``counts`` are (wrapper, attribute) pairs, as ``kernel_counters``
+    gives them; ``fn`` is called once."""
+    before = sum(getattr(w, a) for w, a in counts)
+    fn()
+    return sum(getattr(w, a) for w, a in counts) - before
+
+
+def counted_rows(fn, reps: int, case: str, key: str, per_call: int,
+                 tries: int = 4, tag: str = "[kernel]"):
+    """``device_profile`` rows of ``fn`` from a profile that holds all of
+    its kernel launches: ``per_call`` launches a call of kernels whose
+    name holds ``key``.  A profile short of them (the profiler has been
+    seen to drop device events, late in a long process most of all) is
+    retried; after ``tries`` short ones, None: a short profile is never
+    read."""
+    for _ in range(tries):
+        rows = device_profile(fn, reps, case, need=(key,))
+        calls = sum(r["calls"] for r in rows if key in r["name"])
+        if calls == per_call * reps:
+            return rows
+        print(f"{tag} {case}: the profile holds {calls} launches of {key}, "
+              f"not {per_call * reps} (" + ", ".join(
+                  f"{r['name'][:60]} x{r['calls']}" for r in rows)
+              + "); profiled again")
+    return None
+
+
+def counted_ms(fn, reps: int, case: str, key: str, per_call: int,
+               tries: int = 4, tag: str = "[kernel]") -> float:
+    """``device_ms`` of ``fn`` read from ``counted_rows``; when every
+    profile came back short, the time is read with CUDA events over
+    ``reps`` calls instead (``time_ms``: the host's launch is in it, so it
+    can only read slower), and said so."""
+    rows = counted_rows(fn, reps, case, key, per_call, tries, tag)
+    if rows is not None:
+        return sum(r["ms"] for r in rows)
+    print(f"{tag} {case}: {tries} profiles short of {key}'s launches; "
+          f"timed with CUDA events instead")
+    return time_ms(fn, reps)
 
 
 def warm_profiler(torch) -> None:
@@ -761,6 +824,9 @@ def kv_fp8_check(torch, arch: str = "qwen1_5_0_5b") -> dict:
                 gap=gap, max_logit_change=dev, launches=launches)
 
 
+MARKER = "spin_kernel"          # torch.cuda._sleep's kernel
+
+
 def profile_rows(fn, reps: int) -> list:
     """``device_rows`` of ``reps`` calls of ``fn`` after one warm-up call,
     each row's ms per call."""
@@ -770,10 +836,20 @@ def profile_rows(fn, reps: int) -> list:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a marker kernel first: the profiler has dropped the first kernel
+        # of a window (B5's pre-pass, 29 of 30 launches, in every case
+        # profile of a timing run on the H100); its row is left out
+        torch.cuda._sleep(1)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [dict(r, ms=r["ms"] / reps) for r in device_rows(prof)]
+    return [dict(r, ms=r["ms"] / reps) for r in device_rows(prof)
+            if MARKER not in r["name"]]
+
+
+def ms_txt(ms) -> str:
+    """A time as printed: 4 decimals, or "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def rows_ms(rows, key: str) -> float:
@@ -844,14 +920,27 @@ def time_case(torch, F, ops, case: str, dtype: str, flush):
 
     def lib():
         F.scaled_dot_product_attention(q4, kg, vg, attn_mask=mask)
-    need = ("paged_attention_split", "paged_attention_merge")
-    rows = device_profile(kern, 50, f"paged_attention {case}", need)
-    drows = device_profile(decode, 50, f"decode_attend {case}", need)
-    return dict(ms=sum(r["ms"] for r in rows),
-                split_ms=rows_ms(rows, "paged_attention_split"),
-                merge_ms=rows_ms(rows, "paged_attention_merge"),
-                decode_ms=sum(r["ms"] for r in drows),
-                decode_merge_ms=rows_ms(drows, "paged_attention_merge"),
+    # each profile must hold every split and merge launch (by the
+    # wrapper's counts of one call); one still short after its retries
+    # is timed with CUDA events, its split and merge not measured
+    counts = ((pa_mod.paged_attention, "launches"),
+              (pa_mod.paged_attention, "merge_launches"))
+    timed = {}
+    for tag, fn in (("", kern), ("decode_", decode)):
+        name = f"{'decode_attend' if tag else 'paged_attention'} {case}"
+        rows = counted_rows(fn, 50, name, "paged_attention_",
+                            launches_of(fn, *counts))
+        if rows is None:
+            print(f"[kernel] {name}: profiles short of its launches; timed "
+                  f"with CUDA events, split and merge not measured")
+            timed[tag] = (time_ms(fn, 50), None, None)
+        else:
+            timed[tag] = (sum(r["ms"] for r in rows),
+                          rows_ms(rows, "paged_attention_split"),
+                          rows_ms(rows, "paged_attention_merge"))
+    return dict(ms=timed[""][0], split_ms=timed[""][1],
+                merge_ms=timed[""][2], decode_ms=timed["decode_"][0],
+                decode_merge_ms=timed["decode_"][2],
                 merge_plain_ms=device_ms(merge_plain, 10,
                                          f"merge twin {case}"),
                 merge_bound_ms=merge_bytes / HBM_BYTES_PER_S * 1e3,
@@ -964,7 +1053,9 @@ def time_ssd(torch, ssd_mod, ins, chunk: int, dtype: str) -> dict:
 
     def plain():
         ssd_mod.ssd_scan_plain(*ins, chunk=chunk)
-    return dict(ms=device_ms(kern, 20, "ssd_scan"),
+    per_call = launches_of(kern, (ssd_mod.ssd_scan, "launches"),
+                           (ssd_mod.ssd_scan, "pass_launches"))
+    return dict(ms=counted_ms(kern, 20, "ssd_scan", "ssd_scan_", per_call),
                 plain_ms=device_ms(plain, 5, "ssd_scan twin"),
                 library_ms=None, event_ms=time_ms(kern, 20),
                 plain_event_ms=time_ms(plain, 5),
@@ -991,7 +1082,14 @@ def k5_phase(torch, F, gen):
             q, k, v = k5_inputs(torch, gen, B, Sq, Sk, H, D,
                                 getattr(torch, dtype))
             got = k5.flash_attention(q, k, v, causal=causal)
+            o_lse, lse = k5.flash_attention_with_lse(q, k, v, causal=causal)
             torch.cuda.synchronize()
+            bits = getattr(torch, _BITS[dtype])
+            same_o = bool(torch.equal(o_lse.view(bits), got.view(bits)))
+            want_lse = k5.flash_attention_plain(q, k, v, causal=causal,
+                                                return_lse=True)[1]
+            lse_err = float((lse - want_lse).abs().max())
+            del o_lse, lse, want_lse
             want = k5.flash_attention_plain(q, k, v, causal=causal)
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
@@ -1009,17 +1107,21 @@ def k5_phase(torch, F, gen):
             gain = float((got.float() * w).sum() / (w * w).sum())
             finite = bool(torch.isfinite(got.float()).all())
             ok = use <= 1.0 and abs(gain - 1.0) <= K5_GAIN_TOL and finite \
-                and got.dtype == q.dtype and got.shape == q.shape
+                and got.dtype == q.dtype and got.shape == q.shape \
+                and same_o and lse_err <= K5_LSE_TOL
             plan = k5.split_plan(B, Sq, Sk, H, D, q.dtype, sms)
             print(f"[kernel] flash_attention {name:23s} {dtype:8s} B={B} "
                   f"Sq={Sq} Sk={Sk} H={H} D={D} causal={causal} "
                   f"kernel={plan.path} key ranges={plan.n_split} "
                   f"err={err:.3e} {tol_txt} (largest err/tol {use:.3f}) "
-                  f"gain-1={gain - 1.0:+.2e} (tol {K5_GAIN_TOL:.2e}) "
+                  f"gain-1={gain - 1.0:+.2e} (tol {K5_GAIN_TOL:.2e}); with "
+                  f"lse: o {'bitwise equal' if same_o else 'DIFFERENT'}, lse "
+                  f"err {lse_err:.2e} (tol {K5_LSE_TOL:.0e}) "
                   f"{'ok' if ok else 'MISMATCH'}")
             results.append(dict(case=name, dtype=dtype, err=err,
                                 err_over_tol=use, gain=gain, ok=ok,
-                                kernel=plan.path, key_ranges=plan.n_split))
+                                kernel=plan.path, key_ranges=plan.n_split,
+                                lse_same_o=same_o, lse_err=lse_err))
             max_err = max(max_err, err)
             del got, want, w
             timing[f"{name}/{dtype}"] = time_k5(torch, F, k5, q, k, v,
@@ -1079,7 +1181,8 @@ def time_k5(torch, F, k5, q, k, v, causal: bool, dtype: str,
 
     def lib():
         F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    return dict(ms=device_ms(kern, 20, f"flash_attention {case}"),
+    return dict(ms=counted_ms(kern, 20, f"flash_attention {case}",
+                              "flash_attn_", 1),
                 plain_ms=device_ms(plain, 2 if long else 10,
                                    f"flash_attention twin {case}"),
                 library_ms=device_ms(lib, 20, f"SDPA {case}"),
@@ -2704,6 +2807,20 @@ B5_CASES = [("qwen", 8, 512, 512, 16, 64, True),
 # then rounds its f32 value to bf16 once, which may land one bf16 spacing
 # (2**-7 relative) apart.
 B5_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
+# In bfloat16 B5 and its twin also round p (before p^T do) and ds (before
+# ds k, ds^T q) to bf16, each from f32 values that differ in their last
+# bits (summation order; exp2 against exp): a value that lies near a bf16
+# rounding midpoint may land one bf16 spacing apart on the two sides.  A
+# flipped ds of 0.9 moves a dq element by 2**-7 * 0.9 * |k| / 8, ~1e-3,
+# where dq may be 0.03 (whisper's encoder on the H100), beyond B5_TOL.  So
+# in bf16 the bound per element adds to B5_TOL's what such flips can move
+# it (``b5_bounds``): every p or ds of the twin whose f32 value lies within
+# a margin of a midpoint counts as flipped, by a spacing plus the margin,
+# into dv (times |do|), dq (times |k| scale) and dk (times |q| scale).  The
+# margin is 2**-16 of p, and for ds also 2**-16 p (|do|.|v| + |do|.|o|):
+# the two sides' f32 p differ by a few 2**-23 relative, and dp and delta
+# (64-term dot products) by at most 64 2**-24 of those sums.
+B5_FLIP_MARGIN = 2.0 ** -16
 # B2 cases: the training runs' tables (qwen1.5-0.5b's 151936 x 1024,
 # whisper-base's 51865 x 512) with a batch of 8 x 512 ids from
 # TokenStream (zipf: id 1 takes about a quarter) and uniform ids.  B2 must
@@ -2712,6 +2829,14 @@ B5_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
 # another order) per element as B5: (atol, rtol) of 1e-5 in f32, and one
 # bf16 spacing in bfloat16.
 B2_TABLES = {"qwen": (151936, 1024), "whisper": (51865, 512)}
+# B2's worst cases beside them, bitwise too: every token the same id (one
+# run of 4096 on qwen's table, summed by 16 warps side by side, 128 batches
+# of 32 rows deep), and widths that no warp's 64 columns divide: 1000
+# (the last warp sums 40 of its 64) and the odd 999 (one column a lane),
+# qwen's vocabulary, zipf ids.  (name, V, d, ids: "one_id" or "zipf")
+B2_WORST = (("qwen", 151936, 1024, "one_id"),
+            ("width_1000", 151936, 1000, "zipf"),
+            ("width_999", 151936, 999, "zipf"))
 B2_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 TRAIN_TOKENS = (8, 512)             # batch x sequence of the training runs
 # The training runs at full width, bf16: (config, steps, checkpoint
@@ -2750,6 +2875,62 @@ def bwd_err(got, want, tol) -> tuple:
     return float(diff.max()), float((diff / bound.clamp_min(1e-30)).max())
 
 
+def bf16_flip(torch, x, margin):
+    """Per element of the float32 ``x``, the most its bf16 rounding can
+    differ from that of a value within ``margin`` of it: 0 where x lies
+    further than ``margin`` from a rounding midpoint (both round alike),
+    else a bf16 spacing plus the margin."""
+    m, e = torch.frexp(x)                  # |x| in [2**(e-1), 2**e)
+    ulp = torch.ldexp(torch.ones_like(x), e - 24)
+    dist = (x.view(torch.int32) & 0xFFFF).sub_(0x8000).abs_().float() \
+        .mul_(ulp)
+    near = dist <= margin + ulp
+    return torch.where(near, torch.ldexp(torch.ones_like(x), e - 8) + margin,
+                       torch.zeros_like(x))
+
+
+def b5_bounds(k5, q, k, v, o, do, lse, causal: bool, want) -> list:
+    """The bound per element of |B5 - twin| for (dq, dk, dv): ``B5_TOL``'s
+    atol max|want| + rtol |want|, and in bfloat16 the most the p and ds
+    that lie near a bf16 rounding midpoint can move each gradient by
+    rounding the other way (see ``B5_FLIP_MARGIN``), from the twin's p
+    and ds on these inputs."""
+    import torch
+    atol, rtol = B5_TOL[str(q.dtype).split(".")[-1]]
+    bounds = [w.float().abs().mul_(rtol).add_(atol * float(w.float().abs()
+                                                            .max()))
+              for w in want]
+    if q.dtype != torch.bfloat16:
+        return bounds
+    s, keep = k5._masked_scores(q, k, causal)
+    if keep is not None:
+        s.masked_fill_(~keep, float("-inf"))
+    p = s.sub_(lse[..., None]).exp_()
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, v.float()).sub_(delta).mul_(p)
+    margin = torch.einsum("bqhd,bkhd->bhqk", dof.abs(), v.float().abs()) \
+        .add_((dof.abs() * o.float().abs()).sum(-1).transpose(1, 2)[..., None])
+    margin.mul_(p).add_(ds.abs()).mul_(B5_FLIP_MARGIN)
+    flip = bf16_flip(torch, ds, margin)
+    del ds, margin
+    scale = 1.0 / q.shape[-1] ** 0.5
+    bounds[0] += scale * torch.einsum("bhqk,bkhd->bqhd", flip,
+                                      k.float().abs())
+    bounds[1] += scale * torch.einsum("bhqk,bqhd->bkhd", flip,
+                                      q.float().abs())
+    flip = bf16_flip(torch, p, p * B5_FLIP_MARGIN)
+    bounds[2] += torch.einsum("bhqk,bqhd->bkhd", flip, dof.abs())
+    return bounds
+
+
+def bound_err(got, want, bound) -> tuple:
+    """Largest |got - want| and its largest ratio to the bound per
+    element ``bound``."""
+    diff = (got.float() - want.float()).abs()
+    return float(diff.max()), float((diff / bound.clamp_min(1e-30)).max())
+
+
 def b5_bound(q, k, causal: bool, dtype: str) -> dict:
     """B5's bound at one case: q, o, do and k, v read once, dq, dk, dv
     written once, over the memory rate; and 10 D operations for each
@@ -2769,8 +2950,10 @@ def b5_bound(q, k, causal: bool, dtype: str) -> dict:
 
 def b5_phase(torch, F, gen):
     """B5 (flash_attention_bwd) against its plain twin on the card at
-    every case, float32 and bfloat16, o from K5; times every case beside
-    its bound, the twin and SDPA's backward."""
+    every case, float32 and bfloat16, o and lse from K5; in bfloat16 also
+    B5's and SDPA backward's distance from the unrounded float32 twin
+    (``f32_reference_err``); times every case beside its bound, the twin
+    and SDPA's backward."""
     from repro_torch.kernels.flash_attention import flash_attention as k5
     results, timing, max_err = [], {}, 0.0
     for dtype in ("float32", "bfloat16"):
@@ -2779,12 +2962,17 @@ def b5_phase(torch, F, gen):
             q, k, v = k5_inputs(torch, gen, B, Sq, Sk, H, D, dt)
             do = torch.randn(q.shape, generator=gen, device=gen.device) \
                 .to(dt)
-            o = k5.flash_attention(q, k, v, causal=causal)
-            got = k5.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            o, lse = k5.flash_attention_with_lse(q, k, v, causal=causal)
+            got = k5.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                         lse=lse)
             torch.cuda.synchronize()
             want = k5.flash_attention_bwd_plain(q, k, v, o, do,
-                                                causal=causal)
-            errs = [bwd_err(g, w, B5_TOL[dtype]) for g, w in zip(got, want)]
+                                                causal=causal, lse=lse)
+            bounds = b5_bounds(k5, q, k, v, o, do, lse, causal, want)
+            errs = [bound_err(g, w, b) for g, w, b in zip(got, want, bounds)]
+            del bounds
+            plain_use = [bwd_err(g, w, B5_TOL[dtype])[1]
+                         for g, w in zip(got, want)]
             ok = all(e[1] <= 1.0 for e in errs) and all(
                 bool(torch.isfinite(g.float()).all()) and g.dtype == dt
                 and g.shape == w.shape for g, w in zip(got, want))
@@ -2795,16 +2983,35 @@ def b5_phase(torch, F, gen):
                   + f", largest err/tol " + " / ".join(
                       f"{e[1]:.3f}" for e in errs)
                   + f" (tol atol*max|want| + rtol|want|, "
-                  f"(atol, rtol)={B5_TOL[dtype]}) "
-                  f"{'ok' if ok else 'MISMATCH'}")
+                  f"(atol, rtol)={B5_TOL[dtype]}"
+                  + (", + the bf16 flips of p and ds (b5_bounds); against "
+                     "(atol, rtol) alone " + " / ".join(
+                         f"{x:.3f}" for x in plain_use)
+                     if dtype == "bfloat16" else "")
+                  + f") {'ok' if ok else 'MISMATCH'}")
             results.append(dict(case=name, dtype=dtype, err=err,
-                                err_over_tol=[e[1] for e in errs], ok=ok))
+                                err_over_tol=[e[1] for e in errs],
+                                err_over_b5_tol=plain_use, ok=ok))
             max_err = max(max_err, err)
-            del got, want
+            del want
+            if dtype == "bfloat16":
+                ref = f32_reference_err(torch, F, k5, q, k, v, do, got,
+                                        causal)
+                print(f"[train] flash_attention_bwd {name:15s} bfloat16 "
+                      f"against the unrounded float32 twin: largest "
+                      f"|err| dq/dk/dv B5 " + " / ".join(
+                          f"{e:.3e}" for e in ref["b5"]) + ", SDPA backward "
+                      + " / ".join(f"{e:.3e}" for e in ref["sdpa"])
+                      + f" (B5 / SDPA {ref['ratio']:.3f}); relative rms "
+                      f"B5 " + " / ".join(f"{e:.2e}" for e in ref["b5_rms"])
+                      + ", SDPA " + " / ".join(
+                          f"{e:.2e}" for e in ref["sdpa_rms"]))
+                results[-1]["f32_reference"] = ref
+            del got
             timing[f"{name}/{dtype}"] = time_b5(torch, F, k5, q, k, v, o,
-                                                do, causal, dtype,
+                                                do, lse, causal, dtype,
                                                 f"{name}/{dtype}")
-            del q, k, v, o, do
+            del q, k, v, o, do, lse
             torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
     if bad:
@@ -2813,33 +3020,43 @@ def b5_phase(torch, F, gen):
     return results, max_err, timing
 
 
-def counted_ms(fn, reps: int, case: str, key: str, per_call: int,
-               tries: int = 4) -> float:
-    """``device_ms`` of ``fn`` read from a profile that holds all of its
-    kernel launches: ``per_call`` launches of kernels named ``key`` a
-    call.  A profile short of them (the profiler has been seen to drop
-    device events late in a long process) is retried; after ``tries``
-    the time is read with CUDA events over ``reps`` calls instead
-    (``time_ms``: the host's launch is in it, so it can only read
-    slower), never from a short profile."""
-    for _ in range(tries):
-        rows = device_profile(fn, reps, case, need=(key,))
-        calls = sum(r["calls"] for r in rows if key in r["name"])
-        if calls == per_call * reps:
-            return sum(r["ms"] for r in rows)
-        print(f"[train] {case}: the profile holds {calls} launches of "
-              f"{key}, not {per_call * reps}; profiled again")
-    print(f"[train] {case}: {tries} profiles short of {key}'s launches; "
-          f"timed with CUDA events instead")
-    return time_ms(fn, reps)
+def f32_reference_err(torch, F, k5, q, k, v, do, got, causal: bool) -> dict:
+    """How far B5's bfloat16 gradients ``got`` and SDPA backward's (on
+    the same bf16 inputs, (B, H, S, D) copies, its own forward) lie from
+    the unrounded twin: ``flash_attention_bwd_plain`` on the inputs
+    widened to float32, o from the float32 forward twin, nothing
+    rounded.  Largest |err| of dq, dk, dv each, and the ratio of the two
+    largest; and each gradient's root-mean-square error over the
+    reference's root-mean-square (the largest errors sit at the output's
+    own bf16 rounding, the same for both)."""
+    wide = [t.float() for t in (q, k, v, do)]
+    o32 = k5.flash_attention_plain(*wide[:3], causal=causal)
+    ref = k5.flash_attention_bwd_plain(*wide[:3], o32, wide[3],
+                                       causal=causal)
+    del o32
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    lib = [g.transpose(1, 2) for g in torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2).contiguous())]
+    b5 = [float((g.float() - r).abs().max()) for g, r in zip(got, ref)]
+    sdpa = [float((g.float() - r).abs().max()) for g, r in zip(lib, ref)]
+
+    def rms(g, r):
+        return float((g.float() - r).pow(2).mean().sqrt()
+                     / r.pow(2).mean().sqrt().clamp_min(1e-30))
+    return dict(b5=b5, sdpa=sdpa, ratio=max(b5) / max(max(sdpa), 1e-30),
+                b5_rms=[rms(g, r) for g, r in zip(got, ref)],
+                sdpa_rms=[rms(g, r) for g, r in zip(lib, ref)])
 
 
-def time_b5(torch, F, k5, q, k, v, o, do, causal: bool, dtype: str,
+def time_b5(torch, F, k5, q, k, v, o, do, lse, causal: bool, dtype: str,
             case: str) -> dict:
     """B5, its plain twin and SDPA's backward (``torch.autograd.grad``
     of ``scaled_dot_product_attention`` on (B, H, S, D) copies, the
     forward run beforehand; never called by the port) at one case,
-    beside ``b5_bound``."""
+    beside ``b5_bound``; and K5 at this training shape with and without
+    the lse output (``fwd_ms``, ``fwd_nolse_ms``)."""
     bound = b5_bound(q, k, causal, dtype)
     long = bound["pairs"] > 1 << 27
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
@@ -2848,15 +3065,25 @@ def time_b5(torch, F, k5, q, k, v, o, do, causal: bool, dtype: str,
     dot = do.transpose(1, 2).contiguous()
 
     def kern():
-        k5.flash_attention_bwd(q, k, v, o, do, causal=causal)
+        k5.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
 
     def plain():
-        k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+        k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal, lse=lse)
 
     def lib():
         torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
-    return dict(ms=counted_ms(kern, 10, f"flash_attention_bwd {case}",
-                              "flash_bwd_", k5.BWD_LAUNCHES),
+    def fwd():
+        k5.flash_attention_with_lse(q, k, v, causal=causal)
+
+    def fwd_nolse():
+        k5.flash_attention(q, k, v, causal=causal)
+    return dict(fwd_ms=counted_ms(fwd, 10, f"flash_attention with lse {case}",
+                                  "flash_attn_", 1, tag="[train]"),
+                fwd_nolse_ms=counted_ms(fwd_nolse, 10,
+                                        f"flash_attention {case}",
+                                        "flash_attn_", 1, tag="[train]"),
+                ms=counted_ms(kern, 10, f"flash_attention_bwd {case}",
+                              "flash_bwd_", k5.BWD_LAUNCHES, tag="[train]"),
                 plain_ms=device_ms(plain, 2 if long else 5,
                                    f"flash_attention_bwd twin {case}"),
                 library_ms=device_ms(lib, 10, f"SDPA backward {case}"),
@@ -2867,52 +3094,60 @@ def b2_phase(torch, gen):
     """B2 (embedding_grad_scatter) against its plain twin on host copies
     (bitwise) and on the card (``B2_TOL``), on the training runs' tables
     with TokenStream's zipf ids and uniform ids, float32 and bfloat16;
-    times every case beside its bound, the twin on the card and
-    ``F.embedding``'s backward."""
+    then ``B2_WORST``; times every case beside its bound, the twin on the
+    card and ``F.embedding``'s backward."""
     import numpy as np
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.kernels.mars_gather import ops
     B, S = TRAIN_TOKENS
-    results, timing = [], {}
-    for tname, (V, D) in B2_TABLES.items():
-        zipf = next(TokenStream(DataConfig(vocab=V, seq_len=S,
+
+    def zipf(V):
+        return next(TokenStream(DataConfig(vocab=V, seq_len=S,
                                            global_batch=B)))["tokens"]
+    cases = []
+    for tname, (V, D) in B2_TABLES.items():
         uniform = np.random.default_rng(3).integers(0, V, (B, S)) \
             .astype(np.int32)
-        for ids_name, ids_np in (("zipf", zipf), ("uniform", uniform)):
-            ids = torch.from_numpy(ids_np).cuda()
-            longest = int(np.bincount(ids_np.ravel()).max())
-            for dtype in ("float32", "bfloat16"):
-                dt = getattr(torch, dtype)
-                g = torch.randn(B, S, D, generator=gen,
-                                device=gen.device).to(dt)
-                got = ops.embedding_grad_scatter(ids, g, V)
-                torch.cuda.synchronize()
-                host = ops.embedding_grad_scatter_plain(ids.cpu(), g.cpu(), V)
-                bits = getattr(torch, _BITS[dtype])
-                bitwise = bool(torch.equal(got.cpu().view(bits),
-                                           host.view(bits)))
-                host_err = float((got.cpu().float() - host.float()).abs()
-                                 .max())
-                card = ops.embedding_grad_scatter_plain(ids, g, V)
-                err, use = bwd_err(got, card, B2_TOL[dtype])
-                ok = bitwise and use <= 1.0 and got.dtype == dt \
-                    and got.shape == (V, D)
-                case = f"{tname}/{ids_name}/{dtype}"
-                print(f"[train] embedding_grad_scatter {case}: {B}x{S} ids "
-                      f"(longest run {longest}) into {V}x{D}: "
-                      f"{'bitwise equal' if bitwise else 'DIFFERENT'} to "
-                      f"the twin on host copies; against the twin on the "
-                      f"card err {err:.3e} (largest err/tol {use:.3f}, "
-                      f"(atol, rtol)={B2_TOL[dtype]}) "
-                      f"{'ok' if ok else 'MISMATCH'}")
-                results.append(dict(case=case, bitwise=bitwise, err=err,
-                                    host_err=host_err, err_over_tol=use,
-                                    longest_run=longest, ok=ok))
-                del got, host, card
-                timing[case] = time_b2(torch, ops, ids, g, V, case)
-                del g
-            torch.cuda.empty_cache()
+        cases += [(tname, V, D, "zipf", zipf(V)),
+                  (tname, V, D, "uniform", uniform)]
+    for tname, V, D, kind in B2_WORST:
+        cases.append((tname, V, D, kind, np.full((B, S), 1, np.int32)
+                      if kind == "one_id" else zipf(V)))
+    results, timing = [], {}
+    for tname, V, D, ids_name, ids_np in cases:
+        ids = torch.from_numpy(ids_np).cuda()
+        longest = int(np.bincount(ids_np.ravel()).max())
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            g = torch.randn(B, S, D, generator=gen,
+                            device=gen.device).to(dt)
+            got = ops.embedding_grad_scatter(ids, g, V)
+            torch.cuda.synchronize()
+            host = ops.embedding_grad_scatter_plain(ids.cpu(), g.cpu(), V)
+            bits = getattr(torch, _BITS[dtype])
+            bitwise = bool(torch.equal(got.cpu().view(bits),
+                                       host.view(bits)))
+            host_err = float((got.cpu().float() - host.float()).abs()
+                             .max())
+            card = ops.embedding_grad_scatter_plain(ids, g, V)
+            err, use = bwd_err(got, card, B2_TOL[dtype])
+            ok = bitwise and use <= 1.0 and got.dtype == dt \
+                and got.shape == (V, D)
+            case = f"{tname}/{ids_name}/{dtype}"
+            print(f"[train] embedding_grad_scatter {case}: {B}x{S} ids "
+                  f"(longest run {longest}) into {V}x{D}: "
+                  f"{'bitwise equal' if bitwise else 'DIFFERENT'} to "
+                  f"the twin on host copies; against the twin on the "
+                  f"card err {err:.3e} (largest err/tol {use:.3f}, "
+                  f"(atol, rtol)={B2_TOL[dtype]}) "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            results.append(dict(case=case, bitwise=bitwise, err=err,
+                                host_err=host_err, err_over_tol=use,
+                                longest_run=longest, ok=ok))
+            del got, host, card
+            timing[case] = time_b2(torch, ops, ids, g, V, case)
+            del g
+        torch.cuda.empty_cache()
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"embedding_grad_scatter disagrees with its "
@@ -2941,7 +3176,7 @@ def time_b2(torch, ops, ids, g, V: int, case: str) -> dict:
     def lib():
         torch.ops.aten.embedding_dense_backward(g2, flat, V, -1, False)
     return dict(ms=counted_ms(kern, 20, f"embedding_grad_scatter {case}",
-                              "embedding_grad_scatter", 1),
+                              "embedding_grad_scatter", 1, tag="[train]"),
                 plain_ms=device_ms(plain, 20, f"scatter twin {case}"),
                 library_ms=device_ms(lib, 20, f"F.embedding backward {case}"),
                 bound_ms=bytes_moved / HBM_BYTES_PER_S * 1e3,
@@ -3281,7 +3516,9 @@ def train_kernel_phase(torch, F, gen) -> tuple:
         print(f"[train] flash_attention_bwd {case}: device ms per call: "
               f"kernel {t['ms']:.4f}, bound {t['bound_ms']:.5f} "
               f"({t['bound_by']}; {t['bytes']} B, {t['ops']} ops), plain "
-              f"twin {t['plain_ms']:.4f}, SDPA backward {t['library_ms']:.4f}")
+              f"twin {t['plain_ms']:.4f}, SDPA backward {t['library_ms']:.4f}"
+              f"; K5 forward at this shape {t['fwd_ms']:.4f} writing lse, "
+              f"{t['fwd_nolse_ms']:.4f} without")
     free_device(torch, "B5 cases")
     b2_results, b2_timing = b2_phase(torch, gen)
     for case, t in b2_timing.items():
@@ -3413,8 +3650,9 @@ def main(argv=None) -> int:
         del timed, flush
         for case, t in timing.items():
             print(f"[kernel] paged_attention {case}: device ms per call: "
-                  f"split + merge {t['ms']:.4f} (split {t['split_ms']:.4f}, "
-                  f"merge {t['merge_ms']:.4f}; {t['n_split']} ranges), bound "
+                  f"split + merge {t['ms']:.4f} (split "
+                  f"{ms_txt(t['split_ms'])}, merge {ms_txt(t['merge_ms'])}; "
+                  f"{t['n_split']} ranges), bound "
                   f"{t['bound_ms']:.5f} ({t['bound_by']}; {t['bytes']} B, "
                   f"{t['ops']} ops, {t['valid_positions']} valid positions; "
                   f"{t['bound_ms'] / t['ms']:.3f} of it reached), plain twin "
@@ -3424,7 +3662,8 @@ def main(argv=None) -> int:
                   f"event ms per call with host launch: {t['event_ms']:.4f} / "
                   f"{t['plain_event_ms']:.4f} / {t['library_event_ms']:.4f}")
             print(f"[kernel] decode_attend {case}: device ms per call "
-                  f"{t['decode_ms']:.4f} (merge pass {t['decode_merge_ms']:.4f}"
+                  f"{t['decode_ms']:.4f} (merge pass "
+                  f"{ms_txt(t['decode_merge_ms'])}"
                   f", bound {t['merge_bound_ms']:.5f}, plain merge "
                   f"{t['merge_plain_ms']:.4f}); event ms per call with host "
                   f"launch {t['decode_event_ms']:.4f}")

@@ -89,6 +89,13 @@
 // Splitting the keys changes the summation order and the maximum each p
 // is rounded at (each range's own), not what is rounded: p is rounded to
 // bf16 once, then scaled by exp(m_range - m) in f32.
+// A training forward passes `lse` (f32, (B, H, Sq)): each kernel then also
+// stores every valid row's log-sum-exp, m ln 2 + log l from the row's
+// final state (the wgmma kernel at the end of its row loop, the split
+// kernels once the ranges are merged, or from the one range), so the
+// backward (csrc/flash_attention_bwd.cu) need not rebuild it.  Each
+// kernel is built with and without that store (a template flag), and the
+// serve path, which passes null, runs the one without.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +106,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSplit = 32;          // key ranges; the merge's weights fit
 
@@ -160,6 +168,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// The row log-sum-exp a training forward saves for the backward, natural
+// units, from a row's merged state (m its maximum in log2 units, l its
+// sum): m ln 2 + log l; a row that kept no key stores +inf, so the
+// backward's exp(s - lse) is 0 there and never NaN.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m * kLn2 + logf(l) : __int_as_float(0x7f800000);
+}
+
 // ---- key ranges: partial states and the in-launch merge --------------------
 // A block that walked one key range of a query tile of ROWS rows writes
 // its state as one record of ROWS * (D + 2) floats: acc [ROWS][D]
@@ -179,11 +195,12 @@ __device__ __forceinline__ float* part_record(float* part, long long tile,
 // written in full (an empty range as acc 0, m -1e30, l 0), so the merge
 // reads them without a branch: first all (m, l), in flight together, into
 // per-range weights in shared memory, then four columns a thread with
-// one independent 16-byte load a range.
-template <typename T, int ROWS, int D, int NT>
+// one independent 16-byte load a range.  With LSE the merged rows'
+// log-sum-exp goes to lse[0 .. nr).
+template <typename T, int ROWS, int D, int NT, bool LSE>
 __device__ void merge_if_last(float* part, int* counters, long long tile,
                               int n_split, T* ob, long long rs, int nr,
-                              float* wsm) {
+                              float* wsm, float* lse) {
   __shared__ int last;
   __threadfence();                 // this block's record, before its count
   __syncthreads();
@@ -214,6 +231,7 @@ __device__ void merge_if_last(float* part, int* counters, long long tile,
       L += l * w;
     }
     wl[n + r] = 1.f / fmaxf(L, 1e-30f);
+    if constexpr (LSE) lse[r] = row_lse(M, L);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < nr * (D / 4); e += NT) {
@@ -403,12 +421,13 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
-                        __nv_bfloat16* __restrict__ o, int H, int Sq, int Sk,
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ lse, int H, int Sq, int Sk,
                         float scale_log2, int causal) {
   constexpr int DP = D <= 64 ? 64 : 128;
   using G = Geo<DP>;
@@ -576,8 +595,10 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l = fmaxf(l, 1e-30f);
     const int row = row_lo + g + 8 * r;
+    if (LSE && t4 == 0 && row < Sq)
+      lse[(long long)blockIdx.y * Sq + row] = row_lse(m_run[r], l);
+    l = fmaxf(l, 1e-30f);
     if (row < Sq) {
       __nv_bfloat16* orow = ob + (long long)row * rs;
 #pragma unroll
@@ -647,14 +668,15 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* ks,
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_split_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              const __nv_bfloat16* __restrict__ v,
                              __nv_bfloat16* __restrict__ o,
                              float* __restrict__ part,
-                             int* __restrict__ counters, int H, int Sq,
+                             int* __restrict__ counters,
+                             float* __restrict__ lse, int H, int Sq,
                              int Sk, float scale_log2, int causal,
                              int keys_per_split) {
   using G = Geo<D>;
@@ -854,11 +876,21 @@ flash_attn_split_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
+  if (LSE && n_split == 1 && tid < nr) {     // one range: its lse
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, cm[w * kRows + tid]);
+    float L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      L += cl[w * kRows + tid] * exp2f(cm[w * kRows + tid] - M);
+    lse[(long long)bh * Sq + q0 + tid] = row_lse(M, L);
+  }
   if (n_split > 1) {
     __syncthreads();                           // done with the ring
-    merge_if_last<__nv_bfloat16, kRows, D, kThreads>(
+    merge_if_last<__nv_bfloat16, kRows, D, kThreads, LSE>(
         part, counters, tile, n_split, ob, rs, nr,
-        reinterpret_cast<float*>(smem_raw));
+        reinterpret_cast<float*>(smem_raw), lse + (long long)bh * Sq + q0);
   }
 }
 
@@ -877,13 +909,13 @@ constexpr size_t smem_bytes() {
                   3 * kBQ) * sizeof(float);
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ part, int* __restrict__ counters,
-                      int H, int Sq, int Sk, float scale_log2, int causal,
-                      int keys_per_split) {
+                      float* __restrict__ lse, int H, int Sq, int Sk,
+                      float scale_log2, int causal, int keys_per_split) {
   constexpr int kQP = D + 1;            // padded row of q and k
   constexpr int kSP = kBK + 1;          // padded row of the scores
   constexpr int kPer = D / 8;           // output columns a thread owns
@@ -995,6 +1027,8 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* orow = ob + (long long)row * rs;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) orow[col + 8 * i] = acc[i] / l;
+      if (LSE && col == 0)
+        lse[(long long)bh * Sq + q0 + row] = row_lse(ms[row], ls[row]);
     }
     return;
   }
@@ -1009,8 +1043,9 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();                             // done with k, v, p
-  merge_if_last<float, kBQ, D, kThreads>(part, counters, tile, n_split, ob,
-                                         rs, nr, fsm);
+  merge_if_last<float, kBQ, D, kThreads, LSE>(
+      part, counters, tile, n_split, ob, rs, nr, fsm,
+      lse + (long long)bh * Sq + q0);
 }
 
 }  // namespace f32
@@ -1033,6 +1068,7 @@ struct Args {
   float scale_log2;
   float* part;
   int* counters;
+  float* lse;
   cudaStream_t stream;
 };
 
@@ -1077,12 +1113,13 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
 
 constexpr int kNoTensorMap = -2;
 
-template <int D>
+template <int D, bool LSE>
 int launch_wgmma(const Args& a) {
   constexpr int DP = D <= 64 ? 64 : 128;
   static bool attr_set = false;
   const size_t smem = wg::Geo<DP>::kSmem;
-  const int rc = allow_smem(wg::flash_attn_wgmma_kernel<D>, smem, &attr_set);
+  const int rc =
+      allow_smem(wg::flash_attn_wgmma_kernel<D, LSE>, smem, &attr_set);
   if (rc) return rc;
   CUtensorMap qm, km, vm;
   if (!tensor_map(&qm, a.q, a.B, a.Sq, a.H, D, wg::kBQ) ||
@@ -1091,61 +1128,73 @@ int launch_wgmma(const Args& a) {
     return kNoTensorMap;
   const dim3 grid((unsigned)((a.Sq + wg::kBQ - 1) / wg::kBQ),
                   (unsigned)(a.B * a.H));
-  wg::flash_attn_wgmma_kernel<D><<<grid, wg::kThreads, smem, a.stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(a.o), a.H, a.Sq, a.Sk,
+  wg::flash_attn_wgmma_kernel<D, LSE><<<grid, wg::kThreads, smem,
+                                        a.stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(a.o), a.lse, a.H, a.Sq, a.Sk,
       a.scale_log2, a.causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool LSE>
 int launch_few(const Args& a) {
   static bool attr_set = false;
   const size_t smem = few::Geo<D>::kSmem;
   const int rc =
-      allow_smem(few::flash_attn_split_bf16_kernel<D>, smem, &attr_set);
+      allow_smem(few::flash_attn_split_bf16_kernel<D, LSE>, smem, &attr_set);
   if (rc) return rc;
   const dim3 grid((unsigned)a.n_split,
                   (unsigned)((a.Sq + few::kRows - 1) / few::kRows),
                   (unsigned)(a.B * a.H));
-  few::flash_attn_split_bf16_kernel<D><<<grid, few::kThreads, smem,
-                                         a.stream>>>(
+  few::flash_attn_split_bf16_kernel<D, LSE><<<grid, few::kThreads, smem,
+                                              a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.o), a.part, a.counters, a.H, a.Sq, a.Sk,
-      a.scale_log2, a.causal, a.keys_per_split);
+      static_cast<__nv_bfloat16*>(a.o), a.part, a.counters, a.lse, a.H, a.Sq,
+      a.Sk, a.scale_log2, a.causal, a.keys_per_split);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool LSE>
 int launch_f32(const Args& a) {
   static bool attr_set = false;
   constexpr size_t smem = f32::smem_bytes<D>();
   static_assert(smem <= 227 * 1024, "fits one block an SM");
-  const int rc = allow_smem(f32::flash_attn_f32_kernel<D>, smem, &attr_set);
+  const int rc =
+      allow_smem(f32::flash_attn_f32_kernel<D, LSE>, smem, &attr_set);
   if (rc) return rc;
   const dim3 grid((unsigned)a.n_split,
                   (unsigned)((a.Sq + f32::kBQ - 1) / f32::kBQ),
                   (unsigned)(a.B * a.H));
-  f32::flash_attn_f32_kernel<D><<<grid, f32::kThreads, smem, a.stream>>>(
+  f32::flash_attn_f32_kernel<D, LSE><<<grid, f32::kThreads, smem,
+                                       a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.part,
-      a.counters, a.H, a.Sq, a.Sk, a.scale_log2, a.causal, a.keys_per_split);
+      a.counters, a.lse, a.H, a.Sq, a.Sk, a.scale_log2, a.causal,
+      a.keys_per_split);
   return (int)cudaGetLastError();
 }
 
 // path: 0 = float32 (CUDA cores), 1 = bfloat16 16-row tiles over key
-// ranges, 2 = bfloat16 wgmma tiles
-template <int D>
-int launch(int path, const Args& a) {
+// ranges, 2 = bfloat16 wgmma tiles.  Each kernel is built twice: with
+// the lse store (a training forward) and without it (the serve path,
+// the code it ran before the store existed).
+template <int D, bool LSE>
+int launch_lse(int path, const Args& a) {
   switch (path) {
-    case 0: return launch_f32<D>(a);
-    case 1: return launch_few<D>(a);
+    case 0: return launch_f32<D, LSE>(a);
+    case 1: return launch_few<D, LSE>(a);
     case 2:
       if constexpr (D == 16 || D == 256) return -1;
-      else return launch_wgmma<D>(a);
+      else return launch_wgmma<D, LSE>(a);
     default: return -1;
   }
+}
+
+template <int D>
+int launch(int path, const Args& a) {
+  return a.lse != nullptr ? launch_lse<D, true>(path, a)
+                          : launch_lse<D, false>(path, a);
 }
 
 }  // namespace
@@ -1160,7 +1209,10 @@ extern "C" {
 // (a multiple of 32).  n_split is at most 32.  With n_split > 1, part holds B * H * ceil(Sq / R) *
 // n_split * R * (D + 2) floats (R: 16 for path 1, 32 for path 0) and
 // counters B * H * ceil(Sq / R) ints that are 0 before the launch and 0
-// again after it.  scale: the softmax scale (1 / sqrt(D)).  Returns 0 on
+// again after it.  scale: the softmax scale (1 / sqrt(D)).  lse: null, or
+// B * H * Sq floats that receive each query row's log-sum-exp of its
+// scaled, masked scores (natural units; +inf for a row that keeps no
+// key), laid out (B, H, Sq), for the backward.  Returns 0 on
 // success, -1 for an unsupported argument (head dim, dtype, path, the
 // wgmma path at head dim 16 or 256, causal with Sq != Sk, a grid
 // dimension above 65535), -2 when no tensor map can be encoded, else the
@@ -1169,7 +1221,7 @@ int mars_flash_attention(int dtype, int path, const void* q, const void* k,
                          const void* v, void* o, int B, int H, int Sq, int Sk,
                          int D, int causal, float scale, int n_split,
                          int keys_per_split, float* part, int* counters,
-                         void* stream) {
+                         float* lse, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk < 0 || (long long)B * H > 65535 ||
       n_split < 1 || n_split > kMaxSplit || keys_per_split < 1)
     return -1;
@@ -1179,7 +1231,7 @@ int mars_flash_attention(int dtype, int path, const void* q, const void* k,
   if (Sq > 65535 * 16) return -1;
   if (n_split > 1 && (part == nullptr || counters == nullptr)) return -1;
   const Args a{q, k, v, o, B, H, Sq, Sk, causal, n_split, keys_per_split,
-               scale * kLog2e, part, counters,
+               scale * kLog2e, part, counters, lse,
                static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 16: return launch<16>(path, a);

@@ -19,12 +19,14 @@ The port's ``layers.sdpa`` routes here every attention whose mask is
 none or plain causal with as many queries as keys.
 
 Training: when q, k or v needs a gradient, ``flash_attention`` runs as a
-``torch.autograd.Function`` whose backward is ``flash_attention_bwd``:
-B5, the hand-written backward kernels in ``csrc/flash_attention_bwd.cu``
-(a pre-pass for the row log-sum-exp and rowsum(dO o), then dK/dV and dQ;
-the JAX trainer differentiates plain attention, so no Pallas kernel
-corresponds), on CUDA tensors, and ``flash_attention_bwd_plain``, the
-explicit formulas in PyTorch, on CPU ones.  B5 takes head dims
+``torch.autograd.Function`` whose forward is ``flash_attention_with_lse``
+(K5 also writing each query row's log-sum-exp, which it saves) and whose
+backward is ``flash_attention_bwd``: B5, the hand-written backward
+kernels in ``csrc/flash_attention_bwd.cu`` (a pre-pass for rowsum(dO o),
+then dK/dV and dQ, from the saved log-sum-exp; the JAX trainer
+differentiates plain attention, so no Pallas kernel corresponds), on
+CUDA tensors, and ``flash_attention_bwd_plain``, the explicit formulas in
+PyTorch with B5's bf16 roundings, on CPU ones.  B5 takes head dims
 ``BWD_HEAD_DIMS``; a CUDA forward that needs a gradient at another head
 dim raises before it launches.  ``flash_attention_bwd.launches`` counts
 B5's kernel launches (``BWD_LAUNCHES`` a call).
@@ -122,20 +124,35 @@ def _check(q, k, v, causal: bool) -> None:
             f"its oracle disagree on the query offset there)")
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True):
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          return_lse: bool = False):
     """The kernel's plain twin: one softmax over every key in float32
     (masked scores -1e30), the probabilities rounded to v's dtype before
     the product with v, the sum in float32 divided by ``max(l, 1e-30)``,
-    the result in q's dtype.  Same contract as ``flash_attention``."""
+    the result in q's dtype.  Same contract as ``flash_attention``; with
+    ``return_lse`` also the rows' log-sum-exp as ``flash_attention_with_
+    lse`` gives it: ``(o, lse)``."""
     _check(q, k, v, causal)
     s, keep = _masked_scores(q, k, causal)
+    lse = _row_lse(s, keep) if return_lse else None
     if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
     # out of place, so autograd can differentiate the twin too
     s = torch.exp(s - s.amax(-1, keepdim=True))
     l = s.sum(-1, keepdim=True)                        # (B, H, Sq, 1)
     acc = torch.einsum("bhqk,bkhd->bqhd", s.to(v.dtype).float(), v.float())
-    return (acc / l.clamp_min(1e-30).transpose(1, 2)).to(q.dtype)
+    o = (acc / l.clamp_min(1e-30).transpose(1, 2)).to(q.dtype)
+    return (o, lse) if return_lse else o
+
+
+def _row_lse(s, keep):
+    """(B, H, Sq) float32 log-sum-exp of each row of the scores ``s`` over
+    the kept keys (``keep`` None: all); +inf for a row that keeps none,
+    as the kernels store it, so exp(s - lse) is 0 there."""
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    return lse.masked_fill_(lse == float("-inf"), float("inf"))
 
 
 def _masked_scores(q, k, causal: bool):
@@ -190,7 +207,7 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] * 6 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
         err = lib.mars_cuda_error_string
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
     return lib
@@ -215,9 +232,10 @@ def _arrival_counters(dev, n: int) -> torch.Tensor:
     return buf
 
 
-def _launch(q, k, v, causal: bool):
+def _launch(q, k, v, causal: bool, want_lse: bool = False):
     """Check operands and launch the CUDA kernel of ``split_plan`` on the
-    current stream."""
+    current stream; with ``want_lse`` the kernel also writes the rows'
+    log-sum-exp, and ``(o, lse)`` is returned."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     dev = q.device
@@ -243,8 +261,10 @@ def _launch(q, k, v, causal: bool):
         raise ValueError(f"flash_attention kernel takes at most "
                          f"{_MAX_QUERIES} queries; got {Sq}")
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) \
+        if want_lse else None
     if q.numel() == 0:
-        return o
+        return (o, lse) if want_lse else o
     lib = _library()
     plan = split_plan(B, Sq, Sk, H, D, q.dtype, _sm_count(dev.index or 0))
     part = counters = None
@@ -259,39 +279,52 @@ def _launch(q, k, v, causal: bool):
         k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Sq, Sk, D,
         int(causal), 1.0 / math.sqrt(D), plan.n_split, plan.keys_per_split,
         None if part is None else part.data_ptr(),
-        None if counters is None else counters.data_ptr(), stream)
+        None if counters is None else counters.data_ptr(),
+        None if lse is None else lse.data_ptr(), stream)
     if rc != 0:
         why = "unsupported" if rc == -1 \
             else lib.mars_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: rc={rc} "
                            f"({why}; plan {plan})")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if want_lse else o
 
 
-def _forward(q, k, v, causal: bool):
+def _forward(q, k, v, causal: bool, want_lse: bool = False):
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal)
+        return _launch(q, k, v, causal, want_lse)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     return_lse=want_lse)
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
 
+def flash_attention_with_lse(q, k, v, *, causal: bool = True):
+    """``(o, lse)``: ``flash_attention``'s output (one K5 launch on CUDA
+    tensors, the twin on CPU ones; no autograd) and each query row's
+    log-sum-exp of its scaled, masked scores, float32 (B, H, Sq), which
+    B5 takes in place of recomputing it (+inf for a row with no kept
+    key)."""
+    _check(q, k, v, causal)
+    return _forward(q, k, v, causal, want_lse=True)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K5 forward, B5 backward (their plain twins on the CPU)."""
+    """K5 forward saving the rows' log-sum-exp, B5 backward (their plain
+    twins on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o = _forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
-                                         causal=ctx.causal)
+                                         causal=ctx.causal, lse=lse)
         return dq, dk, dv, None
 
 
@@ -327,21 +360,28 @@ BWD_HEAD_DIMS = (64, 128)
 BWD_LAUNCHES = 3          # pre-pass, dK/dV, dQ: the kernels of one call
 
 
-def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True):
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
+                              lse=None):
     """B5's plain twin, the explicit formulas in float32: s = q k^T /
-    sqrt(D) (masked), p = exp(s - logsumexp(s)), delta = rowsum(do o),
-    dv = p^T do, ds = p (do v^T - delta), dq = ds k / sqrt(D), dk = ds^T
-    q / sqrt(D); each gradient in its input's dtype."""
+    sqrt(D) (masked), p = exp(s - lse) with ``lse`` the forward's saved
+    row log-sum-exp (recomputed as logsumexp(s) when None), delta =
+    rowsum(do o), dv = p^T do, ds = p (do v^T - delta), dq = ds k /
+    sqrt(D), dk = ds^T q / sqrt(D); each gradient in its input's dtype.
+    For bfloat16 inputs p and ds are rounded to bfloat16 where B5 rounds
+    them, as the operands of its tensor-core products: p before p^T do,
+    ds (from the unrounded p) before ds k and ds^T q; for float32 inputs
+    nothing is rounded."""
     _check(q, k, v, causal)
     s, keep = _masked_scores(q, k, causal)
     if keep is not None:
         s.masked_fill_(~keep, float("-inf"))
-    p = s.sub_(torch.logsumexp(s, -1, keepdim=True)).exp_()
+    lse = _row_lse(s, None) if lse is None else lse.float()
+    p = s.sub_(lse[..., None]).exp_()
     dof = do.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
     delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
-    ds = p.mul_(dp.sub_(delta))
+    ds = p.mul_(dp.sub_(delta)).to(q.dtype).float()
     scale = 1.0 / math.sqrt(q.shape[-1])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
@@ -367,7 +407,7 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _bwd_launch(q, k, v, o, do, causal: bool):
+def _bwd_launch(q, k, v, o, do, causal: bool, lse=None):
     """Check operands and launch B5's three kernels on the current
     stream."""
     B, Sq, H, D = q.shape
@@ -381,6 +421,8 @@ def _bwd_launch(q, k, v, o, do, causal: bool):
         if t.dtype != q.dtype:
             raise TypeError(f"flash_attention_bwd takes one dtype; {name} "
                             f"is {t.dtype}, q {q.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} "
                          f"must be shaped as q {tuple(q.shape)}")
@@ -391,11 +433,18 @@ def _bwd_launch(q, k, v, o, do, causal: bool):
     if B * H > _MAX_BATCH_HEADS:
         raise ValueError(f"flash_attention_bwd kernel takes B * H <= "
                          f"{_MAX_BATCH_HEADS}; got {B * H}")
+    if lse is None:
+        raise ValueError("flash_attention_bwd on CUDA takes the forward's "
+                         "row log-sum-exp (flash_attention_with_lse)")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != dev or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 (B, H, Sq) = "
+                         f"{(B, H, Sq)} tensor on {dev}; got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse, delta = (torch.empty(B * H * Sq, dtype=torch.float32, device=dev)
-                  for _ in range(2))
+    delta = torch.empty(B * H * Sq, dtype=torch.float32, device=dev)
     lib = _bwd_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.mars_flash_attention_bwd(
@@ -412,17 +461,20 @@ def _bwd_launch(q, k, v, o, do, causal: bool):
     return dq, dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, lse=None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal=causal) == o``
     for the incoming gradient ``do`` (shaped as q), each in its input's
-    dtype.  CUDA tensors launch B5 (float32 or bfloat16, one dtype,
-    contiguous, head dim in ``BWD_HEAD_DIMS``); CPU tensors run the plain
-    twin."""
+    dtype, given ``lse``, the rows' log-sum-exp that
+    ``flash_attention_with_lse`` returned with o.  CUDA tensors launch B5
+    (float32 or bfloat16, one dtype, contiguous, head dim in
+    ``BWD_HEAD_DIMS``; ``lse`` required); CPU tensors run the plain twin
+    (which recomputes a missing ``lse``)."""
     _check(q, k, v, causal)
     if q.device.type == "cuda":
-        return _bwd_launch(q, k, v, o, do, causal)
+        return _bwd_launch(q, k, v, o, do, causal, lse)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         lse=lse)
     raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
                      f"{q.device}")
 

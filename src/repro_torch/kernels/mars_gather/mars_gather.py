@@ -17,8 +17,10 @@ hand-written kernel ``csrc/embedding_grad_scatter.cu`` (the reference's
 ``embedding_grad_scatter`` is plain jnp; the source comment gives B2's
 bound and design): given ids stable-sorted by row and the permutation
 that sorts them, each run of equal ids sums its gradient rows in f32 in
-sorted order and writes its table row once; rows no id names are 0.  On
-CUDA tensors it launches B2 or raises; on CPU tensors it runs
+sorted order and writes its table row once; rows no id names are 0.
+``scatter_plan`` gives its launch from (n, d, dtype) alone: a short run
+is one warp's a 256-column chunk, a long one 8 warps'.  On CUDA tensors
+it launches B2 or raises; on CPU tensors it runs
 ``scatter_add_rows_plain`` (``index_add_`` of the sorted rows in f32, a
 sequential sum on the CPU, so bit for bit B2's).
 ``scatter_add_rows.launches`` counts B2's launches.
@@ -164,6 +166,26 @@ def mars_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _SCATTER_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SCATTER_WARPS = 4         # warps of a B2 block, one (position, chunk) each
+SCATTER_CHUNK = 256       # columns of a chunk (the grid's y)
+SCATTER_SLICES = 8        # warps that sum a long run's chunk, 32 columns each
+
+
+@functools.lru_cache(maxsize=256)
+def scatter_plan(n: int, d: int, dtype) -> tuple[bool, int, int]:
+    """B2's launch plan ``(wide, n_chunks, blocks)`` for ``n`` sorted
+    positions of ``d`` columns, from shapes and the dtype alone: each row
+    is cut into ``n_chunks`` chunks of ``SCATTER_CHUNK`` columns (the last
+    one shorter), one warp a (position, chunk), ``SCATTER_WARPS``
+    positions a block, the chunks along the grid's y.  A run shorter than
+    ``SCATTER_SLICES`` positions is summed by its first warp, 8
+    contiguous columns a lane (``wide``: as 16-byte loads, where d is a
+    multiple of 8); a longer one by its first ``SCATTER_SLICES`` warps,
+    warp t the 32 columns from 32 t of the chunk, one a lane."""
+    if dtype not in _SCATTER_DTYPE_CODES:
+        raise TypeError(f"scatter_add_rows kernel takes float32 or bfloat16 "
+                        f"g; got {dtype}")
+    return (d % 8 == 0, -(-d // SCATTER_CHUNK), -(-n // SCATTER_WARPS))
 
 
 def scatter_add_rows_plain(sorted_ids, perm, g, vocab: int):
@@ -181,8 +203,8 @@ def _scatter_library() -> ctypes.CDLL:
     fn = lib.mars_embedding_grad_scatter
     if fn.argtypes is None:               # first use: declare once
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
         err = lib.mars_cuda_error_string
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
     return lib
@@ -211,11 +233,15 @@ def _scatter_launch(sorted_ids, perm, g, vocab: int):
     out = torch.zeros((vocab, d), dtype=g.dtype, device=dev)
     if n == 0 or d == 0:
         return out
+    wide, n_chunks, blocks = scatter_plan(n, d, g.dtype)
+    if wide and g.data_ptr() % 16:
+        g = g.clone()             # a view at an odd offset: an aligned copy
     lib = _scatter_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.mars_embedding_grad_scatter(
-        _SCATTER_DTYPE_CODES[g.dtype], sorted_ids.data_ptr(), perm.data_ptr(),
-        g.data_ptr(), out.data_ptr(), n, vocab, d, stream)
+        _SCATTER_DTYPE_CODES[g.dtype], int(wide), sorted_ids.data_ptr(),
+        perm.data_ptr(), g.data_ptr(), out.data_ptr(), n, vocab, d, n_chunks,
+        blocks, stream)
     if rc != 0:
         why = lib.mars_cuda_error_string(rc).decode() if rc > 0 \
             else "unsupported"

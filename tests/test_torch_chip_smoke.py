@@ -503,15 +503,113 @@ def test_counted_ms_reads_only_whole_profiles(short, monkeypatch):
         assert got == 7.0 and len(seen) == 4
 
 
+@pytest.mark.parametrize("short", [0, 3, 4])
+def test_counted_rows_never_return_a_short_profile(short, monkeypatch):
+    """``counted_rows``, which K1's, K3's and K5's timings read through,
+    returns a profile's rows only when it holds every launch of the
+    kernel key, profiling again while one is short, and None after four
+    short ones (the caller then times with CUDA events); ``launches_of``
+    reads a call's launches from the wrapper's counts."""
+    seen = []
+
+    def profile(fn, reps, case, need=(), tries=4):
+        seen.append(1)
+        calls = 2 * reps - (0 if len(seen) > short else 1)
+        return [dict(name="paged_attention_split_kernel", ms=1.0,
+                     calls=calls)]
+    monkeypatch.setattr(chip_smoke, "device_profile", profile)
+    rows = chip_smoke.counted_rows(lambda: None, 5, "case",
+                                   "paged_attention_", 2)
+    assert (rows is None) == (short >= 4)
+    assert len(seen) == min(short + 1, 4)
+
+    class Wrapper:
+        launches = 3
+        merge_launches = 0
+
+    def call():
+        Wrapper.launches += 1
+        Wrapper.merge_launches += 1
+    assert chip_smoke.launches_of(call, (Wrapper, "launches"),
+                                  (Wrapper, "merge_launches")) == 2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_b5_bounds_hold_rounding_flips_and_catch_a_fault(causal):
+    """``b5_bounds`` on the host, bf16: the twin against itself with its
+    lse moved by 1e-6 relative (which flips the bf16 rounding of some p
+    and ds, as B5's other summation order does on the card) stays within
+    the bound though not within ``B5_TOL`` alone; a dv row given to the
+    wrong key, or a dq 2 % off, does not.  ``bf16_flip`` flags a value at
+    a bf16 rounding midpoint and not one off it.  In
+    float32 the bound is ``B5_TOL``'s."""
+    from repro_torch.kernels.flash_attention import flash_attention as k5
+    gen = torch.Generator().manual_seed(4)
+    B, S, H, D = 2, 96, 2, 64
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen).bfloat16()
+                   for _ in range(4))
+    o, lse = k5.flash_attention_with_lse(q, k, v, causal=causal)
+    want = k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                        lse=lse)
+    moved = k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         lse=lse * (1 + 1e-6))
+    bounds = chip_smoke.b5_bounds(k5, q, k, v, o, do, lse, causal, want)
+    assert any(chip_smoke.bwd_err(m, w, chip_smoke.B5_TOL["bfloat16"])[1]
+               > 1.0 for m, w in zip(moved, want))
+    for m, w, b in zip(moved, want, bounds):
+        assert chip_smoke.bound_err(m, w, b)[1] <= 1.0
+    dv = want[2].clone()
+    dv[:, [3, 4]] = dv[:, [4, 3]]
+    assert chip_smoke.bound_err(dv, want[2], bounds[2])[1] > 1.0
+    dq = (want[0].float() * 1.02).bfloat16()
+    assert chip_smoke.bound_err(dq, want[0], bounds[0])[1] > 1.0
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -8, 1.0 + 2.0 ** -9])
+    assert chip_smoke.bf16_flip(torch, x, x * 2.0 ** -16).tolist() == [
+        0.0, 2.0 ** -7 + (1.0 + 2.0 ** -8) * 2.0 ** -16, 0.0]
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    want32 = k5.flash_attention_bwd_plain(*f32, causal=causal, lse=lse)
+    b32 = chip_smoke.b5_bounds(k5, *f32, lse, causal, want32)
+    for w, b in zip(want32, b32):
+        atol, rtol = chip_smoke.B5_TOL["float32"]
+        assert torch.allclose(b, atol * w.abs().max() + rtol * w.abs())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_reference_err_holds_bf16_gradients_to_the_unrounded_twin(
+        causal):
+    """``f32_reference_err`` on the host: the bf16 rounding twin's
+    gradients (B5's arithmetic) and SDPA backward's on the same bf16
+    inputs, each against the unrounded float32 twin; both within a few
+    bf16 spacings (relative rms below 1e-2), and a gradient scaled by 2
+    far from it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention as k5
+    gen = torch.Generator().manual_seed(6)
+    q, k, v, do = (torch.randn(1, 48, 2, 64, generator=gen).bfloat16()
+                   for _ in range(4))
+    o, lse = k5.flash_attention_with_lse(q, k, v, causal=causal)
+    got = k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                       lse=lse)
+    ref = chip_smoke.f32_reference_err(torch, F, k5, q, k, v, do, got,
+                                       causal)
+    assert set(ref) == {"b5", "sdpa", "ratio", "b5_rms", "sdpa_rms"}
+    assert max(ref["b5_rms"]) < 1e-2 and max(ref["sdpa_rms"]) < 1e-2
+    assert 0.25 < ref["ratio"] < 4.0
+    off = chip_smoke.f32_reference_err(torch, F, k5, q, k, v, do,
+                                       [g * 2 for g in got], causal)
+    assert min(off["b5_rms"]) > 0.5 and off["ratio"] > 10
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Sq,Sk,H,D,causal", [
     (2, 130, 130, 3, 64, True), (2, 70, 200, 2, 64, False),
     (1, 100, 100, 2, 128, True)])
 def test_b5_matches_its_twin_on_the_card(B, Sq, Sk, H, D, causal, dtype):
-    """B5 on the card against its plain twin on the same inputs (o from
-    K5), held to the train phase's ``B5_TOL`` by its ``bwd_err``; each
-    call launches ``BWD_LAUNCHES`` kernels."""
+    """B5 on the card against its plain twin on the same inputs (o and
+    the rows' lse from K5), held to the train phase's bound per element
+    (``b5_bounds``: ``B5_TOL``, and in bf16 the flips of the rounded p
+    and ds); each call launches ``BWD_LAUNCHES`` kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: B5 runs only there")
     from repro_torch.kernels.flash_attention import flash_attention as k5
@@ -519,15 +617,17 @@ def test_b5_matches_its_twin_on_the_card(B, Sq, Sk, H, D, causal, dtype):
     dt = getattr(torch, dtype)
     q, k, v = chip_smoke.k5_inputs(torch, gen, B, Sq, Sk, H, D, dt)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
-    o = k5.flash_attention(q, k, v, causal=causal)
+    o, lse = k5.flash_attention_with_lse(q, k, v, causal=causal)
     before = k5.flash_attention_bwd.launches
-    got = k5.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    got = k5.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
     assert k5.flash_attention_bwd.launches == before + k5.BWD_LAUNCHES
-    want = k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
-    for g, w in zip(got, want):
+    want = k5.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                        lse=lse)
+    bounds = chip_smoke.b5_bounds(k5, q, k, v, o, do, lse, causal, want)
+    for g, w, b in zip(got, want, bounds):
         assert g.dtype == dt and g.shape == w.shape
-        assert chip_smoke.bwd_err(g, w, chip_smoke.B5_TOL[dtype])[1] <= 1.0
+        assert chip_smoke.bound_err(g, w, b)[1] <= 1.0
 
 
 @pytest.mark.cuda

@@ -356,7 +356,8 @@ def test_sdpa_trains_through_flash_attention():
 
 def test_bwd_kernel_wrapper_never_falls_back():
     """B5's wrapper raises on what the kernel does not take (dtype, head
-    dim, layout, mismatched o) before any build; operands it takes go to
+    dim, layout, mismatched o, a missing or misshapen saved lse) before
+    any build; operands it takes go to
     the build (which needs nvcc), never to the twin; and a forward that
     needs a gradient on CUDA at another head dim raises before K5."""
     q = torch.zeros(1, 4, 2, 64)
@@ -374,11 +375,176 @@ def test_bwd_kernel_wrapper_never_falls_back():
         tfa._bwd_launch(q, q, q, q[:, :2].contiguous(), q, False)
     with pytest.raises(ValueError, match="head_dim"):
         tfa._check_bwd(q16)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        tfa._bwd_launch(q, q, q, q, q, False)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="lse must be"):
+        tfa._bwd_launch(q, q, q, q, q, False, lse.transpose(1, 2))
     launches = tfa.flash_attention_bwd.launches
     try:
         build._nvcc()
     except RuntimeError:
         with pytest.raises(RuntimeError, match="nvcc"):
-            tfa._bwd_launch(q, q, q, q, q, False)
+            tfa._bwd_launch(q, q, q, q, q, False, lse)
     assert tfa.flash_attention_bwd.launches == launches
 
+
+
+# ---- the forward's saved row log-sum-exp, and B5's bf16 roundings ---------
+# The training forward saves each query row's log-sum-exp of its scaled,
+# masked scores (float32), which B5 takes instead of recomputing it.  The
+# twin's equals torch.logsumexp and the reference oracle's scores under
+# jax.nn.logsumexp to 1e-6 (float32 scores of unit normals over up to 130
+# keys: their sums differ by round-off only).
+LSE_CASES = [(2, 40, 40, 3, 64, True), (2, 24, 70, 3, 64, False),
+             (1, 70, 24, 2, 128, False), (1, 130, 130, 2, 128, True)]
+
+
+def _masked_logits(q, k, causal):
+    """The reference oracle's logits (its scale; -1e30 where masked)."""
+    logits = jnp.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / np.sqrt(
+        q.shape[-1]))
+    if causal:
+        keep = np.tril(np.ones((q.shape[1], k.shape[1]), bool))
+        logits = jnp.where(keep, logits, -1e30)
+    return logits
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", LSE_CASES)
+def test_plain_lse_is_the_logsumexp_of_the_masked_scores(B, Sq, Sk, H, D,
+                                                         causal):
+    q, k, v = _qkv(8, B, Sq, Sk, H, D)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                       return_lse=True)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    assert torch.equal(o, tfa.flash_attention_plain(tq, tk, tv,
+                                                    causal=causal))
+    s = torch.einsum("bqhd,bkhd->bhqk", tq, tk) / np.sqrt(D)
+    if causal:
+        s = s.masked_fill(~torch.ones(Sq, Sk, dtype=torch.bool).tril(),
+                          float("-inf"))
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    want = jax.nn.logsumexp(_masked_logits(q, k, causal), axis=-1)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    o2, lse2 = tfa.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+def test_plain_lse_of_a_row_with_no_kept_key_is_inf():
+    """A row that keeps no key gets +inf, as the kernels store it, so
+    exp(s - lse) is 0 there in the backward and never NaN; the other rows
+    their logsumexp."""
+    s = torch.randn(1, 2, 3, 5)
+    keep = torch.ones(3, 5, dtype=torch.bool)
+    keep[1] = False
+    lse = tfa._row_lse(s, keep)
+    assert torch.isinf(lse[..., 1]).all() and (lse[..., 1] > 0).all()
+    assert torch.equal(lse[..., 0], torch.logsumexp(s[..., 0, :], -1))
+    p = torch.exp(s.masked_fill(~keep, float("-inf")) - lse[..., None])
+    assert not p.isnan().any() and not p[..., 1, :].any()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", LSE_CASES)
+def test_bwd_twin_given_the_saved_lse_equals_the_twin_recomputing_it(
+        B, Sq, Sk, H, D, causal):
+    """The twin given the forward's lse against the twin that rebuilds it
+    with logsumexp: float32 round-off (1e-6)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(B, Sq, Sk, H, D,
+                                                            seed=9))
+    o, lse = tfa.flash_attention_plain(q, k, v, causal=causal,
+                                       return_lse=True)
+    got = tfa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                        lse=lse)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _bwd_numpy(q, k, v, o, do, causal, rounded: bool, out_bf16=True):
+    """B5's formulas in numpy float32 from the (bf16-valued) inputs; with
+    ``rounded``, p rounded to bf16 before p^T do and ds (from the
+    unrounded p) before ds k and ds^T q; with ``out_bf16`` each gradient
+    rounded to bf16."""
+    bf = jnp.bfloat16
+
+    def rnd(x):
+        return np.asarray(np.asarray(x, bf), np.float32) if rounded else x
+    scale = np.float32(1.0 / np.sqrt(q.shape[-1]))
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[-2:], bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    lse = m + np.log(np.exp(s - m).sum(-1, keepdims=True))
+    p = np.exp(s - lse).astype(np.float32)
+    dv = np.einsum("bhqk,bqhd->bkhd", rnd(p), do)
+    dp = np.einsum("bqhd,bkhd->bhqk", do, v)
+    delta = (do * o).sum(-1).transpose(0, 2, 1)[..., None]
+    ds = rnd((p * (dp - delta)).astype(np.float32))
+    dq = np.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = np.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    if not out_bf16:
+        return [dq, dk, dv]
+    return [np.asarray(np.asarray(g, bf), np.float32) for g in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_twin_rounds_p_and_ds_to_bf16_where_b5_does(causal):
+    """For bfloat16 inputs the twin rounds p and ds to bf16 at B5's points
+    (the operands of its tensor-core products): against the numpy
+    formulas that round there, all but a few of its bf16 gradients are
+    bitwise equal and none is more than one bf16 spacing off (the two sum
+    in other orders), while the unrounded formulas differ in many more.
+    For float32 inputs nothing is rounded: the twin is the unrounded
+    formulas (1e-5)."""
+    B, S, H, D = 2, 48, 2, 64
+    arrays = [np.asarray(np.asarray(a, jnp.bfloat16), np.float32)
+              for a in _bwd_inputs(B, S, S, H, D, seed=13)]
+    tq, tk, tv, tdo = (torch.from_numpy(a).bfloat16() for a in arrays)
+    to = tfa.flash_attention_plain(tq, tk, tv, causal=causal)
+    o = to.float().numpy()
+    got = [g.float().numpy() for g in tfa.flash_attention_bwd_plain(
+        tq, tk, tv, to, tdo, causal=causal)]
+    want = _bwd_numpy(*arrays[:3], o, arrays[3], causal, rounded=True)
+    plain = _bwd_numpy(*arrays[:3], o, arrays[3], causal, rounded=False)
+    off = far = 0
+    for g, w, u in zip(got, want, plain):
+        np.testing.assert_allclose(g, w, rtol=2.0 ** -7, atol=1e-6)
+        off += int((g != w).sum())
+        far += int((g != u).sum())
+    n = sum(g.size for g in got)
+    assert off <= n // 200 and far >= 10 * max(off, 1), (off, far, n)
+    f32 = [torch.from_numpy(a) for a in arrays]
+    o32 = tfa.flash_attention_plain(*f32[:3], causal=causal)
+    got32 = tfa.flash_attention_bwd_plain(*f32[:3], o32, f32[3],
+                                          causal=causal)
+    want32 = _bwd_numpy(*arrays[:3], o32.numpy(), arrays[3], causal,
+                        rounded=False, out_bf16=False)
+    for g, w in zip(got32, want32):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,D,causal", BWD_CASES)
+def test_autograd_saves_the_lse_and_matches_jax_grad(B, Sq, Sk, H, D,
+                                                     causal):
+    """``flash_attention`` under autograd saves (q, k, v, o, lse), the lse
+    the forward twin's, and its gradients match ``jax.grad`` of the
+    reference's oracle in float32 (2e-5)."""
+    q, k, v, do = _bwd_inputs(B, Sq, Sk, H, D, seed=21)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = tfa.flash_attention(*leaves, causal=causal)
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 5
+    want_lse = tfa.flash_attention_plain(*(t.detach() for t in leaves),
+                                         causal=causal, return_lse=True)[1]
+    assert torch.equal(saved[4], want_lse)
+    o.backward(torch.from_numpy(do))
+
+    def f(q, k, v):
+        return jnp.sum(jref.attention_ref(q, k, v, causal=causal) * do)
+    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    for t, w in zip(leaves, want):
+        _close(t.grad, w, TOL["float32"])

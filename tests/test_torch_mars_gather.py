@@ -256,6 +256,46 @@ def test_sorted_gather_table_gradient_matches_jax(ids_kind):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("n,d", [(4096, 1024), (4096, 512),   # B2_TABLES
+                                 (4096, 1000), (4096, 999), (1, 1024),
+                                 (1, 7), (33, 64), (5, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_plan_covers_every_column_of_every_run_once(n, d, dtype):
+    """B2's plan: a warp for every sorted position (each position may
+    start a run), and within each chunk of ``SCATTER_CHUNK`` columns the
+    lanes of a short run's one warp (8 contiguous columns a lane, kept
+    below d) and the ``SCATTER_SLICES`` warps of a long run (32 columns
+    each, one a lane, kept below d) each cover every column of the row
+    exactly once; 16-byte loads (``wide``) only where d is a multiple of
+    8, so no lane's 8 columns straddle the row's end."""
+    wide, n_chunks, blocks = tmg.scatter_plan(n, d, dtype)
+    assert wide == (d % 8 == 0)
+    assert (blocks - 1) * tmg.SCATTER_WARPS < n <= blocks * tmg.SCATTER_WARPS
+    assert n_chunks <= 65535
+    chunk, slices = tmg.SCATTER_CHUNK, tmg.SCATTER_SLICES
+    assert chunk == 32 * slices == 32 * 8
+    short = [c + k for y in range(n_chunks) for lane in range(32)
+             for c in [chunk * y + 8 * lane] for k in range(8) if c + k < d]
+    long = [c for y in range(n_chunks) for t in range(slices)
+            for lane in range(32) for c in [chunk * y + 32 * t + lane]
+            if c < d]
+    assert sorted(short) == sorted(long) == list(range(d))
+    if wide:
+        assert all((chunk * y + 8 * lane) % 8 == 0 for y in range(n_chunks)
+                   for lane in range(32))
+
+
+def test_scatter_plan_spreads_a_long_run_over_warps():
+    """qwen's d 1024 sums a long run with 4 chunks x 8 warps, whisper's d
+    512 with 2 x 8, each warp 32 columns; a short run takes one warp a
+    chunk, as many as 256-column chunks."""
+    assert tmg.scatter_plan(4096, 1024, torch.bfloat16)[:2] == (True, 4)
+    assert tmg.scatter_plan(4096, 512, torch.float32)[:2] == (True, 2)
+    assert tmg.scatter_plan(4096, 999, torch.float32)[:2] == (False, 4)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tmg.scatter_plan(4, 8, torch.float16)
+
+
 def test_scatter_wrapper_never_falls_back():
     """B2's wrapper raises on what the kernel does not take before any
     build; operands it takes go to the build (which needs nvcc), never to
