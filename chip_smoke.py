@@ -84,20 +84,26 @@ Phases (any failure exits non-zero and prints no result):
           requests a core (64 cores, 8 ports, n = 16384) and on seeded
           random streams (one page, few pages, many pages, 3 ways, a
           RequestQ of 1024; there also against the OrderedDict oracle),
-          and against the oracle on the ablation grid of
-          ``benchmarks/ablations.py`` at 128 a core; S2, the FR-FCFS
-          DRAM channels (``csrc/dram_channel.cu``), against its twin
-          (t_end, n_act, hits a channel) on the baseline and MARS-ordered
-          streams of all five workloads at windows 8, 32 and 64, on
-          streams shorter than the window, one empty channel and n = 0;
-          then the port's ``benchmarks/run.py --smoke`` simulated rows on
-          the card against ``results/bench_baseline.json`` (exact), and
-          the main path, ``experiment.run_all`` at 256 a core on the
-          card, with every count set to 0 just before it (5 S1 and 10
-          S2 launches): Fig 7 and Fig 8 per workload and their means,
-          which must equal the reference's (29.31 % / 107.71 %).  Each
-          kernel is timed at WL1 (device ms, its plain twin's host ms,
-          simulated cycles and ns per dependent step).
+          all ten in one batched launch, and against the oracle on the
+          90 (point, workload) streams of the ablation grid of
+          ``benchmarks/ablations.py`` at 128 a core in one launch; S2,
+          the FR-FCFS DRAM channels (``csrc/dram_channel.cu``), against
+          its twin (t_end, n_act, hits a channel) on the baseline and
+          MARS-ordered streams of all five workloads, streams shorter
+          than the window, a stream on one channel and an empty one, a
+          launch a window (8, 32, 64); then the port's
+          ``benchmarks/run.py --smoke`` simulated rows on the card
+          against ``results/bench_baseline.json`` (exact), and the main
+          path, ``experiment.run_all`` at 256 a core on the card, with
+          every count set to 0 just before it (1 S1 and 1 S2 launch):
+          Fig 7 and Fig 8 per workload and their means, which must
+          equal the reference's (29.31 % / 107.71 %); then the ablation
+          sweep (``ablations.sweep``, 1 + 1 launches, counted).  Each
+          kernel is timed at WL1 and as ``run_all``'s batched call
+          (device ms, its plain twin's host ms, simulated cycles and ns
+          per dependent step) beside its byte bound and its chain bound
+          (dependent steps times one dependent shared-memory load, timed
+          on the card by a one-thread pointer chase).
   serve   ``repro_torch.launch.serve --paged --config <arch>`` at full
           width for qwen1_5_0_5b (24 layers, vocab 151936), hymba_1_5b
           (32 layers, d 1600, SSM heads; also in float32 and through the
@@ -1586,13 +1592,38 @@ def sim_plain_channels(ops, cfg):
     return rows, (time.perf_counter() - t0) * 1e3
 
 
-def sim_bytes_mars(addr, ports, src, cfg) -> int:
-    """Bytes S1 must move: pages, src and the port queues read once, the
-    permutation (int64) and 3 stats written once."""
+def sim_instance(torch, addr, ports, src, cfg, device="cuda"):
+    """``mars_engine``'s operands of a stream on ``device``, as
+    ``mars_reorder`` builds them: (pages, port_req, port_len, src,
+    n_cores, cfg)."""
     from repro_torch.core import mars
-    _, port_req, port_len, _, _ = mars.prepare(addr, ports, cfg, src)
-    n = len(addr)
-    return 4 * n + 4 * n + 4 * port_req.size + 4 * port_len.size + 8 * n + 12
+    pages, port_req, port_len, src_, n_cores = mars.prepare(addr, ports, cfg,
+                                                            src)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (pages, port_req, port_len, src_)) + (n_cores, cfg)
+
+
+def sim_concat_operands(torch, ops_list):
+    """Several streams' ``dram_channels`` operands laid back to back in
+    one layout, as ``dram.simulate_many`` lays them."""
+    shift, offs = 0, []
+    for local, _, off in ops_list:
+        offs.append(off[:-1] + shift)
+        shift += local.numel()
+    offs.append(torch.tensor([shift], dtype=torch.int64,
+                             device=ops_list[0][2].device))
+    return (torch.cat([o[0] for o in ops_list]),
+            torch.cat([o[1] for o in ops_list]), torch.cat(offs))
+
+
+def sim_bytes_mars(inst) -> int:
+    """Bytes S1 must move for an instance (``sim_instance``): pages, src
+    and the port queues read once, the permutation (int64) and 3 stats
+    written once."""
+    pages, port_req, port_len = inst[:3]
+    n = pages.numel()
+    return 4 * n + 4 * n + 4 * port_req.numel() + 4 * port_len.numel() \
+        + 8 * n + 12
 
 
 def sim_bytes_channels(ops) -> int:
@@ -1603,14 +1634,86 @@ def sim_bytes_channels(ops) -> int:
         + 12 * (off.numel() - 1)
 
 
+# one thread walks a cycle of `n` ints in shared memory, `steps` loads,
+# each at the address the last one read; `out` gets the clocks and the
+# end point (so the chain is not optimised away)
+SMEM_CHASE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void smem_chase_kernel(int n, long long steps, long long* out) {
+  extern __shared__ int ring[];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) ring[i] = (i + 33) % n;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int j = 0;
+  const long long t0 = clock64();
+  for (long long s = 0; s < steps; ++s) j = ring[j];
+  out[0] = clock64() - t0;
+  out[1] = j;
+}
+extern "C" int smem_chase_run(int n, long long steps, void* out,
+                              void* stream) {
+  smem_chase_kernel<<<1, 256, n * sizeof(int), (cudaStream_t)stream>>>(
+      n, steps, (long long*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def smem_load_ns(torch) -> dict:
+    """The card's latency of one dependent shared-memory load, the unit
+    of the simulator kernels' chain bound: one thread chasing pointers
+    through 4096 ints, 2^22 loads, timed with CUDA events after one
+    warm-up call (``SMEM_CHASE_SRC``, built here with the port's nvcc
+    flags into the git-ignored ``build/smem_chase/``)."""
+    import ctypes
+    from repro_torch.kernels import build
+    out_dir = ROOT / "build" / "smem_chase"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "smem_chase.cu").write_text(SMEM_CHASE_SRC)
+    lib_path = out_dir / "libsmem_chase.so"
+    subprocess.run([build._nvcc(), *build.FLAGS, "-o", str(lib_path),
+                    str(out_dir / "smem_chase.cu")], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).smem_chase_run
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    steps = 1 << 22
+
+    def run():
+        rc = fn(4096, steps, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"shared-memory pointer chase failed: rc={rc}")
+    run()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(3):
+        run()
+    b.record()
+    b.synchronize()
+    ns = 1e6 * a.elapsed_time(b) / 3 / steps
+    clocks = int(out[0]) / steps
+    return dict(ns_per_load=ns, clocks_per_load=clocks, ghz=clocks / ns)
+
+
 SIM_PATH = "experiment.run_all --device cuda"
+SIM_SWEEP = "ablations.sweep --device cuda"
 
 
 def sim_kernel_rows(launches: dict, timing: dict) -> list:
     """The ``{"kernels": [...]}`` rows of S1 and S2: launches on the main
     path (``SIM_PATH`` in ``launches``), exact against their twins, timed
-    at WL1 (``sim_phase``).  ``plain_ms`` is the twin's host time: it is a
-    host loop.  No PyTorch call computes either scan."""
+    at WL1 a stream (``ms``) and as the main path's one batched call
+    (``batched_ms``: the five workloads for S1, their ten baseline and
+    MARS-ordered streams for S2), each beside its byte bound
+    (``bound_ms``) and chain bound (``chain_bound_ms``, the longest
+    instance's dependent steps at the card's measured latency of a
+    dependent shared-memory load: the one that binds).  ``plain_ms`` is
+    the twin's host time: it is a host loop.  No PyTorch call computes
+    either scan."""
     rows = []
     for name, source, replaces in SIM_KERNELS:
         t = timing[name]
@@ -1621,7 +1724,10 @@ def sim_kernel_rows(launches: dict, timing: dict) -> list:
             max_abs_err=0, ms=t["ms"], plain_ms=t["plain_ms"],
             plain_on="host", bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=None, serial_steps=t["serial_steps"],
-            ns_per_step=t["ns_per_step"]))
+            ns_per_step=t["ns_per_step"],
+            chain_bound_ms=t["chain_bound_ms"], batched_ms=t["batched_ms"],
+            batched_instances=t["batched_instances"],
+            batched_chain_bound_ms=t["batched_chain_bound_ms"]))
     return rows
 
 
@@ -1634,12 +1740,26 @@ def sim_baseline_check(rows, path=None) -> list:
     return bench_run.check_baseline(rows, baseline)
 
 
+def sim_short_streams():
+    """Seeded streams shorter than the window: (n, window, addr,
+    is_write)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    out = []
+    for n, window in ((5, 8), (20, 32), (40, 64), (3, 64)):
+        out.append((n, window, rng.integers(0, 1 << 20, n).astype(np.int32),
+                    rng.random(n) < 0.3))
+    return out
+
+
 def sim_phase(torch):
-    """S1 and S2 against their plain twins, S1 against the oracle, the
-    smoke rows against the repo's baseline, then the main path
-    (``experiment.run_all`` at RPC 256 on the card) with its launches
-    counted, Fig 7 / Fig 8 printed, and each kernel timed.  Returns
-    (record, timing, launches of the main path)."""
+    """S1 and S2 against their plain twins, S1 against the oracle, each
+    batched as the main path batches them; the smoke rows against the
+    repo's baseline; the main path (``experiment.run_all`` at RPC 256 on
+    the card: one S1 and one S2 launch) with its launches counted, Fig 7
+    / Fig 8 printed; the ablation sweep's launches; then each kernel
+    timed a stream and batched beside its bounds.  Returns (record,
+    timing, launches of the main path, launches of the sweep)."""
     import numpy as np
     from repro_torch.benchmarks import ablations, kvcache_sim
     from repro_torch.core import dram, experiment, mars, streams
@@ -1652,12 +1772,26 @@ def sim_phase(torch):
         if not ok:
             bad.append(f"{kind} {case}: {info}")
 
-    # S1 against its twin: WL1-WL5 at RPC 256, then the random streams
+    def one_launch(kind, what, wrapper, fn):
+        """``fn()``, which must launch ``wrapper``'s kernel once."""
+        before = wrapper.launches
+        out = fn()
+        n = wrapper.launches - before
+        record[kind].setdefault("batched_launches", {})[what] = n
+        if n != 1:
+            bad.append(f"{kind} {what}: {n} launches, not 1")
+        return out
+
+    # S1 against its twin: WL1-WL5 at RPC 256 and the random streams, in
+    # one batched launch
     cfg0 = mars.MarsConfig()
     cases = [(wl,) + sim_streams(wl, SIM_RPC)[:3] + (cfg0,)
              for wl in streams.WORKLOADS] + sim_random_streams()
-    for case, addr, ports, src, cfg in cases:
-        perm, st = mars.mars_reorder(addr, ports, cfg, src=src)
+    got = one_launch("mars", "twin cases", me_mod.mars_engine,
+                     lambda: mars.mars_reorder_many(
+                         [(a, p, c, s) for _, a, p, s, c in cases]))
+    perms = {case: perm for (case, *_), (perm, _) in zip(cases, got)}
+    for (case, addr, ports, src, cfg), (perm, st) in zip(cases, got):
         want, stalls, total, host_ms = sim_plain_mars(addr, ports, src, cfg)
         info = dict(n=len(addr), stall_events=st["stall_events"],
                     total_cycles=st["total_cycles"], twin_stalls=stalls,
@@ -1674,60 +1808,68 @@ def sim_phase(torch):
               f"stall events {st['stall_events']} (twin {stalls}), total "
               f"cycles {st['total_cycles']} (twin {total}); twin host "
               f"{host_ms:.0f} ms")
-    # S1 against the oracle on the ablation grid at RPC 128
+    # S1 against the oracle on the ablation grid at RPC 128, one launch
+    grid_streams = {wl: sim_streams(wl, SIM_GRID_RPC)
+                    for wl in streams.WORKLOADS}
+    grid = [(name, v, cfg, wl) for name, v, cfg in ablations.configs()
+            for wl in streams.WORKLOADS]
+    got = one_launch("mars", "ablation grid", me_mod.mars_engine,
+                     lambda: mars.mars_reorder_many(
+                         [(grid_streams[wl][0], grid_streams[wl][1], cfg,
+                           grid_streams[wl][2]) for _, _, cfg, wl in grid]))
     grid_ok = 0
-    for name, v, cfg in ablations.configs():
-        for wl in streams.WORKLOADS:
-            addr, ports, src, _ = sim_streams(wl, SIM_GRID_RPC)
-            perm, st = mars.mars_reorder(addr, ports, cfg, src=src)
-            ok = np.array_equal(perm, mars.mars_reorder_reference(
-                addr, ports, cfg, src))
-            grid_ok += ok
-            if not ok:
-                held("mars", f"grid {name}={v} {wl}", ok,
-                     stall_events=st["stall_events"])
-    n_grid = len(ablations.configs()) * len(streams.WORKLOADS)
-    record["mars"]["grid"] = dict(ok=grid_ok == n_grid, equal=grid_ok,
-                                  of=n_grid)
+    for (name, v, cfg, wl), (perm, st) in zip(grid, got):
+        addr, ports, src, _ = grid_streams[wl]
+        ok = np.array_equal(perm, mars.mars_reorder_reference(
+            addr, ports, cfg, src))
+        grid_ok += ok
+        if not ok:
+            held("mars", f"grid {name}={v} {wl}", ok,
+                 stall_events=st["stall_events"])
+    record["mars"]["grid"] = dict(ok=grid_ok == len(grid), equal=grid_ok,
+                                  of=len(grid))
     print(f"[sim] mars_engine ablation grid at RPC {SIM_GRID_RPC}: "
-          f"{grid_ok} of {n_grid} permutations equal to the oracle")
-    # S2 against its twin: baseline and MARS-ordered streams, 3 windows
-    for wl in streams.WORKLOADS:
-        addr, ports, src, wr = sim_streams(wl, SIM_RPC)
-        perm, _ = mars.mars_reorder(addr, ports, cfg0, src=src)
-        for order, a, w in (("base", addr, wr),
-                            ("mars", addr[perm], wr[perm])):
-            for window in SIM_WINDOWS:
-                cfg = dram.DramConfig(window=window)
-                ops = sim_channel_operands(torch, a, w, cfg)
-                got = dc_mod.dram_channels(*ops, cfg).cpu().tolist()
-                want, host_ms = sim_plain_channels(ops, cfg)
-                held("dram", f"{wl}/{order}/w{window}",
-                     [tuple(r) for r in got] == want, got=got, want=want,
-                     twin_host_ms=host_ms)
-    # short streams: n below the window, one channel empty, n = 0
-    rng = np.random.default_rng(1)
-    for n, window in ((5, 8), (20, 32), (40, 64), (3, 64)):
-        cfg = dram.DramConfig(window=window)
-        a = rng.integers(0, 1 << 20, n).astype(np.int32)
-        w = rng.random(n) < 0.3
-        ops = sim_channel_operands(torch, a, w, cfg)
-        got = dc_mod.dram_channels(*ops, cfg).cpu().tolist()
-        held("dram", f"short{n}/w{window}",
-             [tuple(r) for r in got] == sim_plain_channels(ops, cfg)[0],
-             got=got)
+          f"{grid_ok} of {len(grid)} permutations equal to the oracle (one "
+          f"launch)")
+    # S2 against its twin, a launch a window: the baseline and MARS-ordered
+    # streams of every workload, the streams shorter than the window, a
+    # stream on one channel and an empty one
     one = (np.arange(64, dtype=np.int32) // 2) * 4   # channel 0 alone
-    r = dram.simulate(one)
-    held("dram", "one_channel", r.per_channel_cycles[1] == 0 and
-         r == dram.simulate(one, device="cpu"), cycles=r.cycles)
-    r = dram.simulate(np.zeros(0, np.int32))
-    held("dram", "empty", r.cycles == 0 and r.n_act == 1
-         and r.achieved_gbps == 0.0, cycles=r.cycles)
-    n_dram = len(record["dram"])
-    n_eq = sum(v["ok"] for v in record["dram"].values())
+    short = sim_short_streams()
+    for window in SIM_WINDOWS:
+        cfg = dram.DramConfig(window=window)
+        ss = []
+        for wl in streams.WORKLOADS:
+            addr, _, _, wr = sim_streams(wl, SIM_RPC)
+            ss += [(f"{wl}/base/w{window}", addr, wr),
+                   (f"{wl}/mars/w{window}", addr[perms[wl]],
+                    wr[perms[wl]])]
+        ss += [(f"short{n}/w{w}", a, wr) for n, w, a, wr in short
+               if w == window]
+        ss += [(f"one_channel/w{window}", one, None),
+               (f"empty/w{window}", np.zeros(0, np.int32), None)]
+        ops = [sim_channel_operands(torch, a, wr, cfg) for _, a, wr in ss]
+        rows = one_launch("dram", f"w{window}", dc_mod.dram_channels,
+                          lambda: dc_mod.dram_channels(
+                              *sim_concat_operands(torch, ops), cfg))
+        rows = [tuple(r) for r in rows.cpu().tolist()]
+        C = cfg.n_channels
+        for i, ((case, _, _), op) in enumerate(zip(ss, ops)):
+            want, host_ms = sim_plain_channels(op, cfg)
+            held("dram", case, rows[i * C:(i + 1) * C] == want,
+                 got=rows[i * C:(i + 1) * C], want=want,
+                 twin_host_ms=host_ms)
+    r1, r0 = dram.simulate_many([(one, None), (np.zeros(0, np.int32), None)])
+    held("dram", "one_channel", r1.per_channel_cycles[1] == 0 and
+         r1 == dram.simulate(one, device="cpu"), cycles=r1.cycles)
+    held("dram", "empty", r0.cycles == 0 and r0.n_act == 1
+         and r0.achieved_gbps == 0.0, cycles=r0.cycles)
+    n_dram = len(record["dram"]) - 1
+    n_eq = sum(v["ok"] for k, v in record["dram"].items()
+               if k != "batched_launches")
     print(f"[sim] dram_channel: {n_eq} of {n_dram} cases (5 workloads x "
           f"baseline/MARS order x windows {SIM_WINDOWS}, short streams, one "
-          f"channel, n = 0) equal to the plain twin")
+          f"channel, n = 0; a launch a window) equal to the plain twin")
 
     # the smoke rows of benchmarks/run.py on the card against the baseline
     rows = []
@@ -1749,9 +1891,8 @@ def sim_phase(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(counters)
-    n_wl = len(streams.WORKLOADS)
     want = {k: 0 for k in counters}
-    want.update(mars_engine=n_wl, dram_channel=2 * n_wl)
+    want.update(mars_engine=1, dram_channel=1)
     summary = experiment.summarize(results)
     for r in results:
         print(f"[sim] {r.name}: baseline {r.baseline.cycles} cycles, "
@@ -1774,46 +1915,91 @@ def sim_phase(torch):
         bad.append(f"Fig 7 / Fig 8 means {means}, reference {SIM_FIG_MEANS}")
     if launches != want:
         bad.append(f"main path launches {launches}, want {want}")
+    # the ablation sweep: every grid point in one batch
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    uplifts = ablations.sweep("cuda")
+    sweep_wall = time.perf_counter() - t0
+    sweep_launches = read_counts(counters)
+    record["sweep"] = dict(wall_s=sweep_wall, launches=sweep_launches,
+                           uplifts=uplifts)
+    print(f"[sim] ablation sweep at RPC {ablations.RPC}: {len(uplifts)} "
+          f"points, wall {sweep_wall:.2f}s; launches "
+          + ", ".join(f"{k} {sweep_launches[k]}" for k, _, _ in SIM_KERNELS))
+    if sweep_launches != want:
+        bad.append(f"sweep launches {sweep_launches}, want {want}")
 
-    # each kernel per call at the main path's shapes (WL1, RPC 256)
-    addr, ports, src, wr = sim_streams("WL1", SIM_RPC)
-    pages, port_req, port_len, src_, n_cores = mars.prepare(addr, ports,
-                                                            cfg0, src)
-    dev_in = [torch.from_numpy(a).cuda()
-              for a in (pages, port_req, port_len, src_)]
-    total = record["mars"]["WL1"]["total_cycles"]
-    steps = total * (cfg0.n_ports + 1)
-    rows_ = device_profile(lambda: me_mod.mars_engine(*dev_in, n_cores, cfg0),
-                           3, "mars_engine WL1", need=("mars_engine_kernel",))
+    # each kernel a stream (WL1) and as the main path's batched call
+    load = smem_load_ns(torch)
+    record["smem_load"] = load
+    print(f"[sim] one dependent shared-memory load: {load['ns_per_load']:.3f}"
+          f" ns ({load['clocks_per_load']:.2f} SM clocks at "
+          f"{load['ghz']:.3f} GHz; one thread's pointer chase)")
+    insts = [sim_instance(torch, *c[1:]) for c in cases[:len(
+        streams.WORKLOADS)]]
+    cycles = [record["mars"][c[0]]["total_cycles"]
+              for c in cases[:len(streams.WORKLOADS)]]
+    steps = [c * (cfg0.n_ports + 1) for c in cycles]
+    rows_ = device_profile(lambda: me_mod.mars_engine(*insts[0]), 3,
+                           "mars_engine WL1", need=("mars_engine_kernel",))
     ms = rows_ms(rows_, "mars_engine_kernel")
-    t_bytes = sim_bytes_mars(addr, ports, src, cfg0) / HBM_BYTES_PER_S * 1e3
+    rows_ = device_profile(lambda: me_mod.mars_engine_many(insts), 3,
+                           "mars_engine run_all batch",
+                           need=("mars_engine_kernel",))
+    batched = rows_ms(rows_, "mars_engine_kernel")
+    addr, ports, src, wr = sim_streams("WL1", SIM_RPC)
     timing["mars_engine"] = dict(
         ms=ms, plain_ms=sim_plain_mars(addr, ports, src, cfg0)[3],
-        bound_ms=t_bytes, bound_by="bytes", library_ms=None,
-        cycles=total, serial_steps=steps, us_per_cycle=1e3 * ms / total,
-        ns_per_step=1e6 * ms / steps)
+        bound_ms=sim_bytes_mars(insts[0]) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", library_ms=None, cycles=cycles[0],
+        serial_steps=steps[0], us_per_cycle=1e3 * ms / cycles[0],
+        ns_per_step=1e6 * ms / steps[0],
+        chain_bound_ms=steps[0] * load["ns_per_load"] * 1e-6,
+        batched_ms=batched, batched_instances=len(insts),
+        batched_chain_bound_ms=max(steps) * load["ns_per_load"] * 1e-6,
+        batched_bound_ms=sum(map(sim_bytes_mars, insts)) / HBM_BYTES_PER_S
+        * 1e3)
     cfg = dram.DramConfig()
     ops = sim_channel_operands(torch, addr, wr, cfg)
     rows_ = device_profile(lambda: dc_mod.dram_channels(*ops, cfg), 5,
                            "dram_channel WL1", need=("dram_channel_kernel",))
     ms = rows_ms(rows_, "dram_channel_kernel")
     steps = int(max(np.diff(ops[2].cpu().numpy())))   # the longer channel
+    main = [sim_streams(wl, SIM_RPC)[::3] for wl in streams.WORKLOADS]
+    main += [(a[perms[wl]], w[perms[wl]])
+             for wl, (a, w) in zip(streams.WORKLOADS, main)]
+    main_ops = [sim_channel_operands(torch, a, w, cfg) for a, w in main]
+    big = sim_concat_operands(torch, main_ops)
+    rows_ = device_profile(lambda: dc_mod.dram_channels(*big, cfg), 5,
+                           "dram_channel run_all batch",
+                           need=("dram_channel_kernel",))
+    batched = rows_ms(rows_, "dram_channel_kernel")
+    longest = int(max(np.diff(big[2].cpu().numpy())))
     timing["dram_channel"] = dict(
         ms=ms, plain_ms=sim_plain_channels(ops, cfg)[1],
         bound_ms=sim_bytes_channels(ops) / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=None, cycles=steps, serial_steps=steps,
-        us_per_cycle=1e3 * ms / steps, ns_per_step=1e6 * ms / steps)
+        us_per_cycle=1e3 * ms / steps, ns_per_step=1e6 * ms / steps,
+        chain_bound_ms=steps * load["ns_per_load"] * 1e-6,
+        batched_ms=batched, batched_instances=len(main_ops),
+        batched_chain_bound_ms=longest * load["ns_per_load"] * 1e-6,
+        batched_bound_ms=sim_bytes_channels(big) / HBM_BYTES_PER_S * 1e3)
     for name, t in timing.items():
         print(f"[kernel] {name} WL1 at RPC {SIM_RPC}: device ms per call "
-              f"{t['ms']:.3f}, bound {t['bound_ms']:.6f} (bytes; the serial "
-              f"chain binds: {t['serial_steps']} dependent steps, "
-              f"{t['ns_per_step']:.1f} ns each), {t['cycles']} simulated "
+              f"{t['ms']:.3f}, byte bound {t['bound_ms']:.6f}, chain bound "
+              f"{t['chain_bound_ms']:.4f} (binds: {t['serial_steps']} "
+              f"dependent steps, {t['ns_per_step']:.1f} ns each), "
+              f"{t['cycles']} simulated "
               f"{'cycles' if name == 'mars_engine' else 'requests'} "
-              f"({t['us_per_cycle']:.4f} us each); plain twin on the host "
+              f"({t['us_per_cycle']:.4f} us each); run_all's batched call "
+              f"({t['batched_instances']} streams) "
+              f"{t['batched_ms']:.3f} ms, chain bound "
+              f"{t['batched_chain_bound_ms']:.4f}, byte bound "
+              f"{t['batched_bound_ms']:.6f}; plain twin on the host "
               f"{t['plain_ms']:.0f} ms; no PyTorch call computes the scan")
     if bad:
         raise AssertionError("sim phase: " + "; ".join(bad))
-    return record, timing, launches
+    return record, timing, launches, sweep_launches
 
 
 def flag_value(flags, flag: str, default):
@@ -3723,7 +3909,8 @@ def main(argv=None) -> int:
         record.update(train_kernels_s=time.perf_counter() - t0)
     if "sim" in phases:
         t0 = time.perf_counter()
-        sim_record, sim_timing, sim_launches = sim_phase(torch)
+        sim_record, sim_timing, sim_launches, sweep_launches = \
+            sim_phase(torch)
         record.update(sim=sim_record, sim_timing=sim_timing,
                       sim_s=time.perf_counter() - t0)
         print(f"[time] sim phase {record['sim_s']:.1f}s")
@@ -3733,6 +3920,7 @@ def main(argv=None) -> int:
     served, launches, profiles, failed = {}, {}, {}, []
     if "sim" in phases:
         launches[SIM_PATH] = sim_launches
+        launches[SIM_SWEEP] = sweep_launches
     run_s = {}                    # seconds of each run: checked, profiled
 
     def timed_run(name, t0, t1):

@@ -26,9 +26,10 @@ Model (documented simplifications):
 The address map (``split_channels``, ``decode_lines``) is numpy, element
 for element the reference's, and shared with the live open-row model
 (``obs/rowsim.py``).  ``simulate`` serves every channel's stream, one
-request a step, through the FR-FCFS window: on a CUDA device in one launch
-of the hand-written kernel ``csrc/dram_channel.cu`` (one warp a channel),
-on the CPU through its plain twin (``kernels/dram_channel/ref.py``); both
+request a step, through the FR-FCFS window, and ``simulate_many`` the
+channels of several streams at once: on a CUDA device in one launch of
+the hand-written kernel ``csrc/dram_channel.cu`` (one warp a channel), on
+the CPU through its plain twin (``kernels/dram_channel/ref.py``); both
 give the reference's ``_run_channel`` integers.
 """
 from __future__ import annotations
@@ -130,21 +131,37 @@ def channel_operands(addr: np.ndarray, cfg: DramConfig,
             offsets.astype(np.int64))
 
 
-def simulate(addr: np.ndarray, cfg: DramConfig | None = None,
-             is_write: np.ndarray | None = None, *,
-             device="cuda") -> DramResult:
-    """Serve ``addr`` (64B-line ids, already in arrival order) and report
-    achieved bandwidth + CAS/ACT.  ``device="cuda"`` (the default) serves
-    the channels in one launch of the CUDA kernel and raises without a
-    GPU; ``device="cpu"`` runs its plain twin."""
+def simulate_many(streams, cfg: DramConfig | None = None, *,
+                  device="cuda") -> list[DramResult]:
+    """Serve several independent streams, each ``(addr, is_write)`` as
+    ``simulate`` takes them (``is_write`` may be None), and report one
+    ``DramResult`` a stream, each equal to ``simulate`` on it.  Every
+    stream's channels go back to back into one ``channel_operands``
+    layout, so ``device="cuda"`` (the default) serves all of them in one
+    launch of the CUDA kernel and raises without a GPU; ``device="cpu"``
+    runs its plain twin."""
     from repro_torch.kernels.dram_channel.dram_channel import dram_channels
     cfg = cfg or DramConfig()
     dev = resolve_device(device)
-    n_total = len(addr)
-    res = dram_channels(*(torch.from_numpy(a).to(dev) for a in
-                          channel_operands(addr, cfg, is_write)), cfg).cpu()
-    t_ends = [int(v) for v in res[:, 0]]
-    n_act = int(res[:, 1].sum())
+    streams = list(streams)
+    if not streams:
+        return []
+    ops = [channel_operands(addr, cfg, is_write) for addr, is_write in streams]
+    shift = np.cumsum([0] + [len(o[0]) for o in ops])
+    offsets = np.concatenate(
+        [o[2][:-1] + s for o, s in zip(ops, shift)] + [shift[-1:]])
+    res = dram_channels(*(torch.from_numpy(a).to(dev) for a in (
+        np.concatenate([o[0] for o in ops]),
+        np.concatenate([o[1] for o in ops]), offsets)), cfg).cpu()
+    C = cfg.n_channels
+    return [_result(res[i * C:(i + 1) * C], len(addr), cfg)
+            for i, (addr, _) in enumerate(streams)]
+
+
+def _result(rows: torch.Tensor, n_total: int, cfg: DramConfig) -> DramResult:
+    """A stream's ``DramResult`` from its channels' (t_end, n_act, hits)."""
+    t_ends = [int(v) for v in rows[:, 0]]
+    n_act = int(rows[:, 1].sum())
     cycles = max(t_ends) if t_ends else 0
     secs = cycles / (cfg.clock_ghz * 1e9) if cycles else 1.0
     gbps = n_total * cfg.line_bytes / secs / 1e9 if cycles else 0.0
@@ -155,3 +172,14 @@ def simulate(addr: np.ndarray, cfg: DramConfig | None = None,
         cas_per_act=n_total / max(n_act, 1),
         per_channel_cycles=tuple(t_ends),
     )
+
+
+def simulate(addr: np.ndarray, cfg: DramConfig | None = None,
+             is_write: np.ndarray | None = None, *,
+             device="cuda") -> DramResult:
+    """Serve ``addr`` (64B-line ids, already in arrival order) and report
+    achieved bandwidth + CAS/ACT: ``simulate_many``'s one-stream case.
+    ``device="cuda"`` (the default) serves the channels in one launch of
+    the CUDA kernel and raises without a GPU; ``device="cpu"`` runs its
+    plain twin."""
+    return simulate_many([(addr, is_write)], cfg, device=device)[0]

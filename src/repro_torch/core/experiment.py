@@ -55,8 +55,47 @@ def run_workload(name: str, *,
     return WorkloadResult(name, base, with_)
 
 
-def run_all(**kw) -> list[WorkloadResult]:
-    return [run_workload(n, **kw) for n in streams.WORKLOADS]
+def run_all(*, gpu: streams.GpuConfig | None = None,
+            mars_cfg: mars.MarsConfig | None = None,
+            dram_cfg: dram.DramConfig | None = None,
+            reqs_per_core: int = 512, seed: int = 0,
+            device="cuda") -> list[WorkloadResult]:
+    """``run_workload`` for every workload, the five streams together:
+    one MARS engine run over the five (one kernel launch on a CUDA
+    device), then one DRAM run over the ten baseline and MARS-ordered
+    streams (one launch)."""
+    gpu = gpu or streams.GpuConfig()
+    wls = {n: streams.make_workload(n, gpu, reqs_per_core=reqs_per_core,
+                                    seed=seed) for n in streams.WORKLOADS}
+    return mars_results(wls, [mars_cfg or mars.MarsConfig()], gpu=gpu,
+                        dram_cfg=dram_cfg, device=device)[0]
+
+
+def mars_results(workloads: dict, mars_cfgs, *, gpu: streams.GpuConfig,
+                 dram_cfg: dram.DramConfig | None = None,
+                 device="cuda") -> list[list[WorkloadResult]]:
+    """``WorkloadResult``s of the workload streams ``workloads`` (name ->
+    stream, made under ``gpu``) under each MARS configuration of
+    ``mars_cfgs``: a list a configuration, in the order of
+    ``workloads``.  Every (configuration, stream) pair's reorder runs in
+    one MARS engine run, then the baseline streams, each served once,
+    and every reordered stream in one DRAM run.  Each ``WorkloadResult``
+    equals ``run_workload``'s."""
+    dram_cfg = dram_cfg or dram.DramConfig()
+    names, wls = list(workloads), list(workloads.values())
+    src = [np.asarray(wl.source) for wl in wls]
+    items = [(wl.addr, s // gpu.cores_per_group, cfg, s)
+             for cfg in mars_cfgs for wl, s in zip(wls, src)]
+    perms = [np.asarray(p) for p, _ in mars.mars_reorder_many(
+        items, device=device)]
+    n = len(wls)
+    res = dram.simulate_many(
+        [(wl.addr, wl.is_write) for wl in wls]
+        + [(np.asarray(wls[i % n].addr)[p],
+            np.asarray(wls[i % n].is_write)[p])
+           for i, p in enumerate(perms)], dram_cfg, device=device)
+    return [[WorkloadResult(name, res[i], res[n + c * n + i])
+             for i, name in enumerate(names)] for c in range(len(mars_cfgs))]
 
 
 def summarize(results: list[WorkloadResult]) -> dict:

@@ -119,32 +119,50 @@ def mars_reorder(addr, ports=None, cfg: MarsConfig | None = None, src=None,
     (the default) runs the CUDA kernel and raises without a GPU;
     ``device="cpu"`` runs its plain twin.
     """
-    from repro_torch.kernels.mars_engine.mars_engine import mars_engine
-    cfg = cfg or MarsConfig()
+    return mars_reorder_many([(addr, ports, cfg, src)], device=device)[0]
+
+
+def mars_reorder_many(items, *, device="cuda") -> list:
+    """``mars_reorder`` over several independent streams, each ``(addr,
+    ports, cfg, src)`` as ``mars_reorder`` takes them (None for a
+    default), each under its own configuration.  Returns what
+    ``mars_reorder`` returns for each, with the same drain and
+    permutation checks.  ``device="cuda"`` (the default) runs every
+    stream in one launch of the CUDA kernel and raises without a GPU;
+    ``device="cpu"`` runs the plain twin stream by stream."""
+    from repro_torch.kernels.mars_engine.mars_engine import mars_engine_many
     dev = resolve_device(device)
-    n = int(np.asarray(addr).shape[0])
-    if n == 0:
-        return np.zeros(0, np.int64), {
-            "stall_events": 0, "total_cycles": 0, "idle_frac": 0.0}
-    pages, port_req, port_len, src, n_cores = prepare(addr, ports, cfg, src)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    perm, stats = mars_engine(t(pages), t(port_req), t(port_len), t(src),
-                              n_cores, cfg)
-    perm = perm.cpu().numpy()
-    emitted, stalls, total = (int(v) for v in stats.cpu().tolist())
-    if emitted != n:  # engine must drain completely
-        raise AssertionError(
-            f"MARS drained {emitted}/{n} requests — engine bug")
-    if np.unique(perm).shape[0] != n:
-        raise AssertionError("MARS emitted a non-permutation — engine bug")
-    stats = {
-        "stall_events": stalls,
-        "total_cycles": total,
-        "idle_frac": 1.0 - n / float(total),
-    }
-    return perm, stats
+    jobs, out = [], []
+    for addr, ports, cfg, src in items:
+        cfg = cfg or MarsConfig()
+        n = int(np.asarray(addr).shape[0])
+        out.append((np.zeros(0, np.int64), {
+            "stall_events": 0, "total_cycles": 0, "idle_frac": 0.0}))
+        if n:
+            pages, port_req, port_len, src_, n_cores = prepare(addr, ports,
+                                                               cfg, src)
+            jobs.append((len(out) - 1, n, (t(pages), t(port_req),
+                                           t(port_len), t(src_), n_cores,
+                                           cfg)))
+    results = mars_engine_many([job for _, _, job in jobs])
+    for (i, n, _), (perm, stats) in zip(jobs, results):
+        perm = perm.cpu().numpy()
+        emitted, stalls, total = (int(v) for v in stats.cpu().tolist())
+        if emitted != n:  # engine must drain completely
+            raise AssertionError(
+                f"MARS drained {emitted}/{n} requests — engine bug")
+        if np.unique(perm).shape[0] != n:
+            raise AssertionError("MARS emitted a non-permutation — engine "
+                                 "bug")
+        out[i] = perm, {
+            "stall_events": stalls,
+            "total_cycles": total,
+            "idle_frac": 1.0 - n / float(total),
+        }
+    return out
 
 
 def mars_reorder_reference(addr: np.ndarray, ports: np.ndarray | None = None,

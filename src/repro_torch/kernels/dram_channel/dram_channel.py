@@ -1,12 +1,14 @@
 """The FR-FCFS channel model's wrapper (replaces the ``jax.lax.scan`` of
 ``repro/core/dram.py:219``).
 
-``dram_channels`` serves every channel's stream in one call: on CUDA
-tensors it launches the hand-written Hopper kernel ``csrc/dram_channel.cu``
-(one warp a channel, all channels in one launch; the source comment there
-gives its bound and design) or raises — there is no fallback; on CPU
-tensors it runs the plain twin ``ref.run_channel_plain`` channel by
-channel.  ``dram_channels.launches`` counts kernel launches.
+``dram_channels`` serves every channel's stream in one call (the channels
+of any number of streams, laid back to back by ``core.dram.simulate_many``):
+on CUDA tensors it launches the hand-written Hopper kernel
+``csrc/dram_channel.cu`` (one warp a channel, all channels in one launch;
+the source comment there gives its bounds and design) or raises — there
+is no fallback; on CPU tensors it runs the plain twin
+``ref.run_channel_plain`` channel by channel.  ``dram_channels.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.dram_channel.ref import run_channel_plain
+from repro_torch.kernels.dram_channel.ref import BIG, run_channel_plain
 
 MAX_WINDOW = 256          # 8 window slots a lane
 MAX_BANKS = 32            # one bank a lane
@@ -52,6 +54,9 @@ def _check(local, is_write, offsets, cfg) -> None:
         raise ValueError(f"dram_channels: is_write {tuple(is_write.shape)} "
                          f"must match local {tuple(local.shape)}, and "
                          f"offsets hold n_channels + 1 entries")
+    if local.numel() >= BIG:
+        raise ValueError(f"dram_channels takes fewer than {BIG} requests "
+                         f"(arrivals key the window), not {local.numel()}")
     if not 1 <= cfg.window <= MAX_WINDOW:
         raise ValueError(f"dram_channels takes a window of 1 to "
                          f"{MAX_WINDOW} entries, not {cfg.window}")

@@ -9,7 +9,9 @@ including its tie-breaks and clamps:
   * the RequestQ slot is the lowest free one (``jnp.argmin`` of the
     occupancy bit-vector; 0 when the queue is full, and then
     ``rq_has_free`` is False) — kept here as an int of free bits, lowest
-    set bit first, as the kernel keeps it in one warp;
+    set bit first.  The kernel keeps its free slots as a stack instead:
+    which slot a request takes shows in no output (the source note of
+    ``csrc/mars_engine.cu`` says why);
   * a port whose core is at its MSHR cap has no input, so it is not a
     stall; only a port with input and no room counts;
   * a port with ``plen == 0`` reads ``port_req[p, 0] == -1`` and then

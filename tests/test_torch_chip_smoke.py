@@ -357,19 +357,26 @@ def test_sim_baseline_check_passes_the_rows_and_catches_a_change(tmp_path):
 
 def test_sim_kernel_rows_list_the_new_kernels():
     """Two rows, mars_engine and dram_channel, with every key of the
-    kernels line, their sources in the port, and ``replaces`` naming the
-    reference's ``jax.lax.scan`` lines."""
+    kernels line (and the chain bound and the batched call's ms), their
+    sources in the port, ``replaces`` naming the reference's
+    ``jax.lax.scan`` lines, and one launch each on the main path and the
+    sweep."""
     timing = {name: dict(ms=1.0, plain_ms=2.0, bound_ms=1e-4,
-                         bound_by="bytes", serial_steps=10, ns_per_step=1e5)
+                         bound_by="bytes", serial_steps=10, ns_per_step=1e5,
+                         chain_bound_ms=0.5, batched_ms=1.2,
+                         batched_instances=5, batched_chain_bound_ms=0.6)
               for name, _, _ in chip_smoke.SIM_KERNELS}
     counts = {name: 0 for name, _, _ in chip_smoke.SIM_KERNELS}
-    launches = {chip_smoke.SIM_PATH: dict(counts, mars_engine=5,
-                                          dram_channel=10),
+    launches = {chip_smoke.SIM_PATH: dict(counts, mars_engine=1,
+                                          dram_channel=1),
+                chip_smoke.SIM_SWEEP: dict(counts, mars_engine=1,
+                                           dram_channel=1),
                 "qwen1_5_0_5b": counts}
     rows = chip_smoke.sim_kernel_rows(launches, timing)
     assert [r["name"] for r in rows] == ["mars_engine", "dram_channel"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "chain_bound_ms", "batched_ms"}
     for r in rows:
         assert keys <= set(r)
         assert r["route"] == "cuda" and r["library_ms"] is None
@@ -377,9 +384,11 @@ def test_sim_kernel_rows_list_the_new_kernels():
         path, line = r["replaces"].split(":")
         assert "jax.lax.scan" in (ROOT / path).read_text().splitlines()[
             int(line) - 1]
-    assert [r["launches"] for r in rows] == [5, 10]
-    assert rows[0]["launches_by_path"] == {chip_smoke.SIM_PATH: 5,
+    assert [r["launches"] for r in rows] == [1, 1]
+    assert rows[0]["launches_by_path"] == {chip_smoke.SIM_PATH: 1,
+                                           chip_smoke.SIM_SWEEP: 1,
                                            "qwen1_5_0_5b": 0}
+    assert rows[0]["chain_bound_ms"] == 0.5 and rows[1]["batched_ms"] == 1.2
     assert set(chip_smoke.KERNEL_NAMES) == set(chip_smoke.kernel_counters())
 
 
@@ -401,6 +410,31 @@ def test_sim_twins_agree_with_the_port_on_the_host():
     assert tuple(r[0] for r in rows) == res.per_channel_cycles
     assert sum(r[1] for r in rows) == res.n_act
     assert chip_smoke.sim_bytes_channels(ops) == 5 * len(addr) + 8 * 3 + 24
+
+
+def test_sim_batched_helpers_on_the_host():
+    """The sim phase's batched operands: streams laid back to back give
+    each stream's channel rows, as ``simulate_many`` does; an instance's
+    byte count is its operands' bytes plus the permutation's."""
+    import numpy as np
+    from repro_torch.core import dram, mars
+    from repro_torch.kernels.dram_channel import dram_channel as dc
+    cfg = dram.DramConfig(window=8)
+    ss = [chip_smoke.sim_streams(wl, 4)[::3] for wl in ("WL1", "WL2")]
+    ss += [(a, w) for _, _, a, w in chip_smoke.sim_short_streams()[:1]]
+    ss += [(np.zeros(0, np.int32), None)]
+    ops = [chip_smoke.sim_channel_operands(torch, a, w, cfg, "cpu")
+           for a, w in ss]
+    big = chip_smoke.sim_concat_operands(torch, ops)
+    rows = dc.dram_channels(*big, cfg).tolist()
+    assert rows == sum((dc.dram_channels(*o, cfg).tolist() for o in ops), [])
+    assert [tuple(r) for r in rows[2:4]] == \
+        chip_smoke.sim_plain_channels(ops[1], cfg)[0]
+    inst = chip_smoke.sim_instance(torch, *chip_smoke.sim_streams(
+        "WL1", 4)[:3], mars.MarsConfig(), "cpu")
+    n = inst[0].numel()
+    assert chip_smoke.sim_bytes_mars(inst) == \
+        16 * n + 4 * inst[1].numel() + 4 * 8 + 12
 
 
 def test_train_launches_wanted_per_step():

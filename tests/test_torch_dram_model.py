@@ -5,9 +5,10 @@ on the port alone (``device="cpu"``: the kernel's plain twin).  Then the
 twin is held to the reference's ``jax.lax.scan`` (``dram._run_channel``):
 the same (t_end, n_act, hits) at windows 8, 32 and 64, on streams shorter
 than the window, with writes mixed in; and ``simulate`` to the
-reference's ``simulate`` field for field.  Last, the CUDA route: it
+reference's ``simulate`` field for field.  Then the CUDA route: it
 refuses operands the kernel does not take and never falls back to the
-twin.
+twin, for one stream's layout or several.  Last, ``simulate_many``
+against a loop of ``simulate`` and the JAX package.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import dram as jdram  # noqa: E402
+from repro.core import mars as jmars  # noqa: E402
 from repro.core import streams as jstreams  # noqa: E402
 from repro_torch.core import dram  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -174,24 +176,35 @@ def test_simulate_defaults_to_cuda_and_raises_without_it():
         dram.simulate(np.arange(64, dtype=np.int32))
 
 
-def test_wrapper_refuses_what_the_kernel_does_not_take():
+def _many_operands():
+    """Three streams' operands laid back to back as ``simulate_many``
+    lays them (one of them empty)."""
     local, wr, off = _operands()
+    n = local.numel()
+    return (torch.cat([local, local]), torch.cat([wr, wr]),
+            torch.cat([off[:-1], off[:-1] + n, torch.tensor([2 * n] * 3)]))
+
+
+@pytest.mark.parametrize("layout", ["one", "many"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(layout):
+    local, wr, off = _operands() if layout == "one" else _many_operands()
     cfg = dram.DramConfig()
     with pytest.raises(TypeError, match="int32"):
         dc.dram_channels(local.long(), wr, off, cfg)
     with pytest.raises(TypeError, match="uint8"):
         dc.dram_channels(local, wr.bool(), off, cfg)
     with pytest.raises(ValueError, match="contiguous"):
-        dc.dram_channels(torch.zeros(80, dtype=torch.int32)[::2], wr, off,
-                         cfg)
+        dc.dram_channels(torch.zeros(2 * local.numel(),
+                                     dtype=torch.int32)[::2], wr, off, cfg)
     with pytest.raises(ValueError, match="window"):
         dc.dram_channels(local, wr, off, dram.DramConfig(window=300))
     with pytest.raises(ValueError, match="banks"):
         dc.dram_channels(local, wr, off, dram.DramConfig(n_banks=64))
 
 
-def test_wrapper_never_falls_back():
-    local, wr, off = _operands()
+@pytest.mark.parametrize("layout", ["one", "many"])
+def test_wrapper_never_falls_back(layout):
+    local, wr, off = _operands() if layout == "one" else _many_operands()
     launches = dc.dram_channels.launches
     try:
         build._nvcc()
@@ -209,3 +222,36 @@ def test_cpu_wrapper_runs_each_channel_through_the_twin():
                                    cfg))
             for a, b in ((0, 45), (45, 90))]
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# several streams in one call
+# ---------------------------------------------------------------------------
+
+def _many_streams():
+    """(addr, is_write) of WL2's and WL5's baseline and MARS-ordered
+    streams (the JAX package's streams and reorder), a stream shorter
+    than every window and an empty one."""
+    out = []
+    for wl in ("WL2", "WL5"):
+        gpu = jstreams.GpuConfig(n_cores=16, cores_per_group=8)
+        s = jstreams.make_workload(wl, gpu, reqs_per_core=16)
+        a, w, src = (np.asarray(x) for x in (s.addr, s.is_write, s.source))
+        perm, _ = jmars.mars_reorder(a, src // 8, src=src)
+        perm = np.asarray(perm)
+        out += [(a, w), (a[perm], w[perm])]
+    return out + [(np.arange(5, dtype=np.int32) * 7, None),
+                  (np.zeros(0, np.int32), None)]
+
+
+@pytest.mark.parametrize("window", [8, 32, 64])
+def test_simulate_many_equals_a_loop_and_the_jax_package(window):
+    ss = _many_streams()
+    cfg = dram.DramConfig(window=window)
+    got = dram.simulate_many(ss, cfg, device="cpu")
+    assert len(got) == len(ss)
+    for (a, w), r in zip(ss, got):
+        assert r == dram.simulate(a, cfg, w, device="cpu")
+        assert dataclasses_equal(r, jdram.simulate(
+            a, jdram.DramConfig(window=window), is_write=w))
+    assert dram.simulate_many([], cfg, device="cpu") == []

@@ -7,8 +7,11 @@ FIFO order within a page and port, passes single pages through unchanged,
 spreads strided pages over the sets and respects the MSHR cap.  Then the
 plain twin is held to the reference's ``jax.lax.scan`` (``mars._run``)
 cycle by cycle: the same emitted index (or -1) at every cycle and the same
-stall count, across configurations.  Last, the CUDA route: it refuses
-operands the kernel does not take and never falls back to the twin.
+stall count, across configurations.  Then the CUDA route: it refuses
+operands the kernel does not take and never falls back to the twin, one
+stream or many.  Last, the batched engine (``mars_reorder_many``) against
+a loop and the JAX package, and a model of the kernel's free-slot stack
+against the twin and the oracle.
 """
 import numpy as np
 import pytest
@@ -216,22 +219,43 @@ def test_reorder_defaults_to_cuda_and_raises_without_it():
         mars.mars_reorder(np.arange(64, dtype=np.int32))
 
 
-def test_wrapper_refuses_what_the_kernel_does_not_take():
+def _one_or_many(batched: bool):
+    """``mars_engine`` or its batched form (one instance beside a valid
+    one), as a function of mars_engine's arguments."""
+    if not batched:
+        return me.mars_engine
+    cfg = mars.MarsConfig()
+    ok = [torch.from_numpy(a) for a in mars.prepare(
+        np.arange(32, dtype=np.int32) * 64, cfg=cfg)[:4]]
+    return lambda *a: me.mars_engine_many([(*ok, 8, cfg), a])
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["one", "many"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(batched):
+    run = _one_or_many(batched)
     cfg = mars.MarsConfig()
     pages, port_req, port_len, src, _ = mars.prepare(
         np.arange(64, dtype=np.int32) * 64, cfg=cfg)
     t = [torch.from_numpy(a) for a in (pages, port_req, port_len, src)]
     with pytest.raises(TypeError, match="int32"):
-        me.mars_engine(t[0].long(), *t[1:], 8, cfg)
+        run(t[0].long(), *t[1:], 8, cfg)
     with pytest.raises(ValueError, match="contiguous"):
-        me.mars_engine(t[0], t[1].t(), *t[2:], 8, cfg)
+        run(t[0], t[1].t(), *t[2:], 8, cfg)
     with pytest.raises(ValueError, match="n_ports"):
-        me.mars_engine(*t, 8, mars.MarsConfig(n_ports=4))
+        run(*t, 8, mars.MarsConfig(n_ports=4))
     with pytest.raises(ValueError, match="RequestQ"):
-        me.mars_engine(*t, 8, mars.MarsConfig(request_q=2048))
+        run(*t, 8, mars.MarsConfig(request_q=2048))
+    wide = mars.MarsConfig(n_ports=64)     # the port mask is one word
+    w = [torch.from_numpy(a) for a in mars.prepare(
+        np.arange(64, dtype=np.int32) * 64, cfg=wide)[:4]]
+    with pytest.raises(ValueError, match="n_ports"):
+        run(*w, 8, wide)
+    with pytest.raises(ValueError, match="ways"):   # valid ways: one word
+        run(*t, 8, mars.MarsConfig(ways=64, page_entries=128))
 
 
-def test_wrapper_never_falls_back():
+@pytest.mark.parametrize("batched", [False, True], ids=["one", "many"])
+def test_wrapper_never_falls_back(batched):
     """A CUDA-bound launch goes to the build (which needs nvcc): it never
     computes the plain twin instead."""
     cfg = mars.MarsConfig()
@@ -243,7 +267,10 @@ def test_wrapper_never_falls_back():
         build._nvcc()
     except RuntimeError:
         with pytest.raises(RuntimeError, match="nvcc"):
-            me._launch(*t, n_cores, cfg)
+            if batched:
+                me._launch_many([(*t, n_cores, cfg)] * 3)
+            else:
+                me._launch(*t, n_cores, cfg)
     assert me.mars_engine.launches == launches
 
 
@@ -264,3 +291,128 @@ def test_cpu_wrapper_compacts_the_twin():
     cycles = np.flatnonzero(emits >= 0)
     np.testing.assert_array_equal(perm.numpy(), emits[cycles])
     assert stats.tolist() == [s.n, stalls, int(cycles[-1]) + 1]
+
+
+# ---------------------------------------------------------------------------
+# the batched engine
+# ---------------------------------------------------------------------------
+
+BATCH_CONFIGS = [jmars.MarsConfig(),
+                 jmars.MarsConfig(n_ports=1, ways=1, page_entries=16),
+                 jmars.MarsConfig(n_ports=2, ways=4, page_entries=64,
+                                  request_q=8, mshr_per_core=64)]
+
+
+def test_mars_reorder_many_equals_a_loop_and_the_jax_package():
+    """WL1-WL5 at RPC 16 under three configurations in one batch (1, 2 and
+    8 ports; 1, 2 and 4 ways; a RequestQ of 8 that fills): each equals
+    ``mars_reorder`` alone and the JAX package's ``mars_reorder``."""
+    items = []
+    for jcfg in BATCH_CONFIGS:
+        for wl in streams.WORKLOADS:
+            s = streams.make_workload(wl, reqs_per_core=16)
+            src = np.asarray(s.source)
+            items.append((np.asarray(s.addr), src // 8,
+                          mars.MarsConfig(**jcfg.__dict__), src, jcfg))
+    got = mars.mars_reorder_many([it[:4] for it in items], device="cpu")
+    assert len(got) == len(items)
+    for (addr, ports, cfg, src, jcfg), (perm, stats) in zip(items, got):
+        alone = mars.mars_reorder(addr, ports, cfg, src=src, device="cpu")
+        np.testing.assert_array_equal(perm, alone[0])
+        assert stats == alone[1]
+        want, wstats = jmars.mars_reorder(addr, ports, jcfg, src=src)
+        np.testing.assert_array_equal(perm, np.asarray(want))
+        assert stats == wstats
+    # the RequestQ of 8 (two ports, one forward a cycle) stalls its ports
+    assert got[-1][1]["stall_events"] > 0
+
+
+def test_mars_reorder_many_empty_and_none():
+    out = mars.mars_reorder_many(
+        [(np.zeros(0, np.int32), None, None, None),
+         (np.arange(40, dtype=np.int32), None, None, None)], device="cpu")
+    assert out[0][0].shape == (0,) and out[0][1]["total_cycles"] == 0
+    np.testing.assert_array_equal(out[1][0], np.arange(40))
+    assert mars.mars_reorder_many([], device="cpu") == []
+
+
+def _lifo_engine(pages, port_req, port_len, src, n_req, n_cores, cfg):
+    """The CUDA kernel's RequestQ on the host: the twin's cycle loop, with
+    the free slots a stack (pop on insert, push on forward) in place of
+    the lowest free slot.  Returns (emits, stalls) as the twin does."""
+    Q, S, W, P = cfg.request_q, cfg.nsets, cfg.ways, cfg.order_q
+    pages, src = [int(v) for v in pages], [int(v) for v in src]
+    port_req = [[int(v) for v in row] for row in port_req]
+    port_len = [int(v) for v in port_len]
+    emits = np.full(mars.n_cycles(n_req, cfg), -1, np.int32)
+    free = list(range(Q - 1, -1, -1))       # the top is the list's end
+    rq_order, rq_next = [0] * Q, [-1] * Q
+    ppl = {}                                # (set, way) -> [page, head, tail]
+    poq, cursors, inflight = [], [0] * cfg.n_ports, [0] * max(n_cores, 1)
+    stalls = inserted = 0
+    for cycle in range(len(emits)):
+        if inserted == sum(port_len) and not poq:
+            break
+        for p in range(cfg.n_ports):
+            cur = cursors[p]
+            if cur >= port_len[p]:
+                continue
+            g = port_req[p][cur]
+            core = max(src[g], 0)
+            if inflight[core] >= cfg.mshr_per_core:
+                continue
+            s = mars._page_set_py(pages[g], S)
+            ways = [w for w in range(W) if (s, w) in ppl]
+            hit = [w for w in ways if ppl[s, w][0] == pages[g]]
+            free_way = [w for w in range(W) if (s, w) not in ppl]
+            if not free or not (hit or free_way):
+                stalls += 1
+                continue
+            slot = free.pop()
+            rq_order[slot], rq_next[slot] = g, -1
+            if hit:
+                rq_next[ppl[s, hit[0]][2]] = slot
+                ppl[s, hit[0]][2] = slot
+            else:
+                ppl[s, free_way[0]] = [pages[g], slot, slot]
+                poq.append((s, free_way[0]))
+            cursors[p] += 1
+            inflight[core] += 1
+            inserted += 1
+        if poq:
+            entry = ppl[poq[0]]
+            head = entry[1]
+            emits[cycle] = rq_order[head]
+            free.append(head)
+            if rq_next[head] < 0:
+                del ppl[poq.pop(0)]
+            else:
+                entry[1] = rq_next[head]
+            inflight[max(src[rq_order[head]], 0)] -= 1
+    return emits, stalls
+
+
+if st is not None:
+    @settings(max_examples=25, deadline=None)
+    @given(st.lists(st.integers(0, 30), min_size=1, max_size=250),
+           st.integers(1, 4), st.sampled_from([4, 8, 16]),
+           st.sampled_from([2, 6, 12]), st.integers(1, 3))
+    def test_free_slot_order_is_unobservable(page_list, ways, page_entries,
+                                            request_q, n_ports):
+        """Property: the kernel's free-slot stack gives the twin's emits
+        every cycle and its stalls, and the oracle's permutation, on
+        streams that fill the RequestQ and the sets."""
+        page_entries = max(page_entries, ways)
+        cfg = mars.MarsConfig(request_q=request_q, page_entries=page_entries,
+                              ways=ways, n_ports=n_ports, mshr_per_core=64)
+        addr = np.asarray(page_list, np.int32) << streams.PAGE_SHIFT
+        ops = mars.prepare(addr, None, cfg)
+        got = _lifo_engine(*ops[:4], len(addr), ops[4], cfg)
+        want = mars_engine_plain(*ops[:4], len(addr), ops[4], cfg)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+        np.testing.assert_array_equal(
+            got[0][got[0] >= 0], mars.mars_reorder_reference(addr, cfg=cfg))
+else:
+    def test_free_slot_order_is_unobservable():
+        pytest.importorskip("hypothesis")

@@ -140,3 +140,62 @@ def test_ablation_grid_is_the_reference_grid():
     assert cfgs[("mshr", 4)].mshr_per_core == 4
     assert np.all([c.request_q == 512 for (name, _), c in cfgs.items()
                    if name != "request_q"])
+
+
+def test_run_all_at_rpc_16_equals_the_jax_package():
+    """The batched ``run_all`` (one engine run over the five workloads, one
+    DRAM run over their ten streams) at RPC 16: every field and the
+    summary equal the JAX package's."""
+    want = jexperiment.run_all(reqs_per_core=16)
+    got = experiment.run_all(reqs_per_core=16, device="cpu")
+    for g, w in zip(got, want):
+        assert (g.name, dataclasses.asdict(g.baseline),
+                dataclasses.asdict(g.with_mars)) == (
+            w.name, dataclasses.asdict(w.baseline),
+            dataclasses.asdict(w.with_mars))
+    assert experiment.summarize(got) == jexperiment.summarize(want)
+
+
+ABLATION_RPC = 8       # a reduced sweep: every point still drains
+
+
+@pytest.fixture(scope="module")
+def ablation_rows():
+    rows = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ablations, "RPC", ABLATION_RPC)
+        ablations.run(lambda name, us, derived="": rows.append(
+            (name, derived)), device="cpu")
+    return rows
+
+
+def test_ablation_sweep_equals_a_run_all_a_point(ablation_rows):
+    """The batched sweep's rows: the reference's names, each point's mean
+    uplift equal to ``run_all`` under that point alone."""
+    assert [n for n, _ in ablation_rows] == [
+        f"ablation/{name}/{v}" for name, v, _ in ablations.configs()]
+    for (name, derived), (_, _, cfg) in zip(ablation_rows,
+                                            ablations.configs()):
+        res = experiment.run_all(mars_cfg=cfg, reqs_per_core=ABLATION_RPC,
+                                 device="cpu")
+        u = float(np.mean([r.bw_uplift for r in res]))
+        assert derived == f"bw_uplift={100*u:.1f}%", name
+
+
+@pytest.fixture(scope="module")
+def sweep_uplifts():
+    return ablations.sweep("cpu", ABLATION_RPC)
+
+
+@pytest.mark.parametrize("point", [("request_q", 64), ("ways", 4),
+                                   ("n_ports", 1)])
+def test_ablation_point_equals_the_jax_package(sweep_uplifts, point):
+    """Three points of the batched sweep (a small RequestQ, four ways, one
+    port) against the JAX package's ``run_all`` under the same
+    configuration: the same mean uplift, unrounded."""
+    from repro.core import mars as jmars
+    i = [(name, v) for name, v, _ in ablations.configs()].index(point)
+    cfg = ablations.configs()[i][2]
+    want = jexperiment.run_all(mars_cfg=jmars.MarsConfig(**cfg.__dict__),
+                               reqs_per_core=ABLATION_RPC)
+    assert sweep_uplifts[i] == float(np.mean([r.bw_uplift for r in want]))

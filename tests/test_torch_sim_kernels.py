@@ -4,7 +4,9 @@ sim phase holds both at the paper's size; these add the shapes it does
 not reach: S2 at windows of 2 to 4 slots a lane (100) and 8 (256, the
 largest), with writes and banks fewer than the lanes, and S1 with a
 single port, one way, a RequestQ smaller than a warp's free words and
-an MSHR cap of 1.
+an MSHR cap of 1, and both batched: S1 streams under mixed
+configurations (up to 8 and up to 32 ports, 1 to 8 ways) in one launch,
+S2 several streams in one.
 
 Run them with ``PYTHONPATH=src python -m pytest -q -m cuda tests`` on a
 machine with an H100; this file imports no JAX.
@@ -70,3 +72,58 @@ def test_dram_channel_kernel_equals_twin(window, banks):
                             dtype=torch.int64)
     got = dc.dram_channels(*(t.cuda() for t in short), cfg).cpu()
     assert got.tolist() == dc.dram_channels(*short, cfg).tolist()
+
+
+BATCH_CONFIGS = [mars.MarsConfig(), mars.MarsConfig(n_ports=1),
+                 mars.MarsConfig(n_ports=2, ways=4, page_entries=32),
+                 mars.MarsConfig(request_q=40, page_entries=12, ways=3,
+                                 mshr_per_core=1),
+                 mars.MarsConfig(ways=8, page_entries=64),
+                 mars.MarsConfig(n_ports=32, request_q=64, mshr_per_core=2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["ports8", "ports32"])
+def test_mars_engine_batch_equals_twin_per_instance(wide):
+    """One launch for streams under mixed configurations (one port to
+    eight, or up to 32: the kernel's two port bounds; 1 to 8 ways, a
+    RequestQ that fills), each equal to the twin and the oracle."""
+    _card()
+    cfgs = [c for c in BATCH_CONFIGS if (c.n_ports > 8) == wide or
+            c.n_ports == 1]
+    items = []
+    for i, cfg in enumerate(cfgs):
+        gpu = streams.GpuConfig(n_cores=16, cores_per_group=8)
+        s = streams.make_workload(streams.WORKLOADS[i % 5], gpu,
+                                  reqs_per_core=48, seed=i)
+        src = np.asarray(s.source)
+        items.append((s.addr, src % cfg.n_ports, cfg, src))
+    items.append((np.zeros(0, np.int32), None, cfgs[0], None))
+    launches = me.mars_engine.launches
+    got = mars.mars_reorder_many(items, device="cuda")
+    assert me.mars_engine.launches == launches + 1
+    want = mars.mars_reorder_many(items, device="cpu")
+    for (addr, ports, cfg, src), (p, st), (wp, wst) in zip(items, got, want):
+        np.testing.assert_array_equal(p, wp)
+        assert st == wst
+        if len(addr):
+            np.testing.assert_array_equal(p, mars.mars_reorder_reference(
+                addr, ports, cfg, src))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [8, 64, 256])
+def test_simulate_many_equals_twin(window):
+    """Several streams, an empty one and one shorter than the window
+    among them, in one launch: each ``DramResult`` equals the twin's."""
+    _card()
+    rng = np.random.default_rng(window)
+    pages = rng.integers(0, 300, 500)
+    addr = (pages[:, None] * 64 + np.arange(4)).reshape(-1)
+    ss = [(addr, rng.random(len(addr)) < 0.3), (addr[::-1].copy(), None),
+          (np.zeros(0, np.int32), None), (addr[:5], None)]
+    cfg = dram.DramConfig(window=window)
+    launches = dc.dram_channels.launches
+    got = dram.simulate_many(ss, cfg, device="cuda")
+    assert dc.dram_channels.launches == launches + 1
+    assert got == dram.simulate_many(ss, cfg, device="cpu")
