@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result):
   build   compile every CUDA kernel of the port from ``src/repro_torch/
           csrc`` (paged_attention, ssd_scan, mars_gather, moe_dispatch,
           flash_attention, mars_engine, dram_channel,
-          flash_attention_bwd, embedding_grad_scatter) with nvcc for
+          flash_attention_bwd, embedding_grad_scatter, ssd_scan_bwd) with
+          nvcc for
           sm_90a (one nvcc per source, started together) into the
           git-ignored ``build/``.
   k1      K1, its split kernel and its merge kernel: paged_attention's
@@ -187,7 +188,7 @@ Phases (any failure exits non-zero and prints no result):
           tokens, and their bf16 forward's own argmax, sit from a
           float32 forward on the same weights.  Each bfloat16 run is then served twice more, warm
           and profiled, as above.
-  train   the training path (``repro_torch.launch.train``) and its two
+  train   the training path (``repro_torch.launch.train``) and its three
           backward kernels.  First, beside the other kernel phases
           (before the serve runs, whose long profiles have been followed
           by profiles short of device events): B5 ``flash_attention_bwd``
@@ -207,27 +208,45 @@ Phases (any failure exits non-zero and prints no result):
           each timed (from a profile that holds every launch) beside its
           bound, its twin and the library call (SDPA's backward,
           ``F.embedding``'s backward), and K5 at each B5 shape with and
-          without the lse output.  After the
-          dense runs: one float32 step of qwen1.5-0.5b at full width
-          (batch 2 x 128), the loss and every gradient leaf on the card
-          against the same step on host copies, and remat on against
-          off; ``launch.train`` on CUDA must refuse hymba-1.5b,
-          mamba2-370m and arctic-480b (K3's and K4's backward kernels do
-          not exist yet), and K3's and K4's wrappers must raise for an
-          input that needs a gradient without launching
-          (``kernel_grad_refusals``); then ``launch.train`` in bf16 at
-          full width with every count set to 0 just before it: qwen1.5-0.5b 30
-          steps of 8 x 512, a checkpoint every 10, and whisper-base 12
-          steps (checkpoint every 4; stub frames, ``--frontend stub``:
-          the reference's zero frames train nothing at its width):
-          finite losses, the last below the first, K5 once per
-          attention a step (24; whisper 18), B5 three times as often,
-          K2 and B2 once a step; the same run killed after step 19
-          (whisper 7) and resumed with ``--resume`` must end at the
-          uninterrupted last loss within rtol 1e-4; prints step ms,
-          tokens/s and peak allocated memory, then one warm step of
-          each under ``torch.profiler`` (device time by kernel and
-          kind, busy share).
+          without the lse output; B3 ``ssd_scan_bwd`` (``B3_CASES``:
+          mamba2-370m's training scan, 8 x 512, 32 heads of 64, state
+          128, in bf16 and float32; hymba-1.5b's, 50 heads, state 16;
+          both serve prefills of 24 tokens, one chunk; a 4096-token
+          mamba2 scan; a nonzero final-state gradient; mamba2's and
+          hymba's training scans again with slow decays, dt drawn 5
+          lower, so that each chunk's decay exp(cum_end) lies near 0.5
+          and the reverse pass and the decay's gradient count), its entering
+          states from K3, against its twin on host copies within 1e-4 of
+          each gradient's largest magnitude (in bf16 plus a bf16 spacing
+          on dx, db, dc), two calls bitwise equal, timed beside its
+          bound, its twin and K3's forward.  After the
+          dense runs: one float32 step of qwen1.5-0.5b and one of
+          mamba2-370m at full width, every layer (batch 2 x 128; two
+          chunks a layer; ``F32_TRAINS``), the loss on the card against
+          the same step on host copies, every gradient leaf on the card
+          and on the host against a float64 step on the host (the card
+          within ``F32_DRIFT`` times the host's own float32 distance, or
+          ``F32_GRAD_TOL``), remat on against off, and one step's
+          launches; ``launch.train`` on CUDA must refuse arctic-480b
+          (K4's backward kernel does not exist yet), K4's wrapper must
+          raise for an input that needs a gradient without launching
+          (``kernel_grad_refusals``), and K3's must launch K3, then B3 on
+          ``backward()`` (``k3_grad_route``); then ``launch.train`` in
+          bf16 at full width with every count set to 0 just before it:
+          qwen1.5-0.5b 30 steps of 8 x 512, whisper-base 12 steps (stub
+          frames, ``--frontend stub``: the reference's zero frames train
+          nothing at its width), mamba2-370m and hymba-1.5b 12 steps, no
+          checkpoint: finite losses, the last below the first, K5 once per
+          attention a step (24; whisper 18; hymba 2), B5 three times as
+          often, K2 and B2 once a step, K3 once per SSM layer a step
+          (mamba2 48, hymba 32) with its two passes each, B3 four times
+          as often; the same run with a checkpoint every 10 steps
+          (the others 4), killed after step 19 (the others 7) and resumed
+          with ``--resume`` (writing no further checkpoint) must end at
+          the uninterrupted last loss within rtol 1e-4; prints step ms, tokens/s and peak
+          allocated memory, then one warm step of each under
+          ``torch.profiler`` (device time by kernel and kind, busy
+          share).
 
 Prints the card's name and power limit (as ``nvidia-smi`` gives them), a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -984,14 +1003,16 @@ SSD_CASES = [("hymba_prefill", 1, 24, 50, 64, 16, 64),
              ("mamba2_chunks", 2, 256, 32, 64, 128, 64)]
 
 
-def ssd_inputs(torch, F, gen, B, S, H, P, N, dtype):
+def ssd_inputs(torch, F, gen, B, S, H, P, N, dtype, dt_shift=0.0):
     """x, b, c (in ``dtype``), la, dt (float32) on the card as the model
-    feeds them: dt = softplus(normal), la a negative log decay."""
+    feeds them: dt = softplus(normal + ``dt_shift``), la a negative log
+    decay."""
     dev = gen.device
     x = torch.randn(B, S, H, P, generator=gen, device=dev)
     b = torch.randn(B, S, N, generator=gen, device=dev)
     c = torch.randn(B, S, N, generator=gen, device=dev)
-    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev))
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device=dev)
+                    + dt_shift)
     la = -torch.exp(0.3 * torch.randn(B, S, H, generator=gen, device=dev)) \
         * dt
     return [t.to(dtype).contiguous() for t in (x, b, c)] + [la, dt]
@@ -2383,7 +2404,8 @@ def serve_phase(torch, serve, arch: str, flags=()):
             "grouped_matmul": 3 * moe_layers * embeds,
             "flash_attention": unwindowed_layers(cfg) * prefills,
             "mars_engine": 0, "dram_channel": 0,
-            "flash_attention_bwd": 0, "embedding_grad_scatter": 0}
+            "flash_attention_bwd": 0, "embedding_grad_scatter": 0,
+            "ssd_scan_bwd": 0}
     print(f"[serve {name}] served={out['served']} decode_tokens="
           f"{out['decode_tokens']} engine_steps={out['steps']} "
           f"prefills={out['prefills']} decode_steps={out['decode_steps']} "
@@ -2586,7 +2608,8 @@ def kernel_counters() -> dict:
             "dram_channel": (dc_mod.dram_channels, "launches"),
             "flash_attention_bwd": (k5_mod.flash_attention_bwd, "launches"),
             "embedding_grad_scatter": (mg_mod.scatter_add_rows,
-                                       "launches")}
+                                       "launches"),
+            "ssd_scan_bwd": (ssd_mod.ssd_scan_bwd, "launches")}
 
 
 def reset_counts(counters: dict) -> None:
@@ -2705,6 +2728,7 @@ def profile_summary(prof, wall: float) -> dict:
         b = ("paged_attention_merge" if "paged_attention_merge" in n else
              "paged_attention" if "paged_attention" in n else
              "ssd_scan" if "ssd_scan_" in n else
+             "ssd_scan_bwd" if "ssd_bwd_" in n else
              "grouped_matmul" if "grouped_mm_" in n else
              "gather_rows" if "gather_rows_kernel" in n else
              "flash_attention" if "flash_attn_" in n else
@@ -2744,7 +2768,8 @@ def dense_launches_wanted(cfg, prefills: int, steps: int) -> dict:
                                            + unwindowed_layers(cfg) + cross)
             + steps * cross,
             "mars_engine": 0, "dram_channel": 0,
-            "flash_attention_bwd": 0, "embedding_grad_scatter": 0}
+            "flash_attention_bwd": 0, "embedding_grad_scatter": 0,
+            "ssd_scan_bwd": 0}
 
 
 def _to_f32(tree):
@@ -3026,29 +3051,77 @@ B2_WORST = (("qwen", 151936, 1024, "one_id"),
 B2_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 TRAIN_TOKENS = (8, 512)             # batch x sequence of the training runs
 # The training runs at full width, bf16: (config, steps, checkpoint
-# interval, the step a second run is killed at, extra flags).  The killed
-# run resumes with --resume from its last checkpoint and must end at the
-# uninterrupted run's last loss within the reference's rtol (1e-4,
-# tests/test_ft.py:134).  whisper-base reads stub frames (normal * 0.02,
+# interval, the step a second run is killed at, extra flags).  Only the
+# killed run writes checkpoints; it resumes with --resume from its last
+# one, writes none after, and must end at the uninterrupted run's last
+# loss within the reference's rtol (1e-4, tests/test_ft.py:134).  whisper-base reads stub frames (normal * 0.02,
 # drawn per step): with the reference's zero frames every encoder
 # LayerNorm sees zero variance, the global gradient norm overflows to
 # inf and the clip zeroes every update, in the reference as in the port
 # (ROADMAP.md §3), so nothing would train.
 TRAIN_RUNS = (("qwen1_5_0_5b", 30, 10, 20, ()),
-              ("whisper_base", 12, 4, 8, ("--frontend", "stub")))
+              ("whisper_base", 12, 4, 8, ("--frontend", "stub")),
+              ("mamba2_370m", 12, 4, 8, ()),
+              ("hymba_1_5b", 12, 4, 8, ()))
 TRAIN_RESUME_RTOL = 1e-4
 # configs whose CUDA training forward would launch a kernel with no
-# backward kernel (K3, K4): launch.train must refuse them
-TRAIN_REFUSED = ("hymba_1_5b", "mamba2_370m", "arctic_480b")
-# The float32 step at full width on the card against the same step on
-# host copies (the CPU's twins): qwen1.5-0.5b, batch 2 x 128.  Both run
-# the same f32 arithmetic in other orders and libraries through 24
-# layers: the loss within 1e-4 relative, each gradient leaf within
-# 1e-3 of its largest value; remat on against off on the card to the
-# same bound (the recomputed forward repeats the same kernels).
-F32_TRAIN = ("qwen1_5_0_5b", 2, 128)
+# backward kernel (K4): launch.train must refuse them
+TRAIN_REFUSED = ("arctic_480b",)
+# The float32 step at full width, every layer, on the card against the
+# same step on host copies (the CPU's twins): qwen1.5-0.5b (24 layers)
+# and mamba2-370m (48; two chunks a layer: K3's three launches, B3's
+# four), batch 2 x 128.  Both run the same f32 arithmetic in other
+# orders and libraries: the loss within 1e-4 relative.  The gradient
+# leaves are held against a float64 step on the host (the same
+# parameters widened; float64 throughout, ``layers.at_least_f32``, the
+# scan's twins included).  mamba2's float32 gradient drifts with depth
+# whoever computes it (at 48 layers the host's own float32 step lies
+# 1.6e-3 to 2.5e-2 of a leaf's largest value from float64, by parameter
+# seed), so each leaf's card gap, |card - f64| / max|f64|, must lie within
+# F32_DRIFT times the host float32 step's drift (its largest gap over the
+# leaves), or within F32_GRAD_TOL where that is larger.  F32_DRIFT: over
+# seeds 0-3 the card's largest gap was 0.87-2.13 times the host's (an
+# H100); twice that.  Remat on against off on the card within
+# F32_GRAD_TOL (the recomputed forward repeats the same kernels).
+# (config, batch, sequence)
+F32_TRAINS = (("qwen1_5_0_5b", 2, 128), ("mamba2_370m", 2, 128))
 F32_LOSS_RTOL = 1e-4
 F32_GRAD_TOL = 1e-3
+F32_DRIFT = 4.0
+# B3 cases: (name, B, S, H, P, N, chunk, dtypes, a final-state gradient,
+# dt_shift).  mamba2-370m's and hymba-1.5b's training scans (8 x 512,
+# chunk 64: 8 chunks, B3's four launches); both serve prefills of 24
+# tokens (one chunk: two launches); a long mamba2 scan (4096 tokens, 64
+# chunks); and a nonzero final-state gradient (the trainer drops the
+# state, so its gradient is None on the training path).  With dt =
+# softplus(normal) a chunk's decay exp(cum_end) is about 1e-23, so the
+# terms it scales (the reverse pass G_{c-1} = decay G_c + U_c and
+# exp(cum_end) d(decay) in dla) vanish below the bound; the "_slow" cases
+# draw dt 5 lower (dt about 0.01), a decay near 0.5 a chunk, and check
+# them at both training scans, with and without a final-state gradient.
+B3_SLOW = -5.0
+B3_CASES = (("mamba2_train", 8, 512, 32, 64, 128, 64,
+             ("bfloat16", "float32"), False, 0.0),
+            ("hymba_train", 8, 512, 50, 64, 16, 64, ("bfloat16",), False,
+             0.0),
+            ("hymba_prefill", 1, 24, 50, 64, 16, 64, ("bfloat16",), False,
+             0.0),
+            ("mamba2_prefill", 8, 24, 32, 64, 128, 64, ("bfloat16",),
+             False, 0.0),
+            ("mamba2_long", 1, 4096, 32, 64, 128, 64, ("bfloat16",), False,
+             0.0),
+            ("mamba2_state", 2, 256, 32, 64, 128, 64,
+             ("bfloat16", "float32"), True, 0.0),
+            ("mamba2_train_slow", 8, 512, 32, 64, 128, 64,
+             ("bfloat16", "float32"), False, B3_SLOW),
+            ("mamba2_state_slow", 8, 512, 32, 64, 128, 64,
+             ("bfloat16", "float32"), True, B3_SLOW),
+            ("hymba_state_slow", 8, 512, 50, 64, 16, 64, ("bfloat16",),
+             True, B3_SLOW))
+# each gradient within 1e-4 of its largest magnitude (f32 sums in another
+# order); in bf16 dx, db and dc also one bf16 spacing (both round the
+# f32 gradient to bf16)
+B3_REL = 1e-4
 
 
 def bwd_err(got, want, tol) -> tuple:
@@ -3369,30 +3442,163 @@ def time_b2(torch, ops, ids, g, V: int, case: str) -> dict:
                 bound_by="bytes", bytes=bytes_moved, ops=0)
 
 
-def train_f32_check(torch) -> dict:
-    """The float32 training loss and every gradient leaf of qwen1.5-0.5b
-    at full width (``F32_TRAIN``) on the card, through K5, B5, K2 and
-    B2, against the same step on host copies (the plain twins), and with
-    remat on against off on the card."""
+def b3_err(got, want, spacing: bool) -> tuple:
+    """Largest |got - want| and its largest ratio to the bound ``B3_REL``
+    max|want| (+ one bf16 spacing of want where ``spacing``)."""
+    import torch
+    w = want.float()
+    diff = (got.float() - w).abs()
+    bound = torch.full_like(w, B3_REL * float(w.abs().max()))
+    if spacing:
+        bound += torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+    return float(diff.max()), float((diff / bound.clamp_min(1e-30)).max())
+
+
+def b3_bound(B, S, H, P, N, q, dtype: str, with_state: bool) -> dict:
+    """B3's bound at one case: x, b, c (in ``dtype``), la, dt, dy, the
+    final state's gradient and, with more than one chunk, K3's entering
+    states and decays read once, dx, db, dc, dla, ddt written once, over
+    the memory rate; and the f32 operations of the code's products over
+    67 TFLOP/s: per (batch, chunk) C B^T, dCB^T C and dCB B on the lower
+    triangle; per head dW and W^T dy (the triangle), G b and x^T G; per
+    head of a chunk with an entering state also U_c, s^T dy and the
+    pass's update and d(decay).  The larger."""
+    nc, esz = S // q, 2 if dtype == "bfloat16" else 4
+    tri = q * (q + 1) // 2
+    read = (B * S * H * P + 2 * B * S * N) * esz + 2 * B * S * H * 4 \
+        + B * S * H * P * 4 + (B * H * P * N * 4 if with_state else 0) \
+        + (B * nc * H * (P * N + 1) * 4 if nc > 1 else 0)
+    written = (B * S * H * P + 2 * B * S * N) * esz + 2 * B * S * H * 4
+    ops = B * nc * (6 * tri * N + H * (4 * tri * P + 4 * q * P * N)) \
+        + B * (nc - 1) * H * (4 * q * P * N + 4 * P * N)
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS["float32"] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=read + written, ops=ops)
+
+
+def b3_phase(torch, F, gen):
+    """B3 (ssd_scan_bwd) at every ``B3_CASES`` case: two calls on the
+    same inputs bitwise equal, and each gradient against the plain twin
+    on host copies (which recomputes the entering states itself) within
+    ``B3_REL`` of its largest magnitude (+ a bf16 spacing on dx, db, dc);
+    the entering states and decays from K3 (``ssd_scan_with_states``);
+    each case timed (``time_b3``) and its chunks' decays exp(cum_end)
+    printed (median and range)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as k3
+    results, timing, max_err = [], {}, 0.0
+    names = ("dx", "db", "dc", "dla", "ddt")
+    for name, B, S, H, P, N, chunk, dtypes, with_state, shift in B3_CASES:
+        q = min(chunk, S)
+        for dtype in dtypes:
+            case = f"{name}/{dtype}"
+            ins = ssd_inputs(torch, F, gen, B, S, H, P, N,
+                             getattr(torch, dtype), shift)
+            decay = ins[3].view(B, S // q, q, H).sum(2).exp().flatten()
+            dy = torch.randn(B, S, H, P, generator=gen, device=gen.device)
+            ds = torch.randn(B, H, P, N, generator=gen, device=gen.device) \
+                if with_state else None
+            _, _, saved = k3.ssd_scan_with_states(*ins, chunk=chunk)
+            got = k3.ssd_scan_bwd(*ins, dy, ds, chunk=chunk, saved=saved)
+            again = k3.ssd_scan_bwd(*ins, dy, ds, chunk=chunk, saved=saved)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
+            want = k3.ssd_scan_bwd_plain(
+                *(t.cpu() for t in ins), dy.cpu(),
+                None if ds is None else ds.cpu(), chunk=chunk)
+            errs = [b3_err(g.cpu(), w, dtype == "bfloat16" and i < 3)
+                    for i, (g, w) in enumerate(zip(got, want))]
+            ok = bitwise and all(e[1] <= 1.0 for e in errs) and all(
+                bool(torch.isfinite(g.float()).all()) and g.dtype == w.dtype
+                and g.shape == w.shape for g, w in zip(got, want))
+            err = max(e[0] for e in errs)
+            print(f"[train] ssd_scan_bwd {case:22s} B={B} S={S} H={H} P={P} "
+                  f"N={N} q={q} d_state={with_state} chunk decay "
+                  f"{float(decay.median()):.2e} ({float(decay.min()):.2e}"
+                  f"..{float(decay.max()):.2e}): "
+                  + ", ".join(f"{n} err {e[0]:.3e} ({e[1]:.3f} of tol)"
+                              for n, e in zip(names, errs))
+                  + f"; two calls {'bitwise equal' if bitwise else 'DIFFER'}"
+                  f" (tol {B3_REL} max|twin|"
+                  + (" + a bf16 spacing on dx, db, dc" if dtype == "bfloat16"
+                     else "") + f") {'ok' if ok else 'MISMATCH'}")
+            results.append(dict(case=case, err=err, bitwise=bitwise,
+                                err_over_tol=[e[1] for e in errs], ok=ok,
+                                decay_median=float(decay.median())))
+            max_err = max(max_err, err)
+            del got, want
+            timing[case] = time_b3(torch, k3, ins, dy, ds, chunk, saved,
+                                   dtype, case)
+            del ins, dy, ds, saved
+            torch.cuda.empty_cache()
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"ssd_scan_bwd disagrees with its plain twin: "
+                             f"{bad}")
+    return results, max_err, timing
+
+
+def time_b3(torch, k3, ins, dy, ds, chunk: int, saved, dtype: str,
+            case: str) -> dict:
+    """B3 (from a profile that holds its ``bwd_launches`` a call), its
+    plain twin on the card (the same entering states) and K3's forward
+    that keeps them, at one case, beside ``b3_bound``.  No single PyTorch
+    call computes the scan's backward: no library time."""
+    B, S, H, P = ins[0].shape
+    N = ins[1].shape[-1]
+    q = min(chunk, S)
+
+    def kern():
+        k3.ssd_scan_bwd(*ins, dy, ds, chunk=chunk, saved=saved)
+
+    def plain():
+        k3.ssd_scan_bwd_plain(*ins, dy, ds, chunk=chunk, entering=saved[0])
+
+    def fwd():
+        k3.ssd_scan_with_states(*ins, chunk=chunk)
+    fwd_calls = launches_of(fwd, (k3.ssd_scan, "launches"),
+                            (k3.ssd_scan, "pass_launches"))
+    return dict(ms=counted_ms(kern, 10, f"ssd_scan_bwd {case}", "ssd_bwd_",
+                              k3.bwd_launches(S // q), tag="[train]"),
+                plain_ms=device_ms(plain, 3, f"ssd_scan_bwd twin {case}"),
+                library_ms=None,
+                fwd_ms=counted_ms(fwd, 10, f"ssd_scan forward {case}",
+                                  "ssd_scan_", fwd_calls, tag="[train]"),
+                **b3_bound(B, S, H, P, N, q, dtype, ds is not None))
+
+
+def train_f32_check(torch, arch: str, B: int, S: int) -> dict:
+    """The float32 training loss and every gradient leaf of ``arch`` at
+    full width (a case of ``F32_TRAINS``) on the card, through its
+    kernels and their backward kernels (the launches of one step,
+    ``train_launches_wanted``): the loss against the same step on host
+    copies (the plain twins); each gradient leaf's gap to a float64 step
+    on the host, |g - g64| / max|g64|, on the card within ``F32_DRIFT``
+    times the host float32 step's drift, its largest gap over the leaves
+    (or within ``F32_GRAD_TOL``); and remat on against off on the
+    card."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.models import lm
     from repro_torch.utils.tree import leaf_paths, tree_map
-    arch, B, S = F32_TRAIN
     cfg = dataclasses.replace(configs.get(arch), param_dtype="float32",
                               compute_dtype="float32")
+    cfg64 = dataclasses.replace(cfg, param_dtype="float64",
+                                compute_dtype="float64")
     params = lm.init(cfg, torch.Generator("cuda").manual_seed(0))
     batch = next(TokenStream(DataConfig(vocab=cfg.vocab, seq_len=S,
                                         global_batch=B)))
 
-    def grads(p, device, remat):
+    def grads(p, device, remat, c=cfg):
         named = leaf_paths(p)
         for _, t in named:
             t.requires_grad_(True)
         tokens, labels = (torch.from_numpy(batch[k]).to(device)
                           for k in ("tokens", "labels"))
-        loss, _ = lm.loss_fn(p, cfg, tokens, labels, remat=remat)
+        loss, _ = lm.loss_fn(p, c, tokens, labels, remat=remat)
         gs = torch.autograd.grad(loss, [t for _, t in named])
         return float(loss.detach()), {n: g for (n, _), g in zip(named,
                                                               gs)}
@@ -3406,68 +3612,91 @@ def train_f32_check(torch) -> dict:
     host = tree_map(lambda t: t.detach().cpu(), params)
     del params
     loss_h, g_h = grads(host, "cpu", False)
-    worst = {"host": (0.0, ""), "remat": (0.0, "")}
-    for name, want in g_h.items():
+    wide = tree_map(lambda t: t.detach().double()
+                    if t.is_floating_point() else t, host)
+    loss_64, g_64 = grads(wide, "cpu", False, cfg64)
+    del host, wide
+    gaps, remat = {}, (0.0, "")
+    for name, want in g_64.items():
         scale = float(want.abs().max()) or 1.0
-        for tag, other in (("host", g_c[name].cpu()),
-                           ("remat", g_r[name].cpu())):
-            ref = want if tag == "host" else g_c[name].cpu()
-            r = float((other - ref).abs().max()) / scale
-            if r > worst[tag][0]:
-                worst[tag] = (r, name)
+        card = float((g_c[name].cpu().double() - want).abs().max()) / scale
+        own = float((g_h[name].double() - want).abs().max()) / scale
+        gaps[name] = (card, own)
+        r = float((g_r[name] - g_c[name]).abs().max().cpu()) / (
+            float(g_c[name].abs().max()) or 1.0)
+        if r > remat[0]:
+            remat = (r, name)
+    worst = max(gaps, key=lambda n: gaps[n][0])
+    drift = max(own for _, own in gaps.values())
+    bound = max(F32_GRAD_TOL, F32_DRIFT * drift)
     bitwise = all(torch.equal(g_r[n], g_c[n]) for n in g_c)
     loss_rel = abs(loss_c - loss_h) / abs(loss_h)
+    want = train_launches_wanted(cfg, 1, counters, S)
     ok = loss_rel <= F32_LOSS_RTOL \
         and abs(loss_r - loss_c) <= F32_LOSS_RTOL * abs(loss_c) \
-        and worst["host"][0] <= F32_GRAD_TOL \
-        and worst["remat"][0] <= F32_GRAD_TOL \
-        and launches["flash_attention_bwd"] > 0 \
-        and launches["embedding_grad_scatter"] > 0
-    print(f"[train] float32 step, {arch} at full width, batch {B}x{S}: loss "
-          f"card {loss_c:.6f} / host {loss_h:.6f} (relative {loss_rel:.2e}, "
-          f"tol {F32_LOSS_RTOL}); {len(g_h)} gradient leaves, largest "
-          f"|card - host| / max|host| {worst['host'][0]:.2e} "
-          f"({worst['host'][1]}); remat on vs off: loss {loss_r:.6f}, "
-          f"largest {worst['remat'][0]:.2e} ({worst['remat'][1]}), "
-          f"bitwise {bitwise} (tol {F32_GRAD_TOL}); card launches "
-          + ", ".join(f"{k} {launches[k]}" for k in TRAIN_KERNELS)
+        and gaps[worst][0] <= bound \
+        and remat[0] <= F32_GRAD_TOL and launches == want
+    print(f"[train] float32 step, {arch} at full width, {cfg.n_layers} "
+          f"layers, batch {B}x{S}: loss card {loss_c:.6f} / host "
+          f"{loss_h:.6f} (relative {loss_rel:.2e}, tol {F32_LOSS_RTOL}) / "
+          f"host float64 {loss_64:.6f}; {len(gaps)} gradient leaves, "
+          f"|g - g64| / max|g64|: card largest {gaps[worst][0]:.2e} "
+          f"({worst}), host float32 largest {drift:.2e} (bound "
+          f"{bound:.2e}: max({F32_GRAD_TOL}, {F32_DRIFT} x host)); remat on"
+          f" vs off: loss {loss_r:.6f}, largest "
+          f"{remat[0]:.2e} ({remat[1]}), bitwise {bitwise} (tol "
+          f"{F32_GRAD_TOL}); card launches "
+          + ", ".join(f"{k} {launches[k]} (want {want[k]})"
+                      for k in TRAIN_KERNELS if launches[k] or want[k])
           + f" {'ok' if ok else 'MISMATCH'}")
+    print(f"[train] float32 step, {arch}: each leaf's |g - g64| / max|g64|,"
+          f" card / host float32: " + ", ".join(
+              f"{n} {c:.2e} / {h:.2e}" for n, (c, h) in gaps.items()))
     if not ok:
-        raise AssertionError(f"float32 training step on the card disagrees "
-                             f"with the host: loss {loss_c} vs {loss_h}, "
-                             f"{worst}, launches {launches}")
-    return dict(loss_card=loss_c, loss_host=loss_h, loss_remat=loss_r,
-                worst_host=worst["host"], worst_remat=worst["remat"],
-                remat_bitwise=bitwise, launches=launches)
+        raise AssertionError(f"float32 training step of {arch} on the card "
+                             f"disagrees with the host: loss {loss_c} vs "
+                             f"{loss_h}, gaps {gaps} (bound {bound}), "
+                             f"remat {remat}, "
+                             f"launches {launches}, want {want}")
+    return dict(loss_card=loss_c, loss_host=loss_h, loss_f64=loss_64,
+                loss_remat=loss_r, gaps=gaps, worst=worst, drift=drift,
+                bound=bound,
+                worst_remat=remat, remat_bitwise=bitwise, launches=launches)
 
 
-TRAIN_PATH = "train qwen1_5_0_5b"          # the slice's main path
 # the training path's backward kernels: (name, source, the reference
 # function each takes the place of -- no Pallas kernel: the JAX trainer
-# differentiates plain layers.sdpa and calls the jnp
-# embedding_grad_scatter -- the timing record and case of its row)
+# differentiates plain layers.sdpa and the jnp ssd_chunked and calls the
+# jnp embedding_grad_scatter -- the timing record and case of its row,
+# and the run whose launches it reports)
 TRAIN_KERNELS_ROWS = (
     ("flash_attention_bwd", "flash_attention_bwd.cu",
-     "src/repro/models/layers.py:199", "b5_timing", "qwen/bfloat16"),
+     "src/repro/models/layers.py:199", "b5_timing", "qwen/bfloat16",
+     "train qwen1_5_0_5b"),
     ("embedding_grad_scatter", "embedding_grad_scatter.cu",
      "src/repro/kernels/mars_gather/ops.py:50", "b2_timing",
-     "qwen/zipf/bfloat16"))
+     "qwen/zipf/bfloat16", "train qwen1_5_0_5b"),
+    ("ssd_scan_bwd", "ssd_scan_bwd.cu", "src/repro/models/ssm.py:93",
+     "b3_timing", "mamba2_train/bfloat16", "train mamba2_370m"))
 
 
-def train_kernel_rows(launches: dict, record: dict, b5_err: float) -> list:
-    """The ``{"kernels": [...]}`` rows of B5 and B2: launches on the
-    training main path (``TRAIN_PATH``), their largest error against the
-    twin (B2's on host copies, which it must equal bitwise), timed at
-    qwen1.5-0.5b's training shapes in bf16 beside the library call."""
+def train_kernel_rows(launches: dict, record: dict, b5_err: float,
+                      b3_err: float) -> list:
+    """The ``{"kernels": [...]}`` rows of B5, B2 and B3: launches on a
+    training run (qwen1.5-0.5b; mamba2-370m for B3), their largest error
+    against the twin (B2's on host copies, which it must equal bitwise),
+    timed at that run's training shapes in bf16 beside the library call
+    (none for B3)."""
     errs = {"flash_attention_bwd": b5_err,
             "embedding_grad_scatter": max(r["host_err"]
-                                          for r in record["b2_cases"])}
+                                          for r in record["b2_cases"]),
+            "ssd_scan_bwd": b3_err}
     rows = []
-    for name, source, replaces, timing, case in TRAIN_KERNELS_ROWS:
+    for name, source, replaces, timing, case, path in TRAIN_KERNELS_ROWS:
         t = record[timing][case]
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
-            replaces=replaces, launches=launches[TRAIN_PATH][name],
+            replaces=replaces, launches=launches[path][name],
             launches_by_path={p: n[name] for p, n in launches.items()},
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
@@ -3479,37 +3708,48 @@ class _Killed(Exception):
     """Stops a training run after a step, as a lost host would."""
 
 
-# the four kernels of the training path, as ``kernel_counters`` names them
+# the kernels of the training paths, as ``kernel_counters`` names them
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gather_rows",
-                 "embedding_grad_scatter")
+                 "embedding_grad_scatter", "ssd_scan", "ssd_scan_passes",
+                 "ssd_scan_bwd")
 
 
-def train_launches_wanted(cfg, steps: int, counters: dict) -> dict:
-    """Launches of a training run of ``steps`` steps with remat off: K5
-    once per attention a step (an encoder-decoder model's encoder,
-    decoder and cross-attention layers), B5 ``BWD_LAUNCHES`` times as
-    often, K2 and B2 once a step (a table of at least 2**22 elements)."""
+def train_launches_wanted(cfg, steps: int, counters: dict,
+                          seq: int = TRAIN_TOKENS[1]) -> dict:
+    """Launches of a training run of ``steps`` steps of ``seq`` tokens
+    with remat off: K5 once per attention a step (an encoder-decoder
+    model's encoder, decoder and cross-attention layers), B5
+    ``BWD_LAUNCHES`` times as often, K2 and B2 once a step (a table of at
+    least 2**22 elements); K3 once per SSM layer a step (its two passes
+    each when ``seq`` is more than one chunk) and B3 ``bwd_launches``
+    times as often."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         BWD_LAUNCHES
+    from repro_torch.kernels.ssd_scan.ssd_scan import bwd_launches
     attn = cfg.enc_layers + unwindowed_layers(cfg) \
         + (cfg.n_layers if cfg.family == "encdec" else 0)
     table = steps if cfg.vocab * cfg.d_model >= 1 << 22 else 0
+    ssm = cfg.n_layers * steps if cfg.has_ssm else 0
+    chunks = seq // min(cfg.ssm_chunk, seq) if cfg.has_ssm else 1
     want = {k: 0 for k in counters}
     want.update(flash_attention=attn * steps,
                 flash_attention_bwd=attn * BWD_LAUNCHES * steps,
-                gather_rows=table, embedding_grad_scatter=table)
+                gather_rows=table, embedding_grad_scatter=table,
+                ssd_scan=ssm, ssd_scan_passes=2 * ssm if chunks > 1 else 0,
+                ssd_scan_bwd=bwd_launches(chunks) * ssm)
     return want
 
 
 def train_run(torch, arch: str, steps: int, interval: int, kill_at: int,
               flags=()):
     """``launch.train`` at full width in bf16 (batch and sequence
-    ``TRAIN_TOKENS``, a checkpoint every ``interval`` steps) with every
-    count set to 0 just before it: finite losses, the last below the
-    first, the launches of ``train_launches_wanted``; then the same run
-    killed after step ``kill_at - 1`` and resumed with ``--resume`` must
-    end at the uninterrupted run's last loss (``TRAIN_RESUME_RTOL``).
-    Returns the record and the launches."""
+    ``TRAIN_TOKENS``, no checkpoint) with every count set to 0 just
+    before it: finite losses, the last below the first, the launches of
+    ``train_launches_wanted``; then the same run with a checkpoint every
+    ``interval`` steps, killed after step ``kill_at - 1`` and resumed
+    with ``--resume`` (writing no further checkpoint), must end at the
+    uninterrupted run's last loss (``TRAIN_RESUME_RTOL``).  Returns the
+    record and the launches."""
     import math
     import shutil
     from repro_torch.ft.manager import RunSupervisor
@@ -3518,13 +3758,15 @@ def train_run(torch, arch: str, steps: int, interval: int, kill_at: int,
     work = ROOT / "build" / "train" / arch
     shutil.rmtree(work, ignore_errors=True)
     argv = ["--arch", arch, "--steps", str(steps), "--batch", str(B),
-            "--seq", str(S), "--ckpt-interval", str(interval),
-            "--log-every", "5", "--device", "cuda", *flags]
+            "--seq", str(S), "--log-every", "5", "--device", "cuda",
+            *flags]
+    never = ["--ckpt-interval", str(steps)]   # step % steps: never 0
+    every = ["--ckpt-interval", str(interval)]
     name = f"train {arch}"
     counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
-    full = train.run(argv + ["--workdir", str(work / "full")])
+    full = train.run(argv + never + ["--workdir", str(work / "full")])
     torch.cuda.synchronize()
     launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
@@ -3556,15 +3798,15 @@ def train_run(torch, arch: str, steps: int, interval: int, kill_at: int,
         return events
     RunSupervisor.after_step = killing
     try:
-        train.run(argv + ["--workdir", str(work / "killed")])
+        train.run(argv + every + ["--workdir", str(work / "killed")])
         raise AssertionError(f"{name}: the run was not killed")
     except _Killed:
         pass
     finally:
         RunSupervisor.after_step = after_step
     free_device(torch, f"{name} killed at {kill_at}")
-    resumed = train.run(argv + ["--workdir", str(work / "killed"),
-                                "--resume"])
+    resumed = train.run(argv + never + ["--workdir", str(work / "killed"),
+                                        "--resume"])
     shutil.rmtree(work, ignore_errors=True)
     free_device(torch, f"{name} resumed")
     last, want_last = resumed["losses"][-1], losses[-1]
@@ -3653,18 +3895,44 @@ def train_refusals() -> list:
     return out
 
 
-def kernel_grad_refusals(torch) -> list:
-    """K3's and K4's wrappers, called on the card with an input that
-    needs a gradient, raise without launching (they have no backward
-    kernel); under ``torch.no_grad()`` the same call launches."""
-    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+def k3_grad_route(torch) -> dict:
+    """K3 called on the card with an input that needs a gradient (two
+    chunks) launches K3 once (and its two passes), then B3 on
+    ``backward()`` (``bwd_launches`` kernels); the gradients are finite.
+    The counts are put back."""
     from repro_torch.kernels.ssd_scan import ssd_scan as k3
+    counts = ((k3.ssd_scan, "launches"), (k3.ssd_scan, "pass_launches"),
+              (k3.ssd_scan_bwd, "launches"))
+    before = [getattr(w, a) for w, a in counts]
+    x = torch.randn(1, 32, 2, 64, device="cuda").requires_grad_()
+    b, c = (torch.randn(1, 32, 16, device="cuda").requires_grad_()
+            for _ in range(2))
+    dt = torch.rand(1, 32, 2, device="cuda")
+    y, _ = k3.ssd_scan(x, b, c, -dt, dt, chunk=16)
+    torch.cuda.synchronize()
+    fwd = [getattr(w, a) - n for (w, a), n in zip(counts, before)]
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    after = [getattr(w, a) - n for (w, a), n in zip(counts, before)]
+    for (w, a), n in zip(counts, before):
+        setattr(w, a, n)
+    finite = all(bool(torch.isfinite(t.grad).all()) for t in (x, b, c))
+    want_fwd, want = [1, 2, 0], [1, 2, k3.bwd_launches(2)]
+    print(f"[train] ssd_scan with an input that needs a gradient on CUDA: "
+          f"K3, passes, B3 launches after the forward {fwd} (want "
+          f"{want_fwd}), after backward() {after} (want {want}); gradients "
+          f"finite {finite}")
+    if fwd != want_fwd or after != want or not finite:
+        raise AssertionError(f"K3 with a gradient launched {fwd} then "
+                             f"{after}, want {want_fwd} then {want}")
+    return dict(forward=fwd, backward=after)
 
-    def args_k3():
-        x = torch.randn(1, 16, 2, 64, device="cuda")
-        b, c = (torch.randn(1, 16, 16, device="cuda") for _ in range(2))
-        dt = torch.rand(1, 16, 2, device="cuda")
-        return (x.requires_grad_(), b, c, -dt, dt), {"chunk": 16}
+
+def kernel_grad_refusals(torch) -> list:
+    """K4's wrapper, called on the card with an input that needs a
+    gradient, raises without launching (it has no backward kernel);
+    under ``torch.no_grad()`` the same call launches."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
 
     def args_k4():
         x = torch.randn(32, 64, device="cuda")
@@ -3673,7 +3941,7 @@ def kernel_grad_refusals(torch) -> list:
                                    device="cuda")), {"bm": 16}
 
     out = []
-    for fn, make in ((k3.ssd_scan, args_k3), (k4.grouped_matmul, args_k4)):
+    for fn, make in ((k4.grouped_matmul, args_k4),):
         name = fn.__name__
         args, kw = make()
         before = fn.launches
@@ -3695,8 +3963,8 @@ def kernel_grad_refusals(torch) -> list:
 
 def train_kernel_phase(torch, F, gen) -> tuple:
     """The train phase's kernel part, run beside the other kernel phases
-    (before the serve runs' long profiles): B5 and B2 against their
-    twins, each timed.  Returns (record, B5's largest error)."""
+    (before the serve runs' long profiles): B5, B2 and B3 against their
+    twins, each timed.  Returns (record, B5's largest error, B3's)."""
     b5_results, b5_err, b5_timing = b5_phase(torch, F, gen)
     for case, t in b5_timing.items():
         print(f"[train] flash_attention_bwd {case}: device ms per call: "
@@ -3714,18 +3982,32 @@ def train_kernel_phase(torch, F, gen) -> tuple:
               f"{t['plain_ms']:.4f}, F.embedding backward "
               f"{t['library_ms']:.4f}")
     free_device(torch, "B2 cases")
+    b3_results, b3_err, b3_timing = b3_phase(torch, F, gen)
+    for case, t in b3_timing.items():
+        print(f"[train] ssd_scan_bwd {case}: device ms per call: kernel "
+              f"{t['ms']:.4f}, bound {t['bound_ms']:.5f} ({t['bound_by']}; "
+              f"{t['bytes']} B, {t['ops']} f32 ops; "
+              f"{t['bound_ms'] / t['ms']:.3f} of it reached), plain twin "
+              f"{t['plain_ms']:.4f}, no PyTorch library call computes it; K3 "
+              f"forward keeping the entering states {t['fwd_ms']:.4f}")
+    free_device(torch, "B3 cases")
     return dict(b5_cases=b5_results, b5_timing=b5_timing,
-                b2_cases=b2_results, b2_timing=b2_timing), b5_err
+                b2_cases=b2_results, b2_timing=b2_timing,
+                b3_cases=b3_results, b3_timing=b3_timing), b5_err, b3_err
 
 
 def train_phase(torch) -> tuple:
-    """The train phase's runs: the float32 step at full width, the
-    refusals, the bf16 training runs (launch counts, resume) and a
-    profiled step of each.  Returns (record, launches by run)."""
-    f32 = train_f32_check(torch)
-    free_device(torch, "float32 training step")
+    """The train phase's runs: the float32 steps at full width, the
+    refusals and K3's route to B3, the bf16 training runs (launch counts,
+    resume) and a profiled step of each.  Returns (record, launches by
+    run)."""
+    f32 = {}
+    for arch, B, S in F32_TRAINS:
+        f32[arch] = train_f32_check(torch, arch, B, S)
+        free_device(torch, f"float32 training step {arch}")
     record = dict(f32=f32, refused=train_refusals(),
-                  refused_grad=kernel_grad_refusals(torch), runs={})
+                  refused_grad=kernel_grad_refusals(torch),
+                  k3_grad=k3_grad_route(torch), runs={})
     launches = {}
     for arch, steps, interval, kill_at, flags in TRAIN_RUNS:
         record["runs"][arch], launches[f"train {arch}"] = train_run(
@@ -3746,7 +4028,8 @@ KERNEL_NAMES = {"paged_attention": "paged_attention_split_kernel",
                 "mars_engine": "mars_engine_kernel",
                 "dram_channel": "dram_channel_kernel",
                 "flash_attention_bwd": "flash_bwd_",
-                "embedding_grad_scatter": "embedding_grad_scatter_kernel"}
+                "embedding_grad_scatter": "embedding_grad_scatter_kernel",
+                "ssd_scan_bwd": "ssd_bwd_"}
 
 
 def print_profile(arch: str, prof: dict) -> None:
@@ -3905,7 +4188,7 @@ def main(argv=None) -> int:
         free_device(torch, "K5 phase")
     if "train" in phases:
         t0 = time.perf_counter()
-        train_record, b5_err = train_kernel_phase(torch, F, gen)
+        train_record, b5_err, b3_err = train_kernel_phase(torch, F, gen)
         record.update(train_kernels_s=time.perf_counter() - t0)
     if "sim" in phases:
         t0 = time.perf_counter()
@@ -4045,7 +4328,7 @@ def main(argv=None) -> int:
             "flash_attention/flash_attention.py:27", "whisper_base", k5_err,
             k5_timing["whisper_encoder/bfloat16"]),
     ] + sim_kernel_rows(launches, sim_timing) \
-        + train_kernel_rows(launches, train_record, b5_err)
+        + train_kernel_rows(launches, train_record, b5_err, b3_err)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

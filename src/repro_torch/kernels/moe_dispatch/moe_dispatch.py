@@ -252,9 +252,9 @@ def _refuse_grad(*ts) -> None:
     outside the graph and have no backward kernel yet."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
-            "grouped_matmul (K4) has no backward kernel yet (ROADMAP.md §1, "
-            "the next training slice): call it under torch.no_grad() on "
-            "CUDA, or train on the CPU")
+            "grouped_matmul (K4) has no backward kernel yet (ROADMAP.md §1 "
+            "item 4: B4 comes with MoE training over 4 cards): call it "
+            "under torch.no_grad() on CUDA, or train on the CPU")
 
 
 def grouped_matmul(x, w, tile_group, *, bm: int = DEFAULT_BM, n_tiles=None):

@@ -1,5 +1,5 @@
-"""SSD (Mamba2) chunked scan (port of ``repro/kernels/ssd_scan/
-ssd_scan.py``).
+"""SSD (Mamba2) chunked scan and its backward (port of ``repro/kernels/
+ssd_scan/ssd_scan.py``).
 
 ``ssd_scan`` is the wrapper around the hand-written Hopper kernels
 ``csrc/ssd_scan.cu`` (which replace the Pallas ``_kernel`` /
@@ -15,9 +15,17 @@ by chunk, which the CPU tests and ``chip_smoke.py`` compare against.
 ``ssd_scan_chunked_plain`` does the kernels' passes in PyTorch.
 ``ssd_scan.launches`` counts calls that launched the kernels, and
 ``ssd_scan.pass_launches`` the two extra launches of a call of more than
-one chunk.  The kernels have no backward yet: on CUDA tensors a call
-that autograd would differentiate raises (``_refuse_grad``) instead of
-running outside the graph.
+one chunk.
+
+Training: with a gradient to take, ``ssd_scan`` is an autograd Function
+whose forward is K3 keeping the state that enters each chunk (the
+multi-chunk path computes it anyway) and whose backward is B3,
+``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``; there is no Pallas backward:
+the JAX trainer differentiates ``repro.models.ssm.ssd_chunked``).  Its
+plain twin ``ssd_scan_bwd_plain`` runs the same passes in float32 torch;
+the CPU runs it, CUDA tensors launch B3 or raise.
+``ssd_scan_bwd.launches`` counts B3's kernel launches (``bwd_launches``
+a call).
 """
 from __future__ import annotations
 
@@ -60,18 +68,26 @@ def chunk_len(S: int, chunk: int) -> int:
     return q
 
 
-def ssd_scan_plain(x, b, c, la, dt, *, chunk: int = 64):
+def _wide(t):
+    """float32, or float64 for float64 (the twins' arithmetic; float64
+    only for ``torch.autograd.gradcheck``)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
+def ssd_scan_plain(x, b, c, la, dt, *, chunk: int = 64, keep: bool = False):
     """The kernel's plain twin: chunked SSD in float32 torch, chunk by
     chunk with the state carried between chunks.  Same contract as
-    ``ssd_scan``."""
+    ``ssd_scan``; with ``keep`` it also returns the state entering each
+    chunk, (B, n_chunks, H, P, N) float32, or None for one chunk."""
     Bz, S, H, P = x.shape
     N = b.shape[-1]
     q = chunk_len(S, chunk)
-    x, b, c, la, dt = (t.float() for t in (x, b, c, la, dt))
-    s = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=x.device)
+    x, b, c, la, dt = (_wide(t) for t in (x, b, c, la, dt))
+    s = torch.zeros((Bz, H, P, N), dtype=x.dtype, device=x.device)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    ys = []
+    ys, entering = [], []
     for ic in range(S // q):
+        entering.append(s)
         sl = slice(ic * q, (ic + 1) * q)
         xc, bc, cc, lac, dtc = x[:, sl], b[:, sl], c[:, sl], la[:, sl], \
             dt[:, sl]
@@ -90,7 +106,10 @@ def ssd_scan_plain(x, b, c, la, dt, *, chunk: int = 64):
         dec_end = torch.exp(cum[:, -1:, :] - cum)           # (B, q, H)
         z = torch.einsum("bkn,bkh,bkhp->bhpn", bc, dec_end * dtc, xc)
         s = s * torch.exp(cum[:, -1])[:, :, None, None] + z
-    return torch.cat(ys, dim=1), s
+    if not keep:
+        return torch.cat(ys, dim=1), s
+    return torch.cat(ys, dim=1), s, \
+        torch.stack(entering, 1) if len(entering) > 1 else None
 
 
 def ssd_scan_chunked_plain(x, b, c, la, dt, *, chunk: int = 64):
@@ -209,17 +228,15 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x, b, c, la, dt, q: int):
-    """Check operands and launch the CUDA kernel on the current stream."""
-    Bz, S, H, P = x.shape
-    N = b.shape[-1]
-    dev = x.device
-    ops = (("x", x), ("b", b), ("c", c), ("la", la), ("dt", dt))
+def _check_operands(ops, dev) -> None:
     for name, t in ops:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_dtypes(x, b, c, la, dt) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"ssd_scan kernel takes float32 or bfloat16, not "
                         f"{x.dtype}")
@@ -230,6 +247,19 @@ def _launch(x, b, c, la, dt, q: int):
             raise TypeError(f"ssd_scan kernel takes x, b and c of one dtype "
                             f"and la, dt in float32; x is {x.dtype}, "
                             f"{name} {t.dtype}")
+
+
+def _launch(x, b, c, la, dt, q: int, keep: bool = False):
+    """Check operands and launch the CUDA kernel on the current stream.
+    With ``keep`` also returns the multi-chunk path's scratch, the state
+    entering each chunk and each chunk's decay (None, None for one
+    chunk), which B3 takes."""
+    Bz, S, H, P = x.shape
+    N = b.shape[-1]
+    dev = x.device
+    _check_operands((("x", x), ("b", b), ("c", c), ("la", la), ("dt", dt)),
+                    dev)
+    _check_dtypes(x, b, c, la, dt)
     if q > MAX_CHUNK:
         raise ValueError(f"ssd_scan kernel takes chunks of at most "
                          f"{MAX_CHUNK} positions, got {q}")
@@ -241,16 +271,16 @@ def _launch(x, b, c, la, dt, q: int):
                          f"for q={q}, N={N}; a block has {_SMEM_LIMIT}")
     y = torch.empty((Bz, S, H, P), dtype=torch.float32, device=dev)
     state = torch.empty((Bz, H, P, N), dtype=torch.float32, device=dev)
+    zbuf = decay = None
+    if S // q > 1:
+        zbuf = torch.empty((Bz, S // q, H, P, N), dtype=torch.float32,
+                           device=dev)
+        decay = torch.empty((Bz, S // q, H), dtype=torch.float32,
+                            device=dev)
     if Bz == 0 or H == 0 or P == 0:
-        return y, state
+        return (y, state, zbuf, decay) if keep else (y, state)
     lib = _library()
     plan = split_plan(Bz, S, H, P, N, q, _sm_count(dev.index or 0))
-    zbuf = decay = None
-    if plan.n_chunks > 1:
-        zbuf = torch.empty((Bz, plan.n_chunks, H, P, N), dtype=torch.float32,
-                           device=dev)
-        decay = torch.empty((Bz, plan.n_chunks, H), dtype=torch.float32,
-                            device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.mars_ssd_scan(
         _DTYPE_CODES[x.dtype], x.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -266,17 +296,62 @@ def _launch(x, b, c, la, dt, q: int):
     if plan.n_chunks > 1:
         ssd_scan.pass_launches += 2
     ssd_scan.launches += 1
-    return y, state
+    return (y, state, zbuf, decay) if keep else (y, state)
 
 
-def _refuse_grad(*ts) -> None:
-    """Raise when autograd would differentiate a launch: the kernels run
-    outside the graph and have no backward kernel yet."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "ssd_scan (K3) has no backward kernel yet (ROADMAP.md §1, the "
-            "next training slice): call it under torch.no_grad() on CUDA, "
-            "or train on the CPU")
+def _check_shapes(x, b, c, la, dt) -> None:
+    Bz, S, H, P = x.shape
+    N = b.shape[-1]
+    if tuple(b.shape) != (Bz, S, N) or tuple(c.shape) != (Bz, S, N) \
+            or tuple(la.shape) != (Bz, S, H) or tuple(dt.shape) != (Bz, S, H):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, b {tuple(b.shape)}, c "
+            f"{tuple(c.shape)}, la {tuple(la.shape)}, dt {tuple(dt.shape)}")
+
+
+def ssd_scan_with_states(x, b, c, la, dt, *, chunk: int = 64):
+    """``(y, state, saved)``: ``ssd_scan``'s outputs (K3 on CUDA tensors,
+    the twin on CPU ones; no autograd) and what B3 takes from the
+    forward, ``saved = (entering, decay)``: the state entering each chunk
+    (B, n_chunks, H, P, N) float32 and, on CUDA, each chunk's decay
+    exp(cum_end) (B, n_chunks, H); both None for one chunk, and decay
+    None on the CPU, whose twin recomputes it."""
+    _check_shapes(x, b, c, la, dt)
+    q = chunk_len(x.shape[1], chunk)
+    if x.device.type == "cuda":
+        y, state, entering, decay = _launch(x, b, c, la, dt, q, keep=True)
+        return y, state, (entering, decay)
+    if x.device.type == "cpu":
+        y, state, entering = ssd_scan_plain(x, b, c, la, dt, chunk=chunk,
+                                            keep=True)
+        return y, state, (entering, None)
+    raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+
+
+class _SSDScan(torch.autograd.Function):
+    """K3 forward keeping the state entering each chunk, B3 backward
+    (their plain twins on the CPU).  The final state's gradient is None
+    when the caller drops the state, as the trainer does."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, la, dt, chunk):
+        y, state, (entering, decay) = ssd_scan_with_states(
+            x, b, c, la, dt, chunk=chunk)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, b, c, la, dt, entering, decay)
+        ctx.chunk, ctx.y_dtype = chunk, y.dtype
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, b, c, la, dt, entering, decay = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=ctx.y_dtype, device=x.device)
+        grads = ssd_scan_bwd(
+            x, b, c, la, dt, dy.contiguous(),
+            None if d_state is None else d_state.contiguous(),
+            chunk=ctx.chunk, saved=(entering, decay))
+        return (*grads, None)
 
 
 def ssd_scan(x, b, c, la, dt, *, chunk: int = 64):
@@ -286,23 +361,285 @@ def ssd_scan(x, b, c, la, dt, *, chunk: int = 64):
     is ``q = min(chunk, S)`` and must divide S.
 
     CUDA tensors launch the Hopper kernels (x, b and c of one dtype,
-    float32 or bfloat16; la and dt float32; contiguous; q <= 64; no
-    input that needs a gradient); CPU tensors run the plain twin."""
-    Bz, S, H, P = x.shape
-    N = b.shape[-1]
-    if tuple(b.shape) != (Bz, S, N) or tuple(c.shape) != (Bz, S, N) \
-            or tuple(la.shape) != (Bz, S, H) or tuple(dt.shape) != (Bz, S, H):
-        raise ValueError(
-            f"shape mismatch: x {tuple(x.shape)}, b {tuple(b.shape)}, c "
-            f"{tuple(c.shape)}, la {tuple(la.shape)}, dt {tuple(dt.shape)}")
-    q = chunk_len(S, chunk)
+    float32 or bfloat16; la and dt float32; contiguous; q <= 64); CPU
+    tensors run the plain twin.  Differentiable: with a gradient to
+    take, the backward is ``ssd_scan_bwd`` (B3 on CUDA)."""
+    _check_shapes(x, b, c, la, dt)
+    q = chunk_len(x.shape[1], chunk)
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, b, c, la, dt)):
+        return _SSDScan.apply(x, b, c, la, dt, chunk)
     if x.device.type == "cuda":
-        _refuse_grad(x, b, c, la, dt)
         return _launch(x, b, c, la, dt, q)
-    if x.device.type == "cpu":
-        return ssd_scan_plain(x, b, c, la, dt, chunk=chunk)
-    raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    return ssd_scan_plain(x, b, c, la, dt, chunk=chunk)
 
 
 ssd_scan.launches = 0
 ssd_scan.pass_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward (B3)
+# ---------------------------------------------------------------------------
+
+BWD_HEAD_GROUPS = (1, 2, 4, 8, 16, 32)    # heads a block of the grad kernel
+BWD_THREADS = 256
+BWD_ACC_TILES = 2         # 4 x 4 tiles of (q, N) a thread sums over heads
+
+
+def bwd_launches(n_chunks: int) -> int:
+    """B3's kernel launches a call: the grad kernel and the sum over head
+    groups; with more than one chunk also each chunk's U_c and the pass
+    that carries the state's gradient back over the chunks."""
+    return 4 if n_chunks > 1 else 2
+
+
+def _pad4(*vs):
+    return tuple(-(-v // 4) * 4 for v in vs)
+
+
+def bwd_smem_bytes(q: int, P: int, N: int, kernel: str = "grad") -> int:
+    """Shared memory one block of B3's ``kernel`` ("grad" or "state")
+    takes (mirrors ``grad_floats`` and ``state_floats`` in
+    ``csrc/ssd_scan_bwd.cu``; rows padded by one float)."""
+    q4, n4, p4 = _pad4(q, N, P)
+    sn, sp, sq = n4 + 1, p4 + 1, q4 + 1
+    if kernel == "state":
+        return 4 * (q4 * sn + q4 * sp + 2 * q4)
+    return 4 * (2 * q4 * sn + 4 * q4 * sq + 2 * q4 * sp + p4 * sn
+                + q4 * max(p4 // 2, n4 // 4) + 6 * q4 + 4)
+
+
+def bwd_pass_parts(P: int, N: int) -> int:
+    """Partial sums of d(decay_c) the pass kernel writes a (batch, chunk,
+    head): one a warp, 8 warps a block of 256 threads, a block 4
+    elements a thread of P N (1 when P N is not a multiple of 4)."""
+    v = 4 if (P * N) % 4 == 0 else 1
+    return -(-(P * N) // (BWD_THREADS * v)) * (BWD_THREADS // 32)
+
+
+def _bwd_block_macs(q: int, P: int, N: int, heads: int, n_chunks: int):
+    q4, n4, p4 = _pad4(q, N, P)
+    fixed = BLOCK_MACS + 3 * q4 * q4 * n4     # C B^T; dCB^T C and dCB B
+    head = 2 * q4 * q4 * p4 + 3 * q4 * p4 * n4     # dW, W dy; G b, x^T G
+    if n_chunks > 1:
+        head += q4 * p4 * n4                  # dy^T s_prev
+    return fixed + heads * head
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(B: int, S: int, H: int, P: int, N: int, q: int,
+             sm_count: int) -> int:
+    """Heads a block of B3's grad kernel owns, from the shapes and the SM
+    count alone: of ``BWD_HEAD_GROUPS`` (no more than H), the one that
+    least loads the busiest SM (a block an SM: its shared memory) by
+    the blocks an SM gets times a block's multiply-adds, where C B^T and
+    the products of the heads' summed dCB are once a block; ties go to
+    fewer heads."""
+    nc = S // q
+    best = None
+    for hg in sorted({min(v, max(H, 1)) for v in BWD_HEAD_GROUPS}):
+        blocks = nc * B * -(-H // hg)
+        cost = -(-blocks // sm_count) * _bwd_block_macs(q, P, N, hg, nc)
+        if best is None or cost < best[0]:
+            best = (cost, hg)
+    return best[1]
+
+
+def ssd_scan_bwd_plain(x, b, c, la, dt, dy, d_state=None, *,
+                       chunk: int = 64, entering=None):
+    """B3's plain twin: the gradient of ``ssd_scan`` (y and the final
+    state) in float32 torch, by the kernels' passes.  Within a chunk,
+    cum = cumsum(la), e_t = exp(cum_t), f_k = exp(cum_end - cum_k), W_tk
+    = (c_t . b_k) exp(min(cum_t - cum_k, 0)) dt_k for k <= t, and s_{c-1}
+    the state entering chunk c (``entering``, recomputed when None):
+    (1) U_c = sum_t e_t dy_t (x) c_t; (2) from the last chunk back, G_c,
+    the gradient of the state leaving chunk c (``d_state`` for the last,
+    zero when None), and G_{c-1} = exp(cum_end,c) G_c + U_c, with
+    d(decay_c) = sum G_c * s_{c-1}; (3) every chunk's dx_k = sum_{t>=k}
+    W_tk dy_t + f_k dt_k G_c b_k, ddt, dc and db (summed over heads),
+    and the gradient of cum, turned into dla by a reverse cumsum within
+    the chunk.  Returns (dx, db, dc, dla, ddt): dx in x's dtype, db and
+    dc in b's, dla and ddt float32 — what ``jax.vjp`` of the reference's
+    ``ssd_chunked`` gives."""
+    Bz, S, H, P = x.shape
+    N = b.shape[-1]
+    q = chunk_len(S, chunk)
+    nc = S // q
+    if entering is None and nc > 1:
+        entering = ssd_scan_plain(x, b, c, la, dt, chunk=chunk, keep=True)[2]
+    xc = _wide(x).reshape(Bz, nc, q, H, P)
+    dyc = _wide(dy).reshape(Bz, nc, q, H, P)
+    bc, cc = _wide(b).reshape(Bz, nc, q, N), _wide(c).reshape(Bz, nc, q, N)
+    dtc = _wide(dt).reshape(Bz, nc, q, H)
+    cum = torch.cumsum(_wide(la).reshape(Bz, nc, q, H), dim=2)
+    e = torch.exp(cum)                                      # (B, nc, q, H)
+    f = torch.exp(cum[:, :, -1:] - cum)
+    decay = torch.exp(cum[:, :, -1])                        # (B, nc, H)
+    # pass 1: U_c, the gradient of the state entering chunk c through
+    # the chunk's outputs
+    U = torch.einsum("bcth,bcthp,bctn->bchpn", e, dyc, cc)
+    # pass 2: G_c from the last chunk back, and d(decay_c)
+    G = torch.zeros((Bz, H, P, N), dtype=xc.dtype, device=x.device) \
+        if d_state is None else _wide(d_state)
+    gs, d_decay = [None] * nc, torch.zeros_like(decay)
+    for ic in reversed(range(nc)):
+        gs[ic] = G
+        if ic > 0:
+            d_decay[:, ic] = (G * _wide(entering[:, ic])).sum((-2, -1))
+            G = decay[:, ic, :, None, None] * G + U[:, ic]
+    gs = torch.stack(gs, 1)                                 # (B, nc, H, P, N)
+    # pass 3: every chunk's gradients
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # (B, nc, t, k, H)
+    D = torch.where(tri[:, :, None], torch.exp(torch.clamp_max(li, 0.0)),
+                    torch.zeros((), device=x.device))
+    # d min(li, 0) / d li below the diagonal: 1 under 0, 1/2 at a tie (as
+    # JAX splits one), 0 above (the diagonal's li is 0 and cancels)
+    below = torch.tril(tri, -1)[:, :, None]
+    m = torch.where(below, (li < 0).to(li.dtype)
+                    + 0.5 * (li == 0).to(li.dtype),
+                    torch.zeros((), dtype=li.dtype, device=x.device))
+    cb = torch.einsum("bctn,bckn->bctk", cc, bc)[..., None]
+    dtk = dtc[:, :, None]                                   # (B, nc, 1, k, H)
+    dW = torch.einsum("bcthp,bckhp->bctkh", dyc, xc)
+    gb = torch.einsum("bckn,bchpn->bckhp", bc, gs)
+    fdt = f * dtc
+    dx = torch.einsum("bctkh,bcthp->bckhp", cb * D * dtk, dyc) \
+        + fdt[..., None] * gb
+    r = (xc * gb).sum(-1)                                   # (B, nc, k, H)
+    Q = dW * D * cb
+    ddt = Q.sum(2) + f * r
+    gl = Q * dtk * m
+    dcum = gl.sum(3) - gl.sum(2) - fdt * r
+    dcum[:, :, -1] += (fdt * r).sum(2) + decay * d_decay
+    dcb = (dW * D * dtk).sum(-1)                            # (B, nc, t, k)
+    db = torch.einsum("bctk,bctn->bckn", dcb, cc) \
+        + torch.einsum("bckh,bckhp,bchpn->bckn", fdt, xc, gs)
+    dc = torch.einsum("bctk,bckn->bctn", dcb, bc)
+    if entering is not None:
+        sdy = torch.einsum("bcthp,bchpn->bcthn", dyc, _wide(entering))
+        dc = dc + torch.einsum("bcth,bcthn->bctn", e, sdy)
+        dcum = dcum + e * torch.einsum("bctn,bcthn->bcth", cc, sdy)
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    return (dx.reshape(Bz, S, H, P).to(x.dtype),
+            db.reshape(Bz, S, N).to(b.dtype),
+            dc.reshape(Bz, S, N).to(c.dtype),
+            dla.reshape(Bz, S, H), ddt.reshape(Bz, S, H))
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("ssd_scan_bwd")
+    fn = lib.mars_ssd_scan_bwd
+    if fn.argtypes is None:               # first use: declare once
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        err = lib.mars_cuda_error_string
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return lib
+
+
+def _bwd_launch(x, b, c, la, dt, dy, d_state, q: int, saved):
+    """Check operands and launch B3's kernels on the current stream."""
+    Bz, S, H, P = x.shape
+    N = b.shape[-1]
+    nc = S // q
+    dev = x.device
+    entering, decay = saved if saved is not None and nc > 1 \
+        else (None, None)
+    ops = [("x", x), ("b", b), ("c", c), ("la", la), ("dt", dt), ("dy", dy)]
+    if d_state is not None:
+        ops.append(("d_state", d_state))
+    if nc > 1:
+        if entering is None or decay is None:
+            raise ValueError("ssd_scan_bwd on CUDA takes the entering states "
+                             "and decays K3 kept (ssd_scan_with_states) for "
+                             "more than one chunk")
+        ops += [("entering", entering), ("decay", decay)]
+    _check_operands(ops, dev)
+    _check_dtypes(x, b, c, la, dt)
+    for name, t, shape in (("dy", dy, (Bz, S, H, P)),
+                           ("d_state", d_state, (Bz, H, P, N)),
+                           ("entering", entering, (Bz, nc, H, P, N)),
+                           ("decay", decay, (Bz, nc, H))):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != shape):
+            raise ValueError(f"ssd_scan_bwd takes {name} float32 {shape}; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if q > MAX_CHUNK:
+        raise ValueError(f"ssd_scan_bwd kernel takes chunks of at most "
+                         f"{MAX_CHUNK} positions, got {q}")
+    need = bwd_smem_bytes(q, P, N)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"ssd_scan_bwd kernel needs {need} B of shared "
+                         f"memory for q={q}, P={P}, N={N}; a block has "
+                         f"{_SMEM_LIMIT}")
+    q4, n4 = _pad4(q, N)
+    if (q4 // 4) * (n4 // 4) > BWD_ACC_TILES * BWD_THREADS:
+        raise ValueError(f"ssd_scan_bwd kernel takes (q, N) of at most "
+                         f"{BWD_ACC_TILES * BWD_THREADS} 4 x 4 tiles; got "
+                         f"q={q}, N={N}")
+    dx = torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    dla = torch.empty((Bz, S, H), dtype=torch.float32, device=dev)
+    ddt = torch.empty_like(dla)
+    if x.numel() == 0 or b.numel() == 0:
+        for t in (dx, db, dc, dla, ddt):
+            t.zero_()
+        return dx, db, dc, dla, ddt
+    lib = _bwd_library()
+    hg = bwd_plan(Bz, S, H, P, N, q, _sm_count(dev.index or 0))
+    groups = -(-H // hg)
+    pdb = torch.empty((groups, Bz, S, N), dtype=torch.float32, device=dev)
+    pdc = torch.empty_like(pdb)
+    n_parts = bwd_pass_parts(P, N)
+    gbuf = d_decay = None
+    if nc > 1:
+        gbuf = torch.empty((Bz, nc, H, P, N), dtype=torch.float32,
+                           device=dev)
+        d_decay = torch.empty((Bz, nc, H, n_parts), dtype=torch.float32,
+                              device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.mars_ssd_scan_bwd(
+        _DTYPE_CODES[x.dtype], *(ptr(t) for t in (
+            x, b, c, la, dt, dy, d_state, entering, decay, gbuf, d_decay,
+            dx, db, dc, dla, ddt, pdb, pdc)),
+        Bz, S, H, P, N, q, hg, n_parts, stream)
+    if rc != 0:
+        why = lib.mars_cuda_error_string(rc).decode() if rc > 0 \
+            else "unsupported"
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: rc={rc} "
+                           f"({why}; {hg} heads a block)")
+    ssd_scan_bwd.launches += bwd_launches(nc)
+    return dx, db, dc, dla, ddt
+
+
+def ssd_scan_bwd(x, b, c, la, dt, dy, d_state=None, *, chunk: int = 64,
+                 saved=None):
+    """The gradient of ``ssd_scan``: ``(dx, db, dc, dla, ddt)`` from the
+    forward's inputs, dy (B, S, H, P) float32 and the final state's
+    gradient d_state (B, H, P, N) float32 (None: zero).  ``saved`` is
+    ``ssd_scan_with_states``'s ``(entering, decay)``.
+
+    CUDA tensors launch B3 (``bwd_launches`` kernels; the entering states
+    and decays are required for more than one chunk; two calls on the
+    same inputs agree bitwise: no atomics); CPU tensors run
+    ``ssd_scan_bwd_plain``."""
+    _check_shapes(x, b, c, la, dt)
+    q = chunk_len(x.shape[1], chunk)
+    if x.device.type == "cuda":
+        return _bwd_launch(x, b, c, la, dt, dy, d_state, q, saved)
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, b, c, la, dt, dy, d_state, chunk=chunk,
+                                  entering=None if saved is None
+                                  else saved[0])
+    raise ValueError(f"ssd_scan_bwd runs on cuda or cpu, not {x.device}")
+
+
+ssd_scan_bwd.launches = 0

@@ -17,13 +17,13 @@ reference as here: every encoder LayerNorm sees zero variance, the
 gradient through them overflows the float32 global norm to inf, and the
 clip scales every update to 0 (ROADMAP.md §3).
 
-On the card the forward runs K5 (attention with no mask or a causal one)
-and K2 (the sorted embedding gather), whose gradients are the kernels B5
-and B2.  A kernel wrapper that would run outside autograd raises: K3's
-and K4's, which have no backward kernel yet, and K5 at a head dim B5
-does not take.  ``check_trainable`` refuses the SSM, hybrid and MoE
-families on CUDA before anything is built.  There is no quiet switch to
-the plain twins; on the CPU every family trains through them.
+On the card the forward runs K5 (attention with no mask or a causal one),
+K2 (the sorted embedding gather) and K3 (the SSM layers' chunked scan),
+whose gradients are the kernels B5, B2 and B3.  A kernel wrapper that
+would run outside autograd raises: K4's, which has no backward kernel
+yet, and K5 at a head dim B5 does not take.  ``check_trainable`` refuses
+the MoE families on CUDA before anything is built.  There is no quiet
+switch to the plain twins; on the CPU every family trains through them.
 
 Checkpoints go to ``--workdir``, by default ``build/train/<config>``
 under the checkout (git-ignored; the config's name tells a smoke run
@@ -54,25 +54,21 @@ from repro_torch.optim import adamw as optim
 from repro_torch.train.step import TrainFlags, make_train_step
 from repro_torch.utils.tree import tree_map
 
-NO_BACKWARD = "ROADMAP.md §1, the next training slice"
+NO_BACKWARD = ("ROADMAP.md §1 item 4: MoE training over 4 cards with the "
+               "experts sharded, where K4's backward B4 comes")
 WORKDIR = Path(__file__).resolve().parents[3] / "build" / "train"
 
 
 def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise for a config whose CUDA training forward would launch K3 or
-    K4, which have no backward kernel (their wrappers raise too, but only
-    once the model is built and a batch is on the card)."""
+    """Raise for a config whose CUDA training forward would launch K4,
+    which has no backward kernel (its wrapper raises too, but only once
+    the model is built and a batch is on the card)."""
     if torch.device(device).type != "cuda":
         return
-    missing = []
-    if cfg.has_ssm:
-        missing.append("K3 ssd_scan (SSM layers)")
     if cfg.is_moe:
-        missing.append("K4 grouped_matmul (MoE layers)")
-    if missing:
         raise NotImplementedError(
-            f"{cfg.name} cannot train on CUDA yet: its forward launches "
-            f"{', '.join(missing)}, which has no backward kernel "
+            f"{cfg.name} cannot train on CUDA yet: its forward launches K4 "
+            f"grouped_matmul (MoE layers), which has no backward kernel B4 "
             f"({NO_BACKWARD}); train it with --device cpu")
 
 

@@ -97,16 +97,24 @@ def norm_init(cfg: ModelConfig, device, stack: int = 0) -> dict:
     return out
 
 
+def at_least_f32(x):
+    """``x`` in float32, or as it is in float64: the model's float32
+    islands (norms, dt, the skip term, attention and loss logits) stay
+    float64 in a float64 step."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def apply_norm(p, x, cfg: ModelConfig):
-    x32 = x.float()
+    x32 = at_least_f32(x)
     if cfg.norm == "ln":
         mu = x32.mean(-1, keepdim=True)
         var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
         y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
-        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+        return (y * at_least_f32(p["scale"])
+                + at_least_f32(p["bias"])).to(x.dtype)
     var = (x32 ** 2).mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + cfg.norm_eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    return (y * at_least_f32(p["scale"])).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +208,7 @@ def sdpa(q, k, v, mask=None):
             raise ValueError(f"unknown mask kind {mask!r}")
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=mask == CAUSAL)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() \
+    logits = at_least_f32(torch.einsum("bqhd,bkhd->bhqk", q, k)) \
         * (1.0 / math.sqrt(q.shape[-1]))
     logits = torch.where(mask, logits, torch.full(
         (), NEG_INF, dtype=torch.float32, device=logits.device))

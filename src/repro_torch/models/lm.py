@@ -403,7 +403,7 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
     "moe_z"}), as the reference's."""
     logits, aux = forward_aux(params, cfg, tokens, frontend_emb,
                               remat=remat)
-    logits = logits.float()
+    logits = layers.at_least_f32(logits)
     mask = labels >= 0
     safe = torch.clamp_min(labels, 0).long()
     ll = torch.log_softmax(logits, dim=-1)

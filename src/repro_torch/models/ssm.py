@@ -2,7 +2,8 @@
 (port of ``repro/models/ssm.py``).
 
 Prefill runs the chunked scan through ``kernels.ssd_scan.ssd_scan``: the
-hand-written Hopper kernel on CUDA tensors, its plain twin on CPU ones.
+hand-written Hopper kernel on CUDA tensors, its plain twin on CPU ones;
+in training its backward is the kernel B3 (``ssd_scan_bwd``).
 Decode applies the recurrence directly, in plain torch, as the reference
 does in jnp.
 
@@ -105,7 +106,7 @@ def ssm_apply(p, x, cfg: ModelConfig, *, state=None, conv_state=None,
     b, c = torch.split(bc, [N, N], dim=-1)
     Bsz, S = x.shape[0], x.shape[1]
     xs = xs.reshape(Bsz, S, H, P)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])        # (B,S,H)
+    dt = F.softplus(layers.at_least_f32(dt_raw) + p["dt_bias"])  # (B,S,H)
     a = -torch.exp(p["a_log"])                            # (H,)
     la = dt * a                                           # log decay
 
@@ -125,11 +126,11 @@ def ssm_apply(p, x, cfg: ModelConfig, *, state=None, conv_state=None,
         y, new_state = ssd_scan(xs, b.contiguous(), c.contiguous(), la, dt,
                                 chunk=cfg.ssm_chunk)
 
-    y = y + p["d_skip"][:, None] * xs.float()
+    y = y + p["d_skip"][:, None] * layers.at_least_f32(xs)
     y = y.reshape(Bsz, S, d_in).to(x.dtype)
     y = y * F.silu(z)
     # grouped RMS norm over d_inner
-    y32 = y.float()
+    y32 = layers.at_least_f32(y)
     y = (y32 * torch.rsqrt((y32 ** 2).mean(-1, keepdim=True)
                            + cfg.norm_eps)).to(x.dtype)
     y = y * p["norm"].to(x.dtype)

@@ -440,18 +440,29 @@ def test_sim_batched_helpers_on_the_host():
 def test_train_launches_wanted_per_step():
     """The train phase's launch counts a step, remat off: K5 once per
     attention (qwen's 24 causal layers; whisper's 6 encoder, 6 decoder
-    and 6 cross-attention layers), B5 ``BWD_LAUNCHES`` (3) times as
-    often, K2 and B2 once (both tables exceed 2**22 elements)."""
+    and 6 cross-attention layers; hymba's 2 global layers), B5
+    ``BWD_LAUNCHES`` (3) times as often, K2 and B2 once (every table
+    exceeds 2**22 elements); K3 once per SSM layer (mamba2 48, hymba 32)
+    with its two passes each at 8 chunks of 64 and B3's 4 launches each,
+    none of them at one chunk but B3's 2."""
     from repro_torch import configs
     counters = chip_smoke.kernel_counters()
-    for arch, attn in (("qwen1_5_0_5b", 24), ("whisper_base", 18)):
+    for arch, attn, ssm in (("qwen1_5_0_5b", 24, 0), ("whisper_base", 18, 0),
+                            ("mamba2_370m", 0, 48), ("hymba_1_5b", 2, 32)):
         want = chip_smoke.train_launches_wanted(configs.get(arch), 5,
                                                 counters)
         assert set(want) == set(counters)
         assert want["flash_attention"] == 5 * attn
         assert want["flash_attention_bwd"] == 5 * attn * 3
         assert want["gather_rows"] == want["embedding_grad_scatter"] == 5
-        assert sum(want.values()) == 5 * (4 * attn + 2)
+        assert want["ssd_scan"] == 5 * ssm
+        assert want["ssd_scan_passes"] == 5 * 2 * ssm
+        assert want["ssd_scan_bwd"] == 5 * 4 * ssm
+        assert sum(want.values()) == 5 * (4 * attn + 2 + 7 * ssm)
+        one = chip_smoke.train_launches_wanted(configs.get(arch), 1,
+                                               counters, seq=64)
+        assert one["ssd_scan_passes"] == 0
+        assert one["ssd_scan_bwd"] == 2 * ssm
     assert set(chip_smoke.TRAIN_KERNELS) <= set(counters)
 
 
@@ -475,43 +486,83 @@ def test_b5_bound_counts_the_kept_pairs():
 
 
 def test_train_refusals_need_no_card():
-    """``launch.train`` refuses the configs whose forward launches K3 or
-    K4 on CUDA before it builds anything, with or without a card."""
+    """``launch.train`` refuses the configs whose forward launches K4 on
+    CUDA before it builds anything, with or without a card."""
     assert chip_smoke.train_refusals() == list(chip_smoke.TRAIN_REFUSED)
+    assert chip_smoke.TRAIN_REFUSED == ("arctic_480b",)
 
 
 def test_train_kernel_rows_list_the_backward_kernels():
-    """Two rows, flash_attention_bwd (B5) and embedding_grad_scatter
-    (B2), with every key of the kernels line, their sources in the port,
-    launches on the training main path, and ``replaces`` naming the
-    reference functions they take the place of: ``layers.sdpa`` (which
-    the JAX trainer differentiates) and ``embedding_grad_scatter``."""
+    """Three rows, flash_attention_bwd (B5), embedding_grad_scatter (B2)
+    and ssd_scan_bwd (B3), with every key of the kernels line, their
+    sources in the port, launches on a training run (qwen's; mamba2's
+    for B3), and ``replaces`` naming the reference functions they take
+    the place of: ``layers.sdpa`` and ``ssm.ssd_chunked`` (which the JAX
+    trainer differentiates) and ``embedding_grad_scatter``."""
     t = dict(ms=1.0, plain_ms=2.0, bound_ms=0.1, bound_by="bytes",
              library_ms=0.5)
     record = {"b5_timing": {"qwen/bfloat16": t},
               "b2_timing": {"qwen/zipf/bfloat16": dict(t, library_ms=0.2)},
-              "b2_cases": [dict(host_err=0.0), dict(host_err=0.0)]}
+              "b2_cases": [dict(host_err=0.0), dict(host_err=0.0)],
+              "b3_timing": {"mamba2_train/bfloat16": dict(
+                  t, library_ms=None, bound_by="operations")}}
     counts = {k: 0 for k in chip_smoke.kernel_counters()}
-    launches = {chip_smoke.TRAIN_PATH: dict(
+    launches = {"train qwen1_5_0_5b": dict(
         counts, flash_attention_bwd=2160, embedding_grad_scatter=30),
+        "train mamba2_370m": dict(counts, embedding_grad_scatter=12,
+                                  ssd_scan_bwd=2304),
         "qwen1_5_0_5b": counts}
-    rows = chip_smoke.train_kernel_rows(launches, record, 3e-3)
+    rows = chip_smoke.train_kernel_rows(launches, record, 3e-3, 2e-5)
     assert [r["name"] for r in rows] == ["flash_attention_bwd",
-                                         "embedding_grad_scatter"]
+                                         "embedding_grad_scatter",
+                                         "ssd_scan_bwd"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    heads = ["def sdpa(", "def embedding_grad_scatter("]
+    heads = ["def sdpa(", "def embedding_grad_scatter(", "def ssd_chunked("]
     for r, head in zip(rows, heads):
         assert keys <= set(r) and r["route"] == "cuda"
         assert (ROOT / r["source"]).is_file()
         path, line = r["replaces"].split(":")
         assert (ROOT / path).read_text().splitlines()[int(line) - 1] \
             .startswith(head)
-    assert [r["launches"] for r in rows] == [2160, 30]
-    assert [r["max_abs_err"] for r in rows] == [3e-3, 0.0]
-    assert [r["library_ms"] for r in rows] == [0.5, 0.2]
-    assert rows[0]["launches_by_path"] == {chip_smoke.TRAIN_PATH: 2160,
+    assert [r["launches"] for r in rows] == [2160, 30, 2304]
+    assert [r["max_abs_err"] for r in rows] == [3e-3, 0.0, 2e-5]
+    assert [r["library_ms"] for r in rows] == [0.5, 0.2, None]
+    assert rows[0]["launches_by_path"] == {"train qwen1_5_0_5b": 2160,
+                                           "train mamba2_370m": 0,
                                            "qwen1_5_0_5b": 0}
+    assert rows[2]["launches_by_path"]["train mamba2_370m"] == 2304
+
+
+def test_b3_bound_counts_the_code():
+    """mamba2-370m's training scan (8 x 512, 32 heads of 64, state 128,
+    8 chunks of 64): the products the code runs come to 9.30 GFLOP of
+    f32, which bind (0.139 ms at 67 TFLOP/s against 0.042 ms for its
+    141 MB); one chunk reads no entering state and runs no pass."""
+    b = chip_smoke.b3_bound(8, 512, 32, 64, 128, 64, "bfloat16", False)
+    tri = 64 * 65 // 2
+    ops = 8 * 8 * (6 * tri * 128 + 32 * (4 * tri * 64 + 4 * 64 * 64 * 128)) \
+        + 8 * 7 * 32 * (4 * 64 * 64 * 128 + 4 * 64 * 128)
+    assert b["ops"] == ops and b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(ops / 67e12 * 1e3)
+    io = 2 * (2 * 8 * 512 * 32 * 64 + 2 * 2 * 8 * 512 * 128) \
+        + 4 * (4 * 8 * 512 * 32 + 8 * 512 * 32 * 64 + 8 * 8 * 32 * 64 * 128
+               + 8 * 8 * 32)
+    assert b["bytes"] == io
+    one = chip_smoke.b3_bound(1, 24, 50, 64, 16, 24, "bfloat16", True)
+    assert one["bytes"] == 2 * (2 * 24 * 50 * 64 + 4 * 24 * 16) \
+        + 4 * (4 * 24 * 50 + 24 * 50 * 64 + 50 * 64 * 16)
+    tri = 24 * 25 // 2
+    assert one["ops"] == 6 * tri * 16 + 50 * (4 * tri * 64 + 4 * 24 * 64 * 16)
+
+
+def test_b3_err_adds_a_bf16_spacing_only_where_asked():
+    want = torch.tensor([1.0, -3.0, 100.0])
+    got = want + torch.tensor([0.0, 0.0, 0.25])
+    err, use = chip_smoke.b3_err(got, want, False)
+    assert err == 0.25 and use == pytest.approx(0.25 / (1e-4 * 100))
+    err, use = chip_smoke.b3_err(got, want, True)
+    assert use == pytest.approx(0.25 / (1e-2 + 0.5))
 
 
 @pytest.mark.parametrize("short", [0, 2, 9])
@@ -690,9 +741,11 @@ def test_b2_equals_its_twin_on_host_copies(dtype):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_a_gradient_on_the_card():
-    """K3's and K4's wrappers on the card raise, without launching, for
-    an input that needs a gradient, and launch under ``no_grad``."""
+    """K4's wrapper on the card raises, without launching, for an input
+    that needs a gradient, and launches under ``no_grad``; K3's launches
+    K3, then B3 on ``backward()``."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K3 and K4 run only there")
-    assert chip_smoke.kernel_grad_refusals(torch) == ["ssd_scan",
-                                                       "grouped_matmul"]
+        pytest.skip("needs a CUDA card: K3, B3 and K4 run only there")
+    assert chip_smoke.kernel_grad_refusals(torch) == ["grouped_matmul"]
+    got = chip_smoke.k3_grad_route(torch)
+    assert got["backward"][2] == 4

@@ -8,7 +8,8 @@ parameters, optimizer state); ``launch.train.main`` against the
 reference's ``main`` on the same argv (the port starting from the
 reference's init); the reference's loss-decrease check for every arch
 (``tests/test_arch_smoke.py:36``); and the CUDA refusals of
-``launch.train.check_trainable``.
+``launch.train.check_trainable`` (the MoE families: K4 has no backward
+kernel).
 
 Tolerances (float32: the same arithmetic in another order and library):
 the loss 1e-5 relative; each gradient leaf 1e-4 of its largest value
@@ -245,35 +246,34 @@ def test_train_step_decreases_loss(arch):
 
 # ---- CUDA refusals ---------------------------------------------------------
 # the configs whose CUDA training forward would launch a kernel with no
-# backward kernel: K3 (SSM layers), K4 (MoE layers)
-NO_BACKWARD = {"hymba_1_5b", "mamba2_370m", "arctic_480b", "kimi_k2_1t_a32b"}
+# backward kernel: K4 (MoE layers); K3's backward is B3
+# (tests/test_torch_ssd_scan_bwd.py)
+NO_BACKWARD = {"arctic_480b", "kimi_k2_1t_a32b"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_check_trainable_refuses_kernels_without_a_backward(arch):
     """``check_trainable`` refuses on CUDA, before anything is built,
-    exactly the configs with SSM or MoE layers, at full width and in
-    their smoke variants; the CPU trains all.  (K5 at a head dim outside
-    B5's is refused by ``flash_attention`` itself, at its first call.)"""
+    exactly the configs with MoE layers, at full width and in their smoke
+    variants; the SSM and hybrid families train through K3 and B3; the
+    CPU trains all.  (K5 at a head dim outside B5's is refused by
+    ``flash_attention`` itself, at its first call.)"""
     for cfg in (tconfigs.get(arch), tconfigs.get_smoke(arch)):
         ttrain.check_trainable(cfg, "cpu")
         if arch in NO_BACKWARD:
-            with pytest.raises(NotImplementedError, match="K3|K4"):
+            with pytest.raises(NotImplementedError, match="K4.*B4"):
                 ttrain.check_trainable(cfg, "cuda")
         else:
             ttrain.check_trainable(cfg, "cuda")
 
 
-@pytest.mark.parametrize("kernel", ["ssd_scan", "moe_dispatch"])
+@pytest.mark.parametrize("kernel", ["moe_dispatch"])
 def test_kernels_without_a_backward_refuse_a_gradient(kernel):
-    """K3's and K4's wrappers refuse, on CUDA, a call that autograd would
-    differentiate (the kernels run outside the graph): ``_refuse_grad``
+    """K4's wrapper refuses, on CUDA, a call that autograd would
+    differentiate (the kernel runs outside the graph): ``_refuse_grad``
     raises when grad mode is on and an input needs a gradient, and lets
     a call under ``torch.no_grad()`` or with no such input through."""
-    if kernel == "ssd_scan":
-        from repro_torch.kernels.ssd_scan import ssd_scan as mod
-    else:
-        from repro_torch.kernels.moe_dispatch import moe_dispatch as mod
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as mod
     a, b = torch.zeros(3), torch.zeros(3, requires_grad=True)
     mod._refuse_grad(a, a)
     with pytest.raises(NotImplementedError, match="no backward kernel"):
