@@ -215,11 +215,13 @@ Phases (any failure exits non-zero and prints no result):
           mamba2 scan; a nonzero final-state gradient; mamba2's and
           hymba's training scans again with slow decays, dt drawn 5
           lower, so that each chunk's decay exp(cum_end) lies near 0.5
-          and the reverse pass and the decay's gradient count), its entering
+          and the reverse pass and the decay's gradient count; two
+          shapes no mma tile divides, in bf16 and float32), its entering
           states from K3, against its twin on host copies within 1e-4 of
           each gradient's largest magnitude (in bf16 plus a bf16 spacing
           on dx, db, dc), two calls bitwise equal, timed beside its
-          bound, its twin and K3's forward.  After the
+          bound (its tensor-core route's and the f32 one), its twin and
+          K3's forward.  After the
           dense runs: one float32 step of qwen1.5-0.5b and one of
           mamba2-370m at full width, every layer (batch 2 x 128; two
           chunks a layer; ``F32_TRAINS``), the loss on the card against
@@ -239,7 +241,7 @@ Phases (any failure exits non-zero and prints no result):
           checkpoint: finite losses, the last below the first, K5 once per
           attention a step (24; whisper 18; hymba 2), B5 three times as
           often, K2 and B2 once a step, K3 once per SSM layer a step
-          (mamba2 48, hymba 32) with its two passes each, B3 four times
+          (mamba2 48, hymba 32) with its two passes each, B3 three times
           as often; the same run with a checkpoint every 10 steps
           (the others 4), killed after step 19 (the others 7) and resumed
           with ``--resume`` (writing no further checkpoint) must end at
@@ -269,7 +271,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12,        # H100 SXM, outside the tensor cores
-            "bfloat16": 989e12}      # H100 SXM tensor cores, dense
+            "bfloat16": 989e12,      # H100 SXM tensor cores, dense
+            "tf32": 495e12}          # H100 SXM tensor cores, dense
 TOL = {"float32": dict(o=(1e-4, 1e-4), ml=(1e-4, 1e-4)),
        "bfloat16": dict(o=(2e-2, 0.0), ml=(1e-5, 1e-3))}  # (atol, rtol)
 # ssd_scan against its plain twin, (atol, rtol), for float32 and bfloat16
@@ -3070,7 +3073,7 @@ TRAIN_REFUSED = ("arctic_480b",)
 # The float32 step at full width, every layer, on the card against the
 # same step on host copies (the CPU's twins): qwen1.5-0.5b (24 layers)
 # and mamba2-370m (48; two chunks a layer: K3's three launches, B3's
-# four), batch 2 x 128.  Both run the same f32 arithmetic in other
+# three), batch 2 x 128.  Both run the same f32 arithmetic in other
 # orders and libraries: the loss within 1e-4 relative.  The gradient
 # leaves are held against a float64 step on the host (the same
 # parameters widened; float64 throughout, ``layers.at_least_f32``, the
@@ -3090,7 +3093,7 @@ F32_GRAD_TOL = 1e-3
 F32_DRIFT = 4.0
 # B3 cases: (name, B, S, H, P, N, chunk, dtypes, a final-state gradient,
 # dt_shift).  mamba2-370m's and hymba-1.5b's training scans (8 x 512,
-# chunk 64: 8 chunks, B3's four launches); both serve prefills of 24
+# chunk 64: 8 chunks, B3's three launches); both serve prefills of 24
 # tokens (one chunk: two launches); a long mamba2 scan (4096 tokens, 64
 # chunks); and a nonzero final-state gradient (the trainer drops the
 # state, so its gradient is None on the training path).  With dt =
@@ -3099,6 +3102,8 @@ F32_DRIFT = 4.0
 # exp(cum_end) d(decay) in dla) vanish below the bound; the "_slow" cases
 # draw dt 5 lower (dt about 0.01), a decay near 0.5 a chunk, and check
 # them at both training scans, with and without a final-state gradient.
+# The "edge" cases are shapes no mma tile divides (q 24 over 4 chunks, P
+# 50, N 20; one chunk of 40, P 36, N 12): the kernels' zero padding.
 B3_SLOW = -5.0
 B3_CASES = (("mamba2_train", 8, 512, 32, 64, 128, 64,
              ("bfloat16", "float32"), False, 0.0),
@@ -3117,7 +3122,11 @@ B3_CASES = (("mamba2_train", 8, 512, 32, 64, 128, 64,
             ("mamba2_state_slow", 8, 512, 32, 64, 128, 64,
              ("bfloat16", "float32"), True, B3_SLOW),
             ("hymba_state_slow", 8, 512, 50, 64, 16, 64, ("bfloat16",),
-             True, B3_SLOW))
+             True, B3_SLOW),
+            ("edge_q24_p50_n20", 2, 96, 3, 50, 20, 24,
+             ("bfloat16", "float32"), True, B3_SLOW),
+            ("edge_q40_p36_n12", 3, 40, 5, 36, 12, 64,
+             ("bfloat16", "float32"), False, 0.0))
 # each gradient within 1e-4 of its largest magnitude (f32 sums in another
 # order); in bf16 dx, db and dc also one bf16 spacing (both round the
 # f32 gradient to bf16)
@@ -3455,27 +3464,44 @@ def b3_err(got, want, spacing: bool) -> tuple:
 
 
 def b3_bound(B, S, H, P, N, q, dtype: str, with_state: bool) -> dict:
-    """B3's bound at one case: x, b, c (in ``dtype``), la, dt, dy, the
-    final state's gradient and, with more than one chunk, K3's entering
-    states and decays read once, dx, db, dc, dla, ddt written once, over
-    the memory rate; and the f32 operations of the code's products over
-    67 TFLOP/s: per (batch, chunk) C B^T, dCB^T C and dCB B on the lower
-    triangle; per head dW and W^T dy (the triangle), G b and x^T G; per
-    head of a chunk with an entering state also U_c, s^T dy and the
-    pass's update and d(decay).  The larger."""
+    """B3's bound at one case, the larger of two times.  Bytes: x, b, c (in
+    ``dtype``), la, dt, dy, the final state's gradient and, with more
+    than one chunk, K3's entering states and decays read once, dx, db,
+    dc, dla, ddt written once, over the memory rate.  Operations, as the
+    code runs them: per (batch, chunk) C B^T, dCB^T C and dCB B on the
+    lower triangle; per head dW and W^T dy (the triangle), G b and x^T G;
+    per head of a chunk with an entering state also U_c and s^T dy, each
+    on tensor cores in TF32 once a split pass (3 for two float32
+    operands; 2 where x, b or c in bfloat16, exact in TF32, is one side;
+    1 for C B^T in bfloat16) over 495 TFLOP/s; plus the reverse pass's
+    update and d(decay) in f32 over 67 TFLOP/s.  ``bound_f32_ms`` is the
+    same work all in f32 over 67 TFLOP/s (a CUDA-core route's)."""
     nc, esz = S // q, 2 if dtype == "bfloat16" else 4
     tri = q * (q + 1) // 2
     read = (B * S * H * P + 2 * B * S * N) * esz + 2 * B * S * H * 4 \
         + B * S * H * P * 4 + (B * H * P * N * 4 if with_state else 0) \
         + (B * nc * H * (P * N + 1) * 4 if nc > 1 else 0)
     written = (B * S * H * P + 2 * B * S * N) * esz + 2 * B * S * H * 4
-    ops = B * nc * (6 * tri * N + H * (4 * tri * P + 4 * q * P * N)) \
-        + B * (nc - 1) * H * (4 * q * P * N + 4 * P * N)
+    # flops of each product, and its split passes with x, b, c in dtype
+    one = 2 if dtype == "bfloat16" else 3          # one exact side
+    both = 1 if dtype == "bfloat16" else 3         # both sides x, b or c
+    prods = [(B * nc * 2 * tri * N, both),          # C B^T
+             (B * nc * 4 * tri * N, one),           # dCB^T C, dCB B
+             (B * nc * H * 2 * tri * P, one),       # dW = dy x^T
+             (B * nc * H * 2 * tri * P, 3),         # W^T dy
+             (B * nc * H * 4 * q * P * N, one),     # b G^T, x G
+             (B * (nc - 1) * H * 2 * q * P * N, one),   # U_c
+             (B * (nc - 1) * H * 2 * q * P * N, 3)]     # dy s_{c-1}
+    elementwise = B * (nc - 1) * H * 4 * P * N     # the pass, d(decay)
+    ops = sum(f for f, _ in prods) + elementwise
+    tensor_ops = sum(f * n for f, n in prods)
     t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS["float32"] * 1e3
+    t_ops = (tensor_ops / PEAK_OPS["tf32"]
+             + elementwise / PEAK_OPS["float32"]) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=read + written, ops=ops)
+                bound_f32_ms=max(t_bytes, ops / PEAK_OPS["float32"] * 1e3),
+                bytes=read + written, ops=ops, tensor_ops=tensor_ops)
 
 
 def b3_phase(torch, F, gen):
@@ -3700,7 +3726,9 @@ def train_kernel_rows(launches: dict, record: dict, b5_err: float,
             launches_by_path={p: n[name] for p, n in launches.items()},
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], case=case))
+            library_ms=t["library_ms"], case=case,
+            **({"bound_f32_ms": t["bound_f32_ms"]} if "bound_f32_ms" in t
+               else {})))
     return rows
 
 
@@ -3986,8 +4014,9 @@ def train_kernel_phase(torch, F, gen) -> tuple:
     for case, t in b3_timing.items():
         print(f"[train] ssd_scan_bwd {case}: device ms per call: kernel "
               f"{t['ms']:.4f}, bound {t['bound_ms']:.5f} ({t['bound_by']}; "
-              f"{t['bytes']} B, {t['ops']} f32 ops; "
-              f"{t['bound_ms'] / t['ms']:.3f} of it reached), plain twin "
+              f"{t['bytes']} B, {t['ops']} ops, {t['tensor_ops']} as TF32 "
+              f"passes; {t['bound_ms'] / t['ms']:.3f} of it reached; f32 "
+              f"CUDA-core bound {t['bound_f32_ms']:.5f}), plain twin "
               f"{t['plain_ms']:.4f}, no PyTorch library call computes it; K3 "
               f"forward keeping the entering states {t['fwd_ms']:.4f}")
     free_device(torch, "B3 cases")

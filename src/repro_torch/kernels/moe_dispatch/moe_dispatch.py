@@ -252,8 +252,7 @@ def _refuse_grad(*ts) -> None:
     outside the graph and have no backward kernel yet."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
-            "grouped_matmul (K4) has no backward kernel yet (ROADMAP.md §1 "
-            "item 4: B4 comes with MoE training over 4 cards): call it "
+            "grouped_matmul (K4) has no backward kernel B4 yet: call it "
             "under torch.no_grad() on CUDA, or train on the CPU")
 
 

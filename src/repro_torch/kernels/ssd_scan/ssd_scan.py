@@ -384,48 +384,86 @@ ssd_scan.pass_launches = 0
 # Backward (B3)
 # ---------------------------------------------------------------------------
 
-BWD_HEAD_GROUPS = (1, 2, 4, 8, 16, 32)    # heads a block of the grad kernel
-BWD_THREADS = 256
-BWD_ACC_TILES = 2         # 4 x 4 tiles of (q, N) a thread sums over heads
+BWD_WARPS = 16            # warps a block of the grad kernel
+BWD_MAX_P, BWD_MAX_N = 64, 128    # the widest head (P) and state (N) B3 takes
+# a head's fixed cost in the grad kernel (its staging, scan, barriers and
+# per-position pass) in multiply-adds
+BWD_HEAD_MACS = 100_000
 
 
 def bwd_launches(n_chunks: int) -> int:
     """B3's kernel launches a call: the grad kernel and the sum over head
-    groups; with more than one chunk also each chunk's U_c and the pass
-    that carries the state's gradient back over the chunks."""
-    return 4 if n_chunks > 1 else 2
+    groups; with more than one chunk also the state kernel, which carries
+    the state's gradient back over the chunks."""
+    return 3 if n_chunks > 1 else 2
 
 
-def _pad4(*vs):
-    return tuple(-(-v // 4) * 4 for v in vs)
+def _pad16(*vs):
+    return tuple(-(-v // 16) * 16 for v in vs)
 
 
-def bwd_smem_bytes(q: int, P: int, N: int, kernel: str = "grad") -> int:
+def _ld(cols: int, es: int, rows: bool) -> int:
+    """A shared-memory row stride (``ld_of`` in the ``.cu``): the least
+    >= cols that is 4 (rows) or 8 modulo 32 words for float32, 8 modulo
+    64 elements for bfloat16."""
+    m, r = (64, 8) if es == 2 else (32, 4 if rows else 8)
+    ld = cols - cols % m + r
+    return ld + m if ld < cols else ld
+
+
+def _a16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def bwd_smem_bytes(q: int, P: int, N: int, kernel: str = "grad",
+                   dtype=torch.bfloat16) -> int:
     """Shared memory one block of B3's ``kernel`` ("grad" or "state")
-    takes (mirrors ``grad_floats`` and ``state_floats`` in
-    ``csrc/ssd_scan_bwd.cu``; rows padded by one float)."""
-    q4, n4, p4 = _pad4(q, N, P)
-    sn, sp, sq = n4 + 1, p4 + 1, q4 + 1
+    takes with x, b, c in ``dtype`` (mirrors ``grad_layout`` and
+    ``state_layout`` in ``csrc/ssd_scan_bwd.cu``: dims padded to 16, rows
+    padded so fragment loads fall in distinct banks)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    qp, pp, np_ = _pad16(q, P, N)
     if kernel == "state":
-        return 4 * (q4 * sn + q4 * sp + 2 * q4)
-    return 4 * (2 * q4 * sn + 4 * q4 * sq + 2 * q4 * sp + p4 * sn
-                + q4 * max(p4 // 2, n4 // 4) + 6 * q4 + 4)
+        mt = bwd_state_tiles_max(P)
+        stage = _a16(qp * _ld(np_, es, False) * es) \
+            + _a16(qp * (16 * mt + 8) * 4) + _a16(qp * 4)
+        return _a16((3 if es == 2 else 2) * stage + qp * 4)
+    parts = [qp * _ld(np_, es, True) * es] * 2 + [
+        qp * _ld(pp, es, True) * es, qp * _ld(pp, 4, True) * 4,
+        qp * _ld(qp, 4, False) * 4, pp * _ld(np_, 4, True) * 4,
+        pp * _ld(np_, 4, False) * 4, 2 * (4 * qp + 4) * 4,
+        (8 * qp + 3 * 16 * BWD_WARPS + BWD_WARPS) * 4, 2 * qp * 4]
+    return sum(_a16(v) for v in parts)
 
 
-def bwd_pass_parts(P: int, N: int) -> int:
-    """Partial sums of d(decay_c) the pass kernel writes a (batch, chunk,
-    head): one a warp, 8 warps a block of 256 threads, a block 4
-    elements a thread of P N (1 when P N is not a multiple of 4)."""
-    v = 4 if (P * N) % 4 == 0 else 1
-    return -(-(P * N) // (BWD_THREADS * v)) * (BWD_THREADS // 32)
+def bwd_state_tiles_max(P: int) -> int:
+    """The most m-tiles (16 rows of P) a block of the state kernel may
+    own: 4, 2 or 1, no more than P's."""
+    return max(m for m in (1, 2, 4) if m <= -(-P // 16))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_state_tiles(B: int, H: int, P: int, sm_count: int) -> int:
+    """m-tiles (16 rows of P) a block of B3's state kernel owns: the most
+    (up to ``bwd_state_tiles_max``) that still leave two blocks an SM.
+    A block re-reads the chunk's c for its rows, so fewer, taller blocks
+    read c fewer times; a long scan of few heads keeps 16 rows a block to
+    fill the card."""
+    for mt in (4, 2):
+        if mt <= bwd_state_tiles_max(P) \
+                and -(-P // (16 * mt)) * H * B >= 2 * sm_count:
+            return mt
+    return 1
 
 
 def _bwd_block_macs(q: int, P: int, N: int, heads: int, n_chunks: int):
-    q4, n4, p4 = _pad4(q, N, P)
-    fixed = BLOCK_MACS + 3 * q4 * q4 * n4     # C B^T; dCB^T C and dCB B
-    head = 2 * q4 * q4 * p4 + 3 * q4 * p4 * n4     # dW, W dy; G b, x^T G
+    """Tensor-core multiply-adds of one grad block (dims padded to 16),
+    plus ``BLOCK_MACS`` and ``BWD_HEAD_MACS`` a head for fixed costs."""
+    q16, p16, n16 = _pad16(q, P, N)
+    fixed = BLOCK_MACS + 3 * q16 * q16 * n16  # C B^T; dCB^T C and dCB B
+    head = BWD_HEAD_MACS + 2 * q16 * q16 * p16 + 2 * q16 * p16 * n16
     if n_chunks > 1:
-        head += q4 * p4 * n4                  # dy^T s_prev
+        head += q16 * p16 * n16               # dy^T s_prev
     return fixed + heads * head
 
 
@@ -433,14 +471,14 @@ def _bwd_block_macs(q: int, P: int, N: int, heads: int, n_chunks: int):
 def bwd_plan(B: int, S: int, H: int, P: int, N: int, q: int,
              sm_count: int) -> int:
     """Heads a block of B3's grad kernel owns, from the shapes and the SM
-    count alone: of ``BWD_HEAD_GROUPS`` (no more than H), the one that
-    least loads the busiest SM (a block an SM: its shared memory) by
-    the blocks an SM gets times a block's multiply-adds, where C B^T and
-    the products of the heads' summed dCB are once a block; ties go to
-    fewer heads."""
+    count alone: of the head counts ceil(H / groups) for every group
+    count, the one that least loads the busiest SM (a block an SM: its
+    shared memory and 512 threads) by the blocks an SM gets times a
+    block's multiply-adds, where C B^T and the products of the heads'
+    summed dCB are once a block; ties go to fewer heads."""
     nc = S // q
     best = None
-    for hg in sorted({min(v, max(H, 1)) for v in BWD_HEAD_GROUPS}):
+    for hg in sorted({-(-H // g) for g in range(1, max(H, 1) + 1)}):
         blocks = nc * B * -(-H // hg)
         cost = -(-blocks // sm_count) * _bwd_block_macs(q, P, N, hg, nc)
         if best is None or cost < best[0]:
@@ -535,7 +573,7 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.mars_ssd_scan_bwd
     if fn.argtypes is None:               # first use: declare once
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 18
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         err = lib.mars_cuda_error_string
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
@@ -572,16 +610,14 @@ def _bwd_launch(x, b, c, la, dt, dy, d_state, q: int, saved):
     if q > MAX_CHUNK:
         raise ValueError(f"ssd_scan_bwd kernel takes chunks of at most "
                          f"{MAX_CHUNK} positions, got {q}")
-    need = bwd_smem_bytes(q, P, N)
+    need = max(bwd_smem_bytes(q, P, N, k, x.dtype) for k in ("grad", "state"))
     if need > _SMEM_LIMIT:
         raise ValueError(f"ssd_scan_bwd kernel needs {need} B of shared "
                          f"memory for q={q}, P={P}, N={N}; a block has "
                          f"{_SMEM_LIMIT}")
-    q4, n4 = _pad4(q, N)
-    if (q4 // 4) * (n4 // 4) > BWD_ACC_TILES * BWD_THREADS:
-        raise ValueError(f"ssd_scan_bwd kernel takes (q, N) of at most "
-                         f"{BWD_ACC_TILES * BWD_THREADS} 4 x 4 tiles; got "
-                         f"q={q}, N={N}")
+    if P > BWD_MAX_P or N > BWD_MAX_N:
+        raise ValueError(f"ssd_scan_bwd kernel's tiles take P <= {BWD_MAX_P} "
+                         f"and N <= {BWD_MAX_N}; got P={P}, N={N}")
     dx = torch.empty_like(x)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     dla = torch.empty((Bz, S, H), dtype=torch.float32, device=dev)
@@ -591,26 +627,25 @@ def _bwd_launch(x, b, c, la, dt, dy, d_state, q: int, saved):
             t.zero_()
         return dx, db, dc, dla, ddt
     lib = _bwd_library()
-    hg = bwd_plan(Bz, S, H, P, N, q, _sm_count(dev.index or 0))
+    sm = _sm_count(dev.index or 0)
+    hg = bwd_plan(Bz, S, H, P, N, q, sm)
+    mt = bwd_state_tiles(Bz, H, P, sm)
     groups = -(-H // hg)
     pdb = torch.empty((groups, Bz, S, N), dtype=torch.float32, device=dev)
     pdc = torch.empty_like(pdb)
-    n_parts = bwd_pass_parts(P, N)
-    gbuf = d_decay = None
+    gbuf = None
     if nc > 1:
         gbuf = torch.empty((Bz, nc, H, P, N), dtype=torch.float32,
                            device=dev)
-        d_decay = torch.empty((Bz, nc, H, n_parts), dtype=torch.float32,
-                              device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.mars_ssd_scan_bwd(
         _DTYPE_CODES[x.dtype], *(ptr(t) for t in (
-            x, b, c, la, dt, dy, d_state, entering, decay, gbuf, d_decay,
+            x, b, c, la, dt, dy, d_state, entering, decay, gbuf,
             dx, db, dc, dla, ddt, pdb, pdc)),
-        Bz, S, H, P, N, q, hg, n_parts, stream)
+        Bz, S, H, P, N, q, hg, mt, stream)
     if rc != 0:
         why = lib.mars_cuda_error_string(rc).decode() if rc > 0 \
             else "unsupported"

@@ -54,8 +54,8 @@ from repro_torch.optim import adamw as optim
 from repro_torch.train.step import TrainFlags, make_train_step
 from repro_torch.utils.tree import tree_map
 
-NO_BACKWARD = ("ROADMAP.md §1 item 4: MoE training over 4 cards with the "
-               "experts sharded, where K4's backward B4 comes")
+NO_BACKWARD = ("nor does the port have the parameter sharding rules "
+               "that spread the experts over several cards")
 WORKDIR = Path(__file__).resolve().parents[3] / "build" / "train"
 
 

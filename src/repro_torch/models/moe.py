@@ -128,12 +128,12 @@ def _mars_dispatch_local(p, xf, cfg: ModelConfig):
 def _mars_dispatch_sharded(p, xf, cfg: ModelConfig, mesh):
     """Expert-parallel dispatch across a mesh's ``model`` axis (reference
     ``moe.py:112``): not ported — only a training or dry-run mesh
-    reaches it, and it comes with the parameter sharding rules
-    (ROADMAP.md §1 item 4)."""
+    reaches it, and it needs the parameter sharding rules, which the port
+    does not have yet."""
     raise NotImplementedError(
-        "expert-parallel MoE dispatch (_mars_dispatch_sharded) waits for "
-        "the parameter sharding rules of the torch port (ROADMAP.md §1 "
-        "item 4); the port dispatches on one device")
+        "expert-parallel MoE dispatch (_mars_dispatch_sharded) needs the "
+        "parameter sharding rules, which the torch port does not have yet; "
+        "the port dispatches on one device")
 
 
 def moe_apply_einsum(p, xf, cfg: ModelConfig):

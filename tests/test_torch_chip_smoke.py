@@ -443,7 +443,7 @@ def test_train_launches_wanted_per_step():
     and 6 cross-attention layers; hymba's 2 global layers), B5
     ``BWD_LAUNCHES`` (3) times as often, K2 and B2 once (every table
     exceeds 2**22 elements); K3 once per SSM layer (mamba2 48, hymba 32)
-    with its two passes each at 8 chunks of 64 and B3's 4 launches each,
+    with its two passes each at 8 chunks of 64 and B3's 3 launches each,
     none of them at one chunk but B3's 2."""
     from repro_torch import configs
     counters = chip_smoke.kernel_counters()
@@ -457,8 +457,8 @@ def test_train_launches_wanted_per_step():
         assert want["gather_rows"] == want["embedding_grad_scatter"] == 5
         assert want["ssd_scan"] == 5 * ssm
         assert want["ssd_scan_passes"] == 5 * 2 * ssm
-        assert want["ssd_scan_bwd"] == 5 * 4 * ssm
-        assert sum(want.values()) == 5 * (4 * attn + 2 + 7 * ssm)
+        assert want["ssd_scan_bwd"] == 5 * 3 * ssm
+        assert sum(want.values()) == 5 * (4 * attn + 2 + 6 * ssm)
         one = chip_smoke.train_launches_wanted(configs.get(arch), 1,
                                                counters, seq=64)
         assert one["ssd_scan_passes"] == 0
@@ -536,24 +536,44 @@ def test_train_kernel_rows_list_the_backward_kernels():
 
 def test_b3_bound_counts_the_code():
     """mamba2-370m's training scan (8 x 512, 32 heads of 64, state 128,
-    8 chunks of 64): the products the code runs come to 9.30 GFLOP of
-    f32, which bind (0.139 ms at 67 TFLOP/s against 0.042 ms for its
-    141 MB); one chunk reads no entering state and runs no pass."""
-    b = chip_smoke.b3_bound(8, 512, 32, 64, 128, 64, "bfloat16", False)
-    tri = 64 * 65 // 2
-    ops = 8 * 8 * (6 * tri * 128 + 32 * (4 * tri * 64 + 4 * 64 * 64 * 128)) \
-        + 8 * 7 * 32 * (4 * 64 * 64 * 128 + 4 * 64 * 128)
-    assert b["ops"] == ops and b["bound_by"] == "operations"
-    assert b["bound_ms"] == pytest.approx(ops / 67e12 * 1e3)
+    8 chunks of 64): the products the code runs come to 9.30 GFLOP, on
+    tensor cores in TF32 once a split pass (in bf16: 20.9 G, C B^T once,
+    W^T dy and dy s three times, the rest twice), which bind at 495
+    TFLOP/s beside the reverse pass's f32 update (0.043 ms against 0.042
+    ms for its 141 MB); beside it the f32 CUDA-core bound of the same
+    work (0.139 ms at 67 TFLOP/s); float32 inputs split every product in
+    three; one chunk reads no entering state and runs no pass."""
+    B, nc, H, q, P, N = 8, 8, 32, 64, 64, 128
+    tri = q * (q + 1) // 2
+    cb, dcb = B * nc * 2 * tri * N, B * nc * 4 * tri * N
+    dw = a1 = B * nc * H * 2 * tri * P
+    gx = B * nc * H * 4 * q * P * N                     # b G^T, x G
+    u = sdy = B * (nc - 1) * H * 2 * q * P * N
+    ew = B * (nc - 1) * H * 4 * P * N
+    ops = cb + dcb + dw + a1 + gx + u + sdy + ew
+    assert ops == 8 * 8 * (6 * tri * 128 + 32 * (4 * tri * 64
+                                                + 4 * 64 * 64 * 128)) \
+        + 8 * 7 * 32 * (4 * 64 * 64 * 128 + 4 * 64 * 128) == 9304539136
+    b = chip_smoke.b3_bound(B, nc * q, H, P, N, q, "bfloat16", False)
+    tensor = cb + 2 * dcb + 2 * dw + 3 * a1 + 2 * gx + 2 * u + 3 * sdy
+    assert b["ops"] == ops and b["tensor_ops"] == tensor
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx((tensor / 495e12 + ew / 67e12)
+                                          * 1e3)
+    assert b["bound_f32_ms"] == pytest.approx(ops / 67e12 * 1e3)
     io = 2 * (2 * 8 * 512 * 32 * 64 + 2 * 2 * 8 * 512 * 128) \
         + 4 * (4 * 8 * 512 * 32 + 8 * 512 * 32 * 64 + 8 * 8 * 32 * 64 * 128
                + 8 * 8 * 32)
     assert b["bytes"] == io
+    f = chip_smoke.b3_bound(B, nc * q, H, P, N, q, "float32", False)
+    assert f["tensor_ops"] == 3 * (ops - ew) and f["ops"] == ops
     one = chip_smoke.b3_bound(1, 24, 50, 64, 16, 24, "bfloat16", True)
     assert one["bytes"] == 2 * (2 * 24 * 50 * 64 + 4 * 24 * 16) \
         + 4 * (4 * 24 * 50 + 24 * 50 * 64 + 50 * 64 * 16)
     tri = 24 * 25 // 2
     assert one["ops"] == 6 * tri * 16 + 50 * (4 * tri * 64 + 4 * 24 * 64 * 16)
+    assert one["tensor_ops"] == 2 * tri * 16 + 2 * 4 * tri * 16 + 50 * (
+        2 * 2 * tri * 64 + 3 * 2 * tri * 64 + 2 * 4 * 24 * 64 * 16)
 
 
 def test_b3_err_adds_a_bf16_spacing_only_where_asked():

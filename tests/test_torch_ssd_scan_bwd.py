@@ -243,7 +243,155 @@ def test_ssd_scan_is_the_function_only_with_a_gradient_to_take():
     assert torch.isfinite(g).all()
 
 
+# ---- B3's split TF32 products, emulated ------------------------------------
+
+def _tf32(t):
+    """t rounded as the kernel hands an operand to the tensor cores: its
+    low 13 mantissa bits cleared."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_einsum(spec, a, b, sa, sb):
+    """``einsum(spec, a, b)`` in float32 as B3 forms a product: hi = a
+    rounded, lo = (a - hi) rounded, lo_a hi_b + hi_a lo_b + hi_a hi_b for
+    the sides split (``sa``, ``sb``: an exact side, x, b or c in bf16,
+    goes whole); with neither split, one rounding of each side."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(spec, ah, bh)
+    if sa:
+        out = out + torch.einsum(spec, _tf32(a - ah), bh)
+    if sb:
+        out = out + torch.einsum(spec, ah, _tf32(b - bh))
+    return out
+
+
+def _b3_emulated(x, b, c, la, dt, dy, d_state, chunk, exact, split=True):
+    """B3's gradients with every product as the kernels form it
+    (``_split_einsum``; ``exact``: x, b and c are exact in TF32, as bf16
+    inputs are) and the rest in float32, by ``ssd_scan_bwd_plain``'s
+    passes: U_c and the reverse pass, C B^T, dW, W^T dy, b G^T, x G, dCB^T
+    C, dCB B, dy s_{c-1}.  ``split=False``: one rounding, no lo terms."""
+    def mm(spec, a_, b_, sa, sb):
+        return _split_einsum(spec, a_, b_, sa and split, sb and split)
+    sx = not exact                        # x, b, c need splitting
+    Bz, S, H, P = x.shape
+    N = b.shape[-1]
+    q = tmod.chunk_len(S, chunk)
+    nc = S // q
+    entering = tmod.ssd_scan_plain(x, b, c, la, dt, chunk=chunk,
+                                   keep=True)[2] if nc > 1 else None
+    xc, dyc = x.reshape(Bz, nc, q, H, P), dy.reshape(Bz, nc, q, H, P)
+    bc, cc = b.reshape(Bz, nc, q, N), c.reshape(Bz, nc, q, N)
+    dtc = dt.reshape(Bz, nc, q, H)
+    cum = torch.cumsum(la.reshape(Bz, nc, q, H), dim=2)
+    e, f = torch.exp(cum), torch.exp(cum[:, :, -1:] - cum)
+    decay = torch.exp(cum[:, :, -1])
+    U = mm("bcthp,bctn->bchpn", e[..., None] * dyc, cc, True, sx)
+    G = torch.zeros((Bz, H, P, N)) if d_state is None else d_state
+    gs, d_decay = [None] * nc, torch.zeros_like(decay)
+    for ic in reversed(range(nc)):
+        gs[ic] = G
+        if ic > 0:
+            d_decay[:, ic] = (G * entering[:, ic]).sum((-2, -1))
+            G = decay[:, ic, :, None, None] * G + U[:, ic]
+    gs = torch.stack(gs, 1)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    D = torch.where(tri[:, :, None], torch.exp(torch.clamp_max(li, 0.0)),
+                    torch.zeros(()))
+    below = torch.tril(tri, -1)[:, :, None]
+    m = torch.where(below, (li < 0).float() + 0.5 * (li == 0).float(),
+                    torch.zeros(()))
+    cb = mm("bctn,bckn->bctk", cc, bc, sx, sx)[..., None]
+    dtk = dtc[:, :, None]
+    dW = mm("bcthp,bckhp->bctkh", dyc, xc, True, sx)
+    gb = mm("bckn,bchpn->bckhp", bc, gs, sx, True)
+    fdt = f * dtc
+    dx = mm("bctkh,bcthp->bckhp", cb * D * dtk, dyc, True, True) \
+        + fdt[..., None] * gb
+    r = (xc * gb).sum(-1)
+    Q = dW * D * cb
+    ddt = Q.sum(2) + f * r
+    gl = Q * dtk * m
+    dcum = gl.sum(3) - gl.sum(2) - fdt * r
+    dcum[:, :, -1] += (fdt * r).sum(2) + decay * d_decay
+    dcb = (dW * D * dtk).sum(-1)
+    xg = mm("bckhp,bchpn->bckhn", xc, gs, sx, True)
+    db = mm("bctk,bctn->bckn", dcb, cc, True, sx) \
+        + (fdt[..., None] * xg).sum(3)
+    dc = mm("bctk,bckn->bctn", dcb, bc, True, sx)
+    if entering is not None:
+        sdy = mm("bcthp,bchpn->bcthn", dyc, entering, True, True)
+        dc = dc + (e[..., None] * sdy).sum(3)
+        dcum = dcum + e * (cc[:, :, :, None] * sdy).sum(-1)
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    return (dx.reshape(Bz, S, H, P), db.reshape(Bz, S, N),
+            dc.reshape(Bz, S, N), dla.reshape(Bz, S, H), ddt.reshape(Bz, S, H))
+
+
+# (B, S, H, P, N, chunk, seed): a small multi-chunk scan with slow decays
+# (the reverse pass counts), and one chunk pair at mamba2's training width
+SPLIT_SHAPES = [(2, 64, 3, 8, 4, 16, 4), (1, 128, 2, 64, 128, 64, 5)]
+
+
+def _split_case(B, S, H, P, N, chunk, seed, dtype):
+    """Inputs (x, b, c rounded to ``dtype`` as the kernel reads them, all
+    float32), dy, a final-state gradient, and the float64 gradients of
+    those same values."""
+    arrays, dy, ds = _inputs(B, S, H, P, N, seed=seed, dt_shift=-5.0)
+    t = [torch.from_numpy(a) for a in arrays]
+    t = [a.to(getattr(torch, dtype)).float() if i < 3 else a
+         for i, a in enumerate(t)]
+    dy, ds = torch.from_numpy(dy), torch.from_numpy(ds)
+    want = tmod.ssd_scan_bwd_plain(*(a.double() for a in t), dy.double(),
+                                   ds.double(), chunk=chunk)
+    return t, dy, ds, want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,seed", SPLIT_SHAPES)
+def test_bwd_split_tf32_products_meet_b3_rel(B, S, H, P, N, chunk, seed,
+                                             dtype):
+    """With every product split as the kernels split it (3xTF32; 2 passes
+    where an exact bf16 x, b or c is a side), each gradient lies within
+    B3_REL (1e-4 of its largest magnitude, chip_smoke.B3_REL) of float64
+    on the same inputs."""
+    t, dy, ds, want = _split_case(B, S, H, P, N, chunk, seed, dtype)
+    got = _b3_emulated(*t, dy, ds, chunk, exact=dtype == "bfloat16")
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == torch.float32, name
+        _assert_rel(g, w, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_one_tf32_rounding_misses_b3_rel(dtype):
+    """The hazard the split answers: one TF32 rounding of each operand (no
+    lo terms) misses B3_REL at the mamba2 chunk pair's seeded inputs."""
+    t, dy, ds, want = _split_case(*SPLIT_SHAPES[1], dtype)
+    got = _b3_emulated(*t, dy, ds, SPLIT_SHAPES[1][5],
+                       exact=dtype == "bfloat16", split=False)
+    worst = max(float((g.double() - w).abs().max() / w.abs().max())
+                for g, w in zip(got, want))
+    assert worst > REL, worst
+
+
 # ---- B3's plan and the wrapper's checks ---------------------------------
+
+# n-tiles (8 columns) a warp of the grad kernel may own of a (q, q), (q, P)
+# and (q, N) output (kNtQQ, kNtQP, kNtQN in csrc/ssd_scan_bwd.cu)
+TILE_COLS = (2, 2, 4)
+
+
+def _tiles(M, N, ntmax):
+    """How the grad kernel's warps cut an M x N output (``tiles_of`` in
+    the ``.cu``): (m-tiles of 16 rows, n-tiles of 8 columns, n-tiles a
+    warp, warps a row of m-tiles), the fewest n-tiles a warp that leave
+    at most BWD_WARPS warps, up to ``ntmax``."""
+    mt, nt = M // 16, N // 8
+    for ntw in range(1, ntmax + 1):
+        if mt * -(-nt // ntw) <= tmod.BWD_WARPS or ntw == ntmax:
+            return mt, nt, ntw, -(-nt // ntw)
+
 
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (8, 512, 32, 64, 128, 64), (8, 512, 50, 64, 16, 64),
@@ -252,35 +400,68 @@ def test_ssd_scan_is_the_function_only_with_a_gradient_to_take():
 @pytest.mark.parametrize("sm_count", [1, 132])
 def test_bwd_plan_fits_and_covers_every_head(B, S, H, P, N, chunk,
                                              sm_count):
-    """The grad kernel's head groups cover every head once; its shared
-    memory and the state kernel's fit a block; the (q, N) tiles a thread
-    sums over heads fit its registers; the launches a call."""
+    """The grad kernel's head groups cover every head once; both kernels'
+    shared memory fits a block in either dtype; each of its (q, q), (q, P)
+    and (q, N) outputs is cut into at most one tile pair a warp, every
+    tile once; the state kernel's m-tiles (1, 2 or 4, no more than P's)
+    leave two blocks an SM where they are more than one; the launches a
+    call."""
     q = tmod.chunk_len(S, chunk)
     hg = tmod.bwd_plan(B, S, H, P, N, q, sm_count)
-    assert 1 <= hg <= H
-    assert hg in tmod.BWD_HEAD_GROUPS or hg == H
+    assert 1 <= hg <= H and hg == -(-H // -(-H // hg))
     seen = np.zeros(H, np.int64)
     for g in range(-(-H // hg)):
         seen[g * hg:min(H, (g + 1) * hg)] += 1
     assert (seen == 1).all()
-    for kernel in ("grad", "state"):
-        assert tmod.bwd_smem_bytes(q, P, N, kernel) <= tmod._SMEM_LIMIT
-    q4, n4 = -(-q // 4) * 4, -(-N // 4) * 4
-    assert (q4 // 4) * (n4 // 4) <= tmod.BWD_ACC_TILES * tmod.BWD_THREADS
-    assert tmod.bwd_launches(S // q) == (4 if S > q else 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel in ("grad", "state"):
+            assert tmod.bwd_smem_bytes(q, P, N, kernel, dtype) \
+                <= tmod._SMEM_LIMIT
+    qp, pp, np_ = (-(-v // 16) * 16 for v in (q, P, N))
+    for (M, Nn), ntmax in zip(((qp, qp), (qp, pp), (qp, np_)), TILE_COLS):
+        mt, nt, ntw, cpr = _tiles(M, Nn, ntmax)
+        assert mt * cpr <= tmod.BWD_WARPS and ntw <= ntmax
+        cover = np.zeros((mt, nt), np.int64)
+        for w in range(mt * cpr):
+            for j in range(ntw):
+                if (w % cpr) * ntw + j < nt:
+                    cover[w // cpr, (w % cpr) * ntw + j] += 1
+        assert (cover == 1).all()
+    mt = tmod.bwd_state_tiles(B, H, P, sm_count)
+    assert mt in (1, 2, 4) and mt <= tmod.bwd_state_tiles_max(P)
+    assert mt == 1 or -(-P // (16 * mt)) * H * B >= 2 * sm_count
+    assert tmod.bwd_launches(S // q) == (3 if S > q else 2)
 
 
-def test_bwd_smem_and_parts_at_mamba2_training_width():
-    """q 64, P 64, N 128: the grad kernel's layout (rows padded by one
-    float) takes 208656 B of a block's 232448; the pass kernel writes 8
-    warp partials of d(decay) a block of 1024 state elements."""
-    assert tmod.bwd_smem_bytes(64, 64, 128) == 4 * (
-        2 * 64 * 129 + 4 * 64 * 65 + 2 * 64 * 65 + 64 * 129 + 64 * 32
-        + 6 * 64 + 4) == 208656
-    assert tmod.bwd_pass_parts(64, 128) == 64
-    assert tmod.bwd_pass_parts(64, 16) == 8
-    assert tmod.bwd_pass_parts(5, 7) == 8
+@pytest.mark.parametrize("dtype,grad,state", [
+    ("bfloat16", 156256, 108544), ("float32", 197216, 107264)])
+def test_bwd_smem_at_mamba2_training_width(dtype, grad, state):
+    """q 64, P 64, N 128: the grad kernel's layout (b, c and x in their
+    dtype, rows padded 4 or 8 floats, bf16 rows 8 elements, modulo a
+    bank row; dy, W, G_c, s_{c-1} in f32; two sets of per-position
+    vectors, the partials, dcum and f dt r) and the state kernel's ring at
+    its most m-tiles, 4 (3 stages of c, dy's 64 rows and la in bf16, 2 in
+    f32); one block of each takes the byte counts below; the plan puts 16
+    heads a grad block and 2 m-tiles a state block at 132 SMs (hymba: 25
+    and 4)."""
+    es = 2 if dtype == "bfloat16" else 4
+    ldb = 136 if es == 2 else 132
+    ldx = 72 if es == 2 else 68
+    want = sum(-(-v // 16) * 16 for v in (
+        64 * ldb * es, 64 * ldb * es, 64 * ldx * es, 64 * 68 * 4,
+        64 * 72 * 4, 64 * 132 * 4, 64 * 136 * 4, 2 * (4 * 64 + 4) * 4,
+        (8 * 64 + 3 * 256 + 16) * 4, 2 * 64 * 4))
+    td = getattr(torch, dtype)
+    assert tmod.bwd_smem_bytes(64, 64, 128, "grad", td) == want == grad
+    stage = 64 * 136 * es + 64 * 72 * 4 + 64 * 4
+    assert tmod.bwd_smem_bytes(64, 64, 128, "state", td) == state == \
+        (3 if es == 2 else 2) * stage + 64 * 4
+    assert state <= tmod._SMEM_LIMIT // 2     # two blocks an SM
     assert tmod.bwd_plan(8, 512, 32, 64, 128, 64, 132) == 16
+    assert tmod.bwd_plan(8, 512, 50, 64, 16, 64, 132) == 25
+    assert tmod.bwd_state_tiles(8, 32, 64, 132) == 2
+    assert tmod.bwd_state_tiles(8, 50, 64, 132) == 4
+    assert tmod.bwd_state_tiles(1, 32, 64, 132) == 1
 
 
 def test_bwd_wrapper_never_falls_back():
