@@ -9,8 +9,8 @@ Phases (any failure exits non-zero and prints no result):
   build   compile every CUDA kernel of the port from ``src/repro_torch/
           csrc`` (paged_attention, ssd_scan, mars_gather, moe_dispatch,
           flash_attention, mars_engine, dram_channel,
-          flash_attention_bwd, embedding_grad_scatter, ssd_scan_bwd) with
-          nvcc for
+          flash_attention_bwd, embedding_grad_scatter, ssd_scan_bwd,
+          moe_dispatch_bwd) with nvcc for
           sm_90a (one nvcc per source, started together) into the
           git-ignored ``build/``.
   k1      K1, its split kernel and its merge kernel: paged_attention's
@@ -188,7 +188,7 @@ Phases (any failure exits non-zero and prints no result):
           tokens, and their bf16 forward's own argmax, sit from a
           float32 forward on the same weights.  Each bfloat16 run is then served twice more, warm
           and profiled, as above.
-  train   the training path (``repro_torch.launch.train``) and its three
+  train   the training path (``repro_torch.launch.train``) and its four
           backward kernels.  First, beside the other kernel phases
           (before the serve runs, whose long profiles have been followed
           by profiles short of device events): B5 ``flash_attention_bwd``
@@ -221,7 +221,19 @@ Phases (any failure exits non-zero and prints no result):
           each gradient's largest magnitude (in bf16 plus a bf16 spacing
           on dx, db, dc), two calls bitwise equal, timed beside its
           bound (its tensor-core route's and the f32 one), its twin and
-          K3's forward.  After the
+          K3's forward; B5 also at head dim 16 (the MoE smoke configs'
+          training attention, and a ragged case), K5's lse there held to
+          the twin's; B4 ``grouped_matmul_bwd`` (``B4_CASES``: arctic-480b's
+          training w_in and w_out and kimi-k2's w_in at their published
+          widths, 8 x 512 tokens routed and padded as the model does; the
+          smoke configs' products; half the rows on the first expert,
+          and at arctic's w_in on the last; experts with no row; n_tiles
+          below the tile count at bm 32 and 128, a group out of range, K and N not multiples of 8; bf16, and
+          float32 where listed) against its twin on the card cutting the
+          slabs the kernel cuts (``B4_TOL``: in bf16 one bf16 spacing),
+          two calls bitwise equal, dead tiles' dx and empty experts' dw
+          exactly 0, dx and dw timed apart with a cold L2 beside their
+          bounds, the twin and ``torch._grouped_mm``.  After the
           dense runs: one float32 step of qwen1.5-0.5b and one of
           mamba2-370m at full width, every layer (batch 2 x 128; two
           chunks a layer; ``F32_TRAINS``), the loss on the card against
@@ -229,23 +241,35 @@ Phases (any failure exits non-zero and prints no result):
           and on the host against a float64 step on the host (the card
           within ``F32_DRIFT`` times the host's own float32 distance, or
           ``F32_GRAD_TOL``), remat on against off, and one step's
-          launches; ``launch.train`` on CUDA must refuse arctic-480b
-          (K4's backward kernel does not exist yet), K4's wrapper must
-          raise for an input that needs a gradient without launching
-          (``kernel_grad_refusals``), and K3's must launch K3, then B3 on
-          ``backward()`` (``k3_grad_route``); then ``launch.train`` in
-          bf16 at full width with every count set to 0 just before it:
-          qwen1.5-0.5b 30 steps of 8 x 512, whisper-base 12 steps (stub
+          launches; the same float32 step of arctic-480b's smoke config
+          (K4 and B4 on CUDA cores, K5 and B5 at d 16), whose router must
+          pick the experts the host's float32 and float64 steps pick
+          (``router_agreement``: a differing token must be a tie);
+          ``launch.train`` on CUDA must refuse, before building anything,
+          the full-width configs whose training state exceeds the card
+          (``TRAIN_REFUSED``: arctic-480b, kimi-k2, starcoder2-7b,
+          phi3-medium-14b, deepseek-coder-33b), K4's wrapper must launch
+          K4, then B4 on ``backward()`` (``k4_grad_route``), and K3's K3,
+          then B3 (``k3_grad_route``); arctic-480b's MoE layer at its
+          published widths, forward and backward on 8 x 512 bf16 tokens
+          (``moe_layer_check``: every B4 call against the twin on the
+          card, dx in full and dw of the most and least loaded experts
+          and an empty one; then K4's and B4's launches, the step's time
+          and peak memory); then ``launch.train`` in bf16 with every
+          count set to 0 just before it: qwen1.5-0.5b, whisper-base (stub
           frames, ``--frontend stub``: the reference's zero frames train
-          nothing at its width), mamba2-370m and hymba-1.5b 12 steps, no
-          checkpoint: finite losses, the last below the first, K5 once per
-          attention a step (24; whisper 18; hymba 2), B5 three times as
-          often, K2 and B2 once a step, K3 once per SSM layer a step
-          (mamba2 48, hymba 32) with its two passes each, B3 three times
-          as often; the same run with a checkpoint every 10 steps
-          (the others 4), killed after step 19 (the others 7) and resumed
-          with ``--resume`` (writing no further checkpoint) must end at
-          the uninterrupted last loss within rtol 1e-4; prints step ms, tokens/s and peak
+          nothing at its width), mamba2-370m and hymba-1.5b at full width
+          and arctic-480b's and kimi-k2's smoke configs, 12 steps of 8 x
+          512 each, no checkpoint: finite losses, the last below the
+          first, K5 once per attention a step (24; whisper 18; hymba 2;
+          the MoE smokes 2 and 3), B5 three times as often, K2 and B2 once
+          a step (tables of at least 2**22 elements: not the smokes'), K3
+          once per SSM layer a step (mamba2 48, hymba 32) with its two
+          passes each, B3 three times as often, K4 three times per MoE
+          layer a step and B4 twice as often; the same run with a
+          checkpoint every 4 steps, killed after step 7 and resumed with
+          ``--resume`` (writing no further checkpoint) must end at the
+          uninterrupted last loss within rtol 1e-4; prints step ms, tokens/s and peak
           allocated memory, then one warm step of each under
           ``torch.profiler`` (device time by kernel and kind, busy
           share).
@@ -2408,7 +2432,7 @@ def serve_phase(torch, serve, arch: str, flags=()):
             "flash_attention": unwindowed_layers(cfg) * prefills,
             "mars_engine": 0, "dram_channel": 0,
             "flash_attention_bwd": 0, "embedding_grad_scatter": 0,
-            "ssd_scan_bwd": 0}
+            "ssd_scan_bwd": 0, "grouped_matmul_bwd": 0}
     print(f"[serve {name}] served={out['served']} decode_tokens="
           f"{out['decode_tokens']} engine_steps={out['steps']} "
           f"prefills={out['prefills']} decode_steps={out['decode_steps']} "
@@ -2612,7 +2636,8 @@ def kernel_counters() -> dict:
             "flash_attention_bwd": (k5_mod.flash_attention_bwd, "launches"),
             "embedding_grad_scatter": (mg_mod.scatter_add_rows,
                                        "launches"),
-            "ssd_scan_bwd": (ssd_mod.ssd_scan_bwd, "launches")}
+            "ssd_scan_bwd": (ssd_mod.ssd_scan_bwd, "launches"),
+            "grouped_matmul_bwd": (k4_mod.grouped_matmul_bwd, "launches")}
 
 
 def reset_counts(counters: dict) -> None:
@@ -2733,6 +2758,7 @@ def profile_summary(prof, wall: float) -> dict:
              "ssd_scan" if "ssd_scan_" in n else
              "ssd_scan_bwd" if "ssd_bwd_" in n else
              "grouped_matmul" if "grouped_mm_" in n else
+             "grouped_matmul_bwd" if "grouped_bwd_" in n else
              "gather_rows" if "gather_rows_kernel" in n else
              "flash_attention" if "flash_attn_" in n else
              "flash_attention_bwd" if "flash_bwd_" in n else
@@ -2772,7 +2798,7 @@ def dense_launches_wanted(cfg, prefills: int, steps: int) -> dict:
             + steps * cross,
             "mars_engine": 0, "dram_channel": 0,
             "flash_attention_bwd": 0, "embedding_grad_scatter": 0,
-            "ssd_scan_bwd": 0}
+            "ssd_scan_bwd": 0, "grouped_matmul_bwd": 0}
 
 
 def _to_f32(tree):
@@ -3003,15 +3029,20 @@ def profile_dense(torch, serve, args) -> dict:
 # the training run (batch 8 x 512, 16 heads of 64, causal), a long causal
 # case, whisper-base's encoder (8 x 1500 frames, 8 heads of 64, no
 # mask), its cross-attention (512 decoder positions over 1500 frames)
-# and its causal decoder, and head dim 128 with ragged tiles (no mask, Sq
-# != Sk; and causal).
+# and its causal decoder, head dim 128 with ragged tiles (no mask, Sq
+# != Sk; and causal), and head dim 16: the MoE smoke configs' training
+# attention (8 x 512, 4 heads of 16, causal) and a ragged case.  At d 16
+# K5 takes its 16-row tiles at every length: the lse B5 reads is held to
+# the twin's (``K5_LSE_TOL``).
 B5_CASES = [("qwen", 8, 512, 512, 16, 64, True),
             ("long_causal", 1, 4096, 4096, 16, 64, True),
             ("whisper_encoder", 8, 1500, 1500, 8, 64, False),
             ("whisper_cross", 8, 512, 1500, 8, 64, False),
             ("whisper_decoder", 8, 512, 512, 8, 64, True),
             ("ragged_d128", 2, 200, 300, 4, 128, False),
-            ("causal_d128", 2, 300, 300, 4, 128, True)]
+            ("causal_d128", 2, 300, 300, 4, 128, True),
+            ("smoke_d16", 8, 512, 512, 4, 16, True),
+            ("ragged_d16", 2, 200, 300, 4, 16, False)]
 # B5 against its plain twin, per element of each gradient, (atol, rtol):
 # |got - want| <= atol max|want| + rtol |want|, max over the gradient.
 # Both compute the same f32 products from the same inputs and differ in
@@ -3062,14 +3093,24 @@ TRAIN_TOKENS = (8, 512)             # batch x sequence of the training runs
 # LayerNorm sees zero variance, the global gradient norm overflows to
 # inf and the clip zeroes every update, in the reference as in the port
 # (ROADMAP.md §3), so nothing would train.
-TRAIN_RUNS = (("qwen1_5_0_5b", 30, 10, 20, ()),
+# The MoE smoke configs (arctic-480b's and kimi-k2's, d 64 over 4 heads:
+# head dim 16) train through K4 and B4 in every MoE layer and K5 and B5
+# at d 16 in every layer; their tables (128 x 64) are below the 2**22
+# elements from which the embedding takes K2 (``mars_gather.ops``, as the
+# reference's auto mode), so they launch no K2 or B2.  qwen's run was 30
+# steps killed at 20 until the MoE runs came; it is cut to the others'
+# 12, killed at 8, to keep the script's time.
+TRAIN_RUNS = (("qwen1_5_0_5b", 12, 4, 8, ()),
               ("whisper_base", 12, 4, 8, ("--frontend", "stub")),
               ("mamba2_370m", 12, 4, 8, ()),
-              ("hymba_1_5b", 12, 4, 8, ()))
+              ("hymba_1_5b", 12, 4, 8, ()),
+              ("arctic_480b", 12, 4, 8, ("--smoke",)),
+              ("kimi_k2_1t_a32b", 12, 4, 8, ("--smoke",)))
 TRAIN_RESUME_RTOL = 1e-4
-# configs whose CUDA training forward would launch a kernel with no
-# backward kernel (K4): launch.train must refuse them
-TRAIN_REFUSED = ("arctic_480b",)
+# configs whose training state (parameters, gradients, AdamW state) does
+# not fit the card: launch.train must refuse them before building anything
+TRAIN_REFUSED = ("arctic_480b", "kimi_k2_1t_a32b", "starcoder2_7b",
+                 "phi3_medium_14b", "deepseek_coder_33b")
 # The float32 step at full width, every layer, on the card against the
 # same step on host copies (the CPU's twins): qwen1.5-0.5b (24 layers)
 # and mamba2-370m (48; two chunks a layer: K3's three launches, B3's
@@ -3086,8 +3127,15 @@ TRAIN_REFUSED = ("arctic_480b",)
 # seeds 0-3 the card's largest gap was 0.87-2.13 times the host's (an
 # H100); twice that.  Remat on against off on the card within
 # F32_GRAD_TOL (the recomputed forward repeats the same kernels).
-# (config, batch, sequence)
-F32_TRAINS = (("qwen1_5_0_5b", 2, 128), ("mamba2_370m", 2, 128))
+# arctic-480b's smoke config (2 MoE layers of 8 experts top-2: K4 and
+# B4 on CUDA cores in float32, K5 and B5 at d 16) is checked the same
+# way, and its router must pick the same experts on the card, on the host
+# and in float64, or the differing tokens must be router ties (a top-k
+# gap below ``ROUTER_TIE``, reported).
+# (config, batch, sequence, smoke)
+F32_TRAINS = (("qwen1_5_0_5b", 2, 128, False), ("mamba2_370m", 2, 128, False),
+              ("arctic_480b", 2, 128, True))
+ROUTER_TIE = 1e-5
 F32_LOSS_RTOL = 1e-4
 F32_GRAD_TOL = 1e-3
 F32_DRIFT = 4.0
@@ -3231,6 +3279,8 @@ def b5_phase(torch, F, gen):
             do = torch.randn(q.shape, generator=gen, device=gen.device) \
                 .to(dt)
             o, lse = k5.flash_attention_with_lse(q, k, v, causal=causal)
+            lse_err = float((lse - k5.flash_attention_plain(
+                q, k, v, causal=causal, return_lse=True)[1]).abs().max())
             got = k5.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                          lse=lse)
             torch.cuda.synchronize()
@@ -3243,10 +3293,12 @@ def b5_phase(torch, F, gen):
                          for g, w in zip(got, want)]
             ok = all(e[1] <= 1.0 for e in errs) and all(
                 bool(torch.isfinite(g.float()).all()) and g.dtype == dt
-                and g.shape == w.shape for g, w in zip(got, want))
+                and g.shape == w.shape for g, w in zip(got, want)) \
+                and lse_err <= K5_LSE_TOL
             err = max(e[0] for e in errs)
             print(f"[train] flash_attention_bwd {name:15s} {dtype:8s} B={B} "
-                  f"Sq={Sq} Sk={Sk} H={H} D={D} causal={causal}: dq/dk/dv "
+                  f"Sq={Sq} Sk={Sk} H={H} D={D} causal={causal}: K5's lse "
+                  f"err {lse_err:.2e} (tol {K5_LSE_TOL:.0e}); dq/dk/dv "
                   f"err " + " / ".join(f"{e[0]:.3e}" for e in errs)
                   + f", largest err/tol " + " / ".join(
                       f"{e[1]:.3f}" for e in errs)
@@ -3595,22 +3647,296 @@ def time_b3(torch, k3, ins, dy, ds, chunk: int, saved, dtype: str,
                 **b3_bound(B, S, H, P, N, q, dtype, ds is not None))
 
 
-def train_f32_check(torch, arch: str, B: int, S: int) -> dict:
+# B4 cases: (name, kind, spec, dtypes).  "route": T tokens routed top-k
+# over E distinct experts each, sorted and padded to ``models.moe``'s row
+# tile (SERVE_BM, the tight bound, n_tiles on the card) as the training
+# forward does, on (E, K, N) weights of scale 1/sqrt(K), the incoming
+# gradient zero on padding rows (as the gather's backward leaves it):
+# arctic-480b's training products (8 x 512 tokens top-2 over 128 experts;
+# w_in 7168 -> 4864, w_out 4864 -> 7168), kimi-k2's w_in (top-8 over 384,
+# 7168 -> 2048) and the MoE smoke configs' (8 experts, d 64, width 96);
+# "skew": half the assignments on expert 0 (every token's first choice),
+# so one expert holds half the row tiles; "skew_last": the same on the
+# last expert, whose dw blocks start last (at arctic's w_in, where a dw
+# block walks 4 N tiles, the device's row split cuts it); "empty": experts
+# 3 and 7-11 get no row (their dw must be exact zeros); "edge": a given
+# tile -> group map with n_tiles below the tile count, groups unsorted or
+# out of [0, G), bm 32 and 128, K and N not multiples of 8 (the CUDA-core
+# kernels in bf16), the incoming gradient drawn on every row (dead tiles'
+# zeros are the kernel's own).  (M, K, N, G, bm, groups, n_tiles) for "edge", else (T,
+# k, E, K, N).
+B4_CASES = (
+    ("arctic_w_in", "route", (4096, 2, 128, 7168, 4864),
+     ("bfloat16", "float32")),
+    ("arctic_w_out", "route", (4096, 2, 128, 4864, 7168), ("bfloat16",)),
+    ("kimi_w_in", "route", (4096, 8, 384, 7168, 2048), ("bfloat16",)),
+    ("smoke_w_in", "route", (4096, 2, 8, 64, 96), ("bfloat16", "float32")),
+    ("smoke_w_out", "route", (4096, 2, 8, 96, 64), ("bfloat16", "float32")),
+    ("skew_half", "skew", (4096, 2, 64, 2048, 2048),
+     ("bfloat16", "float32")),
+    ("arctic_skew_last", "skew_last", (4096, 2, 128, 7168, 4864),
+     ("bfloat16",)),
+    ("empty_experts", "empty", (512, 2, 16, 512, 384),
+     ("bfloat16", "float32")),
+    ("n_tiles_bm32", "edge", (256, 256, 264, 4, 32, (0, 0, 1, 2, 3, 3, 1, 0),
+                              5), ("bfloat16", "float32")),
+    ("bm128_bad_group", "edge", (512, 320, 200, 3, 128, (0, 1, -1, 2), 4),
+     ("bfloat16", "float32")),
+    ("unaligned_k_n", "edge", (64, 100, 36, 2, 16, (0, 1, 1, 0), 4),
+     ("bfloat16", "float32")))
+B4_EMPTY = (3, 7, 8, 9, 10, 11)
+# B4 against its twin (``grouped_matmul_bwd_plain`` cutting the kernel's
+# slabs), per element: |got - want| <= atol max|want| + rtol |want|.  Both
+# take the same products of the same inputs (a bf16 product is exact in
+# f32) and sum them in f32 in other orders (up to 7168 terms for dx, 4096
+# rows for dw): far below 1e-4 of the largest value.  In bf16 each side
+# then rounds its f32 sum to bf16 once, so an element whose sums straddle
+# a rounding midpoint lands one bf16 spacing apart, at most 2**-7 |want|.
+B4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
+B4_EXPERTS_A_CHUNK = 16            # experts the twin's dw checks at once
+
+
+def b4_case(torch, gen, kind: str, spec, dtype):
+    """B4's operands for one ``B4_CASES`` case: x, w, dout, tile_group,
+    bm, n_tiles, each expert's row count (``sizes``), the ends of the
+    experts' padded segments (``offs``, for the library call; none for an
+    edge case), the live rows."""
+    from repro_torch.kernels.moe_dispatch import ops as k4_ops
+    from repro_torch.models.moe import SERVE_BM
+    dev = gen.device
+    if kind == "edge":
+        M, K, N, G, bm, groups, n_tiles = spec
+        c = k4_edge_case(torch, gen, M, K, N, G, bm, groups, n_tiles, dtype)
+        c["dout"] = torch.randn(M, N, generator=gen, device=dev).to(dtype)
+        live = [i for i, g in enumerate(groups) if i < n_tiles and
+                0 <= g < G]
+        c.update(offs=None, live_rows=len(live) * bm, G=G)
+        return c
+    T, k, E, K, N = spec
+    if kind == "skew":
+        rest = torch.randint(1, E, (T, 1), generator=gen, device=dev)
+        idx = torch.cat([torch.zeros_like(rest), rest], 1)[:, :k]
+    elif kind == "skew_last":
+        rest = torch.randint(0, E - 1, (T, 1), generator=gen, device=dev)
+        idx = torch.cat([torch.full_like(rest, E - 1), rest], 1)[:, :k]
+    else:
+        allowed = torch.tensor([e for e in range(E) if kind != "empty"
+                                or e not in B4_EMPTY], device=dev)
+        idx = torch.stack([allowed[torch.randperm(len(allowed),
+                                                  generator=gen,
+                                                  device=dev)[:k]]
+                           for _ in range(T)])
+    flat = idx.reshape(-1)
+    perm = torch.argsort(flat, stable=True)
+    sorted_e = flat[perm]
+    A = T * k
+    slot, tg, M_pad, n_used = k4_ops.pad_sorted_groups(
+        sorted_e, perm, E, SERVE_BM, tight=True)
+    slot = slot.long()
+    x = torch.zeros(M_pad, K, dtype=dtype, device=dev)
+    x[slot] = torch.randn(A, K, generator=gen, device=dev).to(dtype)
+    dout = torch.zeros(M_pad, N, dtype=dtype, device=dev)
+    dout[slot] = torch.randn(A, N, generator=gen, device=dev).to(dtype)
+    w = torch.empty(E, K, N, dtype=dtype, device=dev)
+    for e in range(E):
+        w[e] = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    sizes = torch.bincount(sorted_e, minlength=E)
+    padded = (sizes + SERVE_BM - 1) // SERVE_BM * SERVE_BM
+    return dict(x=x, w=w, dout=dout, tg=tg, bm=SERVE_BM, n_used=n_used,
+                sizes=sizes, offs=torch.cumsum(padded, 0).to(torch.int32),
+                used_groups=int((sizes > 0).sum()),
+                live_rows=int(n_used) * SERVE_BM, A=A, G=E)
+
+
+def b4_check(torch, k4, c, dtype: str) -> dict:
+    """B4 (``grouped_matmul_bwd``) twice on the same operands, bitwise
+    equal; dx in full and dw expert by expert (``B4_EXPERTS_A_CHUNK`` at a
+    time) against the twin on the card cutting the kernel's slabs (the
+    plan's ``expert_slabs``), within ``B4_TOL``; dead tiles' dx rows and empty experts' dw exactly
+    0."""
+    x, w, dout, tg, bm, n = (c[k] for k in ("x", "w", "dout", "tg", "bm",
+                                             "n_used"))
+    M, K = x.shape
+    G, _, N = w.shape
+    plan = k4.bwd_plan(M, K, N, G, bm, x.dtype, torch.cuda
+                       .get_device_properties(0).multi_processor_count,
+                       K % 8 == 0 and N % 8 == 0)
+    dx, dw = k4.grouped_matmul_bwd(x, w, dout, tg, bm=bm, n_tiles=n)
+    dx2, dw2 = k4.grouped_matmul_bwd(x, w, dout, tg, bm=bm, n_tiles=n)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    del dx2, dw2
+    want_dx, _ = k4.grouped_matmul_bwd_plain(x, w, dout, tg, bm=bm,
+                                             n_tiles=n, groups=[])
+    ex = bwd_err(dx, want_dx, B4_TOL[dtype])
+    used = n.item() if n is not None else M // bm
+    dead = torch.ones(M, dtype=torch.bool, device=x.device)
+    for i, g in enumerate(tg[:used].tolist()):
+        if 0 <= g < G:
+            dead[i * bm:(i + 1) * bm] = False
+    zero_dx = bool((dx[dead] == 0).all())
+    del want_dx
+    ew, worst_w = (0.0, 0.0), 0.0
+    for g0 in range(0, G, B4_EXPERTS_A_CHUNK):
+        gs = list(range(g0, min(G, g0 + B4_EXPERTS_A_CHUNK)))
+        _, want = k4.grouped_matmul_bwd_plain(
+            x, w, dout, tg, bm=bm, n_tiles=n, plan=plan,
+            need_dx=False, groups=gs)
+        e = bwd_err(dw[g0:g0 + len(gs)], want, B4_TOL[dtype])
+        ew = (max(ew[0], e[0]), max(ew[1], e[1]))
+        worst_w = max(worst_w, float(want.float().abs().max()))
+        del want
+    owned = {g for i, g in enumerate(tg[:used].tolist()) if 0 <= g < G}
+    empty = [g for g in range(G) if g not in owned]
+    zero_dw = all(bool((dw[g] == 0).all()) for g in empty)
+    finite = bool(torch.isfinite(dx).all()) and \
+        bool(torch.isfinite(dw).all())
+    ok = bitwise and ex[1] <= 1.0 and ew[1] <= 1.0 and zero_dx \
+        and zero_dw and finite and dx.dtype == x.dtype \
+        and dw.dtype == w.dtype
+    return dict(dx_err=ex[0], dx_over_tol=ex[1], dw_err=ew[0],
+                dw_over_tol=ew[1], bitwise=bitwise, dead_dx_zero=zero_dx,
+                empty_experts=empty, empty_dw_zero=zero_dw, plan=plan._asdict(),
+                ok=ok, err=max(ex[0], ew[0]))
+
+
+def b4_library(torch, c):
+    """One PyTorch call each for dx and dw on B4's own padded rows:
+    ``torch._grouped_mm`` (bf16, the experts' padded segment ends as
+    ``offs``: its 2-D by 2-D form needs every segment's rows to be a
+    multiple of 16 bytes, which the unpadded rows are not, and a device
+    assertion there would end the process): dx = dout @ w_g^T, dw_g =
+    x^T dout over g's segment.  Returns ({"dx": fn, "dw": fn}, note); None
+    where this torch lacks it or refuses the operands (said in the
+    note)."""
+    if c["offs"] is None or c["x"].dtype != torch.bfloat16 \
+            or not hasattr(torch, "_grouped_mm"):
+        return None, "none: no grouped library call for these operands"
+    x, dout, w, offs = c["x"], c["dout"], c["w"], c["offs"]
+    xt = x.t().contiguous()
+    fns = {"dx": lambda: torch._grouped_mm(dout, w.transpose(1, 2),
+                                           offs=offs),
+           "dw": lambda: torch._grouped_mm(xt, dout, offs=offs)}
+    try:
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, (f"torch._grouped_mm refused the operands "
+                      f"({str(e).splitlines()[0][:120]})")
+    return fns, "torch._grouped_mm"
+
+
+def b4_bound(c, part: str) -> dict:
+    """B4's bound for ``part`` ("dx" or "dw") at one case: the rows in use
+    of dout (and x for dw) read once, the used experts' weights read once
+    (dx) or every expert's dw written once (dw), dx written whole; and 2
+    K N operations a real row, over the dtype's peak; the larger."""
+    x, w = c["x"], c["w"]
+    M, K = x.shape
+    G, _, N = w.shape
+    eb = x.element_size()
+    rows = c["live_rows"]
+    if part == "dx":
+        moved = (rows * N + c["used_groups"] * K * N + M * K) * eb
+    else:
+        moved = (rows * K + rows * N + G * K * N) * eb
+    ops_count = 2 * c["A"] * K * N
+    dtype = str(x.dtype).split(".")[-1]
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK_OPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=moved, ops=ops_count)
+
+
+def time_b4(torch, k4, c, flush) -> dict:
+    """B4's dx and dw kernels apart, the twin (dx and dw) and the library
+    calls, each with a cold L2 (``cold_ms``), beside ``b4_bound``."""
+    x, w, dout, tg, bm, n = (c[k] for k in ("x", "w", "dout", "tg", "bm",
+                                             "n_used"))
+    out = {}
+    lib, note = b4_library(torch, c)
+    for part in ("dx", "dw"):
+        def kern(part=part):
+            k4.grouped_matmul_bwd(x, w, dout, tg, bm=bm, n_tiles=n,
+                                  need_dx=part == "dx",
+                                  need_dw=part == "dw")
+        b = b4_bound(c, part)
+        out[part] = dict(ms=cold_ms(torch, kern, 10, flush),
+                         library_ms=None if lib is None else
+                         cold_ms(torch, lib[part], 10, flush), **b)
+
+    def plain():
+        k4.grouped_matmul_bwd_plain(x, w, dout, tg, bm=bm, n_tiles=n)
+    plain_ms = cold_ms(torch, plain, 2, flush)
+    both = [out["dx"], out["dw"]]
+    t_bytes = sum(p["bytes"] for p in both) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(p["ops"] for p in both) / PEAK_OPS[
+        str(x.dtype).split(".")[-1]] * 1e3
+    return dict(ms=out["dx"]["ms"] + out["dw"]["ms"], plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None if lib is None else
+                out["dx"]["library_ms"] + out["dw"]["library_ms"],
+                library=note, dx=out["dx"], dw=out["dw"])
+
+
+def b4_phase(torch, gen):
+    """B4 (grouped_matmul_bwd) at every ``B4_CASES`` case and dtype
+    (``b4_check``), each timed (``time_b4``)."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    results, timing, max_err = [], {}, 0.0
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=gen.device)
+    for name, kind, spec, dtypes in B4_CASES:
+        for dtype in dtypes:
+            case = f"{name}/{dtype}"
+            c = b4_case(torch, gen, kind, spec, getattr(torch, dtype))
+            r = b4_check(torch, k4, c, dtype)
+            M, K = c["x"].shape
+            G, _, N = c["w"].shape
+            print(f"[train] grouped_matmul_bwd {case:26s} M={M} K={K} N={N} "
+                  f"G={G} bm={c['bm']} live rows={c['live_rows']} experts "
+                  f"used={c['used_groups']} plan={r['plan']}: dx err "
+                  f"{r['dx_err']:.3e} ({r['dx_over_tol']:.3f} of tol), dw err "
+                  f"{r['dw_err']:.3e} ({r['dw_over_tol']:.3f} of tol) (tol "
+                  f"atol*max|want| + rtol|want|, (atol, rtol)={B4_TOL[dtype]})"
+                  f"; two calls {'bitwise equal' if r['bitwise'] else 'DIFFER'}"
+                  f"; dead tiles' dx zero {r['dead_dx_zero']}; empty experts "
+                  f"{len(r['empty_experts'])}, dw zero {r['empty_dw_zero']} "
+                  f"{'ok' if r['ok'] else 'MISMATCH'}")
+            results.append(dict(case=case, **r))
+            max_err = max(max_err, r["err"])
+            timing[case] = time_b4(torch, k4, c, flush)
+            del c
+            free_device(torch, f"B4 {case}")
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"grouped_matmul_bwd disagrees with its plain "
+                             f"twin: {bad}")
+    return results, max_err, timing
+
+
+def train_f32_check(torch, arch: str, B: int, S: int,
+                    smoke: bool = False) -> dict:
     """The float32 training loss and every gradient leaf of ``arch`` at
-    full width (a case of ``F32_TRAINS``) on the card, through its
-    kernels and their backward kernels (the launches of one step,
-    ``train_launches_wanted``): the loss against the same step on host
-    copies (the plain twins); each gradient leaf's gap to a float64 step
-    on the host, |g - g64| / max|g64|, on the card within ``F32_DRIFT``
-    times the host float32 step's drift, its largest gap over the leaves
-    (or within ``F32_GRAD_TOL``); and remat on against off on the
-    card."""
+    full width (or its smoke config; a case of ``F32_TRAINS``) on the
+    card, through its kernels and their backward kernels (the launches of
+    one step, ``train_launches_wanted``): the loss against the same step
+    on host copies (the plain twins); each gradient leaf's gap to a
+    float64 step on the host, |g - g64| / max|g64|, on the card within
+    ``F32_DRIFT`` times the host float32 step's drift, its largest gap
+    over the leaves (or within ``F32_GRAD_TOL``); remat on against off on
+    the card; and for an MoE model the experts each step's router picks
+    (``router_agreement``)."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.models import lm
+    from repro_torch.models import moe
     from repro_torch.utils.tree import leaf_paths, tree_map
-    cfg = dataclasses.replace(configs.get(arch), param_dtype="float32",
+    base = configs.get_smoke(arch) if smoke else configs.get(arch)
+    cfg = dataclasses.replace(base, param_dtype="float32",
                               compute_dtype="float32")
     cfg64 = dataclasses.replace(cfg, param_dtype="float64",
                                 compute_dtype="float64")
@@ -3618,30 +3944,49 @@ def train_f32_check(torch, arch: str, B: int, S: int) -> dict:
     batch = next(TokenStream(DataConfig(vocab=cfg.vocab, seq_len=S,
                                         global_batch=B)))
 
-    def grads(p, device, remat, c=cfg):
+    routed = {}                   # the router's picks of each step
+    topk = moe.router_topk
+
+    def recording(p, x, c):
+        idx, gates, aux = topk(p, x, c)
+        probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+        top = torch.topk(probs, c.top_k + 1, dim=-1).values
+        routed.setdefault(tag, []).append(
+            (idx.detach().cpu(), (top[:, -2] - top[:, -1]).detach().cpu()))
+        return idx, gates, aux
+
+    def grads(p, device, remat, c=cfg, name=None):
+        nonlocal tag
+        tag = name
         named = leaf_paths(p)
         for _, t in named:
             t.requires_grad_(True)
         tokens, labels = (torch.from_numpy(batch[k]).to(device)
                           for k in ("tokens", "labels"))
-        loss, _ = lm.loss_fn(p, c, tokens, labels, remat=remat)
-        gs = torch.autograd.grad(loss, [t for _, t in named])
+        moe.router_topk = recording if name else topk
+        try:
+            loss, _ = lm.loss_fn(p, c, tokens, labels, remat=remat)
+            gs = torch.autograd.grad(loss, [t for _, t in named])
+        finally:
+            moe.router_topk = topk
         return float(loss.detach()), {n: g for (n, _), g in zip(named,
                                                               gs)}
 
+    tag = None
     counters = kernel_counters()
     reset_counts(counters)
-    loss_c, g_c = grads(params, "cuda", False)
+    loss_c, g_c = grads(params, "cuda", False, name="card")
     torch.cuda.synchronize()
     launches = read_counts(counters)
     loss_r, g_r = grads(params, "cuda", True)
     host = tree_map(lambda t: t.detach().cpu(), params)
     del params
-    loss_h, g_h = grads(host, "cpu", False)
+    loss_h, g_h = grads(host, "cpu", False, name="host")
     wide = tree_map(lambda t: t.detach().double()
                     if t.is_floating_point() else t, host)
-    loss_64, g_64 = grads(wide, "cpu", False, cfg64)
+    loss_64, g_64 = grads(wide, "cpu", False, cfg64, name="float64")
     del host, wide
+    router = router_agreement(routed) if cfg.is_moe else None
     gaps, remat = {}, (0.0, "")
     for name, want in g_64.items():
         scale = float(want.abs().max()) or 1.0
@@ -3661,8 +4006,16 @@ def train_f32_check(torch, arch: str, B: int, S: int) -> dict:
     ok = loss_rel <= F32_LOSS_RTOL \
         and abs(loss_r - loss_c) <= F32_LOSS_RTOL * abs(loss_c) \
         and gaps[worst][0] <= bound \
-        and remat[0] <= F32_GRAD_TOL and launches == want
-    print(f"[train] float32 step, {arch} at full width, {cfg.n_layers} "
+        and remat[0] <= F32_GRAD_TOL and launches == want \
+        and (router is None or router["ok"])
+    if router is not None:
+        print(f"[train] float32 step, {cfg.name}: router picks, card against "
+              f"host float32 / float64: {router['differ']} tokens of "
+              f"{router['tokens']} differ, smallest top-k gap among them "
+              f"{router['tie_gap']} (a tie below {ROUTER_TIE}); smallest gap "
+              f"over all tokens {router['min_gap']:.3e}")
+    print(f"[train] float32 step, {cfg.name} at "
+          f"{'smoke' if smoke else 'full'} width, {cfg.n_layers} "
           f"layers, batch {B}x{S}: loss card {loss_c:.6f} / host "
           f"{loss_h:.6f} (relative {loss_rel:.2e}, tol {F32_LOSS_RTOL}) / "
           f"host float64 {loss_64:.6f}; {len(gaps)} gradient leaves, "
@@ -3686,8 +4039,29 @@ def train_f32_check(torch, arch: str, B: int, S: int) -> dict:
                              f"launches {launches}, want {want}")
     return dict(loss_card=loss_c, loss_host=loss_h, loss_f64=loss_64,
                 loss_remat=loss_r, gaps=gaps, worst=worst, drift=drift,
-                bound=bound,
+                bound=bound, router=router,
                 worst_remat=remat, remat_bitwise=bitwise, launches=launches)
+
+
+def router_agreement(routed: dict) -> dict:
+    """Whether the card's router picked the experts the host's float32
+    and float64 steps picked, layer by layer (``routed``: each run's list
+    of (expert ids (T, k), gap between the k-th and (k+1)-th probability
+    (T,)) a layer call).  A token whose picks differ must be a router tie:
+    its gap on the card below ``ROUTER_TIE``."""
+    card = routed["card"]
+    differ, gaps, tokens = 0, [], 0
+    for other in ("host", "float64"):
+        for (a, gap), (b, _) in zip(card, routed[other]):
+            bad = (a.sort(-1).values != b.sort(-1).values).any(-1)
+            differ += int(bad.sum())
+            gaps += gap[bad].tolist()
+            tokens += len(a)
+    tie_gap = max(gaps) if gaps else None
+    return dict(ok=all(g < ROUTER_TIE for g in gaps), differ=differ,
+                tokens=tokens, tie_gap=tie_gap,
+                min_gap=float(min(g.min() for _, g in card)),
+                layers=len(card))
 
 
 # the training path's backward kernels: (name, source, the reference
@@ -3703,20 +4077,24 @@ TRAIN_KERNELS_ROWS = (
      "src/repro/kernels/mars_gather/ops.py:50", "b2_timing",
      "qwen/zipf/bfloat16", "train qwen1_5_0_5b"),
     ("ssd_scan_bwd", "ssd_scan_bwd.cu", "src/repro/models/ssm.py:93",
-     "b3_timing", "mamba2_train/bfloat16", "train mamba2_370m"))
+     "b3_timing", "mamba2_train/bfloat16", "train mamba2_370m"),
+    ("grouped_matmul_bwd", "moe_dispatch_bwd.cu",
+     "src/repro/models/moe.py:77", "b4_timing", "arctic_w_in/bfloat16",
+     "train arctic_480b"))
 
 
 def train_kernel_rows(launches: dict, record: dict, b5_err: float,
-                      b3_err: float) -> list:
-    """The ``{"kernels": [...]}`` rows of B5, B2 and B3: launches on a
-    training run (qwen1.5-0.5b; mamba2-370m for B3), their largest error
-    against the twin (B2's on host copies, which it must equal bitwise),
-    timed at that run's training shapes in bf16 beside the library call
-    (none for B3)."""
+                      b3_err: float, b4_err: float) -> list:
+    """The ``{"kernels": [...]}`` rows of B5, B2, B3 and B4: launches on a
+    training run (qwen1.5-0.5b; mamba2-370m for B3, arctic-480b's smoke
+    config for B4), their largest error against the twin (B2's on host
+    copies, which it must equal bitwise), timed in bf16 at that run's
+    training shapes (B4 at arctic-480b's full-width w_in, dx + dw) beside
+    the library call (none for B3)."""
     errs = {"flash_attention_bwd": b5_err,
             "embedding_grad_scatter": max(r["host_err"]
                                           for r in record["b2_cases"]),
-            "ssd_scan_bwd": b3_err}
+            "ssd_scan_bwd": b3_err, "grouped_matmul_bwd": b4_err}
     rows = []
     for name, source, replaces, timing, case, path in TRAIN_KERNELS_ROWS:
         t = record[timing][case]
@@ -3739,7 +4117,7 @@ class _Killed(Exception):
 # the kernels of the training paths, as ``kernel_counters`` names them
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gather_rows",
                  "embedding_grad_scatter", "ssd_scan", "ssd_scan_passes",
-                 "ssd_scan_bwd")
+                 "ssd_scan_bwd", "grouped_matmul", "grouped_matmul_bwd")
 
 
 def train_launches_wanted(cfg, steps: int, counters: dict,
@@ -3750,21 +4128,26 @@ def train_launches_wanted(cfg, steps: int, counters: dict,
     ``BWD_LAUNCHES`` times as often, K2 and B2 once a step (a table of at
     least 2**22 elements); K3 once per SSM layer a step (its two passes
     each when ``seq`` is more than one chunk) and B3 ``bwd_launches``
-    times as often."""
+    times as often; K4 three times per MoE layer a step and B4 its
+    ``BWD_LAUNCHES`` as often."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         BWD_LAUNCHES
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
     from repro_torch.kernels.ssd_scan.ssd_scan import bwd_launches
     attn = cfg.enc_layers + unwindowed_layers(cfg) \
         + (cfg.n_layers if cfg.family == "encdec" else 0)
     table = steps if cfg.vocab * cfg.d_model >= 1 << 22 else 0
     ssm = cfg.n_layers * steps if cfg.has_ssm else 0
     chunks = seq // min(cfg.ssm_chunk, seq) if cfg.has_ssm else 1
+    moe = (cfg.n_layers - cfg.n_dense_layers) * steps if cfg.is_moe else 0
     want = {k: 0 for k in counters}
     want.update(flash_attention=attn * steps,
                 flash_attention_bwd=attn * BWD_LAUNCHES * steps,
                 gather_rows=table, embedding_grad_scatter=table,
                 ssd_scan=ssm, ssd_scan_passes=2 * ssm if chunks > 1 else 0,
-                ssd_scan_bwd=bwd_launches(chunks) * ssm)
+                ssd_scan_bwd=bwd_launches(chunks) * ssm,
+                grouped_matmul=3 * moe,
+                grouped_matmul_bwd=3 * k4.BWD_LAUNCHES * moe)
     return want
 
 
@@ -3909,13 +4292,14 @@ def profile_train(torch, arch: str, flags=()) -> dict:
 
 def train_refusals() -> list:
     """``launch.train`` on CUDA refuses every config of
-    ``TRAIN_REFUSED`` before it builds anything."""
+    ``TRAIN_REFUSED`` before it builds anything, for its training state's
+    bytes against the card's memory."""
     from repro_torch.launch import train
     out = []
     for arch in TRAIN_REFUSED:
         try:
             train.run(["--arch", arch, "--steps", "1", "--device", "cuda"])
-        except NotImplementedError as e:
+        except train.StateTooLarge as e:
             print(f"[train] {arch} refused on CUDA: {e}")
             out.append(arch)
             continue
@@ -3956,43 +4340,178 @@ def k3_grad_route(torch) -> dict:
     return dict(forward=fwd, backward=after)
 
 
-def kernel_grad_refusals(torch) -> list:
-    """K4's wrapper, called on the card with an input that needs a
-    gradient, raises without launching (it has no backward kernel);
-    under ``torch.no_grad()`` the same call launches."""
+def k4_grad_route(torch) -> dict:
+    """K4 called on the card with inputs that need a gradient (bf16; one
+    expert over two row tiles, another over one) launches K4 once, then
+    B4 on ``backward()`` (dx and dw: ``BWD_LAUNCHES``); the gradients
+    agree with the twin's on the same card within ``B4_TOL``.  The counts
+    are put back."""
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    counts = ((k4.grouped_matmul, "launches"),
+              (k4.grouped_matmul_bwd, "launches"))
+    before = [getattr(w, a) for w, a in counts]
+    gen = torch.Generator("cuda").manual_seed(4)
+    x, w = (torch.randn(shape, generator=gen, device="cuda")
+            .to(torch.bfloat16).requires_grad_()
+            for shape in ((48, 64), (2, 64, 72)))
+    tg = torch.tensor([0, 0, 1], dtype=torch.int32, device="cuda")
+    y = k4.grouped_matmul(x, w, tg, bm=16)
+    torch.cuda.synchronize()
+    fwd = [getattr(c, a) - n for (c, a), n in zip(counts, before)]
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    y.backward(gy)
+    torch.cuda.synchronize()
+    after = [getattr(c, a) - n for (c, a), n in zip(counts, before)]
+    for (c, a), n in zip(counts, before):
+        setattr(c, a, n)
+    want = k4.grouped_matmul_bwd_plain(x.detach(), w.detach(), gy, tg,
+                                       bm=16)
+    errs = [bwd_err(g, wt, B4_TOL["bfloat16"])
+            for g, wt in zip((x.grad, w.grad), want)]
+    want_fwd, want_all = [1, 0], [1, k4.BWD_LAUNCHES]
+    ok = fwd == want_fwd and after == want_all and all(
+        e[1] <= 1.0 for e in errs)
+    print(f"[train] grouped_matmul with inputs that need a gradient on CUDA: "
+          f"K4, B4 launches after the forward {fwd} (want {want_fwd}), after "
+          f"backward() {after} (want {want_all}); dx / dw against the twin "
+          + " / ".join(f"{e[0]:.3e} ({e[1]:.3f} of tol)" for e in errs))
+    if not ok:
+        raise AssertionError(f"K4 with a gradient launched {fwd} then "
+                             f"{after}, want {want_fwd} then {want_all}; "
+                             f"errors {errs}")
+    return dict(forward=fwd, backward=after, errs=errs)
 
-    def args_k4():
-        x = torch.randn(32, 64, device="cuda")
-        w = torch.randn(2, 64, 64, device="cuda").requires_grad_()
-        return (x, w, torch.tensor([0, 1], dtype=torch.int32,
-                                   device="cuda")), {"bm": 16}
 
-    out = []
-    for fn, make in ((k4.grouped_matmul, args_k4),):
-        name = fn.__name__
-        args, kw = make()
-        before = fn.launches
-        try:
-            fn(*args, **kw)
-        except NotImplementedError as e:
-            assert fn.launches == before, f"{name} launched, then refused"
-            print(f"[train] {name} refused a gradient on CUDA: {e}")
-        else:
-            raise AssertionError(f"{name} ran on CUDA outside autograd")
-        with torch.no_grad():
-            fn(*args, **kw)
+# The MoE layer of arctic-480b at its published widths (128 experts top-2,
+# d 7168, expert width 4864: 26.8 GB of bf16 expert weights, as many
+# again in their gradients), forward and backward on 8 x 512 tokens with
+# a random incoming gradient: K4 three times, B4 three times (dx and dw
+# each).  No optimizer: its state would not fit the card.
+MOE_LAYER = ("arctic_480b", 8, 512)
+
+
+def moe_layer_check(torch) -> dict:
+    """``MOE_LAYER`` at full width, bf16, twice: first with every B4 call
+    held against the twin on the card as it returns (dx in full; dw of
+    the most loaded expert, the least loaded one with a row and an empty
+    one where there is one), then again plain with every count set to 0
+    just before it and the peak memory reset: K4's and B4's launches,
+    the peak allocated memory and the wall time of the step."""
+    from repro_torch import configs
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    from repro_torch.models import moe
+    arch, B, S = MOE_LAYER
+    cfg = configs.get(arch)
+    gen = torch.Generator("cuda").manual_seed(0)
+    p = moe.moe_init(gen, cfg)
+    for t in p.values():
+        t.requires_grad_(True)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda") \
+        .to(cfg.cdtype).requires_grad_()
+    gy = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda") \
+        .to(cfg.cdtype)
+    checks, launch = [], k4._bwd_launch
+
+    def checked(xx, ww, dout, tg, bm, n, need_dx, need_dw):
+        dx, dw = launch(xx, ww, dout, tg, bm, n, need_dx, need_dw)
+        G = ww.shape[0]
+        rows = torch.bincount(tg[:int(n)].long(), minlength=G) * bm
+        loaded = [g for g in range(G) if rows[g] > 0]
+        sample = [max(loaded, key=lambda g: rows[g]),
+                  min(loaded, key=lambda g: rows[g])]
+        sample += [g for g in range(G) if rows[g] == 0][:1]
+        want_dx, want_dw = k4.grouped_matmul_bwd_plain(
+            xx, ww, dout, tg, bm=bm, n_tiles=n, groups=sample)
+        checks.append(dict(
+            shape=tuple(ww.shape), experts=sample,
+            rows=[int(rows[g]) for g in sample],
+            dx=bwd_err(dx, want_dx, B4_TOL["bfloat16"]),
+            dw=bwd_err(dw[sample], want_dw, B4_TOL["bfloat16"]),
+            empty_zero=all(bool((dw[g] == 0).all()) for g in sample
+                           if rows[g] == 0)))
+        return dx, dw
+
+    held = {"weights": torch.cuda.memory_allocated()}
+
+    def step():
+        y, aux = moe.moe_apply(p, x, cfg)
+        held["after forward"] = torch.cuda.memory_allocated()
+        (y.float() * gy.float()).sum().add(aux["moe_lb"] + aux["moe_z"]) \
+            .backward()
         torch.cuda.synchronize()
-        assert fn.launches == before + 1, f"{name} did not launch"
-        fn.launches = before
-        out.append(name)
-    return out
+        held["after backward"] = torch.cuda.memory_allocated()
+    k4._bwd_launch = checked
+    try:
+        step()
+    finally:
+        k4._bwd_launch = launch
+    finite = all(bool(torch.isfinite(t.grad).all())
+                 for t in (x, *p.values()))
+    first = [fingerprint(torch, t.grad) for t in (x, *p.values())]
+    for t in (x, *p.values()):
+        t.grad = None
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    repeat = first == [fingerprint(torch, t.grad) for t in (x, *p.values())]
+    want = {k: 0 for k in counters}
+    want.update(grouped_matmul=3, grouped_matmul_bwd=3 * k4.BWD_LAUNCHES)
+    weights = sum(t.numel() * t.element_size() for t in p.values())
+    ok = launches == want and finite and repeat and all(
+        c["dx"][1] <= 1.0 and c["dw"][1] <= 1.0 and c["empty_zero"]
+        for c in checks) and len(checks) == 3
+    for c in checks:
+        print(f"[train] {cfg.name} MoE layer, B4 on w {c['shape']}: dx err "
+              f"{c['dx'][0]:.3e} ({c['dx'][1]:.3f} of tol); dw of experts "
+              f"{c['experts']} ({c['rows']} rows) err {c['dw'][0]:.3e} "
+              f"({c['dw'][1]:.3f} of tol); empty expert's dw zero "
+              f"{c['empty_zero']}")
+    print(f"[train] {cfg.name} MoE layer at full width ({cfg.n_experts} "
+          f"experts top-{cfg.top_k}, d {cfg.d_model}, width {cfg.d_expert}; "
+          f"{weights / 1e9:.2f} GB of weights), {B}x{S} tokens, bf16, "
+          f"forward and backward: {wall * 1e3:.1f} ms, peak allocated "
+          f"{peak / 2**30:.2f} GiB (allocated " + ", ".join(
+              f"{k} {v / 2**30:.2f}" for k, v in held.items())
+          + f" GiB); launches grouped_matmul "
+          f"{launches['grouped_matmul']} (want 3), grouped_matmul_bwd "
+          f"{launches['grouped_matmul_bwd']} (want {3 * k4.BWD_LAUNCHES}); "
+          f"gradients finite {finite}, the two runs' gradients (the input's, "
+          f"the router's, the experts') bitwise equal {repeat} "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{cfg.name} MoE layer: launches {launches}, "
+                             f"want {want}; checks {checks}; finite "
+                             f"{finite}")
+    return dict(wall_ms=wall * 1e3, peak_bytes=peak, launches=launches,
+                checks=checks, weight_bytes=weights, repeat=repeat)
+
+
+def fingerprint(torch, t) -> tuple:
+    """A bitwise fingerprint of a tensor on the card without a copy of it:
+    its bit patterns as integers summed plain and weighted by position
+    modulo a prime (two runs' gradients that differ in any bit differ
+    here but by a vanishing chance)."""
+    bits = t.detach().contiguous().view(-1).view(
+        {2: torch.int16, 4: torch.int32}[t.element_size()])
+    out = [0, 0]
+    for i in range(0, bits.numel(), 1 << 28):        # bounded temporaries
+        b = bits[i:i + (1 << 28)].long()
+        pos = torch.arange(i, i + b.numel(), device=b.device) % 65521 + 1
+        out[0] += int(b.sum())
+        out[1] += int((b * pos).sum())
+    return tuple(out)
 
 
 def train_kernel_phase(torch, F, gen) -> tuple:
     """The train phase's kernel part, run beside the other kernel phases
-    (before the serve runs' long profiles): B5, B2 and B3 against their
-    twins, each timed.  Returns (record, B5's largest error, B3's)."""
+    (before the serve runs' long profiles): B5, B2, B3 and B4 against
+    their twins, each timed.  Returns (record, B5's largest error, B3's,
+    B4's)."""
     b5_results, b5_err, b5_timing = b5_phase(torch, F, gen)
     for case, t in b5_timing.items():
         print(f"[train] flash_attention_bwd {case}: device ms per call: "
@@ -4020,9 +4539,27 @@ def train_kernel_phase(torch, F, gen) -> tuple:
               f"{t['plain_ms']:.4f}, no PyTorch library call computes it; K3 "
               f"forward keeping the entering states {t['fwd_ms']:.4f}")
     free_device(torch, "B3 cases")
+    t0 = time.perf_counter()
+    b4_results, b4_err, b4_timing = b4_phase(torch, gen)
+    for case, t in b4_timing.items():
+        print(f"[train] grouped_matmul_bwd {case}: device ms per call, cold "
+              f"L2: dx {t['dx']['ms']:.4f} (bound {t['dx']['bound_ms']:.5f}, "
+              f"{t['dx']['bound_by']}; {t['dx']['bytes']} B, "
+              f"{t['dx']['ops']} ops), dw {t['dw']['ms']:.4f} (bound "
+              f"{t['dw']['bound_ms']:.5f}, {t['dw']['bound_by']}; "
+              f"{t['dw']['bytes']} B), together {t['ms']:.4f} against "
+              f"{t['bound_ms']:.5f} ({t['bound_ms'] / t['ms']:.3f} of it "
+              f"reached); plain twin {t['plain_ms']:.4f}; {t['library']} "
+              + ("none" if t["library_ms"] is None else
+                 f"dx {t['dx']['library_ms']:.4f}, dw "
+                 f"{t['dw']['library_ms']:.4f}"))
+    free_device(torch, "B4 cases")
+    print(f"[time] B4 cases {time.perf_counter() - t0:.1f}s")
     return dict(b5_cases=b5_results, b5_timing=b5_timing,
                 b2_cases=b2_results, b2_timing=b2_timing,
-                b3_cases=b3_results, b3_timing=b3_timing), b5_err, b3_err
+                b3_cases=b3_results, b3_timing=b3_timing,
+                b4_cases=b4_results, b4_timing=b4_timing), b5_err, b3_err, \
+        b4_err
 
 
 def train_phase(torch) -> tuple:
@@ -4031,18 +4568,28 @@ def train_phase(torch) -> tuple:
     resume) and a profiled step of each.  Returns (record, launches by
     run)."""
     f32 = {}
-    for arch, B, S in F32_TRAINS:
-        f32[arch] = train_f32_check(torch, arch, B, S)
+    for arch, B, S, smoke in F32_TRAINS:
+        t0 = time.perf_counter()
+        f32[arch] = train_f32_check(torch, arch, B, S, smoke)
         free_device(torch, f"float32 training step {arch}")
+        print(f"[time] train: float32 step {arch}"
+              f"{' smoke' if smoke else ''} {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     record = dict(f32=f32, refused=train_refusals(),
-                  refused_grad=kernel_grad_refusals(torch),
+                  k4_grad=k4_grad_route(torch),
                   k3_grad=k3_grad_route(torch), runs={})
+    record["moe_layer"] = moe_layer_check(torch)
+    free_device(torch, "MoE layer")
+    print(f"[time] train: refusals, gradient routes and the MoE layer "
+          f"{time.perf_counter() - t0:.1f}s")
     launches = {}
     for arch, steps, interval, kill_at, flags in TRAIN_RUNS:
+        t0 = time.perf_counter()
         record["runs"][arch], launches[f"train {arch}"] = train_run(
             torch, arch, steps, interval, kill_at, flags)
         record["runs"][arch]["profile"] = profile_train(torch, arch, flags)
         free_device(torch, f"profiling train {arch}")
+        print(f"[time] train {arch}: {time.perf_counter() - t0:.1f}s")
     return record, launches
 
 
@@ -4058,7 +4605,8 @@ KERNEL_NAMES = {"paged_attention": "paged_attention_split_kernel",
                 "dram_channel": "dram_channel_kernel",
                 "flash_attention_bwd": "flash_bwd_",
                 "embedding_grad_scatter": "embedding_grad_scatter_kernel",
-                "ssd_scan_bwd": "ssd_bwd_"}
+                "ssd_scan_bwd": "ssd_bwd_",
+                "grouped_matmul_bwd": "grouped_bwd_"}
 
 
 def print_profile(arch: str, prof: dict) -> None:
@@ -4217,7 +4765,8 @@ def main(argv=None) -> int:
         free_device(torch, "K5 phase")
     if "train" in phases:
         t0 = time.perf_counter()
-        train_record, b5_err, b3_err = train_kernel_phase(torch, F, gen)
+        train_record, b5_err, b3_err, b4_err = train_kernel_phase(torch, F,
+                                                                  gen)
         record.update(train_kernels_s=time.perf_counter() - t0)
     if "sim" in phases:
         t0 = time.perf_counter()
@@ -4357,7 +4906,7 @@ def main(argv=None) -> int:
             "flash_attention/flash_attention.py:27", "whisper_base", k5_err,
             k5_timing["whisper_encoder/bfloat16"]),
     ] + sim_kernel_rows(launches, sim_timing) \
-        + train_kernel_rows(launches, train_record, b5_err, b3_err)
+        + train_kernel_rows(launches, train_record, b5_err, b3_err, b4_err)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

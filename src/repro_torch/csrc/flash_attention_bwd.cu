@@ -17,7 +17,8 @@
 // p^T do and ds (from the unrounded p) before ds k and ds^T q: the
 // operands of a bf16 product; float32 rounds nothing.  `causal` keeps key
 // <= query and needs Sq == Sk; without it any Sq and Sk (whisper's
-// cross-attention).  Head dims 64 and 128.
+// cross-attention).  Head dims 16 (the MoE smoke configs: one k-step,
+// two n8 tiles a row, 48-byte padded rows), 64 and 128.
 //
 // Bound.  The five products of a (query, key) pair the mask keeps take
 // 10 D operations (q.k, do.v, p^T do, ds k, ds^T q).  qwen1.5-0.5b's
@@ -134,7 +135,7 @@ __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int H, int Sq,
                        long long rows) {
-  constexpr int G = D / 8;                   // threads a row (8 or 16)
+  constexpr int G = D / 8;                   // threads a row (2, 8 or 16)
   const long long t = (long long)blockIdx.x * kDeltaThreads + threadIdx.x;
   const long long row = t / G;
   const int part = (int)(t - row * G);
@@ -928,6 +929,8 @@ template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* o, const void* dout, void* dq, void* dk, void* dv,
              const float* lse, float* delta, Dims g, cudaStream_t s) {
+  if (D == 16)
+    return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
   if (D == 64)
     return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
   if (D == 128)

@@ -356,7 +356,7 @@ flash_attention.launches = 0
 # Backward (B5)
 # ---------------------------------------------------------------------------
 
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (16, 64, 128)
 BWD_LAUNCHES = 3          # pre-pass, dK/dV, dQ: the kernels of one call
 
 

@@ -1,8 +1,8 @@
 """MARS-sorted grouped matmul (port of ``repro/kernels/moe_dispatch/
-moe_dispatch.py``).
+moe_dispatch.py``) and its backward.
 
 ``grouped_matmul`` is the wrapper around the hand-written Hopper kernels
-``csrc/moe_dispatch.cu`` (which replace the Pallas ``_kernel`` /
+``csrc/moe_dispatch.cu`` (K4, which replace the Pallas ``_kernel`` /
 ``grouped_matmul``; the source comment there gives their bound and
 design).  ``split_plan`` picks one from the shapes and the SM count
 alone: bfloat16 operands that TMA can map take work units of (row tile,
@@ -13,9 +13,21 @@ On CUDA tensors it launches the kernel or raises — there is no fallback;
 on CPU tensors it runs ``grouped_matmul_plain``, the kernel's plain
 twin: one float32 product per row tile, cast to x's dtype.
 ``grouped_matmul_split_plain`` does the K split's arithmetic in PyTorch.
-``grouped_matmul.launches`` counts kernel launches.  The kernels have no
-backward yet: on CUDA tensors a call that autograd would differentiate
-raises (``_refuse_grad``) instead of running outside the graph.
+``grouped_matmul.launches`` counts kernel launches.
+
+Training: when x or w needs a gradient, ``grouped_matmul`` runs as a
+``torch.autograd.Function`` whose forward is the same K4 launch (or twin)
+and whose backward is ``grouped_matmul_bwd``: B4, the hand-written
+kernels of ``csrc/moe_dispatch_bwd.cu`` (dx = dout w_g^T over K4's row
+tiles, dw_g = the sum of x^T dout over expert g's tiles; the JAX trainer
+differentiates ``lax.ragged_dot``, so no Pallas kernel corresponds), on
+CUDA tensors, and ``grouped_matmul_bwd_plain`` on CPU ones.
+``bwd_plan`` cuts the work from shapes and the SM count alone, and the
+dw kernel cuts an expert with many row tiles across blocks from the
+routing it finds on the device (``expert_slabs`` says how);
+``grouped_matmul_bwd.launches`` counts B4's launches (one for dx, one for
+dw).  The twins compute in float64 for float64 inputs (for
+``gradcheck``), else in float32.
 
 The ``tile_group`` contract is the reference's: token rows sorted by
 expert, each expert's segment padded to a multiple of ``bm`` rows
@@ -119,6 +131,20 @@ def _check_shapes(x, w, tile_group, bm: int):
                          f"entries, got {tuple(tile_group.shape)}")
 
 
+def _acc_dtype(t) -> torch.dtype:
+    """The twins' accumulation dtype: float64 for float64 operands, else
+    float32 (the kernels' f32 sums)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _live_tiles(tile_group, G: int, T: int, n_tiles) -> list:
+    """``(tile, group)`` of each row tile in use (below ``n_tiles``) whose
+    group lies in [0, G), in tile order."""
+    used = T if n_tiles is None else max(0, min(int(n_tiles), T))
+    return [(i, g) for i, g in enumerate(tile_group[:used].tolist())
+            if 0 <= g < G]
+
+
 def grouped_matmul_plain(x, w, tile_group, *, bm: int = DEFAULT_BM,
                          n_tiles=None):
     """The kernel's plain twin: for each row tile in use, ``x_tile.float()
@@ -128,12 +154,11 @@ def grouped_matmul_plain(x, w, tile_group, *, bm: int = DEFAULT_BM,
     _check_shapes(x, w, tile_group, bm)
     M = x.shape[0]
     G, _, N = w.shape
+    acc = _acc_dtype(x)
     out = torch.zeros((M, N), dtype=x.dtype, device=x.device)
-    used = M // bm if n_tiles is None else min(int(n_tiles), M // bm)
-    for i, g in enumerate(tile_group[:used].tolist()):
-        if 0 <= g < G:
-            rows = slice(i * bm, (i + 1) * bm)
-            out[rows] = (x[rows].float() @ w[g].float()).to(x.dtype)
+    for i, g in _live_tiles(tile_group, G, M // bm, n_tiles):
+        rows = slice(i * bm, (i + 1) * bm)
+        out[rows] = (x[rows].to(acc) @ w[g].to(acc)).to(x.dtype)
     return out
 
 
@@ -148,15 +173,13 @@ def grouped_matmul_split_plain(x, w, tile_group, *, bm: int = DEFAULT_BM,
     M, K = x.shape
     G, _, N = w.shape
     out = torch.zeros((M, N), dtype=x.dtype, device=x.device)
-    used = M // bm if n_tiles is None else min(int(n_tiles), M // bm)
-    for i, g in enumerate(tile_group[:used].tolist()):
-        if 0 <= g < G:
-            rows = slice(i * bm, (i + 1) * bm)
-            acc = torch.zeros((bm, N), dtype=torch.float32, device=x.device)
-            for k0 in range(0, K, k_per_split):
-                ks = slice(k0, min(K, k0 + k_per_split))
-                acc = acc + x[rows, ks].float() @ w[g, ks].float()
-            out[rows] = acc.to(x.dtype)
+    for i, g in _live_tiles(tile_group, G, M // bm, n_tiles):
+        rows = slice(i * bm, (i + 1) * bm)
+        acc = torch.zeros((bm, N), dtype=torch.float32, device=x.device)
+        for k0 in range(0, K, k_per_split):
+            ks = slice(k0, min(K, k0 + k_per_split))
+            acc = acc + x[rows, ks].float() @ w[g, ks].float()
+        out[rows] = acc.to(x.dtype)
     return out
 
 
@@ -168,14 +191,15 @@ def _sm_count(index: int) -> int:
 _counters: dict = {}
 
 
-def _arrival_counters(dev, n: int) -> torch.Tensor:
-    """The K split's arrival counters on ``dev``: at least ``n`` int32
-    zeros, kept across calls (the last unit of each output tile sets its
-    counter back to 0, so calls on one stream reuse them)."""
-    buf = _counters.get(dev)
+def _arrival_counters(dev, n: int, kernel: str = "K4") -> torch.Tensor:
+    """A split's arrival counters on ``dev`` (K4's K slabs, or B4's row
+    slabs with ``kernel="B4"``): at least ``n`` int32 zeros, kept across
+    calls (the last unit of each output tile sets its counter back to 0,
+    so calls on one stream reuse them)."""
+    buf = _counters.get((kernel, dev))
     if buf is None or buf.numel() < n:
-        buf = _counters[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                           device=dev)
+        buf = _counters[(kernel, dev)] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=dev)
     return buf
 
 
@@ -247,13 +271,31 @@ def _launch(x, w, tile_group, bm: int, n_tiles):
     return out
 
 
-def _refuse_grad(*ts) -> None:
-    """Raise when autograd would differentiate a launch: the kernels run
-    outside the graph and have no backward kernel yet."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "grouped_matmul (K4) has no backward kernel B4 yet: call it "
-            "under torch.no_grad() on CUDA, or train on the CPU")
+def _forward(x, w, tile_group, bm: int, n_tiles):
+    if x.device.type == "cuda":
+        return _launch(x, w, tile_group, bm, n_tiles)
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, w, tile_group, bm=bm, n_tiles=n_tiles)
+    raise ValueError(f"grouped_matmul runs on cuda or cpu, not {x.device}")
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """K4 forward, B4 backward (the twins on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile_group, bm, n_tiles):
+        ctx.save_for_backward(x, w, tile_group, n_tiles)
+        ctx.bm = bm
+        return _forward(x, w, tile_group, bm, n_tiles)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, tile_group, n_tiles = ctx.saved_tensors
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        dx, dw = grouped_matmul_bwd(x, w, dout.contiguous(), tile_group,
+                                    bm=ctx.bm, n_tiles=n_tiles,
+                                    need_dx=need_dx, need_dw=need_dw)
+        return dx, dw, None, None, None
 
 
 def grouped_matmul(x, w, tile_group, *, bm: int = DEFAULT_BM, n_tiles=None):
@@ -265,15 +307,273 @@ def grouped_matmul(x, w, tile_group, *, bm: int = DEFAULT_BM, n_tiles=None):
     any positive multiple of 16 that divides M.
 
     CUDA tensors launch the Hopper kernel ``split_plan`` picks (x and w
-    of one dtype, float32 or bfloat16, contiguous, neither needing a
-    gradient); CPU tensors run the plain twin."""
+    of one dtype, float32 or bfloat16, contiguous); CPU tensors run the
+    plain twin.  Differentiable in x and w: with a gradient to take, the
+    backward is ``grouped_matmul_bwd`` (B4 on CUDA)."""
     _check_shapes(x, w, tile_group, bm)
-    if x.device.type == "cuda":
-        _refuse_grad(x, w)
-        return _launch(x, w, tile_group, bm, n_tiles)
-    if x.device.type == "cpu":
-        return grouped_matmul_plain(x, w, tile_group, bm=bm, n_tiles=n_tiles)
-    raise ValueError(f"grouped_matmul runs on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedMatmul.apply(x, w, tile_group, bm, n_tiles)
+    return _forward(x, w, tile_group, bm, n_tiles)
 
 
 grouped_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward (B4)
+# ---------------------------------------------------------------------------
+
+BWD_LAUNCHES = 2          # dx and dw: the kernels of a call that needs both
+MMA_TILE = 128            # dw's output tile (K rows x N columns), mma path
+MMA_DX_ROWS = 128         # rows a dx unit covers on the mma path
+DW_WALK = 4               # N tiles an mma dw block walks, given blocks
+DW_WALK_WAVES = 16        # enough (these waves of one block an SM) to walk
+CORES_TILE = 64           # dw's output tile on CUDA cores
+BWD_WAVES = 2             # waves of dw blocks the row split aims for
+SLAB_WORK = 16384         # rows x N tiles a dw block walks before a cut
+MIN_SLAB_ROWS = {"mma": 256, "cores": 64}   # rows a dw slab takes at least
+MAX_ROW_SPLIT = 32        # slabs an expert's row tiles are cut into at most
+MAX_SPLIT_BYTES = 1 << 29  # f32 partials the row split may hold
+MAX_SPLIT_GROUPS = 1024   # experts the kernel counts (kMaxSplitGroups)
+PATH_CODES_BWD = {"cores": 0, "mma": 1}
+
+
+class BwdPlan(NamedTuple):
+    """B4's kernels and cuts: ``path`` "mma" (bf16 tensor cores) or
+    "cores"; dx units of ``rows`` rows; a dw block walks ``walk`` output
+    tiles of N.  The row split, decided on the device from the routing
+    (``expert_slabs``): an expert with c live row tiles is cut into
+    ``min(max_split, c // split_tiles)`` slabs where that is 2 or more and
+    the request fits the ``slots`` partial slots (``slots`` < 2: no cut)."""
+    path: str
+    rows: int
+    walk: int
+    split_tiles: int
+    max_split: int
+    slots: int
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(M: int, K: int, N: int, G: int, bm: int, dtype,
+             sm_count: int, mma: bool = True) -> BwdPlan:
+    """B4's plan from shapes and the SM count alone (never ``n_tiles`` or
+    the routing, which only the device knows).
+
+    bfloat16 operands that are 16-byte aligned with K and N multiples of
+    8 (``mma``) take the tensor-core kernels: dx units of 128 rows (one
+    or more row tiles), dw blocks of 128 rows of K walking ``DW_WALK``
+    128-column tiles of N where the (expert, K band) pairs alone fill
+    ``DW_WALK_WAVES`` waves of the card, else one (a walk leaves a
+    skewed expert's or a merging slab's few blocks on the critical
+    path); anything else the CUDA-core kernels (dx units of up to 128
+    rows of one tile, dw blocks of one 64 x 64 tile).  The row split: a
+    slab holds at least ``split_tiles`` row tiles, the rows that spread
+    the M rows' work over ``BWD_WAVES`` waves of dw blocks, but no more
+    than ``SLAB_WORK`` rows over the walk and no fewer than
+    ``MIN_SLAB_ROWS`` (each slab adds a partial that one block sums: on
+    an H100 every cut measured at full width, an expert of 4096 rows at
+    walks of 1 and 4, cost more than it saved); an expert is cut into at most
+    ``MAX_ROW_SPLIT`` slabs and no more than there are slots; the partial
+    slots are as many as ``MAX_SPLIT_BYTES`` of f32 partials hold, and
+    no more than the slabs of that size the M rows make (none beyond
+    ``MAX_SPLIT_GROUPS`` experts)."""
+    if dtype == torch.bfloat16 and mma:
+        path, t, rows = "mma", MMA_TILE, MMA_DX_ROWS
+        many = G * -(-K // t) >= DW_WALK_WAVES * sm_count
+        walk = min(-(-N // t), DW_WALK) if many else 1
+    else:
+        path, t, rows, walk = "cores", CORES_TILE, min(bm, 128), 1
+    n_kb, n_nb = -(-K // t), -(-N // t)
+    per = n_kb * -(-n_nb // walk)            # blocks a slab takes
+    even = -(-M * per // (BWD_WAVES * sm_count))
+    split_rows = max(MIN_SLAB_ROWS[path], min(SLAB_WORK // walk, even))
+    split_tiles = max(1, split_rows // bm)
+    slots = min(MAX_SPLIT_BYTES // (n_kb * n_nb * t * t * 4),
+                M // bm // split_tiles)
+    if slots < 2 or G > MAX_SPLIT_GROUPS:
+        slots = 0
+    return BwdPlan(path, rows, walk, split_tiles,
+                   min(MAX_ROW_SPLIT, slots) if slots else 1, slots)
+
+
+def expert_slabs(tile_group, G: int, T: int, n_tiles, plan: BwdPlan):
+    """Each expert's (live tiles, slabs, first partial slot), as B4's dw
+    kernel decides them on the device: in expert order, an expert with c
+    live tiles asks for ``min(plan.max_split, c // plan.split_tiles)``
+    slabs where that is 2 or more; the request is granted while the
+    requests so far, granted or not, fit ``plan.slots`` slots (its first
+    slot is the sum of the requests before it); any other expert is one
+    slab (slot None)."""
+    counts = [0] * G
+    for _, g in _live_tiles(tile_group, G, T, n_tiles):
+        counts[g] += 1
+    out, base = [], 0
+    for c in counts:
+        req = min(plan.max_split, c // plan.split_tiles)
+        if plan.slots >= 2 and req >= 2:
+            out.append((c, req, base) if base + req <= plan.slots
+                       else (c, 1, None))
+            base += req
+        else:
+            out.append((c, 1, None))
+    return out
+
+
+def grouped_matmul_bwd_plain(x, w, dout, tile_group, *, bm: int = DEFAULT_BM,
+                             n_tiles=None, plan: BwdPlan | None = None,
+                             need_dx: bool = True, groups=None):
+    """B4's plain twin: (dx, dw) of ``grouped_matmul(x, w, tile_group)``
+    for the incoming gradient ``dout`` (M, N).  For each row tile in use
+    whose group g lies in [0, G): ``dx_tile = dout_tile @ w[g]^T`` in
+    float32, cast to x's dtype; other tiles zero (``None`` without
+    ``need_dx``).  ``dw[g]``: g's live tiles cut into the slabs the
+    kernel cuts under ``plan`` (``expert_slabs``; uncut without a plan),
+    slab s of n taking the tiles of rank [c s / n, c (s + 1) / n); each
+    slab's float32 partial sums ``x_tile^T @ dout_tile`` over its tiles in
+    tile order from zero, the partials are summed in slab order from zero
+    and cast to w's dtype once; an expert with no tile is exact zeros.
+    ``groups`` (a list of expert ids) computes only those experts' dw,
+    stacked in that order.  float64 operands are summed in float64."""
+    _check_shapes(x, w, tile_group, bm)
+    M = x.shape[0]
+    G, K, N = w.shape
+    if tuple(dout.shape) != (M, N):
+        raise ValueError(f"dout must be (M, N) = {(M, N)}; got "
+                         f"{tuple(dout.shape)}")
+    acc = _acc_dtype(x)
+    T = M // bm
+    live = _live_tiles(tile_group, G, T, n_tiles)
+    dx = None
+    if need_dx:
+        dx = torch.zeros_like(x)
+        for i, g in live:
+            rows = slice(i * bm, (i + 1) * bm)
+            dx[rows] = (dout[rows].to(acc) @ w[g].to(acc).T).to(x.dtype)
+    slabs = None if plan is None else expert_slabs(tile_group, G, T,
+                                                   n_tiles, plan)
+    groups = range(G) if groups is None else list(groups)
+    dw = torch.zeros((len(groups), K, N), dtype=w.dtype, device=x.device)
+    for j, g in enumerate(groups):
+        tiles = [i for i, e in live if e == g]
+        n = 1 if slabs is None else slabs[g][1]
+        total = torch.zeros((K, N), dtype=acc, device=x.device)
+        for s in range(n):
+            part = torch.zeros((K, N), dtype=acc, device=x.device)
+            for i in tiles[len(tiles) * s // n:len(tiles) * (s + 1) // n]:
+                rows = slice(i * bm, (i + 1) * bm)
+                part = part + x[rows].to(acc).T @ dout[rows].to(acc)
+            total = total + part
+        dw[j] = total.to(w.dtype)
+    return dx, dw
+
+
+def _bwd_library() -> ctypes.CDLL:
+    """B4's shared library (built at first use), with the C signatures
+    declared."""
+    return declare_bwd(build.load("moe_dispatch_bwd"))
+
+
+def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/moe_dispatch_bwd.cu``) with B4's C
+    signatures declared."""
+    dx, dw = lib.mars_grouped_matmul_bwd_dx, lib.mars_grouped_matmul_bwd_dw
+    if dx.argtypes is None:               # first use: declare once
+        head = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        dx.restype = dw.restype = ctypes.c_int
+        dx.argtypes = head + [ctypes.c_void_p]
+        dw.argtypes = head + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        err = lib.mars_cuda_error_string
+        err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+    return lib
+
+
+def _bwd_launch(x, w, dout, tile_group, bm: int, n_tiles, need_dx: bool,
+                need_dw: bool):
+    """Check operands and launch B4's dx and dw kernels (those wanted) on
+    the current stream."""
+    M, K = x.shape
+    G, _, N = w.shape
+    dev = x.device
+    for name, t in (("w", w), ("dout", dout), ("tile_group", tile_group)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype \
+            or dout.dtype != x.dtype:
+        raise TypeError(f"grouped_matmul_bwd kernel takes x, w and dout of "
+                        f"one dtype, float32 or bfloat16; got {x.dtype}, "
+                        f"{w.dtype} and {dout.dtype}")
+    if tile_group.dtype != torch.int32:
+        raise TypeError(f"tile_group must be int32, not {tile_group.dtype}")
+    if not all(t.is_contiguous() for t in (x, w, dout, tile_group)):
+        raise ValueError("x, w, dout and tile_group must be contiguous")
+    if n_tiles is not None:
+        if not isinstance(n_tiles, torch.Tensor) or n_tiles.numel() != 1 \
+                or n_tiles.dtype != torch.int32 or n_tiles.device != dev:
+            raise TypeError("n_tiles must be a one-element int32 tensor on "
+                            "x's device")
+    if max(M, K, N, G) > _INT_MAX:
+        raise ValueError(f"grouped_matmul_bwd kernel takes dimensions "
+                         f"below 2**31; got M={M} K={K} N={N} G={G}")
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    if M == 0:
+        return dx, None if dw is None else dw.zero_()
+    lib = _bwd_library()
+    mma = (K % 8 == 0 and N % 8 == 0
+           and all(t.data_ptr() % 16 == 0 for t in (x, w, dout)))
+    plan = bwd_plan(M, K, N, G, bm, x.dtype, _sm_count(dev.index or 0), mma)
+    code, path = _DTYPE_CODES[x.dtype], PATH_CODES_BWD[plan.path]
+    n_ptr = None if n_tiles is None else n_tiles.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def check(rc, which):
+        if rc != 0:
+            why = "unsupported" if rc == -1 \
+                else lib.mars_cuda_error_string(rc).decode()
+            raise RuntimeError(f"grouped_matmul_bwd {which} kernel launch "
+                               f"failed: rc={rc} ({why}; plan {plan})")
+        grouped_matmul_bwd.launches += 1
+    if need_dx:
+        check(lib.mars_grouped_matmul_bwd_dx(
+            code, path, dout.data_ptr(), w.data_ptr(), tile_group.data_ptr(),
+            n_ptr, dx.data_ptr(), M, K, N, G, bm, plan.rows, stream), "dx")
+    if need_dw:
+        part = counters = None
+        if plan.slots >= 2:
+            t = MMA_TILE if plan.path == "mma" else CORES_TILE
+            tiles = plan.slots * -(-K // t) * -(-N // t)
+            part = torch.empty(tiles * t * t, dtype=torch.float32,
+                               device=dev)
+            counters = _arrival_counters(dev, tiles, "B4")
+        check(lib.mars_grouped_matmul_bwd_dw(
+            code, path, x.data_ptr(), dout.data_ptr(), tile_group.data_ptr(),
+            n_ptr, dw.data_ptr(), M, K, N, G, bm, plan.walk,
+            plan.split_tiles, plan.max_split, plan.slots,
+            None if part is None else part.data_ptr(),
+            None if counters is None else counters.data_ptr(), stream), "dw")
+    return dx, dw
+
+
+
+def grouped_matmul_bwd(x, w, dout, tile_group, *, bm: int = DEFAULT_BM,
+                       n_tiles=None, need_dx: bool = True,
+                       need_dw: bool = True):
+    """(dx, dw) of ``grouped_matmul(x, w, tile_group, bm=bm,
+    n_tiles=n_tiles) == out`` for the incoming gradient ``dout`` (shaped
+    as out), dx in x's dtype and dw in w's; ``None`` for a gradient not
+    wanted.  CUDA tensors launch B4 (x, w and dout of one dtype, float32
+    or bfloat16, contiguous; one launch for dx, one for dw); CPU tensors
+    run the plain twin."""
+    _check_shapes(x, w, tile_group, bm)
+    if x.device.type == "cuda":
+        return _bwd_launch(x, w, dout, tile_group, bm, n_tiles, need_dx,
+                           need_dw)
+    if x.device.type == "cpu":
+        dx, dw = grouped_matmul_bwd_plain(x, w, dout, tile_group, bm=bm,
+                                          n_tiles=n_tiles)
+        return dx if need_dx else None, dw if need_dw else None
+    raise ValueError(f"grouped_matmul_bwd runs on cuda or cpu, not "
+                     f"{x.device}")
+
+
+grouped_matmul_bwd.launches = 0

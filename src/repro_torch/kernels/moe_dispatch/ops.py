@@ -68,6 +68,25 @@ def pad_sorted_groups(sorted_e, perm, n_groups: int, bm: int, *,
     return slot, tile_group, M_pad, n_used
 
 
+class _TakeRows(torch.autograd.Function):
+    """``x[rows]`` for distinct ``rows``, whose backward writes each
+    incoming row once into zeros (``index_copy_``).  Autograd of the
+    index would accumulate them by an ``index_put_``, which on CUDA
+    sorts the indices first."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.save_for_backward(rows)
+        ctx.n = x.shape[0]
+        return x[rows]
+
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        return g.new_zeros((ctx.n,) + g.shape[1:]).index_copy_(0, rows, g), \
+            None
+
+
 def grouped_ffn_padded(tokens, sorted_e, w_in, w_gate, w_out, *,
                        n_groups: int, act: str, bm: int):
     """Expert FFN over MARS-sorted rows ``tokens`` (A, d) of experts
@@ -83,7 +102,7 @@ def grouped_ffn_padded(tokens, sorted_e, w_in, w_gate, w_out, *,
     g = grouped_matmul(xbuf, w_gate, tile_group, bm=bm, n_tiles=n_used)
     h = layers._act(g, act) * h
     out = grouped_matmul(h, w_out, tile_group, bm=bm, n_tiles=n_used)
-    return out[slot]
+    return _TakeRows.apply(out, slot)
 
 
 def mars_moe_ffn(x, expert_idx, gates, w_in, w_gate, w_out, *,

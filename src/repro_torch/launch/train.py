@@ -18,12 +18,17 @@ gradient through them overflows the float32 global norm to inf, and the
 clip scales every update to 0 (ROADMAP.md §3).
 
 On the card the forward runs K5 (attention with no mask or a causal one),
-K2 (the sorted embedding gather) and K3 (the SSM layers' chunked scan),
-whose gradients are the kernels B5, B2 and B3.  A kernel wrapper that
-would run outside autograd raises: K4's, which has no backward kernel
-yet, and K5 at a head dim B5 does not take.  ``check_trainable`` refuses
-the MoE families on CUDA before anything is built.  There is no quiet
-switch to the plain twins; on the CPU every family trains through them.
+K2 (the sorted embedding gather), K3 (the SSM layers' chunked scan) and
+K4 (the MoE layers' grouped products), whose gradients are the kernels
+B5, B2, B3 and B4: every family trains on the card.  K5 at a head dim B5
+does not take (112, 256) raises at its first call.  ``check_trainable``
+refuses on CUDA, before anything is built, a config whose training state
+(the parameters, their gradients and the AdamW state, counted from the
+leaves' shapes and dtypes) exceeds the card's memory: the full-width
+arctic-480b, kimi-k2, starcoder2-7b, phi3-medium-14b and
+deepseek-coder-33b on an 80 GB card, which would need the parameter
+sharding the port does not have yet.  There is no quiet switch to the
+plain twins; on the CPU every family trains through them.
 
 Checkpoints go to ``--workdir``, by default ``build/train/<config>``
 under the checkout (git-ignored; the config's name tells a smoke run
@@ -52,24 +57,57 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw as optim
 from repro_torch.train.step import TrainFlags, make_train_step
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import leaves, tree_map
 
-NO_BACKWARD = ("nor does the port have the parameter sharding rules "
-               "that spread the experts over several cards")
 WORKDIR = Path(__file__).resolve().parents[3] / "build" / "train"
 
 
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise for a config whose CUDA training forward would launch K4,
-    which has no backward kernel (its wrapper raises too, but only once
-    the model is built and a batch is on the card)."""
+class StateTooLarge(RuntimeError):
+    """A config's training state does not fit the card."""
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so ``lm.init`` lays
+    the parameters out there: shapes and dtypes, no storage, no draws."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def train_state_bytes(cfg: ModelConfig, opt_cfg=None) -> int:
+    """Bytes of the training state of ``cfg``: its parameters (``lm.init``
+    on the meta device), one gradient of each parameter's shape and dtype,
+    and the optimizer's state (``optim.opt_init``; AdamW's two moments, f32
+    master copy and step by default)."""
+    params = lm.init(cfg, _MetaGenerator())
+    state = optim.opt_init(params, opt_cfg or optim.OptConfig())
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in leaves(tree))
+    return 2 * nbytes(params) + nbytes(state)
+
+
+def card_memory(device) -> int:
+    """Bytes of device memory of the card ``device`` names (raises when
+    there is no card, as ``resolve_device`` does)."""
+    return torch.cuda.get_device_properties(
+        resolve_device(device)).total_memory
+
+
+def check_trainable(cfg: ModelConfig, device, opt_cfg=None) -> None:
+    """Raise ``StateTooLarge`` for a config whose training state
+    (``train_state_bytes``) exceeds the memory of the card it would train
+    on (``card_memory``).  On the CPU nothing is refused."""
     if torch.device(device).type != "cuda":
         return
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} cannot train on CUDA yet: its forward launches K4 "
-            f"grouped_matmul (MoE layers), which has no backward kernel B4 "
-            f"({NO_BACKWARD}); train it with --device cpu")
+    need, capacity = train_state_bytes(cfg, opt_cfg), card_memory(device)
+    if need > capacity:
+        raise StateTooLarge(
+            f"{cfg.name} cannot train on {device}: its training state "
+            f"(parameters, gradients and optimizer state) takes {need} bytes "
+            f"({need / 2**30:.1f} GiB), more than the card's {capacity} "
+            f"bytes ({capacity / 2**30:.1f} GiB); the port has no parameter "
+            f"sharding yet; train its smoke config, or on the CPU")
 
 
 FRONTENDS = ("zeros", "stub")
@@ -126,10 +164,10 @@ def run(argv=None) -> dict:
     args = parse_args(argv)
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
-    check_trainable(cfg, args.device)       # before anything is built
-    dev = resolve_device(args.device)
     opt_cfg = optim.OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5))
+    check_trainable(cfg, args.device, opt_cfg)   # before anything is built
+    dev = resolve_device(args.device)
     workdir = args.workdir or WORKDIR / cfg.name
     sup = RunSupervisor(str(workdir), ckpt_interval=args.ckpt_interval)
 

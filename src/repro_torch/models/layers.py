@@ -47,6 +47,8 @@ _DRAW_ELEMS = 1 << 26
 
 
 def _fill_normal(out: torch.Tensor, gen: torch.Generator, scale: float):
+    if out.is_meta:                   # a layout only: nothing to draw
+        return
     if out.numel() <= _DRAW_ELEMS or out.dim() == 1:
         out.copy_(torch.randn(out.shape, generator=gen, dtype=torch.float32,
                               device=out.device).mul_(scale))

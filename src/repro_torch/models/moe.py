@@ -103,6 +103,29 @@ def _grouped_ffn(tokens, local_ids, w_in, w_gate, w_out, n_local: int,
                               n_groups=n_local, act=act, bm=bm)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``x.to(dtype)[src // k]`` for a permutation ``src`` of the T*k
+    rows (``inv`` its inverse), whose backward is a gather too: row t of
+    x's gradient sums the incoming rows ``inv[t*k .. t*k + k)`` in that
+    order, in x's dtype, as the reference's scatter-add does.  Autograd
+    of the index would scatter them by an accumulating ``index_put_``,
+    which on CUDA sorts the indices first."""
+
+    @staticmethod
+    def forward(ctx, x, src, inv, k, dtype):
+        ctx.save_for_backward(inv)
+        ctx.k, ctx.x_dtype = k, x.dtype
+        return x.to(dtype)[src // k if k > 1 else src]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        gx = g[inv].to(ctx.x_dtype)
+        if ctx.k > 1:
+            gx = gx.view(-1, ctx.k, gx.shape[-1]).sum(1)
+        return gx, None, None, None, None
+
+
 def _mars_dispatch_local(p, xf, cfg: ModelConfig):
     """Single-device MARS dispatch: sort assignments by expert, grouped
     matmul, unsort.  (T, d) -> ((T, d), aux)."""
@@ -111,13 +134,15 @@ def _mars_dispatch_local(p, xf, cfg: ModelConfig):
     T, d = xf.shape
     flat_e = idx.reshape(-1)                      # (T*k,)
     perm, inv, sorted_e, _ = mars_sort_by_page(flat_e, E)
-    tok_of = perm.long() // k                     # source token per slot
     cd = cfg.cdtype
-    gathered = xf[tok_of].to(cd)                  # (T*k, d) page-ordered
+    perm, inv = perm.long(), inv.long()
+    # (T*k, d) page-ordered: row j is token perm[j] // k
+    gathered = _GatherRows.apply(xf, perm, inv, k, cd)
     out_sorted = _grouped_ffn(gathered, sorted_e, p["w_in"].to(cd),
                               p["w_gate"].to(cd), p["w_out"].to(cd), E,
                               cfg.act)
-    out_flat = out_sorted[inv.long()]             # back to assignment order
+    # back to assignment order
+    out_flat = _GatherRows.apply(out_sorted, inv, perm, 1, cd)
     w = gates.reshape(-1, 1).to(cd)
     # the k weighted outputs of a token, summed in a fixed order (no
     # atomics), as the reference's scatter-add into zeros computes them

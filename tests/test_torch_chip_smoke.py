@@ -34,9 +34,13 @@ and name the reference's ``jax.lax.scan`` lines; its host twins agree
 with the oracle and with ``dram.simulate``.
 
 The ``train`` phase's host-side helpers: the launch counts a training
-step must show, B5's bound, the CUDA refusals (which need no card) and
-the kernel rows' ``replaces`` lines; on the card, B5 against its twin
-within ``B5_TOL`` and B2 bitwise against its twin on host copies."""
+step must show (the MoE smoke configs' K4 and B4 too), B5's and B4's
+bounds, the CUDA refusals for memory (which need no card), the kernel
+rows' ``replaces`` lines, B4's cases (the published widths, a skewed and
+an empty routing, the edges) and the router comparison of the float32
+MoE step; on the card, B5 against its twin within ``B5_TOL``, B2 bitwise
+against its twin on host copies, and K4 and K3 with a gradient to take
+launching their backward kernels."""
 import json
 import sys
 from pathlib import Path
@@ -463,7 +467,29 @@ def test_train_launches_wanted_per_step():
                                                counters, seq=64)
         assert one["ssd_scan_passes"] == 0
         assert one["ssd_scan_bwd"] == 2 * ssm
+        assert want["grouped_matmul"] == want["grouped_matmul_bwd"] == 0
     assert set(chip_smoke.TRAIN_KERNELS) <= set(counters)
+
+
+@pytest.mark.parametrize("arch,layers,moe", [("arctic_480b", 2, 2),
+                                             ("kimi_k2_1t_a32b", 3, 2)])
+def test_moe_smoke_launches_wanted_per_step(arch, layers, moe):
+    """The MoE smoke configs a step: K5 once a layer (d 16) and B5 three
+    times as often, K4 three times per MoE layer (kimi's first layer is
+    dense) and B4 twice as often (dx and dw), no K2 or B2 (their 128 x 64
+    tables are below the kernel's 2**22 elements), no K3."""
+    from repro_torch import configs
+    counters = chip_smoke.kernel_counters()
+    want = chip_smoke.train_launches_wanted(configs.get_smoke(arch), 4,
+                                            counters)
+    assert want["flash_attention"] == 4 * layers
+    assert want["flash_attention_bwd"] == 4 * layers * 3
+    assert want["grouped_matmul"] == 4 * 3 * moe
+    assert want["grouped_matmul_bwd"] == 4 * 3 * 2 * moe
+    assert want["gather_rows"] == want["embedding_grad_scatter"] == 0
+    assert want["ssd_scan"] == want["ssd_scan_bwd"] == 0
+    assert any(a == arch and "--smoke" in f
+               for a, _, _, _, f in chip_smoke.TRAIN_RUNS)
 
 
 def test_b5_bound_counts_the_kept_pairs():
@@ -485,11 +511,17 @@ def test_b5_bound_counts_the_kept_pairs():
     assert nc["pairs"] == 8 * 16 * 100 * 512
 
 
-def test_train_refusals_need_no_card():
-    """``launch.train`` refuses the configs whose forward launches K4 on
-    CUDA before it builds anything, with or without a card."""
+def test_train_refusals_need_no_card(monkeypatch):
+    """``launch.train`` refuses on CUDA, before it builds anything, the
+    configs whose training state exceeds the card (80 GB here, whatever
+    card there is): the full-width MoE, starcoder2, phi3 and deepseek
+    configs."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(train, "card_memory", lambda device: 80 * 10 ** 9)
     assert chip_smoke.train_refusals() == list(chip_smoke.TRAIN_REFUSED)
-    assert chip_smoke.TRAIN_REFUSED == ("arctic_480b",)
+    assert chip_smoke.TRAIN_REFUSED == (
+        "arctic_480b", "kimi_k2_1t_a32b", "starcoder2_7b",
+        "phi3_medium_14b", "deepseek_coder_33b")
 
 
 def test_train_kernel_rows_list_the_backward_kernels():
@@ -505,31 +537,37 @@ def test_train_kernel_rows_list_the_backward_kernels():
               "b2_timing": {"qwen/zipf/bfloat16": dict(t, library_ms=0.2)},
               "b2_cases": [dict(host_err=0.0), dict(host_err=0.0)],
               "b3_timing": {"mamba2_train/bfloat16": dict(
-                  t, library_ms=None, bound_by="operations")}}
+                  t, library_ms=None, bound_by="operations")},
+              "b4_timing": {"arctic_w_in/bfloat16": dict(t, library_ms=0.7)}}
     counts = {k: 0 for k in chip_smoke.kernel_counters()}
     launches = {"train qwen1_5_0_5b": dict(
         counts, flash_attention_bwd=2160, embedding_grad_scatter=30),
         "train mamba2_370m": dict(counts, embedding_grad_scatter=12,
                                   ssd_scan_bwd=2304),
+        "train arctic_480b": dict(counts, grouped_matmul=72,
+                                  grouped_matmul_bwd=144),
         "qwen1_5_0_5b": counts}
-    rows = chip_smoke.train_kernel_rows(launches, record, 3e-3, 2e-5)
+    rows = chip_smoke.train_kernel_rows(launches, record, 3e-3, 2e-5, 4e-3)
     assert [r["name"] for r in rows] == ["flash_attention_bwd",
                                          "embedding_grad_scatter",
-                                         "ssd_scan_bwd"]
+                                         "ssd_scan_bwd",
+                                         "grouped_matmul_bwd"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    heads = ["def sdpa(", "def embedding_grad_scatter(", "def ssd_chunked("]
+    heads = ["def sdpa(", "def embedding_grad_scatter(", "def ssd_chunked(",
+             "def _grouped_ffn("]
     for r, head in zip(rows, heads):
         assert keys <= set(r) and r["route"] == "cuda"
         assert (ROOT / r["source"]).is_file()
         path, line = r["replaces"].split(":")
         assert (ROOT / path).read_text().splitlines()[int(line) - 1] \
             .startswith(head)
-    assert [r["launches"] for r in rows] == [2160, 30, 2304]
-    assert [r["max_abs_err"] for r in rows] == [3e-3, 0.0, 2e-5]
-    assert [r["library_ms"] for r in rows] == [0.5, 0.2, None]
+    assert [r["launches"] for r in rows] == [2160, 30, 2304, 144]
+    assert [r["max_abs_err"] for r in rows] == [3e-3, 0.0, 2e-5, 4e-3]
+    assert [r["library_ms"] for r in rows] == [0.5, 0.2, None, 0.7]
     assert rows[0]["launches_by_path"] == {"train qwen1_5_0_5b": 2160,
                                            "train mamba2_370m": 0,
+                                           "train arctic_480b": 0,
                                            "qwen1_5_0_5b": 0}
     assert rows[2]["launches_by_path"]["train mamba2_370m"] == 2304
 
@@ -760,12 +798,125 @@ def test_b2_equals_its_twin_on_host_copies(dtype):
 
 
 @pytest.mark.cuda
-def test_kernels_without_a_backward_refuse_a_gradient_on_the_card():
-    """K4's wrapper on the card raises, without launching, for an input
-    that needs a gradient, and launches under ``no_grad``; K3's launches
-    K3, then B3 on ``backward()``."""
+def test_kernels_with_a_gradient_launch_their_backward_on_the_card():
+    """K4's wrapper on the card, for inputs that need a gradient, launches
+    K4, then B4 (dx and dw) on ``backward()``; K3's launches K3, then B3."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K3, B3 and K4 run only there")
-    assert chip_smoke.kernel_grad_refusals(torch) == ["grouped_matmul"]
+        pytest.skip("needs a CUDA card: K3, B3, K4 and B4 run only there")
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    from repro_torch.kernels.ssd_scan import ssd_scan as k3
+    assert chip_smoke.k4_grad_route(torch)["backward"] == [1,
+                                                          k4.BWD_LAUNCHES]
     got = chip_smoke.k3_grad_route(torch)
-    assert got["backward"][2] == 4
+    assert got["backward"] == [1, 2, k3.bwd_launches(2)]
+
+
+# ---- B4's cases, bound and the MoE checks' helpers --------------------------
+
+def test_b4_cases_are_the_published_expert_shapes():
+    """B4's full-width cases are arctic-480b's and kimi-k2's published
+    expert products at 8 x 512 training tokens; the smoke cases are the
+    smoke configs'; the MoE layer check is arctic's."""
+    from repro_torch import configs
+    cases = {c[0]: c for c in chip_smoke.B4_CASES}
+    arctic, kimi = configs.get("arctic_480b"), configs.get("kimi_k2_1t_a32b")
+    smoke = configs.get_smoke("arctic_480b")
+    T = 8 * 512
+    for name, cfg, K, N in (("arctic_w_in", arctic, arctic.d_model,
+                             arctic.d_expert),
+                            ("arctic_w_out", arctic, arctic.d_expert,
+                             arctic.d_model),
+                            ("kimi_w_in", kimi, kimi.d_model, kimi.d_expert),
+                            ("smoke_w_in", smoke, smoke.d_model,
+                             smoke.d_expert),
+                            ("smoke_w_out", smoke, smoke.d_expert,
+                             smoke.d_model)):
+        assert cases[name][2] == (T, cfg.top_k, cfg.n_experts, K, N)
+    assert {c[1] for c in chip_smoke.B4_CASES} == {"route", "skew",
+                                                   "skew_last", "empty",
+                                                   "edge"}
+    assert cases["arctic_skew_last"][2] == cases["arctic_w_in"][2]
+    assert chip_smoke.MOE_LAYER == ("arctic_480b", 8, 512)
+    assert ("arctic_480b", 2, 128, True) in chip_smoke.F32_TRAINS
+
+
+@pytest.mark.parametrize("kind", ["route", "skew", "skew_last", "empty"])
+def test_b4_case_routings(kind):
+    """``b4_case`` on the host at a small size: rows sorted and padded as
+    the model pads them; "skew" puts half the assignments on expert 0,
+    "skew_last" on the last expert, "empty" leaves ``B4_EMPTY`` without a row; the incoming gradient is
+    zero off the assignments' rows; ``offs`` ends each expert's padded
+    segment, a multiple of 16 rows."""
+    gen = torch.Generator("cpu").manual_seed(0)
+    c = chip_smoke.b4_case(torch, gen, kind, (64, 2, 16, 32, 24),
+                           torch.float32)
+    sizes = c["sizes"]
+    assert int(sizes.sum()) == c["A"] == 128
+    assert int(c["n_used"]) * c["bm"] == c["live_rows"]
+    if kind == "skew":
+        assert int(sizes[0]) == 64
+    if kind == "skew_last":
+        assert int(sizes[-1]) == 64
+    if kind == "empty":
+        assert all(int(sizes[g]) == 0 for g in chip_smoke.B4_EMPTY)
+    off = torch.ones(c["x"].shape[0], dtype=torch.bool)
+    off[(c["dout"] != 0).any(1)] = False
+    assert int((~off).sum()) == 128
+    ends = c["offs"].tolist()
+    assert ends[-1] == c["live_rows"] and all(e % 16 == 0 for e in ends)
+    assert [b - a for a, b in zip([0] + ends, ends)] == [
+        -(-int(n) // 16) * 16 for n in sizes]
+
+
+def test_b4_bound_at_arctic_w_in():
+    """arctic's w_in dw writes every expert's 7168 x 4864 bf16 matrix
+    (8.93 GB: 2.66 ms at 3.35 TB/s) and its dx reads the used experts'
+    as much; 0.57 TFLOP each take 0.58 ms: both bound by bytes."""
+    M, K, N, G = 640 * 16, 7168, 4864, 128
+    c = dict(x=torch.empty(M, K, dtype=torch.bfloat16, device="meta"),
+             w=torch.empty(G, K, N, dtype=torch.bfloat16, device="meta"),
+             live_rows=9600, used_groups=G, A=8192)
+    dw = chip_smoke.b4_bound(c, "dw")
+    dx = chip_smoke.b4_bound(c, "dx")
+    assert dw["bytes"] == (9600 * (K + N) + G * K * N) * 2
+    assert dx["bytes"] == (9600 * N + G * K * N + M * K) * 2
+    assert dw["ops"] == dx["ops"] == 2 * 8192 * K * N
+    assert dw["bound_by"] == dx["bound_by"] == "bytes"
+    assert G * K * N * 2 / 3.35e12 * 1e3 == pytest.approx(2.66, abs=0.01)
+    assert dw["bound_ms"] == pytest.approx(dw["bytes"] / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("gap,ok", [(1e-7, True), (1e-3, False)])
+def test_router_agreement_accepts_only_ties(gap, ok):
+    """The float32 MoE step's router check: equal picks pass; a token
+    whose picks differ passes only at a top-k gap below ``ROUTER_TIE``."""
+    idx = torch.tensor([[0, 1], [2, 3], [4, 5]])
+    gaps = torch.tensor([0.1, gap, 0.2])
+    other = idx.clone()
+    other[1] = torch.tensor([3, 6])
+    same = chip_smoke.router_agreement(
+        {"card": [(idx, gaps)], "host": [(idx.flip(1), gaps)],
+         "float64": [(idx, gaps)]})
+    assert same["ok"] and same["differ"] == 0
+    got = chip_smoke.router_agreement(
+        {"card": [(idx, gaps)], "host": [(other, gaps)],
+         "float64": [(idx, gaps)]})
+    assert got["ok"] == ok and got["differ"] == 1
+    assert got["tie_gap"] == pytest.approx(gap)
+
+
+def test_fingerprint_sees_one_bit():
+    """The MoE layer check's bitwise fingerprint: equal for a copy, and
+    different when one element moves by one bf16 spacing or one float32
+    bit, at any position."""
+    g = torch.Generator().manual_seed(6)
+    for dtype in (torch.bfloat16, torch.float32):
+        a = torch.randn(4099, generator=g).to(dtype)
+        assert chip_smoke.fingerprint(torch, a) == \
+            chip_smoke.fingerprint(torch, a.clone())
+        for i in (0, 2048, 4098):
+            b = a.clone()
+            b.view(torch.int16 if dtype == torch.bfloat16
+                   else torch.int32)[i] += 1
+            assert chip_smoke.fingerprint(torch, b) != \
+                chip_smoke.fingerprint(torch, a)

@@ -282,9 +282,12 @@ def test_split_plan_gives_wgmma_only_its_head_dims(D):
 # torch autograd of the forward twin, float32: the same f32 arithmetic in
 # another order (the twin's explicit formulas against autograd's chain),
 # so 2e-5, the forward's float32 tolerance.  The cases: causal, and no
-# mask with fewer and more queries than keys, at head dims 16 and 64.
+# mask with fewer and more queries than keys, at head dims 16 and 64;
+# and the MoE smoke configs' attention (4 heads of 16, causal), which
+# trains through B5 at d 16 on the card.
 BWD_CASES = [(2, 40, 40, 3, 16, True), (2, 130, 130, 2, 64, True),
-             (2, 24, 70, 3, 64, False), (1, 70, 24, 2, 16, False)]
+             (2, 24, 70, 3, 64, False), (1, 70, 24, 2, 16, False),
+             (2, 96, 96, 4, 16, True)]
 
 
 def _bwd_inputs(B, Sq, Sk, H, D, seed=3):
@@ -365,16 +368,16 @@ def test_bwd_kernel_wrapper_never_falls_back():
         tfa._bwd_launch(*(q.half(),) * 5, False)
     with pytest.raises(TypeError, match="one dtype"):
         tfa._bwd_launch(q, q, q, q, q.bfloat16(), False)
-    q16 = q[..., :16].contiguous()
+    q112 = torch.zeros(1, 4, 2, 112)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa._bwd_launch(q16, q16, q16, q16, q16, False)
+        tfa._bwd_launch(q112, q112, q112, q112, q112, False)
     with pytest.raises(ValueError, match="contiguous"):
         tfa._bwd_launch(q, q, q, q, q.transpose(1, 2).contiguous()
                         .transpose(1, 2), False)
     with pytest.raises(ValueError, match="shaped as q"):
         tfa._bwd_launch(q, q, q, q[:, :2].contiguous(), q, False)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa._check_bwd(q16)
+        tfa._check_bwd(q112)
     with pytest.raises(ValueError, match="log-sum-exp"):
         tfa._bwd_launch(q, q, q, q, q, False)
     lse = torch.zeros(1, 2, 4)

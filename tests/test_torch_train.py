@@ -7,9 +7,10 @@ the reference's, AdamW and Adafactor, one and two microbatches (loss,
 parameters, optimizer state); ``launch.train.main`` against the
 reference's ``main`` on the same argv (the port starting from the
 reference's init); the reference's loss-decrease check for every arch
-(``tests/test_arch_smoke.py:36``); and the CUDA refusals of
-``launch.train.check_trainable`` (the MoE families: K4 has no backward
-kernel).
+(``tests/test_arch_smoke.py:36``); ``launch.train.train_state_bytes``
+against the bytes of the reference's parameter and optimizer trees; the
+CUDA refusals of ``launch.train.check_trainable`` (a training state
+larger than the card); and K4 under autograd reaching B4's twin.
 
 Tolerances (float32: the same arithmetic in another order and library):
 the loss 1e-5 relative; each gradient leaf 1e-4 of its largest value
@@ -244,42 +245,88 @@ def test_train_step_decreases_loss(arch):
     assert l1 < l0, (l0, l1)
 
 
-# ---- CUDA refusals ---------------------------------------------------------
-# the configs whose CUDA training forward would launch a kernel with no
-# backward kernel: K4 (MoE layers); K3's backward is B3
-# (tests/test_torch_ssd_scan_bwd.py)
-NO_BACKWARD = {"arctic_480b", "kimi_k2_1t_a32b"}
+# ---- CUDA refusals ----------------------------------------------------------
+# On an 80 GB card: the full-width configs whose parameters, gradients and
+# AdamW state (16 bytes a parameter in bf16) exceed it; every smoke config
+# and the other full-width ones (paligemma-3b's 40 GB the largest) fit.
+CARD_BYTES = 80 * 10 ** 9
+TOO_LARGE = {"arctic_480b", "kimi_k2_1t_a32b", "starcoder2_7b",
+             "phi3_medium_14b", "deepseek_coder_33b"}
+
+
+def _tree_bytes(tree) -> int:
+    return sum(int(np.prod(x.shape)) * np.dtype(x.dtype).itemsize
+               for x in jax.tree.leaves(tree))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_check_trainable_refuses_kernels_without_a_backward(arch):
+def test_train_state_bytes_equal_the_reference_trees(arch):
+    """``train_state_bytes`` (the port's init and AdamW state on the meta
+    device) equals, for the full-width and the smoke config, the bytes of
+    the reference's ``lm.init`` tree under ``jax.eval_shape`` twice (the
+    parameters and their gradients) plus its ``opt_init`` state."""
+    for jc, tc in ((jconfigs.get(arch), tconfigs.get(arch)),
+                   (jconfigs.get_smoke(arch), tconfigs.get_smoke(arch))):
+        params = jax.eval_shape(lambda k: jlm.init(jc, k).params,
+                                jax.random.key(0))
+        state = jax.eval_shape(
+            lambda p: joptim.opt_init(p, joptim.OptConfig()), params)
+        assert ttrain.train_state_bytes(tc) == \
+            2 * _tree_bytes(params) + _tree_bytes(state), tc.name
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_check_trainable_refuses_by_memory(arch, monkeypatch):
     """``check_trainable`` refuses on CUDA, before anything is built,
-    exactly the configs with MoE layers, at full width and in their smoke
-    variants; the SSM and hybrid families train through K3 and B3; the
-    CPU trains all.  (K5 at a head dim outside B5's is refused by
-    ``flash_attention`` itself, at its first call.)"""
-    for cfg in (tconfigs.get(arch), tconfigs.get_smoke(arch)):
+    exactly the configs whose training state exceeds the card (80 GB: the
+    card's memory monkeypatched), with both numbers in the message: the
+    full-width MoE, starcoder2, phi3 and deepseek configs; no smoke
+    config; on the CPU nothing (not even against a card of 1 byte)."""
+    for cfg, full in ((tconfigs.get(arch), True),
+                      (tconfigs.get_smoke(arch), False)):
+        monkeypatch.setattr(ttrain, "card_memory", lambda device: 1)
         ttrain.check_trainable(cfg, "cpu")
-        if arch in NO_BACKWARD:
-            with pytest.raises(NotImplementedError, match="K4.*B4"):
+        monkeypatch.setattr(ttrain, "card_memory",
+                            lambda device: CARD_BYTES)
+        need = ttrain.train_state_bytes(cfg)
+        if full and arch in TOO_LARGE:
+            with pytest.raises(ttrain.StateTooLarge,
+                               match=f"{need} bytes.*{CARD_BYTES} bytes"):
                 ttrain.check_trainable(cfg, "cuda")
         else:
+            assert need <= CARD_BYTES
             ttrain.check_trainable(cfg, "cuda")
 
 
-@pytest.mark.parametrize("kernel", ["moe_dispatch"])
-def test_kernels_without_a_backward_refuse_a_gradient(kernel):
-    """K4's wrapper refuses, on CUDA, a call that autograd would
-    differentiate (the kernel runs outside the graph): ``_refuse_grad``
-    raises when grad mode is on and an input needs a gradient, and lets
-    a call under ``torch.no_grad()`` or with no such input through."""
-    from repro_torch.kernels.moe_dispatch import moe_dispatch as mod
-    a, b = torch.zeros(3), torch.zeros(3, requires_grad=True)
-    mod._refuse_grad(a, a)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        mod._refuse_grad(a, b)
+def test_k4_under_autograd_routes_to_b4s_twin(monkeypatch):
+    """On the CPU, K4 with inputs that need a gradient runs its autograd
+    Function: the forward twin's values, and ``backward()`` reaches
+    ``grouped_matmul_bwd`` once (B4's entry point; its twin here), whose
+    dx and dw x and w receive, bitwise; without a gradient to take, the
+    call stays outside autograd."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    rng = np.random.default_rng(2)
+    tg = torch.tensor([0, 1, 1], dtype=torch.int32)
+    x, w = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((48, 24), (2, 24, 40)))
+    calls = []
+    bwd = k4.grouped_matmul_bwd
+
+    def counted(*a, **kw):
+        calls.append(kw)
+        return bwd(*a, **kw)
+    monkeypatch.setattr(k4, "grouped_matmul_bwd", counted)
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    y = k4.grouped_matmul(*leaves, tg, bm=16)
+    assert y.grad_fn is not None
+    assert torch.equal(y.detach(), k4.grouped_matmul_plain(x, w, tg, bm=16))
+    dy = torch.ones_like(y)
+    y.backward(dy)
+    assert len(calls) == 1 and calls[0]["bm"] == 16
+    want = k4.grouped_matmul_bwd_plain(x, w, dy, tg, bm=16)
+    assert all(torch.equal(t.grad, g) for t, g in zip(leaves, want))
     with torch.no_grad():
-        mod._refuse_grad(a, b)
+        assert k4.grouped_matmul(*leaves, tg, bm=16).grad_fn is None
 
 
 def test_default_workdir_is_per_config_in_the_checkout(monkeypatch):
