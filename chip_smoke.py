@@ -227,13 +227,17 @@ Phases (any failure exits non-zero and prints no result):
           training w_in and w_out and kimi-k2's w_in at their published
           widths, 8 x 512 tokens routed and padded as the model does; the
           smoke configs' products; half the rows on the first expert,
-          and at arctic's w_in on the last; experts with no row; n_tiles
-          below the tile count at bm 32 and 128, a group out of range, K and N not multiples of 8; bf16, and
+          and at arctic's w_in on the last; 24 experts of about 340 rows
+          each, more than one dx chunk; arctic's w_in with no live tile;
+          experts with no row; n_tiles below the tile count at bm 32 and
+          128, a group out of range, K and N not multiples of 8; bf16, and
           float32 where listed) against its twin on the card cutting the
           slabs the kernel cuts (``B4_TOL``: in bf16 one bf16 spacing),
-          two calls bitwise equal, dead tiles' dx and empty experts' dw
-          exactly 0, dx and dw timed apart with a cold L2 beside their
-          bounds, the twin and ``torch._grouped_mm``.  After the
+          the tensor-core path's work order (its prologue's tile lists,
+          experts heaviest first, dx items and dw units) against the
+          host's ``bwd_work``, two calls bitwise equal, dead tiles' dx and
+          empty experts' dw exactly 0, dx and dw timed apart with a cold
+          L2 beside their bounds, the twin and ``torch._grouped_mm``.  After the
           dense runs: one float32 step of qwen1.5-0.5b and one of
           mamba2-370m at full width, every layer (batch 2 x 128; two
           chunks a layer; ``F32_TRAINS``), the loss on the card against
@@ -266,7 +270,8 @@ Phases (any failure exits non-zero and prints no result):
           a step (tables of at least 2**22 elements: not the smokes'), K3
           once per SSM layer a step (mamba2 48, hymba 32) with its two
           passes each, B3 three times as often, K4 three times per MoE
-          layer a step and B4 twice as often; the same run with a
+          layer a step and B4 ``bwd_launches`` as often (bf16: the
+          prologue, dx and dw); the same run with a
           checkpoint every 4 steps, killed after step 7 and resumed with
           ``--resume`` (writing no further checkpoint) must end at the
           uninterrupted last loss within rtol 1e-4; prints step ms, tokens/s and peak
@@ -3663,8 +3668,12 @@ def time_b3(torch, k3, ins, dy, ds, chunk: int, saved, dtype: str,
 # tile -> group map with n_tiles below the tile count, groups unsorted or
 # out of [0, G), bm 32 and 128, K and N not multiples of 8 (the CUDA-core
 # kernels in bf16), the incoming gradient drawn on every row (dead tiles'
-# zeros are the kernel's own).  (M, K, N, G, bm, groups, n_tiles) for "edge", else (T,
-# k, E, K, N).
+# zeros are the kernel's own); "write_only": arctic's w_in routing with
+# n_tiles 0, so every dx row and every dw tile is zero (each kernel's
+# store path alone).  "rows_over_chunk" (24 experts, top-2 of 4096
+# tokens) gives each expert about 340 rows: more than one of dx's row
+# chunks, and not a multiple of one.  (M, K, N, G, bm, groups, n_tiles)
+# for "edge", else (T, k, E, K, N).
 B4_CASES = (
     ("arctic_w_in", "route", (4096, 2, 128, 7168, 4864),
      ("bfloat16", "float32")),
@@ -3676,6 +3685,8 @@ B4_CASES = (
      ("bfloat16", "float32")),
     ("arctic_skew_last", "skew_last", (4096, 2, 128, 7168, 4864),
      ("bfloat16",)),
+    ("rows_over_chunk", "route", (4096, 2, 24, 2048, 2048), ("bfloat16",)),
+    ("write_only", "write_only", (4096, 2, 128, 7168, 4864), ("bfloat16",)),
     ("empty_experts", "empty", (512, 2, 16, 512, 384),
      ("bfloat16", "float32")),
     ("n_tiles_bm32", "edge", (256, 256, 264, 4, 32, (0, 0, 1, 2, 3, 3, 1, 0),
@@ -3694,6 +3705,8 @@ B4_EMPTY = (3, 7, 8, 9, 10, 11)
 # a rounding midpoint lands one bf16 spacing apart, at most 2**-7 |want|.
 B4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
 B4_EXPERTS_A_CHUNK = 16            # experts the twin's dw checks at once
+B4_WORK_WORDS = {None: "none (CUDA cores)", True: "as the host's",
+                 False: "DIFFERS from the host's"}
 
 
 def b4_case(torch, gen, kind: str, spec, dtype):
@@ -3741,6 +3754,8 @@ def b4_case(torch, gen, kind: str, spec, dtype):
     for e in range(E):
         w[e] = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
     sizes = torch.bincount(sorted_e, minlength=E)
+    if kind == "write_only":
+        n_used, sizes, A = torch.zeros_like(n_used), torch.zeros_like(sizes), 0
     padded = (sizes + SERVE_BM - 1) // SERVE_BM * SERVE_BM
     return dict(x=x, w=w, dout=dout, tg=tg, bm=SERVE_BM, n_used=n_used,
                 sizes=sizes, offs=torch.cumsum(padded, 0).to(torch.int32),
@@ -3750,7 +3765,8 @@ def b4_case(torch, gen, kind: str, spec, dtype):
 
 def b4_check(torch, k4, c, dtype: str) -> dict:
     """B4 (``grouped_matmul_bwd``) twice on the same operands, bitwise
-    equal; dx in full and dw expert by expert (``B4_EXPERTS_A_CHUNK`` at a
+    equal, and each gradient alone (``need_dx`` / ``need_dw``) bitwise
+    the same; dx in full and dw expert by expert (``B4_EXPERTS_A_CHUNK`` at a
     time) against the twin on the card cutting the kernel's slabs (the
     plan's ``expert_slabs``), within ``B4_TOL``; dead tiles' dx rows and empty experts' dw exactly
     0."""
@@ -3761,11 +3777,20 @@ def b4_check(torch, k4, c, dtype: str) -> dict:
     plan = k4.bwd_plan(M, K, N, G, bm, x.dtype, torch.cuda
                        .get_device_properties(0).multi_processor_count,
                        K % 8 == 0 and N % 8 == 0)
+    work_ok = None
+    if plan.path == "tma":
+        work_ok = b4_work_check(torch, k4, tg, G, n, M, K, N, bm)
     dx, dw = k4.grouped_matmul_bwd(x, w, dout, tg, bm=bm, n_tiles=n)
     dx2, dw2 = k4.grouped_matmul_bwd(x, w, dout, tg, bm=bm, n_tiles=n)
     torch.cuda.synchronize()
     bitwise = torch.equal(dx, dx2) and torch.equal(dw, dw2)
     del dx2, dw2
+    # each gradient alone (the prologue then dx, or then dw, with nothing
+    # between them): bitwise the same
+    alone = torch.equal(k4.grouped_matmul_bwd(
+        x, w, dout, tg, bm=bm, n_tiles=n, need_dw=False)[0], dx)
+    alone = torch.equal(k4.grouped_matmul_bwd(
+        x, w, dout, tg, bm=bm, n_tiles=n, need_dx=False)[1], dw) and alone
     want_dx, _ = k4.grouped_matmul_bwd_plain(x, w, dout, tg, bm=bm,
                                              n_tiles=n, groups=[])
     ex = bwd_err(dx, want_dx, B4_TOL[dtype])
@@ -3791,26 +3816,42 @@ def b4_check(torch, k4, c, dtype: str) -> dict:
     zero_dw = all(bool((dw[g] == 0).all()) for g in empty)
     finite = bool(torch.isfinite(dx).all()) and \
         bool(torch.isfinite(dw).all())
-    ok = bitwise and ex[1] <= 1.0 and ew[1] <= 1.0 and zero_dx \
+    ok = bitwise and alone and ex[1] <= 1.0 and ew[1] <= 1.0 and zero_dx \
         and zero_dw and finite and dx.dtype == x.dtype \
-        and dw.dtype == w.dtype
+        and dw.dtype == w.dtype and work_ok is not False
     return dict(dx_err=ex[0], dx_over_tol=ex[1], dw_err=ew[0],
-                dw_over_tol=ew[1], bitwise=bitwise, dead_dx_zero=zero_dx,
+                dw_over_tol=ew[1], bitwise=bitwise, alone=alone,
+                dead_dx_zero=zero_dx,
                 empty_experts=empty, empty_dw_zero=zero_dw, plan=plan._asdict(),
-                ok=ok, err=max(ex[0], ew[0]))
+                work_order=work_ok, ok=ok, err=max(ex[0], ew[0]))
+
+
+def b4_work_check(torch, k4, tg, G, n, M, K, N, bm) -> bool:
+    """The tensor-core path's prologue on the card (``bwd_work_device``)
+    against the host's ``work_buffer(bwd_work(...))``: the live tiles'
+    lists, the offsets, the heaviest-first order, the dx and dw prefix
+    sums and every dx item's record equal."""
+    T = M // bm
+    dev = k4.bwd_work_device(tg, G, n, M, K, N, bm).tolist()
+    host = k4.work_buffer(k4.bwd_work(tg.cpu(), G, None if n is None
+                                      else n.cpu(), K, N, bm), T, K, bm)
+    live = sum(1 for v in host[:T] if v >= 0)
+    heads, rec = T + 4 * G + 3, k4.rec_offset(T, G)
+    return (dev[:live] == host[:live] and dev[T:heads] == host[T:heads]
+            and dev[rec:len(host)] == host[rec:])
 
 
 def b4_library(torch, c):
     """One PyTorch call each for dx and dw on B4's own padded rows:
-    ``torch._grouped_mm`` (bf16, the experts' padded segment ends as
-    ``offs``: its 2-D by 2-D form needs every segment's rows to be a
-    multiple of 16 bytes, which the unpadded rows are not, and a device
-    assertion there would end the process): dx = dout @ w_g^T, dw_g =
-    x^T dout over g's segment.  Returns ({"dx": fn, "dw": fn}, note); None
-    where this torch lacks it or refuses the operands (said in the
-    note)."""
-    if c["offs"] is None or c["x"].dtype != torch.bfloat16 \
-            or not hasattr(torch, "_grouped_mm"):
+    ``torch._grouped_mm`` (bf16 or float32, which it also takes on an
+    H100, the experts' padded segment ends as ``offs``: its 2-D by 2-D
+    form needs every segment's rows to be a multiple of 16 bytes, which
+    the unpadded rows are not, and a device assertion there would end the
+    process): dx = dout @ w_g^T, dw_g = x^T dout over g's segment.
+    Returns ({"dx": fn, "dw": fn}, note); None for a case with no
+    segments (an edge case's tile map) or where this torch lacks it or
+    refuses the operands (said in the note)."""
+    if c["offs"] is None or not hasattr(torch, "_grouped_mm"):
         return None, "none: no grouped library call for these operands"
     x, dout, w, offs = c["x"], c["dout"], c["w"], c["offs"]
     xt = x.t().contiguous()
@@ -3902,6 +3943,8 @@ def b4_phase(torch, gen):
                   f"{r['dw_err']:.3e} ({r['dw_over_tol']:.3f} of tol) (tol "
                   f"atol*max|want| + rtol|want|, (atol, rtol)={B4_TOL[dtype]})"
                   f"; two calls {'bitwise equal' if r['bitwise'] else 'DIFFER'}"
+                  f", each gradient alone {'the same' if r['alone'] else 'DIFFERS'}"
+                  f"; work order {B4_WORK_WORDS[r['work_order']]}"
                   f"; dead tiles' dx zero {r['dead_dx_zero']}; empty experts "
                   f"{len(r['empty_experts'])}, dw zero {r['empty_dw_zero']} "
                   f"{'ok' if r['ok'] else 'MISMATCH'}")
@@ -4129,7 +4172,7 @@ def train_launches_wanted(cfg, steps: int, counters: dict,
     least 2**22 elements); K3 once per SSM layer a step (its two passes
     each when ``seq`` is more than one chunk) and B3 ``bwd_launches``
     times as often; K4 three times per MoE layer a step and B4 its
-    ``BWD_LAUNCHES`` as often."""
+    ``bwd_launches`` (for the config's dtype) as often."""
     from repro_torch.kernels.flash_attention.flash_attention import \
         BWD_LAUNCHES
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
@@ -4147,7 +4190,7 @@ def train_launches_wanted(cfg, steps: int, counters: dict,
                 ssd_scan=ssm, ssd_scan_passes=2 * ssm if chunks > 1 else 0,
                 ssd_scan_bwd=bwd_launches(chunks) * ssm,
                 grouped_matmul=3 * moe,
-                grouped_matmul_bwd=3 * k4.BWD_LAUNCHES * moe)
+                grouped_matmul_bwd=3 * k4.bwd_launches(cfg.cdtype) * moe)
     return want
 
 
@@ -4343,7 +4386,7 @@ def k3_grad_route(torch) -> dict:
 def k4_grad_route(torch) -> dict:
     """K4 called on the card with inputs that need a gradient (bf16; one
     expert over two row tiles, another over one) launches K4 once, then
-    B4 on ``backward()`` (dx and dw: ``BWD_LAUNCHES``); the gradients
+    B4 on ``backward()`` (the prologue, dx and dw: ``bwd_launches``); the gradients
     agree with the twin's on the same card within ``B4_TOL``.  The counts
     are put back."""
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
@@ -4368,7 +4411,7 @@ def k4_grad_route(torch) -> dict:
                                        bm=16)
     errs = [bwd_err(g, wt, B4_TOL["bfloat16"])
             for g, wt in zip((x.grad, w.grad), want)]
-    want_fwd, want_all = [1, 0], [1, k4.BWD_LAUNCHES]
+    want_fwd, want_all = [1, 0], [1, k4.bwd_launches(torch.bfloat16)]
     ok = fwd == want_fwd and after == want_all and all(
         e[1] <= 1.0 for e in errs)
     print(f"[train] grouped_matmul with inputs that need a gradient on CUDA: "
@@ -4460,7 +4503,8 @@ def moe_layer_check(torch) -> dict:
     peak = torch.cuda.max_memory_allocated()
     repeat = first == [fingerprint(torch, t.grad) for t in (x, *p.values())]
     want = {k: 0 for k in counters}
-    want.update(grouped_matmul=3, grouped_matmul_bwd=3 * k4.BWD_LAUNCHES)
+    nb4 = 3 * k4.bwd_launches(cfg.cdtype)
+    want.update(grouped_matmul=3, grouped_matmul_bwd=nb4)
     weights = sum(t.numel() * t.element_size() for t in p.values())
     ok = launches == want and finite and repeat and all(
         c["dx"][1] <= 1.0 and c["dw"][1] <= 1.0 and c["empty_zero"]
@@ -4479,7 +4523,7 @@ def moe_layer_check(torch) -> dict:
               f"{k} {v / 2**30:.2f}" for k, v in held.items())
           + f" GiB); launches grouped_matmul "
           f"{launches['grouped_matmul']} (want 3), grouped_matmul_bwd "
-          f"{launches['grouped_matmul_bwd']} (want {3 * k4.BWD_LAUNCHES}); "
+          f"{launches['grouped_matmul_bwd']} (want {nb4}); "
           f"gradients finite {finite}, the two runs' gradients (the input's, "
           f"the router's, the experts') bitwise equal {repeat} "
           f"{'ok' if ok else 'MISMATCH'}")

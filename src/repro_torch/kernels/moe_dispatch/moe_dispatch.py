@@ -22,12 +22,17 @@ kernels of ``csrc/moe_dispatch_bwd.cu`` (dx = dout w_g^T over K4's row
 tiles, dw_g = the sum of x^T dout over expert g's tiles; the JAX trainer
 differentiates ``lax.ragged_dot``, so no Pallas kernel corresponds), on
 CUDA tensors, and ``grouped_matmul_bwd_plain`` on CPU ones.
-``bwd_plan`` cuts the work from shapes and the SM count alone, and the
-dw kernel cuts an expert with many row tiles across blocks from the
-routing it finds on the device (``expert_slabs`` says how);
-``grouped_matmul_bwd.launches`` counts B4's launches (one for dx, one for
-dw).  The twins compute in float64 for float64 inputs (for
-``gradcheck``), else in float32.
+``bwd_plan`` picks the kernels from shapes and the SM count alone.  On
+the bf16 tensor-core path a prologue launch builds, from the routing on
+the device, each expert's tile list and the experts heaviest first with
+their dx items and dw units (``bwd_work`` is its host mirror), which
+persistent dx and dw kernels walk; on CUDA cores the dw kernel cuts an
+expert with many row tiles across blocks from the routing it finds on
+the device (``expert_slabs`` says how).  ``grouped_matmul_bwd.launches``
+counts B4's launches (``bwd_launches``: three a call that needs both
+gradients on the tensor-core path, two on CUDA cores).  The twins
+compute in float64 for float64 inputs (for ``gradcheck``), else in
+float32.
 
 The ``tile_group`` contract is the reference's: token rows sorted by
 expert, each expert's segment padded to a multiple of ``bm`` rows
@@ -323,31 +328,50 @@ grouped_matmul.launches = 0
 # Backward (B4)
 # ---------------------------------------------------------------------------
 
-BWD_LAUNCHES = 2          # dx and dw: the kernels of a call that needs both
-MMA_TILE = 128            # dw's output tile (K rows x N columns), mma path
-MMA_DX_ROWS = 128         # rows a dx unit covers on the mma path
-DW_WALK = 4               # N tiles an mma dw block walks, given blocks
-DW_WALK_WAVES = 16        # enough (these waves of one block an SM) to walk
+# launches of a call that needs dx and dw: the tensor-core path's lists,
+# dx and dw; the CUDA cores' dx and dw (``bwd_launches``)
+BWD_LAUNCHES = {"tma": 3, "cores": 2}
+PATH_CODES_BWD = {"cores": 0, "tma": 1}
+# the tensor-core kernels' geometry (csrc/moe_dispatch_bwd.cu, namespace
+# tc): a dx item is (expert, TC_DX_BAND rows of K, up to TC_DX_CHUNK of its
+# rows); a dw unit is (expert, TC_DW_TILE rows of K, a run of
+# TC_DW_TILE-column output tiles: all of N for an expert of at most
+# TC_DW_X_ROWS rows, whose x band stays in shared memory, else at most
+# TC_DW_UNIT_ROWS rows x tiles); the prologue lists at most TC_MAX_GROUPS
+# experts
+TC_DX_BAND = 256
+TC_DX_CHUNK = 128
+TC_DW_TILE = 128
+TC_DW_X_ROWS = 384
+TC_DW_UNIT_ROWS = 8192
+TC_MAX_GROUPS = 4096
 CORES_TILE = 64           # dw's output tile on CUDA cores
 BWD_WAVES = 2             # waves of dw blocks the row split aims for
-SLAB_WORK = 16384         # rows x N tiles a dw block walks before a cut
-MIN_SLAB_ROWS = {"mma": 256, "cores": 64}   # rows a dw slab takes at least
+SLAB_WORK = 16384         # rows a CUDA-core dw slab takes at most
+MIN_SLAB_ROWS = 64        # rows a CUDA-core dw slab takes at least
 MAX_ROW_SPLIT = 32        # slabs an expert's row tiles are cut into at most
 MAX_SPLIT_BYTES = 1 << 29  # f32 partials the row split may hold
 MAX_SPLIT_GROUPS = 1024   # experts the kernel counts (kMaxSplitGroups)
-PATH_CODES_BWD = {"cores": 0, "mma": 1}
+
+
+def bwd_launches(dtype) -> int:
+    """B4's launches for a call of a model's training step that needs dx
+    and dw: bfloat16 takes the tensor-core path (the prologue's lists, dx,
+    dw), float32 the CUDA cores (dx, dw)."""
+    return BWD_LAUNCHES["tma" if dtype == torch.bfloat16 else "cores"]
 
 
 class BwdPlan(NamedTuple):
-    """B4's kernels and cuts: ``path`` "mma" (bf16 tensor cores) or
-    "cores"; dx units of ``rows`` rows; a dw block walks ``walk`` output
-    tiles of N.  The row split, decided on the device from the routing
-    (``expert_slabs``): an expert with c live row tiles is cut into
-    ``min(max_split, c // split_tiles)`` slabs where that is 2 or more and
-    the request fits the ``slots`` partial slots (``slots`` < 2: no cut)."""
+    """B4's kernels and cuts: ``path`` "tma" (bf16 tensor cores fed by
+    TMA, persistent blocks over the work order the prologue builds on the
+    device) or "cores"; ``rows``: the rows of a dx item (``TC_DX_CHUNK``)
+    or unit (cores).  The CUDA cores' row split, decided on the device
+    from the routing (``expert_slabs``): an expert with c live row tiles
+    is cut into ``min(max_split, c // split_tiles)`` slabs where that is 2
+    or more and the request fits the ``slots`` partial slots (``slots`` <
+    2, and always on the tensor-core path: no cut)."""
     path: str
     rows: int
-    walk: int
     split_tiles: int
     max_split: int
     slots: int
@@ -355,45 +379,147 @@ class BwdPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan(M: int, K: int, N: int, G: int, bm: int, dtype,
-             sm_count: int, mma: bool = True) -> BwdPlan:
+             sm_count: int, tma: bool = True) -> BwdPlan:
     """B4's plan from shapes and the SM count alone (never ``n_tiles`` or
     the routing, which only the device knows).
 
     bfloat16 operands that are 16-byte aligned with K and N multiples of
-    8 (``mma``) take the tensor-core kernels: dx units of 128 rows (one
-    or more row tiles), dw blocks of 128 rows of K walking ``DW_WALK``
-    128-column tiles of N where the (expert, K band) pairs alone fill
-    ``DW_WALK_WAVES`` waves of the card, else one (a walk leaves a
-    skewed expert's or a merging slab's few blocks on the critical
-    path); anything else the CUDA-core kernels (dx units of up to 128
-    rows of one tile, dw blocks of one 64 x 64 tile).  The row split: a
-    slab holds at least ``split_tiles`` row tiles, the rows that spread
-    the M rows' work over ``BWD_WAVES`` waves of dw blocks, but no more
-    than ``SLAB_WORK`` rows over the walk and no fewer than
-    ``MIN_SLAB_ROWS`` (each slab adds a partial that one block sums: on
-    an H100 every cut measured at full width, an expert of 4096 rows at
-    walks of 1 and 4, cost more than it saved); an expert is cut into at most
-    ``MAX_ROW_SPLIT`` slabs and no more than there are slots; the partial
-    slots are as many as ``MAX_SPLIT_BYTES`` of f32 partials hold, and
-    no more than the slabs of that size the M rows make (none beyond
-    ``MAX_SPLIT_GROUPS`` experts)."""
-    if dtype == torch.bfloat16 and mma:
-        path, t, rows = "mma", MMA_TILE, MMA_DX_ROWS
-        many = G * -(-K // t) >= DW_WALK_WAVES * sm_count
-        walk = min(-(-N // t), DW_WALK) if many else 1
-    else:
-        path, t, rows, walk = "cores", CORES_TILE, min(bm, 128), 1
+    8 (``tma``), of at most ``TC_MAX_GROUPS`` experts, take the
+    tensor-core kernels, which cut their work from the routing on the
+    device (``bwd_work``) and need no split.  Anything else takes the
+    CUDA-core kernels: dx units of up to 128 rows of one tile, dw blocks
+    of one 64 x 64 output tile, and the row split: a slab holds at least
+    ``split_tiles`` row tiles, the rows that spread the M rows' work over
+    ``BWD_WAVES`` waves of dw blocks, but no more than ``SLAB_WORK`` rows
+    and no fewer than ``MIN_SLAB_ROWS`` (each slab adds a partial that one
+    block sums: only where the blocks alone cannot fill the card does a
+    cut pay); an expert is cut into at most ``MAX_ROW_SPLIT`` slabs and
+    no more than there are slots; the partial slots are as many as
+    ``MAX_SPLIT_BYTES`` of f32 partials hold, and no more than the slabs
+    of that size the M rows make (none beyond ``MAX_SPLIT_GROUPS``
+    experts)."""
+    if dtype == torch.bfloat16 and tma and G <= TC_MAX_GROUPS:
+        return BwdPlan("tma", TC_DX_CHUNK, 1, 1, 0)
+    t = CORES_TILE
     n_kb, n_nb = -(-K // t), -(-N // t)
-    per = n_kb * -(-n_nb // walk)            # blocks a slab takes
-    even = -(-M * per // (BWD_WAVES * sm_count))
-    split_rows = max(MIN_SLAB_ROWS[path], min(SLAB_WORK // walk, even))
-    split_tiles = max(1, split_rows // bm)
+    even = -(-M * n_kb * n_nb // (BWD_WAVES * sm_count))
+    split_tiles = max(1, max(MIN_SLAB_ROWS, min(SLAB_WORK, even)) // bm)
     slots = min(MAX_SPLIT_BYTES // (n_kb * n_nb * t * t * 4),
                 M // bm // split_tiles)
     if slots < 2 or G > MAX_SPLIT_GROUPS:
         slots = 0
-    return BwdPlan(path, rows, walk, split_tiles,
+    return BwdPlan("cores", min(bm, 128), split_tiles,
                    min(MAX_ROW_SPLIT, slots) if slots else 1, slots)
+
+
+class BwdWork(NamedTuple):
+    """The tensor-core kernels' work order, as their prologue builds it on
+    the device (``csrc/moe_dispatch_bwd.cu``, ``tc::Work``): ``tiles[g]``
+    expert g's live row tiles in tile order; ``order`` the experts, most
+    live tiles first (ties: lower id first); ``dx_items[i]`` and
+    ``dw_units[i]`` the dx items and dw units of expert ``order[i]``.  A
+    persistent block takes every grid-th item (unit) of that order."""
+    tiles: tuple
+    order: tuple
+    dx_items: tuple
+    dw_units: tuple
+
+
+def dw_walk(rows: int, n_nb: int) -> int:
+    """Output tiles of N a dw unit of an expert of ``rows`` rows takes:
+    all of them where its x band stays in shared memory, else as many as
+    keep rows x tiles within ``TC_DW_UNIT_ROWS`` (at least one)."""
+    if rows <= TC_DW_X_ROWS:
+        return n_nb
+    return max(1, min(n_nb, TC_DW_UNIT_ROWS // rows))
+
+
+def bwd_work(tile_group, G: int, n_tiles, K: int, N: int,
+             bm: int) -> BwdWork:
+    """The host's mirror of the prologue: the live tiles of each expert
+    (below ``n_tiles``, group in [0, G); tile_group may be unsorted), the
+    experts heaviest first, and each one's dx items (K bands of
+    ``TC_DX_BAND`` times chunks of ``TC_DX_CHUNK`` rows) and dw units (K
+    bands of ``TC_DW_TILE`` times runs of ``dw_walk`` output tiles)."""
+    T = tile_group.numel()
+    tiles = [[] for _ in range(G)]
+    for i, g in _live_tiles(tile_group, G, T, n_tiles):
+        tiles[g].append(i)
+    order = sorted(range(G), key=lambda g: (-len(tiles[g]), g))
+    n_band, n_kb = -(-K // TC_DX_BAND), -(-K // TC_DW_TILE)
+    n_nb = -(-N // TC_DW_TILE)
+    rows = [len(tiles[g]) * bm for g in order]
+    return BwdWork(tuple(tuple(t) for t in tiles), tuple(order),
+                   tuple(n_band * -(-r // TC_DX_CHUNK) for r in rows),
+                   tuple(n_kb * -(-n_nb // dw_walk(r, n_nb)) for r in rows))
+
+
+def rec_offset(T: int, G: int) -> int:
+    """Where the dx item records start in the work buffer: past the lists
+    and offsets, 16-byte aligned."""
+    return (T + 4 * G + 3 + 3) // 4 * 4
+
+
+def dx_item_bound(T: int, G: int, K: int, bm: int) -> int:
+    """The most dx items T row tiles of bm rows over G experts make."""
+    return -(-K // TC_DX_BAND) * (T * bm // TC_DX_CHUNK + G)
+
+
+def work_buffer(work: BwdWork, T: int, K: int, bm: int) -> list:
+    """``work`` in the device's int32 layout: the lists (T entries, the
+    places past the live tiles -1), off (G + 1), order (G), dx_off and
+    dw_off (G + 1 each), -1 up to ``rec_offset``, then a record of four
+    for each dx item: expert, K band | row groups << 24, first row group,
+    the expert's offset in the lists."""
+    G = len(work.tiles)
+    lists = [t for tiles in work.tiles for t in tiles]
+    off, dx_off, dw_off = [0], [0], [0]
+    for tiles in work.tiles:
+        off.append(off[-1] + len(tiles))
+    for a, b in zip(work.dx_items, work.dw_units):
+        dx_off.append(dx_off[-1] + a)
+        dw_off.append(dw_off[-1] + b)
+    head = (lists + [-1] * (T - len(lists)) + off + list(work.order)
+            + dx_off + dw_off)
+    head += [-1] * (rec_offset(T, G) - len(head))
+    for g, kb, q0, groups in dx_item_list(work, K, bm):
+        head += [g, kb | groups << 24, q0, off[g]]
+    return head
+
+
+def dx_item_list(work: BwdWork, K: int, bm: int) -> list:
+    """Every dx item in the order's sequence as (expert, K band, first row
+    group, row groups of 16): an expert's bands in order, each band's
+    chunks adjacent."""
+    out = []
+    for g, n in zip(work.order, work.dx_items):
+        groups = len(work.tiles[g]) * bm // 16
+        chunks = -(-groups * 16 // TC_DX_CHUNK)
+        for j in range(n):
+            q0 = (j % chunks) * (TC_DX_CHUNK // 16)
+            out.append((g, j // chunks, q0, min(TC_DX_CHUNK // 16,
+                                                groups - q0)))
+    return out
+
+
+def dw_unit_list(work: BwdWork, K: int, N: int, bm: int) -> list:
+    """Every dw unit in the order's sequence as (expert, K band, first and
+    end output tile of N, row groups of 16, x band resident): a resident
+    expert's units are its K bands, each all of N; a streamed one's go K
+    band fastest within each run of ``dw_walk`` tiles."""
+    n_kb, n_nb = -(-K // TC_DW_TILE), -(-N // TC_DW_TILE)
+    out = []
+    for g, n in zip(work.order, work.dw_units):
+        rows = len(work.tiles[g]) * bm
+        walk = dw_walk(rows, n_nb)
+        for j in range(n):
+            if rows <= TC_DW_X_ROWS:
+                kb, nb0 = j, 0
+            else:
+                kb, nb0 = j % n_kb, j // n_kb * walk
+            out.append((g, kb, nb0, min(n_nb, nb0 + walk), rows // 16,
+                        0 < rows <= TC_DW_X_ROWS))
+    return out
 
 
 def expert_slabs(tile_group, G: int, T: int, n_tiles, plan: BwdPlan):
@@ -477,14 +603,53 @@ def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``csrc/moe_dispatch_bwd.cu``) with B4's C
     signatures declared."""
     dx, dw = lib.mars_grouped_matmul_bwd_dx, lib.mars_grouped_matmul_bwd_dw
+    lists = lib.mars_grouped_matmul_bwd_lists
     if dx.argtypes is None:               # first use: declare once
-        head = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-        dx.restype = dw.restype = ctypes.c_int
-        dx.argtypes = head + [ctypes.c_void_p]
+        head = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        dx.restype = dw.restype = lists.restype = ctypes.c_int
+        dx.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
         dw.argtypes = head + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        lists.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p])
         err = lib.mars_cuda_error_string
         err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
     return lib
+
+
+def _check_rc(lib, rc: int, which: str, plan) -> None:
+    """Raise for a failed B4 launch; count one that ran."""
+    if rc != 0:
+        why = "unsupported" if rc == -1 \
+            else lib.mars_cuda_error_string(rc).decode()
+        raise RuntimeError(f"grouped_matmul_bwd {which} kernel launch "
+                           f"failed: rc={rc} ({why}; plan {plan})")
+    grouped_matmul_bwd.launches += 1
+
+
+def _launch_lists(lib, tile_group, n_tiles, M: int, K: int, N: int, G: int,
+                  bm: int, plan) -> torch.Tensor:
+    """The tensor-core path's prologue on the current stream: a work
+    buffer in ``work_buffer``'s layout (one launch)."""
+    dev = tile_group.device
+    T = M // bm
+    work = torch.empty(rec_offset(T, G) + 4 * dx_item_bound(T, G, K, bm),
+                       dtype=torch.int32, device=dev)
+    _check_rc(lib, lib.mars_grouped_matmul_bwd_lists(
+        tile_group.data_ptr(),
+        None if n_tiles is None else n_tiles.data_ptr(), work.data_ptr(),
+        M, K, N, G, bm, torch.cuda.current_stream(dev).cuda_stream),
+        "lists", plan)
+    return work
+
+
+def bwd_work_device(tile_group, G: int, n_tiles, M: int, K: int, N: int,
+                    bm: int) -> torch.Tensor:
+    """The prologue's work buffer for a CUDA ``tile_group`` (one launch,
+    counted): what ``work_buffer(bwd_work(...))`` computes on the host,
+    for holding the one against the other."""
+    plan = BwdPlan("tma", TC_DX_CHUNK, 1, 1, 0)
+    return _launch_lists(_bwd_library(), tile_group, n_tiles, M, K, N, G,
+                         bm, plan)
 
 
 def _bwd_launch(x, w, dout, tile_group, bm: int, n_tiles, need_dx: bool,
@@ -519,40 +684,38 @@ def _bwd_launch(x, w, dout, tile_group, bm: int, n_tiles, need_dx: bool,
     if M == 0:
         return dx, None if dw is None else dw.zero_()
     lib = _bwd_library()
-    mma = (K % 8 == 0 and N % 8 == 0
+    tma = (K % 8 == 0 and N % 8 == 0
            and all(t.data_ptr() % 16 == 0 for t in (x, w, dout)))
-    plan = bwd_plan(M, K, N, G, bm, x.dtype, _sm_count(dev.index or 0), mma)
+    sm = _sm_count(dev.index or 0)
+    plan = bwd_plan(M, K, N, G, bm, x.dtype, sm, tma)
     code, path = _DTYPE_CODES[x.dtype], PATH_CODES_BWD[plan.path]
     n_ptr = None if n_tiles is None else n_tiles.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def check(rc, which):
-        if rc != 0:
-            why = "unsupported" if rc == -1 \
-                else lib.mars_cuda_error_string(rc).decode()
-            raise RuntimeError(f"grouped_matmul_bwd {which} kernel launch "
-                               f"failed: rc={rc} ({why}; plan {plan})")
-        grouped_matmul_bwd.launches += 1
+    work = None
+    if plan.path == "tma":
+        work = _launch_lists(lib, tile_group, n_tiles, M, K, N, G, bm, plan)
+    w_ptr = None if work is None else work.data_ptr()
     if need_dx:
-        check(lib.mars_grouped_matmul_bwd_dx(
+        _check_rc(lib, lib.mars_grouped_matmul_bwd_dx(
             code, path, dout.data_ptr(), w.data_ptr(), tile_group.data_ptr(),
-            n_ptr, dx.data_ptr(), M, K, N, G, bm, plan.rows, stream), "dx")
+            n_ptr, w_ptr, dx.data_ptr(), M, K, N, G, bm, plan.rows, sm,
+            stream), "dx", plan)
     if need_dw:
         part = counters = None
         if plan.slots >= 2:
-            t = MMA_TILE if plan.path == "mma" else CORES_TILE
+            t = CORES_TILE
             tiles = plan.slots * -(-K // t) * -(-N // t)
             part = torch.empty(tiles * t * t, dtype=torch.float32,
                                device=dev)
             counters = _arrival_counters(dev, tiles, "B4")
-        check(lib.mars_grouped_matmul_bwd_dw(
+        _check_rc(lib, lib.mars_grouped_matmul_bwd_dw(
             code, path, x.data_ptr(), dout.data_ptr(), tile_group.data_ptr(),
-            n_ptr, dw.data_ptr(), M, K, N, G, bm, plan.walk,
+            n_ptr, w_ptr, dw.data_ptr(), M, K, N, G, bm, sm,
             plan.split_tiles, plan.max_split, plan.slots,
             None if part is None else part.data_ptr(),
-            None if counters is None else counters.data_ptr(), stream), "dw")
+            None if counters is None else counters.data_ptr(), stream),
+            "dw", plan)
     return dx, dw
-
 
 
 def grouped_matmul_bwd(x, w, dout, tile_group, *, bm: int = DEFAULT_BM,
@@ -562,8 +725,9 @@ def grouped_matmul_bwd(x, w, dout, tile_group, *, bm: int = DEFAULT_BM,
     n_tiles=n_tiles) == out`` for the incoming gradient ``dout`` (shaped
     as out), dx in x's dtype and dw in w's; ``None`` for a gradient not
     wanted.  CUDA tensors launch B4 (x, w and dout of one dtype, float32
-    or bfloat16, contiguous; one launch for dx, one for dw); CPU tensors
-    run the plain twin."""
+    or bfloat16, contiguous; on the tensor-core path a prologue launch,
+    then one for dx, one for dw; on CUDA cores one each); CPU tensors run
+    the plain twin."""
     _check_shapes(x, w, tile_group, bm)
     if x.device.type == "cuda":
         return _bwd_launch(x, w, dout, tile_group, bm, n_tiles, need_dx,

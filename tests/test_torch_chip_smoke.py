@@ -41,6 +41,7 @@ an empty routing, the edges) and the router comparison of the float32
 MoE step; on the card, B5 against its twin within ``B5_TOL``, B2 bitwise
 against its twin on host copies, and K4 and K3 with a gradient to take
 launching their backward kernels."""
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -476,8 +477,10 @@ def test_train_launches_wanted_per_step():
 def test_moe_smoke_launches_wanted_per_step(arch, layers, moe):
     """The MoE smoke configs a step: K5 once a layer (d 16) and B5 three
     times as often, K4 three times per MoE layer (kimi's first layer is
-    dense) and B4 twice as often (dx and dw), no K2 or B2 (their 128 x 64
-    tables are below the kernel's 2**22 elements), no K3."""
+    dense) and B4 three times as often (bf16: the prologue's work order,
+    dx and dw), no K2 or B2 (their 128 x 64 tables are below the
+    kernel's 2**22 elements), no K3; a float32 config's B4 runs on CUDA
+    cores, two launches a call."""
     from repro_torch import configs
     counters = chip_smoke.kernel_counters()
     want = chip_smoke.train_launches_wanted(configs.get_smoke(arch), 4,
@@ -485,7 +488,10 @@ def test_moe_smoke_launches_wanted_per_step(arch, layers, moe):
     assert want["flash_attention"] == 4 * layers
     assert want["flash_attention_bwd"] == 4 * layers * 3
     assert want["grouped_matmul"] == 4 * 3 * moe
-    assert want["grouped_matmul_bwd"] == 4 * 3 * 2 * moe
+    assert want["grouped_matmul_bwd"] == 4 * 3 * 3 * moe
+    f32 = chip_smoke.train_launches_wanted(dataclasses.replace(
+        configs.get_smoke(arch), compute_dtype="float32"), 4, counters)
+    assert f32["grouped_matmul_bwd"] == 4 * 3 * 2 * moe
     assert want["gather_rows"] == want["embedding_grad_scatter"] == 0
     assert want["ssd_scan"] == want["ssd_scan_bwd"] == 0
     assert any(a == arch and "--smoke" in f
@@ -545,7 +551,7 @@ def test_train_kernel_rows_list_the_backward_kernels():
         "train mamba2_370m": dict(counts, embedding_grad_scatter=12,
                                   ssd_scan_bwd=2304),
         "train arctic_480b": dict(counts, grouped_matmul=72,
-                                  grouped_matmul_bwd=144),
+                                  grouped_matmul_bwd=216),
         "qwen1_5_0_5b": counts}
     rows = chip_smoke.train_kernel_rows(launches, record, 3e-3, 2e-5, 4e-3)
     assert [r["name"] for r in rows] == ["flash_attention_bwd",
@@ -562,7 +568,7 @@ def test_train_kernel_rows_list_the_backward_kernels():
         path, line = r["replaces"].split(":")
         assert (ROOT / path).read_text().splitlines()[int(line) - 1] \
             .startswith(head)
-    assert [r["launches"] for r in rows] == [2160, 30, 2304, 144]
+    assert [r["launches"] for r in rows] == [2160, 30, 2304, 216]
     assert [r["max_abs_err"] for r in rows] == [3e-3, 0.0, 2e-5, 4e-3]
     assert [r["library_ms"] for r in rows] == [0.5, 0.2, None, 0.7]
     assert rows[0]["launches_by_path"] == {"train qwen1_5_0_5b": 2160,
@@ -800,13 +806,14 @@ def test_b2_equals_its_twin_on_host_copies(dtype):
 @pytest.mark.cuda
 def test_kernels_with_a_gradient_launch_their_backward_on_the_card():
     """K4's wrapper on the card, for inputs that need a gradient, launches
-    K4, then B4 (dx and dw) on ``backward()``; K3's launches K3, then B3."""
+    K4, then B4 (the prologue, dx and dw) on ``backward()``; K3's launches
+    K3, then B3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K3, B3, K4 and B4 run only there")
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
     from repro_torch.kernels.ssd_scan import ssd_scan as k3
-    assert chip_smoke.k4_grad_route(torch)["backward"] == [1,
-                                                          k4.BWD_LAUNCHES]
+    assert chip_smoke.k4_grad_route(torch)["backward"] == [
+        1, k4.bwd_launches(torch.bfloat16)]
     got = chip_smoke.k3_grad_route(torch)
     assert got["backward"] == [1, 2, k3.bwd_launches(2)]
 
@@ -834,8 +841,11 @@ def test_b4_cases_are_the_published_expert_shapes():
         assert cases[name][2] == (T, cfg.top_k, cfg.n_experts, K, N)
     assert {c[1] for c in chip_smoke.B4_CASES} == {"route", "skew",
                                                    "skew_last", "empty",
-                                                   "edge"}
+                                                   "edge", "write_only"}
     assert cases["arctic_skew_last"][2] == cases["arctic_w_in"][2]
+    assert cases["write_only"][2] == cases["arctic_w_in"][2]
+    T, k, E = cases["rows_over_chunk"][2][:3]
+    assert T * k / E > 256 and (T * k // E) % 256
     assert chip_smoke.MOE_LAYER == ("arctic_480b", 8, 512)
     assert ("arctic_480b", 2, 128, True) in chip_smoke.F32_TRAINS
 
@@ -866,6 +876,20 @@ def test_b4_case_routings(kind):
     assert ends[-1] == c["live_rows"] and all(e % 16 == 0 for e in ends)
     assert [b - a for a, b in zip([0] + ends, ends)] == [
         -(-int(n) // 16) * 16 for n in sizes]
+
+
+def test_b4_write_only_case_has_no_live_row():
+    """"write_only": the routing's operands with ``n_tiles`` 0, so no row
+    is live, no expert is used, and the bound moves only the stores."""
+    gen = torch.Generator("cpu").manual_seed(0)
+    c = chip_smoke.b4_case(torch, gen, "write_only", (64, 2, 16, 32, 24),
+                           torch.float32)
+    assert int(c["n_used"]) == 0 and c["live_rows"] == 0 and c["A"] == 0
+    assert c["used_groups"] == 0 and int(c["sizes"].sum()) == 0
+    assert c["offs"].tolist() == [0] * 16
+    M, K = c["x"].shape
+    assert chip_smoke.b4_bound(c, "dx")["bytes"] == M * K * 4
+    assert chip_smoke.b4_bound(c, "dw")["bytes"] == 16 * 32 * 24 * 4
 
 
 def test_b4_bound_at_arctic_w_in():

@@ -5,8 +5,12 @@ reference's ``jax.lax.ragged_dot`` (what the JAX trainer differentiates,
 padding (``ops.pad_sorted_groups``), in float32 and bfloat16; the
 autograd Function ``grouped_matmul`` under ``torch.autograd.gradcheck``
 in float64 and against autograd through ``grouped_matmul_plain``; the
-twin's row split (``expert_slabs``) and ``bwd_plan``; and the wrapper's
-contract (CUDA-bound launches go to the kernel or raise).  Shapes include
+twin's row split (``expert_slabs``) and ``bwd_plan``; the tensor-core
+path's work order (``bwd_work``, the host mirror of the kernels'
+prologue: tile lists for unsorted maps, experts heaviest first, dx items
+and dw units) against a brute force, its buffer layout, and its geometry
+against the kernel source; and the wrapper's contract (CUDA-bound
+launches go to the kernel or raise).  Shapes include
 an empty expert (its dw is exact zeros), a one-row expert, ``n_tiles``
 below the tile count (the tiles past it hold garbage that must not
 count), bm 16, 32 and 128, and N and K not multiples of 8.  Inputs come
@@ -155,7 +159,7 @@ def test_row_split_sums_the_same_gradient(n_split):
     a subset of experts is the same rows of the whole."""
     c = _problem((5, 0, 1, 130, 3), 24, 20, 16, seed=3, dtype="float32")
     args = [t.double() for t in (c["x"], c["w"], c["dout"])]
-    plan = tk4.BwdPlan("cores", 16, 1, 1, n_split, 64)
+    plan = tk4.BwdPlan("cores", 16, 1, n_split, 64)
     slabs = tk4.expert_slabs(c["tg"], 5, c["tg"].numel(), c["n"], plan)
     assert slabs[3][1] == min(n_split, slabs[3][0]) > 1
     dx1, dw1 = tk4.grouped_matmul_bwd_plain(*args, c["tg"], bm=16,
@@ -188,7 +192,7 @@ def test_expert_slabs_grant_in_expert_order(counts, split_tiles, max_split,
     their extra blocks the ``slots - 1`` the kernel launches."""
     tg = torch.tensor([g for g, c in enumerate(counts) for _ in range(c)],
                       dtype=torch.int32)
-    plan = tk4.BwdPlan("cores", 16, 1, split_tiles, max_split, slots)
+    plan = tk4.BwdPlan("cores", 16, split_tiles, max_split, slots)
     got = tk4.expert_slabs(tg, len(counts), tg.numel(), None, plan)
     assert got == want
     granted = [n for _, n, slot in got if slot is not None]
@@ -202,36 +206,33 @@ def test_expert_slabs_grant_in_expert_order(counts, split_tiles, max_split,
     (9216, 96, 64, 8, 16, 132), (512, 320, 200, 3, 128, 132),
     (64, 100, 36, 2, 16, 132), (256, 256, 264, 4, 32, 8)])
 def test_bwd_plan_from_shapes_alone(M, K, N, G, bm, sm):
-    """``bwd_plan``: bf16 operands that mma can take use dx units of 128
-    rows and dw blocks of 128 rows of K (walking ``DW_WALK`` tiles of N
-    where the blocks alone fill ``DW_WALK_WAVES`` waves); float32 (or
-    unaligned) the CUDA cores (dx units of rows dividing bm, dw blocks of
-    one 64 x 64 tile).  A slab holds at least the tiles of the rows that
-    spread the work over ``BWD_WAVES`` waves of blocks, but no more than
-    ``SLAB_WORK`` rows over the walk and no fewer than ``MIN_SLAB_ROWS``;
-    the slots are no more than ``MAX_SPLIT_BYTES`` of partials hold or
-    slabs of that size the rows make, and 0 where fewer than 2; an expert
-    asks for no more slabs than there are slots.  At every full-width
-    training shape a slab is ``SLAB_WORK / walk`` rows, and a split can
-    still be granted."""
-    for dtype, mma in ((torch.bfloat16, True), (torch.float32, True),
+    """``bwd_plan``: bf16 operands that TMA can map take the tensor-core
+    path, which cuts its own work on the device (dx items of
+    ``TC_DX_CHUNK`` rows) and never splits rows; float32 (or unaligned)
+    the CUDA cores (dx units of rows dividing bm, dw blocks of one 64 x 64
+    tile) with the row split: a slab holds at least the tiles of the rows
+    that spread the work over ``BWD_WAVES`` waves of blocks, but no more
+    than ``SLAB_WORK`` rows and no fewer than ``MIN_SLAB_ROWS``; the slots
+    are no more than ``MAX_SPLIT_BYTES`` of partials hold or slabs of that
+    size the rows make, and 0 where fewer than 2; an expert asks for no
+    more slabs than there are slots.  At every full-width training shape
+    a CUDA-core slab is ``SLAB_WORK`` rows.  More experts than the
+    prologue lists take the CUDA cores."""
+    for dtype, tma in ((torch.bfloat16, True), (torch.float32, True),
                        (torch.bfloat16, False)):
-        plan = tk4.bwd_plan(M, K, N, G, bm, dtype, sm, mma)
-        fast = dtype == torch.bfloat16 and mma
-        assert plan.path == ("mma" if fast else "cores")
+        plan = tk4.bwd_plan(M, K, N, G, bm, dtype, sm, tma)
+        fast = dtype == torch.bfloat16 and tma
+        assert plan.path == ("tma" if fast else "cores")
         if fast:
-            assert plan.rows == tk4.MMA_DX_ROWS
-        else:
-            assert bm % plan.rows == 0 and plan.rows % 16 == 0
-            assert plan.rows <= 128
-        t = tk4.MMA_TILE if fast else tk4.CORES_TILE
+            assert plan == tk4.BwdPlan("tma", tk4.TC_DX_CHUNK, 1, 1, 0)
+            continue
+        assert bm % plan.rows == 0 and plan.rows % 16 == 0
+        assert plan.rows <= 128
+        t = tk4.CORES_TILE
         n_kb, n_nb = -(-K // t), -(-N // t)
-        many = G * n_kb >= tk4.DW_WALK_WAVES * sm
-        assert plan.walk == (min(n_nb, tk4.DW_WALK) if fast and many else 1)
-        per = n_kb * -(-n_nb // plan.walk)
-        rows = max(tk4.MIN_SLAB_ROWS[plan.path],
-                   min(tk4.SLAB_WORK // plan.walk,
-                       -(-M * per // (tk4.BWD_WAVES * sm))))
+        rows = max(tk4.MIN_SLAB_ROWS,
+                   min(tk4.SLAB_WORK, -(-M * n_kb * n_nb // (tk4.BWD_WAVES
+                                                             * sm))))
         assert plan.split_tiles == max(1, rows // bm)
         room = tk4.MAX_SPLIT_BYTES // (n_kb * n_nb * t * t * 4)
         assert plan.slots == 0 or 2 <= plan.slots <= min(
@@ -240,9 +241,10 @@ def test_bwd_plan_from_shapes_alone(M, K, N, G, bm, sm):
         assert plan.max_split == (min(tk4.MAX_ROW_SPLIT, plan.slots)
                                   if plan.slots else 1)
     if K >= 2048:
-        plan = tk4.bwd_plan(M, K, N, G, bm, torch.bfloat16, sm)
-        assert plan.split_tiles * bm == tk4.SLAB_WORK // plan.walk
-        assert plan.slots >= 2
+        plan = tk4.bwd_plan(M, K, N, G, bm, torch.float32, sm)
+        assert plan.split_tiles * bm == tk4.SLAB_WORK
+    assert tk4.bwd_plan(M, K, N, tk4.TC_MAX_GROUPS + 1, bm, torch.bfloat16,
+                        sm).path == "cores"
 
 
 def test_bwd_wrapper_checks_and_never_falls_back():
@@ -289,3 +291,132 @@ def test_only_the_wanted_gradients_come_back():
     tk4.grouped_matmul(x, c["w"], c["tg"], bm=16,
                        n_tiles=c["n"]).backward(c["dout"])
     assert torch.equal(x.grad, dx)
+
+
+# ---- the tensor-core path's work order (its prologue's host mirror) --------
+
+def _random_map(seed, G, T, bad=0.0, unsorted=False):
+    rng = np.random.default_rng(seed)
+    tg = np.sort(rng.integers(0, G, T))
+    if unsorted:
+        rng.shuffle(tg)
+    tg[rng.random(T) < bad] = -1
+    return tg.tolist()
+
+
+# (tile_group, G, n_tiles, K, N, bm): sorted and live; unsorted with
+# groups out of range and n_tiles short; an expert beyond the resident x
+# band (its units streamed, a run of one output tile each); ties; no live
+# tile; bm 128; random maps over 40 experts, sorted and shuffled
+WORK_CASES = [
+    ([0] * 3 + [2] + [3] * 5 + [4] * 2 + [5] * 2, 6, None, 300, 200, 16),
+    ([2, 0, -1, 2, 5, 1, 0, 7, 2], 6, 8, 264, 256, 32),
+    ([0] * 600 + [1] + [2] * 3, 3, None, 256, 1000, 16),
+    ([3, 0, 1, 2, 0, 1, 2], 4, None, 512, 128, 16),
+    ([1, 0, 1], 2, 0, 64, 64, 16),
+    ([1, 1, 0], 3, None, 64, 96, 128),
+    (_random_map(5, 40, 300), 40, 280, 7168, 4864, 16),
+    (_random_map(6, 40, 300, bad=0.1, unsorted=True), 40, None, 2048, 2048,
+     16)]
+
+
+@pytest.mark.parametrize("tg,G,n_tiles,K,N,bm", WORK_CASES)
+def test_bwd_work_matches_brute_force(tg, G, n_tiles, K, N, bm):
+    """``bwd_work`` (what the prologue builds on the device) against a
+    brute force: each expert's live tiles (below n_tiles, group in [0, G))
+    in tile order, whatever the map's order; the experts by live tiles,
+    most first, ties by id; each expert with rows gets one dx item for
+    each K band and chunk of at most ``TC_DX_CHUNK`` rows, its items
+    adjacent and each band's chunks adjacent, covering its row groups
+    once a band; every (expert, K band, N tile) of dw lies in exactly one
+    unit, all of N in one unit where the expert's x band stays resident,
+    else units of at most ``TC_DW_UNIT_ROWS`` rows x tiles (or one
+    tile)."""
+    T = len(tg)
+    tgt = torch.tensor(tg, dtype=torch.int32)
+    n = None if n_tiles is None else torch.tensor([n_tiles],
+                                                  dtype=torch.int32)
+    work = tk4.bwd_work(tgt, G, n, K, N, bm)
+    used = T if n_tiles is None else min(n_tiles, T)
+    want = [[t for t in range(used) if tg[t] == g] for g in range(G)]
+    assert [list(t) for t in work.tiles] == want
+    assert list(work.order) == sorted(range(G),
+                                      key=lambda g: (-len(want[g]), g))
+    n_band = -(-K // tk4.TC_DX_BAND)
+    items = tk4.dx_item_list(work, K, bm)
+    assert len(items) == sum(work.dx_items)
+    seen = []
+    for g, kb, q0, groups in items:
+        assert 1 <= groups <= tk4.TC_DX_CHUNK // 16 and 0 <= kb < n_band
+        seen.extend((g, kb, q) for q in range(q0, q0 + groups))
+        assert q0 + groups <= len(want[g]) * bm // 16
+    assert sorted(seen) == sorted(set(seen)) == sorted(
+        (g, kb, q) for g in range(G) for kb in range(n_band)
+        for q in range(len(want[g]) * bm // 16))
+    firsts = [g for i, (g, *_) in enumerate(items)
+              if i == 0 or items[i - 1][0] != g]
+    assert firsts == [g for g in work.order if want[g]]
+    n_kb, n_nb = -(-K // tk4.TC_DW_TILE), -(-N // tk4.TC_DW_TILE)
+    units = tk4.dw_unit_list(work, K, N, bm)
+    assert len(units) == sum(work.dw_units)
+    tiles = []
+    for g, kb, nb0, nb1, groups, resident in units:
+        rows = len(want[g]) * bm
+        assert groups == rows // 16
+        assert resident == (0 < rows <= tk4.TC_DW_X_ROWS)
+        if rows <= tk4.TC_DW_X_ROWS:
+            assert (nb0, nb1) == (0, n_nb)
+        else:
+            assert nb1 - nb0 == 1 or rows * (nb1 - nb0) <= \
+                tk4.TC_DW_UNIT_ROWS
+        tiles.extend((g, kb, nb) for nb in range(nb0, nb1))
+    assert sorted(tiles) == sorted(set(tiles)) == sorted(
+        (g, kb, nb) for g in range(G) for kb in range(n_kb)
+        for nb in range(n_nb))
+    assert [u[0] for u in units] == sorted(
+        (u[0] for u in units), key=work.order.index)
+
+
+@pytest.mark.parametrize("tg,G,n_tiles,K,N,bm", WORK_CASES)
+def test_work_buffer_layout(tg, G, n_tiles, K, N, bm):
+    """``work_buffer`` lays the work order out as the device's buffer
+    (lists, offsets, order, the dx and dw prefix sums, then a 16-byte
+    aligned record a dx item within ``dx_item_bound``)."""
+    T = len(tg)
+    n = None if n_tiles is None else torch.tensor([n_tiles],
+                                                  dtype=torch.int32)
+    work = tk4.bwd_work(torch.tensor(tg, dtype=torch.int32), G, n, K, N,
+                        bm)
+    buf = tk4.work_buffer(work, T, K, bm)
+    assert buf[:T] == [t for tiles in work.tiles for t in tiles] + [-1] * (
+        T - sum(map(len, work.tiles)))
+    off = buf[T:T + G + 1]
+    assert off == [sum(map(len, work.tiles[:g])) for g in range(G + 1)]
+    assert buf[T + G + 1:T + 2 * G + 1] == list(work.order)
+    for i, pre in ((2, work.dx_items), (3, work.dw_units)):
+        assert buf[T + i * G + i - 1:T + (i + 1) * G + i] == [
+            sum(pre[:j]) for j in range(G + 1)]
+    rec = tk4.rec_offset(T, G)
+    assert rec % 4 == 0 and T + 4 * G + 3 <= rec < T + 4 * G + 7
+    items = tk4.dx_item_list(work, K, bm)
+    assert len(items) <= tk4.dx_item_bound(T, G, K, bm)
+    assert len(buf) == rec + 4 * len(items)
+    for j, (g, kb, q0, groups) in enumerate(items):
+        assert buf[rec + 4 * j:rec + 4 * j + 4] == [g, kb | groups << 24, q0,
+                                                    off[g]]
+
+
+def test_tc_geometry_matches_the_kernel_source():
+    """The host mirror's geometry is the kernels' own: the constants of
+    ``namespace tc`` in ``csrc/moe_dispatch_bwd.cu``."""
+    import re
+    from pathlib import Path
+    src = (Path(tk4.__file__).resolve().parents[2] / "csrc"
+           / "moe_dispatch_bwd.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert (const("kDxBand"), const("kDxChunk"), const("kDwTile"),
+            const("kDwXRows"), const("kDwUnitRows"), const("kMaxGroups")) \
+        == (tk4.TC_DX_BAND, tk4.TC_DX_CHUNK, tk4.TC_DW_TILE,
+            tk4.TC_DW_X_ROWS, tk4.TC_DW_UNIT_ROWS, tk4.TC_MAX_GROUPS)
