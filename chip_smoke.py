@@ -250,7 +250,8 @@ Phases (any failure exits non-zero and prints no result):
           pick the experts the host's float32 and float64 steps pick
           (``router_agreement``: a differing token must be a tie);
           ``launch.train`` on CUDA must refuse, before building anything,
-          the full-width configs whose training state exceeds the card
+          the full-width configs whose training state per device under
+          its mesh of one (printed) exceeds the card
           (``TRAIN_REFUSED``: arctic-480b, kimi-k2, starcoder2-7b,
           phi3-medium-14b, deepseek-coder-33b), K4's wrapper must launch
           K4, then B4 on ``backward()`` (``k4_grad_route``), and K3's K3,
@@ -259,7 +260,14 @@ Phases (any failure exits non-zero and prints no result):
           (``moe_layer_check``: every B4 call against the twin on the
           card, dx in full and dw of the most and least loaded experts
           and an empty one; then K4's and B4's launches, the step's time
-          and peak memory); then ``launch.train`` in bf16 with every
+          and peak memory); the same layer expert-parallel over 2
+          processes on the one card joined by gloo
+          (``moe_sharded_check``: 64 experts a column, every K4 and B4
+          call against its twin, K4 3 and B4 9 launches a column, 0
+          dropped rows, ms, peak memory and a profiled run a column; the
+          output and the gradients of the tokens, the router and every
+          expert against the one-process layer within ``B4_TOL``); then
+          ``launch.train`` in bf16 with every
           count set to 0 just before it: qwen1.5-0.5b, whisper-base (stub
           frames, ``--frontend stub``: the reference's zero frames train
           nothing at its width), mamba2-370m and hymba-1.5b at full width
@@ -289,6 +297,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import queue
 import statistics
 import subprocess
 import sys
@@ -3975,8 +3984,10 @@ def train_f32_check(torch, arch: str, B: int, S: int,
     import dataclasses
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch import train
     from repro_torch.models import lm
     from repro_torch.models import moe
+    from repro_torch.sharding import context as shctx
     from repro_torch.utils.tree import leaf_paths, tree_map
     base = configs.get_smoke(arch) if smoke else configs.get(arch)
     cfg = dataclasses.replace(base, param_dtype="float32",
@@ -3990,8 +4001,8 @@ def train_f32_check(torch, arch: str, B: int, S: int,
     routed = {}                   # the router's picks of each step
     topk = moe.router_topk
 
-    def recording(p, x, c):
-        idx, gates, aux = topk(p, x, c)
+    def recording(p, x, c, mesh=None):
+        idx, gates, aux = topk(p, x, c, mesh)
         probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
         top = torch.topk(probs, c.top_k + 1, dim=-1).values
         routed.setdefault(tag, []).append(
@@ -4008,7 +4019,9 @@ def train_f32_check(torch, arch: str, B: int, S: int,
                           for k in ("tokens", "labels"))
         moe.router_topk = recording if name else topk
         try:
-            loss, _ = lm.loss_fn(p, c, tokens, labels, remat=remat)
+            # the trainer's mesh of one (``launch.train.pick_mesh``)
+            with shctx.use_mesh(train.pick_mesh(1, device)):
+                loss, _ = lm.loss_fn(p, c, tokens, labels, remat=remat)
             gs = torch.autograd.grad(loss, [t for _, t in named])
         finally:
             moe.router_topk = topk
@@ -4433,13 +4446,16 @@ def k4_grad_route(torch) -> dict:
 MOE_LAYER = ("arctic_480b", 8, 512)
 
 
-def moe_layer_check(torch) -> dict:
+def moe_layer_check(torch, reference=None) -> dict:
     """``MOE_LAYER`` at full width, bf16, twice: first with every B4 call
     held against the twin on the card as it returns (dx in full; dw of
     the most loaded expert, the least loaded one with a row and an empty
     one where there is one), then again plain with every count set to 0
     just before it and the peak memory reset: K4's and B4's launches,
-    the peak allocated memory and the wall time of the step."""
+    the peak allocated memory and the wall time of the step.  Given a
+    dict ``reference``, puts in it host copies of the second run's output
+    ``y`` and its gradients (``x``, ``router``, ``w_in``, ``w_gate``,
+    ``w_out``): ``moe_sharded_check``'s one-process layer."""
     from repro_torch import configs
     from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
     from repro_torch.models import moe
@@ -4476,8 +4492,11 @@ def moe_layer_check(torch) -> dict:
 
     held = {"weights": torch.cuda.memory_allocated()}
 
+    out = {}
+
     def step():
         y, aux = moe.moe_apply(p, x, cfg)
+        out["y"] = y.detach()
         held["after forward"] = torch.cuda.memory_allocated()
         (y.float() * gy.float()).sum().add(aux["moe_lb"] + aux["moe_z"]) \
             .backward()
@@ -4506,6 +4525,9 @@ def moe_layer_check(torch) -> dict:
     nb4 = 3 * k4.bwd_launches(cfg.cdtype)
     want.update(grouped_matmul=3, grouped_matmul_bwd=nb4)
     weights = sum(t.numel() * t.element_size() for t in p.values())
+    if reference is not None:
+        reference.update(y=out["y"].cpu(), x=x.grad.cpu(),
+                         **{k: t.grad.cpu() for k, t in p.items()})
     ok = launches == want and finite and repeat and all(
         c["dx"][1] <= 1.0 and c["dw"][1] <= 1.0 and c["empty_zero"]
         for c in checks) and len(checks) == 3
@@ -4533,6 +4555,310 @@ def moe_layer_check(torch) -> dict:
                              f"{finite}")
     return dict(wall_ms=wall * 1e3, peak_bytes=peak, launches=launches,
                 checks=checks, weight_bytes=weights, repeat=repeat)
+
+
+# arctic-480b's MoE layer of ``MOE_LAYER`` expert-parallel over a model
+# axis of ``MOE_COLUMNS``: one process a column on the one card, joined by
+# gloo (whose all_reduce takes CUDA tensors: NCCL refuses two ranks on one
+# device), each holding its 64 experts (13.4 GB of bf16 weights).
+MOE_COLUMNS = 2
+MOE_SHARDED_TIMEOUT = 300           # seconds a column may take
+
+
+def moe_sharded_case(cfg, B: int, S: int, columns: int) -> dict:
+    """What one column of the expert-parallel layer holds and computes:
+    its experts, the window's assignments A, the rows it runs (the
+    capacity C of ``moe.column_capacity``) and its weights' bytes."""
+    from repro_torch.models import moe
+    A = B * S * cfg.top_k
+    experts = cfg.n_experts // columns
+    e = cfg.d_expert or cfg.d_ff
+    return dict(experts=experts, assignments=A,
+                capacity=moe.column_capacity(A, columns),
+                weight_bytes=3 * experts * cfg.d_model * e
+                * cfg.pdtype.itemsize)
+
+
+def moe_sharded_launches(dtype) -> dict:
+    """K4's and B4's launches a column makes in one forward and backward
+    of the layer: the three grouped products, and B4 on each."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    return {"grouped_matmul": 3,
+            "grouped_matmul_bwd": 3 * k4.bwd_launches(dtype)}
+
+
+def _column_run(torch, rank: int, world: int) -> dict:
+    """One column of the expert-parallel layer on the card: its experts
+    drawn from ``moe_layer_check``'s seed (the router, tokens and
+    incoming gradient whole, bitwise that run's), the layer forward and
+    backward twice through ``moe.moe_apply`` under the mesh: first with
+    every K4 and B4 call held against its twin on the card, then under
+    the profiler, then with the counts set to 0 just before it.  Returns
+    the last run's output, gradients and numbers."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as k4
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers, moe
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding import rules
+    probe = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(probe)             # gloo's all_reduce of a CUDA tensor
+    if float(probe[0]) != world * (world + 1) / 2:
+        raise AssertionError(f"gloo all_reduce on the card gave {probe}")
+    arch, B, S = MOE_LAYER
+    cfg = configs.get(arch)
+    mesh = mesh_mod.on_processes(mesh_mod.Mesh(
+        ("data", "model"), {"data": 1, "model": world},
+        (torch.device("cuda", 0),) * world), "cuda")
+    here, rl = rules.mesh_coords(mesh, rank), rules.logical_rules(mesh)
+
+    def region(axes, shape):            # experts cut; the router whole
+        if axes[0] != "expert":
+            return tuple((0, n) for n in shape)
+        return rules.local_slices(rules.spec_for(axes, shape, rl, mesh),
+                                  shape, mesh, here)
+    gen = torch.Generator("cuda").manual_seed(0)
+    p = moe.moe_init(layers.LocalDraw(gen, region), cfg)
+    for t in p.values():
+        t.requires_grad_(True)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda") \
+        .to(cfg.cdtype).requires_grad_()
+    gy = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda") \
+        .to(cfg.cdtype)
+    checks = {"grouped_matmul": [], "grouped_matmul_bwd": []}
+    fwd, bwd = k4._launch, k4._bwd_launch
+
+    def checked_fwd(xx, ww, tg, bm, n):
+        got = fwd(xx, ww, tg, bm, n)
+        want = k4.grouped_matmul_plain(xx, ww, tg, bm=bm, n_tiles=n)
+        checks["grouped_matmul"].append(
+            close(got, want, *K4_TOL["bfloat16"]))
+        return got
+
+    def checked_bwd(xx, ww, dout, tg, bm, n, need_dx, need_dw):
+        dx, dw = bwd(xx, ww, dout, tg, bm, n, need_dx, need_dw)
+        G = ww.shape[0]
+        rows = torch.bincount(tg[:int(n)].long(), minlength=G + 1)[:G] * bm
+        loaded = [g for g in range(G) if rows[g] > 0]
+        sample = [max(loaded, key=lambda g: rows[g]),
+                  min(loaded, key=lambda g: rows[g])]
+        want_dx, want_dw = k4.grouped_matmul_bwd_plain(
+            xx, ww, dout, tg, bm=bm, n_tiles=n, groups=sample)
+        checks["grouped_matmul_bwd"].append(
+            max(bwd_err(dx, want_dx, B4_TOL["bfloat16"])[1],
+                bwd_err(dw[sample], want_dw, B4_TOL["bfloat16"])[1]))
+        return dx, dw
+
+    out = {}
+
+    def step():
+        with shctx.use_mesh(mesh):
+            y, aux = moe.moe_apply(p, x, cfg)
+        (y.float() * gy.float()).sum().add(aux["moe_lb"] + aux["moe_z"]) \
+            .backward()
+        out["y"] = y.detach()
+        torch.cuda.synchronize()
+    k4._launch, k4._bwd_launch = checked_fwd, checked_bwd
+    try:
+        step()
+    finally:
+        k4._launch, k4._bwd_launch = fwd, bwd
+    for t in (x, *p.values()):
+        t.grad = None
+    # a run under the profiler: where the column's time goes
+    from torch.profiler import ProfilerActivity, profile
+    warm_profiler(torch)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.perf_counter()
+    step()
+    prof_wall = time.perf_counter() - t0
+    prof.stop()
+    summary = profile_summary(prof, prof_wall)
+    summary = dict(wall_ms=prof_wall * 1e3, device_ms=summary["device_ms"],
+                   busy_share=summary["busy_share"],
+                   by_kind_ms=summary["by_kind_ms"],
+                   host_top=[(r["name"], r["ms"]) for r in
+                             summary["host_top"][:4]])
+    for t in (x, *p.values()):
+        t.grad = None
+    counters = kernel_counters()
+    moe.COLUMN_DROPS = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    dropped = int(moe.COLUMN_DROPS[0])
+    moe.COLUMN_DROPS = None
+    grads = {"x": x.grad, **{k: t.grad for k, t in p.items()}}
+    del p, x                            # the weights go; the gradients stay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(y=out["y"], **grads, launches=launches, profile=summary,
+                wall_ms=wall * 1e3, peak_bytes=peak, dropped=dropped,
+                k4_checks=[dict(ok=ok, err=err) for ok, err
+                           in checks["grouped_matmul"]],
+                b4_checks=checks["grouped_matmul_bwd"])
+
+
+def moe_sharded_errors(torch, got: dict, reference: dict, experts: int):
+    """Each column's output and gradients against the one-process
+    layer's (``reference``, on the host): y, dx and the router's gradient
+    of column 0, and every column's experts' gradients expert by expert
+    (largest |error|, its largest ratio to ``B4_TOL``, and whether all
+    were bitwise equal)."""
+    tol = B4_TOL["bfloat16"]
+    errs = {k: bwd_err(got[0][k], reference[k].to(got[0][k].device), tol)
+            for k in ("y", "x", "router")}
+    for name in ("w_in", "w_gate", "w_out"):
+        worst, bitwise = (0.0, 0.0), True
+        for r, res in got.items():
+            for e in range(experts):
+                want = reference[name][r * experts + e].to(res[name].device)
+                bitwise &= torch.equal(res[name][e], want)
+                worst = max(worst, bwd_err(res[name][e], want, tol),
+                            key=lambda t: t[1])
+        errs[name] = worst + (bitwise,)
+    return errs
+
+
+def _column_process(rank: int, world: int, store: str, results, release):
+    """A spawned column: joins the gloo group, runs ``_column_run``,
+    hands its tensors to the parent (CUDA IPC) and keeps them until the
+    parent has read them."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        try:
+            results.put((rank, "ok", _column_run(torch, rank, world)))
+            release.wait(MOE_SHARDED_TIMEOUT)
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def moe_sharded_check(torch, reference: dict) -> tuple:
+    """``MOE_LAYER`` expert-parallel over ``MOE_COLUMNS`` processes on the
+    one card (``_column_process``; the kernels are built first, by this
+    process): each column's K4 and B4 calls against their twins, its
+    launches (``moe_sharded_launches``), time and peak memory, its
+    dropped rows (0 for the layer to be the one-process one); then the
+    summed output and the gradients of the tokens, the router and every
+    expert against the one-process layer of ``moe_layer_check``
+    (``reference``, on the host) within ``B4_TOL``.  Returns the record
+    and the launches of each column."""
+    import torch.multiprocessing as mp
+    from repro_torch import configs
+    arch, B, S = MOE_LAYER
+    cfg = configs.get(arch)
+    case = moe_sharded_case(cfg, B, S, MOE_COLUMNS)
+    ctx = mp.get_context("spawn")
+    results, release = ctx.Queue(), ctx.Event()
+    store = ROOT / "build" / "moe_sharded_store"
+    store.unlink(missing_ok=True)
+    procs = [ctx.Process(target=_column_process,
+                         args=(r, MOE_COLUMNS, str(store), results, release))
+             for r in range(MOE_COLUMNS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    try:
+        got = {}
+        while len(got) < len(procs):
+            try:
+                rank, status, res = results.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, proc in enumerate(procs)
+                        if r not in got and proc.exitcode is not None]
+                if dead or time.perf_counter() - t0 > MOE_SHARDED_TIMEOUT:
+                    raise AssertionError(f"columns {dead} ended without a "
+                                         f"result, or none came in "
+                                         f"{MOE_SHARDED_TIMEOUT} s")
+                continue
+            if status != "ok":
+                raise AssertionError(f"column {rank} failed:\n{res}")
+            got[rank] = res
+        wall = time.perf_counter() - t0
+        errs = moe_sharded_errors(torch, got, reference, case["experts"])
+        same = all(torch.equal(got[r][k], got[0][k]) for r in got
+                   for k in ("y", "x", "router"))
+        rows = {r: dict(launches={k: v for k, v in res["launches"].items()
+                                  if v}, wall_ms=res["wall_ms"],
+                        peak_bytes=res["peak_bytes"],
+                        dropped=res["dropped"],
+                        k4_worst=max(c["err"] for c in res["k4_checks"]),
+                        k4_ok=all(c["ok"] for c in res["k4_checks"]),
+                        b4_worst_of_tol=max(res["b4_checks"]),
+                        profile=res["profile"])
+                for r, res in got.items()}
+        launches = {f"train {arch} MoE layer column {r}": res["launches"]
+                    for r, res in got.items()}
+        got.clear()                     # the columns' tensors, before they go
+    finally:
+        release.set()
+        for proc in procs:
+            proc.join(60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+        store.unlink(missing_ok=True)
+    want_launches = moe_sharded_launches(cfg.cdtype)
+    smi = card_line()
+    for r, row in rows.items():
+        print(f"[train] {cfg.name} MoE layer, column {r} of {MOE_COLUMNS} "
+              f"({case['experts']} experts, {case['weight_bytes'] / 1e9:.2f}"
+              f" GB of weights; {case['assignments']} assignments, capacity "
+              f"{case['capacity']}): forward and backward "
+              f"{row['wall_ms']:.1f} ms, peak allocated "
+              f"{row['peak_bytes'] / 2**30:.2f} GiB; launches "
+              f"{row['launches']} (want {want_launches}); dropped rows "
+              f"{row['dropped']}; K4 calls against the twin: largest err "
+              f"{row['k4_worst']:.3e} (ok {row['k4_ok']}), B4 calls: "
+              f"{row['b4_worst_of_tol']:.3f} of tol; {smi}")
+        prof = row["profile"]
+        print(f"[profile train {cfg.name} MoE column {r}] one more run "
+              f"under torch.profiler: wall {prof['wall_ms']:.1f} ms, device "
+              f"kernel time {prof['device_ms']:.1f} ms (busy share "
+              f"{prof['busy_share']:.3f}); device ms by kind " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in sorted(prof["by_kind_ms"]
+                                                    .items()))
+              + "; host ops with the most self time " + ", ".join(
+                  f"{n} {ms:.1f} ms" for n, ms in prof["host_top"]))
+    print(f"[train] {cfg.name} MoE layer expert-parallel over "
+          f"{MOE_COLUMNS} processes (gloo, one card), {B}x{S} bf16 tokens, "
+          f"against the one-process layer: "
+          + "; ".join(f"{k} err {v[0]:.3e} ({v[1]:.3f} of tol"
+                      + (", bitwise" if len(v) > 2 and v[2] else "") + ")"
+                      for k, v in errs.items())
+          + f"; every column's y, dx and router gradient equal {same}; "
+          f"{wall:.1f} s with the processes' start")
+    ok = same and all(v[1] <= 1.0 for v in errs.values()) and all(
+        row["launches"] == want_launches and row["dropped"] == 0
+        and row["k4_ok"] and row["b4_worst_of_tol"] <= 1.0
+        for row in rows.values())
+    if not ok:
+        raise AssertionError(f"{cfg.name} expert-parallel MoE layer: "
+                             f"columns {rows}, errors {errs}, columns "
+                             f"alike {same}")
+    return dict(columns=rows, errs={k: list(v) for k, v in errs.items()},
+                case=case, wall_s=wall, device=smi), launches
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def fingerprint(torch, t) -> tuple:
@@ -4622,11 +4948,17 @@ def train_phase(torch) -> tuple:
     record = dict(f32=f32, refused=train_refusals(),
                   k4_grad=k4_grad_route(torch),
                   k3_grad=k3_grad_route(torch), runs={})
-    record["moe_layer"] = moe_layer_check(torch)
+    reference = {}
+    record["moe_layer"] = moe_layer_check(torch, reference)
     free_device(torch, "MoE layer")
     print(f"[time] train: refusals, gradient routes and the MoE layer "
           f"{time.perf_counter() - t0:.1f}s")
-    launches = {}
+    t0 = time.perf_counter()
+    record["moe_sharded"], launches = moe_sharded_check(torch, reference)
+    del reference
+    free_device(torch, "expert-parallel MoE layer")
+    print(f"[time] train: the expert-parallel MoE layer "
+          f"{time.perf_counter() - t0:.1f}s")
     for arch, steps, interval, kill_at, flags in TRAIN_RUNS:
         t0 = time.perf_counter()
         record["runs"][arch], launches[f"train {arch}"] = train_run(
@@ -4898,10 +5230,7 @@ def main(argv=None) -> int:
     print(f"[time] build {build_s:.1f}s, build + kernel phases "
           f"{kernels_s:.1f}s, whole run {total_s:.1f}s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi)
     record.update(device=smi, kernels_s=kernels_s, total_s=total_s,
                   run_s=run_s,

@@ -46,56 +46,158 @@ def as_module(tree: dict) -> nn.Module:
 _DRAW_ELEMS = 1 << 26
 
 
-def _fill_normal(out: torch.Tensor, gen: torch.Generator, scale: float):
+class Specs:
+    """Stands in for the generator of the init functions, which then
+    return each parameter's logical axes (a tuple of names, ``("layers",)``
+    first on a stacked leaf) in place of the tensor: the reference's
+    ``ParamBundle.specs``, laid out by the same code as the leaves."""
+    device = torch.device("meta")
+
+
+SPECS = Specs()
+
+
+class LocalDraw:
+    """Stands in for the generator ``gen`` of the init functions, which
+    then make only the part ``region(axes, shape)`` of each parameter (a
+    (start, stop) pair per dimension of the whole leaf): the whole leaf's
+    draws are walked from ``gen`` in the same order and the part that
+    falls in the region kept, so the slice is bitwise that of the
+    one-process init from the same seed, with a temporary of at most
+    ``_DRAW_ELEMS`` elements.  On a CUDA generator a draw that falls
+    outside the region is not made: the generator's Philox offset is
+    moved on by what a draw of that many elements advances it
+    (``steps``, read off the first such draw made), so a rank makes about
+    its part of the draws.  A CPU generator has no offset to move and
+    makes every draw."""
+
+    def __init__(self, gen: torch.Generator, region):
+        self.gen, self.region = gen, region
+        self.steps = {} if gen.device.type == "cuda" else None
+
+    @property
+    def device(self):
+        return self.gen.device
+
+
+def _whole(shape) -> tuple:
+    return tuple((0, n) for n in shape)
+
+
+def _fill_normal(out: torch.Tensor, gen: torch.Generator, scale: float,
+                 shape, region, steps=None):
+    """Draw ``normal * scale`` over a leaf of ``shape`` in the order of
+    its draws (one draw up to ``_DRAW_ELEMS`` elements, else slices along
+    the leading axes) and write into ``out`` the part each draw has in
+    ``region``, the leaf's part that ``out`` holds.  With ``steps`` (a
+    dict: elements of a draw -> the offset it moves ``gen`` on) a draw
+    with no part in ``region`` of a size already seen only moves the
+    offset."""
     if out.is_meta:                   # a layout only: nothing to draw
         return
-    if out.numel() <= _DRAW_ELEMS or out.dim() == 1:
-        out.copy_(torch.randn(out.shape, generator=gen, dtype=torch.float32,
-                              device=out.device).mul_(scale))
-        return
-    rows = _DRAW_ELEMS // out[0].numel()
-    if rows > 1:
-        for i in range(0, out.shape[0], rows):
-            _fill_normal(out[i:i + rows], gen, scale)
-    else:
-        for i in range(out.shape[0]):
-            _fill_normal(out[i], gen, scale)
+
+    def walk(starts, sizes, dropped):
+        ndim = len(sizes) - dropped
+        if math.prod(sizes) <= _DRAW_ELEMS or ndim == 1:
+            src, dst = [], []
+            for s, n, (lo, hi) in zip(starts, sizes, region):
+                a, b = max(s, lo), min(s + n, hi)
+                src.append(slice(a - s, b - s))
+                dst.append(slice(a - lo, b - lo))
+            outside = any(sl.start >= sl.stop for sl in src)
+            n = math.prod(sizes)
+            if outside and steps is not None and n in steps:
+                gen.set_offset(gen.get_offset() + steps[n])
+                return
+            before = gen.get_offset() if steps is not None else 0
+            piece = torch.randn(sizes[dropped:], generator=gen,
+                                dtype=torch.float32,
+                                device=out.device).mul_(scale)
+            if steps is not None:
+                steps[n] = gen.get_offset() - before
+            if not outside:
+                out[tuple(dst)].copy_(piece.view(sizes)[tuple(src)])
+            return
+        rows = _DRAW_ELEMS // math.prod(sizes[dropped + 1:])
+        for i in range(0, sizes[dropped], max(rows, 1)):
+            s2, z2 = list(starts), list(sizes)
+            s2[dropped] += i
+            z2[dropped] = min(rows, sizes[dropped] - i) if rows > 1 else 1
+            walk(s2, z2, dropped + (rows <= 1))
+    walk([0] * len(shape), list(shape), 0)
 
 
-def _normal(gen: torch.Generator, shape, dtype, scale: float):
-    """``normal * scale`` of ``shape``, drawn in float32 and stored in
-    ``dtype``.  A tensor of at most ``_DRAW_ELEMS`` elements is one draw
-    (as the reference's ``_dense_init``); a larger one is drawn into the
-    preallocated output slice by slice."""
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
-    _fill_normal(out, gen, scale)
+def _normal(gen: torch.Generator, shape, dtype, scale: float, region=None,
+            steps=None):
+    """``normal * scale`` of ``shape`` (its part ``region``, default all
+    of it), drawn in float32 and stored in ``dtype``.  A tensor of at
+    most ``_DRAW_ELEMS`` elements is one draw (as the reference's
+    ``_dense_init``); a larger one is drawn into the preallocated output
+    slice by slice.  ``steps``: ``LocalDraw.steps``."""
+    region = region or _whole(shape)
+    out = torch.empty([b - a for a, b in region], dtype=dtype,
+                      device=gen.device)
+    _fill_normal(out, gen, scale, shape, region, steps)
     return out
 
 
-def _dense_init(gen, shape, dtype, scale: float | None = None,
+def _axes(axes, stack: int) -> tuple:
+    return (("layers",) if stack else ()) + tuple(axes)
+
+
+def _layout(gen, shape, axes, stack: int):
+    """(the whole leaf's shape, its axes, the part to make) of one
+    parameter; the part is the whole leaf unless ``gen`` is a
+    ``LocalDraw``."""
+    full = ((stack,) if stack else ()) + tuple(shape)
+    axes = _axes(axes, stack)
+    region = gen.region(axes, full) if isinstance(gen, LocalDraw) \
+        else _whole(full)
+    return full, axes, region
+
+
+def _dense_init(gen, shape, dtype, axes, scale: float | None = None,
                 stack: int = 0):
-    """``normal * scale`` with the reference's default scale
-    ``1/sqrt(fan_in)`` (``fan_in = shape[0]``); ``stack`` > 0 draws
+    """``normal * scale`` (``_normal``) with the reference's default
+    scale ``1/sqrt(fan_in)`` (``fan_in = shape[0]``); ``stack`` > 0 draws
     ``stack`` independent layers at once."""
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    full = ((stack,) if stack else ()) + tuple(shape)
-    return _normal(gen, full, dtype, scale)
+    full, axes, region = _layout(gen, shape, axes, stack)
+    if isinstance(gen, Specs):
+        return axes
+    return _normal(getattr(gen, "gen", gen), full, dtype, scale, region,
+                   getattr(gen, "steps", None))
 
 
-def _const(shape, dtype, value: float, device, stack: int = 0):
-    full = ((stack,) if stack else ()) + tuple(shape)
-    return torch.full(full, value, dtype=dtype, device=device)
+def _const(gen, shape, dtype, axes, value: float, stack: int = 0):
+    full, axes, region = _layout(gen, shape, axes, stack)
+    if isinstance(gen, Specs):
+        return axes
+    return torch.full([b - a for a, b in region], value, dtype=dtype,
+                      device=gen.device)
+
+
+def _given(gen, shape, axes, make, stack: int = 0):
+    """A parameter computed whole by ``make(full shape)`` (a few
+    elements), or its part under a ``LocalDraw``."""
+    full, axes, region = _layout(gen, shape, axes, stack)
+    if isinstance(gen, Specs):
+        return axes
+    t = make(full)
+    return t[tuple(slice(a, b) for a, b in region)].clone()
 
 
 # ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------
 
-def norm_init(cfg: ModelConfig, device, stack: int = 0) -> dict:
-    out = {"scale": _const((cfg.d_model,), cfg.pdtype, 1.0, device, stack)}
+def norm_init(cfg: ModelConfig, gen, stack: int = 0) -> dict:
+    out = {"scale": _const(gen, (cfg.d_model,), cfg.pdtype, ("embed",), 1.0,
+                           stack)}
     if cfg.norm == "ln":
-        out["bias"] = _const((cfg.d_model,), cfg.pdtype, 0.0, device, stack)
+        out["bias"] = _const(gen, (cfg.d_model,), cfg.pdtype, ("embed",),
+                             0.0, stack)
     return out
 
 
@@ -152,17 +254,18 @@ def apply_rope(x, cos, sin):
 def attention_init(gen, cfg: ModelConfig, stack: int = 0) -> dict:
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     pd = cfg.pdtype
+    q, kv = ("embed", "heads", "head"), ("embed", "kv_heads", "head")
     out = {
-        "wq": _dense_init(gen, (d, H, dh), pd, stack=stack),
-        "wk": _dense_init(gen, (d, K, dh), pd, stack=stack),
-        "wv": _dense_init(gen, (d, K, dh), pd, stack=stack),
-        "wo": _dense_init(gen, (H, dh, d), pd, scale=1.0 / math.sqrt(H * dh),
-                          stack=stack),
+        "wq": _dense_init(gen, (d, H, dh), pd, q, stack=stack),
+        "wk": _dense_init(gen, (d, K, dh), pd, kv, stack=stack),
+        "wv": _dense_init(gen, (d, K, dh), pd, kv, stack=stack),
+        "wo": _dense_init(gen, (H, dh, d), pd, ("heads", "head", "embed"),
+                          scale=1.0 / math.sqrt(H * dh), stack=stack),
     }
     if cfg.qkv_bias:
-        out["bq"] = _const((H, dh), pd, 0.0, gen.device, stack)
-        out["bk"] = _const((K, dh), pd, 0.0, gen.device, stack)
-        out["bv"] = _const((K, dh), pd, 0.0, gen.device, stack)
+        out["bq"] = _const(gen, (H, dh), pd, q[1:], 0.0, stack)
+        out["bk"] = _const(gen, (K, dh), pd, kv[1:], 0.0, stack)
+        out["bv"] = _const(gen, (K, dh), pd, kv[1:], 0.0, stack)
     return out
 
 
@@ -333,10 +436,11 @@ def cross_kv(p, enc_out, cfg: ModelConfig):
 def mlp_init(gen, cfg: ModelConfig, stack: int = 0,
              d_ff: int | None = None) -> dict:
     d, f, pd = cfg.d_model, d_ff or cfg.d_ff, cfg.pdtype
-    out = {"wi": _dense_init(gen, (d, f), pd, stack=stack),
-           "wo": _dense_init(gen, (f, d), pd, stack=stack)}
+    out = {"wi": _dense_init(gen, (d, f), pd, ("embed", "mlp"), stack=stack),
+           "wo": _dense_init(gen, (f, d), pd, ("mlp", "embed"), stack=stack)}
     if cfg.mlp_gated:
-        out["wg"] = _dense_init(gen, (d, f), pd, stack=stack)
+        out["wg"] = _dense_init(gen, (d, f), pd, ("embed", "mlp"),
+                                stack=stack)
     return out
 
 
@@ -362,13 +466,14 @@ def mlp_apply(p, x, cfg: ModelConfig):
 
 def embedding_init(gen, cfg: ModelConfig) -> dict:
     out = {"tok": _dense_init(gen, (cfg.vocab, cfg.d_model), cfg.pdtype,
-                              scale=0.02)}
+                              ("vocab", "embed"), scale=0.02)}
     if not cfg.tie_embeddings:
-        out["head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), cfg.pdtype)
+        out["head"] = _dense_init(gen, (cfg.d_model, cfg.vocab), cfg.pdtype,
+                                  ("embed", "vocab"))
     if not cfg.use_rope and cfg.family == "encdec":
         # learned positions
         out["pos"] = _dense_init(gen, (cfg.max_position, cfg.d_model),
-                                 cfg.pdtype, scale=0.02)
+                                 cfg.pdtype, ("seq", "embed"), scale=0.02)
     return out
 
 

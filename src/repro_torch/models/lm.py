@@ -83,13 +83,27 @@ def _stacks(cfg: ModelConfig):
 # Init
 # ---------------------------------------------------------------------------
 
-def init(cfg: ModelConfig, gen: torch.Generator):
+def init(cfg: ModelConfig, gen):
     """Random parameters with the reference's distributions and layout,
     drawn from ``gen`` on ``gen.device``.  Returns the tree as an
     ``nn.Module`` (``layers.as_module``); per-layer leaves are stacked on
     a leading layer axis (``blocks/attn/wq`` is (L, d, H, dh)).  An MoE
     model's first ``n_dense_layers`` blocks stack under
-    ``blocks_dense``, the rest under ``blocks``."""
+    ``blocks_dense``, the rest under ``blocks``.  Under a
+    ``layers.LocalDraw`` each leaf is this rank's part of it."""
+    return layers.as_module(_tree(cfg, gen))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Each parameter's logical axes, leaf for leaf the reference's
+    ``lm.init(cfg, key).specs``: a nested dict of tuples of axis names
+    (``blocks/attn/wq`` is ``("layers", "embed", "heads", "head")``),
+    laid out by the code that lays out ``init``'s leaves.  Needs no
+    draw and no storage."""
+    return _tree(cfg, layers.SPECS)
+
+
+def _tree(cfg: ModelConfig, gen) -> dict:
     _check_family(cfg)
     decoder = cfg.family == "encdec"
     stacks = {name: _stack_init(gen, cfg, n,
@@ -97,12 +111,12 @@ def init(cfg: ModelConfig, gen: torch.Generator):
                                 decoder=decoder)
               for name, _, n in _stacks(cfg)}
     tree = {"embed": layers.embedding_init(gen, cfg),
-            "final_norm": layers.norm_init(cfg, gen.device), **stacks}
+            "final_norm": layers.norm_init(cfg, gen), **stacks}
     if cfg.enc_layers:
         tree["encoder"] = _stack_init(gen, cfg, cfg.enc_layers, moe=False,
                                       encoder=True)
-        tree["enc_norm"] = layers.norm_init(cfg, gen.device)
-    return layers.as_module(tree)
+        tree["enc_norm"] = layers.norm_init(cfg, gen)
+    return tree
 
 
 def _stack_init(gen, cfg: ModelConfig, L: int, *, moe: bool,
@@ -113,21 +127,21 @@ def _stack_init(gen, cfg: ModelConfig, L: int, *, moe: bool,
     ``encoder`` blocks have no SSM."""
     blocks = {}
     if cfg.has_attention:
-        blocks["ln1"] = layers.norm_init(cfg, gen.device, L)
+        blocks["ln1"] = layers.norm_init(cfg, gen, L)
         blocks["attn"] = layers.attention_init(gen, cfg, L)
     if cfg.has_ssm and not encoder:
-        blocks["ln_ssm"] = layers.norm_init(cfg, gen.device, L)
+        blocks["ln_ssm"] = layers.norm_init(cfg, gen, L)
         blocks["ssm"] = ssm_mod.ssm_init(gen, cfg, L)
     if decoder:
-        blocks["lnx"] = layers.norm_init(cfg, gen.device, L)
+        blocks["lnx"] = layers.norm_init(cfg, gen, L)
         blocks["xattn"] = layers.attention_init(gen, cfg, L)
     if moe:
-        blocks["ln2"] = layers.norm_init(cfg, gen.device, L)
+        blocks["ln2"] = layers.norm_init(cfg, gen, L)
         blocks["moe"] = moe_mod.moe_init(gen, cfg, L)
         if cfg.moe_dense_residual:
             blocks["mlp"] = layers.mlp_init(gen, cfg, L)
     elif cfg.d_ff:
-        blocks["ln2"] = layers.norm_init(cfg, gen.device, L)
+        blocks["ln2"] = layers.norm_init(cfg, gen, L)
         blocks["mlp"] = layers.mlp_init(gen, cfg, L)
     return blocks
 
@@ -394,13 +408,11 @@ def forward(params, cfg: ModelConfig, tokens, frontend_emb=None):
     return forward_aux(params, cfg, tokens, frontend_emb)[0]
 
 
-def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
-            remat: bool = False, aux_weight: float = 0.01):
-    """Causal LM cross-entropy with the MoE router losses (reference
-    ``lm.py:607``): the mean negative log-likelihood of ``labels`` over
-    the positions whose label is >= 0, plus ``aux_weight * (moe_lb +
-    1e-3 moe_z)``.  Returns (loss, {"lm_loss": loss, "moe_lb",
-    "moe_z"}), as the reference's."""
+def loss_terms(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
+               remat: bool = False):
+    """The pieces of ``loss_fn``: (the summed negative log-likelihood of
+    ``labels`` over the positions whose label is >= 0, the count of those
+    positions, the router losses ``{"moe_lb", "moe_z"}``)."""
     logits, aux = forward_aux(params, cfg, tokens, frontend_emb,
                               remat=remat)
     logits = layers.at_least_f32(logits)
@@ -408,7 +420,19 @@ def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
     safe = torch.clamp_min(labels, 0).long()
     ll = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(ll, -1, safe[..., None])[..., 0]
-    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1)
+    return (nll * mask).sum(), mask.sum(), aux
+
+
+def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
+            remat: bool = False, aux_weight: float = 0.01):
+    """Causal LM cross-entropy with the MoE router losses (reference
+    ``lm.py:607``): the mean negative log-likelihood of ``labels`` over
+    the positions whose label is >= 0, plus ``aux_weight * (moe_lb +
+    1e-3 moe_z)``.  Returns (loss, {"lm_loss": loss, "moe_lb",
+    "moe_z"}), as the reference's."""
+    nll, count, aux = loss_terms(params, cfg, tokens, labels, frontend_emb,
+                                 remat)
+    loss = nll / torch.clamp_min(count, 1)
     loss = loss + aux_weight * (aux["moe_lb"] + 1e-3 * aux["moe_z"])
     return loss, {"lm_loss": loss, **aux}
 

@@ -39,25 +39,31 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig, stack: int = 0) -> dict:
     d = cfg.d_model
     d_in, H, P, N = ssm_dims(cfg)
     k = cfg.ssm_conv
-    pd, dev = cfg.pdtype, gen.device
-    lead = (stack,) if stack else ()
-    a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
-                                     device=dev))
+    pd, f32 = cfg.pdtype, torch.float32
+    inner, small, heads = ("ssm_in",), ("ssm_small",), ("ssm_heads",)
+
+    def a_log(full):
+        return torch.log(torch.linspace(1.0, 16.0, H, dtype=f32,
+                                        device=gen.device)).expand(full)
     return {
-        "w_zx": layers._dense_init(gen, (d, 2 * d_in), pd, stack=stack),
-        "w_bcdt": layers._dense_init(gen, (d, 2 * N + H), pd, stack=stack),
-        "conv_w": layers._dense_init(gen, (k, d_in), pd,
+        "w_zx": layers._dense_init(gen, (d, 2 * d_in), pd,
+                                   ("embed",) + inner, stack=stack),
+        "w_bcdt": layers._dense_init(gen, (d, 2 * N + H), pd,
+                                     ("embed",) + small, stack=stack),
+        "conv_w": layers._dense_init(gen, (k, d_in), pd, ("conv",) + inner,
                                      scale=1.0 / math.sqrt(k), stack=stack),
-        "conv_b": layers._const((d_in,), pd, 0.0, dev, stack),
+        "conv_b": layers._const(gen, (d_in,), pd, inner, 0.0, stack),
         "conv_w_bc": layers._dense_init(gen, (k, 2 * N), pd,
+                                        ("conv",) + small,
                                         scale=1.0 / math.sqrt(k),
                                         stack=stack),
-        "conv_b_bc": layers._const((2 * N,), pd, 0.0, dev, stack),
-        "a_log": a_log.expand(lead + (H,)).clone(),
-        "dt_bias": layers._const((H,), torch.float32, 0.0, dev, stack),
-        "d_skip": layers._const((H,), torch.float32, 1.0, dev, stack),
-        "norm": layers._const((d_in,), pd, 1.0, dev, stack),
-        "w_out": layers._dense_init(gen, (d_in, d), pd, stack=stack),
+        "conv_b_bc": layers._const(gen, (2 * N,), pd, small, 0.0, stack),
+        "a_log": layers._given(gen, (H,), heads, a_log, stack),
+        "dt_bias": layers._const(gen, (H,), f32, heads, 0.0, stack),
+        "d_skip": layers._const(gen, (H,), f32, heads, 1.0, stack),
+        "norm": layers._const(gen, (d_in,), pd, inner, 1.0, stack),
+        "w_out": layers._dense_init(gen, (d_in, d), pd, inner + ("embed",),
+                                    stack=stack),
     }
 
 

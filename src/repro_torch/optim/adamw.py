@@ -11,9 +11,15 @@ state's moments and master copy **in place** (no second copy of a 0.5 B
 parameter model's 7 GB of state) and returns them with the new step.
 The arithmetic is the reference's, leaf by leaf, in float32.
 
-``state_shardings`` (reference ``adamw.py:171``) places states on a JAX
-mesh: one card has no counterpart, and it waits for the parameter
-sharding rules of the XLA-tooling slice (ROADMAP.md §1).
+Parameters held as ``DTensor``s over a mesh of processes (the sharded
+trainer, ``launch.train``) get a state placed as ``state_shardings``
+says (the reference's rule, ``adamw.py:171-194`` there): each moment and
+the master copy as its parameter, Adafactor's factored moments with the
+trailing axes dropped, scalars replicated.  AdamW updates each rank's
+part in place; the clip's norm sums the squares over the shards, and
+Adafactor's row and column means and its update clip run on the leaf
+gathered whole (the reference's arithmetic on the whole leaf), each rank
+keeping its part.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.models.config import torch_dtype
+from repro_torch.sharding import dtensor, rules
 from repro_torch.utils.tree import leaves, tree_map
 
 
@@ -62,8 +69,17 @@ def schedule(cfg: OptConfig, step):
 
 
 def _global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    """The norm over every leaf; a ``DTensor`` leaf's squares summed over
+    the mesh axes it is cut on (each replica counted once)."""
+    total = 0.0
+    for x in leaves(tree):
+        sq = torch.sum(torch.square(dtensor.local(x).float()))
+        if dtensor.is_dtensor(x):
+            mesh = dtensor.mesh_of(x)
+            sq = dtensor.all_sum(sq, mesh,
+                                 rules.sharded_axes(dtensor.spec_of(x, mesh)))
+        total = total + sq
+    return torch.sqrt(total)
 
 
 class AdamWState(NamedTuple):
@@ -93,10 +109,32 @@ def _master(p):
     return p.detach().float().clone()
 
 
+def _state_spec(shape, spec) -> tuple:
+    """The spec of a state leaf of ``shape`` whose parameter has ``spec``
+    (the reference's ``state_shardings``' rule)."""
+    if len(shape) == 0 or tuple(shape) == (1,):
+        return ()
+    if len(spec) == len(shape):
+        return tuple(spec)
+    if len(spec) > len(shape):          # factored moment: drop trailing axes
+        return tuple(spec[:len(shape)])
+    return ()
+
+
+def _zeros(p, shape, dtype):
+    """Zeros of ``shape`` for a state leaf of parameter ``p``: placed as
+    ``_state_spec`` says where ``p`` is a ``DTensor``."""
+    if not dtensor.is_dtensor(p):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    mesh = dtensor.mesh_of(p)
+    spec = _state_spec(shape, dtensor.spec_of(p, mesh))
+    return dtensor.zeros(shape, spec, mesh, dtype, p.device)
+
+
 @torch.no_grad()
 def adamw_init(params, cfg: OptConfig) -> AdamWState:
     md = torch_dtype(cfg.moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=md, device=p.device)
+    zeros = lambda p: _zeros(p, p.shape, md)
     return AdamWState(torch.zeros((), dtype=torch.int32,
                                   device=_device(params)),
                       tree_map(zeros, params), tree_map(zeros, params),
@@ -134,20 +172,21 @@ def adamw_update(grads, state: AdamWState, params, cfg: OptConfig):
         v.copy_(v_n)
         master.copy_(new)
 
-    tree_map(upd, grads, state.m, state.v, params, state.master)
+    tree_map(lambda *ts: upd(*map(dtensor.local, ts)), grads, state.m,
+             state.v, params, state.master)
     return params, state._replace(step=step), {"grad_norm": gnorm, "lr": lr}
 
 
 @torch.no_grad()
 def adafactor_init(params, cfg: OptConfig) -> AdafactorState:
     def vr(p):
-        return torch.zeros(p.shape[:-1] if _factorable(p, cfg) else p.shape,
-                           dtype=torch.float32, device=p.device)
+        return _zeros(p, p.shape[:-1] if _factorable(p, cfg) else p.shape,
+                      torch.float32)
 
     def vc(p):
         shape = (p.shape[:-2] + p.shape[-1:]) if _factorable(p, cfg) \
             else (1,)
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        return _zeros(p, shape, torch.float32)
     return AdafactorState(torch.zeros((), dtype=torch.int32,
                                       device=_device(params)),
                           tree_map(vr, params), tree_map(vc, params),
@@ -179,12 +218,23 @@ def adafactor_update(grads, state: AdafactorState, params, cfg: OptConfig):
         rms = torch.sqrt(torch.mean(u * u) + 1e-30)   # update clipping
         u = u / torch.clamp_min(rms, 1.0)
         new = master - lr * (u + cfg.weight_decay * master)
-        p.copy_(new)
-        vr.copy_(vr_n)
-        vc.copy_(vc_n)
-        master.copy_(new)
+        return new, vr_n, vc_n
 
-    tree_map(upd, grads, state.vr, state.vc, params, state.master)
+    def leaf(g, vr, vc, p, master):
+        if not dtensor.is_dtensor(p):
+            new, vr_n, vc_n = upd(g, vr, vc, p, master)
+            for t, v in ((p, new), (vr, vr_n), (vc, vc_n), (master, new)):
+                t.copy_(v)
+            return
+        # the means and the update clip span the whole leaf
+        mesh = dtensor.mesh_of(p)
+        new, vr_n, vc_n = upd(g.full_tensor(), vr.full_tensor(),
+                              vc.full_tensor(), p, master.full_tensor())
+        for t, v in ((p, new), (vr, vr_n), (vc, vc_n), (master, new)):
+            dtensor.local(t).copy_(dtensor.local_part(
+                v, dtensor.spec_of(t, mesh), mesh))
+
+    tree_map(leaf, grads, state.vr, state.vc, params, state.master)
     return params, state._replace(step=step), {"grad_norm": gnorm, "lr": lr}
 
 
@@ -196,3 +246,18 @@ def opt_init(params, cfg: OptConfig):
 def opt_update(grads, state, params, cfg: OptConfig):
     return adamw_update(grads, state, params, cfg) if cfg.kind == "adamw" \
         else adafactor_update(grads, state, params, cfg)
+
+
+def state_shardings(state, param_shardings, mesh):
+    """The specs of an optimizer state (a tree of tensors; meta ones
+    too) whose parameters have ``param_shardings``: each leaf as its
+    parameter, a factored moment with the trailing axes dropped, scalars
+    and the (1,) placeholders replicated (reference ``adamw.py:171``)."""
+    def map_like(leaf_tree):
+        return tree_map(lambda s, spec: _state_spec(s.shape, spec),
+                        leaf_tree, param_shardings)
+    if isinstance(state, AdamWState):
+        return AdamWState((), map_like(state.m), map_like(state.v),
+                          map_like(state.master))
+    return AdafactorState((), map_like(state.vr), map_like(state.vc),
+                          map_like(state.master))

@@ -1,9 +1,11 @@
 """Ambient mesh registry (port of ``repro/sharding/context.py``).
 
-Layers that need the active mesh look it up here; single-device code
-never sets one.  ``launch/serve.py`` sets the serving mesh around the
-construction of a sharded KV backend.  A mesh is any record with
-``axis_names``, a ``shape`` dict and ``devices`` (``launch.mesh.Mesh``).
+Layers that need the active mesh look it up here (the MoE layer's
+expert-parallel dispatch); single-device code never sets one.
+``launch/serve.py`` sets the serving mesh around the construction of a
+sharded KV backend, ``launch/train.py`` the training mesh around the
+run.  A mesh is any record with ``axis_names``, a ``shape`` dict and
+``devices`` (``launch.mesh.Mesh``).
 """
 from __future__ import annotations
 

@@ -35,7 +35,9 @@ with the oracle and with ``dram.simulate``.
 
 The ``train`` phase's host-side helpers: the launch counts a training
 step must show (the MoE smoke configs' K4 and B4 too), B5's and B4's
-bounds, the CUDA refusals for memory (which need no card), the kernel
+bounds, the CUDA refusals for memory (which need no card) and the bytes
+per device they print, the expert-parallel MoE check's column shapes,
+launches and comparison with the one-process layer, the kernel
 rows' ``replaces`` lines, B4's cases (the published widths, a skewed and
 an empty routing, the edges) and the router comparison of the float32
 MoE step; on the card, B5 against its twin within ``B5_TOL``, B2 bitwise
@@ -528,6 +530,68 @@ def test_train_refusals_need_no_card(monkeypatch):
     assert chip_smoke.TRAIN_REFUSED == (
         "arctic_480b", "kimi_k2_1t_a32b", "starcoder2_7b",
         "phi3_medium_14b", "deepseek_coder_33b")
+
+
+def test_train_refusals_print_bytes_per_device(monkeypatch, capsys):
+    """Each refusal names the state's bytes per device under the trainer's
+    mesh of one (``train_state_bytes`` there, the whole state) and the
+    mesh; a config that fits is not among them."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    monkeypatch.setattr(train, "card_memory", lambda device: 80 * 10 ** 9)
+    chip_smoke.train_refusals()
+    out = capsys.readouterr().out
+    mesh = train.pick_mesh(1)
+    for arch in chip_smoke.TRAIN_REFUSED:
+        need = train.train_state_bytes(configs.get(arch), mesh=mesh)
+        assert need > 80 * 10 ** 9
+        assert f"takes {need} bytes" in out and \
+            "per device on the mesh data 1 x model 1" in out, arch
+    assert train.train_state_bytes(configs.get("qwen1_5_0_5b"),
+                                   mesh=mesh) < 80 * 10 ** 9
+
+
+def test_moe_sharded_case_is_arctics_column():
+    """``MOE_SHARDED``'s column: 64 of arctic-480b's 128 experts (13.4 GB
+    of bf16 weights), 8 x 512 tokens top-2 = 8192 assignments, and at 2
+    columns a capacity of all of them (``column_capacity``: twice the even
+    share), so no row can drop; K4 three launches a column, B4 three
+    calls of ``bwd_launches``."""
+    from repro_torch import configs
+    arch, B, S = chip_smoke.MOE_LAYER
+    c = chip_smoke.moe_sharded_case(configs.get(arch), B, S,
+                                    chip_smoke.MOE_COLUMNS)
+    assert (arch, chip_smoke.MOE_COLUMNS) == ("arctic_480b", 2)
+    assert c == dict(experts=64, assignments=8192, capacity=8192,
+                     weight_bytes=3 * 64 * 7168 * 4864 * 2)
+    assert chip_smoke.moe_sharded_launches(torch.bfloat16) == \
+        {"grouped_matmul": 3, "grouped_matmul_bwd": 9}
+    assert chip_smoke.moe_sharded_launches(torch.float32) == \
+        {"grouped_matmul": 3, "grouped_matmul_bwd": 6}
+
+
+def test_moe_sharded_errors_hold_every_expert(monkeypatch):
+    """``moe_sharded_errors`` holds column 0's y, dx and router gradient
+    and every column's experts against the one-process layer (expert e
+    of column r is the reference's r * E_loc + e): equal tensors give 0
+    and bitwise; a change in one expert of column 1 beyond ``B4_TOL``
+    shows in that weight alone."""
+    gen = torch.Generator().manual_seed(0)
+    E_loc, cols = 3, 2
+    ref = {k: torch.randn(*s, generator=gen).to(torch.bfloat16)
+           for k, s in (("y", (4, 8)), ("x", (4, 8)), ("router", (8, 6)),
+                        ("w_in", (6, 8, 5)), ("w_gate", (6, 8, 5)),
+                        ("w_out", (6, 5, 8)))}
+    got = {r: {k: (v[r * E_loc:(r + 1) * E_loc] if k.startswith("w_")
+                   else v).clone() for k, v in ref.items()}
+           for r in range(cols)}
+    errs = chip_smoke.moe_sharded_errors(torch, got, ref, E_loc)
+    assert all(v[0] == 0.0 for v in errs.values())
+    assert all(errs[w][2] for w in ("w_in", "w_gate", "w_out"))
+    got[1]["w_out"][2, 0, 0] += 1.0
+    errs = chip_smoke.moe_sharded_errors(torch, got, ref, E_loc)
+    assert errs["w_out"][1] > 1.0 and not errs["w_out"][2]
+    assert errs["w_in"][1] == 0.0 and errs["w_in"][2]
 
 
 def test_train_kernel_rows_list_the_backward_kernels():

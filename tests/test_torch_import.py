@@ -87,6 +87,7 @@ SLICE_MODULES = [
     "repro_torch.serve.step",
     "repro_torch.serving.scheduler",
     "repro_torch.sharding.context",
+    "repro_torch.sharding.dtensor",
     "repro_torch.sharding.rules",
     "repro_torch.train.step",
     "repro_torch.utils.tree",

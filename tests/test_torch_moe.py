@@ -140,9 +140,16 @@ def test_set_dispatch_switches_and_refuses_unknown():
 
 
 def test_sharded_dispatch_waits_for_the_sharding_slice():
+    """The expert-parallel dispatch runs over a mesh of processes only
+    (``tests/test_torch_moe_sharded.py`` runs it): without one, or on a
+    mesh record that spans none, it refuses rather than dispatching
+    locally."""
+    from repro_torch.launch import mesh as tmesh
     jc, tc, jp, tp, x = _setup("eq")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tmoe._mars_dispatch_sharded(tp, torch.from_numpy(x), tc, None)
+    record = tmesh.Mesh(("data", "model"), {"data": 1, "model": 2}, ())
+    for mesh in (None, record):
+        with pytest.raises(ValueError, match="mesh over processes"):
+            tmoe._mars_dispatch_sharded(tp, torch.from_numpy(x), tc, mesh)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
