@@ -270,13 +270,15 @@ Phases (any failure exits non-zero and prints no result):
           ``launch.train`` in bf16 with every
           count set to 0 just before it: qwen1.5-0.5b, whisper-base (stub
           frames, ``--frontend stub``: the reference's zero frames train
-          nothing at its width), mamba2-370m and hymba-1.5b at full width
-          and arctic-480b's and kimi-k2's smoke configs, 12 steps of 8 x
+          nothing at its width), mamba2-370m at full width, hymba-1.5b's
+          first 17 of 32 layers at published width (``--layers 17``: both
+          global layers, 0 and 16, and fifteen windowed ones) and
+          arctic-480b's and kimi-k2's smoke configs, 12 steps of 8 x
           512 each, no checkpoint: finite losses, the last below the
           first, K5 once per attention a step (24; whisper 18; hymba 2;
           the MoE smokes 2 and 3), B5 three times as often, K2 and B2 once
           a step (tables of at least 2**22 elements: not the smokes'), K3
-          once per SSM layer a step (mamba2 48, hymba 32) with its two
+          once per SSM layer a step (mamba2 48, hymba 17) with its two
           passes each, B3 three times as often, K4 three times per MoE
           layer a step and B4 ``bwd_launches`` as often (bf16: the
           prologue, dx and dw); the same run with a
@@ -286,6 +288,29 @@ Phases (any failure exits non-zero and prints no result):
           allocated memory, then one warm step of each under
           ``torch.profiler`` (device time by kernel and kind, busy
           share).
+  dryrun  the port's dry-run (``repro_torch.launch.dryrun``) and kernel
+          benches, after the train phase: (a) for each ``TRAIN_RUNS``
+          run, the model flops of a ``ShapeCell`` of the run's own
+          ``TRAIN_TOKENS`` (6 N_active B S), its floor at the card's
+          bf16 peak (``dryrun.PEAK_FLOPS``) and the run's measured
+          median step; a step shorter than its floor fails the phase.
+          qwen1.5-0.5b's and mamba2-370m's steps (the dense and the SSM
+          route) are also traced on a mesh of one under fake tensors,
+          with the run's flags (no remat, AdamW), in spawned processes:
+          their traced flops, the three roofline times and the traced
+          peak (arguments and temporaries) beside the run's measured
+          peak; (b) one production cell, ``--arch qwen1_5_0_5b --shape
+          train_4k --mesh single`` (256 fake ranks), in a child process
+          of its own, must end ``ok``; (c) the ``kernel_benches``
+          section of ``repro_torch.benchmarks.run`` on the card (K4's
+          MoE dispatch, K2's gather, the scheduler and S1, launches
+          counted from 0: each bench's six calls and the one held
+          against its twin), first and alone on the host: K4's FFN output
+          and K2's sorted rows held against their twins on host copies
+          of the same inputs (``kernel_benches.held``; K2 bitwise), and
+          the derived statistics equal to the same section's with
+          ``--device cpu`` (a child process; they are computed from host
+          data, but for S1's cycles).
 
 Prints the card's name and power limit (as ``nvidia-smi`` gives them), a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
@@ -297,6 +322,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import queue
 import statistics
 import subprocess
@@ -3113,11 +3139,17 @@ TRAIN_TOKENS = (8, 512)             # batch x sequence of the training runs
 # elements from which the embedding takes K2 (``mars_gather.ops``, as the
 # reference's auto mode), so they launch no K2 or B2.  qwen's run was 30
 # steps killed at 20 until the MoE runs came; it is cut to the others'
-# 12, killed at 8, to keep the script's time.
+# 12, killed at 8, to keep the script's time.  For the same reason
+# hymba-1.5b trains its first ``HYMBA_LAYERS`` of 32 layers at published
+# width (``--layers``): at full depth the whole script took 1133.1 s of
+# its 1200 on an H100 host whose CPU was slow (hymba's run 158.1 s, a
+# 22 GB checkpoint).  The cut keeps both global layers (0 and 16: K5,
+# B5), the other fifteen windowed, every one with its SSM heads (K3, B3).
+HYMBA_LAYERS = 17
 TRAIN_RUNS = (("qwen1_5_0_5b", 12, 4, 8, ()),
               ("whisper_base", 12, 4, 8, ("--frontend", "stub")),
               ("mamba2_370m", 12, 4, 8, ()),
-              ("hymba_1_5b", 12, 4, 8, ()),
+              ("hymba_1_5b", 12, 4, 8, ("--layers", str(HYMBA_LAYERS))),
               ("arctic_480b", 12, 4, 8, ("--smoke",)),
               ("kimi_k2_1t_a32b", 12, 4, 8, ("--smoke",)))
 TRAIN_RESUME_RTOL = 1e-4
@@ -4969,6 +5001,208 @@ def train_phase(torch) -> tuple:
     return record, launches
 
 
+# The dryrun phase.  The runs traced on a mesh of one (the dense and the
+# SSM route), the production cell run in a child, the derived statistics
+# of the kernel benches that must not depend on the device (the speedup
+# row is a wall-clock ratio), and how long a child may take.
+DRYRUN_TRACED = ("qwen1_5_0_5b", "mamba2_370m")
+DRYRUN_CELL = ("--arch", "qwen1_5_0_5b", "--shape", "train_4k", "--mesh",
+               "single")
+BENCH_STATS = ("run_len", "page_run", "prefix_blocks_per_batch", "cycles")
+DRYRUN_TIMEOUT = 400
+DRYRUN_BENCH = "benchmarks.run --only kernel_benches --device cuda"
+
+
+def train_floor(arch: str, flags=()) -> dict:
+    """A ``TRAIN_RUNS`` run's model flops (6 N_active B S for a
+    ``ShapeCell`` of its ``TRAIN_TOKENS``) and their time at the card's
+    bf16 peak, the least a step could take."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.launch.serve import cut_depth
+    B, S = TRAIN_TOKENS
+    cfg = configs.get_smoke(arch) if "--smoke" in flags \
+        else configs.get(arch)
+    layers = flag_value(flags, "--layers", 0)
+    if layers:
+        cfg = cut_depth(cfg, layers)
+    cell = ShapeCell(f"train_{B}x{S}", S, B, "train")
+    flops = dryrun.model_flops(cfg, cell.kind, cell.global_batch,
+                               cell.seq_len)
+    return dict(model_flops=flops, floor_ms=flops / dryrun.PEAK_FLOPS * 1e3)
+
+
+def floor_check(name: str, step_ms: float, floor_ms: float) -> float:
+    """The measured step's ratio to its floor; raises for a step shorter
+    than the floor: no card gives such a reading, so a count is wrong."""
+    if not step_ms >= floor_ms:
+        raise AssertionError(f"{name}: measured step {step_ms} ms is "
+                             f"shorter than its model-flop floor "
+                             f"{floor_ms} ms")
+    return step_ms / floor_ms
+
+
+def dryrun_trace(arch: str) -> dict:
+    """``arch``'s full-width training step at ``TRAIN_TOKENS`` traced on
+    a mesh of one under fake tensors, with the training run's flags (no
+    remat, AdamW): flops, bytes, memory and the roofline terms (in a
+    spawned process: the trace runs on the host)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim.adamw import OptConfig
+    B, S = TRAIN_TOKENS
+    cfg = configs.get(arch)
+    t0 = time.perf_counter()
+    traced = dryrun.trace_train(cfg, make_local_mesh(), B, S,
+                                opt_cfg=OptConfig(), remat=False)
+    out = dryrun.analyze(traced, 1, train_floor(arch)["model_flops"])
+    out["trace_s"] = time.perf_counter() - t0
+    return out
+
+
+def bench_rows_check(card: list, cpu: list) -> dict:
+    """The kernel benches' derived statistics (``BENCH_STATS``) on the
+    card against the CPU run's: the same rows, the same values; raises
+    otherwise.  Returns them by row."""
+    def stats(rows):
+        return {r["name"]: r["derived"] for r in rows
+                if r["derived"].split("=")[0] in BENCH_STATS}
+    got, want = stats(card), stats(cpu)
+    if not want or got != want:
+        raise AssertionError(f"kernel benches: derived statistics on the "
+                             f"card {got}, with --device cpu {want}")
+    return got
+
+
+def dryrun_cell_check(stdout: str) -> dict:
+    """The production cell's record (the child's last JSON line); raises
+    unless its status is ok."""
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines[-1]) if lines else {}
+    if rec.get("status") != "ok":
+        raise AssertionError(f"dry-run cell {' '.join(DRYRUN_CELL)}: "
+                             f"{rec.get('status')} {rec.get('error', '')}")
+    return rec
+
+
+def dryrun_phase(torch, runs: dict) -> tuple:
+    """The dryrun phase (see the module's docstring); ``runs`` are the
+    train phase's records by config (empty without it).  Returns (record,
+    launches of the benches on the card)."""
+    import multiprocessing
+    from repro_torch.benchmarks import kernel_benches
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cpu_json = OUT_DIR / "kernel_benches_cpu.json"
+    card_json = OUT_DIR / "kernel_benches_cuda.json"
+    # the card's benches first, alone on the host: they are short, and
+    # their launches are paced by the host
+    counters = kernel_counters()
+    reset_counts(counters)
+    kernel_benches.TWIN_ERR.clear()
+    if bench_run.main(["--only", "kernel_benches", "--device", "cuda",
+                       "--json", str(card_json)]):
+        raise AssertionError("kernel benches on the card failed")
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    twin_err = dict(kernel_benches.TWIN_ERR)
+    bench_s = time.perf_counter() - t0
+    if set(twin_err) != {"moe_dispatch/mars_sorted", "mars_gather/sorted"}:
+        raise AssertionError(f"kernel benches held {sorted(twin_err)} "
+                             f"against their twins, not K4's and K2's")
+    cell = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_CELL],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    cpu = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--only",
+         "kernel_benches", "--device", "cpu", "--json", str(cpu_json)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    pool = multiprocessing.get_context("spawn").Pool(len(DRYRUN_TRACED))
+    try:
+        pending = {a: pool.apply_async(dryrun_trace, (a,))
+                   for a in DRYRUN_TRACED}
+        cpu_out, cpu_err = cpu.communicate(timeout=DRYRUN_TIMEOUT)
+        if cpu.returncode:
+            raise AssertionError(f"kernel benches --device cpu: exit "
+                                 f"{cpu.returncode}: {cpu_err[-2000:]}")
+        stats = bench_rows_check(json.loads(card_json.read_text())["rows"],
+                                 json.loads(cpu_json.read_text())["rows"])
+        traces = {a: r.get(timeout=DRYRUN_TIMEOUT)
+                  for a, r in pending.items()}
+        cell_out, cell_err = cell.communicate(timeout=DRYRUN_TIMEOUT)
+        if cell.returncode:
+            raise AssertionError(f"dry-run cell: exit {cell.returncode}: "
+                                 f"{cell_err[-2000:]}")
+        cell_rec = dryrun_cell_check(cell_out)
+    finally:
+        pool.terminate()
+        pool.join()
+        for proc in (cell, cpu):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    missing = [k for k in ("grouped_matmul", "gather_rows", "mars_engine")
+               if not launches[k]]
+    print(f"[dryrun] kernel benches on the card: launches " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if v) + f"; outputs "
+        f"against their twins on host copies (max abs err): {twin_err}; "
+        f"derived statistics equal to --device cpu's: {stats} "
+        f"({bench_s:.1f}s)")
+    if missing:
+        raise AssertionError(f"kernel benches launched no {missing}")
+    floors = {}
+    for arch, *_, flags in TRAIN_RUNS:
+        f = train_floor(arch, flags)
+        run = runs.get(arch)
+        tag = f"[dryrun] {arch}{' smoke' if '--smoke' in flags else ''}"
+        if run is None:
+            print(f"{tag} {TRAIN_TOKENS[0]}x{TRAIN_TOKENS[1]}: model flops "
+                  f"{f['model_flops']:.4e}, floor {f['floor_ms']:.4f} ms; "
+                  f"measured step: not measured (no train phase)")
+        else:
+            f["step_ms"] = run["step_ms"]
+            f["ratio"] = floor_check(arch, run["step_ms"], f["floor_ms"])
+            print(f"{tag} {TRAIN_TOKENS[0]}x{TRAIN_TOKENS[1]}: model flops "
+                  f"{f['model_flops']:.4e}, floor {f['floor_ms']:.4f} ms at "
+                  f"{dryrun.PEAK_FLOPS / 1e12:.0f} TFLOP/s; measured median "
+                  f"step "
+                  f"{run['step_ms']:.1f} ms, {f['ratio']:.1f}x the floor")
+        t = traces.get(arch)
+        if t is not None:
+            mem = t["memory"]
+            peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            f["traced"] = t
+            print(f"{tag}   traced on a mesh of one ({t['trace_s']:.1f}s): "
+                  f"flops {t['traced_flops_per_chip']:.4e} (useful "
+                  f"{t['useful_flop_ratio']:.3f}), bytes "
+                  f"{t['traced_bytes_per_chip']:.4e}; t_compute "
+                  f"{t['t_compute_s'] * 1e3:.2f} ms, t_memory "
+                  f"{t['t_memory_s'] * 1e3:.2f} ms, t_collective "
+                  f"{t['t_collective_s'] * 1e3:.2f} ms ({t['dominant']}); "
+                  f"peak {peak / 2**30:.2f} GiB traced (arguments "
+                  f"{mem['argument_size_in_bytes'] / 2**30:.2f} + "
+                  f"temporaries {mem['temp_size_in_bytes'] / 2**30:.2f}) "
+                  + ("" if run is None else f"beside "
+                     f"{run['peak_bytes'] / 2**30:.2f} GiB measured"))
+        floors[arch] = f
+    print(f"[dryrun] production cell {' '.join(DRYRUN_CELL)}: "
+          f"{cell_rec['status']} in {cell_rec['trace_s']}s on "
+          f"{cell_rec['chips']} fake ranks: traced flops "
+          f"{cell_rec['traced_flops_per_chip']:.4e} a rank against "
+          f"{cell_rec['model_flops_per_chip']:.4e} model flops a chip, "
+          f"collectives {cell_rec['collectives']}, memory "
+          f"{cell_rec['memory']}, dominant {cell_rec['dominant']}")
+    return dict(floors=floors, cell=cell_rec, bench_stats=stats,
+                bench_twin_err=twin_err,
+                wall_s=time.perf_counter() - t0), launches
+
+
 # the port's kernels as their device-side names show in a profile
 KERNEL_NAMES = {"paged_attention": "paged_attention_split_kernel",
                 "paged_attention_merge": "paged_attention_merge_kernel",
@@ -5008,7 +5242,8 @@ def print_profile(arch: str, prof: dict) -> None:
               f"{row['name'][:90]}")
 
 
-PHASES = ("k1", "k3", "k2", "k4", "k5", "sim", "serve", "dense", "train")
+PHASES = ("k1", "k3", "k2", "k4", "k5", "sim", "serve", "dense", "train",
+          "dryrun")
 # what a serve run returns beside its stats: not written to the record
 NOT_STATS = ("finished", "cfg", "params", "prompts", "max_new",
              "backend", "obs")
@@ -5226,6 +5461,10 @@ def main(argv=None) -> int:
         record.update(train=train_record,
                       train_s=time.perf_counter() - t0)
         print(f"[time] train phase {record['train_s']:.1f}s")
+    if "dryrun" in phases:
+        record["dryrun"], launches[DRYRUN_BENCH] = dryrun_phase(
+            torch, record["train"]["runs"] if "train" in phases else {})
+        print(f"[time] dryrun phase {record['dryrun']['wall_s']:.1f}s")
     total_s = time.perf_counter() - t_start
     print(f"[time] build {build_s:.1f}s, build + kernel phases "
           f"{kernels_s:.1f}s, whole run {total_s:.1f}s")

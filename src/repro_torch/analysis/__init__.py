@@ -9,13 +9,13 @@
   ``analysis.refsan``  opt-in ``BlockPool`` shadow refcount sanitizer:
                        leaks, double-frees and use-after-free with
                        call-site provenance.
-
-The reference's third tool, the AST lint ``analysis.lint``, is not
-ported yet.
+  ``analysis.lint``    the AST protocol lint (``python -m
+                       repro_torch.analysis.lint [paths]``): the
+                       reference's rules but ``pallas-fetch-gate``.
 """
 import importlib
 
-__all__ = ["races", "refsan"]
+__all__ = ["lint", "races", "refsan"]
 
 
 def __getattr__(name):

@@ -4,9 +4,11 @@
 Prints ``name,us_per_call,derived`` CSV under the reference's row names
 (``benchmarks/run.py``): Fig 2/7/8 (``paper_figures``), the ablations and
 the KV-cache rows that replay traces through ``core.dram.simulate``
-(``kvcache_sim``).  ``--device`` picks where the simulator's two scans run
-(``cuda``, the default, launches the MARS engine and DRAM channel kernels
-and fails without a GPU; ``cpu`` runs their plain twins).
+(``kvcache_sim``), and the kernel benches (``kernel_benches``: K4's MoE
+dispatch, K2's gather, the scheduler and S1 against their baselines).
+``--device`` picks where the simulator's two scans and the kernel benches
+run (``cuda``, the default, launches the kernels and fails without a GPU;
+``cpu`` runs their plain twins).
 
 ``--smoke`` runs the sections that support it (the KV-cache rows, at the
 reference's smoke sizes) and skips the rest.  ``--baseline <path>``
@@ -60,11 +62,14 @@ def check_baseline(rows, baseline: dict) -> list[str]:
 
 def sections(device: str):
     """(name, run(emit), smoke-aware) of every section."""
-    from repro_torch.benchmarks import ablations, kvcache_sim, paper_figures
+    from repro_torch.benchmarks import (ablations, kernel_benches,
+                                        kvcache_sim, paper_figures)
     return [(name, functools.partial(mod.run, device=device), smoke)
             for name, mod, smoke in (("paper_figures", paper_figures, False),
                                      ("ablations", ablations, False),
-                                     ("kvcache_sim", kvcache_sim, True))]
+                                     ("kvcache_sim", kvcache_sim, True),
+                                     ("kernel_benches", kernel_benches,
+                                      False))]
 
 
 def main(argv=None) -> int:

@@ -41,6 +41,14 @@ expert, each expert's segment padded to a multiple of ``bm`` rows
 row tiles in use: later tiles come out zero and the kernel reads no
 weights for them, so a caller can size its buffers by a bound without
 reading the count back to the host.
+
+Fake tensors (``torch._subclasses.FakeTensorMode``: the dry-run,
+``launch.dryrun``) hold no routing to read, so on them both wrappers run
+the static bound in place of the twins: every row tile in use, each
+against one expert's weights (``grouped_matmul_static``,
+``grouped_matmul_bwd_static``): the twins' shapes and dtypes and 2 M K
+N operations a product, as the reference's kernel runs every tile of the
+padded rows.  A real tensor never takes them.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import build
 
@@ -276,7 +285,31 @@ def _launch(x, w, tile_group, bm: int, n_tiles):
     return out
 
 
+def grouped_matmul_static(x, w):
+    """``grouped_matmul``'s static bound on fake tensors: every row tile
+    in use, each against expert 0's weights (the plain twin's shapes,
+    dtype and accumulation; 2 M K N operations)."""
+    acc = _acc_dtype(x)
+    return (x.to(acc) @ w[0].to(acc)).to(x.dtype)
+
+
+def grouped_matmul_bwd_static(x, w, dout, need_dx: bool, need_dw: bool):
+    """``grouped_matmul_bwd``'s static bound on fake tensors: every row
+    tile in use against expert 0's weights; dw sums x^T dout over every
+    row once (2 M K N operations each), then takes the (G, K, N) shape."""
+    acc = _acc_dtype(x)
+    dx = dw = None
+    if need_dx:
+        dx = (dout.to(acc) @ w[0].to(acc).T).to(x.dtype)
+    if need_dw:
+        dw = (x.to(acc).T @ dout.to(acc)).to(w.dtype).expand(w.shape) \
+            .contiguous()
+    return dx, dw
+
+
 def _forward(x, w, tile_group, bm: int, n_tiles):
+    if isinstance(x, FakeTensor):
+        return grouped_matmul_static(x, w)
     if x.device.type == "cuda":
         return _launch(x, w, tile_group, bm, n_tiles)
     if x.device.type == "cpu":
@@ -729,6 +762,8 @@ def grouped_matmul_bwd(x, w, dout, tile_group, *, bm: int = DEFAULT_BM,
     then one for dx, one for dw; on CUDA cores one each); CPU tensors run
     the plain twin."""
     _check_shapes(x, w, tile_group, bm)
+    if isinstance(x, FakeTensor):
+        return grouped_matmul_bwd_static(x, w, dout, need_dx, need_dw)
     if x.device.type == "cuda":
         return _bwd_launch(x, w, dout, tile_group, bm, n_tiles, need_dx,
                            need_dw)

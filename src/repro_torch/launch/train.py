@@ -44,7 +44,9 @@ deepseek-coder-33b.
 
 Checkpoints go to ``--workdir``, by default ``build/train/<config>``
 under the checkout (git-ignored; the config's name tells a smoke run
-from a full-width one), so ``--resume`` finds only the same config's.
+from a full-width one, and ``-<N>`` ends it for ``--layers N``, a
+config's first N layers at published width), so ``--resume`` finds only
+the same config's.
 A sharded run writes the files a one-process run writes (rank 0 writes
 the gathered leaves) and resumes from either's.
 """
@@ -81,15 +83,6 @@ class StateTooLarge(RuntimeError):
     """A config's training state does not fit the card."""
 
 
-class _MetaGenerator(torch.Generator):
-    """A CPU generator that reports the meta device, so ``lm.init`` lays
-    the parameters out there: shapes and dtypes, no storage, no draws."""
-
-    @property
-    def device(self):
-        return torch.device("meta")
-
-
 def pick_mesh(n: int | None = None, device="cpu") -> mesh_mod.Mesh:
     """The reference's ``pick_mesh`` over ``n`` processes (default: the
     process group's size, 1 without one): the production meshes at 512
@@ -119,7 +112,7 @@ def train_state(cfg: ModelConfig, opt_cfg=None) -> dict:
     of each parameter's shape and dtype, and the optimizer's state
     (``optim.opt_init``; AdamW's two moments, f32 master copy and step
     by default)."""
-    params = lm.init(cfg, _MetaGenerator())
+    params = lm.abstract_init(cfg)
     return {"p": params, "g": params,
             "o": optim.opt_init(params, opt_cfg or optim.OptConfig())}
 
@@ -209,6 +202,9 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the config's first N layers at published "
+                         "width (as the serve driver's --layers)")
     ap.add_argument("--frontend", default="zeros", choices=FRONTENDS,
                     help="an encoder-decoder or VLM model's frames: the "
                          "reference's zeros, or stub frames (normal * "
@@ -257,7 +253,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, mesh):
         rules.spec_for(axes, shape, rl, mesh), shape, mesh, here)
     part = lm.init(cfg, layers.LocalDraw(gen, region))
     shard = rules.param_shardings(lm.param_specs(cfg),
-                                  lm.init(cfg, _MetaGenerator()), mesh)
+                                  lm.abstract_init(cfg), mesh)
     return layers.as_module(tree_map(
         lambda t, spec: dtensor.distribute(t.detach(), spec, mesh), part,
         shard))
@@ -270,6 +266,9 @@ def run(argv=None) -> dict:
     args = parse_args(argv)
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
+    if args.layers is not None:
+        from repro_torch.launch.serve import cut_depth
+        cfg = cut_depth(cfg, args.layers)
     opt_cfg = optim.OptConfig(lr=args.lr, total_steps=args.steps,
                               warmup_steps=max(args.steps // 20, 5))
     with process_group(args.device):
@@ -285,7 +284,8 @@ def run(argv=None) -> dict:
 
 def _train(args, cfg: ModelConfig, opt_cfg, mesh, dev) -> dict:
     rank = dist.get_rank() if mesh.dist is not None else 0
-    workdir = args.workdir or WORKDIR / cfg.name
+    workdir = args.workdir or WORKDIR / (
+        cfg.name if args.layers is None else f"{cfg.name}-{cfg.n_layers}")
     sup = RunSupervisor(str(workdir), host_id=rank,
                         ckpt_interval=args.ckpt_interval)
 

@@ -3,7 +3,8 @@
 Same fields and defaults as the reference ``ModelConfig`` so a config
 built here describes the same model; the dtype properties return torch
 dtypes.  The port serves every family of the reference (see
-``configs``).
+``configs``).  The shape cells of the dry-run (``SHAPES``,
+``cell_applicable``) are the reference's.
 """
 from __future__ import annotations
 
@@ -157,3 +158,36 @@ class ModelConfig:
         inactive = (self.n_experts - self.top_k) * d * e * 3 \
             * (self.n_layers - self.n_dense_layers)
         return self.n_params() - inactive
+
+
+# shape cells assigned to every LM-family architecture
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES: tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeCell:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic attention: run only for SSM/hybrid
+    (sliding-window or state-space) families; full-attention archs skip."""
+    if cell.name == "long_500k" and not (
+            cfg.family in ("ssm", "hybrid")):
+        return False, "full attention at 524k context out of scope (per spec)"
+    return True, ""

@@ -94,6 +94,21 @@ def init(cfg: ModelConfig, gen):
     return layers.as_module(_tree(cfg, gen))
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so ``init`` lays the
+    parameters out there: shapes and dtypes, no storage, no draws."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def abstract_init(cfg: ModelConfig):
+    """Shape-only init (no allocation): ``init``'s parameters on the meta
+    device — used by the dry-run and the state-size checks."""
+    return init(cfg, _MetaGenerator())
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     """Each parameter's logical axes, leaf for leaf the reference's
     ``lm.init(cfg, key).specs``: a nested dict of tuples of axis names
@@ -470,6 +485,13 @@ def init_dense_cache(cfg: ModelConfig, batch: int, max_seq: int,
     if cfg.family == "encdec":
         xk, xv = (zeros((L, batch, enc_len, K, dh)) for _ in range(2))
     return Cache(k, v, zeros((), torch.int32), ssm, conv, xk, xv)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   enc_len: int = 0) -> Cache:
+    """Shape-only dense storage (dry-run / sharding planning):
+    ``init_dense_cache``'s leaves on the meta device, no storage."""
+    return init_dense_cache(cfg, batch, max_seq, "meta", enc_len=enc_len)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

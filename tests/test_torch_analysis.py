@@ -1,7 +1,8 @@
 """Differential tests of the port's protocol sanitizers
 (``repro_torch.analysis``) against the JAX package's: the 25 race-detector
 and refcount-sanitizer cases of ``tests/test_analysis.py`` (its six lint
-cases wait for the port of ``analysis.lint``).
+cases, for the five rules the port's ``analysis.lint`` carries, are in
+``tests/test_torch_lint.py``).
 
 The race detector is stdlib code in both packages: every history, every
 interleaving of per-shard chains and every replayed trace goes through

@@ -42,7 +42,13 @@ rows' ``replaces`` lines, B4's cases (the published widths, a skewed and
 an empty routing, the edges) and the router comparison of the float32
 MoE step; on the card, B5 against its twin within ``B5_TOL``, B2 bitwise
 against its twin on host copies, and K4 and K3 with a gradient to take
-launching their backward kernels."""
+launching their backward kernels.
+
+The ``dryrun`` phase's pieces: each training run's model-flop floor,
+the floor check that refuses a step shorter than ``model_flops /
+PEAK_FLOPS``, the kernel benches' derived statistics compared across
+devices (the wall-clock speedup row aside), the production cell's
+status, and a failing part that fails the run: ``main`` lets it out."""
 import dataclasses
 import json
 import sys
@@ -1008,3 +1014,96 @@ def test_fingerprint_sees_one_bit():
                    else torch.int32)[i] += 1
             assert chip_smoke.fingerprint(torch, b) != \
                 chip_smoke.fingerprint(torch, a)
+
+
+@pytest.mark.parametrize("run", chip_smoke.TRAIN_RUNS, ids=lambda r: r[0])
+def test_train_floor_is_the_model_flops_at_the_bf16_peak(run):
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    arch, *_, flags = run
+    cfg = configs.get_smoke(arch) if "--smoke" in flags \
+        else configs.get(arch)
+    if arch == "hymba_1_5b":
+        assert chip_smoke.flag_value(flags, "--layers", 0) == 17
+        cfg = serve.cut_depth(cfg, 17)
+        assert [li for li in range(cfg.n_layers)
+                if li % cfg.global_every == 0] == [0, 16]
+    B, S = chip_smoke.TRAIN_TOKENS
+    f = chip_smoke.train_floor(arch, flags)
+    assert f["model_flops"] == 6.0 * cfg.n_active_params() * B * S
+    assert f["floor_ms"] == f["model_flops"] / 989e12 * 1e3
+    assert dryrun.PEAK_FLOPS == 989e12
+
+
+def test_floor_check_refuses_a_step_below_the_floor():
+    floor = chip_smoke.train_floor("qwen1_5_0_5b")["floor_ms"]
+    assert chip_smoke.floor_check("qwen", 10 * floor, floor) == \
+        pytest.approx(10.0)
+    assert chip_smoke.floor_check("qwen", floor, floor) == 1.0
+    for step in (0.99 * floor, 0.0, float("nan")):
+        with pytest.raises(AssertionError, match="shorter than its"):
+            chip_smoke.floor_check("qwen", step, floor)
+
+
+def _bench_rows(**over):
+    rows = {"moe_dispatch/mars_sorted": "run_len=128.0",
+            "moe_dispatch/einsum_baseline": "run_len=1.02",
+            "moe_dispatch/speedup": "0.12x",
+            "mars_gather/plain": "page_run=1.24",
+            "mars_gather/sorted": "page_run=10.0",
+            "scheduler/fifo": "prefix_blocks_per_batch=16.00",
+            "scheduler/mars": "prefix_blocks_per_batch=1.00",
+            "mars_engine/reorder_8192req": "cycles=8192"}
+    rows.update(over)
+    return [{"name": k, "us_per_call": 1.0, "derived": v}
+            for k, v in rows.items()]
+
+
+def test_bench_rows_check_compares_the_statistics_only():
+    got = chip_smoke.bench_rows_check(
+        _bench_rows(**{"moe_dispatch/speedup": "3.50x"}), _bench_rows())
+    assert len(got) == 7 and "moe_dispatch/speedup" not in got
+    for name, bad in (("mars_engine/reorder_8192req", "cycles=8193"),
+                      ("mars_gather/sorted", "page_run=9.9")):
+        with pytest.raises(AssertionError, match="derived statistics"):
+            chip_smoke.bench_rows_check(_bench_rows(**{name: bad}),
+                                        _bench_rows())
+    with pytest.raises(AssertionError):
+        chip_smoke.bench_rows_check(_bench_rows()[:-1], _bench_rows())
+    with pytest.raises(AssertionError):
+        chip_smoke.bench_rows_check([], [])
+
+
+def test_dryrun_cell_check_needs_an_ok_record():
+    ok = {"status": "ok", "chips": 256}
+    out = "a log line\n" + json.dumps(ok) + "\n#  mem={}\n"
+    assert chip_smoke.dryrun_cell_check(out) == ok
+    for rec in ({"status": "error", "error": "KeyError: x"},
+                {"status": "planned"}, {"status": "skip"}):
+        with pytest.raises(AssertionError, match="dry-run cell"):
+            chip_smoke.dryrun_cell_check(json.dumps(rec))
+    with pytest.raises(AssertionError):
+        chip_smoke.dryrun_cell_check("")
+
+
+def test_a_failing_dryrun_part_fails_the_run(monkeypatch):
+    """``main`` with only the dryrun phase (on a stand-in card): the
+    phase's failure comes out of ``main``, not a result line."""
+    from repro_torch.kernels import build
+
+    class _Failed(AssertionError):
+        pass
+
+    def failing(torch_, runs):
+        assert runs == {}
+        raise _Failed("a step below its floor")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    class _Gen:
+        def manual_seed(self, seed):
+            return self
+    monkeypatch.setattr(torch, "Generator", lambda *a, **k: _Gen())
+    monkeypatch.setattr(build, "build_all", lambda: {})
+    monkeypatch.setattr(chip_smoke, "warm_profiler", lambda t: None)
+    monkeypatch.setattr(chip_smoke, "dryrun_phase", failing)
+    with pytest.raises(_Failed):
+        chip_smoke.main(["--phases", "dryrun"])

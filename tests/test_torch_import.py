@@ -16,9 +16,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SLICE_MODULES = [
     "repro_torch",
+    "repro_torch.analysis.lint",
     "repro_torch.analysis.races",
     "repro_torch.analysis.refsan",
     "repro_torch.benchmarks.ablations",
+    "repro_torch.benchmarks.kernel_benches",
     "repro_torch.benchmarks.kvcache_sim",
     "repro_torch.benchmarks.paper_figures",
     "repro_torch.benchmarks.run",
@@ -69,7 +71,9 @@ SLICE_MODULES = [
     "repro_torch.kvcache.prefix",
     "repro_torch.kvcache.sharded_pool",
     "repro_torch.kvcache.tiers",
+    "repro_torch.launch.dryrun",
     "repro_torch.launch.mesh",
+    "repro_torch.launch.roofline",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
     "repro_torch.models.config",
@@ -90,6 +94,7 @@ SLICE_MODULES = [
     "repro_torch.sharding.dtensor",
     "repro_torch.sharding.rules",
     "repro_torch.train.step",
+    "repro_torch.utils.collectives",
     "repro_torch.utils.tree",
 ]
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")

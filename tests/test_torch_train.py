@@ -352,6 +352,26 @@ def test_default_workdir_is_per_config_in_the_checkout(monkeypatch):
         != tconfigs.get("qwen1_5_0_5b").name
 
 
+def test_layers_trains_the_first_layers_in_their_own_workdir(tmp_path,
+                                                           monkeypatch):
+    """``--layers N`` trains the config's first N layers at published
+    width (the serve driver's cut): hymba's smoke config cut to its
+    global layer 0; by default its checkpoints go to a directory of
+    their own; a depth the config lacks raises."""
+    monkeypatch.setattr(ttrain, "WORKDIR", tmp_path)
+    out = ttrain.run(["--arch", "hymba_1_5b", "--smoke", "--layers", "1",
+                      "--steps", "2", "--batch", "2", "--seq", "16",
+                      "--ckpt-interval", "1", "--device", "cpu"])
+    cfg = out["cfg"]
+    full = tconfigs.get_smoke("hymba_1_5b")
+    assert (cfg.n_layers, cfg.d_model) == (1, full.d_model)
+    assert all(np.isfinite(out["losses"]))
+    assert [p.name for p in tmp_path.iterdir()] == [f"{cfg.name}-1"]
+    with pytest.raises(ValueError, match="exceeds"):
+        ttrain.run(["--arch", "hymba_1_5b", "--smoke", "--layers", "3",
+                    "--device", "cpu"])
+
+
 def test_zero_frontend_stalls_whisper_at_full_width():
     """A reference fault (ROADMAP.md §3) the port keeps in its default:
     the reference trainer's zero frames (``repro/launch/train.py:108``)
