@@ -165,7 +165,8 @@ Phases (any failure exits non-zero and prints no result):
           also report how far their served tokens sit from a float32
           forward on the same weights.  Each run's weights are freed
           before the next.  Each bfloat16 kernel-path run (but the
-          starcoder2 sharded one) is then served
+          starcoder2 sharded and the qwen tiered ones,
+          ``UNPROFILED_RUNS``) is then served
           twice more, warm: plain for its wall time, then under
           ``torch.profiler`` for the device's kernel time by kernel and
           its busy share.
@@ -197,8 +198,11 @@ Phases (any failure exits non-zero and prints no result):
           rows' log-sum-exp from K5, at qwen1.5-0.5b's training attention
           (8 x 512, 16 heads of 64, causal), a 4096-token causal case,
           whisper-base's encoder (8 x 1500, 8 x 64, no mask),
-          cross-attention (512 over 1500) and decoder, and head dim 128
-          (``B5_TOL``, in bf16 plus the rounding flips of p and ds,
+          cross-attention (512 over 1500) and decoder, head dim 128,
+          paligemma-3b's text-only attention (8 x 512, 8 heads of 256,
+          causal) and kimi-k2's at published width (2 x 512, 64 heads of
+          112, causal), each head dim also ragged (200 over 300, no
+          mask) (``B5_TOL``, in bf16 plus the rounding flips of p and ds,
           ``b5_bounds``), and in bf16 B5's and SDPA backward's distance
           from the unrounded float32 twin; B2 ``embedding_grad_scatter``
           on qwen's and whisper's tables with TokenStream's zipf ids and
@@ -240,7 +244,9 @@ Phases (any failure exits non-zero and prints no result):
           L2 beside their bounds, the twin and ``torch._grouped_mm``.  After the
           dense runs: one float32 step of qwen1.5-0.5b and one of
           mamba2-370m at full width, every layer (batch 2 x 128; two
-          chunks a layer; ``F32_TRAINS``), the loss on the card against
+          chunks a layer; ``F32_TRAINS``), and one of paligemma-3b's
+          text-only model (an empty image prefix: K5 and B5 at d 256) at
+          full width over its first 2 layers, the loss on the card against
           the same step on host copies, every gradient leaf on the card
           and on the host against a float64 step on the host (the card
           within ``F32_DRIFT`` times the host's own float32 distance, or
@@ -268,20 +274,27 @@ Phases (any failure exits non-zero and prints no result):
           output and the gradients of the tokens, the router and every
           expert against the one-process layer within ``B4_TOL``); then
           ``launch.train`` in bf16 with every
-          count set to 0 just before it: qwen1.5-0.5b, whisper-base (stub
-          frames, ``--frontend stub``: the reference's zero frames train
-          nothing at its width), mamba2-370m at full width, hymba-1.5b's
+          count set to 0 just before it: qwen1.5-0.5b's first 12 of 24
+          layers, whisper-base (stub frames, ``--frontend stub``: the
+          reference's zero frames train nothing at its width),
+          mamba2-370m's first 24 of 48 layers (both at published width,
+          ``--layers``), hymba-1.5b's
           first 17 of 32 layers at published width (``--layers 17``: both
-          global layers, 0 and 16, and fifteen windowed ones) and
-          arctic-480b's and kimi-k2's smoke configs, 12 steps of 8 x
-          512 each, no checkpoint: finite losses, the last below the
-          first, K5 once per attention a step (24; whisper 18; hymba 2;
-          the MoE smokes 2 and 3), B5 three times as often, K2 and B2 once
+          global layers, 0 and 16, and fifteen windowed ones),
+          paligemma-3b at full width and depth (stub image frames,
+          ``--frontend stub``: a 256-position prefix before 8 x 512 text
+          tokens) and arctic-480b's and kimi-k2's smoke configs, 12 steps
+          of 8 x 512 each, no checkpoint: finite losses, the last below
+          the first, K5 once per attention a step (qwen 12; whisper 18;
+          hymba 2; the MoE smokes 2 and 3; paligemma 0: its image prefix sends
+          every layer to the masked softmax), B5 three times as often, K2 and B2 once
           a step (tables of at least 2**22 elements: not the smokes'), K3
-          once per SSM layer a step (mamba2 48, hymba 17) with its two
+          once per SSM layer a step (mamba2 24, hymba 17) with its two
           passes each, B3 three times as often, K4 three times per MoE
           layer a step and B4 ``bwd_launches`` as often (bf16: the
-          prologue, dx and dw); the same run with a
+          prologue, dx and dw); the same run (all but paligemma's, whose
+          37.4 GiB state would cost far more to write and read back than
+          the resume it would check again) with a
           checkpoint every 4 steps, killed after step 7 and resumed with
           ``--resume`` (writing no further checkpoint) must end at the
           uninterrupted last loss within rtol 1e-4; prints step ms, tokens/s and peak
@@ -296,7 +309,8 @@ Phases (any failure exits non-zero and prints no result):
           median step; a step shorter than its floor fails the phase.
           qwen1.5-0.5b's and mamba2-370m's steps (the dense and the SSM
           route) are also traced on a mesh of one under fake tensors,
-          with the run's flags (no remat, AdamW), in spawned processes:
+          with the run's flags (no remat, AdamW, its ``--layers``), in
+          spawned processes:
           their traced flops, the three roofline times and the traced
           peak (arguments and temporaries) beside the run's measured
           peak; (b) one production cell, ``--arch qwen1_5_0_5b --shape
@@ -492,9 +506,14 @@ RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
     ("qwen1_5_0_5b", metrics_flags(tag)) for tag in METRICS_SMOKES)
 # flags that take a run off the profiled bf16 kernel path (and the
 # telemetry runs); the starcoder2 sharded run is not profiled either (two
-# more 7B serve runs for a breakdown the qwen runs give)
+# more 7B serve runs for a breakdown the qwen runs give), nor qwen's
+# tiered run: its two 64-request repeats took 54.8 s of a 1023.4 s run on
+# an H100 host, past the 950 s that ROADMAP.md §3 allows, for a breakdown
+# of the kernels the plain qwen run profiles (its tier checks run on the
+# checked run)
 UNPROFILED = {"--dtype", "--no-kernel-decode", "--smoke", "--metrics"}
-UNPROFILED_RUNS = {"starcoder2_7b " + " ".join(SHARDED_TIERED)}
+UNPROFILED_RUNS = {"starcoder2_7b " + " ".join(SHARDED_TIERED),
+                   "qwen1_5_0_5b " + " ".join(TIERED)}
 # dense-backend runs (``serve.main`` without --paged): (config, flags);
 # the bf16 ones are profiled.  paligemma-3b serves its text-only decoder
 # (d 256 heads, MQA), as the reference's ``main`` does
@@ -3073,7 +3092,13 @@ def profile_dense(torch, serve, args) -> dict:
 # != Sk; and causal), and head dim 16: the MoE smoke configs' training
 # attention (8 x 512, 4 heads of 16, causal) and a ragged case.  At d 16
 # K5 takes its 16-row tiles at every length: the lse B5 reads is held to
-# the twin's (``K5_LSE_TOL``).
+# the twin's (``K5_LSE_TOL``).  Head dim 256: paligemma-3b's text-only
+# training attention (8 x 512 over the 8 heads ``_repeat_kv`` widens its
+# one KV head to, drawn apart here, causal; K5's 16-row tiles feed the
+# lse, B5's warp pairs split the columns) and a ragged case; head dim
+# 112: kimi-k2's attention at published width (2 x 512, 64 heads,
+# causal; K5's wgmma tiles, padded to 128 columns, feed the lse) and a
+# ragged case.
 B5_CASES = [("qwen", 8, 512, 512, 16, 64, True),
             ("long_causal", 1, 4096, 4096, 16, 64, True),
             ("whisper_encoder", 8, 1500, 1500, 8, 64, False),
@@ -3082,7 +3107,11 @@ B5_CASES = [("qwen", 8, 512, 512, 16, 64, True),
             ("ragged_d128", 2, 200, 300, 4, 128, False),
             ("causal_d128", 2, 300, 300, 4, 128, True),
             ("smoke_d16", 8, 512, 512, 4, 16, True),
-            ("ragged_d16", 2, 200, 300, 4, 16, False)]
+            ("ragged_d16", 2, 200, 300, 4, 16, False),
+            ("paligemma_text", 8, 512, 512, 8, 256, True),
+            ("ragged_d256", 2, 200, 300, 4, 256, False),
+            ("kimi", 2, 512, 512, 64, 112, True),
+            ("ragged_d112", 2, 200, 300, 4, 112, False)]
 # B5 against its plain twin, per element of each gradient, (atol, rtol):
 # |got - want| <= atol max|want| + rtol |want|, max over the gradient.
 # Both compute the same f32 products from the same inputs and differ in
@@ -3145,11 +3174,31 @@ TRAIN_TOKENS = (8, 512)             # batch x sequence of the training runs
 # its 1200 on an H100 host whose CPU was slow (hymba's run 158.1 s, a
 # 22 GB checkpoint).  The cut keeps both global layers (0 and 16: K5,
 # B5), the other fifteen windowed, every one with its SSM heads (K3, B3).
+# With paligemma's run and float32 step the whole script took 1012.6 s on
+# an H100 host (836.1 s on a faster one), so, as ROADMAP.md §3 orders the
+# cuts, the two longest runs beside hymba's, qwen's and mamba2's, train
+# their first ``QWEN_LAYERS`` of 24 and ``MAMBA2_LAYERS`` of 48 layers
+# (every kernel of their paths still runs in every layer).  The first cut
+# in that order, mamba2's float32 step at 24 of 48 layers, failed its
+# check there: the card's largest gap to float64 (1.64e-3) was 5.1 times
+# the host's (3.21e-4), past F32_DRIFT's bound, where at 48 layers it is
+# 0.87-2.13 times; so that step keeps all 48 layers, where F32_DRIFT was
+# measured (ROADMAP.md §3).
+# paligemma-3b trains at published width and depth with stub image frames
+# (a 256-position bidirectional prefix: every layer takes the masked
+# softmax, no K5 or B5) and no kill and resume (interval and kill step
+# None): its training state is 37.4 GiB (``launch.train.train_state_
+# bytes``), and writing and reading it back would cost far more than
+# hymba's 22 GB checkpoint did, while ``ft/checkpoint.py``'s resume does
+# not depend on the config and the six other runs hold it.
 HYMBA_LAYERS = 17
-TRAIN_RUNS = (("qwen1_5_0_5b", 12, 4, 8, ()),
+QWEN_LAYERS = 12
+MAMBA2_LAYERS = 24
+TRAIN_RUNS = (("qwen1_5_0_5b", 12, 4, 8, ("--layers", str(QWEN_LAYERS))),
               ("whisper_base", 12, 4, 8, ("--frontend", "stub")),
-              ("mamba2_370m", 12, 4, 8, ()),
+              ("mamba2_370m", 12, 4, 8, ("--layers", str(MAMBA2_LAYERS))),
               ("hymba_1_5b", 12, 4, 8, ("--layers", str(HYMBA_LAYERS))),
+              ("paligemma_3b", 12, None, None, ("--frontend", "stub")),
               ("arctic_480b", 12, 4, 8, ("--smoke",)),
               ("kimi_k2_1t_a32b", 12, 4, 8, ("--smoke",)))
 TRAIN_RESUME_RTOL = 1e-4
@@ -3177,10 +3226,15 @@ TRAIN_REFUSED = ("arctic_480b", "kimi_k2_1t_a32b", "starcoder2_7b",
 # B4 on CUDA cores in float32, K5 and B5 at d 16) is checked the same
 # way, and its router must pick the same experts on the card, on the host
 # and in float64, or the differing tokens must be router ties (a top-k
-# gap below ``ROUTER_TIE``, reported).
+# gap below ``ROUTER_TIE``, reported).  paligemma-3b's text-only model
+# (an empty (B, 0, d) image prefix, the reference's loss with P = 0: plain
+# causal attention, so K5 and B5 at d 256, 2 and 6 launches) at published
+# width over its first ``F32_LAYERS`` layers (the host's float64 step is
+# the cost: its tied 257216 x 2048 embedding alone is 527 M parameters).
 # (config, batch, sequence, smoke)
 F32_TRAINS = (("qwen1_5_0_5b", 2, 128, False), ("mamba2_370m", 2, 128, False),
-              ("arctic_480b", 2, 128, True))
+              ("arctic_480b", 2, 128, True), ("paligemma_3b", 2, 128, False))
+F32_LAYERS = {"paligemma_3b": 2}
 ROUTER_TIE = 1e-5
 F32_LOSS_RTOL = 1e-4
 F32_GRAD_TOL = 1e-3
@@ -4021,7 +4075,10 @@ def train_f32_check(torch, arch: str, B: int, S: int,
     from repro_torch.models import moe
     from repro_torch.sharding import context as shctx
     from repro_torch.utils.tree import leaf_paths, tree_map
+    from repro_torch.launch.serve import cut_depth
     base = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if arch in F32_LAYERS:
+        base = cut_depth(base, F32_LAYERS[arch])
     cfg = dataclasses.replace(base, param_dtype="float32",
                               compute_dtype="float32")
     cfg64 = dataclasses.replace(cfg, param_dtype="float64",
@@ -4049,11 +4106,14 @@ def train_f32_check(torch, arch: str, B: int, S: int,
             t.requires_grad_(True)
         tokens, labels = (torch.from_numpy(batch[k]).to(device)
                           for k in ("tokens", "labels"))
+        # a VLM's text-only model: an empty image prefix
+        fe = torch.zeros((B, 0, c.d_model), dtype=c.cdtype, device=device) \
+            if c.family == "vlm" else None
         moe.router_topk = recording if name else topk
         try:
             # the trainer's mesh of one (``launch.train.pick_mesh``)
             with shctx.use_mesh(train.pick_mesh(1, device)):
-                loss, _ = lm.loss_fn(p, c, tokens, labels, remat=remat)
+                loss, _ = lm.loss_fn(p, c, tokens, labels, fe, remat=remat)
             gs = torch.autograd.grad(loss, [t for _, t in named])
         finally:
             moe.router_topk = topk
@@ -4063,23 +4123,31 @@ def train_f32_check(torch, arch: str, B: int, S: int,
     tag = None
     counters = kernel_counters()
     reset_counts(counters)
+    t0 = time.perf_counter()
     loss_c, g_c = grads(params, "cuda", False, name="card")
     torch.cuda.synchronize()
     launches = read_counts(counters)
     loss_r, g_r = grads(params, "cuda", True)
     host = tree_map(lambda t: t.detach().cpu(), params)
     del params
+    t1 = time.perf_counter()
     loss_h, g_h = grads(host, "cpu", False, name="host")
+    t2 = time.perf_counter()
     wide = tree_map(lambda t: t.detach().double()
                     if t.is_floating_point() else t, host)
     loss_64, g_64 = grads(wide, "cpu", False, cfg64, name="float64")
     del host, wide
+    t3 = time.perf_counter()
     router = router_agreement(routed) if cfg.is_moe else None
     gaps, remat = {}, (0.0, "")
     for name, want in g_64.items():
+        # on the card: a float64 difference, its magnitude and their
+        # maximum are exact, so these are the host's numbers, without the
+        # host's passes over an embedding of 527 M elements (paligemma)
+        want = want.cuda()
         scale = float(want.abs().max()) or 1.0
-        card = float((g_c[name].cpu().double() - want).abs().max()) / scale
-        own = float((g_h[name].double() - want).abs().max()) / scale
+        card = float((g_c[name].double() - want).abs().max()) / scale
+        own = float((g_h[name].cuda().double() - want).abs().max()) / scale
         gaps[name] = (card, own)
         r = float((g_r[name] - g_c[name]).abs().max().cpu()) / (
             float(g_c[name].abs().max()) or 1.0)
@@ -4090,7 +4158,7 @@ def train_f32_check(torch, arch: str, B: int, S: int,
     bound = max(F32_GRAD_TOL, F32_DRIFT * drift)
     bitwise = all(torch.equal(g_r[n], g_c[n]) for n in g_c)
     loss_rel = abs(loss_c - loss_h) / abs(loss_h)
-    want = train_launches_wanted(cfg, 1, counters, S)
+    want = train_launches_wanted(cfg, 1, counters, S, image_prefix=False)
     ok = loss_rel <= F32_LOSS_RTOL \
         and abs(loss_r - loss_c) <= F32_LOSS_RTOL * abs(loss_c) \
         and gaps[worst][0] <= bound \
@@ -4119,6 +4187,10 @@ def train_f32_check(torch, arch: str, B: int, S: int,
     print(f"[train] float32 step, {arch}: each leaf's |g - g64| / max|g64|,"
           f" card / host float32: " + ", ".join(
               f"{n} {c:.2e} / {h:.2e}" for n, (c, h) in gaps.items()))
+    print(f"[time] float32 step, {arch}: card steps and copy to the host "
+          f"{t1 - t0:.1f}s, host float32 step {t2 - t1:.1f}s, host float64 "
+          f"step {t3 - t2:.1f}s, the comparisons "
+          f"{time.perf_counter() - t3:.1f}s")
     if not ok:
         raise AssertionError(f"float32 training step of {arch} on the card "
                              f"disagrees with the host: loss {loss_c} vs "
@@ -4209,10 +4281,13 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "gather_rows",
 
 
 def train_launches_wanted(cfg, steps: int, counters: dict,
-                          seq: int = TRAIN_TOKENS[1]) -> dict:
+                          seq: int = TRAIN_TOKENS[1],
+                          image_prefix: bool = True) -> dict:
     """Launches of a training run of ``steps`` steps of ``seq`` tokens
     with remat off: K5 once per attention a step (an encoder-decoder
-    model's encoder, decoder and cross-attention layers), B5
+    model's encoder, decoder and cross-attention layers; none for a VLM
+    read with its ``image_prefix``, ``launch.train``'s frames, whose
+    prefix mask sends every layer to the plain masked softmax), B5
     ``BWD_LAUNCHES`` times as often, K2 and B2 once a step (a table of at
     least 2**22 elements); K3 once per SSM layer a step (its two passes
     each when ``seq`` is more than one chunk) and B3 ``bwd_launches``
@@ -4224,6 +4299,8 @@ def train_launches_wanted(cfg, steps: int, counters: dict,
     from repro_torch.kernels.ssd_scan.ssd_scan import bwd_launches
     attn = cfg.enc_layers + unwindowed_layers(cfg) \
         + (cfg.n_layers if cfg.family == "encdec" else 0)
+    if cfg.family == "vlm" and image_prefix:
+        attn = 0
     table = steps if cfg.vocab * cfg.d_model >= 1 << 22 else 0
     ssm = cfg.n_layers * steps if cfg.has_ssm else 0
     chunks = seq // min(cfg.ssm_chunk, seq) if cfg.has_ssm else 1
@@ -4244,11 +4321,11 @@ def train_run(torch, arch: str, steps: int, interval: int, kill_at: int,
     """``launch.train`` at full width in bf16 (batch and sequence
     ``TRAIN_TOKENS``, no checkpoint) with every count set to 0 just
     before it: finite losses, the last below the first, the launches of
-    ``train_launches_wanted``; then the same run with a checkpoint every
-    ``interval`` steps, killed after step ``kill_at - 1`` and resumed
-    with ``--resume`` (writing no further checkpoint), must end at the
-    uninterrupted run's last loss (``TRAIN_RESUME_RTOL``).  Returns the
-    record and the launches."""
+    ``train_launches_wanted``; then (unless ``kill_at`` is None) the same
+    run with a checkpoint every ``interval`` steps, killed after step
+    ``kill_at - 1`` and resumed with ``--resume`` (writing no further
+    checkpoint), must end at the uninterrupted run's last loss
+    (``TRAIN_RESUME_RTOL``).  Returns the record and the launches."""
     import math
     import shutil
     from repro_torch.ft.manager import RunSupervisor
@@ -4287,6 +4364,13 @@ def train_run(torch, arch: str, steps: int, interval: int, kill_at: int,
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} on the "
                              f"main path, want {want}")
+    record = dict(losses=losses, step_ms=step_ms, tokens_per_s=B * S
+                  / step_ms * 1e3, peak_bytes=peak,
+                  first_step_ms=full["step_s"][0] * 1e3)
+    if kill_at is None:
+        print(f"[{name}] no kill and resume (TRAIN_RUNS)")
+        shutil.rmtree(work, ignore_errors=True)
+        return record, launches
 
     after_step = RunSupervisor.after_step
 
@@ -4317,9 +4401,7 @@ def train_run(torch, arch: str, steps: int, interval: int, kill_at: int,
     if rel > TRAIN_RESUME_RTOL or not 0 < resumed["start_step"] < kill_at:
         raise AssertionError(f"{name}: resumed run ends at {last}, "
                              f"uninterrupted at {want_last}")
-    return dict(losses=losses, step_ms=step_ms, tokens_per_s=B * S
-                / step_ms * 1e3, peak_bytes=peak, first_step_ms=full[
-                    "step_s"][0] * 1e3, resumed_from=resumed["start_step"],
+    return dict(record, resumed_from=resumed["start_step"],
                 resumed_losses=resumed["losses"], resume_rel=rel), launches
 
 
@@ -5043,21 +5125,26 @@ def floor_check(name: str, step_ms: float, floor_ms: float) -> float:
     return step_ms / floor_ms
 
 
-def dryrun_trace(arch: str) -> dict:
+def dryrun_trace(arch: str, flags=()) -> dict:
     """``arch``'s full-width training step at ``TRAIN_TOKENS`` traced on
     a mesh of one under fake tensors, with the training run's flags (no
-    remat, AdamW): flops, bytes, memory and the roofline terms (in a
-    spawned process: the trace runs on the host)."""
+    remat, AdamW; ``--layers``' depth): flops, bytes, memory and the
+    roofline terms (in a spawned process: the trace runs on the
+    host)."""
     from repro_torch import configs
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import cut_depth
     from repro_torch.optim.adamw import OptConfig
     B, S = TRAIN_TOKENS
     cfg = configs.get(arch)
+    layers = flag_value(flags, "--layers", 0)
+    if layers:
+        cfg = cut_depth(cfg, layers)
     t0 = time.perf_counter()
     traced = dryrun.trace_train(cfg, make_local_mesh(), B, S,
                                 opt_cfg=OptConfig(), remat=False)
-    out = dryrun.analyze(traced, 1, train_floor(arch)["model_flops"])
+    out = dryrun.analyze(traced, 1, train_floor(arch, flags)["model_flops"])
     out["trace_s"] = time.perf_counter() - t0
     return out
 
@@ -5125,7 +5212,8 @@ def dryrun_phase(torch, runs: dict) -> tuple:
         cwd=ROOT)
     pool = multiprocessing.get_context("spawn").Pool(len(DRYRUN_TRACED))
     try:
-        pending = {a: pool.apply_async(dryrun_trace, (a,))
+        flags = {a: f for a, *_, f in TRAIN_RUNS}
+        pending = {a: pool.apply_async(dryrun_trace, (a, flags[a]))
                    for a in DRYRUN_TRACED}
         cpu_out, cpu_err = cpu.communicate(timeout=DRYRUN_TIMEOUT)
         if cpu.returncode:

@@ -18,7 +18,9 @@
 // operands of a bf16 product; float32 rounds nothing.  `causal` keeps key
 // <= query and needs Sq == Sk; without it any Sq and Sk (whisper's
 // cross-attention).  Head dims 16 (the MoE smoke configs: one k-step,
-// two n8 tiles a row, 48-byte padded rows), 64 and 128.
+// two n8 tiles a row, 48-byte padded rows), 64, 112 (kimi-k2: 7 k-steps,
+// 14 n8 tiles, 240-byte padded rows), 128 and 256 (paligemma-3b), every
+// head dim K5 takes.
 //
 // Bound.  The five products of a (query, key) pair the mask keeps take
 // 10 D operations (q.k, do.v, p^T do, ds k, ds^T q).  qwen1.5-0.5b's
@@ -31,8 +33,9 @@
 //
 // Design (FlashAttention-2's backward).  Three kernels, one launch each,
 // no atomics, so the result is the same bit for bit from run to run:
-//   1. pre-pass: delta = rowsum(do o) in f32, D / 8 threads a row, each
-//      reading 8 contiguous values of o and do: bytes-bound, o and do
+//   1. pre-pass: delta = rowsum(do o) in f32, D / 8 threads a row (a
+//      power of two for the shuffle sum: 16 at D 112, two of them idle),
+//      each reading 8 contiguous values of o and do: bytes-bound, o and do
 //      read once.  The row log-sum-exp is K5's (its `lse` output, saved
 //      by the forward), not recomputed here;
 //   2. dk/dv, one block a 64-key tile: dk and dv stay in registers while
@@ -43,11 +46,12 @@
 //      longest walks scheduled first).
 // In causal mode only the diagonal tile is masked.
 //
-// bfloat16 (the `tc` kernels): 4 warps a block, each owning 16 rows of
-// the block's tile (keys in 2, queries in 3).  Tiles stay bf16 in shared
-// memory, rows padded to D + 8 values (144 or 272 bytes: the 8 rows an
-// ldmatrix reads fall in 8 distinct 16-byte bank groups, with or without
-// .trans, as in K5's 16-row kernel), and the walked operand is double-
+// bfloat16 (the `tc` kernels): 4 warps a block (8 at D 256, below), each
+// owning 16 rows of the block's tile (keys in 2, queries in 3).  Tiles
+// stay bf16 in shared memory, rows padded to D + 8 values (48, 144, 240,
+// 272 or 528 bytes: 3, 9, 15, 17 or 33 16-byte units, each odd, so the 8
+// rows an ldmatrix reads fall in 8 distinct 16-byte bank groups, with or
+// without .trans, as in K5's 16-row kernel), and the walked operand is double-
 // buffered with cp.async: the next tile (and its rows' lse and delta)
 // loads while this one computes.  Every product is mma.sync m16n8k16
 // bf16 -> f32 with fragments from ldmatrix, 32 queries (keys) a step:
@@ -60,9 +64,23 @@
 //   dq: S = Q K^T and dP = dO V^T, then dQ += dS K (K with .trans).
 // Shared memory: 6 tiles of 64 x (D + 8) bf16 and 512 bytes of lse and
 // delta: 56 KB at D 64 (3 dK/dV blocks an SM at 168 registers a thread,
-// 4 dQ blocks at 128), 105 KB at D 128 (2 of each).  At D 64 the A
-// fragments of the block's own tile (K and V, or Q and dO) stay in
-// registers; at D 128 they are re-read each step.
+// 4 dQ blocks at 128), 93 KB at D 112, 105 KB at D 128 (2 of each), 203
+// KB at D 256 (one block an SM).  At D 64 the A fragments of the block's
+// own tile (K and V, or Q and dO) stay in registers; above, they are
+// re-read each step.
+// D 256: a warp owning 16 rows of dK and dV in f32 registers would hold
+// 16 x 256 x 2 values, 256 registers a lane, past the 255 limit before
+// any fragment.  So each 16-row group has two warps (8 warps, 256
+// threads a block), each accumulating one half of the columns (128: the
+// registers of D 128).  Both warps of a pair compute the same S^T and
+// dP^T over all 256 columns (the products that reduce over the head dim)
+// and so the same P^T and dS^T fragments, which never leave registers:
+// the two products of the five that reduce over D are done twice (12 D
+// operations a pair in place of 10) for no shared-memory exchange and no
+// barrier between the pair.  The dQ kernel splits the same way (its 16 x
+// 256 accumulator alone would be 128 registers, with one block an SM of
+// 4 warps).  Two passes over the query tiles (dV, then dK) would read Q
+// and dO twice; 32-key tiles would not shrink a warp's 16 x 256 share.
 // Against PR 22's kernels this answers the three costs they had: f32
 // products on CUDA cores (67 TFLOP/s) become bf16 tensor-core products;
 // padded f32 tiles of 100-166 KB a block (one block an SM) become bf16
@@ -75,7 +93,10 @@
 // warp's column reads fall in distinct banks; 256 threads as a 16 x 16
 // grid each own a 4 x 4 patch of a 64 x 64 product (4 x D/16 of a 64 x D
 // one).  Shared memory: dk/dv 4 tiles of 64 x (D + 1) plus p and ds (100
-// KB at D 64, 166 KB at D 128).
+// KB at D 64, 150 KB at D 112, 166 KB at D 128).  At D 256 four 64-row
+// f32 tiles alone take 263 KB, past the 227 KB a block may have, so the
+// tiles there are 32 rows (each thread a 2 x 2 patch of a 32 x 32
+// product, 2 x 16 of a 32 x 256 one): 140 KB for dk/dv, 136 KB for dq.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -128,6 +149,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
   }
 }
 
+// Threads a row of the pre-pass: D / 8 rounded up to a power of two
+// (2, 8, 16, 16 or 32), so a row's threads are one aligned part of a warp.
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+template <int D>
+__host__ __device__ constexpr int delta_group() {
+  return pow2_at_least(D / 8);
+}
+
 // Rows are the (b, s, h) of o and do in memory order, D values each;
 // delta goes to (b, h, s).
 template <typename T, int D>
@@ -135,12 +166,12 @@ __global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int H, int Sq,
                        long long rows) {
-  constexpr int G = D / 8;                   // threads a row (2, 8 or 16)
+  constexpr int G = delta_group<D>();
   const long long t = (long long)blockIdx.x * kDeltaThreads + threadIdx.x;
   const long long row = t / G;
   const int part = (int)(t - row * G);
   float acc = 0.f;
-  if (row < rows) {
+  if (row < rows && part < D / 8) {
     float a[8], c[8];
     load8(o + row * D + part * 8, a);
     load8(dout + row * D + part * 8, c);
@@ -162,7 +193,6 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // --- bfloat16: mma.sync tiles --------------------------------------------
 namespace tc {
 
-constexpr int kThreads = 128;    // 4 warps, 16 rows of the block's tile each
 constexpr int kStep = 32;        // queries (keys) of the walked tile a step
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -248,12 +278,20 @@ template <int D>
 struct Geo {
   static constexpr int kPitch = D + 8;               // padded bf16 row
   static constexpr int kTileElems = kTile * kPitch;
+  // warps a 16-row group (2 at D 256: each accumulates kCols columns of
+  // dK, dV or dQ), and the block's threads: 4 row groups of them
+  static constexpr int kSplit = D > 128 ? 2 : 1;
+  static constexpr int kCols = D / kSplit;
+  static constexpr int kThreads = 128 * kSplit;
   // the block's two tiles, then two stages of the walked pair and of the
   // walked rows' lse and delta (dk/dv only)
   static constexpr size_t kSmem =
       (size_t)6 * kTileElems * 2 + 2 * 2 * kTile * sizeof(float);
   static constexpr bool kFragRegs = D <= 64;         // own A fragments kept
   static_assert(kSmem <= 232448, "bf16 tiles exceed 227 KB");
+  static_assert(D % 16 == 0 && kCols % 16 == 0, "k-steps of 16 columns");
+  static_assert(((kPitch * 2 / 16) & 1) == 1,
+                "an ldmatrix's 8 rows must fall in distinct bank groups");
 };
 
 // Rows [s0, s0 + 64) of a (S, H, D) slice whose row stride is rs into a
@@ -265,7 +303,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
                                           long long rs, int s0, int S) {
   constexpr int kChunks = D / 8;
   constexpr int P = Geo<D>::kPitch;
-  for (int c = threadIdx.x; c < kTile * kChunks; c += kThreads) {
+  for (int c = threadIdx.x; c < kTile * kChunks; c += Geo<D>::kThreads) {
     const int r = c / kChunks, dc = (c - r * kChunks) * 8;
     __nv_bfloat16* d = dst + r * P + dc;
     if (s0 + r < S)
@@ -277,7 +315,7 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
 
 // --- 2. dk and dv, one block a key tile ----------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Geo<D>::kThreads)
 flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
@@ -289,7 +327,7 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   using G = Geo<D>;
   constexpr int P = G::kPitch;
   constexpr int kK = D / 16;                 // k-steps over the head dim
-  constexpr int kN = D / 8;                  // n8 tiles of a D-wide row
+  constexpr int kN = G::kCols / 8;           // n8 tiles of a warp's columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Vs = Ks + G::kTileElems;
@@ -316,6 +354,7 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int q0 = qt * kTile;
     load_rows<D>(Qs, qb, rs, q0, g.Sq);
     load_rows<D>(Qs + G::kTileElems, ob, rs, q0, g.Sq);
+    if (tid >= 2 * kTile) return;
     float* rw = rows0 + st * 2 * kTile;
     const int r = tid & (kTile - 1), qi = q0 + r;
     float* dst = rw + (tid < kTile ? 0 : kTile) + r;
@@ -335,7 +374,8 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
   uint32_t kf[G::kFragRegs ? kK : 1][4], vf[G::kFragRegs ? kK : 1][4];
-  const int kr = warp * 16;                  // this warp's key rows
+  const int kr = (warp & 3) * 16;            // this warp's key rows
+  const int cb = (warp >> 2) * G::kCols;     // and its columns of dK, dV
   const float sl2 = g.scale * kLog2e;
 
   for (int qt = qt0; qt < n_q; ++qt) {
@@ -414,10 +454,10 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
         to_a(pa, s[2 * kc], s[2 * kc + 1]);
         to_a(da, dp[2 * kc], dp[2 * kc + 1]);
 #pragma unroll
-        for (int dc = 0; dc < D / 16; ++dc) {
+        for (int dc = 0; dc < G::kCols / 16; ++dc) {
           uint32_t bo[4], bq[4];
-          ldsm_x4_t(bo, bt_at<P>(Os, c0 + kc * 16, dc * 16, lane));
-          ldsm_x4_t(bq, bt_at<P>(Qs, c0 + kc * 16, dc * 16, lane));
+          ldsm_x4_t(bo, bt_at<P>(Os, c0 + kc * 16, cb + dc * 16, lane));
+          ldsm_x4_t(bq, bt_at<P>(Qs, c0 + kc * 16, cb + dc * 16, lane));
           mma(adv[2 * dc], pa, bo[0], bo[1]);
           mma(adv[2 * dc + 1], pa, bo[2], bo[3]);
           mma(adk[2 * dc], da, bq[0], bq[1]);
@@ -436,7 +476,7 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* dvr = dv + ((((long long)b * g.Sk + kj) * g.H + h) * D);
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
-      const int col = 8 * n + 2 * t4;
+      const int col = cb + 8 * n + 2 * t4;
       *reinterpret_cast<__nv_bfloat162*>(dkr + col) = __floats2bfloat162_rn(
           adk[n][2 * r] * g.scale, adk[n][2 * r + 1] * g.scale);
       *reinterpret_cast<__nv_bfloat162*>(dvr + col) =
@@ -447,7 +487,7 @@ flash_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
 // --- 3. dq, one block a query tile ---------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Geo<D>::kThreads)
 flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
@@ -458,7 +498,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   using G = Geo<D>;
   constexpr int P = G::kPitch;
   constexpr int kK = D / 16;
-  constexpr int kN = D / 8;
+  constexpr int kN = G::kCols / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Os = Qs + G::kTileElems;              // dO
@@ -476,7 +516,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const long long row0 = (long long)bh * g.Sq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;
-  const int qr = warp * 16;                  // this warp's query rows
+  const int qr = (warp & 3) * 16;            // this warp's query rows
+  const int cb = (warp >> 2) * G::kCols;     // and its columns of dQ
   const int n_k = g.causal ? qt + 1 : (g.Sk + kTile - 1) / kTile;
 
   auto load_stage = [&](int st, int kt) {
@@ -574,9 +615,9 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
         uint32_t da[4];
         to_a(da, dp[2 * kc], dp[2 * kc + 1]);
 #pragma unroll
-        for (int dc = 0; dc < D / 16; ++dc) {
+        for (int dc = 0; dc < G::kCols / 16; ++dc) {
           uint32_t bk[4];
-          ldsm_x4_t(bk, bt_at<P>(Ks, c0 + kc * 16, dc * 16, lane));
+          ldsm_x4_t(bk, bt_at<P>(Ks, c0 + kc * 16, cb + dc * 16, lane));
           mma(adq[2 * dc], da, bk[0], bk[1]);
           mma(adq[2 * dc + 1], da, bk[2], bk[3]);
         }
@@ -592,7 +633,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* dqr = dq + ((((long long)b * g.Sq + qi) * g.H + h) * D);
 #pragma unroll
     for (int n = 0; n < kN; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dqr + 8 * n + 2 * t4) =
+      *reinterpret_cast<__nv_bfloat162*>(dqr + cb + 8 * n + 2 * t4) =
           __floats2bfloat162_rn(adq[n][2 * r] * g.scale,
                                 adq[n][2 * r + 1] * g.scale);
   }
@@ -604,14 +645,19 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 namespace f32 {
 
 constexpr int kThreads = 256;    // a 16 x 16 grid of threads
-constexpr int kSq = kTile + 1;   // row stride of a 64 x 64 f32 tile
 
-// Rows [s0, s0 + 64) of head h of batch b of a (B, S, H, D) tensor into
+// Rows of the block's tile and of the walked tile: 64, or 32 at D 256,
+// where four 64-row f32 tiles alone would exceed 227 KB.  A thread owns
+// rows ty + 16 i of both (i < R / 16) and head-dim columns tx + 16 j.
+template <int D>
+__host__ __device__ constexpr int rows() { return D > 128 ? 32 : 64; }
+
+// Rows [s0, s0 + R) of head h of batch b of a (B, S, H, D) tensor into
 // shared memory as f32, row stride D + 1; rows at or past S are zeros.
-template <typename T, int D>
+template <typename T, int D, int R>
 __device__ void load_tile(float* dst, const T* __restrict__ src, int b,
                           int h, int s0, int S, int H) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, c = i - r * D;
     const int s = s0 + r;
     float x = 0.f;
@@ -620,33 +666,34 @@ __device__ void load_tile(float* dst, const T* __restrict__ src, int b,
   }
 }
 
-// s = A B^T and dp = C E^T over a 64 x 64 tile: A, C query rows, B, E
-// key rows, each 64 x D at stride D + 1.  Thread (ty, tx) owns rows
+// s = A B^T and dp = C E^T over an R x R tile: A, C query rows, B, E
+// key rows, each R x D at stride D + 1.  Thread (ty, tx) owns rows
 // ty + 16 i and columns tx + 16 j.
-template <int D>
+template <int D, int R>
 __device__ __forceinline__ void two_products(const float* A, const float* Bm,
                                              const float* C, const float* E,
-                                             float (&s)[4][4],
-                                             float (&dp)[4][4]) {
+                                             float (&s)[R / 16][R / 16],
+                                             float (&dp)[R / 16][R / 16]) {
+  constexpr int I = R / 16;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < I; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a[4], c[4], b[4], e[4];
+    float a[I], c[I], b[I], e[I];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < I; ++i) {
       a[i] = A[(ty + 16 * i) * (D + 1) + d];
       c[i] = C[(ty + 16 * i) * (D + 1) + d];
       b[i] = Bm[(tx + 16 * i) * (D + 1) + d];
       e[i] = E[(tx + 16 * i) * (D + 1) + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < I; ++j) {
         s[i][j] = fmaf(a[i], b[j], s[i][j]);
         dp[i][j] = fmaf(c[i], e[j], dp[i][j]);
       }
@@ -655,16 +702,17 @@ __device__ __forceinline__ void two_products(const float* A, const float* Bm,
 
 // p and ds of the thread's patch from s and dp, given the rows' lse and
 // delta: p = exp(scale s - lse) where the pair is kept, else 0.
+template <int I>
 __device__ __forceinline__ void probs(const Dims& g, int q0, int k0,
                                       const float* lse_s, const float* dl_s,
-                                      float (&s)[4][4], float (&dp)[4][4]) {
+                                      float (&s)[I][I], float (&dp)[I][I]) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     const int r = ty + 16 * i;
     const float lse = lse_s[r], dl = dl_s[r];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < I; ++j) {
       const int c = tx + 16 * j;
       const float p = kept(g, q0 + r, k0 + c)
                           ? expf(s[i][j] * g.scale - lse) : 0.f;
@@ -682,62 +730,63 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, Dims g) {
+  constexpr int R = rows<D>(), I = R / 16, J = D / 16;
+  constexpr int kS = R + 1;                 // row stride of an R x R tile
+  constexpr int kD = R * (D + 1);
   extern __shared__ float smem[];
-  constexpr int kD = kTile * (D + 1);
   float* Ks = smem;
   float* Vs = Ks + kD;
   float* Qs = Vs + kD;
   float* Os = Qs + kD;                      // do
   float* Ps = Os + kD;
-  float* Ds = Ps + kTile * kSq;             // ds
-  float* lse_s = Ds + kTile * kSq;
-  float* dl_s = lse_s + kTile;
-  constexpr int J = D / 16;
+  float* Ds = Ps + R * kS;                  // ds
+  float* lse_s = Ds + R * kS;
+  float* dl_s = lse_s + R;
   const int bh = blockIdx.y, b = bh / g.H, h = bh - b * g.H;
-  const int kt = blockIdx.x, k0 = kt * kTile;
+  const int kt = blockIdx.x, k0 = kt * R;
   const long long row0 = (long long)bh * g.Sq;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<T, D>(Ks, k, b, h, k0, g.Sk, g.H);
-  load_tile<T, D>(Vs, v, b, h, k0, g.Sk, g.H);
-  float adk[4][J], adv[4][J];
+  load_tile<T, D, R>(Ks, k, b, h, k0, g.Sk, g.H);
+  load_tile<T, D, R>(Vs, v, b, h, k0, g.Sk, g.H);
+  float adk[I][J], adv[I][J];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int j = 0; j < J; ++j) adk[i][j] = adv[i][j] = 0.f;
 
-  const int n_q = (g.Sq + kTile - 1) / kTile;
+  const int n_q = (g.Sq + R - 1) / R;
   for (int qt = g.causal ? kt : 0; qt < n_q; ++qt) {
-    const int q0 = qt * kTile;
+    const int q0 = qt * R;
     __syncthreads();                        // last tile's reads are done
-    load_tile<T, D>(Qs, q, b, h, q0, g.Sq, g.H);
-    load_tile<T, D>(Os, dout, b, h, q0, g.Sq, g.H);
-    if (threadIdx.x < kTile) {
+    load_tile<T, D, R>(Qs, q, b, h, q0, g.Sq, g.H);
+    load_tile<T, D, R>(Os, dout, b, h, q0, g.Sq, g.H);
+    if (threadIdx.x < R) {
       const int qi = q0 + threadIdx.x;
       lse_s[threadIdx.x] = qi < g.Sq ? lse[row0 + qi] : 0.f;
       dl_s[threadIdx.x] = qi < g.Sq ? delta[row0 + qi] : 0.f;
     }
     __syncthreads();
-    float s[4][4], dp[4][4];
-    two_products<D>(Qs, Ks, Os, Vs, s, dp);
-    probs(g, q0, k0, lse_s, dl_s, s, dp);
+    float s[I][I], dp[I][I];
+    two_products<D, R>(Qs, Ks, Os, Vs, s, dp);
+    probs<I>(g, q0, k0, lse_s, dl_s, s, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(ty + 16 * i) * kSq + tx + 16 * j] = s[i][j];
-        Ds[(ty + 16 * i) * kSq + tx + 16 * j] = dp[i][j];
+      for (int j = 0; j < I; ++j) {
+        Ps[(ty + 16 * i) * kS + tx + 16 * j] = s[i][j];
+        Ds[(ty + 16 * i) * kS + tx + 16 * j] = dp[i][j];
       }
     __syncthreads();
     // dv[c] += sum_r p[r][c] do[r], dk[c] += sum_r ds[r][c] q[r]: the
     // thread owns key rows ty + 16 i and columns tx + 16 j
 #pragma unroll 2
-    for (int r = 0; r < kTile; ++r) {
-      float p[4], ds[4], ov[J], qv[J];
+    for (int r = 0; r < R; ++r) {
+      float p[I], ds[I], ov[J], qv[J];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Ps[r * kSq + ty + 16 * i];
-        ds[i] = Ds[r * kSq + ty + 16 * i];
+      for (int i = 0; i < I; ++i) {
+        p[i] = Ps[r * kS + ty + 16 * i];
+        ds[i] = Ds[r * kS + ty + 16 * i];
       }
 #pragma unroll
       for (int j = 0; j < J; ++j) {
@@ -745,7 +794,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         qv[j] = Qs[r * (D + 1) + tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < I; ++i)
 #pragma unroll
         for (int j = 0; j < J; ++j) {
           adv[i][j] = fmaf(p[i], ov[j], adv[i][j]);
@@ -754,7 +803,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= g.Sk) continue;
     const long long base = (((long long)b * g.Sk + kj) * g.H + h) * D;
@@ -774,70 +823,71 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     Dims g) {
+  constexpr int R = rows<D>(), I = R / 16, J = D / 16;
+  constexpr int kS = R + 1;
+  constexpr int kD = R * (D + 1);
   extern __shared__ float smem[];
-  constexpr int kD = kTile * (D + 1);
   float* Qs = smem;
   float* Os = Qs + kD;                      // do
   float* Ks = Os + kD;
   float* Vs = Ks + kD;
   float* Ds = Vs + kD;                      // ds
-  float* lse_s = Ds + kTile * kSq;
-  float* dl_s = lse_s + kTile;
-  constexpr int J = D / 16;
-  const int n_q = (g.Sq + kTile - 1) / kTile;
+  float* lse_s = Ds + R * kS;
+  float* dl_s = lse_s + R;
+  const int n_q = (g.Sq + R - 1) / R;
   const int qt = n_q - 1 - (int)blockIdx.x;      // longest walks first
   const int bh = blockIdx.y, b = bh / g.H, h = bh - b * g.H;
-  const int q0 = qt * kTile;
+  const int q0 = qt * R;
   const long long row0 = (long long)bh * g.Sq;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 
-  load_tile<T, D>(Qs, q, b, h, q0, g.Sq, g.H);
-  load_tile<T, D>(Os, dout, b, h, q0, g.Sq, g.H);
-  if (threadIdx.x < kTile) {
+  load_tile<T, D, R>(Qs, q, b, h, q0, g.Sq, g.H);
+  load_tile<T, D, R>(Os, dout, b, h, q0, g.Sq, g.H);
+  if (threadIdx.x < R) {
     const int qi = q0 + threadIdx.x;
     lse_s[threadIdx.x] = qi < g.Sq ? lse[row0 + qi] : 0.f;
     dl_s[threadIdx.x] = qi < g.Sq ? delta[row0 + qi] : 0.f;
   }
-  float adq[4][J];
+  float adq[I][J];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < I; ++i)
 #pragma unroll
     for (int j = 0; j < J; ++j) adq[i][j] = 0.f;
 
-  const int n_k = g.causal ? qt + 1 : (g.Sk + kTile - 1) / kTile;
+  const int n_k = g.causal ? qt + 1 : (g.Sk + R - 1) / R;
   for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * R;
     __syncthreads();                        // last tile's reads are done
-    load_tile<T, D>(Ks, k, b, h, k0, g.Sk, g.H);
-    load_tile<T, D>(Vs, v, b, h, k0, g.Sk, g.H);
+    load_tile<T, D, R>(Ks, k, b, h, k0, g.Sk, g.H);
+    load_tile<T, D, R>(Vs, v, b, h, k0, g.Sk, g.H);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    two_products<D>(Qs, Ks, Os, Vs, s, dp);
-    probs(g, q0, k0, lse_s, dl_s, s, dp);
+    float s[I][I], dp[I][I];
+    two_products<D, R>(Qs, Ks, Os, Vs, s, dp);
+    probs<I>(g, q0, k0, lse_s, dl_s, s, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ds[(ty + 16 * i) * kSq + tx + 16 * j] = dp[i][j];
+      for (int j = 0; j < I; ++j)
+        Ds[(ty + 16 * i) * kS + tx + 16 * j] = dp[i][j];
     __syncthreads();
     // dq[r] += sum_c ds[r][c] k[c]: the thread owns query rows ty + 16 i
     // and columns tx + 16 j
 #pragma unroll 2
-    for (int c = 0; c < kTile; ++c) {
-      float ds[4], kv[J];
+    for (int c = 0; c < R; ++c) {
+      float ds[I], kv[J];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = Ds[(ty + 16 * i) * kSq + c];
+      for (int i = 0; i < I; ++i) ds[i] = Ds[(ty + 16 * i) * kS + c];
 #pragma unroll
       for (int j = 0; j < J; ++j) kv[j] = Ks[c * (D + 1) + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < I; ++i)
 #pragma unroll
         for (int j = 0; j < J; ++j)
           adq[i][j] = fmaf(ds[i], kv[j], adq[i][j]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < I; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= g.Sq) continue;
     const long long base = (((long long)b * g.Sq + qi) * g.H + h) * D;
@@ -849,17 +899,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 }  // namespace f32
 
+// Shared memory of the f32 kernels: four R x (D + 1) tiles, p and ds (dk/dv)
+// or ds (dq) of R x (R + 1), and the walked rows' lse and delta.
 template <int D>
 constexpr size_t f32_dkdv_smem() {
-  return (4 * kTile * (D + 1) + 2 * kTile * f32::kSq + 2 * kTile) *
-         sizeof(float);
+  constexpr int R = f32::rows<D>();
+  return (4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R) * sizeof(float);
 }
 template <int D>
 constexpr size_t f32_dq_smem() {
-  return (4 * kTile * (D + 1) + kTile * f32::kSq + 2 * kTile) * sizeof(float);
+  constexpr int R = f32::rows<D>();
+  return (4 * R * (D + 1) + R * (R + 1) + 2 * R) * sizeof(float);
 }
-static_assert(f32_dkdv_smem<128>() <= 232448, "dk/dv tile exceeds 227 KB");
-static_assert(f32_dq_smem<128>() <= 232448, "dq tile exceeds 227 KB");
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -875,6 +926,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   constexpr size_t kDkdvSmem =
       kBf16 ? tc::Geo<D>::kSmem : f32_dkdv_smem<D>();
   constexpr size_t kDqSmem = kBf16 ? tc::Geo<D>::kSmem : f32_dq_smem<D>();
+  static_assert(kDkdvSmem <= 232448 && kDqSmem <= 232448,
+                "a block's tiles exceed 227 KB");
+  // rows of a block's tile and threads of a block
+  constexpr int kRows = kBf16 ? kTile : f32::rows<D>();
+  constexpr int kThreads = kBf16 ? tc::Geo<D>::kThreads : f32::kThreads;
   static bool ready = false;                // shared-memory limits set
   if (!ready) {
     cudaError_t e;
@@ -896,30 +952,30 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* ot = static_cast<const T*>(o);
   const T* dot = static_cast<const T*>(dout);
   const unsigned bh = (unsigned)(g.B * g.H);
-  const dim3 gq((g.Sq + kTile - 1) / kTile, bh);
-  const dim3 gk((g.Sk + kTile - 1) / kTile, bh);
+  const dim3 gq((g.Sq + kRows - 1) / kRows, bh);
+  const dim3 gk((g.Sk + kRows - 1) / kRows, bh);
   const long long rows = (long long)g.B * g.Sq * g.H;
-  const long long threads = rows * (D / 8);
+  const long long threads = rows * delta_group<D>();
   flash_bwd_delta_kernel<T, D>
       <<<(unsigned)((threads + kDeltaThreads - 1) / kDeltaThreads),
          kDeltaThreads, 0, s>>>(ot, dot, delta, g.H, g.Sq, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   if constexpr (kBf16) {
-    tc::flash_bwd_dkdv_tc_kernel<D><<<gk, tc::kThreads, kDkdvSmem, s>>>(
+    tc::flash_bwd_dkdv_tc_kernel<D><<<gk, kThreads, kDkdvSmem, s>>>(
         qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
         static_cast<T*>(dv), g);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    tc::flash_bwd_dq_tc_kernel<D><<<gq, tc::kThreads, kDqSmem, s>>>(
+    tc::flash_bwd_dq_tc_kernel<D><<<gq, kThreads, kDqSmem, s>>>(
         qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), g);
   } else {
-    f32::flash_bwd_dkdv_kernel<T, D><<<gk, f32::kThreads, kDkdvSmem, s>>>(
+    f32::flash_bwd_dkdv_kernel<T, D><<<gk, kThreads, kDkdvSmem, s>>>(
         qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
         static_cast<T*>(dv), g);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    f32::flash_bwd_dq_kernel<T, D><<<gq, f32::kThreads, kDqSmem, s>>>(
+    f32::flash_bwd_dq_kernel<T, D><<<gq, kThreads, kDqSmem, s>>>(
         qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), g);
   }
   return (int)cudaGetLastError();
@@ -929,12 +985,18 @@ template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v,
              const void* o, const void* dout, void* dq, void* dk, void* dv,
              const float* lse, float* delta, Dims g, cudaStream_t s) {
-  if (D == 16)
-    return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
-  if (D == 64)
-    return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
+    case 64:
+      return launch<T, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
+    case 112:
+      return launch<T, 112>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
+    case 128:
+      return launch<T, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
+    case 256:
+      return launch<T, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta, g, s);
+  }
   return -1;
 }
 

@@ -26,10 +26,9 @@ kernels in ``csrc/flash_attention_bwd.cu`` (a pre-pass for rowsum(dO o),
 then dK/dV and dQ, from the saved log-sum-exp; the JAX trainer
 differentiates plain attention, so no Pallas kernel corresponds), on
 CUDA tensors, and ``flash_attention_bwd_plain``, the explicit formulas in
-PyTorch with B5's bf16 roundings, on CPU ones.  B5 takes head dims
-``BWD_HEAD_DIMS``; a CUDA forward that needs a gradient at another head
-dim raises before it launches.  ``flash_attention_bwd.launches`` counts
-B5's kernel launches (``BWD_LAUNCHES`` a call).
+PyTorch with B5's bf16 roundings, on CPU ones.  B5 takes every head dim
+K5 takes (``HEAD_DIMS``).  ``flash_attention_bwd.launches`` counts B5's
+kernel launches (``BWD_LAUNCHES`` a call).
 """
 from __future__ import annotations
 
@@ -338,13 +337,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
     contiguous, head dim in ``HEAD_DIMS``: 16, 64, 112, 128, 256;
     ``split_plan`` says which);
     CPU tensors run the plain twin.  Differentiable: with a gradient to
-    take, the backward is ``flash_attention_bwd`` (on CUDA only at head
-    dims ``BWD_HEAD_DIMS``)."""
+    take, the backward is ``flash_attention_bwd``, at every head dim of
+    ``HEAD_DIMS``."""
     _check(q, k, v, causal)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.device.type == "cuda":
-            _check_bwd(q)
         return _FlashAttention.apply(q, k, v, causal)
     return _forward(q, k, v, causal)
 
@@ -356,7 +353,6 @@ flash_attention.launches = 0
 # Backward (B5)
 # ---------------------------------------------------------------------------
 
-BWD_HEAD_DIMS = (16, 64, 128)
 BWD_LAUNCHES = 3          # pre-pass, dK/dV, dQ: the kernels of one call
 
 
@@ -386,12 +382,6 @@ def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
-
-
-def _check_bwd(q) -> None:
-    if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention's backward kernel (B5) takes "
-                         f"head_dim in {BWD_HEAD_DIMS}; got {q.shape[-1]}")
 
 
 def _bwd_library() -> ctypes.CDLL:
@@ -429,7 +419,9 @@ def _bwd_launch(q, k, v, o, do, causal: bool, lse=None):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_bwd kernel takes float32 or "
                         f"bfloat16; got {q.dtype}")
-    _check_bwd(q)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel built for head_dim "
+                         f"in {HEAD_DIMS}; got {D}")
     if B * H > _MAX_BATCH_HEADS:
         raise ValueError(f"flash_attention_bwd kernel takes B * H <= "
                          f"{_MAX_BATCH_HEADS}; got {B * H}")
@@ -467,7 +459,7 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True, lse=None):
     dtype, given ``lse``, the rows' log-sum-exp that
     ``flash_attention_with_lse`` returned with o.  CUDA tensors launch B5
     (float32 or bfloat16, one dtype, contiguous, head dim in
-    ``BWD_HEAD_DIMS``; ``lse`` required); CPU tensors run the plain twin
+    ``HEAD_DIMS``; ``lse`` required); CPU tensors run the plain twin
     (which recomputes a missing ``lse``)."""
     _check(q, k, v, causal)
     if q.device.type == "cuda":

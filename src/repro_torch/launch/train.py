@@ -20,9 +20,9 @@ clip scales every update to 0 (ROADMAP.md §3).
 On the card the forward runs K5 (attention with no mask or a causal one),
 K2 (the sorted embedding gather), K3 (the SSM layers' chunked scan) and
 K4 (the MoE layers' grouped products), whose gradients are the kernels
-B5, B2, B3 and B4: every family trains on the card.  K5 at a head dim B5
-does not take (112, 256) raises at its first call.  There is no quiet
-switch to the plain twins; on the CPU every family trains through them.
+B5, B2, B3 and B4: every family trains on the card, at every head dim
+K5 takes.  There is no quiet switch to the plain twins; on the CPU every
+family trains through them.
 
 The mesh is the reference's ``pick_mesh`` over the processes: one
 process (no ``RANK``/``WORLD_SIZE`` in the environment and no process

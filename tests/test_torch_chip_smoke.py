@@ -52,6 +52,7 @@ status, and a failing part that fails the run: ``main`` lets it out."""
 import dataclasses
 import json
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -480,6 +481,97 @@ def test_train_launches_wanted_per_step():
     assert set(chip_smoke.TRAIN_KERNELS) <= set(counters)
 
 
+def test_vlm_launches_wanted_with_and_without_its_image_prefix():
+    """paligemma-3b's training run reads stub image frames: the prefix
+    mask sends all 18 layers to the plain masked softmax, so a step
+    launches no K5 and no B5, and K2 and B2 once (its 257216 x 2048
+    table); its text-only float32 step (``image_prefix=False``, the
+    first ``F32_LAYERS`` layers) launches K5 once a layer and B5 three
+    times as often."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import cut_depth
+    counters = chip_smoke.kernel_counters()
+    cfg = configs.get("paligemma_3b")
+    want = chip_smoke.train_launches_wanted(cfg, 12, counters)
+    assert want["flash_attention"] == want["flash_attention_bwd"] == 0
+    assert want["gather_rows"] == want["embedding_grad_scatter"] == 12
+    assert sum(want.values()) == 24
+    layers = chip_smoke.F32_LAYERS["paligemma_3b"]
+    assert layers == 2
+    one = chip_smoke.train_launches_wanted(cut_depth(cfg, layers), 1,
+                                           counters, 128,
+                                           image_prefix=False)
+    assert one["flash_attention"] == 2
+    assert one["flash_attention_bwd"] == 2 * 3
+    assert one["gather_rows"] == one["embedding_grad_scatter"] == 1
+    assert ("paligemma_3b", 2, 128, False) in chip_smoke.F32_TRAINS
+    # the image prefix changes only a VLM's count
+    qwen = configs.get("qwen1_5_0_5b")
+    assert chip_smoke.train_launches_wanted(qwen, 2, counters) == \
+        chip_smoke.train_launches_wanted(qwen, 2, counters,
+                                         image_prefix=False)
+
+
+def test_b5_cases_hold_every_head_dim_of_the_forward():
+    """``B5_CASES`` hold every head dim K5 takes; the d 256 and d 112
+    cases are paligemma-3b's text-only training attention (8 x 512, its
+    8 query heads of 256, causal) and kimi-k2's at published width (2 x
+    512, 64 heads of 112, causal), each beside a ragged case (200 over
+    300, no mask)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention as k5
+    cases = {c[0]: c[1:] for c in chip_smoke.B5_CASES}
+    assert {c[4] for c in cases.values()} == set(k5.HEAD_DIMS)
+    pali = configs.get("paligemma_3b")
+    kimi = configs.get("kimi_k2_1t_a32b")
+    assert cases["paligemma_text"] == (8, 512, 512, pali.n_heads,
+                                       pali.d_head, True)
+    assert cases["kimi"] == (2, 512, 512, kimi.n_heads, kimi.d_head, True)
+    for d in (256, 112):
+        assert cases[f"ragged_d{d}"] == (2, 200, 300, 4, d, False)
+
+
+def test_train_run_without_a_resume_trains_once(monkeypatch, capsys):
+    """A ``TRAIN_RUNS`` entry whose interval and kill step are None
+    (paligemma-3b's: its 37.4 GiB state) trains once, with its launch
+    counts and losses checked, and writes, kills and resumes nothing;
+    every other entry keeps the kill and resume."""
+    from repro_torch import configs
+    from repro_torch.ft.manager import RunSupervisor
+    from repro_torch.kernels.mars_gather import mars_gather as mg
+    from repro_torch.launch import train
+    entry = [r for r in chip_smoke.TRAIN_RUNS if r[0] == "paligemma_3b"]
+    assert entry == [("paligemma_3b", 12, None, None,
+                      ("--frontend", "stub"))]
+    assert all(r[2] and r[3] for r in chip_smoke.TRAIN_RUNS
+               if r[0] != "paligemma_3b")
+    calls = []
+
+    def fake_run(argv):
+        calls.append(list(argv))
+        steps = int(argv[argv.index("--steps") + 1])
+        mg.gather_rows.launches += steps
+        mg.scatter_add_rows.launches += steps
+        return dict(cfg=configs.get("paligemma_3b"),
+                    losses=[12.0 - i for i in range(steps)],
+                    step_s=[0.5] * steps, start_step=0)
+    monkeypatch.setattr(train, "run", fake_run)
+    monkeypatch.setattr(RunSupervisor, "after_step", None)
+    cuda = types.SimpleNamespace(
+        reset_peak_memory_stats=lambda: None, synchronize=lambda: None,
+        max_memory_allocated=lambda: 60 * 2 ** 30, empty_cache=lambda: None,
+        memory_allocated=lambda: 0, memory_reserved=lambda: 0)
+    rec, launches = chip_smoke.train_run(types.SimpleNamespace(cuda=cuda),
+                                         *entry[0][:4], entry[0][4])
+    assert len(calls) == 1 and "--resume" not in calls[0]
+    assert calls[0][calls[0].index("--ckpt-interval") + 1] == "12"
+    assert rec["step_ms"] == 500.0 and rec["peak_bytes"] == 60 * 2 ** 30
+    assert "resume_rel" not in rec
+    assert launches["gather_rows"] == launches["embedding_grad_scatter"] \
+        == 12
+    assert "no kill and resume" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("arch,layers,moe", [("arctic_480b", 2, 2),
                                              ("kimi_k2_1t_a32b", 3, 2)])
 def test_moe_smoke_launches_wanted_per_step(arch, layers, moe):
@@ -823,7 +915,8 @@ def test_f32_reference_err_holds_bf16_gradients_to_the_unrounded_twin(
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Sq,Sk,H,D,causal", [
     (2, 130, 130, 3, 64, True), (2, 70, 200, 2, 64, False),
-    (1, 100, 100, 2, 128, True)])
+    (1, 100, 100, 2, 128, True), (1, 70, 70, 2, 256, True),
+    (2, 33, 90, 2, 112, False)])
 def test_b5_matches_its_twin_on_the_card(B, Sq, Sk, H, D, causal, dtype):
     """B5 on the card against its plain twin on the same inputs (o and
     the rows' lse from K5), held to the train phase's bound per element
@@ -1023,9 +1116,12 @@ def test_train_floor_is_the_model_flops_at_the_bf16_peak(run):
     arch, *_, flags = run
     cfg = configs.get_smoke(arch) if "--smoke" in flags \
         else configs.get(arch)
+    layers = chip_smoke.flag_value(flags, "--layers", 0)
+    assert layers == {"hymba_1_5b": 17, "qwen1_5_0_5b": 12,
+                      "mamba2_370m": 24}.get(arch, 0)
+    if layers:
+        cfg = serve.cut_depth(cfg, layers)
     if arch == "hymba_1_5b":
-        assert chip_smoke.flag_value(flags, "--layers", 0) == 17
-        cfg = serve.cut_depth(cfg, 17)
         assert [li for li in range(cfg.n_layers)
                 if li % cfg.global_every == 0] == [0, 16]
     B, S = chip_smoke.TRAIN_TOKENS

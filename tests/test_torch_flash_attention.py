@@ -283,11 +283,15 @@ def test_split_plan_gives_wgmma_only_its_head_dims(D):
 # another order (the twin's explicit formulas against autograd's chain),
 # so 2e-5, the forward's float32 tolerance.  The cases: causal, and no
 # mask with fewer and more queries than keys, at head dims 16 and 64;
-# and the MoE smoke configs' attention (4 heads of 16, causal), which
-# trains through B5 at d 16 on the card.
+# the MoE smoke configs' attention (4 heads of 16, causal), which
+# trains through B5 at d 16 on the card; and kimi-k2's head dim 112 and
+# paligemma-3b's 256, causal and ragged (Sq != Sk, no mask), past a
+# 64-row tile (and, at d 256, past two of the f32 kernels' 32-row ones).
 BWD_CASES = [(2, 40, 40, 3, 16, True), (2, 130, 130, 2, 64, True),
              (2, 24, 70, 3, 64, False), (1, 70, 24, 2, 16, False),
-             (2, 96, 96, 4, 16, True)]
+             (2, 96, 96, 4, 16, True), (1, 70, 70, 2, 112, True),
+             (2, 33, 90, 2, 112, False), (1, 70, 70, 2, 256, True),
+             (1, 90, 33, 2, 256, False)]
 
 
 def _bwd_inputs(B, Sq, Sk, H, D, seed=3):
@@ -358,26 +362,27 @@ def test_sdpa_trains_through_flash_attention():
 
 
 def test_bwd_kernel_wrapper_never_falls_back():
-    """B5's wrapper raises on what the kernel does not take (dtype, head
-    dim, layout, mismatched o, a missing or misshapen saved lse) before
-    any build; operands it takes go to
-    the build (which needs nvcc), never to the twin; and a forward that
-    needs a gradient on CUDA at another head dim raises before K5."""
+    """B5's wrapper raises on what the kernel does not take (dtype, a
+    head dim outside ``HEAD_DIMS``, layout, mismatched o, a missing or
+    misshapen saved lse) before any build; operands it takes go to the
+    build (which needs nvcc), never to the twin; and K5, the forward
+    that saves B5's lse, refuses that head dim before any build too."""
     q = torch.zeros(1, 4, 2, 64)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa._bwd_launch(*(q.half(),) * 5, False)
     with pytest.raises(TypeError, match="one dtype"):
         tfa._bwd_launch(q, q, q, q, q.bfloat16(), False)
-    q112 = torch.zeros(1, 4, 2, 112)
+    q32 = torch.zeros(1, 4, 2, 32)
+    assert 32 not in tfa.HEAD_DIMS
     with pytest.raises(ValueError, match="head_dim"):
-        tfa._bwd_launch(q112, q112, q112, q112, q112, False)
+        tfa._bwd_launch(q32, q32, q32, q32, q32, False)
     with pytest.raises(ValueError, match="contiguous"):
         tfa._bwd_launch(q, q, q, q, q.transpose(1, 2).contiguous()
                         .transpose(1, 2), False)
     with pytest.raises(ValueError, match="shaped as q"):
         tfa._bwd_launch(q, q, q, q[:, :2].contiguous(), q, False)
     with pytest.raises(ValueError, match="head_dim"):
-        tfa._check_bwd(q112)
+        tfa._launch(q32, q32, q32, True, want_lse=True)
     with pytest.raises(ValueError, match="log-sum-exp"):
         tfa._bwd_launch(q, q, q, q, q, False)
     lse = torch.zeros(1, 2, 4)
@@ -389,6 +394,32 @@ def test_bwd_kernel_wrapper_never_falls_back():
     except RuntimeError:
         with pytest.raises(RuntimeError, match="nvcc"):
             tfa._bwd_launch(q, q, q, q, q, False, lse)
+    assert tfa.flash_attention_bwd.launches == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_takes_every_head_dim_the_forward_takes(dtype):
+    """B5's head dims are K5's (``HEAD_DIMS``): the C entry's dispatch
+    instantiates each of them and no other, and at each the wrapper's
+    checks pass and the operands go to the build (which needs nvcc),
+    with no refusal and no twin in its place."""
+    import re
+    src = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    body = src[src.index("int launch_d("):]
+    body = body[:body.index("\n}\n")]
+    cases = tuple(int(x) for x in re.findall(r"case (\d+):", body))
+    assert cases == tfa.HEAD_DIMS
+    try:
+        build._nvcc()
+        return                            # a toolkit: the launch would run
+    except RuntimeError:
+        pass
+    launches = tfa.flash_attention_bwd.launches
+    for D in tfa.HEAD_DIMS:
+        q = torch.zeros(1, 4, 2, D, dtype=dtype)
+        lse = torch.zeros(1, 2, 4)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tfa._bwd_launch(q, q, q, q, q, True, lse)
     assert tfa.flash_attention_bwd.launches == launches
 
 

@@ -131,6 +131,51 @@ def test_loss_and_every_gradient_leaf_match_jax(arch):
         first = grads
 
 
+def test_text_only_vlm_loss_and_gradients_match_jax_at_head_dim_256():
+    """paligemma's text-only model (an empty (B, 0, d) image prefix, the
+    reference's ``lm.py:607`` with P = 0) on a smoke variant whose head
+    dim is paligemma-3b's 256 (d_model 512 over 2 heads, one KV head),
+    float32: the prefix-free masks send every layer through
+    ``flash_attention`` (K5's twin here) and its gradient through B5's
+    twin at d 256.  The loss and every gradient leaf against
+    ``jax.value_and_grad`` of the reference's, remat on and off."""
+    jc, tc, jp, npp = _params("paligemma_3b", d_model=512, n_heads=2, **F32)
+    assert tc.d_head == 256 and tc.n_kv_heads == 1
+    tokens, labels, _ = _batch(tc, B=2, S=24, seed=4)
+    fe = np.zeros((2, 0, tc.d_model), np.float32)
+
+    def jloss(p):
+        return jlm.loss_fn(p, jc, jnp.asarray(tokens), jnp.asarray(labels),
+                           jnp.asarray(fe))
+    (jl, _), jg = jax.value_and_grad(jloss, has_aux=True)(jp)
+    want = dict(leaf_paths(jg))
+    from repro_torch.kernels.flash_attention import flash_attention as tfa
+    for remat in (False, True):
+        params = _port_params(tc, npp)
+        names = leaf_paths(params)
+        calls = []
+        bwd = tfa.flash_attention_bwd_plain
+
+        def counted(*a, **kw):
+            calls.append(a[0].shape[-1])
+            return bwd(*a, **kw)
+        tfa.flash_attention_bwd_plain = counted
+        try:
+            loss, _ = tlm.loss_fn(params, tc, torch.from_numpy(tokens),
+                                  torch.from_numpy(labels),
+                                  torch.from_numpy(fe), remat=remat)
+            grads = torch.autograd.grad(loss, [p for _, p in names])
+        finally:
+            tfa.flash_attention_bwd_plain = bwd
+        assert calls == [256] * tc.n_layers
+        np.testing.assert_allclose(float(loss.detach()), float(jl),
+                                   rtol=LOSS_RTOL)
+        assert {n for n, _ in names} == set(want)
+        for (name, _), g in zip(names, grads):
+            _leaf_close(f"{name} remat={remat}", g, want[name], GRAD_TOL,
+                        GRAD_TOL)
+
+
 def _np_tree(tree):
     return {n: np.asarray(jnp.asarray(x, jnp.float32))
             for n, x in leaf_paths(tree)}
