@@ -164,12 +164,10 @@ Phases (any failure exits non-zero and prints no result):
           hymba's bf16 runs
           also report how far their served tokens sit from a float32
           forward on the same weights.  Each run's weights are freed
-          before the next.  Each bfloat16 kernel-path run (but the
-          starcoder2 sharded and the qwen tiered ones,
-          ``UNPROFILED_RUNS``) is then served
-          twice more, warm: plain for its wall time, then under
-          ``torch.profiler`` for the device's kernel time by kernel and
-          its busy share.
+          before the next.  The plain qwen run (``PROFILED_RUNS``) is
+          then served twice more, warm: plain for its wall time, then
+          under ``torch.profiler`` for the device's kernel time by
+          kernel and its busy share.
   dense   ``repro_torch.launch.serve --config <arch>`` (the dense-backend
           scheduler path, ``mars=False`` then ``mars=True``) at full
           width for whisper_base (6 encoder + 6 decoder layers, d 512,
@@ -187,8 +185,8 @@ Phases (any failure exits non-zero and prints no result):
           per layer per prefill and gather_rows once per embedding
           lookup.  The bf16 runs also report how far their served
           tokens, and their bf16 forward's own argmax, sit from a
-          float32 forward on the same weights.  Each bfloat16 run is then served twice more, warm
-          and profiled, as above.
+          float32 forward on the same weights.  whisper's bfloat16 run
+          is then served twice more, warm and profiled, as above.
   train   the training path (``repro_torch.launch.train``) and its four
           backward kernels.  First, beside the other kernel phases
           (before the serve runs, whose long profiles have been followed
@@ -272,7 +270,22 @@ Phases (any failure exits non-zero and prints no result):
           call against its twin, K4 3 and B4 9 launches a column, 0
           dropped rows, ms, peak memory and a profiled run a column; the
           output and the gradients of the tokens, the router and every
-          expert against the one-process layer within ``B4_TOL``); then
+          expert against the one-process layer within ``B4_TOL``); the
+          tensor-parallel check over 2 processes on the one card joined
+          by gloo, mesh data 1 x model 2 (``tp_check``): qwen1.5-0.5b's
+          24 layers on 8 x 512 tokens, one float32 step whose loss and
+          every gradient leaf lie within ``TP_F32_TOL`` of the
+          one-process float32 step on the card, then 3 bf16 steps,
+          finite and falling, each rank's K5 on 8 of 16 heads and K2
+          and B2 on 75968 of 151936 rows, launches counted a rank; then
+          serving, 8 prompts of 24 tokens prefilled and 8 greedy decode
+          steps, qwen1.5-0.5b with its cache cut by heads and
+          paligemma-3b's text-only model (18 layers, one KV head) with
+          its cache cut by sequence (flash-decoding): bf16 tokens
+          teacher-forced through the one-process dense steps within
+          ``serve.near_tie_margin``, float32 logits within
+          ``TP_SERVE_F32_TOL`` and the float32 tokens the one-process
+          argmax; each rank's peak memory and wall; then
           ``launch.train`` in bf16 with every
           count set to 0 just before it: qwen1.5-0.5b's first 12 of 24
           layers, whisper-base (stub frames, ``--frontend stub``: the
@@ -336,6 +349,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import queue
 import statistics
@@ -432,7 +446,7 @@ K5_CASES = [("whisper_encoder", 8, 1500, 1500, 8, 64, False),
 OUT_DIR = ROOT / "chiprun_out"
 # serve runs, each its own path for the launch counts: (config, extra
 # flags).  A config serves in its own bfloat16 through the kernels unless
-# a flag says otherwise, and those runs are profiled.  In float32 the
+# a flag says otherwise.  In float32 the
 # teacher-forced check is exact (the served tokens must be the dense
 # argmax).  The gather runs decode through the dense math over a
 # gathered view: their largest deficit in bfloat16 is the noise floor the
@@ -504,18 +518,15 @@ RUNS = (("qwen1_5_0_5b", ()), ("hymba_1_5b", ()),
         ("qwen1_5_0_5b", SHARDED),
         ("starcoder2_7b", SHARDED_TIERED)) + tuple(
     ("qwen1_5_0_5b", metrics_flags(tag)) for tag in METRICS_SMOKES)
-# flags that take a run off the profiled bf16 kernel path (and the
-# telemetry runs); the starcoder2 sharded run is not profiled either (two
-# more 7B serve runs for a breakdown the qwen runs give), nor qwen's
-# tiered run: its two 64-request repeats took 54.8 s of a 1023.4 s run on
-# an H100 host, past the 950 s that ROADMAP.md §3 allows, for a breakdown
-# of the kernels the plain qwen run profiles (its tier checks run on the
-# checked run)
-UNPROFILED = {"--dtype", "--no-kernel-decode", "--smoke", "--metrics"}
-UNPROFILED_RUNS = {"starcoder2_7b " + " ".join(SHARDED_TIERED),
-                   "qwen1_5_0_5b " + " ".join(TIERED)}
-# dense-backend runs (``serve.main`` without --paged): (config, flags);
-# the bf16 ones are profiled.  paligemma-3b serves its text-only decoder
+# the serve runs served twice more, warm (plain, then under
+# torch.profiler): qwen's plain paged run and whisper's dense one, one of
+# each serve path.  The other bf16 runs' repeats went when a whole run of this
+# script took 1047.7 s on an H100 host, past the 950 s that ROADMAP.md §3
+# allows: they were 175.5 s of it, a breakdown by kernel of runs whose
+# checks and launch counts the checked runs keep
+PROFILED_RUNS = {"qwen1_5_0_5b", "whisper_base"}
+# dense-backend runs (``serve.main`` without --paged): (config, flags).
+# paligemma-3b serves its text-only decoder
 # (d 256 heads, MQA), as the reference's ``main`` does
 DENSE_RUNS = (("whisper_base", ()), ("whisper_base", ("--dtype", "float32")),
               ("mamba2_370m", ()), ("mamba2_370m", ("--dtype", "float32")),
@@ -4967,6 +4978,394 @@ def moe_sharded_check(torch, reference: dict) -> tuple:
                 case=case, wall_s=wall, device=smi), launches
 
 
+# The tensor-parallel check (``tp_check``): 2 processes on the one card
+# joined by gloo (NCCL refuses two ranks on one device), mesh data 1 x
+# model 2, at published width.  TP_F32_TOL: the float32 TP step's loss
+# and each gradient leaf against the one-process float32 step on the
+# card, relative to the leaf's largest magnitude (the two compute the
+# same products per head and per hidden unit with the same kernels; the
+# sums over ``model`` come in another order).  TP_SERVE_F32_TOL: each
+# float32 serve step's logits against the one-process dense step's, of
+# the step's largest |logit|.  Both stated before the first chip run.
+TP_RANKS = 2
+TP_TIMEOUT = 600                    # seconds the ranks may take
+TP_F32_TOL = 1e-4
+TP_SERVE_F32_TOL = 1e-4
+TP_TRAIN = ("qwen1_5_0_5b", 3)      # config, bf16 steps
+TP_SERVE = ("qwen1_5_0_5b", "paligemma_3b")
+TP_PROMPTS = (8, 24, 8)             # prompts, their tokens, decode steps
+
+
+def _tp_mesh(torch, world: int):
+    from repro_torch.launch import mesh as mesh_mod
+    return mesh_mod.on_processes(mesh_mod.Mesh(
+        ("data", "model"), {"data": 1, "model": world},
+        (torch.device("cuda", 0),) * world), "cuda")
+
+
+def _tp_whole(torch, tree, mesh) -> dict:
+    """Every leaf of a tree of ``DTensor``s put together whole on every
+    rank (gloo all_reduce of zero-padded parts; the rank at coordinate 0
+    of the axes a leaf is not cut over contributes it)."""
+    import torch.distributed as dist
+    from repro_torch.sharding import dtensor, rules
+    from repro_torch.utils.tree import leaf_paths
+    here = dtensor.coords(mesh)
+    out = {}
+    for name, t in leaf_paths(tree):
+        spec = dtensor.spec_of(t, mesh)
+        cut = rules.sharded_axes(spec)
+        full = torch.zeros(t.shape, dtype=torch.float32, device="cuda")
+        if all(here[a] == 0 for a in mesh.axis_names if a not in cut):
+            region = rules.local_slices(spec, t.shape, mesh, here)
+            full[tuple(slice(a, b) for a, b in region)] = \
+                dtensor.local(t).float()
+        dist.all_reduce(full)
+        out[name] = full
+    return out
+
+
+def _tp_train(torch, rank: int, world: int, mesh, counters) -> dict:
+    """(a): qwen1.5-0.5b's float32 TP step against the one-process step
+    (rank 0 holds it), then ``TP_TRAIN``'s bf16 steps on one batch."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw as optim
+    from repro_torch.sharding import rules
+    from repro_torch.train import step as tstep
+    from repro_torch.utils.tree import leaf_paths
+    arch, steps = TP_TRAIN
+    cfg = configs.get(arch)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    B, S = TRAIN_TOKENS
+    b = next(TokenStream(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                    global_batch=B)))
+    tok = torch.from_numpy(b["tokens"]).cuda()
+    lab = torch.from_numpy(b["labels"]).cuda()
+    flags = tstep.TrainFlags(remat=False)
+    ref = None
+    if rank == 0:                       # the one-process float32 step
+        params = lm.init(cfg32, torch.Generator("cuda").manual_seed(0))
+        named = leaf_paths(params)
+        ps = [t.requires_grad_() for _, t in named]
+        loss, _ = lm.loss_fn(params, cfg32, tok, lab, remat=False)
+        grads = torch.autograd.grad(loss, ps)
+        ref = dict(loss=float(loss.detach()), grads={
+            n: g for (n, _), g in zip(named, grads)})
+        del params, ps, grads, loss
+        gc.collect()
+    dist.barrier()
+    params = train.init_params(cfg32, torch.Generator("cuda").manual_seed(0),
+                               mesh)
+    for t in params.parameters():
+        t.requires_grad_(True)
+    grads_of = tstep._sharded_grads(cfg32, flags, mesh)
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    loss, _, g = grads_of(params, tok, lab, None)
+    g = tstep._place_grads(cfg32, mesh, params, g)
+    torch.cuda.synchronize()
+    f32_ms = (time.perf_counter() - t0) * 1e3
+    f32_launches = read_counts(counters)
+    whole = _tp_whole(torch, g, mesh)
+    del g, params
+    out = dict(f32_ms=f32_ms, f32_launches=f32_launches, f32_loss=float(loss))
+    if ref is not None:
+        errs = {n: float((whole[n] - w).abs().max())
+                / max(float(w.abs().max()), 1e-30)
+                for n, w in ref["grads"].items()}
+        worst = max(errs, key=errs.get)
+        out.update(ref_loss=ref["loss"],
+                   loss_err=abs(float(loss) - ref["loss"]) / abs(ref["loss"]),
+                   worst_leaf=worst, worst_err=errs[worst], leaves=len(errs),
+                   finite=all(bool(torch.isfinite(w).all())
+                              for w in whole.values()))
+    del whole, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bf16 steps, on the one batch
+    oc = optim.OptConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    params = train.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               mesh)
+    for t in params.parameters():
+        t.requires_grad_(True)
+    state = optim.opt_init(params, oc)
+    step = tstep.make_train_step(cfg, oc, flags, mesh)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, {"tokens": tok,
+                                                "labels": lab})
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts(counters)
+    n, r = mesh.shape["model"], rank
+    out.update(losses=losses, step_ms=ms, launches=launches,
+               heads=rules.head_range(cfg, n, r),
+               rows=rules.block_range(cfg.vocab, n, r))
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_serve_run(torch, cfg, params, prompts, n: int, mesh=None,
+                  forced=None):
+    """A prefill of ``prompts`` and ``n`` decode steps through
+    ``serve.step`` (over ``mesh`` on this rank's parameter cuts, or in
+    one process), greedy or along
+    ``forced`` (B, n) tokens; returns (the tokens (B, n + 1), each
+    step's float32 logits (B, V), ms)."""
+    from repro_torch.serve import step as sstep
+    B, S = prompts.shape
+    pre = sstep.make_prefill(cfg, S + n, mesh)
+    dec = sstep.make_decode_step(cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = pre(params, prompts)
+        logs = [logits[:, -1].float()]
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        toks = [tok]
+        for i in range(n):
+            feed = tok if forced is None else forced[:, i:i + 1]
+            tok, logits, cache = dec(params, cache, feed)
+            logs.append(logits[:, -1].float())
+            toks.append(tok)
+    torch.cuda.synchronize()
+    return torch.cat(toks, 1), logs, (time.perf_counter() - t0) * 1e3
+
+
+def _tp_serve(torch, rank: int, world: int, mesh, counters, arch: str,
+              dtype: str) -> dict:
+    """(b) or (c) in ``dtype``: the TP prefill and greedy decode steps,
+    then (rank 0) the one-process dense steps along the same tokens."""
+    import dataclasses
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import serve, train
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(configs.get(arch), param_dtype=dtype,
+                              compute_dtype=dtype)
+    B, S, n = TP_PROMPTS
+    prompts = torch.randint(0, cfg.vocab, (B, S), dtype=torch.int32,
+                            generator=torch.Generator("cuda").manual_seed(5),
+                            device="cuda")
+    from repro_torch.serve import step as sstep
+    params = sstep.cut_params(cfg, mesh, train.init_params(
+        cfg, torch.Generator("cuda").manual_seed(0), mesh, fsdp=False))
+    reset_counts(counters)
+    toks, logs, ms = _tp_serve_run(torch, cfg, params, prompts, n, mesh)
+    launches = read_counts(counters)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(ms=ms, launches=launches, tokens=toks.cpu().tolist())
+    if rank == 0:
+        params = lm.init(cfg, torch.Generator("cuda").manual_seed(0))
+        _, want, _ = _tp_serve_run(torch, cfg, params, prompts, n,
+                                   forced=toks[:, :-1])
+        del params
+        deficit = margin = err = 0.0
+        bad = 0
+        for i, (got, w) in enumerate(zip(logs, want)):
+            wn = w.cpu().numpy()
+            tk = toks[:, i].long().cpu().numpy()
+            d = wn.max(-1) - wn[np.arange(B), tk]
+            mg = serve.near_tie_margin(wn, cfg.cdtype)
+            bad += int((d > mg).sum())
+            deficit, margin = max(deficit, float(d.max())), \
+                max(margin, float(mg.max()))
+            err = max(err, float((got - w).abs().max())
+                      / float(w.abs().max()))
+        out.update(mismatches=bad, max_deficit=deficit, max_margin=margin,
+                   logit_err=err, finite=all(bool(torch.isfinite(x).all())
+                                             for x in logs))
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _tp_run(torch, rank: int, world: int) -> dict:
+    mesh = _tp_mesh(torch, world)
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = dict(train=_tp_train(torch, rank, world, mesh, counters))
+    for arch in TP_SERVE:
+        for dtype in ("bfloat16", "float32"):
+            out[f"{arch}/{dtype}"] = _tp_serve(torch, rank, world, mesh,
+                                               counters, arch, dtype)
+    out.update(wall_s=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _tp_process(rank: int, world: int, store: str, results, release):
+    """A spawned TP rank: joins the gloo group, runs ``_tp_run`` and
+    hands its numbers to the parent."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        try:
+            results.put((rank, "ok", _tp_run(torch, rank, world)))
+            release.wait(TP_TIMEOUT)
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def tp_launches_wanted(cfg, counters: dict, kind: str, steps: int = 1,
+                       decodes: int = 0) -> dict:
+    """A TP rank's launches: a training run's (``train_launches_wanted``,
+    on the rank's cuts: the same counts), or a serve run's: K5 once per
+    layer in the prefill, K2 in the prefill and each decode step (where
+    the rank's rows of the table hold at least 2**22 elements)."""
+    if kind == "train":
+        return train_launches_wanted(cfg, steps, counters)
+    rows = -(-cfg.vocab // TP_RANKS)
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=unwindowed_layers(cfg),
+                gather_rows=1 + decodes
+                if rows * cfg.d_model >= 1 << 22 else 0)
+    return want
+
+
+def tp_check(torch) -> tuple:
+    """Tensor parallelism over ``TP_RANKS`` processes on the one card
+    (``_tp_process``; the kernels are built first, by this process):
+    (a) qwen1.5-0.5b training, (b) and (c) serving (``_tp_run``).
+    Returns the record and each rank's launches by run."""
+    import torch.multiprocessing as mp
+    from repro_torch import configs
+    from repro_torch.sharding import rules
+    ctx = mp.get_context("spawn")
+    results, release = ctx.Queue(), ctx.Event()
+    store = ROOT / "build" / "tp_store"
+    store.unlink(missing_ok=True)
+    procs = [ctx.Process(target=_tp_process,
+                         args=(r, TP_RANKS, str(store), results, release))
+             for r in range(TP_RANKS)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    try:
+        got = {}
+        while len(got) < len(procs):
+            try:
+                rank, status, res = results.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, proc in enumerate(procs)
+                        if r not in got and proc.exitcode is not None]
+                if dead or time.perf_counter() - t0 > TP_TIMEOUT:
+                    raise AssertionError(f"TP ranks {dead} ended without a "
+                                         f"result, or none came in "
+                                         f"{TP_TIMEOUT} s")
+                continue
+            if status != "ok":
+                raise AssertionError(f"TP rank {rank} failed:\n{res}")
+            got[rank] = res
+        wall = time.perf_counter() - t0
+    finally:
+        release.set()
+        for proc in procs:
+            proc.join(60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+        store.unlink(missing_ok=True)
+    counters = kernel_counters()
+    arch, steps = TP_TRAIN
+    cfg = configs.get(arch)
+    B, S, n = TP_PROMPTS
+    smi = card_line()
+    problems, launches = [], {}
+    t0_ = got[0]["train"]
+    for r, res in sorted(got.items()):
+        tr = res["train"]
+        want1 = tp_launches_wanted(cfg, counters, "train")
+        want = tp_launches_wanted(cfg, counters, "train", steps)
+        launches[f"tp train {arch} float32 step rank {r}"] = \
+            tr["f32_launches"]
+        launches[f"tp train {arch} bf16 rank {r}"] = tr["launches"]
+        print(f"[tp] rank {r} of {TP_RANKS}: {cfg.name} training, heads "
+              f"{tr['heads']} of {cfg.n_heads} (K5, B5), vocabulary rows "
+              f"{tr['rows']} of {cfg.vocab} (K2, B2); float32 step "
+              f"{tr['f32_ms']:.1f} ms, launches {_nonzero(tr['f32_launches'])}"
+              f" (want {_nonzero(want1)}); bf16 losses {tr['losses']}, "
+              f"steps {[round(x, 1) for x in tr['step_ms']]} ms, launches "
+              f"{_nonzero(tr['launches'])} (want {_nonzero(want)}); wall "
+              f"{res['wall_s']:.1f} s, peak allocated "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB; {smi}")
+        if tr["f32_launches"] != want1 or tr["launches"] != want:
+            problems.append(f"rank {r} training launches")
+        if not (all(math.isfinite(x) for x in tr["losses"])
+                and tr["losses"][-1] < tr["losses"][0]):
+            problems.append(f"rank {r} bf16 losses {tr['losses']}")
+        if tr["losses"] != t0_["losses"]:
+            problems.append(f"rank {r} losses differ from rank 0's")
+        for a in TP_SERVE:
+            c = configs.get(a)
+            want = tp_launches_wanted(c, counters, "serve", decodes=n)
+            cut = "the cache cut by " + (
+                "heads" if rules.cache_cut(c, TP_RANKS)[0] else "sequence")
+            for dtype in ("bfloat16", "float32"):
+                sv = res[f"{a}/{dtype}"]
+                launches[f"tp serve {a} {dtype} rank {r}"] = sv["launches"]
+                print(f"[tp] rank {r}: {c.name} {dtype} serving ({B} "
+                      f"prompts of {S} tokens, {n} decode steps; {cut}): "
+                      f"{sv['ms']:.1f} ms, launches "
+                      f"{_nonzero(sv['launches'])} (want {_nonzero(want)})")
+                if sv["launches"] != want:
+                    problems.append(f"rank {r} {a} {dtype} launches")
+                if sv["tokens"] != got[0][f"{a}/{dtype}"]["tokens"]:
+                    problems.append(f"rank {r} {a} {dtype} tokens differ")
+    tr = got[0]["train"]
+    print(f"[tp] {cfg.name} float32 TP step against the one-process step on "
+          f"the card: loss {tr['f32_loss']:.6f} vs {tr['ref_loss']:.6f} "
+          f"(rel {tr['loss_err']:.2e}), largest gradient error "
+          f"{tr['worst_err']:.2e} of its leaf's largest magnitude "
+          f"({tr['worst_leaf']}, over {tr['leaves']} leaves; tol "
+          f"{TP_F32_TOL:g}); {wall:.1f} s with the processes' start")
+    if not (tr["loss_err"] <= TP_F32_TOL and tr["worst_err"] <= TP_F32_TOL
+            and tr["finite"]):
+        problems.append("float32 TP step off the one-process step")
+    for a in TP_SERVE:
+        for dtype in ("bfloat16", "float32"):
+            sv = got[0][f"{a}/{dtype}"]
+            print(f"[tp] {a} {dtype}: teacher-forced through the "
+                  f"one-process dense steps: {sv['mismatches']} tokens past "
+                  f"the near-tie margin (largest deficit "
+                  f"{sv['max_deficit']:.4f}, margin {sv['max_margin']:.4f});"
+                  f" logits {sv['logit_err']:.2e} of the largest |logit|")
+            if sv["mismatches"] or not sv["finite"] or (
+                    dtype == "float32"
+                    and sv["logit_err"] > TP_SERVE_F32_TOL):
+                problems.append(f"{a} {dtype} serving off one process")
+    if problems:
+        raise AssertionError(f"tensor-parallel check: {problems}")
+    return dict(ranks=got, wall_s=wall, device=smi), launches
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -5072,6 +5471,12 @@ def train_phase(torch) -> tuple:
     del reference
     free_device(torch, "expert-parallel MoE layer")
     print(f"[time] train: the expert-parallel MoE layer "
+          f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    record["tp"], tp_launches = tp_check(torch)
+    launches.update(tp_launches)
+    free_device(torch, "tensor-parallel check")
+    print(f"[time] train: the tensor-parallel check "
           f"{time.perf_counter() - t0:.1f}s")
     for arch, steps, interval, kill_at, flags in TRAIN_RUNS:
         t0 = time.perf_counter()
@@ -5501,7 +5906,7 @@ def main(argv=None) -> int:
         del out
         free_device(torch, name)
         t1 = time.perf_counter()
-        if not UNPROFILED & set(flags) and name not in UNPROFILED_RUNS:
+        if name in PROFILED_RUNS:
             profiles[name] = profile_serve(torch, serve,
                                            serve_args(arch, flags))
             print_profile(name, profiles[name])
@@ -5535,7 +5940,7 @@ def main(argv=None) -> int:
             continue
         free_device(torch, name)
         t1 = time.perf_counter()
-        if not UNPROFILED & set(flags):
+        if name in PROFILED_RUNS:
             profiles[name] = profile_dense(torch, serve,
                                            dense_args(arch, flags))
             print_profile(name, profiles[name])

@@ -40,11 +40,21 @@ parameters, optimizer state and rows of the batch), the outputs, and the
 temporaries, the peak of live bytes allocated during the step, with the
 ops whose outputs hold most of them at the peak (``temp_peak_by_op``).
 
-Prefill and decode cells are ``"planned"``: the port has no step that
-splits a model's arithmetic over ``model`` (ROADMAP §1 item 4), while
-``rules.cache_shardings`` cuts the KV heads over it, so they cannot be
-traced as the reference lowers them.  They record the parameters and the
-cache per chip and the compute term of their model flops.
+The step is tensor-parallel over ``model`` (``rules.model_cut``): a
+rank computes with its heads, MLP units, vocabulary rows, SSM heads and
+experts, and ``gathered_gb_per_chip`` counts those cuts and their
+gradients: over ``model`` only cuts travel and are held, stored parts
+exchanged by an all-to-all where the storage is not the cut
+(``dtensor.fetch``, ``dtensor.return_grad``).
+
+A serve cell places the parameters at ``fsdp=False`` and traces what
+the reference lowers: a prefill cell ``lm.forward`` over this rank's
+rows of the prompt (with the frontend where the config has one),
+keeping the last position's logits (``trace_serve``); a decode cell one
+``serve.step.make_decode_step`` step on this rank's part of the cache
+under ``rules.cache_shardings`` (cut by KV heads, or by sequence, where
+the step runs flash-decoding).  It records what a train cell records,
+and the parameters and the cache per chip.
 
 Roofline terms are the reference's formulas with the H100's spec-sheet
 numbers in place of v5e's.  ``t_collective_s`` is a best case: one
@@ -84,11 +94,6 @@ HBM_BW = 3.35e12           # B/s
 LINK_BW = 450e9            # B/s, NVLink 4, per direction
 
 PEAK_OPS = 4               # ops named in a record's peak of temporaries
-
-PLANNED = ("the port has no step that splits a model's arithmetic over "
-           "'model' (ROADMAP §1 item 4), while rules.cache_shardings cuts "
-           "the KV heads over it: the serve step is planned, not traced")
-
 
 def opt_config_for(cfg: ModelConfig) -> optim.OptConfig:
     # trillion-scale MoE: factored second moment, bf16 has no full AdamW
@@ -214,10 +219,12 @@ def _unique_bytes(tensors) -> int:
     return sum(n for _, n in seen.values())
 
 
-def fake_state(cfg: ModelConfig, mesh, opt_cfg, fsdp: bool = True):
+def fake_state(cfg: ModelConfig, mesh, opt_cfg, fsdp: bool = True,
+               grads: bool = True):
     """Under ``FakeTensorMode``: this rank's parameters (``DTensor``s
     placed by ``rules.param_shardings`` on a mesh of processes; whole on
-    a mesh of one), wanting gradients, and their optimizer state."""
+    a mesh of one), wanting gradients, and their optimizer state (with
+    ``grads``; else the parameters alone, and None)."""
     meta, pshard, _, _ = abstract_state(cfg, mesh, fsdp=fsdp,
                                         with_opt=False)
     if mesh.dist is None:
@@ -229,6 +236,8 @@ def fake_state(cfg: ModelConfig, mesh, opt_cfg, fsdp: bool = True):
             rules.local_shape(spec, m.shape, mesh, here), dtype=m.dtype),
             spec, mesh), meta, pshard)
     params = layers.as_module(params)
+    if not grads:
+        return params, None
     for p in params.parameters():
         p.requires_grad_(True)
     return params, optim.opt_init(params, opt_cfg)
@@ -256,7 +265,6 @@ def trace_train(cfg: ModelConfig, mesh, batch: int, seq: int, *,
     the arguments, of the outputs, and the temporaries' peak), and with
     ``flop_counts`` the flops by op."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.utils.flop_counter import FlopCounterMode
     opt_cfg = opt_cfg or opt_config_for(cfg)
     with FakeTensorMode(allow_non_fake_inputs=True):
         params, opt = fake_state(cfg, mesh, opt_cfg, fsdp)
@@ -267,18 +275,27 @@ def trace_train(cfg: ModelConfig, mesh, batch: int, seq: int, *,
             data, {k: bspec for k in data}, mesh)
         step = train_step_mod.make_train_step(
             cfg, opt_cfg, train_step_mod.TrainFlags(remat=remat), mesh)
-        with shctx.use_mesh(mesh), FlopCounterMode(display=False) as fc, \
-                collectives.record() as rec, \
-                StepMeter(args + list(data.values())) as meter:
-            params, opt, metrics = step(params, opt, data)
-        out_bytes = _unique_bytes(_local_tensors(params)
-                                  + _local_tensors(opt)
-                                  + _local_tensors(metrics))
+        out, (params, opt, metrics) = _metered(
+            mesh, args + list(data.values()),
+            lambda: step(params, opt, data), flop_counts)
+        out["memory"]["argument_size_in_bytes"] = arg_bytes
+        out["memory"]["output_size_in_bytes"] = _unique_bytes(
+            _local_tensors(params) + _local_tensors(opt)
+            + _local_tensors(metrics))
+    return out
+
+
+def _metered(mesh, known, fn, flop_counts: bool = False):
+    """``fn()`` under the ambient ``mesh`` with its flops, bytes,
+    collectives and temporaries counted (``known``: the arguments'
+    tensors); returns (the counts, ``fn``'s result)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with shctx.use_mesh(mesh), FlopCounterMode(display=False) as fc, \
+            collectives.record() as rec, StepMeter(known) as meter:
+        res = fn()
     out = dict(flops=float(fc.get_total_flops()), bytes=float(meter.bytes),
                calls=rec.calls,
-               memory=dict(argument_size_in_bytes=arg_bytes,
-                           output_size_in_bytes=out_bytes,
-                           temp_size_in_bytes=meter.peak,
+               memory=dict(temp_size_in_bytes=meter.peak,
                            temp_peak_by_op=dict(sorted(
                                ((k, v) for k, v in meter.peak_by_op.items()
                                 if v), key=lambda kv: -kv[1])[:PEAK_OPS])))
@@ -286,7 +303,61 @@ def trace_train(cfg: ModelConfig, mesh, batch: int, seq: int, *,
         out["flop_counts"] = {
             mod: {str(op): n for op, n in ops.items()}
             for mod, ops in fc.get_flop_counts().items()}
+    return out, res
+
+
+def trace_serve(cfg: ModelConfig, mesh, kind: str, batch: int,
+                seq: int) -> dict:
+    """A serve cell's step under ``FakeTensorMode`` over the open fake
+    group (``mesh.dist``), the parameters placed at ``fsdp=False`` and
+    this rank's cuts of them fetched before the step, once for the
+    placement (``serve.step.cut_params``; the step's arguments):
+    ``kind`` "prefill" runs ``lm.forward`` over this rank's rows of a
+    (``batch``, ``seq``) prompt, with the frontend where the config has
+    one, keeping the last position's logits; "decode" one
+    ``serve.step.make_decode_step`` step of this rank's rows on its part
+    of a cache of ``seq`` positions (``rules.cache_shardings``).  Returns
+    what ``trace_train`` returns."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.serve import step as serve_step
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params, _ = fake_state(cfg, mesh, None, fsdp=False, grads=False)
+        # fetched once for the placement: a step reads the cuts
+        params = serve_step.cut_params(cfg, mesh, params)
+        args = _local_tensors(params)
+        rows = serve_step.serve_rows(mesh, batch)
+        nb = rows.stop - rows.start
+        if kind == "prefill":            # this rank's rows of the prompt
+            data = fake_batch(cfg, nb, seq)
+            data.pop("labels")
+            known = list(data.values())
+
+            def fn():
+                with torch.no_grad():
+                    return lm.forward_aux(params, cfg, data["tokens"],
+                                          data.get("frontend"),
+                                          last=True)[0]
+        else:
+            enc = cfg.frontend_seq if cfg.family == "encdec" else 0
+            cache = lm.init_dense_cache(cfg, nb, seq, "cpu", enc_len=enc,
+                                        tp=dtensor.model_rank(mesh))
+            cache.length = torch.tensor(seq - 1, dtype=torch.int32)
+            tok = torch.zeros((batch, 1), dtype=torch.int32)
+            known = _cache_tensors(cache) + [tok]
+            step = serve_step.make_decode_step(cfg, mesh)
+
+            def fn():
+                return step(params, cache, tok)[1]
+        out, logits = _metered(mesh, args + known, fn)
+        out["memory"]["argument_size_in_bytes"] = _unique_bytes(
+            args + known)
+        out["memory"]["output_size_in_bytes"] = _unique_bytes([logits])
     return out
+
+
+def _cache_tensors(cache) -> list:
+    return [getattr(cache, f.name) for f in dataclasses.fields(cache)
+            if isinstance(getattr(cache, f.name), torch.Tensor)]
 
 
 def analyze(traced: dict, chips: int, flops_model: float) -> dict:
@@ -333,12 +404,14 @@ def plan_cell(cfg: ModelConfig, cell, mesh, fsdp: bool = True) -> dict:
             cfg, mesh, fsdp=fsdp, opt_cfg=opt_config_for(cfg))
         rec["opt_gb_per_chip"] = round(
             rules.sharded_bytes_per_device(opt, oshard, mesh) / 1e9, 3)
-        # the port's step gathers every leaf whole but the experts, cut
-        # over model (ROADMAP §3), and holds each gathered leaf's gradient
+        # the step fetches each leaf's arithmetic cut whole over the data
+        # axes (model rank 0's, the largest) and holds its gradient
+        specs = lm.param_specs(cfg)
+        n = mesh.shape["model"]
         gathered = sum(
-            t.numel() * t.element_size() // math.prod(
-                mesh.shape[a] for a in train_step_mod.kept_axes(cfg, mesh,
-                                                                name))
+            math.prod(rules.cut_shape(rules.model_cut(
+                train_step_mod._at(specs, name), tuple(t.shape), cfg, n, 0),
+                t.shape)) * t.element_size()
             for name, t in leaf_paths(params))
         rec["gathered_gb_per_chip"] = round(2 * gathered / 1e9, 3)
     else:
@@ -373,14 +446,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.time()
     try:
         rec.update(plan_cell(cfg, cell, mesh, fsdp))
-        if cell.kind != "train":
-            rec.update(status="planned", reason=PLANNED,
-                       t_compute_s=rec["model_flops_per_chip"] / PEAK_FLOPS)
-            return rec
         with fake_group(mesh.size):
-            traced = trace_train(
-                cfg, mesh_mod.on_processes(mesh, "cpu"), cell.global_batch,
-                cell.seq_len, remat=remat, fsdp=fsdp)
+            on = mesh_mod.on_processes(mesh, "cpu")
+            if cell.kind == "train":
+                traced = trace_train(cfg, on, cell.global_batch,
+                                     cell.seq_len, remat=remat, fsdp=fsdp)
+            else:
+                traced = trace_serve(cfg, on, cell.kind, cell.global_batch,
+                                     cell.seq_len)
         rec.update(analyze(traced, mesh.size, model_flops(
             cfg, cell.kind, cell.global_batch, cell.seq_len)))
         rec.update(status="ok", route="plain",
@@ -396,8 +469,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--mesh", default=None, choices=["single", "multi"],
+                    help="default single; with --all both")
+    ap.add_argument("--all", action="store_true",
+                    help="every cell, or those of the --arch, --shape "
+                         "and --mesh given")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--kv-dtype", default="")
@@ -410,6 +486,9 @@ def main(argv=None):
             for s in SHAPES:
                 for mp in (False, True):
                     cells.append((a, s.name, mp))
+        cells = [c for c in cells if args.arch in (None, c[0])
+                 and args.shape in (None, c[1])
+                 and args.mesh in (None, ("single", "multi")[c[2]])]
     else:
         cells = [(args.arch, args.shape, args.mesh == "multi")]
 

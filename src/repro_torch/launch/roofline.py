@@ -3,10 +3,8 @@
 it keeps).
 
 ``python -m repro_torch.launch.roofline dryrun.jsonl`` prints the
-markdown table and the per-cell bottleneck analysis.  A ``planned``
-cell (a serve cell the port cannot trace yet, ``launch.dryrun``) prints
-as a row with its compute term, ``PLANNED`` and its reason, as a skip
-prints.  The hints name what moves each bound on an H100.
+markdown table and the per-cell bottleneck analysis.  The hints name
+what moves each bound on an H100.
 """
 from __future__ import annotations
 
@@ -43,10 +41,6 @@ def fmt_row(r: dict) -> str:
     if r["status"] == "skip":
         return (f"| {r['arch']} | {r['shape']} | {r['mesh']} | — | — | — | "
                 f"SKIP | {r['reason']} |")
-    if r["status"] == "planned":
-        return (f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
-                f"{r['t_compute_s']:.2e} | — | — | PLANNED | "
-                f"{r['reason']} |")
     if r["status"] != "ok":
         return (f"| {r['arch']} | {r['shape']} | {r['mesh']} | — | — | — | "
                 f"ERROR | {r['error'][:60]} |")
@@ -75,11 +69,9 @@ def main(argv=None):
         print(fmt_row(r))
     ok = [r for r in recs if r["status"] == "ok"]
     if ok:
-        planned = sum(r["status"] == "planned" for r in recs)
         print(f"\n{len(ok)} ok / "
               f"{sum(r['status'] == 'skip' for r in recs)} skip / "
-              f"{sum(r['status'] == 'error' for r in recs)} error"
-              + (f" / {planned} planned" if planned else ""))
+              f"{sum(r['status'] == 'error' for r in recs)} error")
         by_dom = defaultdict(int)
         for r in ok:
             by_dom[r["dominant"]] += 1

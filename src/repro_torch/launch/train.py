@@ -241,19 +241,20 @@ def rank_device(device) -> torch.device:
     return resolve_device(device)
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, mesh):
+def init_params(cfg: ModelConfig, gen: torch.Generator, mesh,
+                fsdp: bool = True):
     """``lm.init``'s parameters from ``gen``: whole on a mesh of one;
     over a mesh of processes each rank's part (drawn alone,
     ``layers.LocalDraw``) as a ``DTensor`` placed by
-    ``param_shardings``."""
+    ``param_shardings`` (``fsdp=False``: as a serve cell places them)."""
     if mesh.dist is None:
         return lm.init(cfg, gen)
-    rl, here = rules.logical_rules(mesh), dtensor.coords(mesh)
+    rl, here = rules.logical_rules(mesh, fsdp), dtensor.coords(mesh)
     region = lambda axes, shape: rules.local_slices(
         rules.spec_for(axes, shape, rl, mesh), shape, mesh, here)
     part = lm.init(cfg, layers.LocalDraw(gen, region))
     shard = rules.param_shardings(lm.param_specs(cfg),
-                                  lm.abstract_init(cfg), mesh)
+                                  lm.abstract_init(cfg), mesh, fsdp)
     return layers.as_module(tree_map(
         lambda t, spec: dtensor.distribute(t.detach(), spec, mesh), part,
         shard))

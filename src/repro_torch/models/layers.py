@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor
 
 NEG_INF = -1e30
 
@@ -293,6 +294,18 @@ def _repeat_kv(k, n_rep: int):
         .reshape(b, s, kh * n_rep, dh)
 
 
+def _kv_for_heads(k, cfg: ModelConfig, tp):
+    """K or V of the KV heads a layer holds, one per query head it
+    computes: all of them, or under tensor parallelism (``tp``) this
+    rank's query heads' from the KV heads ``tp.kv(cfg)`` it holds."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if tp is None:
+        return _repeat_kv(k, rep)
+    (h0, h1), (k0, _) = tp.heads(cfg), tp.kv(cfg)
+    idx = torch.arange(h0, h1, device=k.device) // rep - k0
+    return k.index_select(2, idx)
+
+
 # mask kind: plain causal attention with as many queries as keys
 CAUSAL = "causal"
 
@@ -311,6 +324,12 @@ def sdpa(q, k, v, mask=None):
             flash_attention
         if mask not in (None, CAUSAL):
             raise ValueError(f"unknown mask kind {mask!r}")
+        if q.shape[2] == 0:
+            # a model rank with no heads launches nothing: zeros, tied to
+            # q, k and v (empty sums) so that its backward reaches the
+            # collectives the other ranks' backward runs
+            return q.new_zeros(q.shape[:3] + v.shape[3:]) \
+                + (q.sum() + k.sum() + v.sum())
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=mask == CAUSAL)
     logits = at_least_f32(torch.einsum("bqhd,bkhd->bhqk", q, k)) \
@@ -349,9 +368,18 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, mask,
       - cross: xattn_kv=(k,v) precomputed from the encoder (new_kv None)
     ``mask`` is a mask kind or tensor (see ``sdpa``).
     Returns (out, new_kv) where new_kv is (k, v) for cache maintenance.
+
+    Under tensor parallelism (``dtensor.model_rank``) ``p`` holds this
+    rank's heads and the KV heads they read, ``kv_cache`` and
+    ``xattn_kv`` those KV heads (a cache cut by heads), x's gradient is
+    summed over ``model`` and the row-parallel ``wo``'s output is summed
+    over it.  A decode over a cache cut by sequence takes
+    ``decode_seq_cut``.
     """
     cd = cfg.cdtype
-    H, K = cfg.n_heads, cfg.n_kv_heads
+    tp = dtensor.model_rank()
+    if tp is not None:
+        x = tp.sum_backward(x)
     if xattn_kv is not None:
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
         if cfg.qkv_bias:
@@ -378,6 +406,11 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, mask,
                 cols = pos[:, None] + torch.arange(s, device=ck.device)
                 ck[rows, cols] = k.to(ck.dtype)
                 cv[rows, cols] = v.to(cv.dtype)
+            elif tp is not None:
+                # written on the device: no host read of the position
+                cols = pos + torch.arange(s, device=ck.device)
+                ck.index_copy_(1, cols, k.to(ck.dtype))
+                cv.index_copy_(1, cols, v.to(cv.dtype))
             else:
                 p0 = int(pos)
                 ck[:, p0:p0 + s] = k.to(ck.dtype)
@@ -386,11 +419,61 @@ def attention_apply(p, x, cfg: ModelConfig, *, positions, mask,
         new_kv = (k, v)
         k = k.to(cd)   # low-precision cache reads upcast for compute
         v = v.to(cd)
-    k = _repeat_kv(k, H // K)
-    v = _repeat_kv(v, H // K)
+    k = _kv_for_heads(k, cfg, tp)
+    v = _kv_for_heads(v, cfg, tp)
     out = sdpa(q, k, v, mask)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    if tp is not None:
+        out = tp.sum_forward(out)
     return out, new_kv
+
+
+def decode_seq_cut(p, x, cfg: ModelConfig, tp, *, positions, kv_cache,
+                   pos, s0: int, mask):
+    """One-token decode attention over a KV cache cut by sequence over
+    ``model`` (flash-decoding; ``rules.cache_shardings`` where the KV
+    heads do not divide the ranks).  This rank holds ``kv_cache`` (B,
+    S/n, K, dh): positions ``s0 ..`` of every KV head.  The new token's q
+    (of every head) and k, v (of every KV head) are put together over
+    ``model`` from the ranks' heads; the rank holding position ``pos`` (a
+    scalar or one a lane) writes k and v; every rank takes its partial
+    max, sum and P·V over its positions in float32 (``mask`` (B, 1, 1,
+    S/n) of them attended); these merge over ``model``, and each rank
+    keeps its heads for the row-parallel ``wo``.  No gradient.  Returns
+    (out (B, 1, d), (ck, cv))."""
+    cd = cfg.cdtype
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q, k, v = _qkv(p, x, cfg, positions)
+    h0, h1 = tp.heads(cfg)
+    q = tp.put_together(q, 2, (h0, h1), H)
+    k, v = (tp.kv_heads_together(t, cfg, 2) for t in (k, v))
+    ck, cv = kv_cache
+    Sl = ck.shape[1]
+    pos = torch.as_tensor(pos, device=ck.device).long()
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    local = pos - s0
+    inside = (local >= 0) & (local < Sl)
+    at = torch.broadcast_to(local.clamp(0, Sl - 1), rows.shape)
+    keep = torch.broadcast_to(inside, rows.shape)[:, None, None]
+    ck[rows, at] = torch.where(keep, k[:, 0].to(ck.dtype), ck[rows, at])
+    cv[rows, at] = torch.where(keep, v[:, 0].to(cv.dtype), cv[rows, at])
+    kk = _repeat_kv(ck.to(cd), H // K)
+    vv = _repeat_kv(cv.to(cd), H // K)
+    logits = at_least_f32(torch.einsum("bqhd,bkhd->bhqk", q, kk)) \
+        * (1.0 / math.sqrt(dh))
+    logits = torch.where(mask, logits, torch.full(
+        (), NEG_INF, dtype=torch.float32, device=logits.device))
+    m_r = logits.amax(-1, keepdim=True)                  # (B, H, 1, 1)
+    e = torch.exp(logits - m_r)
+    m = tp.max(m_r)
+    scale = torch.exp(m_r - m)
+    den = tp.sum(e.sum(-1, keepdim=True) * scale)
+    o = torch.einsum("bhqk,bkhd->bqhd", e, at_least_f32(vv)) \
+        * scale.permute(0, 2, 1, 3)
+    o = tp.sum(o) / den.permute(0, 2, 1, 3)
+    out = o[:, :, h0:h1].to(cd)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    return tp.sum(out), (ck, cv)
 
 
 def paged_attention_apply(p, x, cfg: ModelConfig, *, lengths, k_pages,
@@ -419,8 +502,13 @@ def paged_attention_apply(p, x, cfg: ModelConfig, *, lengths, k_pages,
 
 
 def cross_kv(p, enc_out, cfg: ModelConfig):
-    """Precompute cross-attention K/V from encoder output."""
+    """Precompute cross-attention K/V from encoder output (under tensor
+    parallelism this rank's KV heads, the encoder output's gradient
+    summed over ``model``)."""
     cd = cfg.cdtype
+    tp = dtensor.model_rank()
+    if tp is not None:
+        enc_out = tp.sum_backward(enc_out)
     k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(cd))
     v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(cd))
     if cfg.qkv_bias:
@@ -450,14 +538,21 @@ def _act(x, kind: str):
 
 
 def mlp_apply(p, x, cfg: ModelConfig):
+    """The MLP; under tensor parallelism ``p`` holds this rank's hidden
+    units (column-parallel in, row-parallel out, summed over
+    ``model``)."""
     cd = cfg.cdtype
+    tp = dtensor.model_rank()
+    if tp is not None:
+        x = tp.sum_backward(x)
     h = torch.einsum("bsd,df->bsf", x, p["wi"].to(cd))
     if cfg.mlp_gated:
         g = torch.einsum("bsd,df->bsf", x, p["wg"].to(cd))
         h = _act(g, cfg.act) * h
     else:
         h = _act(h, cfg.act)
-    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(cd))
+    out = torch.einsum("bsf,fd->bsd", h, p["wo"].to(cd))
+    return out if tp is None else tp.sum_forward(out)
 
 
 # ---------------------------------------------------------------------------
@@ -479,14 +574,42 @@ def embedding_init(gen, cfg: ModelConfig) -> dict:
 
 def embed_tokens(p, tokens, cfg: ModelConfig, positions=None):
     """Token rows through the MARS-sorted gather (``mars_gather``), plus
-    the learned position rows at ``positions`` where the model has them."""
+    the learned position rows at ``positions`` where the model has them.
+    Under tensor parallelism ``p["tok"]`` holds this rank's vocabulary
+    rows and ``p["pos"]`` its block of positions (``rules.model_cut``):
+    ids and positions outside them give zero rows, and the rows are
+    summed over ``model``."""
     from repro_torch.kernels.mars_gather import ops as gather_ops
-    x = gather_ops.embedding_gather(p["tok"], tokens).to(cfg.cdtype)
+    tp = dtensor.model_rank()
+    if tp is None:
+        x = gather_ops.embedding_gather(p["tok"], tokens).to(cfg.cdtype)
+        if "pos" in p and positions is not None:
+            x = x + p["pos"].to(cfg.cdtype)[positions]
+        return x
+    v0, v1 = tp.block(cfg.vocab)
+    inside = (tokens >= v0) & (tokens < v1)
+    rows = gather_ops.embedding_gather(
+        p["tok"], torch.where(inside, tokens - v0, 0)).to(cfg.cdtype)
+    x = torch.where(inside[..., None], rows, 0)
     if "pos" in p and positions is not None:
-        x = x + p["pos"].to(cfg.cdtype)[positions]
-    return x
+        p0, p1 = tp.block(cfg.max_position)
+        mine = (positions >= p0) & (positions < p1)
+        at = p["pos"].to(cfg.cdtype)[torch.where(mine, positions - p0, 0)]
+        x = x + torch.where(mine[..., None], at, 0)
+    return tp.sum_forward(x)
 
 
-def lm_head(p, x, cfg: ModelConfig):
-    w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    return torch.einsum("bsd,dv->bsv", x, w.to(cfg.cdtype))
+def lm_head(p, x, cfg: ModelConfig, whole: bool = True):
+    """Logits (B, S, V).  Under tensor parallelism the head holds this
+    rank's vocabulary columns: ``whole`` puts the ranks' columns
+    together (no gradient: for serving and ``lm.forward``), else this
+    rank's (B, S, V / n) come back, x's gradient summed over ``model``
+    (the vocabulary-parallel loss)."""
+    w = (p["tok"].T if cfg.tie_embeddings else p["head"]).to(cfg.cdtype)
+    tp = dtensor.model_rank()
+    if tp is None:
+        return torch.einsum("bsd,dv->bsv", x, w)
+    if not whole:
+        return torch.einsum("bsd,dv->bsv", tp.sum_backward(x), w)
+    return tp.put_together(torch.einsum("bsd,dv->bsv", x, w), 2,
+                           tp.block(cfg.vocab), cfg.vocab)

@@ -47,6 +47,7 @@ from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor, rules
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -184,7 +185,7 @@ def _add_aux(total: dict, aux: dict) -> dict:
 
 def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
                  cache_pos=None, ssm_state=None, xkv=None, is_global=None,
-                 paged=None):
+                 paged=None, kv_seq=None):
     """One transformer block.  Returns (x, new_kv, new_ssm, aux) — new_kv
     is None for an attention-free block, new_ssm the SSM branch's
     ``(state, conv_state)`` for a block with one, else None, and aux an
@@ -194,7 +195,10 @@ def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
     the pool's layered page buffers); ``ssm_state`` ``(state,
     conv_state)`` switches the SSM branch to its one-token recurrence;
     ``xkv`` (k, v) is the encoder's cross-attention K/V of a decoder
-    block.  ``masks`` holds mask kinds or tensors (``layers.sdpa``)."""
+    block.  ``masks`` holds mask kinds or tensors (``layers.sdpa``).
+    ``kv_seq`` (this rank's first position) routes a decode over a KV
+    cache cut by sequence over ``model`` through
+    ``layers.decode_seq_cut``."""
     attn_out = new_kv = None
     aux = {}
     if "attn" in bp:
@@ -209,6 +213,12 @@ def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
             mask = masks[0]
             if cfg.sliding_window and is_global is not None and is_global:
                 mask = masks[1]
+        if kv_seq is not None:
+            attn_out, new_kv = layers.decode_seq_cut(
+                bp["attn"], h, cfg, dtensor.model_rank(),
+                positions=positions, kv_cache=kv, pos=cache_pos, s0=kv_seq,
+                mask=mask)
+        elif paged is None:
             attn_out, new_kv = layers.attention_apply(
                 bp["attn"], h, cfg, positions=positions, mask=mask,
                 kv_cache=kv, cache_positions=cache_pos)
@@ -243,7 +253,8 @@ def _block_apply(bp, x, cfg: ModelConfig, *, masks, positions, kv=None,
 
 def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
                  layer_offset: int, n: int, kv=None, cache_pos=None,
-                 ssm_states=None, xkv=None, paged=None, remat: bool = False):
+                 ssm_states=None, xkv=None, paged=None, remat: bool = False,
+                 kv_seq=None):
     """Loop over stacked block params (+ optional per-layer caches) for
     absolute layers ``layer_offset .. layer_offset + n - 1``.
 
@@ -281,7 +292,8 @@ def _scan_blocks(stacked, x, cfg: ModelConfig, *, masks, positions,
         xkv_i = None if xkv is None else (xkv[0][li], xkv[1][li])
         kw = dict(masks=masks, positions=positions, kv=kv_i,
                   cache_pos=cache_pos, ssm_state=ssm_i, xkv=xkv_i,
-                  is_global=None if glob is None else glob[i], paged=paged_l)
+                  is_global=None if glob is None else glob[i], paged=paged_l,
+                  kv_seq=kv_seq)
         if remat:
             x, new_kv, new_ssm, aux = torch.utils.checkpoint.checkpoint(
                 _block_apply, planes[i], x, cfg, use_reentrant=False, **kw)
@@ -393,14 +405,26 @@ def _prepend_image(cfg: ModelConfig, x, frontend_emb):
 
 
 def forward_aux(params, cfg: ModelConfig, tokens, frontend_emb=None,
-                remat: bool = False):
+                remat: bool = False, last: bool = False):
     """Teacher-forced logits (B, S, V) and the MoE router losses summed
     over the decoder's layers (``moe_lb``, ``moe_z``; 0 without MoE), as
     the reference's ``forward`` returns them.  tokens: (B, S) int; an
     encoder-decoder model's encoder reads ``frontend_emb`` (B, Senc, d);
     a VLM prepends it (B, P, d) as a bidirectional image prefix and
     returns the logits of the token positions (P = 0 is the text-only
-    model).  ``remat`` recomputes each block in the backward."""
+    model).  ``remat`` recomputes each block in the backward; ``last``
+    keeps the last position's logits alone (B, 1, V), as a prefill
+    reads them.  Under tensor parallelism the logits are put together
+    over ``model``."""
+    x, aux = _final_hidden(params, cfg, tokens, frontend_emb, remat)
+    if last:
+        x = x[:, -1:]
+    return layers.lm_head(params["embed"], x, cfg), aux
+
+
+def _final_hidden(params, cfg: ModelConfig, tokens, frontend_emb, remat):
+    """The final norm's output at the token positions, and the router
+    losses (``forward_aux``)."""
     _check_family(cfg)
     x, positions, xkv = _prompt(params, cfg, tokens, frontend_emb, remat)
     prefix = 0
@@ -413,8 +437,7 @@ def forward_aux(params, cfg: ModelConfig, tokens, frontend_emb=None,
                                positions=positions, xkv=xkv, remat=remat)
     x = layers.apply_norm(params["final_norm"], x[:, prefix:], cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return layers.lm_head(params["embed"], x, cfg), \
-        {k: aux.get(k, zero) for k in ("moe_lb", "moe_z")}
+    return x, {k: aux.get(k, zero) for k in ("moe_lb", "moe_z")}
 
 
 def forward(params, cfg: ModelConfig, tokens, frontend_emb=None):
@@ -427,15 +450,37 @@ def loss_terms(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
                remat: bool = False):
     """The pieces of ``loss_fn``: (the summed negative log-likelihood of
     ``labels`` over the positions whose label is >= 0, the count of those
-    positions, the router losses ``{"moe_lb", "moe_z"}``)."""
-    logits, aux = forward_aux(params, cfg, tokens, frontend_emb,
-                              remat=remat)
-    logits = layers.at_least_f32(logits)
+    positions, the router losses ``{"moe_lb", "moe_z"}``).  Under tensor
+    parallelism the cross-entropy is vocabulary-parallel
+    (``_vocab_parallel_nll``): the (B, S, V) logits are never put
+    together."""
+    x, aux = _final_hidden(params, cfg, tokens, frontend_emb, remat)
     mask = labels >= 0
     safe = torch.clamp_min(labels, 0).long()
+    tp = dtensor.model_rank()
+    if tp is not None:
+        logits = layers.lm_head(params["embed"], x, cfg, whole=False)
+        nll = _vocab_parallel_nll(layers.at_least_f32(logits), safe, cfg,
+                                  tp)
+        return (nll * mask).sum(), mask.sum(), aux
+    logits = layers.at_least_f32(layers.lm_head(params["embed"], x, cfg))
     ll = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(ll, -1, safe[..., None])[..., 0]
     return (nll * mask).sum(), mask.sum(), aux
+
+
+def _vocab_parallel_nll(logits, labels, cfg: ModelConfig, tp):
+    """-log softmax(logits)[label] from this rank's vocabulary columns
+    ``logits`` (B, S, V / n): the row max over ``model`` (no gradient),
+    the sum of exponentials over ``model``, and the label's logit from
+    the rank that holds it."""
+    v0, v1 = tp.block(cfg.vocab)
+    m = tp.max(logits.amax(-1))
+    se = tp.sum_forward(torch.exp(logits - m[..., None]).sum(-1))
+    inside = (labels >= v0) & (labels < v1)
+    mine = torch.gather(logits, -1, torch.where(
+        inside, labels - v0, 0)[..., None])[..., 0]
+    return m + torch.log(se) - tp.sum_forward(torch.where(inside, mine, 0))
 
 
 def loss_fn(params, cfg: ModelConfig, tokens, labels, frontend_emb=None,
@@ -466,24 +511,42 @@ class Cache:
 
 
 def init_dense_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                     device="cuda", *, enc_len: int = 0) -> Cache:
+                     device="cuda", *, enc_len: int = 0, tp=None) -> Cache:
     """Zeroed dense storage: K/V of ``max_seq`` positions where the model
     has attention, the SSM state and conv context where it has an SSM,
     and an encoder-decoder model's cross-attention K/V over ``enc_len``
-    frames."""
+    frames.  With ``tp`` (a ``dtensor.ModelRank``) this rank's part over
+    ``model`` of ``rules.cache_shardings``: its KV heads, or where they
+    do not divide the ranks its ``max_seq / n`` positions of every KV
+    head (``max_seq`` must divide); its SSM heads where they divide;
+    the conv context whole; the cross K/V cut like the KV."""
     L, K, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
     cd = cfg.kvdtype
+    S, Kc, xK = max_seq, K, K
+    ss, cs = ssm_mod.ssm_state_shapes(cfg, batch) if cfg.has_ssm \
+        else (None, None)
+    if tp is not None:
+        kv_on_heads, ssm_on_heads = rules.cache_cut(cfg, tp.n)
+        if kv_on_heads:
+            Kc = xK = K // tp.n
+        else:
+            if max_seq % tp.n:
+                raise ValueError(
+                    f"a KV cache cut by sequence over {tp.n} model ranks "
+                    f"needs a length that divides ({max_seq} does not)")
+            S = max_seq // tp.n
+        if ssm_on_heads:
+            ss = (ss[0], ss[1] // tp.n) + ss[2:]
 
     def zeros(shape, dtype=cd):
         return torch.zeros(shape, dtype=dtype, device=device)
     k = v = ssm = conv = xk = xv = None
     if cfg.has_attention:
-        k, v = (zeros((L, batch, max_seq, K, dh)) for _ in range(2))
+        k, v = (zeros((L, batch, S, Kc, dh)) for _ in range(2))
     if cfg.has_ssm:
-        ss, cs = ssm_mod.ssm_state_shapes(cfg, batch)
         ssm, conv = zeros((L,) + ss, torch.float32), zeros((L,) + cs)
     if cfg.family == "encdec":
-        xk, xv = (zeros((L, batch, enc_len, K, dh)) for _ in range(2))
+        xk, xv = (zeros((L, batch, enc_len, xK, dh)) for _ in range(2))
     return Cache(k, v, zeros((), torch.int32), ssm, conv, xk, xv)
 
 
@@ -512,18 +575,31 @@ def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
     positions are read there.  The cache's K/V are written in place (see
     ``layers.attention_apply``); an SSM's state and conv context advance
     into new tensors; a decoder's cross-attention reads ``cache.xk/xv``.
-    Returns (logits, cache with length + 1)."""
+    Returns (logits, cache with length + 1).
+
+    Under tensor parallelism (``dtensor.model_rank``) the parameters are
+    this rank's cuts and ``cache`` this rank's part
+    (``init_dense_cache`` with ``tp``): a cache cut by sequence decodes
+    through ``layers.decode_seq_cut``; SSM states kept whole are cut to this
+    rank's heads for the step and put back together; the logits come
+    back whole."""
     _check_family(cfg)
+    tp = dtensor.model_rank()
+    kv_on_heads, ssm_on_heads = (True, True) if tp is None \
+        else rules.cache_cut(cfg, tp.n)
     B = tokens.shape[0]
     pos = torch.as_tensor(cache.length, device=tokens.device)
     ragged = pos.ndim > 0
     posv = torch.broadcast_to(pos.reshape(-1), (B,))
     positions = posv[:, None]
     x = layers.embed_tokens(params["embed"], tokens, cfg, positions)
-    masks = kv = None
+    masks = kv = kv_seq = None
     if cfg.has_attention:
-        Smax = cache.k.shape[2]
-        kpos = torch.arange(Smax, device=tokens.device)[None, :]
+        Sl = cache.k.shape[2]
+        s0 = 0
+        if not kv_on_heads:
+            s0 = kv_seq = tp.r * Sl
+        kpos = torch.arange(s0, s0 + Sl, device=tokens.device)[None, :]
         m_causal = kpos <= posv[:, None]
         m = m_causal
         if cfg.sliding_window:
@@ -531,14 +607,23 @@ def dense_decode_step(params, cfg: ModelConfig, tokens, cache: Cache):
         masks = (m[:, None, None, :], m_causal[:, None, None, :])
         kv = (cache.k, cache.v)
     ssm_states = (cache.ssm, cache.conv) if cfg.has_ssm else None
+    if ssm_states is not None and not ssm_on_heads:  # kept whole: this
+        h0, h1 = tp.ssm_heads(cfg)                    # rank's heads
+        ssm_states = (cache.ssm[:, :, h0:h1], cache.conv)
     xkv = (cache.xk, cache.xv) if cfg.family == "encdec" else None
+    if xkv is not None and not kv_on_heads:
+        k0, k1 = tp.kv(cfg)
+        xkv = (cache.xk[:, :, :, k0:k1], cache.xv[:, :, :, k0:k1])
     x, _, ss, _ = _run_blocks(params, x, cfg, masks=masks,
-                           positions=positions, kv=kv,
-                           cache_pos=posv if ragged else pos,
-                           ssm_states=ssm_states, xkv=xkv)
+                              positions=positions, kv=kv,
+                              cache_pos=posv if ragged else pos,
+                              ssm_states=ssm_states, xkv=xkv,
+                              kv_seq=kv_seq)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     logits = layers.lm_head(params["embed"], x, cfg)
     ssm, conv = _stack_pairs(ss)
+    if cfg.has_ssm and not ssm_on_heads:
+        ssm = tp.put_together(ssm, 2, (h0, h1), cache.ssm.shape[2])
     return logits, Cache(cache.k, cache.v, cache.length + 1, ssm, conv,
                          cache.xk, cache.xv)
 
@@ -622,16 +707,34 @@ def prefill_parts(params, cfg: ModelConfig, tokens, frontend_emb=None):
 
 def dense_prefill(params, cfg: ModelConfig, tokens, max_seq: int,
                   frontend_emb=None):
-    """Prompt -> (logits, dense Cache sized ``max_seq``)."""
+    """Prompt -> (logits, dense Cache sized ``max_seq``).  Under tensor
+    parallelism the cache is this rank's part (``init_dense_cache`` with
+    ``tp``): the ranks' KV heads are put together where the cache is cut
+    by sequence, and this rank keeps its positions."""
     B, S = tokens.shape
+    tp = dtensor.model_rank()
     # the cross-attention K/V come from the prompt's encoder run below
-    cache = init_dense_cache(cfg, B, max_seq, device=tokens.device)
+    cache = init_dense_cache(cfg, B, max_seq, device=tokens.device, tp=tp)
     logits, parts = prefill_parts(params, cfg, tokens, frontend_emb)
+    kv_on_heads, ssm_on_heads = (True, True) if tp is None \
+        else rules.cache_cut(cfg, tp.n)
+    if not kv_on_heads:
+        parts = {n: t if t is None or n in ("ssm", "conv")
+                 else tp.kv_heads_together(t, cfg, 3)
+                 for n, t in parts.items()}
     if cfg.has_attention:
-        cache.k[:, :, :S] = parts["k"].to(cache.k.dtype)
-        cache.v[:, :, :S] = parts["v"].to(cache.v.dtype)
+        k, v = parts["k"], parts["v"]
+        if not kv_on_heads:                               # its positions
+            Sl = cache.k.shape[2]
+            k, v = k[:, :, tp.r * Sl:(tp.r + 1) * Sl], \
+                v[:, :, tp.r * Sl:(tp.r + 1) * Sl]
+        cache.k[:, :, :k.shape[2]] = k.to(cache.k.dtype)
+        cache.v[:, :, :v.shape[2]] = v.to(cache.v.dtype)
     if cfg.has_ssm:
         cache.ssm, cache.conv = parts["ssm"], parts["conv"]
+        if not ssm_on_heads:                    # kept whole
+            cache.ssm = tp.put_together(cache.ssm, 2, tp.ssm_heads(cfg),
+                                        ssm_mod.ssm_dims(cfg)[1])
     if cfg.family == "encdec":
         cache.xk, cache.xv = parts["xk"], parts["xv"]
     cache.length = torch.tensor(S, dtype=torch.int32, device=tokens.device)

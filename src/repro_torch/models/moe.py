@@ -255,7 +255,7 @@ def _mars_dispatch_sharded(p, xf, cfg: ModelConfig, mesh):
     model column, experts cut over ``model``.  Every column routes its
     data row's window, runs ``moe_column`` on its experts (``p``'s
     ``w_*`` hold this column's ``E / n_model`` experts alone, as the
-    trainer's ``kept_axes`` leaves them), and the parts are summed over
+    trainer's ``model_cuts`` leave them), and the parts are summed over
     ``model``.
 
     As shard_map's transpose does in the reference, the gradients the

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import dtensor
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -67,13 +68,22 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig, stack: int = 0) -> dict:
     }
 
 
-def _split_proj(p, x, cfg: ModelConfig):
+def _split_proj(p, x, cfg: ModelConfig, tp=None):
+    """(z, x, bc, dt) of the input.  Under tensor parallelism (``tp``)
+    ``w_zx`` holds this rank's heads' columns of both halves, x's
+    gradient through them is summed over ``model``, and dt is this
+    rank's heads' (``w_bcdt`` is whole)."""
     d_in, H, P, N = ssm_dims(cfg)
     cd = cfg.cdtype
-    zx = torch.einsum("bsd,dk->bsk", x, p["w_zx"].to(cd))
-    z, xs = torch.split(zx, [d_in, d_in], dim=-1)
+    xin = x if tp is None else tp.sum_backward(x)
+    zx = torch.einsum("bsd,dk->bsk", xin, p["w_zx"].to(cd))
+    half = zx.shape[-1] // 2
+    z, xs = torch.split(zx, [half, half], dim=-1)
     bcdt = torch.einsum("bsd,dk->bsk", x, p["w_bcdt"].to(cd))
     bc, dt = torch.split(bcdt, [2 * N, H], dim=-1)
+    if tp is not None:
+        h0, h1 = tp.ssm_heads(cfg)
+        dt = tp.sum_backward(dt)[..., h0:h1]
     return z, xs, bc, dt
 
 
@@ -98,19 +108,33 @@ def ssm_apply(p, x, cfg: ModelConfig, *, state=None, conv_state=None,
     """Full Mamba2 layer.  x: (B,S,d).  With ``state``/``conv_state`` given
     (decode), S must be 1 and the recurrence is applied directly.  With
     ``return_state`` also returns ``(state (B,H,P,N) float32, conv_state
-    (B, k-1, d_in + 2N))``."""
+    (B, k-1, d_in + 2N))``.
+
+    Under tensor parallelism (``dtensor.model_rank``) ``p`` holds this
+    rank's heads (``rules.model_cut``) and the layer computes them:
+    ``state`` is theirs, ``conv_state`` is whole (its new x channels
+    are put together over ``model``), the grouped norm's sum of squares
+    is summed over ``model`` and ``w_out``'s row-parallel output too."""
     d_in, H, P, N = ssm_dims(cfg)
-    z, xs_raw, bc_raw, dt_raw = _split_proj(p, x, cfg)
+    tp = dtensor.model_rank()
+    h0, h1 = (0, H) if tp is None else tp.ssm_heads(cfg)
+    z, xs_raw, bc_raw, dt_raw = _split_proj(p, x, cfg, tp)
     cs_x = cs_bc = None
     if conv_state is not None:
-        cs_x, cs_bc = conv_state[..., :d_in], conv_state[..., d_in:]
+        cs_x, cs_bc = conv_state[..., h0 * P:h1 * P], conv_state[..., d_in:]
     xs, new_conv_x = _causal_conv(xs_raw, p["conv_w"], p["conv_b"], cfg,
                                   cs_x)
     bc, new_conv_bc = _causal_conv(bc_raw, p["conv_w_bc"], p["conv_b_bc"],
                                    cfg, cs_bc)
+    if tp is not None:
+        bc = tp.sum_backward(bc)
+        if return_state:
+            new_conv_x = tp.put_together(new_conv_x, 2, (h0 * P, h1 * P),
+                                         d_in)
     new_conv = torch.cat([new_conv_x, new_conv_bc], dim=-1)
     b, c = torch.split(bc, [N, N], dim=-1)
     Bsz, S = x.shape[0], x.shape[1]
+    H = h1 - h0
     xs = xs.reshape(Bsz, S, H, P)
     dt = F.softplus(layers.at_least_f32(dt_raw) + p["dt_bias"])  # (B,S,H)
     a = -torch.exp(p["a_log"])                            # (H,)
@@ -125,6 +149,13 @@ def ssm_apply(p, x, cfg: ModelConfig, *, state=None, conv_state=None,
         new_state = state * dec + upd
         y = torch.einsum("bhpn,bn->bhp", new_state,
                          c[:, 0].float())[:, None]
+    elif H == 0:
+        # a model rank with no SSM heads launches nothing: zeros, tied to
+        # the scan's inputs (as ``layers.sdpa``'s empty rank) so that its
+        # backward reaches the collectives the other ranks' backward runs
+        y = xs.new_zeros(xs.shape, dtype=torch.float32) \
+            + 0 * (b.sum() + c.sum() + la.sum() + dt.sum())
+        new_state = xs.new_zeros((Bsz, 0, P, N), dtype=torch.float32)
     else:
         # la and dt stay float32, as in the decode recurrence above (the
         # reference rounds them to x's dtype here, ssm.py:175-176, so its
@@ -133,14 +164,19 @@ def ssm_apply(p, x, cfg: ModelConfig, *, state=None, conv_state=None,
                                 chunk=cfg.ssm_chunk)
 
     y = y + p["d_skip"][:, None] * layers.at_least_f32(xs)
-    y = y.reshape(Bsz, S, d_in).to(x.dtype)
+    y = y.reshape(Bsz, S, H * P).to(x.dtype)
     y = y * F.silu(z)
     # grouped RMS norm over d_inner
     y32 = layers.at_least_f32(y)
-    y = (y32 * torch.rsqrt((y32 ** 2).mean(-1, keepdim=True)
-                           + cfg.norm_eps)).to(x.dtype)
+    if tp is None:
+        ms = (y32 ** 2).mean(-1, keepdim=True)
+    else:
+        ms = tp.sum_both((y32 ** 2).sum(-1, keepdim=True)) / d_in
+    y = (y32 * torch.rsqrt(ms + cfg.norm_eps)).to(x.dtype)
     y = y * p["norm"].to(x.dtype)
     out = torch.einsum("bsk,kd->bsd", y, p["w_out"].to(cfg.cdtype))
+    if tp is not None:
+        out = tp.sum_forward(out)
     if return_state:
         return out, (new_state, new_conv)
     return out

@@ -20,7 +20,10 @@ dimensions with no valid mapping replicate.  A mesh is any record with
 
 ``local_slices`` gives the part of a tensor one mesh position holds
 under a spec, and ``sharding.dtensor`` turns a spec into
-``torch.distributed.tensor`` placements.  This module needs no torch.
+``torch.distributed.tensor`` placements.  ``model_cut`` gives the part
+of a leaf a rank of the ``model`` axis computes with (tensor
+parallelism), which the storage need not match.  This module needs no
+torch.
 """
 from __future__ import annotations
 
@@ -195,6 +198,16 @@ def pool_shard_count(mesh) -> int:
     return int(mesh.shape["model"])
 
 
+def cache_cut(cfg, n: int) -> tuple:
+    """How a dense cache is cut over a model axis of ``n`` (the one
+    source of ``cache_shardings``' choices and of the steps that read
+    such a cache): (the KV and cross K/V cut by heads, else the KV by
+    sequence; the SSM state cut by heads, else whole)."""
+    from repro_torch.models import ssm as ssm_mod
+    return (cfg.n_kv_heads % n == 0,
+            cfg.has_ssm and ssm_mod.ssm_dims(cfg)[1] % n == 0)
+
+
 def cache_shardings(mesh, cfg, batch: int, backend: str = "dense") -> Any:
     """KV cache (L,B,S,K,dh): batch on data axes; kv heads on model when
     divisible, otherwise the *sequence* dim shards on model (flash-decoding
@@ -220,22 +233,19 @@ def cache_shardings(mesh, cfg, batch: int, backend: str = "dense") -> Any:
     nm = mesh.shape["model"]
     nd = _axis_size(mesh, d)
     bspec = _entry(d) if batch % nd == 0 else None
-    kv_on_heads = cfg.n_kv_heads % nm == 0
+    kv_on_heads, ssm_on_heads = cache_cut(cfg, nm)
     if kv_on_heads:
         kv = (None, bspec, None, "model", None)
     else:
         kv = (None, bspec, "model", None, None)
-    from repro_torch.models import ssm as ssm_mod
     if cfg.has_ssm:
-        _, H, _, _ = ssm_mod.ssm_dims(cfg)
-        ssm = (None, bspec, "model" if H % nm == 0 else None, None, None)
+        ssm = (None, bspec, "model" if ssm_on_heads else None, None, None)
         # conv state is tiny; its (x|bc) channel split is shard-misaligned,
         # so replicate the channel dim rather than permute on every decode
         conv = (None, bspec, None, None)
     else:
         ssm = conv = ()
-    enc_kv = (None, bspec, None, "model" if cfg.n_kv_heads % nm == 0
-              else None, None)
+    enc_kv = (None, bspec, None, "model" if kv_on_heads else None, None)
     from repro_torch.models.lm import Cache
     return Cache(
         k=kv if cfg.has_attention else None,
@@ -286,3 +296,108 @@ def local_shape(spec, shape, mesh, coords: dict) -> tuple:
 def sharded_axes(spec) -> tuple:
     """Every mesh axis a spec shards a dimension over."""
     return tuple(a for e in spec for a in entry_axes(e))
+
+
+# ---------------------------------------------------------------------------
+# The arithmetic cut: what a model rank computes with
+# ---------------------------------------------------------------------------
+#
+# ``param_shardings`` decides how a leaf is *stored*, fallbacks and all
+# (56 heads on 16 ranks store ``wq`` cut over its head dim).  The
+# arithmetic cut is the slice of a leaf that a rank of the ``model`` axis
+# computes with, whatever the storage: its query heads (split by
+# ceiling, as GSPMD pads: 56 heads on 16 ranks give 4 a rank and leave
+# ranks 14 and 15 none), the KV heads those heads read under GQA (shared
+# by neighbouring ranks when the KV heads are fewer than the ranks), its
+# MLP hidden units, its vocabulary rows and its block of a learned
+# position table's rows (both lookups: a row outside the block reads
+# zeros, and the ranks' rows are summed), its SSM heads (both the z and
+# the x halves of ``w_zx``).  Norms, the router and the SSM's
+# ``ssm_small`` projections stay whole; an MoE layer's expert weights
+# are cut over their experts (the expert-parallel dispatch).
+
+def block_range(size: int, n: int, r: int) -> tuple:
+    """(start, stop) of block ``r`` of ``size`` split in ``n`` ceil-sized
+    blocks (the last ones short or empty)."""
+    block = -(-size // n)
+    return min(size, r * block), min(size, (r + 1) * block)
+
+
+def head_range(cfg, n: int, r: int) -> tuple:
+    """The query heads of model rank ``r`` of ``n``."""
+    return block_range(cfg.n_heads, n, r)
+
+
+def kv_range(cfg, n: int, r: int) -> tuple:
+    """The KV heads that model rank ``r``'s query heads read (GQA: query
+    head h reads KV head h // (H / K)); empty with its heads."""
+    h0, h1 = head_range(cfg, n, r)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if h0 >= h1:
+        k = min(cfg.n_kv_heads, h0 // rep)
+        return k, k
+    return h0 // rep, (h1 - 1) // rep + 1
+
+
+def ssm_head_range(cfg, n: int, r: int) -> tuple:
+    """The SSM heads of model rank ``r`` of ``n``."""
+    return block_range(cfg.d_inner_ssm // cfg.d_ssm_head, n, r)
+
+
+def kv_owner(cfg, n: int, k: int) -> int:
+    """The first model rank whose query heads read KV head ``k``: the
+    one that contributes it where the ranks' KV heads are put together."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    block = -(-cfg.n_heads // n)
+    return (k * rep) // block
+
+
+def model_cut(axes, shape, cfg, n: int, r: int) -> tuple:
+    """The arithmetic cut of one leaf (logical ``axes``, ``shape``) on
+    model rank ``r`` of ``n``: per dimension None (whole) or a tuple of
+    (start, stop) ranges taken in order (two for ``w_zx``'s z and x
+    halves).  At most one dimension is cut.  An expert weight (a leaf
+    with both ``expert`` and ``mlp``) is cut over its experts, which
+    must divide ``n`` (the expert-parallel dispatch); the router's
+    ``expert`` dimension stays whole."""
+    out = [None] * len(axes)
+    if n == 1:
+        return tuple(out)
+    expert = "expert" in axes and "mlp" in axes
+    for i, (a, size) in enumerate(zip(axes, shape)):
+        rng = None
+        if expert:
+            if a == "expert":
+                if size % n:
+                    raise ValueError(
+                        f"{size} experts do not split over a model axis of "
+                        f"{n}: the expert-parallel dispatch needs them to")
+                rng = (block_range(size, n, r),)
+        elif a == "heads":
+            rng = (head_range(cfg, n, r),)
+        elif a == "kv_heads":
+            rng = (kv_range(cfg, n, r),)
+        elif a in ("mlp", "vocab", "seq"):
+            rng = (block_range(size, n, r),)
+        elif a == "ssm_heads":
+            rng = (ssm_head_range(cfg, n, r),)
+        elif a == "ssm_in":
+            h0, h1 = ssm_head_range(cfg, n, r)
+            P, d_in = cfg.d_ssm_head, cfg.d_inner_ssm
+            rng = ((h0 * P, h1 * P),)
+            if size == 2 * d_in:                  # w_zx: z, then x
+                rng += ((d_in + h0 * P, d_in + h1 * P),)
+            elif size != d_in:
+                raise ValueError(f"an ssm_in dimension of {size}, neither "
+                                 f"d_inner {d_in} nor twice it")
+        if rng is not None:
+            out[i] = rng
+    if sum(c is not None for c in out) > 1:
+        raise ValueError(f"leaf {axes} would be cut on two dimensions")
+    return tuple(out)
+
+
+def cut_shape(cut, shape) -> tuple:
+    """The shape of a leaf's cut."""
+    return tuple(n if c is None else sum(b - a for a, b in c)
+                 for c, n in zip(cut, shape))

@@ -12,17 +12,21 @@ that accumulates the gradients in f32 before one optimizer update.
 Over a mesh of processes (``launch.mesh.Mesh`` with ``dist``; the
 parameters are ``DTensor``s placed by ``sharding.rules``) each rank
 takes its rows of the global batch (``rules.batch_sharding``: split over
-the data axes), gathers every parameter whole (``sharding.dtensor``)
-but the MoE experts, which stay cut over ``model`` for the
-expert-parallel dispatch, and runs the model on plain tensors.  Each
-rank's objective is its share of the global loss: its summed token
-losses over the global count of labelled tokens, plus its share of the
-router losses (which the MoE layer reduces over the data shards
-itself), so the ranks' objectives add up to the global mean.  The
-gradients are summed over the data axes and cut back to each
-parameter's placement (``dtensor.reduce_grad``).  Every model rank of a
-data row repeats that row's dense arithmetic: the model axis cuts
-storage and the experts, not the heads' or the MLP's products.
+the data axes) and fetches each parameter's arithmetic cut
+(``rules.model_cut``, ``dtensor.fetch``): whole over the data axes, and
+over ``model`` its query heads and the KV heads they read, its MLP
+hidden units, its vocabulary rows, its SSM heads and its experts, the
+rest whole.  The layers then run tensor-parallel (``dtensor.model_rank``):
+column-parallel products take an input whose gradient is summed over
+``model``, row-parallel ones sum their outputs over it, and the loss is
+a vocabulary-parallel cross-entropy.  Each rank's objective is its
+share of the global loss: its summed token losses over the global
+count of labelled tokens, plus its share of the router losses (which
+the MoE layer reduces over the data shards itself), so the objectives
+of a model row's ranks are one and the data rows' add up to the global
+mean.  Each cut's gradient goes back by the transpose
+(``dtensor.return_grad``): summed over the data axes and over the model
+ranks that computed parts of it, then cut to the parameter's placement.
 """
 from __future__ import annotations
 
@@ -33,7 +37,6 @@ import torch
 import math
 
 from repro_torch.models import lm
-from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw as optim
 from repro_torch.sharding import context as shctx
@@ -65,15 +68,16 @@ def _map_paths(fn, tree, prefix: str = ""):
             for n, c in kids}
 
 
-def kept_axes(cfg: ModelConfig, mesh, name: str) -> tuple:
-    """The mesh axes a parameter stays cut over when the layers read it:
-    ``("model",)`` for an MoE layer's expert weights under the
-    expert-parallel dispatch, else none (gathered whole)."""
-    parts = name.split("/")
-    if moe_mod.expert_parallel(cfg, mesh) and len(parts) > 1 \
-            and parts[-2] == "moe" and parts[-1] in moe_mod.EXPERT_LEAVES:
-        return ("model",)
-    return ()
+def model_cuts(cfg: ModelConfig, mesh, params) -> dict:
+    """Each parameter's arithmetic cuts on ``mesh``: a tuple of
+    ``rules.model_cut`` of its logical axes on every model rank, in rank
+    order (what ``dtensor.fetch`` and ``dtensor.return_grad`` exchange),
+    as nested dicts."""
+    n = mesh.shape.get("model", 1)
+    specs = lm.param_specs(cfg)
+    return _map_paths(lambda name, p: tuple(rules.model_cut(
+        _at(specs, name), tuple(p.shape), cfg, n, r) for r in range(n)),
+        params)
 
 
 def local_rows(mesh, batch: int) -> slice:
@@ -154,37 +158,39 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.OptConfig,
 
 def _sharded_grads(cfg: ModelConfig, flags: TrainFlags, mesh):
     """``grads_of`` for a rank of ``mesh``: (the global loss, the router
-    losses, the gradients of the gathered leaves), before they are summed
-    over the data axes (``_place_grads``)."""
+    losses, the gradients of the leaves' cuts), before they go back to
+    the leaves' placements (``_place_grads``).  An empty cut (a rank
+    with no heads) gets an empty gradient; any other leaf the loss does
+    not reach is an error."""
     daxes = shctx.data_axes(mesh)
     n_data = math.prod(mesh.shape[a] for a in daxes)
 
     def grads_of(params, tokens, labels, frontend):
-        work = _map_paths(lambda name, p: dtensor.gather(
-            p, mesh, kept_axes(cfg, mesh, name)).requires_grad_(), params)
+        cuts = model_cuts(cfg, mesh, params)
+        work = _map_paths(lambda name, p: dtensor.fetch(
+            p, mesh, _at(cuts, name)).requires_grad_(), params)
         with shctx.use_mesh(mesh):
             nll, count, aux = lm.loss_terms(work, cfg, tokens, labels,
                                             frontend, remat=flags.remat)
         count = dtensor.all_sum(count, mesh, daxes)
         obj = nll / torch.clamp_min(count, 1) + flags.aux_weight * (
             aux["moe_lb"] + 1e-3 * aux["moe_z"]) / n_data
-        ws = leaves(work)
+        ws = [w for w in leaves(work) if w.numel()]
         by_id = dict(zip(map(id, ws), torch.autograd.grad(obj, ws)))
         loss = dtensor.all_sum(obj.detach(), mesh, daxes)
-        return loss, aux, tree_map(lambda w: by_id[id(w)], work)
+        return loss, aux, tree_map(
+            lambda w: by_id[id(w)] if w.numel() else torch.zeros_like(w),
+            work)
     return grads_of
 
 
 def _place_grads(cfg: ModelConfig, mesh, params, grads):
-    """The gathered leaves' gradients summed over the data axes and cut
-    to their parameters' placements (``DTensor``s)."""
+    """The cuts' gradients returned to their parameters' placements
+    (``dtensor.return_grad``, ``DTensor``s)."""
     daxes = shctx.data_axes(mesh)
-
-    def one(name, p):
-        g = _at(grads, name)
-        return dtensor.reduce_grad(g, dtensor.spec_of(p, mesh), mesh, daxes,
-                                   kept_axes(cfg, mesh, name))
-    return _map_paths(one, params)
+    cuts = model_cuts(cfg, mesh, params)
+    return _map_paths(lambda name, p: dtensor.return_grad(
+        _at(grads, name), p, mesh, _at(cuts, name), daxes), params)
 
 
 def _at(tree, name: str):

@@ -481,6 +481,30 @@ def test_train_launches_wanted_per_step():
     assert set(chip_smoke.TRAIN_KERNELS) <= set(counters)
 
 
+def test_tp_launches_wanted_a_rank():
+    """The tensor-parallel check's launches a rank: a training step's are
+    the one-process step's (a rank's cut runs every kernel once, on its
+    heads and vocabulary rows); a serve run's are K5 once a layer in the
+    prefill (qwen 24, paligemma 18) and K2 in the prefill and each of
+    its 8 decode steps, the rank's half of each table holding more than
+    2**22 elements; a smoke table's half holds fewer: no K2."""
+    from repro_torch import configs
+    counters = chip_smoke.kernel_counters()
+    qwen = configs.get("qwen1_5_0_5b")
+    assert chip_smoke.tp_launches_wanted(qwen, counters, "train", 3) == \
+        chip_smoke.train_launches_wanted(qwen, 3, counters)
+    B, S, n = chip_smoke.TP_PROMPTS
+    for arch, layers in (("qwen1_5_0_5b", 24), ("paligemma_3b", 18)):
+        want = chip_smoke.tp_launches_wanted(configs.get(arch), counters,
+                                             "serve", decodes=n)
+        assert {k: v for k, v in want.items() if v} == {
+            "flash_attention": layers, "gather_rows": 1 + n}
+    smoke = chip_smoke.tp_launches_wanted(configs.get_smoke("qwen1_5_0_5b"),
+                                          counters, "serve", decodes=n)
+    assert smoke["gather_rows"] == 0
+    assert chip_smoke.TP_F32_TOL <= 1e-4 and chip_smoke.TP_RANKS == 2
+
+
 def test_vlm_launches_wanted_with_and_without_its_image_prefix():
     """paligemma-3b's training run reads stub image frames: the prefix
     mask sends all 18 layers to the plain masked softmax, so a step

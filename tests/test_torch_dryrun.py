@@ -5,8 +5,11 @@ cell's planning numbers on the production meshes (parameters, optimizer
 state or cache per chip, model flops, parameter counts, skips) against
 the reference's ``abstract_state`` and ``rules`` on a JAX mesh of
 repeated host devices; the traced flops under fake tensors against
-``FlopCounterMode`` on a real CPU step, op for op; and one full-width
-production train cell on 16 x 16 fake ranks in a process of its own."""
+``FlopCounterMode`` on a real CPU step, op for op; the serve cells
+traced (a production decode cell, smoke prefill and decode cells on a
+small fake mesh); the tensor-parallel train cell's cut flops; and one
+full-width production train cell on 16 x 16 fake ranks in a process of
+its own."""
 import dataclasses
 import functools
 import json
@@ -35,6 +38,7 @@ from repro_torch.models import config as tconfig  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.optim import adamw as toptim  # noqa: E402
 from repro_torch.train import step as tstep  # noqa: E402
+from repro_torch.utils import collectives  # noqa: E402
 from repro_torch.utils.tree import leaf_paths  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -334,13 +338,93 @@ def test_step_meter_counts_no_storage_a_cycle_keeps(monkeypatch):
     assert traced["memory"]["temp_size_in_bytes"] == meters[0].peak > 0
 
 
-def test_planned_and_skipped_cells_record_why():
+def test_skipped_cells_record_why():
+    """A cell the reference skips (full attention at 524k) records the
+    reference's reason on either mesh."""
+    for mp, mesh in ((False, "16x16"), (True, "2x16x16")):
+        rec = dryrun.run_cell("qwen1_5_0_5b", "long_500k", mp)
+        assert (rec["status"], rec["mesh"]) == ("skip", mesh)
+        assert rec["reason"] == jconfig.cell_applicable(
+            jconfigs.get("qwen1_5_0_5b"),
+            jconfig.shape_by_name("long_500k"))[1]
+
+
+def test_all_narrows_to_the_cells_named(tmp_path, capsys):
+    """``--all`` with ``--arch`` and ``--shape`` runs that config's cells
+    of that shape on both meshes (the way to split ``--all`` over
+    processes), and ``--mesh`` narrows it to one."""
+    out = tmp_path / "cells.jsonl"
+    dryrun.main(["--all", "--arch", "qwen1_5_0_5b", "--shape",
+                 "long_500k", "--out", str(out)])
+    dryrun.main(["--all", "--arch", "whisper_base", "--shape",
+                 "long_500k", "--mesh", "multi", "--out", str(out)])
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    assert [(r["arch"], r["shape"], r["mesh"], r["status"]) for r in recs] \
+        == [("qwen1_5_0_5b", "long_500k", "16x16", "skip"),
+            ("qwen1_5_0_5b", "long_500k", "2x16x16", "skip"),
+            ("whisper_base", "long_500k", "2x16x16", "skip")]
+
+
+def test_a_serve_cell_is_traced():
+    """qwen1.5-0.5b's decode_32k cell on 16 x 16 fake ranks at full width
+    is traced, not planned: status ok on the plain route, the train
+    cell's fields (traced flops and bytes, collectives, the temporaries'
+    peak and its ops) beside the parameters and cache per chip, the
+    decode's model flops 2 N_active B, all-reduces over ``model`` (the
+    row-parallel sums, the vocabulary put together)."""
     rec = dryrun.run_cell("qwen1_5_0_5b", "decode_32k", False)
-    assert rec["status"] == "planned" and "§1 item 4" in rec["reason"]
-    assert rec["t_compute_s"] == rec["model_flops_per_chip"] \
-        / dryrun.PEAK_FLOPS
-    rec = dryrun.run_cell("qwen1_5_0_5b", "long_500k", True)
-    assert (rec["status"], rec["mesh"]) == ("skip", "2x16x16")
+    assert rec["status"] == "ok", rec.get("trace")
+    assert (rec["route"], rec["chips"]) == ("plain", 256)
+    cfg = tconfigs.get("qwen1_5_0_5b")
+    assert rec["model_flops_per_chip"] == 2.0 * cfg.n_active_params() \
+        * 128 / 256
+    assert rec["collectives"]["all-reduce_count"] > 0
+    assert rec["traced_flops_per_chip"] > 0 and rec["trace_s"] > 0
+    mem = rec["memory"]
+    assert mem["temp_size_in_bytes"] > 0 and mem["temp_peak_by_op"]
+    # the arguments are this rank's parameters, its cache and the tokens
+    assert mem["argument_size_in_bytes"] >= (rec["params_gb_per_chip"]
+                                             + rec["cache_gb_per_chip"]) \
+        * 1e9 * 0.999
+    assert "reason" not in rec
+
+
+def _serve_calls(arch, kind, shape, B=8, S=64):
+    mesh = tmesh.Mesh(("data", "model"), dict(zip(("data", "model"),
+                                                  shape)), ())
+    with dryrun.fake_group(mesh.size):
+        traced = dryrun.trace_serve(tconfigs.get_smoke(arch),
+                                    tmesh.on_processes(mesh, "cpu"), kind,
+                                    B, S)
+    return traced, collectives.collective_bytes(traced["calls"])
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "paligemma_3b",
+                                  "hymba_1_5b"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serve_cells_trace_on_a_small_fake_mesh(arch, kind):
+    """A smoke prefill and decode on a 2 x 4 fake mesh (qwen's cache cut
+    by heads, paligemma's and hymba's by sequence) trace with all-reduces
+    among their collectives; on 8 x 1, no model axis, none."""
+    traced, coll = _serve_calls(arch, kind, (2, 4))
+    assert traced["flops"] > 0 and traced["memory"]["temp_size_in_bytes"]
+    assert coll["all-reduce_count"] > 0
+    _, alone = _serve_calls(arch, kind, (8, 1))
+    assert "all-reduce_count" not in alone
+
+
+def test_tensor_parallel_train_cell_cuts_the_flops():
+    """The f32 qwen smoke train cell on a 1 x 4 fake mesh traces at most
+    0.3 of the flops of the same cell on a mesh of one: the model axis
+    cuts the heads', the MLP's and the vocabulary's products."""
+    cfg = _f32_smoke("qwen1_5_0_5b")
+    one = dryrun.trace_train(cfg, tmesh.make_local_mesh(), 8, 64,
+                             opt_cfg=toptim.OptConfig())
+    mesh = tmesh.Mesh(("data", "model"), {"data": 1, "model": 4}, ())
+    with dryrun.fake_group(4):
+        four = dryrun.trace_train(cfg, tmesh.on_processes(mesh, "cpu"), 8,
+                                  64, opt_cfg=toptim.OptConfig())
+    assert four["flops"] <= 0.3 * one["flops"]
 
 
 def test_production_train_cell_runs_in_a_process_of_its_own(tmp_path):

@@ -1,9 +1,8 @@
 """The port's roofline table (``launch.roofline``) against the
 reference's on the same records: every line equal but an ok row's hint
-column (the port's hints name the H100's levers); a ``planned`` record
-prints as a row with its compute term, ``PLANNED`` and its reason; the
-last record of a cell wins; and a record of the port's dry-run
-(``dryrun.analyze``) prints."""
+column (the port's hints name the H100's levers); the last record of a
+cell wins; and records of the port's dry-run (``dryrun.analyze`` of a
+train trace and of a traced serve cell) print as ok rows."""
 import json
 
 import pytest
@@ -74,18 +73,33 @@ def test_table_is_the_reference_s_but_the_hints(tmp_path, capsys, extra):
 
 
 def test_planned_row_and_a_dry_run_record(tmp_path, capsys):
+    """A serve cell is no longer planned: a traced decode cell (the qwen
+    smoke config on a 2 x 4 fake mesh) prints as an ok row beside a
+    train record, and no row reads ``PLANNED``."""
+    from repro_torch import configs as tconfigs
+    from repro_torch.launch import mesh as tmesh
     traced = dict(flops=4e12, bytes=2e11, memory={},
                   calls=[Collective("all-gather", "x", 9 * 10 ** 11)])
     ok = {"arch": "qwen1_5_0_5b", "shape": "train_4k", "mesh": "16x16",
           "status": "ok", **dryrun.analyze(traced, 256, 256 * 2e12)}
     assert ok["dominant"] == "collective"
     assert ok["t_compute_s"] == 4e12 / dryrun.PEAK_FLOPS
-    planned = dryrun.run_cell("qwen1_5_0_5b", "decode_32k", False)
+    cfg = tconfigs.get_smoke("qwen1_5_0_5b")
+    mesh = tmesh.Mesh(("data", "model"), {"data": 2, "model": 4}, ())
+    with dryrun.fake_group(mesh.size):
+        serve = dryrun.trace_serve(cfg, tmesh.on_processes(mesh, "cpu"),
+                                   "decode", 8, 64)
+    decode = {"arch": "qwen1_5_0_5b", "shape": "decode_32k",
+              "mesh": "16x16", "status": "ok",
+              **dryrun.analyze(serve, 8, dryrun.model_flops(
+                  cfg, "decode", 8, 64))}
     path = tmp_path / "dryrun.jsonl"
-    path.write_text(json.dumps(ok) + "\n" + json.dumps(planned) + "\n")
+    path.write_text(json.dumps(ok) + "\n" + json.dumps(decode) + "\n")
     out = _table(troofline, path, capsys)
     row = next(x for x in out if "decode_32k" in x)
-    assert f"| {planned['t_compute_s']:.2e} | — | — | PLANNED | " \
-        f"{planned['reason']} |" in row
+    assert f"| {decode['t_compute_s']:.2e} | {decode['t_memory_s']:.2e} " \
+        f"| {decode['t_collective_s']:.2e} | {decode['dominant']} (frac " \
+        in row
     assert any("collective (frac " in x for x in out)
-    assert "1 ok / 0 skip / 0 error / 1 planned" in "\n".join(out)
+    assert not any("PLANNED" in x for x in out)
+    assert "2 ok / 0 skip / 0 error" in "\n".join(out)

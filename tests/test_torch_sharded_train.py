@@ -1,7 +1,9 @@
 """The port's sharded training over gloo processes against its one-process
 training: one float32 step of qwen's and arctic's smoke configs on
 every mesh of 2 and 4 processes (``pick_mesh``'s model-parallel ones
-and the data-parallel ones), whose loss, every gradient leaf and every
+and the data-parallel ones), and of hymba's, mamba2's, whisper's and
+paligemma's on (1, 2) and (2, 2), tensor-parallel over ``model``, whose
+loss, every gradient leaf and every
 updated parameter must lie within 1e-5 of the one-process step's (of
 the leaf's largest magnitude), each rank's initial shard bitwise the
 slice of the one-process init; AdamW and Adafactor, one and two
@@ -31,18 +33,24 @@ RESUME_RTOL = 1e-4          # chip_smoke.TRAIN_RESUME_RTOL, the reference's
 # with the data axis above 1, arctic's expert-parallel layer averages its
 # router losses over the data shards as the reference's does, which is
 # the one-process step over as many microbatches
+# the families TP cuts besides (hymba's heads and SSM heads, mamba2's
+# SSM heads, whisper's encoder and cross-attention, paligemma's one KV
+# head and image prefix) on the model rows of 2 and data x model 2 x 2
+TP_FAMILIES = ("hymba_1_5b", "mamba2_370m", "whisper_base", "paligemma_3b")
 JOBS = {2: [("qwen1_5_0_5b", (1, 2), 1, "adamw", 1),
             ("qwen1_5_0_5b", (2, 1), 1, "adamw", 1),
             ("qwen1_5_0_5b", (1, 2), 1, "adafactor", 1),
             ("arctic_480b", (1, 2), 1, "adamw", 1),
             ("arctic_480b", (2, 1), 1, "adamw", 1),
-            ("arctic_480b", (1, 2), 2, "adamw", 2)],
+            ("arctic_480b", (1, 2), 2, "adamw", 2)]
+        + [(a, (1, 2), 1, "adamw", 1) for a in TP_FAMILIES],
         4: [("qwen1_5_0_5b", (1, 4), 1, "adamw", 1),
             ("qwen1_5_0_5b", (2, 2), 1, "adamw", 1),
             ("qwen1_5_0_5b", (2, 2), 2, "adafactor", 2),
             ("arctic_480b", (1, 4), 1, "adamw", 1),
             ("arctic_480b", (2, 2), 1, "adamw", 2),
-            ("arctic_480b", (4, 1), 1, "adafactor", 1)]}
+            ("arctic_480b", (4, 1), 1, "adafactor", 1)]
+        + [(a, (2, 2), 1, "adamw", 1) for a in TP_FAMILIES]}
 CASES = [(w, j) for w, jobs in JOBS.items() for j in jobs]
 TRAIN_ARGV = ["--arch", "qwen1_5_0_5b", "--smoke", "--steps", "6",
               "--batch", "4", "--seq", "32", "--ckpt-interval", "2",
@@ -61,10 +69,17 @@ def _cfg(arch):
 
 
 def _batch(cfg):
+    """A global batch of 8 x 16 tokens, and an encoder-decoder or VLM
+    model's stub frontend frames (numpy, seed 0)."""
     from repro_torch.data.pipeline import DataConfig, TokenStream
     b = next(TokenStream(DataConfig(vocab=cfg.vocab, seq_len=16,
                                     global_batch=8)))
-    return {k: torch.from_numpy(v) for k, v in b.items()}
+    out = {k: torch.from_numpy(v) for k, v in b.items()}
+    if cfg.frontend:
+        fe = np.random.default_rng(0).standard_normal(
+            (8, cfg.frontend_seq, cfg.d_model)) * 0.02
+        out["frontend"] = torch.from_numpy(fe.astype(np.float32))
+    return out
 
 
 def _whole(tree):
